@@ -1,0 +1,33 @@
+"""Weight bridge: a parameter tree of numpy arrays -> the port's tensors.
+
+The JAX package and the port keep the same nested dict (same keys, same
+shapes, layers stacked on axis 0), so bridging is a tree-map.  The caller
+turns the JAX tree into numpy (``jax.tree.map(np.asarray, params)``); this
+module never imports JAX.
+"""
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+
+def _tensor(a: Any, device: torch.device,
+            dtype: Optional[torch.dtype]) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":    # ml_dtypes' bfloat16: same bits
+        t = torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a, copy=True))
+    return t.to(device=device, dtype=dtype or t.dtype)
+
+
+def params_from_numpy(tree: Any, device: Any,
+                      dtype: Optional[torch.dtype] = None) -> Any:
+    """Nested dict of arrays -> same dict of tensors on ``device``
+    (cast to ``dtype`` when given)."""
+    dev = torch.device(device)
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, dev, dtype) for k, v in tree.items()}
+    return _tensor(tree, dev, dtype)

@@ -1,0 +1,119 @@
+"""Fused flash attention: GQA + causal + window + softcap, for Hopper.
+
+Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py``
+(``flash_attention_bhsd``, body ``_flash_kernel``).  The kernel is CUDA C++
+written by hand for sm_90a (``repro_torch/csrc/flash_attention.cu``), built
+by ``nvcc`` into a plain-C shared library and called through ctypes.
+
+What bounds it: at the serve path's shape (B=4, H=32, S=512, D=128, bf16,
+causal) the function must read q, k, v and write o once, 67 MB, against
+about 8.6 GFLOP, so on an H100 the bound is the memory traffic.  What the
+design does about it: one block per (batch x query head, query tile) walks
+the kv tiles with an online softmax, so the S x S score matrix never
+reaches device memory and K/V are read per kv head without repeating them
+for GQA; kv tiles hidden by the causal mask or the window are skipped.
+The products run as scalar f32 FMAs from shared memory for now, which
+keeps this first kernel well above the bound (``PERF.md`` has its times).
+
+Layout: (batch, heads, seq, head_dim).  ``flash_attention_bhsd`` launches
+the kernel for CUDA tensors and raises on what the kernel does not take;
+only CPU tensors take the plain version.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+import threading
+
+import torch
+
+from . import _build
+from .ref import mha_reference
+
+_COUNT_LOCK = threading.Lock()
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True, window: int = 0,
+                          logit_cap: float = 0.0) -> torch.Tensor:
+    """The kernel's plain PyTorch version (f32 math, output in q's dtype)."""
+    return mha_reference(q, k, v, causal=causal, window=window,
+                         logit_cap=logit_cap)
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("flash_attention")
+    fn = lib.flash_attention_bhsd
+    if fn.argtypes is None:
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, f, f, i, p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           window: int) -> None:
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("q, k, v must be 4-d (B, H, S, D)")
+    b, hq, sq, d = q.shape
+    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"k/v shapes {tuple(k.shape)}, {tuple(v.shape)} "
+                         f"do not fit q {tuple(q.shape)}")
+    hkv, sk = k.shape[1], k.shape[2]
+    if hkv == 0 or hq % hkv:
+        raise ValueError(f"Hq={hq} is not a multiple of Hkv={hkv}")
+    if min(b, hq, sq, sk) == 0:
+        raise ValueError("empty attention input")
+    if not (8 <= d <= 256 and d % 8 == 0):
+        raise ValueError(f"head_dim {d} not in 8..256 in steps of 8")
+    if window < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != q.device:
+            raise ValueError(f"{name} on {t.device}, q on {q.device}")
+        if t.dtype != q.dtype:
+            raise ValueError(f"{name} is {t.dtype}, q is {q.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"dtype {q.dtype} not supported (float32, bfloat16)")
+
+
+def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True, window: int = 0,
+                         logit_cap: float = 0.0) -> torch.Tensor:
+    """q: (B, Hq, Sq, D); k/v: (B, Hkv, Sk, D) -> (B, Hq, Sq, D), q's dtype.
+
+    CUDA tensors launch the hand-written kernel (and count the launch in
+    ``flash_attention_bhsd.launches``); CPU tensors take the plain version.
+    """
+    if q.device.type == "cpu" and k.device.type == "cpu" \
+            and v.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     logit_cap=logit_cap)
+    window = int(window)
+    _check(q, k, v, window)
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    lib = _lib()
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_attention_bhsd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            b, hq, hkv, sq, sk, d, int(bool(causal)), window,
+            float(logit_cap), 1.0 / math.sqrt(d), _DTYPES[q.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bhsd launch failed: CUDA error "
+                           f"{err}")
+    with _COUNT_LOCK:
+        flash_attention_bhsd.launches += 1
+    return out
+
+
+flash_attention_bhsd.launches = 0
