@@ -10,22 +10,30 @@ Phases, each printing one JSON line (any failure exits non-zero and prints
 no result):
 
 1. device: the card's name and power limit; TF32 off for matmuls and cuDNN.
-2. build: compile every CUDA kernel from ``src/repro_torch/csrc`` with nvcc.
+2. build: compile every CUDA kernel from ``src/repro_torch/csrc`` with nvcc,
+   all at once; ptxas register and spill lines per kernel.
 3. kernel: each kernel against its plain PyTorch version on the card, at
-   the serve path's shape and at the option cases; times of the kernel,
-   the plain version and one library call at the path shape, CUDA events.
-4. serve: a smoke config served on the card must give the CPU's tokens.
-   Then codeqwen1.5-7b at full width and depth (random weights from a
-   seed): its prefill and decode steps timed alone and profiled, then 8
-   requests x 16 tokens through the engine; the
-   kernel's launch count over that run must equal layers x microbatches,
-   and full-width prefill logits through the kernel must be finite.
+   the serve paths' shapes and at the option cases; times of the kernel,
+   the plain version and (where one exists) one library call at the path
+   shapes, CUDA events.
+4. serve, for each of three paths in turn: codeqwen1.5-7b (dense, flash
+   kernel), mamba2-1.3b (ssm, SSD kernel) and zamba2-2.7b (hybrid, both
+   kernels).  A smoke config served on the card must give the CPU's
+   tokens.  Then the model at full width and depth (random weights from a
+   seed): its prefill and decode steps timed alone, against their bounds,
+   and profiled; then 8 requests x 16 tokens with 512-token prompts
+   through the engine, with every kernel count set to 0 just before and
+   read just after: each kernel of the path must have launched exactly
+   once per layer that runs it per microbatch; and full-width prefill
+   logits through the kernels must be finite and near the plain route's.
+   Each model is freed before the next.
 5. the kernels line, the card line, then the result line.
 
 It imports nothing of JAX or of the JAX package.  Without CUDA it exits 2.
 """
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -113,9 +121,11 @@ def phase_kernel(torch, fa):
         # rows 12..19 see no key (window 3 ends before key 9): they must
         # average V over every key, as the plain version does
         ("no_visible_key", 1, 2, 1, 20, 10, 8, f32, True, 3, 0.0),
+        # zamba2-2.7b's shared block: 32 heads x 80, MHA, bf16
+        ("d80_bf16_mha", 4, 32, 32, 512, 512, 80, bf16, True, 0, 0.0),
     ]
     worst = 0.0
-    path_inputs = None
+    timed = {}
     for name, b, hq, hkv, sq, sk, d, dt, causal, window, cap in cases:
         q = torch.randn((b, hq, sq, d), generator=gen, device="cuda").to(dt)
         k = torch.randn((b, hkv, sk, d), generator=gen, device="cuda").to(dt)
@@ -136,37 +146,167 @@ def phase_kernel(torch, fa):
              window=window, cap=cap, max_abs_err=max_err, tol=tol, ok=ok)
         if not ok:
             fail(f"flash_attention_bhsd case {name}: max_abs_err {max_err}")
-        if name == "path":
-            worst = max_err
-            path_inputs = (q, k, v, opts)
-    q, k, v, opts = path_inputs
-    kernel_ms = cuda_ms(lambda: fa.flash_attention_bhsd(q, k, v, **opts))
-    plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, **opts))
-    library_ms = cuda_ms(
-        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
-    bound_ms, bound_by = attention_bound_ms(q, k, opts["causal"],
-                                            opts["window"])
-    emit("kernel_time", kernel="flash_attention_bhsd",
-         shape=list(q.shape), dtype=str(q.dtype), kernel_ms=kernel_ms,
-         plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-         bound_by=bound_by)
+        if name in ("path", "d80_bf16_mha"):
+            worst = max(worst, max_err)
+            timed[name] = (q, k, v, opts)
+    times = {}
+    for name, (q, k, v, opts) in timed.items():
+        kernel_ms = cuda_ms(lambda: fa.flash_attention_bhsd(q, k, v, **opts))
+        plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, **opts))
+        library_ms = cuda_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
+        bound_ms, bound_by = attention_bound_ms(q, k, opts["causal"],
+                                                opts["window"])
+        times[name] = dict(shape=list(q.shape), dtype=str(q.dtype),
+                           kernel_ms=kernel_ms, plain_ms=plain_ms,
+                           library_ms=library_ms, bound_ms=bound_ms,
+                           bound_by=bound_by)
+        emit("kernel_time", kernel="flash_attention_bhsd", case=name,
+             **times[name])
+    t = times["path"]
     return {"name": "flash_attention_bhsd", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:83",
-            "max_abs_err": worst, "max_err": worst, "ms": kernel_ms,
-            "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+            "max_abs_err": worst, "max_err": worst, "ms": t["kernel_ms"],
+            "kernel_ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "zamba2_shape": times["d80_bf16_mha"]}
 
 
-def phase_serve(torch, fa):
+def ssd_bound_ms(x, b, chunk: int) -> tuple:
+    """Least time for the card: x, dt, B, C read and y, the state written
+    once over HBM rate vs the FLOPs (the causal half of each chunk's C B^T
+    and its product with x, the inter-chunk term, the state update) over
+    the dtype's peak."""
+    B, H, S, P = x.shape
+    N = b.shape[3]
+    es = x.element_size()
+    nbytes = ((2 * x.numel() + 2 * b.numel() + B * H * N * P) * es
+              + B * H * S * 4 + H * 4)
+    pairs = chunk * (chunk + 1) // 2
+    flops = B * H * (S // chunk) * (2 * pairs * (N + P)
+                                    + 4 * chunk * N * P)
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = flops / H100_PEAK_FLOPS[str(x.dtype)] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                 "operations")
+
+
+def phase_ssd_kernel(torch, ss):
+    """SSD kernel vs its plain version on the card; times at the paths'
+    shapes.  No single PyTorch call computes the SSD scan, so there is no
+    library time."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    bf16, f32 = torch.bfloat16, torch.float32
+    # name, B, H, G, S, P, N, chunk, dtype, decay
+    cases = [
+        ("mamba2_path", 4, 64, 1, 512, 64, 128, 256, bf16, "normal"),
+        ("zamba2_path", 4, 80, 1, 512, 64, 64, 256, bf16, "normal"),
+        # tests/test_kernels.py::TestSSDScan, groups pre-broadcast (G = H)
+        ("t_1x1_s32_c8", 1, 1, 1, 32, 8, 4, 8, f32, "normal"),
+        ("t_2x3_s64_c16", 2, 3, 3, 64, 16, 8, 16, f32, "normal"),
+        ("t_1x2_s128_c32", 1, 2, 2, 128, 32, 16, 32, f32, "normal"),
+        ("t_2x1_s64_c64", 2, 1, 1, 64, 8, 8, 64, f32, "normal"),
+        ("groups_2_of_4", 2, 4, 2, 64, 16, 8, 16, f32, "normal"),
+        ("single_chunk", 2, 4, 1, 256, 64, 128, 256, f32, "normal"),
+        # tiles and P slices cut short: chunk 96, P 40, N 48
+        ("ragged_c96_p40_n48", 2, 3, 1, 192, 40, 48, 96, f32, "normal"),
+        ("strong_decay", 2, 4, 1, 512, 64, 128, 256, f32, "strong"),
+        ("weak_decay", 2, 4, 1, 512, 64, 128, 256, f32, "weak"),
+    ]
+    worst, timed = 0.0, {}
+    for name, b, h, g, s, p, n, chunk, dt_, decay in cases:
+        def rand(*shape):
+            return torch.randn(shape, generator=gen, device="cuda")
+        x = (0.5 * rand(b, h, s, p)).to(dt_)
+        dt = F.softplus(rand(b, h, s))
+        a = -torch.exp(0.3 * rand(h))
+        if decay == "strong":       # exp(cum) underflows within a chunk
+            a, dt = torch.full_like(a, -8.0), dt + 4.0
+        elif decay == "weak":       # almost no decay across 512 steps
+            a = -1e-3 * torch.exp(0.3 * rand(h))
+        bm = (0.5 * rand(b, g, s, n)).to(dt_)
+        cm = (0.5 * rand(b, g, s, n)).to(dt_)
+        y, st = ss.ssd_scan_bhsd(x, dt, a, bm, cm, chunk)
+        torch.cuda.synchronize()
+        y0, st0 = ss.ssd_scan_plain(x, dt, a, bm, cm, chunk)
+        # f32: the kernel sums in another order than the plain version;
+        # bf16: both round the f32 result to bf16 once
+        tol = 1e-4 if dt_ == f32 else 2e-2
+        max_err, ok = 0.0, True
+        for got, want in ((y, y0), (st, st0)):
+            err = (got.float() - want.float()).abs()
+            max_err = max(max_err, float(err.max()))
+            ok = ok and bool(torch.isfinite(got).all()) and not bool(
+                (err > tol + tol * want.float().abs()).any())
+        emit("kernel_check", kernel="ssd_scan_bhsd", case=name,
+             shape=[b, h, g, s, p, n], chunk=chunk, dtype=str(dt_),
+             decay=decay, max_abs_err=max_err, tol=tol, ok=ok)
+        if not ok:
+            fail(f"ssd_scan_bhsd case {name}: max_abs_err {max_err}")
+        if name.endswith("_path"):
+            worst = max(worst, max_err)
+            timed[name] = (x, dt, a, bm, cm, chunk)
+    times = {}
+    for name, (x, dt, a, bm, cm, chunk) in timed.items():
+        kernel_ms = cuda_ms(lambda: ss.ssd_scan_bhsd(x, dt, a, bm, cm, chunk))
+        plain_ms = cuda_ms(lambda: ss.ssd_scan_plain(x, dt, a, bm, cm, chunk))
+        bound_ms, bound_by = ssd_bound_ms(x, bm, chunk)
+        times[name] = dict(shape=list(x.shape) + [bm.shape[1], bm.shape[3]],
+                           chunk=chunk, dtype=str(x.dtype),
+                           kernel_ms=kernel_ms, plain_ms=plain_ms,
+                           library_ms=None, bound_ms=bound_ms,
+                           bound_by=bound_by)
+        emit("kernel_time", kernel="ssd_scan_bhsd", case=name,
+             note="no single PyTorch call computes the SSD scan",
+             **times[name])
+    t = times["mamba2_path"]
+    return {"name": "ssd_scan_bhsd", "route": "cuda",
+            "source": "src/repro_torch/csrc/ssd_scan.cu",
+            "replaces": "src/repro/kernels/ssd_scan.py:74",
+            "max_abs_err": worst, "max_err": worst, "ms": t["kernel_ms"],
+            "kernel_ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None, "zamba2_shape": times["zamba2_path"]}
+
+
+PATHS = ("codeqwen15_7b", "mamba2_1_3b", "zamba2_2_7b")
+
+
+def expected_launches(cfg, n_micro: int) -> dict:
+    """Kernel launches one serve run must make: flash once per attention
+    layer (or per call of the hybrid's shared block) per microbatch's
+    prefill, SSD once per Mamba2 layer per microbatch's prefill."""
+    if cfg.family == "ssm":
+        return {"flash_attention_bhsd": 0,
+                "ssd_scan_bhsd": cfg.num_layers * n_micro}
+    if cfg.family == "hybrid":
+        return {"flash_attention_bhsd":
+                cfg.num_layers // cfg.shared_attn_period * n_micro,
+                "ssd_scan_bhsd": cfg.num_layers * n_micro}
+    return {"flash_attention_bhsd": cfg.num_layers * n_micro,
+            "ssd_scan_bhsd": 0}
+
+
+def phase_serve(torch, arch, kernels):
+    """One serve path.  ``kernels`` maps a kernel's name to its wrapper
+    (which holds the launch count).  Returns the launches of each kernel
+    over the full-width serve run."""
+    import dataclasses
+
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.launch.serve import run_serving
     from repro_torch.models import model as M
 
     # small reference: the smoke config on the card (kernel route, f32)
-    # gives exactly the CPU's greedy tokens (plain route) on equal weights
-    smoke = get_smoke_config("codeqwen15_7b")
+    # gives exactly the CPU's greedy tokens (plain route) on equal weights;
+    # ssm_chunk=8 makes the SSD scan cross chunks in a 24-token prompt
+    smoke = get_smoke_config(arch)
+    if smoke.family in ("ssm", "hybrid"):
+        smoke = dataclasses.replace(smoke, ssm_chunk=8)
     cpu_params = M.init_params(smoke, device="cpu")
     gpu_params = _tree_to(cpu_params, "cuda")
     small = dict(num_requests=4, microbatch=2, prompt_len=24, decode_steps=6)
@@ -175,62 +315,137 @@ def phase_serve(torch, fa):
     same = bool((ref["responses"] == got["responses"]).all())
     emit("serve_reference", config=smoke.name, **small, tokens_equal=same)
     if not same:
-        fail("smoke serve on the card differs from the CPU reference")
+        fail(f"{smoke.name} served on the card differs from the CPU")
 
-    cfg = get_config("codeqwen15_7b")
+    cfg = get_config(arch)
     t0 = time.monotonic()
     params = M.init_params(cfg, device="cuda")
     torch.cuda.synchronize()
     init_s = time.monotonic() - t0
     n_params = sum(t.numel() for t in _leaves(params))
-    emit("init", config=cfg.name, layers=cfg.num_layers,
+    emit("init", config=cfg.name, family=cfg.family, layers=cfg.num_layers,
          d_model=cfg.d_model, params=n_params, seconds=init_s,
          bytes=sum(t.numel() * t.element_size() for t in _leaves(params)))
 
     phase_steps(torch, cfg, params)
 
-    torch.cuda.reset_peak_memory_stats()
-    fa.flash_attention_bhsd.launches = 0
-    res = run_serving(cfg, device="cuda", params=params, **SERVE)
-    launches = fa.flash_attention_bhsd.launches
     n_micro = SERVE["num_requests"] // SERVE["microbatch"]
+    want = expected_launches(cfg, n_micro)
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels.values():
+        fn.launches = 0
+    res = run_serving(cfg, device="cuda", params=params, **SERVE)
+    launches = {name: fn.launches for name, fn in kernels.items()}
     resp = res["responses"]
     emit("serve", config=cfg.name, layers=cfg.num_layers, **SERVE,
          responses_shape=list(resp.shape), wall_s=res["wall_s"],
          gen_tokens_per_s=res["gen_tokens_per_s"],
          prefill_s=res["prefill_s"], decode_s=res["decode_s"],
          max_memory_allocated=torch.cuda.max_memory_allocated(),
-         flash_launches=launches,
-         expected_launches=cfg.num_layers * n_micro)
+         launches=launches, expected_launches=want)
     if tuple(resp.shape) != (SERVE["num_requests"], SERVE["decode_steps"]):
         fail(f"responses shape {resp.shape}")
     if resp.min() < 0 or resp.max() >= cfg.vocab_size:
         fail("token ids outside the vocabulary")
-    if launches != cfg.num_layers * n_micro:
-        fail(f"flash_attention_bhsd launched {launches} times, expected "
-             f"{cfg.num_layers * n_micro}")
+    if launches != want:
+        fail(f"{cfg.name}: kernel launches {launches}, expected {want}")
 
-    # full width: prefill logits through the kernel vs the plain torch ops
+    check_full_width_logits(torch, M, cfg, params)
+    return launches
+
+
+def check_full_width_logits(torch, M, cfg, params):
+    """Full-width prefill logits through the kernels vs the plain torch
+    route, on the seeded weights.
+
+    bf16: both routes round activations to bf16 (2^-8 relative) at other
+    points (the SSD kernel route rounds y before adding D x, the torch route
+    rounds the carried states), and the residual layers carry the
+    difference.  Over 32 dense layers that stays within 5% of the logit
+    range, which the dense path is held to.  Over the 48 and 54 Mamba2
+    layers of these random-weight models any two bf16 routes drift apart
+    by 16-40% of the range (the plain route alone drifts that far from its
+    own f32 run), so the ssm and hybrid paths are held instead to: the same
+    weights in f32, kernel route vs plain route, within 1e-3 of the range
+    (another order of f32 sums); and the bf16 kernel route no further from
+    the f32 logits than twice the bf16 plain route is."""
+    import dataclasses
+
     import numpy as np
     tokens = torch.from_numpy(np.random.default_rng(1).integers(
         0, cfg.vocab_size, size=(SERVE["microbatch"], SERVE["prompt_len"]))
     ).cuda()
-    with torch.inference_mode():
-        lk, _ = M.prefill(params, cfg, {"tokens": tokens}, use_kernel=True)
-        lp, _ = M.prefill(params, cfg, {"tokens": tokens}, use_kernel=False)
+
+    def logits(p, c, use_kernel):
+        with torch.inference_mode():
+            return M.prefill(p, c, {"tokens": tokens},
+                             use_kernel=use_kernel)[0]
+
+    lk, lp = logits(params, cfg, True), logits(params, cfg, False)
     finite = bool(torch.isfinite(lk).all())
     diff = float((lk - lp).abs().max())
     scale = float(lp.abs().max())
     agree = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
-    emit("prefill_kernel_vs_plain", config=cfg.name, finite=finite,
-         max_abs_diff=diff, max_abs_logit=scale, top1_agreement=agree)
-    if not finite:
-        fail("non-finite logits at full width")
-    # both routes round activations to bf16 (2^-8 relative) at other
-    # points, and 32 residual layers carry the difference: 5% of the range
-    if diff > 0.05 * scale:
-        fail(f"kernel-route logits differ from the plain route by {diff}")
-    return launches
+    out = dict(config=cfg.name, finite=finite, max_abs_diff=diff,
+               max_abs_logit=scale, top1_agreement=agree)
+    if cfg.family not in ("ssm", "hybrid"):
+        emit("prefill_kernel_vs_plain", **out)
+        if not finite:
+            fail(f"{cfg.name}: non-finite logits at full width")
+        if diff > 0.05 * scale:
+            fail(f"{cfg.name}: kernel-route logits differ from the plain "
+                 f"route by {diff}")
+        return
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = _tree_map(params, lambda t: t.float())
+    lk32, lp32 = logits(p32, cfg32, True), logits(p32, cfg32, False)
+    del p32
+    diff32 = float((lk32 - lp32).abs().max())
+    scale32 = float(lp32.abs().max())
+    bf16_kernel_err = float((lk - lp32).abs().max())
+    bf16_plain_err = float((lp - lp32).abs().max())
+    emit("prefill_kernel_vs_plain", **out, f32_max_abs_diff=diff32,
+         f32_max_abs_logit=scale32,
+         f32_top1_agreement=float(
+             (lk32.argmax(-1) == lp32.argmax(-1)).float().mean()),
+         bf16_kernel_vs_f32=bf16_kernel_err,
+         bf16_plain_vs_f32=bf16_plain_err)
+    if not (finite and bool(torch.isfinite(lk32).all())):
+        fail(f"{cfg.name}: non-finite logits at full width")
+    if diff32 > 1e-3 * scale32:
+        fail(f"{cfg.name}: f32 kernel-route logits differ from the plain "
+             f"route by {diff32}")
+    if bf16_kernel_err > 2 * bf16_plain_err:
+        fail(f"{cfg.name}: bf16 kernel route is {bf16_kernel_err} from the "
+             f"f32 logits, the plain route {bf16_plain_err}")
+
+
+def step_bounds(cfg, params, mb: int, s: int) -> tuple:
+    """(prefill FLOPs, decode bytes): the least work of the two steps.
+
+    Prefill: 2 x layer params x tokens, the attention over the causal
+    pairs or the SSD scan's FLOPs per layer, the hybrid's shared block at
+    each call, and the head for the last position only.  Decode: the
+    weights once, plus the f32 SSM state read and written, plus the
+    hybrid's KV cache read up to the new position."""
+    weight_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    layer_params = sum(t.numel() for t in _leaves(params["layers"]))
+    hd = cfg.resolved_head_dim
+    attn = 4 * mb * cfg.num_heads * hd * visible_pairs(s, s, True, 0)
+    flops = 2 * layer_params * mb * s + 2 * mb * cfg.d_model * cfg.padded_vocab
+    if cfg.family not in ("ssm", "hybrid"):
+        return flops + cfg.num_layers * attn, weight_bytes
+    h, p, n = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state
+    q = min(cfg.ssm_chunk, s)
+    ssd = mb * h * (s // q) * (q * (q + 1) * (n + p) + 4 * q * n * p)
+    flops += cfg.num_layers * ssd
+    nbytes = weight_bytes + 2 * cfg.num_layers * mb * h * n * p * 4
+    if cfg.family == "hybrid":
+        groups = cfg.num_layers // cfg.shared_attn_period
+        shared = sum(t.numel() for t in _leaves(params["shared"]))
+        flops += groups * (2 * shared * mb * s + attn)
+        nbytes += groups * 2 * mb * (s + 1) * cfg.num_kv_heads * hd * 2
+    return flops, nbytes
 
 
 def phase_steps(torch, cfg, params):
@@ -266,18 +481,9 @@ def phase_steps(torch, cfg, params):
             times.append(time.monotonic() - t0)
         out[name + "_ms"] = sorted(times)[len(times) // 2] * 1e3
         out[name + "_ms_all"] = [t * 1e3 for t in times]
-    # decode bound: every weight read once; prefill bound: the layers'
-    # matmul FLOPs for every prompt token, attention over the causal
-    # pairs, and the head for the last position only
-    weight_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
-    layer_params = sum(t.numel() for t in _leaves(params["layers"]))
-    hd = cfg.resolved_head_dim
-    prefill_flops = (2 * layer_params * mb * s
-                     + cfg.num_layers * 4 * mb * cfg.num_heads * hd
-                     * visible_pairs(s, s, True, 0)
-                     + 2 * mb * cfg.d_model * cfg.padded_vocab)
+    prefill_flops, decode_bytes = step_bounds(cfg, params, mb, s)
     emit("steps", config=cfg.name, microbatch=mb, prompt_len=s,
-         decode_bound_ms=weight_bytes / H100_BYTES_PER_S * 1e3,
+         decode_bound_ms=decode_bytes / H100_BYTES_PER_S * 1e3,
          prefill_bound_ms=prefill_flops
          / H100_PEAK_FLOPS["torch.bfloat16"] * 1e3, **out)
     from torch.profiler import ProfilerActivity, profile
@@ -291,7 +497,7 @@ def phase_steps(torch, cfg, params):
             wall_ms = (time.monotonic() - t0) * 1e3
         events = prof.key_averages()
         table = events.table(sort_by="self_cuda_time_total", row_limit=40)
-        (PROFILE_DIR / f"profile_{name}.txt").write_text(table)
+        (PROFILE_DIR / f"profile_{cfg.name}_{name}.txt").write_text(table)
         # device kernels only: op-level rows repeat their kernels' time
         cuda = torch.autograd.DeviceType.CUDA
         dev = sorted(((_self_device_us(e) / 1e3, e.count, e.key)
@@ -299,7 +505,8 @@ def phase_steps(torch, cfg, params):
                       and not getattr(e, "is_user_annotation", False)),
                      reverse=True)
         busy_ms = sum(d for d, _, _ in dev)
-        emit("profile", step=name, wall_ms=wall_ms, device_busy_ms=busy_ms,
+        emit("profile", config=cfg.name, step=name, wall_ms=wall_ms,
+             device_busy_ms=busy_ms,
              device_idle_share=max(0.0, 1 - busy_ms / wall_ms),
              top=[{"op": k[:100], "device_ms": d, "calls": c}
                   for d, c, k in dev[:10]])
@@ -318,9 +525,13 @@ def _leaves(tree):
             yield v
 
 
-def _tree_to(tree, device):
-    return {k: (_tree_to(v, device) if isinstance(v, dict) else v.to(device))
+def _tree_map(tree, fn):
+    return {k: (_tree_map(v, fn) if isinstance(v, dict) else fn(v))
             for k, v in tree.items()}
+
+
+def _tree_to(tree, device):
+    return _tree_map(tree, lambda t: t.to(device))
 
 
 def main() -> int:
@@ -331,6 +542,7 @@ def main() -> int:
         return 2
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
 
     t_start = time.monotonic()
     card = card_line()
@@ -349,11 +561,21 @@ def main() -> int:
     emit("build", seconds=build_s, kernels=list(_build.KERNEL_SOURCES),
          ptxas=ptxas)
 
-    entry = phase_kernel(torch, fa)
-    entry["launches"] = phase_serve(torch, fa)
+    entries = [phase_kernel(torch, fa), phase_ssd_kernel(torch, ss)]
+    kernels = {e["name"]: getattr(mod, e["name"])
+               for e, mod in zip(entries, (fa, ss))}
+    by_path = {}
+    for arch in PATHS:
+        by_path[arch] = phase_serve(torch, arch, kernels)
+        gc.collect()                    # free the model before the next
+        torch.cuda.empty_cache()
+    for e in entries:
+        e["launches_by_path"] = {a: n[e["name"]] for a, n in by_path.items()
+                                 if n[e["name"]]}
+        e["launches"] = sum(e["launches_by_path"].values())
 
     emit("done", seconds=time.monotonic() - t_start)
-    print(json.dumps({"kernels": [entry]}), flush=True)
+    print(json.dumps({"kernels": entries}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

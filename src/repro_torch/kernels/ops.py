@@ -1,14 +1,17 @@
 """Dispatch wrappers: model layout in, kernel layout inside.
 
-``flash_attention`` is what the model layers call when ``use_kernel=True``.
-On CUDA tensors it launches the hand-written kernel; on CPU tensors the
-wrapper takes the kernel's plain version (``repro_torch.kernels.ref``).
+``flash_attention`` / ``ssd_scan`` are what the model layers call when
+``use_kernel=True``.  On CUDA tensors they launch the hand-written
+kernels; on CPU tensors the kernels' wrappers take their plain versions.
 """
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import torch
 
 from .flash_attention import flash_attention_bhsd
+from .ssd_scan import ssd_scan_bhsd
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -22,3 +25,24 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                logit_cap=logit_cap)
     return out.transpose(1, 2)
 
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+             b: torch.Tensor, c: torch.Tensor, chunk: int,
+             initial_state: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Model layout x: (B,S,H,P), dt: (B,S,H), b/c: (B,S,G,N) -> (y
+    (B,S,H,P), final state (B,H,N,P)).
+
+    Groups reach the kernel by index (head h reads group h // (H/G)), not
+    repeated per head.  initial_state must be None: the kernel starts from
+    zero state (prefill semantics)."""
+    if initial_state is not None:
+        raise NotImplementedError(
+            "kernel path starts from zero state; pass initial_state only "
+            "on the torch path")
+    xt = x.transpose(1, 2).contiguous()                   # (B,H,S,P)
+    dtt = dt.float().transpose(1, 2).contiguous()         # (B,H,S)
+    bt = b.transpose(1, 2).contiguous()                   # (B,G,S,N)
+    ct = c.transpose(1, 2).contiguous()
+    y, state = ssd_scan_bhsd(xt, dtt, a.float().contiguous(), bt, ct, chunk)
+    return y.transpose(1, 2), state

@@ -2,6 +2,7 @@
 from __future__ import annotations
 
 import math
+from typing import Optional, Tuple
 
 import torch
 
@@ -33,3 +34,29 @@ def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhqk,bhkd->bhqd", p, vx.float())
     return out.to(q.dtype)
+
+
+def ssd_reference(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                  b: torch.Tensor, c: torch.Tensor,
+                  initial_state: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sequential (exact) SSD recurrence.
+
+    x: (B,H,S,P); dt: (B,H,S); a: (H,); b/c: (B,H,S,N).
+    h_t = exp(dt_t a) h_{t-1} + dt_t B_t x_t^T ;  y_t = C_t . h_t
+    Returns (y: (B,H,S,P), final_state: (B,H,N,P)), both in x's dtype;
+    the state is carried in f32."""
+    B, H, S, P = x.shape
+    N = b.shape[-1]
+    h = (initial_state.float() if initial_state is not None
+         else torch.zeros((B, H, N, P), dtype=torch.float32,
+                          device=x.device))
+    xf, dtf, af, bf, cf = (t.float() for t in (x, dt, a, b, c))
+    ys = []
+    for t in range(S):
+        decay = torch.exp(dtf[:, :, t] * af[None, :])              # (B,H)
+        upd = torch.einsum("bhn,bhp->bhnp", bf[:, :, t],
+                           xf[:, :, t] * dtf[:, :, t][..., None])
+        h = h * decay[..., None, None] + upd
+        ys.append(torch.einsum("bhn,bhnp->bhp", cf[:, :, t], h))
+    return torch.stack(ys, dim=2).to(x.dtype), h.to(x.dtype)

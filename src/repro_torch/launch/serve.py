@@ -4,15 +4,17 @@ PyTorch counterpart of ``repro/launch/serve.py``, on the port's own copy
 of the engine (``repro_torch.core``).  Requests stream in like MUSER's
 correlator frames: the logical graph Scatters a request batch into
 micro-batches, each micro-batch flows through prefill -> decode Drops, and
-a Gather assembles responses.  InMemory Drops carry the KV caches (device
-tensors) between prefill and decode.
+a Gather assembles responses.  InMemory Drops carry the caches (device
+tensors: KV, SSM, or both for the hybrid) between prefill and decode.
 
 With ``--sessions N`` the same graph shape is served N times through a
 resident :class:`~repro_torch.core.manager.EngineManager`: the first
 session pays translate+map, every later one is a template-cache hit.
 
-On CUDA, prefill attention runs the hand-written flash-attention kernel;
-decode attention and the projections are torch ops.
+It serves every family the port has (dense, vlm, ssm, hybrid).  On CUDA,
+prefill attention runs the hand-written flash-attention kernel and the
+Mamba2 layers' prefill scan the hand-written SSD kernel; decode and the
+projections are torch ops.
 
 CLI:
   PYTHONPATH=src python -m repro_torch.launch.serve --device cuda

@@ -1,8 +1,9 @@
 """Serve step functions: prefill and decode, greedy over the real vocab.
 
 PyTorch counterpart of the serving half of ``repro/train/steps.py``.  The
-steps are pure functions of (params, inputs) except that the KV cache is
-updated in place; they are the payloads of the serve Application Drops.
+steps are pure functions of (params, inputs) except that the caches (KV and
+SSM) are updated in place; they are the payloads of the serve Application
+Drops.
 The train step is a later slice of the port (ROADMAP queue 1 item 9).
 """
 from __future__ import annotations
@@ -19,8 +20,9 @@ def make_prefill_step(cfg: ArchConfig, *, use_kernel: Optional[bool] = None
                       ) -> Callable:
     """``prefill_step(params, batch, max_seq=None) -> (next_tok, cache)``.
 
-    ``use_kernel=None`` sends attention to the hand-written kernel when the
-    tokens are on CUDA and to the plain torch ops otherwise."""
+    ``use_kernel=None`` sends prefill attention and the SSD scan to the
+    hand-written kernels when the tokens are on CUDA and to the plain
+    torch ops otherwise."""
     def prefill_step(params, batch: Dict[str, torch.Tensor],
                      max_seq: Optional[int] = None):
         kernel = (batch["tokens"].device.type == "cuda"

@@ -1,11 +1,16 @@
-"""Port parity: the dense and vlm model families against the JAX model.
+"""Port parity: the dense, vlm, ssm and hybrid model families against the
+JAX model.
 
 Weights come from the JAX init, bridged as numpy.  The JAX init sets every
-norm scale and bias to zero, so the shared numpy tree first gets seeded
-values there; otherwise those terms would go untested.  f32 smoke configs,
-atol/rtol 1e-4: both sides run the same f32 math, in another summation
-order (XLA vs ATen) over 2 layers.
+norm scale and bias (and Mamba2's ``A_log``, ``D``, ``dt_bias``, ``conv_b``)
+to constants, so the shared numpy tree first gets seeded values there;
+otherwise those terms would go untested.  f32 smoke configs, atol/rtol
+1e-4: both sides run the same f32 math, in another summation order (XLA vs
+ATen) over 2-4 layers.  The ssm and hybrid cases run with ``ssm_chunk=8``
+on both sides and 16-token prompts, so the SSD scan crosses chunks.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -21,17 +26,25 @@ from repro_torch.models import model as TM  # noqa: E402
 
 ARCHS = ["codeqwen15_7b", "nemotron_4_15b", "command_r_plus_104b",
          "gemma2_27b", "chameleon_34b"]
+SSM_ARCHS = ["mamba2_1_3b", "zamba2_2_7b"]
 TOL = dict(atol=1e-4, rtol=1e-4)
 B, S, STEPS = 2, 12, 3
+S_SSM = 16                       # two chunks of 8
 _FILLED = ("attn_norm", "mlp_norm", "final_norm", "q_norm", "k_norm",
-           "bq", "bk", "bv", "bo")
+           "bq", "bk", "bv", "bo", "norm", "conv_b", "A_log", "D", "dt_bias")
 
 
-def shared_params(arch, seed=0):
+def ssm_cfgs(arch, **kw):
+    """(port config, JAX config) of a smoke config with ``ssm_chunk=8``."""
+    return (dataclasses.replace(get_smoke_config(arch), ssm_chunk=8, **kw),
+            dataclasses.replace(jax_smoke(arch), ssm_chunk=8, **kw))
+
+
+def shared_params(arch, seed=0, jcfg=None):
     """JAX init as a numpy tree, norms and biases filled from ``seed``."""
     rng = np.random.default_rng(seed)
-    tree = jax.tree.map(np.asarray, JM.init_params(jax_smoke(arch),
-                                                   jax.random.PRNGKey(0)))
+    tree = jax.tree.map(np.asarray, JM.init_params(
+        jcfg or jax_smoke(arch), jax.random.PRNGKey(0)))
 
     def fill(node):
         for k, v in node.items():
@@ -57,7 +70,7 @@ def close(got, want):
                                **TOL)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + SSM_ARCHS)
 def test_param_tree_matches_jax(arch):
     cfg = get_smoke_config(arch)
     jt = jax.tree.map(np.asarray, JM.init_params(jax_smoke(arch),
@@ -165,8 +178,7 @@ def test_bridge_keeps_bf16_bits():
         torch.float32
 
 
-@pytest.mark.parametrize("arch", ["mamba2_1_3b", "zamba2_2_7b",
-                                  "granite_moe_3b_a800m", "whisper_large_v3"])
+@pytest.mark.parametrize("arch", ["granite_moe_3b_a800m", "whisper_large_v3"])
 def test_later_families_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TM.init_params(get_smoke_config(arch), device="cpu")
@@ -180,3 +192,169 @@ def test_layer_windows_match_jax():
             assert got == [0] * len(got)
         else:
             assert got == [int(w) for w in want]
+
+
+# ---------------------------------------------------------------------------
+# ssm (mamba2) and hybrid (zamba2)
+# ---------------------------------------------------------------------------
+
+
+def _grow_kv(jcache, steps):
+    """JAX grows the hybrid's KV cache by padding; the port preallocated."""
+    if "kv" not in jcache:
+        return jcache
+    pad = [(0, 0), (0, 0), (0, steps), (0, 0), (0, 0)]
+    return {**jcache, "kv": jax.tree.map(lambda a: jnp.pad(a, pad),
+                                         jcache["kv"])}
+
+
+def _allclose(got, want):
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+def _within_range(share):
+    """|got - want| <= share x max |want| + 2e-2 |want| (five bf16 ulps):
+    for bf16, where both sides round to bf16 at the same points but XLA
+    fuses some elementwise chains in f32, so single values differ by an ulp
+    that later layers carry (about 2 ulps after two layers)."""
+    def check(got, want):
+        np.testing.assert_allclose(got, want, rtol=2e-2,
+                                   atol=share * np.abs(want).max())
+    return check
+
+
+def _close_caches(tcache, jcache, seq, check=_allclose):
+    for name in ("conv", "state"):
+        check(tcache["ssm"][name].float().numpy(),
+              np.asarray(jcache["ssm"][name], np.float32))
+    if "kv" in jcache:
+        for name in ("k", "v"):
+            check(tcache["kv"][name][:, :, :seq].float().numpy(),
+                  np.asarray(jcache["kv"][name], np.float32))
+
+
+def _ssm_prefill_and_decode(arch, dtype=None, check=_allclose):
+    kw = {} if dtype is None else {"dtype": dtype}
+    cfg, jcfg = ssm_cfgs(arch, **kw)
+    tree = shared_params(arch, jcfg=jcfg)
+    jp, tp = to_jax(tree), params_from_numpy(tree, "cpu")
+    toks = np.random.default_rng(1).integers(
+        0, cfg.vocab_size, size=(B, S_SSM + STEPS)).astype(np.int32)
+    prompt = toks[:, :S_SSM]
+    jl, jcache = jax.jit(lambda p, t: JM.prefill(p, jcfg, {"tokens": t}))(
+        jp, prompt)
+    with torch.inference_mode():
+        tl, tcache = TM.prefill(tp, cfg, {"tokens": torch.from_numpy(prompt)},
+                                max_seq=S_SSM + STEPS)
+    check(tl.numpy(), np.asarray(jl))
+    _close_caches(tcache, jcache, S_SSM, check)
+    dtypes = [(str(tcache["ssm"]["state"].dtype).split(".")[-1],
+               jcache["ssm"]["state"].dtype.name)]
+
+    grown = _grow_kv(jcache, STEPS)
+    jstep = jax.jit(lambda p, c, t, pos: JM.decode_step(p, jcfg, c, t, pos))
+    for i in range(STEPS):
+        tok = toks[:, S_SSM + i:S_SSM + i + 1]
+        jl, grown = jstep(jp, grown, tok, jnp.int32(S_SSM + i))
+        with torch.inference_mode():
+            tl, tcache = TM.decode_step(tp, cfg, tcache,
+                                        torch.from_numpy(tok), S_SSM + i)
+        check(tl.numpy(), np.asarray(jl))
+        dtypes.append((str(tcache["ssm"]["state"].dtype).split(".")[-1],
+                       grown["ssm"]["state"].dtype.name))
+    _close_caches(tcache, grown, S_SSM + STEPS, check)
+    assert tcache["ssm"]["conv"].dtype == cfg.torch_dtype
+    return dtypes
+
+
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_ssm_prefill_and_decode_match_jax(arch):
+    """Prefill, then 3 decode steps: logits, the conv windows, the SSM
+    states and (hybrid) the shared block's K/V against JAX."""
+    dtypes = _ssm_prefill_and_decode(arch)
+    assert all(t == j == "float32" for t, j in dtypes)
+
+
+def test_ssm_bf16_decode_promotes_the_state_to_f32():
+    """In bf16 the reference's decode promotes the SSM state to f32 from
+    the first step on (a bf16 cache times the f32 decay), and rounds only
+    that first update to bf16.  A port that rounded the state back into a
+    bf16 buffer each step would carry another dtype and drift from it.
+    Values within 5% of their range plus five bf16 ulps of their own size
+    (see ``_within_range``)."""
+    dtypes = _ssm_prefill_and_decode("mamba2_1_3b", dtype="bfloat16",
+                                     check=_within_range(0.05))
+    assert dtypes == [("bfloat16", "bfloat16")] + \
+        [("float32", "float32")] * STEPS
+
+
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_ssm_forward_train_matches_jax(arch):
+    cfg, jcfg = ssm_cfgs(arch)
+    tree = shared_params(arch, seed=2)
+    toks = np.random.default_rng(3).integers(
+        0, cfg.vocab_size, size=(B, S_SSM)).astype(np.int32)
+    labels = np.roll(toks, -1, axis=1)
+    labels[:, -1] = -1
+    jloss, jparts = JM.forward_train(
+        to_jax(tree), jcfg,
+        {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels)})
+    with torch.inference_mode():
+        tloss, tparts = TM.forward_train(
+            params_from_numpy(tree, "cpu"), cfg,
+            {"tokens": torch.from_numpy(toks),
+             "labels": torch.from_numpy(labels)})
+    close(tloss, jloss)
+    close(tparts["loss"], jparts["loss"])
+
+
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_ssm_kernel_route_on_cpu_matches_jax_kernel_route(arch):
+    """use_kernel=True: the port's SSD wrapper takes its plain version on
+    CPU tensors; JAX runs its Pallas kernel in interpret mode."""
+    cfg, jcfg = ssm_cfgs(arch)
+    tree = shared_params(arch, seed=4)
+    prompt = np.random.default_rng(5).integers(
+        0, cfg.vocab_size, size=(B, S_SSM)).astype(np.int32)
+    jl, jcache = JM.prefill(to_jax(tree), jcfg, {"tokens": prompt},
+                            use_kernel=True)
+    with torch.inference_mode():
+        tl, tcache = TM.prefill(params_from_numpy(tree, "cpu"), cfg,
+                                {"tokens": torch.from_numpy(prompt)},
+                                use_kernel=True)
+    close(tl, jl)
+    _close_caches(tcache, jcache, S_SSM)
+
+
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_ssm_decode_continues_prefill(arch):
+    """Decoding the prompt token by token from an empty cache gives the
+    prefill's last logits: the recurrence against the chunked scan."""
+    cfg, _ = ssm_cfgs(arch)
+    tp = params_from_numpy(shared_params(arch), "cpu")
+    prompt = torch.from_numpy(np.random.default_rng(6).integers(
+        0, cfg.vocab_size, size=(B, S_SSM)).astype(np.int32))
+    with torch.inference_mode():
+        want, pcache = TM.prefill(tp, cfg, {"tokens": prompt})
+        cache = TM.init_cache(cfg, B, S_SSM, device="cpu")
+        for i in range(S_SSM):
+            got, cache = TM.decode_step(tp, cfg, cache, prompt[:, i:i + 1], i)
+    torch.testing.assert_close(got, want, **TOL)
+    torch.testing.assert_close(cache["ssm"]["state"], pcache["ssm"]["state"],
+                               **TOL)
+    torch.testing.assert_close(cache["ssm"]["conv"], pcache["ssm"]["conv"],
+                               **TOL)
+
+
+def test_hybrid_cache_has_one_kv_per_shared_call():
+    cfg, jcfg = ssm_cfgs("zamba2_2_7b")
+    tc = TM.init_cache(cfg, B, 20, device="cpu")
+    jc = JM.init_cache(jcfg, B, 20)
+    assert tc["kv"]["k"].shape == jc["kv"]["k"].shape == \
+        (cfg.num_layers // cfg.shared_attn_period, B, 20,
+         cfg.num_kv_heads, cfg.resolved_head_dim)
+    assert {k: tuple(v.shape) for k, v in tc["ssm"].items()} == \
+        {k: tuple(v.shape) for k, v in jc["ssm"].items()}
+    with pytest.raises(ValueError, match="shared_attn_period"):
+        TM.init_params(dataclasses.replace(cfg, shared_attn_period=3),
+                       device="cpu")

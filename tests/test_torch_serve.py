@@ -4,8 +4,12 @@
 the codeqwen smoke config must give exactly the greedy tokens of the JAX
 prefill/decode steps, run the way ``repro/launch/serve.py`` runs them
 (same ``default_rng(0)`` prompts, cache padded out for decode), on both
-execution substrates, streaming and through the session manager.
+execution substrates, streaming and through the session manager.  The
+mamba2 and zamba2 smoke configs (``ssm_chunk=8``, so 16-token prompts span
+two chunks) must do the same on both substrates.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -22,15 +26,15 @@ from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.launch import serve as torch_serve  # noqa: E402
 
 ARCH = "codeqwen15_7b"
+SSM_ARCHS = ["mamba2_1_3b", "zamba2_2_7b"]
 SHAPE = dict(num_requests=4, microbatch=2, prompt_len=16, decode_steps=6)
+_FILLED = ("bq", "bk", "bv", "bo", "conv_b", "A_log", "D", "dt_bias")
 
 
-@pytest.fixture(scope="module")
-def shared():
-    """Numpy params (norms and biases seeded, the JAX init zeroes them)
-    and the JAX greedy tokens for them."""
-    cfg = jax_smoke(ARCH)
-    rng = np.random.default_rng(5)
+def _seeded_tree(cfg, seed):
+    """The JAX init as numpy, with norms, biases and Mamba2's constant
+    leaves seeded (the JAX init sets them to constants)."""
+    rng = np.random.default_rng(seed)
     tree = jax.tree.map(np.asarray, JM.init_params(cfg,
                                                    jax.random.PRNGKey(0)))
 
@@ -38,10 +42,30 @@ def shared():
         for k, v in node.items():
             if isinstance(v, dict):
                 fill(v)
-            elif "norm" in k or k in ("bq", "bk", "bv", "bo"):
+            elif "norm" in k or k in _FILLED:
                 node[k] = (0.1 * rng.standard_normal(v.shape)).astype(v.dtype)
     fill(tree)
+    return tree
+
+
+@pytest.fixture(scope="module")
+def shared():
+    """Numpy params (norms and biases seeded, the JAX init zeroes them)
+    and the JAX greedy tokens for them."""
+    cfg = jax_smoke(ARCH)
+    tree = _seeded_tree(cfg, 5)
     return tree, _jax_tokens(cfg, jax.tree.map(jnp.asarray, tree), **SHAPE)
+
+
+@pytest.fixture(scope="module", params=SSM_ARCHS)
+def ssm_shared(request):
+    """(port config, numpy params, JAX greedy tokens) of an ssm or hybrid
+    smoke config with ``ssm_chunk=8`` on both sides."""
+    cfg = dataclasses.replace(get_smoke_config(request.param), ssm_chunk=8)
+    jcfg = dataclasses.replace(jax_smoke(request.param), ssm_chunk=8)
+    tree = _seeded_tree(jcfg, 7)
+    return cfg, tree, _jax_tokens(jcfg, jax.tree.map(jnp.asarray, tree),
+                                  **SHAPE)
 
 
 def _jax_tokens(cfg, params, *, num_requests, microbatch, prompt_len,
@@ -151,3 +175,27 @@ def test_decode_fn_matches_jax(shared):
                               max_seq=15)
     got, _ = decode_fn(cfg, tp, cache, torch.from_numpy(first), 10, 5)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("execution", ["objects", "compiled"])
+def test_ssm_serve_tokens_match_jax(ssm_shared, execution):
+    cfg, tree, want = ssm_shared
+    res = torch_serve.run_serving(cfg, device="cpu",
+                                  params=params_from_numpy(tree, "cpu"),
+                                  execution=execution, **SHAPE)
+    assert res["responses_shape"] == want.shape
+    np.testing.assert_array_equal(res["responses"], want)
+
+
+def test_ssm_serve_kernel_route_on_cpu_tokens_match(ssm_shared, monkeypatch):
+    """The prefill step's kernel route (the SSD and flash wrappers' plain
+    versions on the CPU) serves the same tokens."""
+    from repro_torch.launch import serve as mod
+    from repro_torch.train import steps
+    cfg, tree, want = ssm_shared
+    real = steps.make_prefill_step
+    monkeypatch.setattr(mod, "make_prefill_step",
+                        lambda c: real(c, use_kernel=True))
+    res = mod.run_serving(cfg, device="cpu",
+                          params=params_from_numpy(tree, "cpu"), **SHAPE)
+    np.testing.assert_array_equal(res["responses"], want)
