@@ -5,17 +5,20 @@ Run from the repo root with no arguments:
 
     python3 chip_smoke.py
 
+(``--kernels-only`` stops after phase 3 and prints no result line.)
+
 Full profiler tables land in ``chiprun_out/chip_smoke/`` (gitignored).
 Phases, each printing one JSON line (any failure exits non-zero and prints
 no result):
 
 1. device: the card's name and power limit; TF32 off for matmuls and cuDNN.
 2. build: compile every CUDA kernel from ``src/repro_torch/csrc`` with nvcc,
-   all at once; ptxas register and spill lines per kernel.
+   all at once; ptxas registers and spills per kernel instance.
 3. kernel: each kernel against its plain PyTorch version on the card, at
-   the serve paths' shapes and at the option cases; times of the kernel,
-   the plain version and (where one exists) one library call at the path
-   shapes, CUDA events.
+   the serve paths' shapes and at every option case in f32 (scalar route)
+   and in bf16 (tensor-core route); times of the kernel, the plain version
+   and (where one exists) one library call at the path shapes, CUDA
+   events.  Fails if ptxas reported a spill.
 4. serve, for each of three paths in turn: codeqwen1.5-7b (dense, flash
    kernel), mamba2-1.3b (ssm, SSD kernel) and zamba2-2.7b (hybrid, both
    kernels).  A smoke config served on the card must give the CPU's
@@ -24,7 +27,8 @@ no result):
    and profiled; then 8 requests x 16 tokens with 512-token prompts
    through the engine, with every kernel count set to 0 just before and
    read just after: each kernel of the path must have launched exactly
-   once per layer that runs it per microbatch; and full-width prefill
+   once per layer that runs it per microbatch, every launch on the
+   tensor-core route (the full-width models are bf16); and full-width prefill
    logits through the kernels must be finite and near the plain route's.
    Each model is freed before the next.
 5. the kernels line, the card line, then the result line.
@@ -33,6 +37,7 @@ It imports nothing of JAX or of the JAX package.  Without CUDA it exits 2.
 """
 from __future__ import annotations
 
+import ctypes
 import gc
 import json
 import subprocess
@@ -123,6 +128,21 @@ def phase_kernel(torch, fa):
         ("no_visible_key", 1, 2, 1, 20, 10, 8, f32, True, 3, 0.0),
         # zamba2-2.7b's shared block: 32 heads x 80, MHA, bf16
         ("d80_bf16_mha", 4, 32, 32, 512, 512, 80, bf16, True, 0, 0.0),
+        # the tensor-core route at the options above: one 16 x 16 mma
+        # tile (fragment layout), ragged lengths, masks, cap, padded D
+        ("mma_16x16_bf16", 1, 1, 1, 16, 16, 16, bf16, False, 0, 0.0),
+        ("ragged_17x33_bf16", 1, 4, 4, 17, 33, 8, bf16, True, 0, 0.0),
+        ("ragged_noncausal_bf16", 2, 2, 2, 48, 80, 32, bf16, False, 0, 0.0),
+        ("window16_cap50_bf16", 2, 4, 2, 200, 200, 64, bf16, True, 16, 50.0),
+        ("d256_bf16", 1, 2, 1, 100, 100, 256, bf16, True, 0, 0.0),
+        ("no_visible_key_bf16", 1, 2, 1, 20, 10, 8, bf16, True, 3, 0.0),
+        ("d40_bf16", 2, 4, 2, 130, 130, 40, bf16, True, 0, 0.0),
+        # D=128 runs other tiles (two m-tiles a warp): its masks and edges
+        ("ragged_17x33_d128_bf16", 1, 4, 4, 17, 33, 128, bf16, True, 0, 0.0),
+        ("window16_cap50_d128_bf16", 2, 4, 2, 200, 200, 128, bf16, True, 16,
+         50.0),
+        ("no_visible_key_d128_bf16", 1, 2, 1, 20, 10, 128, bf16, True, 3,
+         0.0),
     ]
     worst = 0.0
     timed = {}
@@ -142,8 +162,9 @@ def phase_kernel(torch, fa):
         max_err = float(err.max())
         ok = bool(torch.isfinite(got).all()) and not bool(bad.any())
         emit("kernel_check", kernel="flash_attention_bhsd", case=name,
-             shape=[b, hq, hkv, sq, sk, d], dtype=str(dt), causal=causal,
-             window=window, cap=cap, max_abs_err=max_err, tol=tol, ok=ok)
+             shape=[b, hq, hkv, sq, sk, d], dtype=str(dt),
+             route=fa.route(dt), causal=causal, window=window, cap=cap,
+             max_abs_err=max_err, tol=tol, ok=ok)
         if not ok:
             fail(f"flash_attention_bhsd case {name}: max_abs_err {max_err}")
         if name in ("path", "d80_bf16_mha"):
@@ -165,6 +186,7 @@ def phase_kernel(torch, fa):
              **times[name])
     t = times["path"]
     return {"name": "flash_attention_bhsd", "route": "cuda",
+            "kernel_route": fa.route(bf16),
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:83",
             "max_abs_err": worst, "max_err": worst, "ms": t["kernel_ms"],
@@ -216,7 +238,21 @@ def phase_ssd_kernel(torch, ss):
         ("ragged_c96_p40_n48", 2, 3, 1, 192, 40, 48, 96, f32, "normal"),
         ("strong_decay", 2, 4, 1, 512, 64, 128, 256, f32, "strong"),
         ("weak_decay", 2, 4, 1, 512, 64, 128, 256, f32, "weak"),
+        # the tensor-core route at the options above
+        ("groups_2_of_4_bf16", 2, 4, 2, 64, 16, 8, 16, bf16, "normal"),
+        ("single_chunk_bf16", 2, 4, 1, 256, 64, 128, 256, bf16, "normal"),
+        ("ragged_c96_p40_n48_bf16", 2, 3, 1, 192, 40, 48, 96, bf16,
+         "normal"),
+        ("strong_decay_bf16", 2, 4, 1, 512, 64, 128, 256, bf16, "strong"),
+        ("weak_decay_bf16", 2, 4, 1, 512, 64, 128, 256, bf16, "weak"),
     ]
+    lib = ss._lib()
+    lib.ssd_scan_scratch_floats.restype = ctypes.c_longlong
+    for b, g, s, chunk in ((4, 1, 512, 256), (2, 3, 192, 96), (1, 2, 64, 16)):
+        if lib.ssd_scan_scratch_floats(b, g, s, chunk) != \
+                ss.scratch_numel(b, g, s, chunk):
+            fail(f"scratch size of ({b}, {g}, {s}, {chunk}) differs between "
+                 f"the kernel and the wrapper")
     worst, timed = 0.0, {}
     for name, b, h, g, s, p, n, chunk, dt_, decay in cases:
         def rand(*shape):
@@ -244,7 +280,8 @@ def phase_ssd_kernel(torch, ss):
                 (err > tol + tol * want.float().abs()).any())
         emit("kernel_check", kernel="ssd_scan_bhsd", case=name,
              shape=[b, h, g, s, p, n], chunk=chunk, dtype=str(dt_),
-             decay=decay, max_abs_err=max_err, tol=tol, ok=ok)
+             route=ss.route(dt_), decay=decay, max_abs_err=max_err, tol=tol,
+             ok=ok)
         if not ok:
             fail(f"ssd_scan_bhsd case {name}: max_abs_err {max_err}")
         if name.endswith("_path"):
@@ -265,6 +302,7 @@ def phase_ssd_kernel(torch, ss):
              **times[name])
     t = times["mamba2_path"]
     return {"name": "ssd_scan_bhsd", "route": "cuda",
+            "kernel_route": ss.route(bf16),
             "source": "src/repro_torch/csrc/ssd_scan.cu",
             "replaces": "src/repro/kernels/ssd_scan.py:74",
             "max_abs_err": worst, "max_err": worst, "ms": t["kernel_ms"],
@@ -334,24 +372,31 @@ def phase_serve(torch, arch, kernels):
     torch.cuda.reset_peak_memory_stats()
     for fn in kernels.values():
         fn.launches = 0
+        fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)
     res = run_serving(cfg, device="cuda", params=params, **SERVE)
     launches = {name: fn.launches for name, fn in kernels.items()}
+    by_route = {name: dict(fn.launches_by_route)
+                for name, fn in kernels.items()}
     resp = res["responses"]
     emit("serve", config=cfg.name, layers=cfg.num_layers, **SERVE,
          responses_shape=list(resp.shape), wall_s=res["wall_s"],
          gen_tokens_per_s=res["gen_tokens_per_s"],
          prefill_s=res["prefill_s"], decode_s=res["decode_s"],
          max_memory_allocated=torch.cuda.max_memory_allocated(),
-         launches=launches, expected_launches=want)
+         launches=launches, expected_launches=want,
+         launches_by_route=by_route)
     if tuple(resp.shape) != (SERVE["num_requests"], SERVE["decode_steps"]):
         fail(f"responses shape {resp.shape}")
     if resp.min() < 0 or resp.max() >= cfg.vocab_size:
         fail("token ids outside the vocabulary")
     if launches != want:
         fail(f"{cfg.name}: kernel launches {launches}, expected {want}")
+    if any(r["mma_bf16"] != launches[n] for n, r in by_route.items()):
+        fail(f"{cfg.name}: bf16 launches off the tensor-core route: "
+             f"{by_route}")
 
     check_full_width_logits(torch, M, cfg, params)
-    return launches
+    return launches, by_route
 
 
 def check_full_width_logits(torch, M, cfg, params):
@@ -555,24 +600,32 @@ def main() -> int:
          cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
 
     build_s = _build.build()
-    ptxas = {n: [ln.strip() for ln in _build.build_log(n).splitlines()
-                 if "registers" in ln or "spill" in ln]
-             for n in _build.KERNEL_SOURCES}
+    ptxas = {n: _build.ptxas_summary(n) for n in _build.KERNEL_SOURCES}
     emit("build", seconds=build_s, kernels=list(_build.KERNEL_SOURCES),
          ptxas=ptxas)
 
     entries = [phase_kernel(torch, fa), phase_ssd_kernel(torch, ss)]
+    spills = [k for ks in ptxas.values() for k in ks if k["spill_bytes"]]
+    if spills:
+        fail(f"ptxas reports spills: {spills}")
+    if "--kernels-only" in sys.argv[1:]:
+        emit("done", seconds=time.monotonic() - t_start)
+        print(json.dumps({"kernels": entries}), flush=True)
+        return 0
     kernels = {e["name"]: getattr(mod, e["name"])
                for e, mod in zip(entries, (fa, ss))}
-    by_path = {}
+    by_path, routes = {}, {}
     for arch in PATHS:
-        by_path[arch] = phase_serve(torch, arch, kernels)
+        by_path[arch], routes[arch] = phase_serve(torch, arch, kernels)
         gc.collect()                    # free the model before the next
         torch.cuda.empty_cache()
     for e in entries:
         e["launches_by_path"] = {a: n[e["name"]] for a, n in by_path.items()
                                  if n[e["name"]]}
         e["launches"] = sum(e["launches_by_path"].values())
+        e["launches_by_route"] = {
+            r: sum(routes[a][e["name"]][r] for a in routes)
+            for r in routes[PATHS[0]][e["name"]]}
 
     emit("done", seconds=time.monotonic() - t_start)
     print(json.dumps({"kernels": entries}), flush=True)

@@ -6,14 +6,21 @@ written by hand for sm_90a (``repro_torch/csrc/flash_attention.cu``), built
 by ``nvcc`` into a plain-C shared library and called through ctypes.
 
 What bounds it: at the serve path's shape (B=4, H=32, S=512, D=128, bf16,
-causal) the function must read q, k, v and write o once, 67 MB, against
-about 8.6 GFLOP, so on an H100 the bound is the memory traffic.  What the
-design does about it: one block per (batch x query head, query tile) walks
-the kv tiles with an online softmax, so the S x S score matrix never
-reaches device memory and K/V are read per kv head without repeating them
-for GQA; kv tiles hidden by the causal mask or the window are skipped.
-The products run as scalar f32 FMAs from shared memory for now, which
-keeps this first kernel well above the bound (``PERF.md`` has its times).
+causal) the function must read q, k, v and write o once, 67 MB (20 us at
+3.35 TB/s), against 8.6 GFLOP over the visible pairs (about 13 us at
+mma.sync rates), so the memory traffic bounds it.  What the design does
+about it: one block per (batch x query head, query tile) walks the kv tiles
+with an online softmax, so the S x S scores never reach device memory and
+K/V are read per kv head without repeating them for GQA; kv tiles hidden by
+the causal mask or the window are skipped.
+
+Routes, chosen by dtype alone (``route``):
+- bf16 -> ``mma_bf16``: both products on the tensor cores (mma.sync
+  m16n8k16 from ldmatrix fragments), K/V tiles in a 2-stage cp.async ring,
+  the scores, softmax statistics and rescale in registers, P rounded to
+  bf16 as the A operand of P V; the long causal query tiles launch first.
+- f32 -> ``scalar_f32``: scalar f32 FMAs (TF32 tensor cores would miss the
+  1e-4 f32 tolerance); the tests and the f32 checks use it.
 
 Layout: (batch, heads, seq, head_dim).  ``flash_attention_bhsd`` launches
 the kernel for CUDA tensors and raises on what the kernel does not take;
@@ -24,6 +31,7 @@ from __future__ import annotations
 import ctypes
 import math
 import threading
+from typing import Tuple
 
 import torch
 
@@ -32,6 +40,14 @@ from .ref import mha_reference
 
 _COUNT_LOCK = threading.Lock()
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+ROUTES = {torch.bfloat16: "mma_bf16", torch.float32: "scalar_f32"}
+
+
+def route(dtype: torch.dtype) -> str:
+    """The kernel instance a CUDA call of this dtype launches."""
+    if dtype not in ROUTES:
+        raise ValueError(f"dtype {dtype} not supported (float32, bfloat16)")
+    return ROUTES[dtype]
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -42,8 +58,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          logit_cap=logit_cap)
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("flash_attention")
+def _lib(defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
+    lib = _build.load("flash_attention", defines)
     fn = lib.flash_attention_bhsd
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -78,8 +94,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"{name} must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
-    if q.dtype not in _DTYPES:
-        raise ValueError(f"dtype {q.dtype} not supported (float32, bfloat16)")
+    route(q.dtype)
 
 
 def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -87,8 +102,9 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          logit_cap: float = 0.0) -> torch.Tensor:
     """q: (B, Hq, Sq, D); k/v: (B, Hkv, Sk, D) -> (B, Hq, Sq, D), q's dtype.
 
-    CUDA tensors launch the hand-written kernel (and count the launch in
-    ``flash_attention_bhsd.launches``); CPU tensors take the plain version.
+    CUDA tensors launch the hand-written kernel on the dtype's route and
+    count the launch in ``flash_attention_bhsd.launches`` and
+    ``.launches_by_route``; CPU tensors take the plain version.
     """
     if q.device.type == "cpu" and k.device.type == "cpu" \
             and v.device.type == "cpu":
@@ -98,10 +114,20 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(q, k, v, window)
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
+    out = torch.empty_like(q)
+    launch(_lib(), q, k, v, out, causal, window, logit_cap)
+    with _COUNT_LOCK:
+        flash_attention_bhsd.launches += 1
+        flash_attention_bhsd.launches_by_route[route(q.dtype)] += 1
+    return out
+
+
+def launch(lib: ctypes.CDLL, q: torch.Tensor, k: torch.Tensor,
+           v: torch.Tensor, out: torch.Tensor, causal: bool, window: int,
+           logit_cap: float) -> None:
+    """One launch of ``lib``'s kernel on checked CUDA tensors into ``out``."""
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
-    lib = _lib()
-    out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_bhsd(
@@ -111,9 +137,7 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"flash_attention_bhsd launch failed: CUDA error "
                            f"{err}")
-    with _COUNT_LOCK:
-        flash_attention_bhsd.launches += 1
-    return out
 
 
 flash_attention_bhsd.launches = 0
+flash_attention_bhsd.launches_by_route = dict.fromkeys(ROUTES.values(), 0)

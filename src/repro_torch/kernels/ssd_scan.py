@@ -7,17 +7,26 @@ into a plain-C shared library and called through ctypes.
 
 What bounds it: at the mamba2-1.3b serve shape (B=4, H=64, S=512, P=64,
 N=128, G=1, chunk 256, bf16) the function must read x, dt, B, C and write
-y and the state once, about 39 MB, against about 10.8 GFLOP (the causal
-half of each chunk's Q x Q products), so on an H100 the two bounds are
-close (about 11 us each).  What the design does about it: one block per
-(batch, head, 32-column slice of P) walks the chunks in order with its
-N x slice state in shared memory, so the state never leaves the SM and
-x, dt, B, C are read once per slice; B and C are read by group index,
-never repeated per head; each chunk is walked in 64-row query tiles
-against the key tiles at or before them, so the Q x Q score matrix never
-reaches device memory.  The products run as scalar f32 FMAs from shared
-memory, which keeps this first kernel well above the bound (``PERF.md``
-has its times).
+y and the state once, about 39 MB (11.7 us at 3.35 TB/s), against about
+6.5 GFLOP once C B^T is formed once per (batch, group, chunk) rather than
+per head (about 10 us at mma.sync rates): the memory traffic bounds it.
+What the design does about it: the state never leaves the SM, the Q x Q
+scores never reach device memory, B and C are read by group index and
+never repeated per head, and every product runs on the tensor cores.
+
+Routes, chosen by dtype alone (``route``):
+- bf16 -> ``mma_bf16``: one call launches two kernels.  The first forms
+  the lower-triangular 64 x 64 tiles of C B^T once per (batch, group,
+  chunk) into an f32 scratch that this wrapper allocates (shared by every
+  head of the group; 1.3 MB at the mamba2 shape).  The second runs one
+  block per (batch, head) and 64 columns of P: the f32 state in registers,
+  x and B tiles through a 2-stage cp.async ring.  The three f32 operands
+  of its products (the state, the weighted score tile, x o w) enter as
+  hi + lo bf16 pairs, two mmas each (one bf16 rounding would miss the
+  2e-2 tolerance where y is near 0): about 12 GFLOP of mma work at the
+  mamba2 shape.  Needs P and N multiples of 8.
+- f32 -> ``scalar_f32``: scalar f32 FMAs, one block per (batch, head,
+  32 columns of P); the tests and the f32 checks use it.
 
 Layout: (batch, heads, seq, ...).  ``ssd_scan_bhsd`` launches the kernel
 for CUDA tensors and raises on what the kernel does not take; only CPU
@@ -35,8 +44,24 @@ from . import _build
 
 _COUNT_LOCK = threading.Lock()
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_STATE = 256          # N: the kernel keeps N x 32 of the state per block
-MAX_CHUNK = 1024         # chunk: four f32 values per row in shared memory
+ROUTES = {torch.bfloat16: "mma_bf16", torch.float32: "scalar_f32"}
+MAX_STATE = 256          # N: the state per block lives on the SM
+MAX_CHUNK = 1024         # chunk: per-row f32 values in shared memory
+TILE = 64                # rows of a C B^T scratch tile
+
+
+def route(dtype: torch.dtype) -> str:
+    """The kernel instance a CUDA call of this dtype launches."""
+    if dtype not in ROUTES:
+        raise ValueError(f"dtype {dtype} not supported (float32, bfloat16)")
+    return ROUTES[dtype]
+
+
+def scratch_numel(B: int, G: int, S: int, chunk: int) -> int:
+    """f32 values of the bf16 route's C B^T scratch: the lower-triangular
+    64 x 64 tiles of every (batch, group, chunk)."""
+    nt = -(-chunk // TILE)
+    return B * G * (S // chunk) * nt * (nt + 1) // 2 * TILE * TILE
 
 
 def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
@@ -77,12 +102,12 @@ def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     return torch.cat(ys, dim=2).to(x.dtype), state.to(x.dtype)
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("ssd_scan")
+def _lib(defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
+    lib = _build.load("ssd_scan", defines)
     fn = lib.ssd_scan
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
+        fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -115,8 +140,9 @@ def _check(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     if chunk > MAX_CHUNK or N > MAX_STATE:
         raise ValueError(f"chunk {chunk} > {MAX_CHUNK} or N {N} > "
                          f"{MAX_STATE}")
-    if x.dtype not in _DTYPES:
-        raise ValueError(f"dtype {x.dtype} not supported (float32, bfloat16)")
+    if route(x.dtype) == "mma_bf16" and (P % 8 or N % 8):
+        raise ValueError(f"bf16 route needs P and N multiples of 8, got "
+                         f"P={P}, N={N}")
     for name, t, dtype in (("dt", dt, torch.float32), ("a", a, torch.float32),
                            ("b", b, x.dtype), ("c", c, x.dtype)):
         if t.dtype != dtype:
@@ -137,9 +163,11 @@ def ssd_scan_bhsd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     (the JAX signature's groups pre-broadcast to heads is G = H).
     Returns (y: (B,H,S,P), state: (B,H,N,P)) in x's dtype.
 
-    CUDA tensors launch the hand-written kernel (and count the launch in
-    ``ssd_scan_bhsd.launches``); CPU tensors take the plain version.  dt
-    and a are cast to f32 first, as the JAX wrapper does."""
+    CUDA tensors launch the hand-written kernel on the dtype's route (the
+    bf16 route is two kernels, C B^T then the scan) and count the call once
+    in ``ssd_scan_bhsd.launches`` and ``.launches_by_route``; CPU tensors
+    take the plain version.  dt and a are cast to f32 first, as the JAX
+    wrapper does."""
     dt, a = dt.float(), a.float()
     if all(t.device.type == "cpu" for t in (x, dt, a, b, c)):
         _check(x, dt, a, b, c, chunk, kernel=False)
@@ -148,22 +176,37 @@ def ssd_scan_bhsd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     _check(x, dt, a, b, c, chunk)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
+    kind = route(x.dtype)
+    y, state = launch(_lib(), x, dt, a, b, c, chunk)
+    with _COUNT_LOCK:
+        ssd_scan_bhsd.launches += 1
+        ssd_scan_bhsd.launches_by_route[kind] += 1
+    return y, state
+
+
+def launch(lib: ctypes.CDLL, x: torch.Tensor, dt: torch.Tensor,
+           a: torch.Tensor, b: torch.Tensor, c: torch.Tensor, chunk: int
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One call of ``lib``'s kernels on checked CUDA tensors: allocates y,
+    the state and (bf16) the C B^T scratch."""
     B, H, S, P = x.shape
     G, N = b.shape[1], b.shape[3]
-    lib = _lib()
     y = torch.empty_like(x)
     state = torch.empty((B, H, N, P), dtype=x.dtype, device=x.device)
+    scratch = (torch.empty(scratch_numel(B, G, S, chunk), dtype=torch.float32,
+                           device=x.device)
+               if route(x.dtype) == "mma_bf16" else None)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.ssd_scan(x.data_ptr(), dt.data_ptr(), a.data_ptr(),
-                           b.data_ptr(), c.data_ptr(), y.data_ptr(),
-                           state.data_ptr(), B, H, G, S, P, N, chunk,
-                           _DTYPES[x.dtype], stream)
+                           b.data_ptr(), c.data_ptr(),
+                           None if scratch is None else scratch.data_ptr(),
+                           y.data_ptr(), state.data_ptr(), B, H, G, S, P, N,
+                           chunk, _DTYPES[x.dtype], stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan launch failed: CUDA error {err}")
-    with _COUNT_LOCK:
-        ssd_scan_bhsd.launches += 1
     return y, state
 
 
 ssd_scan_bhsd.launches = 0
+ssd_scan_bhsd.launches_by_route = dict.fromkeys(ROUTES.values(), 0)
