@@ -19,18 +19,20 @@ no result):
    and in bf16 (tensor-core route); times of the kernel, the plain version
    and (where one exists) one library call at the path shapes, CUDA
    events.  Fails if ptxas reported a spill.
-4. serve, for each of three paths in turn: codeqwen1.5-7b (dense, flash
-   kernel), mamba2-1.3b (ssm, SSD kernel) and zamba2-2.7b (hybrid, both
-   kernels).  A smoke config served on the card must give the CPU's
-   tokens.  Then the model at full width and depth (random weights from a
-   seed): its prefill and decode steps timed alone, against their bounds,
-   and profiled; then 8 requests x 16 tokens with 512-token prompts
-   through the engine, with every kernel count set to 0 just before and
-   read just after: each kernel of the path must have launched exactly
-   once per layer that runs it per microbatch, every launch on the
-   tensor-core route (the full-width models are bf16); and full-width prefill
-   logits through the kernels must be finite and near the plain route's.
-   Each model is freed before the next.
+4. serve, for each of five paths in turn: codeqwen1.5-7b (dense, flash
+   kernel), mamba2-1.3b (ssm, SSD kernel), zamba2-2.7b (hybrid, both
+   kernels), granite-moe-3b-a800m (moe, flash) and whisper-large-v3
+   (encdec, flash in the encoder and the decoder).  A smoke config served
+   on the card must give the CPU's tokens.  Then the model at full width
+   and depth (random weights from a seed): its prefill and decode steps
+   timed alone, against their bounds, and profiled; then 8 requests x 16
+   tokens with 512-token prompts through the engine, with every kernel
+   count set to 0 just before and read just after: each kernel of the path
+   must have launched exactly once per layer that runs it per microbatch,
+   on the route its inputs' dtype selects (the full-width models are
+   bf16; whisper's encoder runs f32, from the serve's f32 frames); and
+   full-width prefill logits through the kernels must be finite and near
+   the plain route's.  Each model is freed before the next.
 5. the kernels line, the card line, then the result line.
 
 It imports nothing of JAX or of the JAX package.  Without CUDA it exits 2.
@@ -71,9 +73,16 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Device ms per call of ``fn``: CUDA events around ``iters`` calls.
+
+    The calls are queued behind a ~20 ms device sleep, so the device runs
+    them back to back: without it, a kernel shorter than its wrapper's host
+    time (the D=64 flash shapes, ~25 us) is timed at the host's pace."""
     import torch
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(40_000_000)       # clock cycles: ~20 ms at 1.98 GHz
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -82,6 +91,10 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+FLASH_PATH_CASES = ("path", "d80_bf16_mha", "granite_gqa3_d64_bf16",
+                    "whisper_enc_f32", "whisper_dec_d64_bf16")
 
 
 def visible_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
@@ -143,6 +156,13 @@ def phase_kernel(torch, fa):
          50.0),
         ("no_visible_key_d128_bf16", 1, 2, 1, 20, 10, 128, bf16, True, 3,
          0.0),
+        # granite-moe-3b's prefill: GQA 3:1 at D=64
+        ("granite_gqa3_d64_bf16", 4, 24, 8, 512, 512, 64, bf16, True, 0, 0.0),
+        # whisper-large-v3's encoder (f32: the serve's f32 frames promote
+        # it) and its decoder's prefill
+        ("whisper_enc_f32", 4, 20, 20, 64, 64, 64, f32, False, 0, 0.0),
+        ("whisper_dec_d64_bf16", 4, 20, 20, 512, 512, 64, bf16, True, 0,
+         0.0),
     ]
     worst = 0.0
     timed = {}
@@ -167,18 +187,21 @@ def phase_kernel(torch, fa):
              max_abs_err=max_err, tol=tol, ok=ok)
         if not ok:
             fail(f"flash_attention_bhsd case {name}: max_abs_err {max_err}")
-        if name in ("path", "d80_bf16_mha"):
+        if name in FLASH_PATH_CASES:
             worst = max(worst, max_err)
             timed[name] = (q, k, v, opts)
     times = {}
     for name, (q, k, v, opts) in timed.items():
         kernel_ms = cuda_ms(lambda: fa.flash_attention_bhsd(q, k, v, **opts))
         plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, **opts))
-        library_ms = cuda_ms(
-            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=opts["causal"],
+            enable_gqa=q.shape[1] != k.shape[1]))
         bound_ms, bound_by = attention_bound_ms(q, k, opts["causal"],
                                                 opts["window"])
-        times[name] = dict(shape=list(q.shape), dtype=str(q.dtype),
+        times[name] = dict(shape=list(q.shape), kv_heads=k.shape[1],
+                           dtype=str(q.dtype), route=fa.route(q.dtype),
+                           causal=opts["causal"],
                            kernel_ms=kernel_ms, plain_ms=plain_ms,
                            library_ms=library_ms, bound_ms=bound_ms,
                            bound_by=bound_by)
@@ -192,8 +215,7 @@ def phase_kernel(torch, fa):
             "max_abs_err": worst, "max_err": worst, "ms": t["kernel_ms"],
             "kernel_ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"],
-            "zamba2_shape": times["d80_bf16_mha"]}
+            "library_ms": t["library_ms"], "path_shapes": times}
 
 
 def ssd_bound_ms(x, b, chunk: int) -> tuple:
@@ -308,31 +330,41 @@ def phase_ssd_kernel(torch, ss):
             "max_abs_err": worst, "max_err": worst, "ms": t["kernel_ms"],
             "kernel_ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": None, "zamba2_shape": times["zamba2_path"]}
+            "library_ms": None, "path_shapes": times}
 
 
-PATHS = ("codeqwen15_7b", "mamba2_1_3b", "zamba2_2_7b")
+PATHS = ("codeqwen15_7b", "mamba2_1_3b", "zamba2_2_7b",
+         "granite_moe_3b_a800m", "whisper_large_v3")
 
 
-def expected_launches(cfg, n_micro: int) -> dict:
-    """Kernel launches one serve run must make: flash once per attention
-    layer (or per call of the hybrid's shared block) per microbatch's
-    prefill, SSD once per Mamba2 layer per microbatch's prefill."""
-    if cfg.family == "ssm":
-        return {"flash_attention_bhsd": 0,
-                "ssd_scan_bhsd": cfg.num_layers * n_micro}
+def expected_launches(torch, cfg, n_micro: int, fa, ss) -> dict:
+    """Kernel launches one serve run must make, by kernel and route: flash
+    once per attention layer (or per call of the hybrid's shared block, or
+    per whisper encoder layer) per microbatch's prefill, SSD once per
+    Mamba2 layer per microbatch's prefill.  The route follows the inputs'
+    dtype: the model's, except in whisper's encoder, where the serve's f32
+    frames promote the activations to f32 (as JAX does)."""
+    dt = cfg.torch_dtype
+    want = {"flash_attention_bhsd": dict.fromkeys(fa.ROUTES.values(), 0),
+            "ssd_scan_bhsd": dict.fromkeys(ss.ROUTES.values(), 0)}
+    flash = want["flash_attention_bhsd"]
+    if cfg.family in ("ssm", "hybrid"):
+        want["ssd_scan_bhsd"][ss.route(dt)] += cfg.num_layers * n_micro
     if cfg.family == "hybrid":
-        return {"flash_attention_bhsd":
-                cfg.num_layers // cfg.shared_attn_period * n_micro,
-                "ssd_scan_bhsd": cfg.num_layers * n_micro}
-    return {"flash_attention_bhsd": cfg.num_layers * n_micro,
-            "ssd_scan_bhsd": 0}
+        flash[fa.route(dt)] += (cfg.num_layers // cfg.shared_attn_period
+                                * n_micro)
+    elif cfg.family != "ssm":
+        flash[fa.route(dt)] += cfg.num_layers * n_micro
+    if cfg.family == "encdec":
+        enc_dt = torch.promote_types(torch.float32, dt)
+        flash[fa.route(enc_dt)] += cfg.num_encoder_layers * n_micro
+    return want
 
 
-def phase_serve(torch, arch, kernels):
-    """One serve path.  ``kernels`` maps a kernel's name to its wrapper
-    (which holds the launch count).  Returns the launches of each kernel
-    over the full-width serve run."""
+def phase_serve(torch, arch, mods):
+    """One serve path.  ``mods`` maps a kernel's name to its module, whose
+    wrapper of that name holds the launch counts.  Returns the launches of
+    each kernel, in all and by route, over the full-width serve run."""
     import dataclasses
 
     from repro_torch.configs import get_config, get_smoke_config
@@ -368,7 +400,9 @@ def phase_serve(torch, arch, kernels):
     phase_steps(torch, cfg, params)
 
     n_micro = SERVE["num_requests"] // SERVE["microbatch"]
-    want = expected_launches(cfg, n_micro)
+    want = expected_launches(torch, cfg, n_micro, mods["flash_attention_bhsd"],
+                             mods["ssd_scan_bhsd"])
+    kernels = {name: getattr(mod, name) for name, mod in mods.items()}
     torch.cuda.reset_peak_memory_stats()
     for fn in kernels.values():
         fn.launches = 0
@@ -383,17 +417,16 @@ def phase_serve(torch, arch, kernels):
          gen_tokens_per_s=res["gen_tokens_per_s"],
          prefill_s=res["prefill_s"], decode_s=res["decode_s"],
          max_memory_allocated=torch.cuda.max_memory_allocated(),
-         launches=launches, expected_launches=want,
-         launches_by_route=by_route)
+         launches=launches, launches_by_route=by_route,
+         expected_launches_by_route=want)
     if tuple(resp.shape) != (SERVE["num_requests"], SERVE["decode_steps"]):
         fail(f"responses shape {resp.shape}")
     if resp.min() < 0 or resp.max() >= cfg.vocab_size:
         fail("token ids outside the vocabulary")
-    if launches != want:
-        fail(f"{cfg.name}: kernel launches {launches}, expected {want}")
-    if any(r["mma_bf16"] != launches[n] for n, r in by_route.items()):
-        fail(f"{cfg.name}: bf16 launches off the tensor-core route: "
-             f"{by_route}")
+    if by_route != want or launches != {n: sum(r.values())
+                                        for n, r in want.items()}:
+        fail(f"{cfg.name}: kernel launches by route {by_route} (in all "
+             f"{launches}), expected {want}")
 
     check_full_width_logits(torch, M, cfg, params)
     return launches, by_route
@@ -401,7 +434,7 @@ def phase_serve(torch, arch, kernels):
 
 def check_full_width_logits(torch, M, cfg, params):
     """Full-width prefill logits through the kernels vs the plain torch
-    route, on the seeded weights.
+    route, on the seeded weights (whisper with the serve's zero frames).
 
     bf16: both routes round activations to bf16 (2^-8 relative) at other
     points (the SSD kernel route rounds y before adding D x, the torch route
@@ -413,18 +446,22 @@ def check_full_width_logits(torch, M, cfg, params):
     own f32 run), so the ssm and hybrid paths are held instead to: the same
     weights in f32, kernel route vs plain route, within 1e-3 of the range
     (another order of f32 sums); and the bf16 kernel route no further from
-    the f32 logits than twice the bf16 plain route is."""
+    the f32 logits than twice the bf16 plain route is.  The moe path is
+    held the same way: its routing is discontinuous, and a bf16 rounding
+    difference that swaps a token's k-th and (k+1)-th expert, or which
+    token an expert drops at capacity, moves logits by more than 5%."""
     import dataclasses
 
     import numpy as np
+    from repro_torch.launch.serve import prompt_batch
     tokens = torch.from_numpy(np.random.default_rng(1).integers(
         0, cfg.vocab_size, size=(SERVE["microbatch"], SERVE["prompt_len"]))
     ).cuda()
+    batch = prompt_batch(cfg, tokens)
 
     def logits(p, c, use_kernel):
         with torch.inference_mode():
-            return M.prefill(p, c, {"tokens": tokens},
-                             use_kernel=use_kernel)[0]
+            return M.prefill(p, c, batch, use_kernel=use_kernel)[0]
 
     lk, lp = logits(params, cfg, True), logits(params, cfg, False)
     finite = bool(torch.isfinite(lk).all())
@@ -433,7 +470,7 @@ def check_full_width_logits(torch, M, cfg, params):
     agree = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
     out = dict(config=cfg.name, finite=finite, max_abs_diff=diff,
                max_abs_logit=scale, top1_agreement=agree)
-    if cfg.family not in ("ssm", "hybrid"):
+    if cfg.family not in ("ssm", "hybrid", "moe"):
         emit("prefill_kernel_vs_plain", **out)
         if not finite:
             fail(f"{cfg.name}: non-finite logits at full width")
@@ -465,32 +502,84 @@ def check_full_width_logits(torch, M, cfg, params):
              f"f32 logits, the plain route {bf16_plain_err}")
 
 
-def step_bounds(cfg, params, mb: int, s: int) -> tuple:
-    """(prefill FLOPs, decode bytes): the least work of the two steps.
+def step_bounds(cfg, params, mb: int, s: int, max_seq: int) -> dict:
+    """The least time of the two serve steps on the card, from the work
+    they must do (a microbatch of ``mb`` prompts of ``s`` tokens, the cache
+    allocated at ``max_seq``).
 
-    Prefill: 2 x layer params x tokens, the attention over the causal
-    pairs or the SSD scan's FLOPs per layer, the hybrid's shared block at
-    each call, and the head for the last position only.  Decode: the
-    weights once, plus the f32 SSM state read and written, plus the
-    hybrid's KV cache read up to the new position."""
-    weight_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
-    layer_params = sum(t.numel() for t in _leaves(params["layers"]))
-    hd = cfg.resolved_head_dim
+    Prefill, operations: 2 x the parameters each token passes through x
+    the tokens, plus QK^T and PV over the visible pairs, plus the head for
+    the last position only, at the bf16 peak; work whose inputs are f32 at
+    the f32 peak, the two times summed (the decoder waits for the encoder).
+    - dense, vlm: every layer parameter; causal pairs.
+    - moe: the non-expert parameters (the f32 router included) plus
+      top_k / E of the expert parameters; causal pairs.
+    - ssm, hybrid: every layer parameter, the SSD scan's FLOPs per Mamba2
+      layer, the hybrid's shared block (parameters and causal pairs) at
+      each call.
+    - encdec: f32 (the serve's f32 frames promote them): the encoder's
+      parameters over the frames with non-causal pairs, the cross K/V
+      projections over the frames, the tokens x frames cross pairs; bf16:
+      the rest of the decoder's parameters over the tokens, causal pairs.
+    Decode, bytes: the weights the step reads once (moe: the non-expert
+    weights plus min(E, B x top_k) experts a layer; encdec: not the
+    encoder's), the KV cache up to the new position, the whole cross cache
+    (the reference attends over its zero rows too), the f32 SSM state read
+    and written."""
+    def numel(tree):
+        return sum(t.numel() for t in _leaves(tree))
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in _leaves(tree))
+
+    L, hd = cfg.num_layers, cfg.resolved_head_dim
+    es = params["embed"].element_size()
+    layer_params = numel(params["layers"])
     attn = 4 * mb * cfg.num_heads * hd * visible_pairs(s, s, True, 0)
-    flops = 2 * layer_params * mb * s + 2 * mb * cfg.d_model * cfg.padded_vocab
+    kv_bytes = 2 * mb * (s + 1) * cfg.num_kv_heads * hd * es
+    bf16 = 2 * mb * cfg.d_model * cfg.padded_vocab
+    f32 = 0
+    decode_bytes = nbytes(params)
+    if cfg.family == "moe":
+        experts = {k: v for k, v in params["layers"]["moe"].items()
+                   if k != "router"}
+        e, k = cfg.num_experts, cfg.top_k
+        layer_params += numel(experts) * (k / e - 1)
+        decode_bytes -= nbytes(experts) * (1 - min(e, mb * k) / e)
+    if cfg.family == "encdec":
+        t = max(s // cfg.encoder_ratio, 1)
+        cross_kv = numel({n: params["layers"]["cross"][n]
+                          for n in ("wk", "wv", "bk", "bv")})
+        f32 += (2 * numel(params["enc_layers"]) * mb * t
+                + cfg.num_encoder_layers * 4 * mb * cfg.num_heads * hd
+                * visible_pairs(t, t, False, 0)
+                + 2 * cross_kv * mb * t
+                + L * 4 * mb * cfg.num_heads * hd * s * t)
+        layer_params -= cross_kv
+        decode_bytes -= nbytes({n: params[n]
+                                for n in ("enc_layers", "enc_norm")})
+        decode_bytes += (L * 2 * mb * max(max_seq // cfg.encoder_ratio, 1)
+                         * cfg.num_kv_heads * hd * es)
+    bf16 += 2 * layer_params * mb * s
     if cfg.family not in ("ssm", "hybrid"):
-        return flops + cfg.num_layers * attn, weight_bytes
-    h, p, n = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state
-    q = min(cfg.ssm_chunk, s)
-    ssd = mb * h * (s // q) * (q * (q + 1) * (n + p) + 4 * q * n * p)
-    flops += cfg.num_layers * ssd
-    nbytes = weight_bytes + 2 * cfg.num_layers * mb * h * n * p * 4
+        bf16 += L * attn
+        decode_bytes += L * kv_bytes
+    else:
+        h, p, n = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state
+        q = min(cfg.ssm_chunk, s)
+        bf16 += L * mb * h * (s // q) * (q * (q + 1) * (n + p)
+                                         + 4 * q * n * p)
+        decode_bytes += 2 * L * mb * h * n * p * 4
     if cfg.family == "hybrid":
-        groups = cfg.num_layers // cfg.shared_attn_period
-        shared = sum(t.numel() for t in _leaves(params["shared"]))
-        flops += groups * (2 * shared * mb * s + attn)
-        nbytes += groups * 2 * mb * (s + 1) * cfg.num_kv_heads * hd * 2
-    return flops, nbytes
+        groups = L // cfg.shared_attn_period
+        bf16 += groups * (2 * numel(params["shared"]) * mb * s + attn)
+        decode_bytes += groups * kv_bytes
+    prefill_ms = (bf16 / H100_PEAK_FLOPS["torch.bfloat16"]
+                  + f32 / H100_PEAK_FLOPS["torch.float32"]) * 1e3
+    return {"prefill_bound_ms": prefill_ms,
+            "decode_bound_ms": decode_bytes / H100_BYTES_PER_S * 1e3,
+            "prefill_bf16_flops": bf16, "prefill_f32_flops": f32,
+            "decode_bytes": decode_bytes}
 
 
 def phase_steps(torch, cfg, params):
@@ -499,17 +588,19 @@ def phase_steps(torch, cfg, params):
     torch.profiler trace of one call of each (summary printed, full tables
     written under ``chiprun_out/chip_smoke/``)."""
     import numpy as np
+    from repro_torch.launch.serve import prompt_batch
     from repro_torch.train import make_decode_step, make_prefill_step
     mb, s, steps = (SERVE["microbatch"], SERVE["prompt_len"],
                     SERVE["decode_steps"])
     prefill_step, decode_one = make_prefill_step(cfg), make_decode_step(cfg)
-    tokens = torch.from_numpy(np.random.default_rng(2).integers(
-        0, cfg.vocab_size, size=(mb, s))).cuda()
-    first, cache = prefill_step(params, {"tokens": tokens}, s + steps)
+    batch = prompt_batch(cfg, torch.from_numpy(
+        np.random.default_rng(2).integers(0, cfg.vocab_size,
+                                          size=(mb, s))).cuda())
+    first, cache = prefill_step(params, batch, s + steps)
     tok = first[:, None]
 
     def prefill():
-        prefill_step(params, {"tokens": tokens}, s + steps)
+        prefill_step(params, batch, s + steps)
 
     def decode():
         decode_one(params, cache, tok, s)
@@ -526,11 +617,8 @@ def phase_steps(torch, cfg, params):
             times.append(time.monotonic() - t0)
         out[name + "_ms"] = sorted(times)[len(times) // 2] * 1e3
         out[name + "_ms_all"] = [t * 1e3 for t in times]
-    prefill_flops, decode_bytes = step_bounds(cfg, params, mb, s)
     emit("steps", config=cfg.name, microbatch=mb, prompt_len=s,
-         decode_bound_ms=decode_bytes / H100_BYTES_PER_S * 1e3,
-         prefill_bound_ms=prefill_flops
-         / H100_PEAK_FLOPS["torch.bfloat16"] * 1e3, **out)
+         **step_bounds(cfg, params, mb, s, s + steps), **out)
     from torch.profiler import ProfilerActivity, profile
     PROFILE_DIR.mkdir(parents=True, exist_ok=True)
     for name, fn in (("prefill", prefill), ("decode_step", decode)):
@@ -612,16 +700,14 @@ def main() -> int:
         emit("done", seconds=time.monotonic() - t_start)
         print(json.dumps({"kernels": entries}), flush=True)
         return 0
-    kernels = {e["name"]: getattr(mod, e["name"])
-               for e, mod in zip(entries, (fa, ss))}
+    mods = {e["name"]: mod for e, mod in zip(entries, (fa, ss))}
     by_path, routes = {}, {}
     for arch in PATHS:
-        by_path[arch], routes[arch] = phase_serve(torch, arch, kernels)
+        by_path[arch], routes[arch] = phase_serve(torch, arch, mods)
         gc.collect()                    # free the model before the next
         torch.cuda.empty_cache()
     for e in entries:
-        e["launches_by_path"] = {a: n[e["name"]] for a, n in by_path.items()
-                                 if n[e["name"]]}
+        e["launches_by_path"] = {a: n[e["name"]] for a, n in by_path.items()}
         e["launches"] = sum(e["launches_by_path"].values())
         e["launches_by_route"] = {
             r: sum(routes[a][e["name"]][r] for a in routes)

@@ -11,10 +11,13 @@ With ``--sessions N`` the same graph shape is served N times through a
 resident :class:`~repro_torch.core.manager.EngineManager`: the first
 session pays translate+map, every later one is a template-cache hit.
 
-It serves every family the port has (dense, vlm, ssm, hybrid).  On CUDA,
-prefill attention runs the hand-written flash-attention kernel and the
-Mamba2 layers' prefill scan the hand-written SSD kernel; decode and the
-projections are torch ops.
+It serves every family (dense, vlm, moe, ssm, hybrid, encdec).  On CUDA,
+prefill self-attention (the whisper encoder's too) runs the hand-written
+flash-attention kernel and the Mamba2 layers' prefill scan the
+hand-written SSD kernel; decode, cross-attention, the MoE dispatch and
+the projections are torch ops.  encdec prompts come with f32 zero frames
+of ``max(prompt_len // encoder_ratio, 1)`` rows, as the reference serve
+makes them.
 
 CLI:
   PYTHONPATH=src python -m repro_torch.launch.serve --device cuda
@@ -54,6 +57,20 @@ def _dump_stats(path: str, payload: Dict[str, Any]) -> None:
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def prompt_batch(cfg: ArchConfig,
+                 tokens: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The prefill batch of a (B, S) prompt chunk: its tokens and, for
+    encdec, f32 zero frames of max(S // encoder_ratio, 1) rows on the
+    tokens' device (the stub audio frontend of the reference serve)."""
+    batch = {"tokens": tokens}
+    if cfg.family == "encdec":
+        b, s = tokens.shape
+        batch["frames"] = torch.zeros(
+            (b, max(s // cfg.encoder_ratio, 1), cfg.d_model),
+            dtype=torch.float32, device=tokens.device)
+    return batch
 
 
 def run_serving(cfg: ArchConfig, *, num_requests: int = 8,
@@ -109,8 +126,10 @@ def run_serving(cfg: ArchConfig, *, num_requests: int = 8,
         (mb,) = app.meta["oid"]
         chunk = torch.from_numpy(
             prompts[mb * microbatch:(mb + 1) * microbatch]).to(dev)
-        # the cache is allocated at max_seq, so decode grows nothing
-        next_tok, cache = prefill_step(params, {"tokens": chunk}, max_seq)
+        # the cache is allocated at max_seq, so decode grows nothing (its
+        # cross rows past the frames stay zero, as the reference's padding)
+        next_tok, cache = prefill_step(params, prompt_batch(cfg, chunk),
+                                       max_seq)
         _timed("prefill", t0)
         for o in outputs:
             o.write({"next": next_tok[:, None], "cache": cache})

@@ -1,4 +1,4 @@
-"""Model substrate in PyTorch: the dense and vlm families so far."""
+"""Model substrate in PyTorch: all six families of the JAX package."""
 from .common import SHAPES, ArchConfig, ShapeConfig
 from .model import (decode_step, forward_train, init_cache, init_params,
                     prefill)

@@ -178,6 +178,18 @@ SHAPES: Dict[str, ShapeConfig] = {
 # ---------------------------------------------------------------------------
 
 
+def einsum(equation: str, *operands: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum`` with JAX's dtype promotion.
+
+    ``jnp.einsum`` promotes mixed operands (bf16 with f32 gives f32: the
+    whisper encoder's f32 frames against bf16 weights); ``torch.einsum``
+    raises on them.  Operands of one dtype pass through uncast."""
+    dt = operands[0].dtype
+    for t in operands[1:]:
+        dt = torch.promote_types(dt, t.dtype)
+    return torch.einsum(equation, *(t.to(dt) for t in operands))
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
     dt = x.dtype

@@ -1,4 +1,5 @@
-"""Composite model assembly: the dense, vlm, ssm and hybrid families.
+"""Composite model assembly: all six families (dense, vlm, moe, ssm,
+hybrid, encdec).
 
 PyTorch counterpart of ``repro/models/model.py``, same functional API:
   * ``init_params(cfg, gen, device)``   — parameter tree (layers stacked)
@@ -12,37 +13,45 @@ stacked on axis 0, so weights bridge by a plain tree-map
 (``repro_torch.bridge``).  Layers run in a Python loop over views of the
 stacked tensors instead of a ``lax.scan``, so each layer's window is a
 plain int.  The hybrid family (zamba2) applies one shared attention block
-after every ``shared_attn_period`` Mamba2 layers.  The moe and encdec
-families are later slices of the port and raise ``NotImplementedError``.
+after every ``shared_attn_period`` Mamba2 layers.  The moe family
+(granite, grok) replaces each dense block's MLP with ``moe.moe_block``.
+The encdec family (whisper) runs an encoder over frame embeddings
+(``encode``), then decoder layers with rope-free self-attention,
+cross-attention to the encoder output and an MLP, with sinusoidal
+positions on both sides.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
 from .attention import (_attend, _out_proj, _project_qkv, attention,
-                        decode_attention, init_attention, init_kv_cache)
+                        decode_attention, decode_cross_attention,
+                        init_attention, init_kv_cache)
 from .common import (ArchConfig, activation_fn, cross_entropy, dense_init,
-                     resolve_device, rms_norm, softcap)
+                     einsum, resolve_device, rms_norm, sinusoidal_positions,
+                     softcap)
+from .moe import init_moe, moe_block
 from .ssm import (init_mamba2, init_ssm_cache, mamba2_decode_step,
                   mamba2_forward, mamba2_prime)
 
-_PORTED = ("dense", "vlm", "ssm", "hybrid")
-_LATER = {
-    "moe": "ROADMAP queue 1 item 7 (MoE)",
-    "encdec": "ROADMAP queue 1 item 8 (encoder-decoder)",
-}
+FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec")
 
 
-def _require_ported(cfg: ArchConfig) -> None:
-    if cfg.family in _PORTED:
-        return
-    if cfg.family in _LATER:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported to PyTorch "
-            f"yet: {_LATER[cfg.family]}")
-    raise ValueError(f"unknown family {cfg.family!r}")
+def _check_family(cfg: ArchConfig) -> None:
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"unknown family {cfg.family!r}")
+
+
+@functools.lru_cache(maxsize=16)
+def _sinusoid(seq: int, dim: int, device: torch.device) -> torch.Tensor:
+    """The (seq, dim) sinusoid table on ``device``, made once per shape
+    (decode reads one row of it a step; not written to).  A normal tensor
+    even when first made under inference mode, so autograd may read it."""
+    with torch.inference_mode(False):
+        return sinusoidal_positions(seq, dim, device)
 
 
 def _layer(layers: Dict[str, Any], i: int) -> Dict[str, Any]:
@@ -68,22 +77,39 @@ def _init_mlp(gen: torch.Generator, cfg: ArchConfig, dt: torch.dtype,
 
 def _mlp(p: Dict[str, torch.Tensor], x: torch.Tensor,
          cfg: ArchConfig) -> torch.Tensor:
-    h = torch.einsum("bsd,df->bsf", x, p["w1"])
+    h = einsum("bsd,df->bsf", x, p["w1"])
     if cfg.activation in ("swiglu", "geglu"):
         gate = activation_fn(cfg.activation)
-        h = gate(h) * torch.einsum("bsd,df->bsf", x, p["w3"])
+        h = gate(h) * einsum("bsd,df->bsf", x, p["w3"])
     else:
         h = activation_fn(cfg.activation)(h)
-    return torch.einsum("bsf,fd->bsd", h, p["w2"])
+    return einsum("bsf,fd->bsd", h, p["w2"])
+
+
+def _ffn(p: Dict[str, Any], x: torch.Tensor, cfg: ArchConfig,
+         num_groups: Optional[int] = None
+         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """A block's feed-forward half: (y, moe aux loss or None)."""
+    if "moe" in p:
+        return moe_block(p["moe"], x, cfg, num_groups=num_groups)
+    return _mlp(p["mlp"], x, cfg), None
 
 
 def _init_dense_block(gen: torch.Generator, cfg: ArchConfig,
-                      dt: torch.dtype, device: torch.device
-                      ) -> Dict[str, Any]:
-    return {"attn_norm": torch.zeros((cfg.d_model,), dtype=dt, device=device),
-            "attn": init_attention(gen, cfg, dt, device),
-            "mlp_norm": torch.zeros((cfg.d_model,), dtype=dt, device=device),
-            "mlp": _init_mlp(gen, cfg, dt, device)}
+                      dt: torch.dtype, device: torch.device,
+                      cross: bool = False) -> Dict[str, Any]:
+    d = cfg.d_model
+    p = {"attn_norm": torch.zeros((d,), dtype=dt, device=device),
+         "attn": init_attention(gen, cfg, dt, device),
+         "mlp_norm": torch.zeros((d,), dtype=dt, device=device)}
+    if cfg.family == "moe":
+        p["moe"] = init_moe(gen, cfg, dt, device)
+    else:
+        p["mlp"] = _init_mlp(gen, cfg, dt, device)
+    if cross:
+        p["cross_norm"] = torch.zeros((d,), dtype=dt, device=device)
+        p["cross"] = init_attention(gen, cfg, dt, device)
+    return p
 
 
 def _stack_init(n: int, make: Callable[[], Dict[str, Any]]) -> Dict[str, Any]:
@@ -120,7 +146,7 @@ def init_params(cfg: ArchConfig, gen: Optional[torch.Generator] = None, *,
     """Seeded random parameters on ``device``, made layer by layer.
 
     ``gen`` defaults to a generator on ``device`` seeded with 0."""
-    _require_ported(cfg)
+    _check_family(cfg)
     dev = resolve_device(device)
     if gen is None:
         gen = torch.Generator(device=dev)
@@ -141,6 +167,14 @@ def init_params(cfg: ArchConfig, gen: Optional[torch.Generator] = None, *,
         if cfg.family == "hybrid":
             _shared_groups(cfg)               # raises on a bad period
             params["shared"] = _init_dense_block(gen, cfg, dt, dev)
+    elif cfg.family == "encdec":
+        params["enc_layers"] = _stack_init(
+            cfg.num_encoder_layers,
+            lambda: _init_dense_block(gen, cfg, dt, dev))
+        params["enc_norm"] = torch.zeros((d,), dtype=dt, device=dev)
+        params["layers"] = _stack_init(
+            cfg.num_layers,
+            lambda: _init_dense_block(gen, cfg, dt, dev, cross=True))
     else:
         params["layers"] = _stack_init(
             cfg.num_layers, lambda: _init_dense_block(gen, cfg, dt, dev))
@@ -183,10 +217,12 @@ def layer_windows(cfg: ArchConfig) -> List[int]:
 
 
 def backbone(params: Dict[str, Any], cfg: ArchConfig, x: torch.Tensor,
-             positions: torch.Tensor, *, use_kernel: bool = False
+             positions: torch.Tensor, *, use_kernel: bool = False,
+             enc_out: Optional[torch.Tensor] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Run the layers.  Returns (hidden, aux_loss)."""
-    _require_ported(cfg)
+    """Run the layers.  Returns (hidden, aux_loss): the moe aux loss summed
+    over layers, 0 for the other families.  encdec needs ``enc_out``."""
+    _check_family(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = x
     if cfg.family in ("ssm", "hybrid"):
@@ -195,29 +231,61 @@ def backbone(params: Dict[str, Any], cfg: ArchConfig, x: torch.Tensor,
             h = h + mamba2_forward(p["mamba"], rms_norm(h, p["norm"]), cfg,
                                    use_kernel=use_kernel)
             if _shared_after(cfg, i) >= 0:
-                h = _dense_block(params["shared"], h, cfg, positions, 0,
-                                 use_kernel)
+                h, _ = _block(params["shared"], h, cfg, positions, 0,
+                              use_kernel)
         return h, aux
+    if cfg.family == "encdec" and enc_out is None:
+        raise ValueError("the encdec backbone needs the encoder output")
     for i, window in enumerate(layer_windows(cfg)):
-        h = _dense_block(_layer(params["layers"], i), h, cfg, positions,
-                         window, use_kernel)
+        h, aux_l = _block(_layer(params["layers"], i), h, cfg, positions,
+                          window, use_kernel,
+                          use_rope=cfg.family != "encdec", enc_out=enc_out)
+        if aux_l is not None:
+            aux = aux + aux_l
     return h, aux
 
 
-def _dense_block(p: Dict[str, Any], h: torch.Tensor, cfg: ArchConfig,
-                 positions: torch.Tensor, window: int,
-                 use_kernel: bool) -> torch.Tensor:
-    """One attention + MLP block over the full sequence (a dense layer, or
-    the hybrid's shared block with full causal attention)."""
+def _block(p: Dict[str, Any], h: torch.Tensor, cfg: ArchConfig,
+           positions: torch.Tensor, window: int, use_kernel: bool, *,
+           causal: bool = True, use_rope: bool = True,
+           enc_out: Optional[torch.Tensor] = None
+           ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One block over the full sequence (a decoder layer, the hybrid's
+    shared block, a whisper encoder layer): self-attention, cross-attention
+    to ``enc_out`` when given, then the MLP or the experts.  Returns
+    (h, moe aux loss or None)."""
     h = h + attention(p["attn"], rms_norm(h, p["attn_norm"]), cfg,
-                      positions=positions, window=window,
-                      use_kernel=use_kernel)
-    return h + _mlp(p["mlp"], rms_norm(h, p["mlp_norm"]), cfg)
+                      positions=positions, window=window, causal=causal,
+                      use_rope=use_rope, use_kernel=use_kernel)
+    if enc_out is not None:
+        h = h + attention(p["cross"], rms_norm(h, p["cross_norm"]), cfg,
+                          positions=positions, kv_src=enc_out)
+    m, aux = _ffn(p, rms_norm(h, p["mlp_norm"]), cfg)
+    return h + m, aux
+
+
+def encode(params: Dict[str, Any], cfg: ArchConfig, frames: torch.Tensor, *,
+           use_kernel: bool = False) -> torch.Tensor:
+    """Whisper encoder over stub frame embeddings (B, enc_len, d): sinusoidal
+    positions, non-causal self-attention without rope, the final
+    ``enc_norm``.  The output keeps the frames' dtype when it is the wider
+    one, as JAX promotes (f32 frames through bf16 weights stay f32)."""
+    B, T, d = frames.shape
+    h = frames + _sinusoid(T, d, frames.device).to(frames.dtype)
+    positions = torch.arange(T, device=frames.device).expand(B, T)
+    for i in range(cfg.num_encoder_layers):
+        h, _ = _block(_layer(params["enc_layers"], i), h, cfg, positions, 0,
+                      use_kernel, causal=False, use_rope=False)
+    return rms_norm(h, params["enc_norm"])
 
 
 def embed_tokens(params: Dict[str, Any], cfg: ArchConfig,
                  tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens.long()]
+    x = params["embed"][tokens.long()]
+    if cfg.family == "encdec":
+        x = x + _sinusoid(tokens.shape[-1], cfg.d_model,
+                          x.device).to(x.dtype)
+    return x
 
 
 def logits_fn(params: Dict[str, Any], cfg: ArchConfig,
@@ -225,19 +293,24 @@ def logits_fn(params: Dict[str, Any], cfg: ArchConfig,
     """Final norm, then the (tied or separate) head; f32 logits, soft-capped."""
     h = rms_norm(h, params["final_norm"])
     head = (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
-    logits = torch.einsum("bsd,dv->bsv", h, head)
+    logits = einsum("bsd,dv->bsv", h, head)
     return softcap(logits.float(), cfg.final_softcap)
 
 
 def forward_train(params: Dict[str, Any], cfg: ArchConfig,
                   batch: Dict[str, torch.Tensor], *, use_kernel: bool = False
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Mean token loss of one batch (the forward half of a train step)."""
+    """Mean token loss of one batch (the forward half of a train step) plus
+    0.01 x the moe aux loss; encdec reads ``batch["frames"]``."""
     tokens, labels = batch["tokens"], batch["labels"]
     x = embed_tokens(params, cfg, tokens)
     positions = torch.arange(tokens.shape[1],
                              device=tokens.device).expand(tokens.shape)
-    h, aux = backbone(params, cfg, x, positions, use_kernel=use_kernel)
+    enc_out = None
+    if cfg.family == "encdec":
+        enc_out = encode(params, cfg, batch["frames"], use_kernel=use_kernel)
+    h, aux = backbone(params, cfg, x, positions, use_kernel=use_kernel,
+                      enc_out=enc_out)
     loss = cross_entropy(logits_fn(params, cfg, h), labels, cfg.vocab_size)
     return loss + 0.01 * aux, {"loss": loss, "aux_loss": aux}
 
@@ -250,9 +323,11 @@ def forward_train(params: Dict[str, Any], cfg: ArchConfig,
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int, *,
                device: Any = "cuda") -> Dict[str, Any]:
     """Zeroed caches, stacked on axis 0: ``kv`` (one per attention layer,
-    or per call of the hybrid's shared block) at ``max_seq``, and ``ssm``
-    (conv window and state, one per Mamba2 layer)."""
-    _require_ported(cfg)
+    or per call of the hybrid's shared block) at ``max_seq``, ``ssm``
+    (conv window and state, one per Mamba2 layer), and for encdec
+    ``cross_k``/``cross_v`` (L, B, max(max_seq // encoder_ratio, 1), nkv,
+    hd) for the encoder K/V."""
+    _check_family(cfg)
     dev = resolve_device(device)
     dt = cfg.torch_dtype
 
@@ -266,16 +341,33 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, *,
     if cfg.family != "ssm":
         n = _shared_groups(cfg) if cfg.family == "hybrid" else cfg.num_layers
         cache["kv"] = stack(init_kv_cache(cfg, batch, max_seq, dt, dev), n)
+    if cfg.family == "encdec":
+        enc_len = max(max_seq // cfg.encoder_ratio, 1)
+        shape = (cfg.num_layers, batch, enc_len, cfg.num_kv_heads,
+                 cfg.resolved_head_dim)
+        cache["cross_k"] = torch.zeros(shape, dtype=dt, device=dev)
+        cache["cross_v"] = torch.zeros(shape, dtype=dt, device=dev)
     return cache
 
 
 def _decode_block(p: Dict[str, Any], h: torch.Tensor, kv: Dict[str, Any],
-                  pos: int, cfg: ArchConfig, window: int) -> torch.Tensor:
-    """One attention + MLP block for one token against its KV cache."""
+                  pos: int, cfg: ArchConfig, window: int,
+                  cross: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                  ) -> torch.Tensor:
+    """One block for one token against its KV cache: attention (no rope
+    for encdec), cross-attention against ``cross`` = the cached encoder
+    (K, V) for encdec, then the MLP or (moe, one dispatch group) the
+    experts."""
     a, _ = decode_attention(p["attn"], rms_norm(h, p["attn_norm"]), kv, pos,
-                            cfg, window=window)
+                            cfg, window=window,
+                            use_rope=cfg.family != "encdec")
     h = h + a
-    return h + _mlp(p["mlp"], rms_norm(h, p["mlp_norm"]), cfg)
+    if cross is not None:
+        h = h + decode_cross_attention(p["cross"],
+                                       rms_norm(h, p["cross_norm"]),
+                                       cross[0], cross[1], cfg)
+    m, _ = _ffn(p, rms_norm(h, p["mlp_norm"]), cfg, num_groups=1)
+    return h + m
 
 
 def decode_step(params: Dict[str, Any], cfg: ArchConfig,
@@ -286,13 +378,22 @@ def decode_step(params: Dict[str, Any], cfg: ArchConfig,
     The cache is updated in place and returned.  The SSM state is kept in
     f32 from the first step on, as in the reference (see
     ``ssm.mamba2_decode_step``): a cache whose state is still in the model's
-    dtype gets a new f32 state tensor."""
-    _require_ported(cfg)
-    h = embed_tokens(params, cfg, tokens)
+    dtype gets a new f32 state tensor.  encdec adds the sinusoid row
+    ``pos`` of the cache's length (as the reference slices it)."""
+    _check_family(cfg)
+    if cfg.family == "encdec":
+        h = params["embed"][tokens.long()] + _sinusoid(
+            cache["kv"]["k"].shape[2], cfg.d_model,
+            tokens.device)[pos].to(params["embed"].dtype)
+    else:
+        h = embed_tokens(params, cfg, tokens)
     if cfg.family not in ("ssm", "hybrid"):
         for i, window in enumerate(layer_windows(cfg)):
+            cross = ((cache["cross_k"][i], cache["cross_v"][i])
+                     if cfg.family == "encdec" else None)
             h = _decode_block(_layer(params["layers"], i), h,
-                              _layer(cache["kv"], i), pos, cfg, window)
+                              _layer(cache["kv"], i), pos, cfg, window,
+                              cross)
         return logits_fn(params, cfg, h), cache
     ssm = cache["ssm"]
     states = ssm["state"]
@@ -323,40 +424,66 @@ def prefill(params: Dict[str, Any], cfg: ArchConfig,
 
     The cache is allocated at ``max_seq`` (default: the prompt length)
     and filled in place, so decode continues in it without the copy the
-    JAX serve makes when it pads the cache out."""
+    JAX serve makes when it pads the cache out.  encdec runs the encoder
+    over ``batch["frames"]`` first; its K/V fill the first rows of the
+    cross cache, whose rows past them stay zero."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = embed_tokens(params, cfg, tokens)
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     cache = init_cache(cfg, B, max_seq or S, device=tokens.device)
-    prime = _prime_ssm if cfg.family in ("ssm", "hybrid") else _prime_kv
-    h = prime(params, cfg, x, positions, cache, use_kernel)
+    if cfg.family in ("ssm", "hybrid"):
+        h = _prime_ssm(params, cfg, x, positions, cache, use_kernel)
+    else:
+        enc_out = None
+        if cfg.family == "encdec":
+            enc_out = encode(params, cfg, batch["frames"],
+                             use_kernel=use_kernel)
+            if enc_out.shape[1] > cache["cross_k"].shape[2]:
+                raise ValueError(
+                    f"{enc_out.shape[1]} encoder frames do not fit the "
+                    f"cross cache's {cache['cross_k'].shape[2]} rows")
+        h = _prime_kv(params, cfg, x, positions, cache, enc_out, use_kernel)
     return logits_fn(params, cfg, h[:, -1:, :]), cache
 
 
 def _prime_block(p: Dict[str, Any], h: torch.Tensor, cfg: ArchConfig,
-                 positions: torch.Tensor, kv: Dict[str, Any], j: int,
-                 window: int, use_kernel: bool) -> torch.Tensor:
-    """One attention + MLP block over the prompt, writing its K/V into
-    slot ``j`` of the stacked cache ``kv``.  K/V are projected once and
-    feed both the cache and the attention (JAX projects them twice)."""
+                 positions: torch.Tensor, cache: Dict[str, Any], j: int,
+                 window: int, use_kernel: bool,
+                 enc_out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One block over the prompt, writing its K/V into slot ``j`` of the
+    stacked ``cache["kv"]`` (and, with ``enc_out``, the encoder K/V into
+    slot ``j`` of the cross cache).  K/V are projected once and feed both
+    the cache and the attention (JAX projects them twice)."""
     S = h.shape[1]
     xin = rms_norm(h, p["attn_norm"])
-    q, k, v = _project_qkv(p["attn"], xin, cfg, positions)
-    kv["k"][j, :, :S] = k
-    kv["v"][j, :, :S] = v
+    q, k, v = _project_qkv(p["attn"], xin, cfg, positions,
+                           use_rope=cfg.family != "encdec")
+    cache["kv"]["k"][j, :, :S] = k
+    cache["kv"]["v"][j, :, :S] = v
     out = _attend(q, k, v, cfg, positions, window, use_kernel)
     h = h + _out_proj(p["attn"], out.to(h.dtype), cfg)
-    return h + _mlp(p["mlp"], rms_norm(h, p["mlp_norm"]), cfg)
+    if enc_out is not None:
+        T = enc_out.shape[1]
+        q, k, v = _project_qkv(p["cross"], rms_norm(h, p["cross_norm"]),
+                               cfg, None, kv_src=enc_out, use_rope=False)
+        # the cache holds the model's dtype; the prefill attends over the
+        # unrounded K/V, as the reference does
+        cache["cross_k"][j, :, :T] = k
+        cache["cross_v"][j, :, :T] = v
+        out = _attend(q, k, v, cfg, None, 0, False, causal=False)
+        h = h + _out_proj(p["cross"], out.to(h.dtype), cfg)
+    m, _ = _ffn(p, rms_norm(h, p["mlp_norm"]), cfg)
+    return h + m
 
 
-def _prime_kv(params, cfg, x, positions, cache, use_kernel):
+def _prime_kv(params, cfg, x, positions, cache, enc_out, use_kernel):
     """Run the layers once, writing each layer's K/V into the cache: the
     priming pass is the forward pass."""
     h = x
     for i, window in enumerate(layer_windows(cfg)):
         h = _prime_block(_layer(params["layers"], i), h, cfg, positions,
-                         cache["kv"], i, window, use_kernel)
+                         cache, i, window, use_kernel, enc_out)
     return h
 
 
@@ -382,6 +509,6 @@ def _prime_ssm(params, cfg, x, positions, cache, use_kernel):
         ssm["state"][i] = state
         g = _shared_after(cfg, i)
         if g >= 0:
-            h = _prime_block(params["shared"], h, cfg, positions, cache["kv"],
-                             g, 0, use_kernel)
+            h = _prime_block(params["shared"], h, cfg, positions, cache, g,
+                             0, use_kernel)
     return h

@@ -20,7 +20,8 @@ def make_prefill_step(cfg: ArchConfig, *, use_kernel: Optional[bool] = None
                       ) -> Callable:
     """``prefill_step(params, batch, max_seq=None) -> (next_tok, cache)``.
 
-    ``use_kernel=None`` sends prefill attention and the SSD scan to the
+    ``batch`` holds ``tokens`` and, for encdec, ``frames``; it reaches
+    ``prefill`` unchanged.  ``use_kernel=None`` sends prefill attention and the SSD scan to the
     hand-written kernels when the tokens are on CUDA and to the plain
     torch ops otherwise."""
     def prefill_step(params, batch: Dict[str, torch.Tensor],

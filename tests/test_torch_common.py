@@ -48,6 +48,25 @@ def test_rms_norm_keeps_bf16():
     assert out.dtype == torch.bfloat16
 
 
+@pytest.mark.parametrize("xdt,wdt", [("float32", "bfloat16"),
+                                     ("bfloat16", "float32"),
+                                     ("bfloat16", "bfloat16"),
+                                     ("float32", "float32")])
+def test_einsum_promotes_as_jax(xdt, wdt):
+    """Mixed bf16/f32 operands promote to f32 as in jnp.einsum (the whisper
+    encoder's f32 frames through bf16 weights); one dtype stays as is."""
+    x = _rng(3).standard_normal((2, 5, 16)).astype(np.float32)
+    w = _rng(4).standard_normal((16, 4, 8)).astype(np.float32)
+    jx, jw = jnp.asarray(x).astype(xdt), jnp.asarray(w).astype(wdt)
+    tx = torch.from_numpy(x).to(getattr(torch, xdt))
+    tw = torch.from_numpy(w).to(getattr(torch, wdt))
+    want = jnp.einsum("bsd,dhk->bshk", jx, jw)
+    got = TC.einsum("bsd,dhk->bshk", tx, tw)
+    assert str(got.dtype).split(".")[-1] == want.dtype.name
+    tol = 1e-5 if want.dtype == jnp.float32 else 2e-2
+    _close(got.float(), want.astype(jnp.float32), atol=tol, rtol=tol)
+
+
 @pytest.mark.parametrize("name", ["swiglu", "geglu", "gelu", "relu2"])
 def test_activation_fn(name):
     x = 3.0 * _rng(3).standard_normal((8, 33)).astype(np.float32)

@@ -58,6 +58,24 @@ def test_shapes_vs_jax_kernel(b, hq, hkv, sq, sk, d):
           jref.mha_reference(jq, jk, jv, causal=False), 2e-5)
 
 
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,causal", [
+    (2, 4, 4, 6, 6, 16, False),      # whisper encoder: non-causal MHA,
+                                     # Sk=6 not a multiple of block_k
+    (2, 6, 2, 40, 40, 16, True),     # granite prefill: GQA 3:1, causal
+    (1, 6, 2, 20, 36, 8, False),     # GQA 3:1, non-causal, ragged
+])
+def test_new_path_shapes_vs_jax_kernel(b, hq, hkv, sq, sk, d, causal):
+    """The moe and encdec paths' attention: non-causal MHA in f32 (the
+    whisper encoder) and a 3:1 GQA group (granite-moe)."""
+    (jq, q), (jk, k), (jv, v) = (both(rnd(16, (b, hq, sq, d))),
+                                 both(rnd(17, (b, hkv, sk, d))),
+                                 both(rnd(18, (b, hkv, sk, d))))
+    got = fa.flash_attention_bhsd(q, k, v, causal=causal)
+    close(got, jax_flash(jq, jk, jv, causal=causal, block_q=32, block_k=32,
+                         interpret=True), 2e-5)
+    close(got, jref.mha_reference(jq, jk, jv, causal=causal), 2e-5)
+
+
 @pytest.mark.parametrize("causal,window,cap", [
     (True, 0, 0.0), (True, 16, 0.0), (False, 0, 0.0),
     (True, 0, 30.0), (True, 8, 50.0), (False, 0, 20.0),

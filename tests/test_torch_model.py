@@ -1,5 +1,5 @@
-"""Port parity: the dense, vlm, ssm and hybrid model families against the
-JAX model.
+"""Port parity: every model family (dense, vlm, moe, ssm, hybrid, encdec)
+against the JAX model.
 
 Weights come from the JAX init, bridged as numpy.  The JAX init sets every
 norm scale and bias (and Mamba2's ``A_log``, ``D``, ``dt_bias``, ``conv_b``)
@@ -7,7 +7,9 @@ to constants, so the shared numpy tree first gets seeded values there;
 otherwise those terms would go untested.  f32 smoke configs, atol/rtol
 1e-4: both sides run the same f32 math, in another summation order (XLA vs
 ATen) over 2-4 layers.  The ssm and hybrid cases run with ``ssm_chunk=8``
-on both sides and 16-token prompts, so the SSD scan crosses chunks.
+on both sides and 16-token prompts, so the SSD scan crosses chunks.  The
+encdec case (whisper) feeds seeded f32 frames of ``S // encoder_ratio``
+rows to the encoder.
 """
 import dataclasses
 
@@ -27,11 +29,13 @@ from repro_torch.models import model as TM  # noqa: E402
 ARCHS = ["codeqwen15_7b", "nemotron_4_15b", "command_r_plus_104b",
          "gemma2_27b", "chameleon_34b"]
 SSM_ARCHS = ["mamba2_1_3b", "zamba2_2_7b"]
+MOE_ENCDEC_ARCHS = ["granite_moe_3b_a800m", "grok_1_314b", "whisper_large_v3"]
 TOL = dict(atol=1e-4, rtol=1e-4)
 B, S, STEPS = 2, 12, 3
 S_SSM = 16                       # two chunks of 8
 _FILLED = ("attn_norm", "mlp_norm", "final_norm", "q_norm", "k_norm",
-           "bq", "bk", "bv", "bo", "norm", "conv_b", "A_log", "D", "dt_bias")
+           "bq", "bk", "bv", "bo", "norm", "conv_b", "A_log", "D", "dt_bias",
+           "cross_norm", "enc_norm")
 
 
 def ssm_cfgs(arch, **kw):
@@ -65,12 +69,35 @@ def tokens(cfg, seed=1):
         0, cfg.vocab_size, size=(B, S + STEPS)).astype(np.int32)
 
 
+def batch_of(cfg, toks, seed=7):
+    """Numpy batch of ``toks``, plus seeded f32 frames for encdec."""
+    batch = {"tokens": toks}
+    if cfg.family == "encdec":
+        batch["frames"] = np.random.default_rng(seed).standard_normal(
+            (toks.shape[0], max(toks.shape[1] // cfg.encoder_ratio, 1),
+             cfg.d_model)).astype(np.float32)
+    return batch
+
+
+def torch_batch(batch):
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
+def grow(jcache, jcfg, max_seq):
+    """JAX's serve grows a prefill cache to ``max_seq`` by zero padding."""
+    return jax.tree.map(
+        lambda dst, src: jnp.pad(
+            src, [(0, d - s) for d, s in zip(dst.shape, src.shape)]
+        ).astype(dst.dtype),
+        JM.init_cache(jcfg, B, max_seq), jcache)
+
+
 def close(got, want):
     np.testing.assert_allclose(got.float().numpy(), np.asarray(want),
                                **TOL)
 
 
-@pytest.mark.parametrize("arch", ARCHS + SSM_ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + SSM_ARCHS + MOE_ENCDEC_ARCHS)
 def test_param_tree_matches_jax(arch):
     cfg = get_smoke_config(arch)
     jt = jax.tree.map(np.asarray, JM.init_params(jax_smoke(arch),
@@ -87,30 +114,33 @@ def test_param_tree_matches_jax(arch):
     assert shapes(bridged, lambda t: tuple(t.shape)) == shapes(jt, np.shape)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + MOE_ENCDEC_ARCHS)
 def test_prefill_and_decode_match_jax(arch):
-    cfg = get_smoke_config(arch)
+    cfg, jcfg = get_smoke_config(arch), jax_smoke(arch)
     tree = shared_params(arch)
     jp, tp = to_jax(tree), params_from_numpy(tree, "cpu")
     toks = tokens(cfg)
-    prompt = toks[:, :S]
+    batch = batch_of(cfg, toks[:, :S])
 
-    jl, jcache = jax.jit(lambda p, t: JM.prefill(p, jax_smoke(arch),
-                                                 {"tokens": t}))(jp, prompt)
+    jl, jcache = jax.jit(lambda p, b: JM.prefill(p, jcfg, b))(jp, batch)
     with torch.inference_mode():
-        tl, tcache = TM.prefill(tp, cfg, {"tokens": torch.from_numpy(prompt)},
+        tl, tcache = TM.prefill(tp, cfg, torch_batch(batch),
                                 max_seq=S + STEPS)
     close(tl, jl)
     for name in ("k", "v"):
         close(tcache["kv"][name][:, :, :S], jcache["kv"][name])
         assert not tcache["kv"][name][:, :, S:].any()
+    for name in ("cross_k", "cross_v"):
+        if name in jcache:
+            t = jcache[name].shape[2]
+            close(tcache[name][:, :, :t], jcache[name])
+            assert not tcache[name][:, :, t:].any()
 
     # JAX grows its cache by padding; the port preallocated max_seq
-    grown = jax.tree.map(
-        lambda a: jnp.pad(a, [(0, 0), (0, 0), (0, STEPS), (0, 0), (0, 0)]),
-        jcache)
-    jstep = jax.jit(lambda p, c, t, pos: JM.decode_step(p, jax_smoke(arch),
-                                                        c, t, pos))
+    grown = grow(jcache, jcfg, S + STEPS)
+    assert {k: tuple(v.shape) for k, v in tcache.items() if k != "kv"} == \
+        {k: v.shape for k, v in grown.items() if k != "kv"}
+    jstep = jax.jit(lambda p, c, t, pos: JM.decode_step(p, jcfg, c, t, pos))
     for i in range(STEPS):
         tok = toks[:, S + i:S + i + 1]
         jl, grown = jstep(jp, grown, tok, jnp.int32(S + i))
@@ -122,36 +152,41 @@ def test_prefill_and_decode_match_jax(arch):
         close(tcache["kv"][name], grown["kv"][name])
 
 
-@pytest.mark.parametrize("arch", ["codeqwen15_7b", "gemma2_27b"])
+@pytest.mark.parametrize("arch", ["codeqwen15_7b", "gemma2_27b"]
+                         + MOE_ENCDEC_ARCHS)
 def test_forward_train_matches_jax(arch):
+    """Total loss, token loss and the moe aux loss (0 for the others)."""
     cfg = get_smoke_config(arch)
     tree = shared_params(arch, seed=2)
     toks = tokens(cfg, seed=3)
     labels = np.roll(toks, -1, axis=1)
     labels[:, -1] = -1
-    jloss, jparts = JM.forward_train(
-        to_jax(tree), jax_smoke(arch),
-        {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels)})
+    batch = {**batch_of(cfg, toks), "labels": labels}
+    jloss, jparts = JM.forward_train(to_jax(tree), jax_smoke(arch),
+                                     jax.tree.map(jnp.asarray, batch))
     with torch.inference_mode():
-        tloss, tparts = TM.forward_train(
-            params_from_numpy(tree, "cpu"), cfg,
-            {"tokens": torch.from_numpy(toks),
-             "labels": torch.from_numpy(labels)})
+        tloss, tparts = TM.forward_train(params_from_numpy(tree, "cpu"), cfg,
+                                         torch_batch(batch))
     close(tloss, jloss)
     close(tparts["loss"], jparts["loss"])
+    close(tparts["aux_loss"], jparts["aux_loss"])
+    assert (float(tparts["aux_loss"]) > 0) == (cfg.family == "moe")
 
 
-@pytest.mark.parametrize("arch", ["codeqwen15_7b", "gemma2_27b"])
+@pytest.mark.parametrize("arch", ["codeqwen15_7b", "gemma2_27b"]
+                         + MOE_ENCDEC_ARCHS)
 def test_kernel_route_on_cpu_matches_plain(arch):
     """use_kernel=True on CPU tensors takes the kernel's plain version."""
     cfg = get_smoke_config(arch)
     tp = params_from_numpy(shared_params(arch), "cpu")
-    prompt = torch.from_numpy(tokens(cfg)[:, :S])
+    batch = torch_batch(batch_of(cfg, tokens(cfg)[:, :S]))
     with torch.inference_mode():
-        lk, ck = TM.prefill(tp, cfg, {"tokens": prompt}, use_kernel=True)
-        lp, cp = TM.prefill(tp, cfg, {"tokens": prompt}, use_kernel=False)
+        lk, ck = TM.prefill(tp, cfg, batch, use_kernel=True)
+        lp, cp = TM.prefill(tp, cfg, batch, use_kernel=False)
     torch.testing.assert_close(lk, lp, **TOL)
     torch.testing.assert_close(ck["kv"]["k"], cp["kv"]["k"])
+    if cfg.family == "encdec":
+        torch.testing.assert_close(ck["cross_k"], cp["cross_k"], **TOL)
 
 
 def test_decode_continues_prefill():
@@ -178,10 +213,13 @@ def test_bridge_keeps_bf16_bits():
         torch.float32
 
 
-@pytest.mark.parametrize("arch", ["granite_moe_3b_a800m", "whisper_large_v3"])
-def test_later_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TM.init_params(get_smoke_config(arch), device="cpu")
+def test_unknown_family_raises():
+    cfg = dataclasses.replace(get_smoke_config("codeqwen15_7b"),
+                              family="rnn")
+    for fn in (lambda: TM.init_params(cfg, device="cpu"),
+               lambda: TM.init_cache(cfg, B, S, device="cpu")):
+        with pytest.raises(ValueError, match="unknown family"):
+            fn()
 
 
 def test_layer_windows_match_jax():
@@ -358,3 +396,85 @@ def test_hybrid_cache_has_one_kv_per_shared_call():
     with pytest.raises(ValueError, match="shared_attn_period"):
         TM.init_params(dataclasses.replace(cfg, shared_attn_period=3),
                        device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# encdec (whisper): the encoder, mixed dtypes, the cross cache
+# ---------------------------------------------------------------------------
+
+
+def test_whisper_encode_kernel_route_matches_jax_kernel():
+    """encode(use_kernel=True): JAX runs its Pallas flash kernel in
+    interpret mode (the encoder passes no traced window, so it can); the
+    port's wrapper takes its plain version on CPU tensors."""
+    arch = "whisper_large_v3"
+    cfg = get_smoke_config(arch)
+    tree = shared_params(arch, seed=8)
+    frames = np.random.default_rng(9).standard_normal(
+        (B, 10, cfg.d_model)).astype(np.float32)
+    want = JM.encode(to_jax(tree), jax_smoke(arch), jnp.asarray(frames),
+                     use_kernel=True)
+    with torch.inference_mode():
+        got = TM.encode(params_from_numpy(tree, "cpu"), cfg,
+                        torch.from_numpy(frames), use_kernel=True)
+    close(got, want)
+
+
+def test_whisper_bf16_keeps_the_f32_frames_in_the_encoder():
+    """bf16 weights, f32 frames (as the serve makes them): JAX promotes, so
+    the encoder output is f32 on both sides, and the bf16 decoder's
+    logits (prefill and 3 decode steps) agree with JAX's within 2e-2 of
+    their range."""
+    arch = "whisper_large_v3"
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="bfloat16")
+    jcfg = dataclasses.replace(jax_smoke(arch), dtype="bfloat16")
+    tree = shared_params(arch, jcfg=jcfg)
+    jp, tp = to_jax(tree), params_from_numpy(tree, "cpu")
+    assert tp["embed"].dtype == torch.bfloat16
+    toks = tokens(cfg)
+    batch = batch_of(cfg, toks[:, :S])
+    jenc = JM.encode(jp, jcfg, jnp.asarray(batch["frames"]))
+    with torch.inference_mode():
+        tenc = TM.encode(tp, cfg, torch.from_numpy(batch["frames"]))
+    assert jenc.dtype == jnp.float32 and tenc.dtype == torch.float32
+
+    def within(got, want):
+        want = np.asarray(want, np.float32)
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
+                                   atol=2e-2 * np.abs(want).max())
+    within(tenc, jenc)
+    jl, jcache = JM.prefill(jp, jcfg, jax.tree.map(jnp.asarray, batch))
+    with torch.inference_mode():
+        tl, tcache = TM.prefill(tp, cfg, torch_batch(batch),
+                                max_seq=S + STEPS)
+    within(tl, jl)
+    assert tcache["cross_k"].dtype == torch.bfloat16
+    grown = grow(jcache, jcfg, S + STEPS)
+    for i in range(STEPS):
+        tok = toks[:, S + i:S + i + 1]
+        jl, grown = JM.decode_step(jp, jcfg, grown, tok, jnp.int32(S + i))
+        with torch.inference_mode():
+            tl, tcache = TM.decode_step(tp, cfg, tcache,
+                                        torch.from_numpy(tok), S + i)
+        within(tl, jl)
+
+
+def test_whisper_cross_cache_rows_follow_max_seq():
+    """The cross cache has max(max_seq // encoder_ratio, 1) rows, as JAX's
+    init_cache; a prefill leaves the rows past the frames zero."""
+    cfg = get_smoke_config("whisper_large_v3")
+    for max_seq in (1, 3, 15, 22):
+        tc = TM.init_cache(cfg, B, max_seq, device="cpu")
+        jc = JM.init_cache(jax_smoke("whisper_large_v3"), B, max_seq)
+        for name in ("cross_k", "cross_v"):
+            assert tuple(tc[name].shape) == jc[name].shape
+    tp = params_from_numpy(shared_params("whisper_large_v3"), "cpu")
+    batch = torch_batch(batch_of(cfg, tokens(cfg)[:, :S]))
+    with torch.inference_mode():
+        _, cache = TM.prefill(tp, cfg, batch, max_seq=30)
+        assert cache["cross_k"].shape[2] == 7
+        assert cache["cross_k"][:, :, :3].abs().sum() > 0
+        assert not cache["cross_k"][:, :, 3:].any()
+        with pytest.raises(ValueError, match="cross cache"):
+            TM.prefill(tp, cfg, {**batch, "frames": torch.zeros(
+                B, 8, cfg.d_model)}, max_seq=S)

@@ -6,7 +6,10 @@ prefill/decode steps, run the way ``repro/launch/serve.py`` runs them
 (same ``default_rng(0)`` prompts, cache padded out for decode), on both
 execution substrates, streaming and through the session manager.  The
 mamba2 and zamba2 smoke configs (``ssm_chunk=8``, so 16-token prompts span
-two chunks) must do the same on both substrates.
+two chunks) must do the same on both substrates, and so must the
+granite-moe (moe) and whisper (encdec, f32 zero frames; the decode attends
+over the cross cache's zero rows past the frames, as the reference's
+padded cache makes it) smoke configs.
 """
 import dataclasses
 
@@ -27,6 +30,7 @@ from repro_torch.launch import serve as torch_serve  # noqa: E402
 
 ARCH = "codeqwen15_7b"
 SSM_ARCHS = ["mamba2_1_3b", "zamba2_2_7b"]
+MOE_ENCDEC_ARCHS = ["granite_moe_3b_a800m", "whisper_large_v3"]
 SHAPE = dict(num_requests=4, microbatch=2, prompt_len=16, decode_steps=6)
 _FILLED = ("bq", "bk", "bv", "bo", "conv_b", "A_log", "D", "dt_bias")
 
@@ -68,6 +72,16 @@ def ssm_shared(request):
                                   **SHAPE)
 
 
+@pytest.fixture(scope="module", params=MOE_ENCDEC_ARCHS)
+def moe_encdec_shared(request):
+    """(port config, numpy params, JAX greedy tokens) of the granite-moe or
+    whisper smoke config."""
+    jcfg = jax_smoke(request.param)
+    tree = _seeded_tree(jcfg, 9)
+    return (get_smoke_config(request.param), tree,
+            _jax_tokens(jcfg, jax.tree.map(jnp.asarray, tree), **SHAPE))
+
+
 def _jax_tokens(cfg, params, *, num_requests, microbatch, prompt_len,
                 decode_steps):
     """``repro/launch/serve.py``'s prefill and decode apps, inline."""
@@ -79,7 +93,12 @@ def _jax_tokens(cfg, params, *, num_requests, microbatch, prompt_len,
     rows = []
     for mb in range(num_requests // microbatch):
         chunk = jnp.asarray(prompts[mb * microbatch:(mb + 1) * microbatch])
-        next_tok, cache = prefill_step(params, {"tokens": chunk})
+        batch = {"tokens": chunk}
+        if cfg.family == "encdec":
+            batch["frames"] = jnp.zeros(
+                (microbatch, max(prompt_len // cfg.encoder_ratio, 1),
+                 cfg.d_model), jnp.float32)
+        next_tok, cache = prefill_step(params, batch)
         grown = JM.init_cache(cfg, microbatch, max_seq)
         cache = jax.tree.map(
             lambda dst, src: jnp.pad(
@@ -193,6 +212,31 @@ def test_ssm_serve_kernel_route_on_cpu_tokens_match(ssm_shared, monkeypatch):
     from repro_torch.launch import serve as mod
     from repro_torch.train import steps
     cfg, tree, want = ssm_shared
+    real = steps.make_prefill_step
+    monkeypatch.setattr(mod, "make_prefill_step",
+                        lambda c: real(c, use_kernel=True))
+    res = mod.run_serving(cfg, device="cpu",
+                          params=params_from_numpy(tree, "cpu"), **SHAPE)
+    np.testing.assert_array_equal(res["responses"], want)
+
+
+@pytest.mark.parametrize("execution", ["objects", "compiled"])
+def test_moe_encdec_serve_tokens_match_jax(moe_encdec_shared, execution):
+    cfg, tree, want = moe_encdec_shared
+    res = torch_serve.run_serving(cfg, device="cpu",
+                                  params=params_from_numpy(tree, "cpu"),
+                                  execution=execution, **SHAPE)
+    assert res["responses_shape"] == want.shape
+    np.testing.assert_array_equal(res["responses"], want)
+
+
+def test_moe_encdec_serve_kernel_route_on_cpu_tokens_match(
+        moe_encdec_shared, monkeypatch):
+    """The prefill step's kernel route (the flash wrapper's plain version
+    on the CPU, the whisper encoder's included) serves the same tokens."""
+    from repro_torch.launch import serve as mod
+    from repro_torch.train import steps
+    cfg, tree, want = moe_encdec_shared
     real = steps.make_prefill_step
     monkeypatch.setattr(mod, "make_prefill_step",
                         lambda c: real(c, use_kernel=True))
