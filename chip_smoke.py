@@ -5,7 +5,8 @@ Run from the repo root with no arguments:
 
     python3 chip_smoke.py
 
-(``--kernels-only`` stops after phase 3 and prints no result line.)
+(``--kernels-only`` stops after phase 3 and prints its kernels line but
+no result line.)
 
 Full profiler tables land in ``chiprun_out/chip_smoke/`` (gitignored).
 Phases, each printing one JSON line (any failure exits non-zero and prints
@@ -33,7 +34,21 @@ no result):
    bf16; whisper's encoder runs f32, from the serve's f32 frames); and
    full-width prefill logits through the kernels must be finite and near
    the plain route's.  Each model is freed before the next.
-5. the kernels line, the card line, then the result line.
+5. train, after the five serve paths, with every kernel count set to 0:
+   both kernel wrappers refuse CUDA inputs that require grad; (a) the
+   ``tiny`` preset's train step on the card equals the port on the CPU
+   over 4 steps (one and two microbatches, int8 compression); (b)
+   ``run_training(lm100m)`` through the engine (40 steps x 1024 tokens,
+   f32, checkpoints under ``chiprun_out/``) equals the same steps without
+   the engine, its last checkpoint restores bit for bit and a resumed run
+   starts from the saved step; (c) codeqwen1.5-7b at full width cut to 16
+   layers, one donated, rematerialised bf16 step on 8 x 512 tokens: time
+   against ``train_step_bound``, device busy and idle, peak memory, the
+   first loss equal to ``forward_train``'s, the loss falling on the
+   repeated batch, and at 2 layers remat on and off agreeing; (d) no
+   kernel launched in the whole phase (training runs torch ops, as the
+   reference trains with ``use_kernel=False``).
+6. the kernels line, the card line, then the result line.
 
 It imports nothing of JAX or of the JAX package.  Without CUDA it exits 2.
 """
@@ -42,6 +57,7 @@ from __future__ import annotations
 import ctypes
 import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -619,30 +635,348 @@ def phase_steps(torch, cfg, params):
         out[name + "_ms_all"] = [t * 1e3 for t in times]
     emit("steps", config=cfg.name, microbatch=mb, prompt_len=s,
          **step_bounds(cfg, params, mb, s, s + steps), **out)
+    for name, fn in (("prefill", prefill), ("decode_step", decode)):
+        emit("profile", config=cfg.name, step=name,
+             **profile_call(torch, fn, f"profile_{cfg.name}_{name}.txt"))
+
+
+def profile_call(torch, fn, table_name: str) -> dict:
+    """One call of ``fn`` under torch.profiler, ended by a device
+    synchronise: its wall ms, device busy ms and idle share, and the ten
+    device kernels with the most time (full table to ``table_name`` under
+    ``chiprun_out/chip_smoke/``)."""
     from torch.profiler import ProfilerActivity, profile
     PROFILE_DIR.mkdir(parents=True, exist_ok=True)
-    for name, fn in (("prefill", prefill), ("decode_step", decode)):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.monotonic()
-            fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.monotonic() - t0) * 1e3
-        events = prof.key_averages()
-        table = events.table(sort_by="self_cuda_time_total", row_limit=40)
-        (PROFILE_DIR / f"profile_{cfg.name}_{name}.txt").write_text(table)
-        # device kernels only: op-level rows repeat their kernels' time
-        cuda = torch.autograd.DeviceType.CUDA
-        dev = sorted(((_self_device_us(e) / 1e3, e.count, e.key)
-                      for e in events if e.device_type == cuda
-                      and not getattr(e, "is_user_annotation", False)),
-                     reverse=True)
-        busy_ms = sum(d for d, _, _ in dev)
-        emit("profile", config=cfg.name, step=name, wall_ms=wall_ms,
-             device_busy_ms=busy_ms,
-             device_idle_share=max(0.0, 1 - busy_ms / wall_ms),
-             top=[{"op": k[:100], "device_ms": d, "calls": c}
-                  for d, c, k in dev[:10]])
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3
+    events = prof.key_averages()
+    table = events.table(sort_by="self_cuda_time_total", row_limit=40)
+    (PROFILE_DIR / table_name).write_text(table)
+    # device kernels only: op-level rows repeat their kernels' time
+    cuda = torch.autograd.DeviceType.CUDA
+    dev = sorted(((_self_device_us(e) / 1e3, e.count, e.key)
+                  for e in events if e.device_type == cuda
+                  and not getattr(e, "is_user_annotation", False)),
+                 reverse=True)
+    busy_ms = sum(d for d, _, _ in dev)
+    return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
+                device_idle_share=max(0.0, 1 - busy_ms / wall_ms),
+                top=[{"op": k[:100], "device_ms": d, "calls": c}
+                     for d, c, k in dev[:10]])
+
+
+TRAIN_FULL = dict(layers=16, batch=8, seq=512, steps=4, peak_lr=3e-4)
+TRAIN_ENGINE = dict(steps=40, shards=2, batch_per_shard=4, seq=128,
+                    ckpt_every=20, resume_steps=4)
+
+
+def train_step_bound(cfg, params, batch: int, seq: int) -> dict:
+    """The least time of one dense train step on the card, from the work it
+    must do on ``batch`` sequences of ``seq`` tokens.
+
+    Operations: 6 x the parameters a token passes through (every layer
+    parameter and the head, not the embedding gather) x the tokens, plus
+    the causal attention pairs (QK^T and PV, forward and backward: 12 x
+    heads x head_dim per visible pair per layer), at the peak of the
+    params' dtype (989 TFLOP/s bf16).  Remat's recomputed forward is not
+    counted: the bound is the work the step needs.  Bytes: the optimizer
+    reads and writes every parameter once: the param read and written and
+    the grad read in the params' dtype, m and v read and written in f32
+    (22 B a param in bf16), at 3.35 TB/s.  The two times are added: the
+    update waits for the last grad."""
+    def numel(tree):
+        return sum(t.numel() for t in _leaves(tree))
+    if cfg.family != "dense":
+        raise ValueError("train_step_bound counts the dense family only")
+    es = params["embed"].element_size()
+    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    through = numel(params["layers"]) + head.numel()
+    pairs = visible_pairs(seq, seq, True, 0)
+    flops = (6 * through * batch * seq
+             + cfg.num_layers * 12 * batch * cfg.num_heads
+             * cfg.resolved_head_dim * pairs)
+    opt_bytes = numel(params) * (3 * es + 16)
+    flops_ms = flops / H100_PEAK_FLOPS[str(cfg.torch_dtype)] * 1e3
+    bytes_ms = opt_bytes / H100_BYTES_PER_S * 1e3
+    return {"bound_ms": flops_ms + bytes_ms, "bound_flops_ms": flops_ms,
+            "bound_optimizer_ms": bytes_ms, "flops": flops,
+            "optimizer_bytes": opt_bytes, "params": numel(params),
+            "params_through": through}
+
+
+def _batch_to(torch, batch, device):
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def train_parity(torch):
+    """(a) The ``tiny`` preset's train step on the card against the port on
+    the CPU, from one seeded state, 4 steps each with one and with two
+    microbatches and with int8 compression: losses and grad norms within
+    1e-4 relative (f32, TF32 off; the two devices sum in other orders)."""
+    from repro_torch.data import synthetic_batch
+    from repro_torch.launch.train import PRESETS
+    from repro_torch.train import make_train_step, train_state_init
+    from repro_torch.tree import tree_map
+    cfg = PRESETS["tiny"]
+    worst = 0.0
+    for kw in (dict(), dict(num_microbatches=2), dict(compress=True)):
+        cpu = train_state_init(cfg, torch.Generator().manual_seed(0),
+                               compress=kw.get("compress", False),
+                               device="cpu")
+        gpu = tree_map(lambda t: t.to("cuda"), cpu)
+        step = make_train_step(cfg, peak_lr=1e-2, warmup_steps=1,
+                               total_steps=8, **kw)
+        rows = []
+        for i in range(4):
+            b = synthetic_batch(5, 0, i, 4, 32, cfg.vocab_size)
+            cpu, mc = step(cpu, _batch_to(torch, b, "cpu"))
+            gpu, mg = step(gpu, _batch_to(torch, b, "cuda"))
+            for k in ("loss", "grad_norm"):
+                want, got = float(mc[k]), float(mg[k])
+                rel = abs(got - want) / abs(want)
+                worst = max(worst, rel)
+                rows.append({"step": i, "metric": k, "cpu": want,
+                             "cuda": got, "rel_err": rel})
+                if not (rel <= 1e-4):
+                    fail(f"tiny {kw}: step {i} {k} {got} on the card, "
+                         f"{want} on the CPU")
+        emit("train_parity", config=cfg.name, options=kw, steps=4,
+             rows=rows)
+    return worst
+
+
+def train_engine(torch):
+    """(b) ``run_training(lm100m)`` through the engine on the card, at the
+    driver's defaults, with checkpoints under ``chiprun_out/``: its losses
+    equal the same 40 steps run in a plain loop on the card (the same
+    init, batches and step, without the engine) within 1e-4 relative;
+    the last checkpoint restores bit for bit; a resumed run starts from
+    the saved step.  The plain loop's wall (the same host reads of the
+    loss each step) says what the engine adds.  Whether the loss falls is
+    reported, not required: at these defaults the reference's own run
+    does not lower it in 40 steps (``PERF.md``)."""
+    import shutil
+
+    import numpy as np
+    from repro_torch.checkpointing import latest_step, load_checkpoint
+    from repro_torch.data import synthetic_batch
+    from repro_torch.launch.train import PRESETS, run_training
+    from repro_torch.train import make_train_step, train_state_init
+    from repro_torch.tree import leaves
+    cfg = PRESETS["lm100m"]
+    ckpt = PROFILE_DIR / "train_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    e = TRAIN_ENGINE
+    kw = dict(shards=e["shards"], batch_per_shard=e["batch_per_shard"],
+              seq=e["seq"], ckpt_dir=str(ckpt), ckpt_every=e["ckpt_every"],
+              device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    res = run_training(cfg, steps=e["steps"], **kw)
+    peak = torch.cuda.max_memory_allocated()
+    saved = latest_step(str(ckpt))
+    _, back = load_checkpoint(str(ckpt), res["final_state"])
+    exact = all(torch.equal(a, b) for a, b in
+                zip(leaves(back), leaves(res["final_state"])))
+    del back, res["final_state"]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the same run without the engine: run_training's init, batch recipe
+    # and step, one state alive at a time
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    state = train_state_init(cfg, gen, device="cuda")
+    step = make_train_step(cfg, peak_lr=1e-3,
+                           warmup_steps=max(e["steps"] // 10, 1),
+                           total_steps=e["steps"], remat=False)
+    direct = []
+    t0 = time.monotonic()
+    for it in range(e["steps"]):
+        parts = [synthetic_batch(17, s, it, e["batch_per_shard"], e["seq"],
+                                 cfg.vocab_size) for s in range(e["shards"])]
+        batch = {k: torch.from_numpy(np.concatenate([p[k] for p in parts])
+                                     ).to("cuda") for k in parts[0]}
+        state, m = step(state, batch)
+        direct.append(float(m["loss"]))
+    direct_s = time.monotonic() - t0
+    del state, m
+    rel = max(abs(a - b) / abs(b) for a, b in zip(res["losses"], direct))
+    tokens = e["shards"] * e["batch_per_shard"] * e["seq"]
+    emit("train_engine", config=cfg.name, layers=cfg.num_layers,
+         d_model=cfg.d_model, dtype=cfg.dtype, steps=e["steps"],
+         tokens_per_step=tokens,
+         wall_s=res["wall_s"], tokens_per_s=res["tokens_per_s"],
+         first_loss=res["first_loss"], last_loss=res["last_loss"],
+         loss_falls=res["last_loss"] < res["first_loss"],
+         losses=res["losses"], direct_losses=direct, direct_s=direct_s,
+         direct_tokens_per_s=tokens * e["steps"] / direct_s,
+         max_rel_err_vs_direct=rel, drops=res["drops"],
+         final_step=res["final_step"], checkpoint_step=saved,
+         checkpoint_exact=exact, max_memory_allocated=peak)
+    if not rel <= 1e-4:
+        fail(f"lm100m through the engine: losses {res['losses']}, without "
+             f"it {direct}")
+    if saved != e["steps"] or res["final_step"] != e["steps"] or not exact:
+        fail(f"lm100m checkpoint: saved step {saved}, final step "
+             f"{res['final_step']}, restored exactly: {exact}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    again = run_training(cfg, steps=e["resume_steps"], resume=True, **kw)
+    emit("train_resume", config=cfg.name, start_step=again["start_step"],
+         final_step=again["final_step"], wall_s=again["wall_s"],
+         losses=again["losses"])
+    if again["start_step"] != e["steps"] or \
+            again["final_step"] != e["steps"] + e["resume_steps"]:
+        fail(f"resume started at {again['start_step']}, ended at "
+             f"{again['final_step']}")
+    shutil.rmtree(ckpt)       # 1.4 GB a step: too large to keep
+    return res
+
+
+def train_full_width(torch):
+    """(c) codeqwen1.5-7b at full width, cut to 16 of 32 layers, one
+    donated, rematerialised step on 8 x 512 tokens, repeated on one batch:
+    the first loss equals ``forward_train``'s, the loss falls by step 4,
+    grad norms are finite; steps 2-4 timed, one more profiled."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic_batch
+    from repro_torch.models import model as M
+    from repro_torch.train import make_train_step, train_state_init
+    f = TRAIN_FULL
+    cfg = dataclasses.replace(get_config("codeqwen15_7b"),
+                              num_layers=f["layers"])
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    state = train_state_init(cfg, gen, device="cuda")
+    batch = _batch_to(torch, synthetic_batch(
+        7, 0, 0, f["batch"], f["seq"], cfg.vocab_size), "cuda")
+    bound = train_step_bound(cfg, state.params, f["batch"], f["seq"])
+    with torch.inference_mode():
+        ref = float(M.forward_train(state.params, cfg, batch)[0])
+    step = make_train_step(cfg, peak_lr=f["peak_lr"], warmup_steps=1,
+                           total_steps=10, remat=True, donate=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    metrics, times = [], []
+    for _ in range(f["steps"]):
+        t0 = time.monotonic()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.monotonic() - t0) * 1e3)
+        metrics.append({k: float(v) for k, v in m.items()})
+    peak = torch.cuda.max_memory_allocated()
+    holder = [state]
+
+    def one_step():
+        holder[0], _ = step(holder[0], batch)
+    prof = profile_call(torch, one_step, "profile_train_step.txt")
+    del state, holder
+    gc.collect()
+    torch.cuda.empty_cache()
+    losses = [m["loss"] for m in metrics]
+    norms = [m["grad_norm"] for m in metrics]
+    step_ms = sorted(times[1:])[len(times[1:]) // 2]
+    free_gb = (torch.cuda.get_device_properties(0).total_memory - peak) / 1e9
+    emit("train_step", config=cfg.name, layers=cfg.num_layers,
+         d_model=cfg.d_model, batch=f["batch"], seq=f["seq"],
+         remat=True, donate=True, step_ms=step_ms, step_ms_all=times,
+         tokens_per_s=f["batch"] * f["seq"] / step_ms * 1e3,
+         forward_train_loss=ref, losses=losses, grad_norms=norms,
+         lrs=[m["lr"] for m in metrics], max_memory_allocated=peak,
+         free_gb_at_peak=free_gb, **bound, profile=prof)
+    if abs(losses[0] - ref) > 1e-3 * abs(ref):
+        fail(f"{cfg.name}: first step's loss {losses[0]}, forward_train "
+             f"{ref}")
+    if not losses[-1] < losses[0]:
+        fail(f"{cfg.name}: loss on the repeated batch {losses}")
+    if not all(math.isfinite(n) for n in norms):
+        fail(f"{cfg.name}: grad norms {norms}")
+    if free_gb < 8:
+        fail(f"{cfg.name}: {free_gb:.1f} GB free at the step's peak")
+    return cfg, batch
+
+
+def train_remat(torch, cfg, batch):
+    """(c) At a 2-layer cut of the same width, one functional step with and
+    without remat from one state: loss and grad norm within 1e-2 relative
+    (bf16; recomputation repeats the same ops, so they should be equal)."""
+    import dataclasses
+
+    from repro_torch.train import make_train_step, train_state_init
+    cfg2 = dataclasses.replace(cfg, num_layers=2)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    state = train_state_init(cfg2, gen, device="cuda")
+    out = {}
+    for remat in (True, False):
+        step = make_train_step(cfg2, warmup_steps=1, remat=remat)
+        _, m = step(state, batch)
+        out[remat] = {k: float(m[k]) for k in ("loss", "grad_norm")}
+        del m, _
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("train_remat", config=cfg2.name, layers=2, remat=out[True],
+         no_remat=out[False])
+    for k in ("loss", "grad_norm"):
+        if abs(out[True][k] - out[False][k]) > 1e-2 * abs(out[False][k]):
+            fail(f"remat changes the {k}: {out}")
+
+
+def phase_train(torch, mods) -> dict:
+    """The train paths on the card, after the serve paths; no kernel may
+    launch (training runs attention and the SSD scan as torch ops, as the
+    reference does).  Returns each kernel's launches over the phase."""
+    kernels = {name: getattr(mod, name) for name, mod in mods.items()}
+    for fn in kernels.values():
+        fn.launches = 0
+        fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)
+    refused = check_kernel_guard(torch, mods)
+    worst = train_parity(torch)
+    train_engine(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, batch = train_full_width(torch)
+    train_remat(torch, cfg, batch)
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    emit("train_launches", launches=launches, guard_refused=refused,
+         parity_max_rel_err=worst)
+    if any(launches.values()):
+        fail(f"the train phase launched kernels: {launches}")
+    return launches
+
+
+def check_kernel_guard(torch, mods) -> list:
+    """Both kernel wrappers refuse CUDA inputs that require grad (their
+    output would carry no grad_fn)."""
+    fa, ss = mods["flash_attention_bhsd"], mods["ssd_scan_bhsd"]
+    q = torch.randn((1, 2, 16, 16), device="cuda", dtype=torch.bfloat16,
+                    requires_grad=True)
+    x = torch.randn((1, 2, 16, 8), device="cuda", dtype=torch.bfloat16,
+                    requires_grad=True)
+    bc = torch.randn((1, 1, 16, 8), device="cuda", dtype=torch.bfloat16)
+    dt = torch.rand((1, 2, 16), device="cuda")
+    a = -torch.rand((2,), device="cuda")
+    calls = {"flash_attention_bhsd": lambda: fa.flash_attention_bhsd(
+                 q, q.detach(), q.detach()),
+             "ssd_scan_bhsd": lambda: ss.ssd_scan_bhsd(x, dt, a, bc, bc, 8)}
+    refused = []
+    for name, call in calls.items():
+        try:
+            call()
+        except RuntimeError as err:
+            if "no backward" in str(err):
+                refused.append(name)
+                continue
+            raise
+        fail(f"{name} took CUDA inputs that require grad")
+    return refused
 
 
 def _self_device_us(event) -> float:
@@ -706,9 +1040,11 @@ def main() -> int:
         by_path[arch], routes[arch] = phase_serve(torch, arch, mods)
         gc.collect()                    # free the model before the next
         torch.cuda.empty_cache()
+    train = phase_train(torch, mods)
     for e in entries:
         e["launches_by_path"] = {a: n[e["name"]] for a, n in by_path.items()}
         e["launches"] = sum(e["launches_by_path"].values())
+        e["launches_by_path"]["train"] = train[e["name"]]
         e["launches_by_route"] = {
             r: sum(routes[a][e["name"]][r] for a in routes)
             for r in routes[PATHS[0]][e["name"]]}

@@ -1,8 +1,9 @@
 """PyTorch port of the ``repro`` package, for NVIDIA Hopper.
 
 Same sub-packages and function names as the JAX package, which stays the
-reference: ``core`` and ``dsl`` are verbatim copies of the engine, the
-models, serve steps and serve driver are rewritten in PyTorch, and the
-Pallas TPU kernels become CUDA kernels under ``csrc/``.  Nothing here
-imports JAX or the JAX package.
+reference: ``core``, ``dsl`` and ``data`` are verbatim copies of the
+engine and the data pipeline; the models, the optimizer, the serve and
+train steps, checkpointing and the serve and train drivers are rewritten
+in PyTorch; and the Pallas TPU kernels become CUDA kernels under
+``csrc/``.  Nothing here imports JAX or the JAX package.
 """

@@ -1,8 +1,10 @@
 """Hand-written Hopper kernels for the compute hot spots.
 
 flash_attention: fused GQA attention (causal/window/softcap), CUDA C++.
+ssd_scan: the Mamba2 SSD chunk scan, CUDA C++.
 ops: model-layout wrappers; ref: plain PyTorch oracles.
-The Mamba2 SSD scan kernel is not ported yet (ROADMAP queue 2).
+Neither kernel has a backward: the wrappers refuse inputs that require
+grad, and training runs the plain torch ops, as the reference trains.
 """
 from . import ops, ref
 from .flash_attention import flash_attention_bhsd

@@ -58,6 +58,18 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          logit_cap=logit_cap)
 
 
+def refuse_grad(name: str, *inputs: torch.Tensor) -> None:
+    """Raise if autograd would record a call of kernel ``name``: its output
+    is written through ctypes and would carry no ``grad_fn``, so no grad
+    would reach the inputs (the projections feeding attention or the scan
+    would silently go untrained)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+        raise RuntimeError(
+            f"{name} has no backward kernel, and an input requires grad; the "
+            f"reference trains with use_kernel=False, which the port's "
+            f"train step does too")
+
+
 def _lib(defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
     lib = _build.load("flash_attention", defines)
     fn = lib.flash_attention_bhsd
@@ -104,8 +116,11 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     CUDA tensors launch the hand-written kernel on the dtype's route and
     count the launch in ``flash_attention_bhsd.launches`` and
-    ``.launches_by_route``; CPU tensors take the plain version.
+    ``.launches_by_route``; CPU tensors take the plain version.  Raises
+    RuntimeError, on every device, for inputs that require grad while grad
+    mode is on: the kernel has no backward.
     """
+    refuse_grad("flash_attention_bhsd", q, k, v)
     if q.device.type == "cpu" and k.device.type == "cpu" \
             and v.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,

@@ -41,6 +41,7 @@ from typing import Tuple
 import torch
 
 from . import _build
+from .flash_attention import refuse_grad
 
 _COUNT_LOCK = threading.Lock()
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -167,7 +168,9 @@ def ssd_scan_bhsd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     bf16 route is two kernels, C B^T then the scan) and count the call once
     in ``ssd_scan_bhsd.launches`` and ``.launches_by_route``; CPU tensors
     take the plain version.  dt and a are cast to f32 first, as the JAX
-    wrapper does."""
+    wrapper does.  Raises RuntimeError, on every device, for inputs that
+    require grad while grad mode is on: the kernel has no backward."""
+    refuse_grad("ssd_scan_bhsd", x, dt, a, b, c)
     dt, a = dt.float(), a.float()
     if all(t.device.type == "cpu" for t in (x, dt, a, b, c)):
         _check(x, dt, a, b, c, chunk, kernel=False)

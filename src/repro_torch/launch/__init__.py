@@ -1,1 +1,1 @@
-# launch: the serve driver (train driver and dry-run are later slices).
+# launch: the serve and train drivers (the dry-run is a later slice).

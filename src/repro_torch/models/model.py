@@ -26,6 +26,7 @@ import functools
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .attention import (_attend, _out_proj, _project_qkv, attention,
                         decode_attention, decode_cross_attention,
@@ -58,6 +59,35 @@ def _layer(layers: Dict[str, Any], i: int) -> Dict[str, Any]:
     """Views of layer ``i`` of a stacked parameter (or cache) tree."""
     return {k: (_layer(v, i) if isinstance(v, dict) else v[i])
             for k, v in layers.items()}
+
+
+def _unstack(layers: Dict[str, Any], n: int) -> List[Dict[str, Any]]:
+    """Views of all ``n`` layers of a stacked parameter tree, from one
+    ``torch.unbind`` per leaf.  Under autograd the unbind's backward
+    stacks the layers' grads once; taking ``stacked[i]`` per layer instead
+    would give each layer's grad its own zero tensor the size of the whole
+    stack (L of them per leaf per step)."""
+    def split(tree):
+        return {k: split(v) if isinstance(v, dict) else torch.unbind(v)
+                for k, v in tree.items()}
+
+    def pick(tree, i):
+        return {k: pick(v, i) if isinstance(v, dict) else v[i]
+                for k, v in tree.items()}
+
+    per_leaf = split(layers)
+    return [pick(per_leaf, i) for i in range(n)]
+
+
+def _remat(fn: Callable, remat: bool) -> Callable:
+    """``fn`` whose activations are recomputed in the backward pass
+    (``jax.checkpoint`` in the reference) when ``remat`` is set and autograd
+    is recording; the non-reentrant checkpoint lets ``fn`` read tensors it
+    was not passed (the layer's params) and return non-tensors."""
+    if not (remat and torch.is_grad_enabled()):
+        return fn
+    return functools.partial(checkpoint, fn, use_reentrant=False,
+                             preserve_rng_state=False)   # no random ops
 
 
 # ---------------------------------------------------------------------------
@@ -218,28 +248,47 @@ def layer_windows(cfg: ArchConfig) -> List[int]:
 
 def backbone(params: Dict[str, Any], cfg: ArchConfig, x: torch.Tensor,
              positions: torch.Tensor, *, use_kernel: bool = False,
-             enc_out: Optional[torch.Tensor] = None
+             remat: bool = False, enc_out: Optional[torch.Tensor] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run the layers.  Returns (hidden, aux_loss): the moe aux loss summed
-    over layers, 0 for the other families.  encdec needs ``enc_out``."""
+    over layers, 0 for the other families.  encdec needs ``enc_out``.
+
+    ``remat`` checkpoints each layer's body, as the reference does; the
+    hybrid family also checkpoints each group of ``shared_attn_period``
+    Mamba2 layers together with the shared block that follows it."""
     _check_family(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    h = x
+    layers = _unstack(params["layers"], cfg.num_layers)
     if cfg.family in ("ssm", "hybrid"):
-        for i in range(cfg.num_layers):
-            p = _layer(params["layers"], i)
-            h = h + mamba2_forward(p["mamba"], rms_norm(h, p["norm"]), cfg,
-                                   use_kernel=use_kernel)
-            if _shared_after(cfg, i) >= 0:
-                h, _ = _block(params["shared"], h, cfg, positions, 0,
-                              use_kernel)
+        def mamba(h, p):
+            return h + mamba2_forward(p["mamba"], rms_norm(h, p["norm"]),
+                                      cfg, use_kernel=use_kernel)
+        mamba = _remat(mamba, remat)
+        if cfg.family == "ssm":
+            h = x
+            for p in layers:
+                h = mamba(h, p)
+            return h, aux
+        per = cfg.shared_attn_period
+
+        def group(h, g):
+            for p in layers[g * per:(g + 1) * per]:
+                h = mamba(h, p)
+            return _block(params["shared"], h, cfg, positions, 0,
+                          use_kernel)[0]
+        group = _remat(group, remat)
+        h = x
+        for g in range(_shared_groups(cfg)):
+            h = group(h, g)
         return h, aux
     if cfg.family == "encdec" and enc_out is None:
         raise ValueError("the encdec backbone needs the encoder output")
-    for i, window in enumerate(layer_windows(cfg)):
-        h, aux_l = _block(_layer(params["layers"], i), h, cfg, positions,
-                          window, use_kernel,
-                          use_rope=cfg.family != "encdec", enc_out=enc_out)
+    block = _remat(functools.partial(
+        _block, cfg=cfg, positions=positions, use_kernel=use_kernel,
+        use_rope=cfg.family != "encdec", enc_out=enc_out), remat)
+    h = x
+    for p, window in zip(layers, layer_windows(cfg)):
+        h, aux_l = block(p, h, window=window)
         if aux_l is not None:
             aux = aux + aux_l
     return h, aux
@@ -265,17 +314,20 @@ def _block(p: Dict[str, Any], h: torch.Tensor, cfg: ArchConfig,
 
 
 def encode(params: Dict[str, Any], cfg: ArchConfig, frames: torch.Tensor, *,
-           use_kernel: bool = False) -> torch.Tensor:
+           use_kernel: bool = False, remat: bool = False) -> torch.Tensor:
     """Whisper encoder over stub frame embeddings (B, enc_len, d): sinusoidal
     positions, non-causal self-attention without rope, the final
     ``enc_norm``.  The output keeps the frames' dtype when it is the wider
-    one, as JAX promotes (f32 frames through bf16 weights stay f32)."""
+    one, as JAX promotes (f32 frames through bf16 weights stay f32).
+    ``remat`` checkpoints each layer's body."""
     B, T, d = frames.shape
     h = frames + _sinusoid(T, d, frames.device).to(frames.dtype)
     positions = torch.arange(T, device=frames.device).expand(B, T)
-    for i in range(cfg.num_encoder_layers):
-        h, _ = _block(_layer(params["enc_layers"], i), h, cfg, positions, 0,
-                      use_kernel, causal=False, use_rope=False)
+    block = _remat(functools.partial(
+        _block, cfg=cfg, positions=positions, window=0,
+        use_kernel=use_kernel, causal=False, use_rope=False), remat)
+    for p in _unstack(params["enc_layers"], cfg.num_encoder_layers):
+        h, _ = block(p, h)
     return rms_norm(h, params["enc_norm"])
 
 
@@ -298,19 +350,23 @@ def logits_fn(params: Dict[str, Any], cfg: ArchConfig,
 
 
 def forward_train(params: Dict[str, Any], cfg: ArchConfig,
-                  batch: Dict[str, torch.Tensor], *, use_kernel: bool = False
+                  batch: Dict[str, torch.Tensor], *, use_kernel: bool = False,
+                  remat: bool = True
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Mean token loss of one batch (the forward half of a train step) plus
-    0.01 x the moe aux loss; encdec reads ``batch["frames"]``."""
+    0.01 x the moe aux loss; encdec reads ``batch["frames"]``.  ``remat``
+    (the reference's default) checkpoints every layer body of the encoder
+    and the backbone while autograd records."""
     tokens, labels = batch["tokens"], batch["labels"]
     x = embed_tokens(params, cfg, tokens)
     positions = torch.arange(tokens.shape[1],
                              device=tokens.device).expand(tokens.shape)
     enc_out = None
     if cfg.family == "encdec":
-        enc_out = encode(params, cfg, batch["frames"], use_kernel=use_kernel)
+        enc_out = encode(params, cfg, batch["frames"], use_kernel=use_kernel,
+                         remat=remat)
     h, aux = backbone(params, cfg, x, positions, use_kernel=use_kernel,
-                      enc_out=enc_out)
+                      remat=remat, enc_out=enc_out)
     loss = cross_entropy(logits_fn(params, cfg, h), labels, cfg.vocab_size)
     return loss + 0.01 * aux, {"loss": loss, "aux_loss": aux}
 

@@ -1,3 +1,5 @@
-from .steps import decode_fn, make_decode_step, make_prefill_step
+from .steps import (TrainState, decode_fn, make_decode_step,
+                    make_prefill_step, make_train_step, train_state_init)
 
-__all__ = ["decode_fn", "make_decode_step", "make_prefill_step"]
+__all__ = ["TrainState", "decode_fn", "make_decode_step",
+           "make_prefill_step", "make_train_step", "train_state_init"]

@@ -1,5 +1,6 @@
 """The port stands alone: it imports neither JAX nor the JAX package, and
-its engine and config files are verbatim copies of the JAX package's."""
+its engine, data pipeline and config files are verbatim copies of the JAX
+package's."""
 import json
 import os
 import re
@@ -18,6 +19,8 @@ PORT = SRC / "repro_torch"
 COPIED = ([f"core/{p.name}" for p in sorted((SRC / "repro" / "core")
                                             .glob("*.py"))]
           + ["dsl.py"]
+          + [f"data/{p.name}" for p in sorted((SRC / "repro" / "data")
+                                              .glob("*.py"))]
           + [f"configs/{p.name}" for p in sorted((PORT / "configs")
                                                  .glob("*.py"))
              if p.name != "__init__.py"])
