@@ -48,7 +48,16 @@ no result):
    repeated batch, and at 2 layers remat on and off agreeing; (d) no
    kernel launched in the whole phase (training runs torch ops, as the
    reference trains with ``use_kernel=False``).
-6. the kernels line, the card line, then the result line.
+6. dryrun, with every kernel count set to 0: (a) the port's dry-run of
+   mamba2-1.3b x decode_32k on the 256-rank fake mesh ends ok and agrees
+   with the reference's committed record on params, chips, decisions and
+   argument bytes; (b) its cost pass on a 1-rank mesh counts the same
+   FLOPs as ``FlopCounterMode`` on the card for codeqwen1.5-7b's
+   plain-route prefill (one serve microbatch, counted in phase 4) and
+   (c) its 16-layer train step (one more step, counted in phase 5),
+   printed with the roofline's terms beside the measured times; (d) no
+   kernel launched.
+7. the kernels line, the card line, then the result line.
 
 It imports nothing of JAX or of the JAX package.  Without CUDA it exits 2.
 """
@@ -67,9 +76,13 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 PROFILE_DIR = ROOT / "chiprun_out" / "chip_smoke"   # gitignored
 
+from repro_torch.launch.mesh import (HBM_BW, PEAK_FLOPS_BF16,  # noqa: E402
+                                     PEAK_FLOPS_F32)
+
 SERVE = dict(num_requests=8, microbatch=4, prompt_len=512, decode_steps=16)
-H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
-H100_PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
+H100_BYTES_PER_S = HBM_BW           # the card's constants: launch/mesh.py
+H100_PEAK_FLOPS = {"torch.bfloat16": PEAK_FLOPS_BF16,
+                   "torch.float32": PEAK_FLOPS_F32}
 
 
 def emit(phase: str, **kw) -> None:
@@ -380,7 +393,9 @@ def expected_launches(torch, cfg, n_micro: int, fa, ss) -> dict:
 def phase_serve(torch, arch, mods):
     """One serve path.  ``mods`` maps a kernel's name to its module, whose
     wrapper of that name holds the launch counts.  Returns the launches of
-    each kernel, in all and by route, over the full-width serve run."""
+    each kernel, in all and by route, over the full-width serve run, and
+    for ``DRYRUN_PREFILL`` the plain-route prefill's FLOPs and times
+    (``prefill_on_card``; else None)."""
     import dataclasses
 
     from repro_torch.configs import get_config, get_smoke_config
@@ -413,7 +428,9 @@ def phase_serve(torch, arch, mods):
          d_model=cfg.d_model, params=n_params, seconds=init_s,
          bytes=sum(t.numel() * t.element_size() for t in _leaves(params)))
 
-    phase_steps(torch, cfg, params)
+    steps = phase_steps(torch, cfg, params)
+    card = (prefill_on_card(torch, cfg, params, steps)
+            if arch == DRYRUN_PREFILL else None)
 
     n_micro = SERVE["num_requests"] // SERVE["microbatch"]
     want = expected_launches(torch, cfg, n_micro, mods["flash_attention_bhsd"],
@@ -445,7 +462,39 @@ def phase_serve(torch, arch, mods):
              f"{launches}), expected {want}")
 
     check_full_width_logits(torch, M, cfg, params)
-    return launches, by_route
+    return launches, by_route, card
+
+
+def prefill_on_card(torch, cfg, params, steps: dict) -> dict:
+    """One serve microbatch's prefill on the plain route (torch ops, the
+    dry-run's route): its FLOPs under ``FlopCounterMode``, once, and its
+    time, warm, median of 3, beside the kernel route's and the bound from
+    ``phase_steps``."""
+    import numpy as np
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.launch.serve import prompt_batch
+    from repro_torch.train import make_prefill_step
+    mb, s = SERVE["microbatch"], SERVE["prompt_len"]
+    plain = make_prefill_step(cfg, use_kernel=False)
+    batch = prompt_batch(cfg, torch.from_numpy(
+        np.random.default_rng(3).integers(0, cfg.vocab_size,
+                                          size=(mb, s))).cuda())
+    plain(params, batch)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        t0 = time.monotonic()
+        plain(params, batch)
+        torch.cuda.synchronize()
+        times.append((time.monotonic() - t0) * 1e3)
+    with FlopCounterMode(display=False) as flops:
+        plain(params, batch)
+    torch.cuda.synchronize()
+    return {"flops": flops.get_total_flops(), "batch": mb, "seq": s,
+            "plain_prefill_ms": sorted(times)[1],
+            "kernel_prefill_ms": steps["prefill_ms"],
+            "prefill_bound_ms": steps["prefill_bound_ms"]}
 
 
 def check_full_width_logits(torch, M, cfg, params):
@@ -633,11 +682,12 @@ def phase_steps(torch, cfg, params):
             times.append(time.monotonic() - t0)
         out[name + "_ms"] = sorted(times)[len(times) // 2] * 1e3
         out[name + "_ms_all"] = [t * 1e3 for t in times]
-    emit("steps", config=cfg.name, microbatch=mb, prompt_len=s,
-         **step_bounds(cfg, params, mb, s, s + steps), **out)
+    out.update(step_bounds(cfg, params, mb, s, s + steps))
+    emit("steps", config=cfg.name, microbatch=mb, prompt_len=s, **out)
     for name, fn in (("prefill", prefill), ("decode_step", decode)):
         emit("profile", config=cfg.name, step=name,
              **profile_call(torch, fn, f"profile_{cfg.name}_{name}.txt"))
+    return out
 
 
 def profile_call(torch, fn, table_name: str) -> dict:
@@ -876,6 +926,14 @@ def train_full_width(torch):
     def one_step():
         holder[0], _ = step(holder[0], batch)
     prof = profile_call(torch, one_step, "profile_train_step.txt")
+    from torch.utils.flop_counter import FlopCounterMode
+    with FlopCounterMode(display=False) as counted:     # one more step
+        one_step()
+    torch.cuda.synchronize()
+    card = {"flops": counted.get_total_flops(), "batch": f["batch"],
+            "seq": f["seq"], "layers": cfg.num_layers, "step_ms": sorted(times[1:])[
+                len(times[1:]) // 2], "bound_ms": bound["bound_ms"],
+            "bound_flops_ms": bound["bound_flops_ms"]}
     del state, holder
     gc.collect()
     torch.cuda.empty_cache()
@@ -899,7 +957,7 @@ def train_full_width(torch):
         fail(f"{cfg.name}: grad norms {norms}")
     if free_gb < 8:
         fail(f"{cfg.name}: {free_gb:.1f} GB free at the step's peak")
-    return cfg, batch
+    return cfg, batch, card
 
 
 def train_remat(torch, cfg, batch):
@@ -929,10 +987,11 @@ def train_remat(torch, cfg, batch):
             fail(f"remat changes the {k}: {out}")
 
 
-def phase_train(torch, mods) -> dict:
+def phase_train(torch, mods) -> tuple:
     """The train paths on the card, after the serve paths; no kernel may
     launch (training runs attention and the SSD scan as torch ops, as the
-    reference does).  Returns each kernel's launches over the phase."""
+    reference does).  Returns each kernel's launches over the phase and
+    the full-width train step's FLOPs and times."""
     kernels = {name: getattr(mod, name) for name, mod in mods.items()}
     for fn in kernels.values():
         fn.launches = 0
@@ -942,13 +1001,94 @@ def phase_train(torch, mods) -> dict:
     train_engine(torch)
     gc.collect()
     torch.cuda.empty_cache()
-    cfg, batch = train_full_width(torch)
+    cfg, batch, card = train_full_width(torch)
     train_remat(torch, cfg, batch)
     launches = {name: fn.launches for name, fn in kernels.items()}
     emit("train_launches", launches=launches, guard_refused=refused,
          parity_max_rel_err=worst)
     if any(launches.values()):
         fail(f"the train phase launched kernels: {launches}")
+    return launches, card
+
+
+DRYRUN_PREFILL = "codeqwen15_7b"       # its serve path counts a prefill
+DRYRUN_CELL = ("mamba2_1_3b", "decode_32k")
+REFERENCE_RECORD = (ROOT / "results" / "dryrun"
+                    / "mamba2_1_3b__decode_32k__single.json")
+
+
+def phase_dryrun(torch, mods, cards: dict) -> dict:
+    """The port's dry-run on the card's host, with every kernel count set
+    to 0: (a) the cell of the one committed reference record on the
+    256-rank fake mesh ends ok and agrees with that record on params,
+    active params, chips, decisions and argument bytes per device; (b)
+    and (c) the cost pass on the local 1-rank mesh counts, to the FLOP,
+    what ``FlopCounterMode`` counted on the card for codeqwen1.5-7b's
+    plain-route prefill (``prefill_on_card``) and its 16-layer donated,
+    rematerialised train step (``train_full_width``), each printed with
+    the roofline terms beside the measured times and the bounds; (d) no
+    kernel launched.  Returns each kernel's launches over the phase."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import (LINK_BW, fake_process_group,
+                                         make_local_mesh)
+    from repro_torch.models.common import ShapeConfig
+    from repro_torch.roofline import roofline_terms
+    t0 = time.monotonic()
+    kernels = {name: getattr(mod, name) for name, mod in mods.items()}
+    for fn in kernels.values():
+        fn.launches = 0
+        fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)
+
+    arch, shape = DRYRUN_CELL
+    rec = D.run_cell(arch, shape, False, PROFILE_DIR / "dryrun",
+                     verbose=False)
+    ref = json.loads(REFERENCE_RECORD.read_text())
+    keys = ("params", "active_params", "chips", "decisions",
+            "arg_bytes_per_device")
+    got = {k: rec.get(k) for k in keys}
+    emit("dryrun_cell", arch=arch, shape=shape, mesh="single",
+         status=rec["status"], error=rec.get("error"), **got,
+         reference={k: ref[k] for k in keys}, trace_s=rec.get("trace_s"),
+         cost_pass_s=rec.get("cost_pass_s"), memory=rec.get("memory"),
+         cost=rec.get("cost"), collectives=rec.get("collectives"),
+         roofline=rec.get("roofline"), torch=rec.get("torch"),
+         reshards=rec.get("reshards"))
+    if rec["status"] != "ok":
+        print(rec.get("traceback"), file=sys.stderr, flush=True)
+        fail(f"dry-run of {arch} x {shape}: {rec.get('error')}")
+    if got != {k: ref[k] for k in keys}:
+        fail(f"dry-run of {arch} x {shape} differs from the reference "
+             f"record: {got}")
+
+    base = get_config(DRYRUN_PREFILL)
+    nm1 = D.make_variant("nm1")
+    with fake_process_group(1):
+        mesh = make_local_mesh()
+        for step, kind, cfg in (
+                ("prefill", "prefill", base),
+                ("train_step", "train",
+                 D.at_depth(base, cards["train_step"]["layers"]))):
+            card = cards[step]
+            fake = D.costs(cfg, ShapeConfig(f"chip_{step}", card["seq"],
+                                            card["batch"], kind), mesh, nm1)
+            terms = roofline_terms(fake["flops"], fake["bytes_accessed"],
+                                   fake["coll_total"], 1, PEAK_FLOPS_BF16,
+                                   HBM_BW, LINK_BW)
+            emit("dryrun_flops", config=cfg.name, step=step,
+                 layers=cfg.num_layers, fake_flops=fake["flops"],
+                 card_flops=card["flops"],
+                 compute_term_ms=terms["compute_s"] * 1e3,
+                 memory_term_ms=terms["memory_s"] * 1e3,
+                 bytes_accessed=fake["bytes_accessed"], card=card)
+            if fake["flops"] != card["flops"]:
+                fail(f"{cfg.name} {step}: the fake pass counts "
+                     f"{fake['flops']} FLOPs, the card {card['flops']}")
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    emit("dryrun_launches", launches=launches,
+         seconds=time.monotonic() - t0)
+    if any(launches.values()):
+        fail(f"the dryrun phase launched kernels: {launches}")
     return launches
 
 
@@ -1035,16 +1175,22 @@ def main() -> int:
         print(json.dumps({"kernels": entries}), flush=True)
         return 0
     mods = {e["name"]: mod for e, mod in zip(entries, (fa, ss))}
-    by_path, routes = {}, {}
+    by_path, routes, cards = {}, {}, {}
     for arch in PATHS:
-        by_path[arch], routes[arch] = phase_serve(torch, arch, mods)
+        by_path[arch], routes[arch], card = phase_serve(torch, arch, mods)
+        if card is not None:
+            cards["prefill"] = card
         gc.collect()                    # free the model before the next
         torch.cuda.empty_cache()
-    train = phase_train(torch, mods)
+    train, cards["train_step"] = phase_train(torch, mods)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dry = phase_dryrun(torch, mods, cards)
     for e in entries:
         e["launches_by_path"] = {a: n[e["name"]] for a, n in by_path.items()}
         e["launches"] = sum(e["launches_by_path"].values())
         e["launches_by_path"]["train"] = train[e["name"]]
+        e["launches_by_path"]["dryrun"] = dry[e["name"]]
         e["launches_by_route"] = {
             r: sum(routes[a][e["name"]][r] for a in routes)
             for r in routes[PATHS[0]][e["name"]]}

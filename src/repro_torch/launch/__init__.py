@@ -1,1 +1,1 @@
-# launch: the serve and train drivers (the dry-run is a later slice).
+# launch: the serve, train and dry-run drivers.

@@ -266,9 +266,11 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     lse = torch.logsumexp(logits, dim=-1)
     labels = labels.long()
     idx = labels.clamp(0, logits.shape[-1] - 1)
-    gold = torch.gather(logits, -1, idx[..., None])[..., 0]
+    gold = torch.gather(logits, -1, idx[..., None])         # (..., 1)
     mask = (labels >= 0) & (labels < vocab_size)
-    loss = (lse - gold) * mask
+    # the gold axis goes after the subtraction: DTensor cannot drop an
+    # axis of a gather from vocab-sharded logits before it is reduced
+    loss = (lse[..., None] - gold)[..., 0] * mask
     return loss.sum() / mask.sum().clamp_min(1)
 
 

@@ -37,6 +37,7 @@ from .common import (ArchConfig, activation_fn, cross_entropy, dense_init,
 from .moe import init_moe, moe_block
 from .ssm import (init_mamba2, init_ssm_cache, mamba2_decode_step,
                   mamba2_forward, mamba2_prime)
+from ..sharding import ctx as sctx
 
 FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec")
 
@@ -261,8 +262,9 @@ def backbone(params: Dict[str, Any], cfg: ArchConfig, x: torch.Tensor,
     layers = _unstack(params["layers"], cfg.num_layers)
     if cfg.family in ("ssm", "hybrid"):
         def mamba(h, p):
-            return h + mamba2_forward(p["mamba"], rms_norm(h, p["norm"]),
-                                      cfg, use_kernel=use_kernel)
+            h = h + mamba2_forward(p["mamba"], rms_norm(h, p["norm"]), cfg,
+                                   use_kernel=use_kernel)
+            return sctx.constrain(h, "residual")
         mamba = _remat(mamba, remat)
         if cfg.family == "ssm":
             h = x
@@ -283,9 +285,12 @@ def backbone(params: Dict[str, Any], cfg: ArchConfig, x: torch.Tensor,
         return h, aux
     if cfg.family == "encdec" and enc_out is None:
         raise ValueError("the encdec backbone needs the encoder output")
-    block = _remat(functools.partial(
-        _block, cfg=cfg, positions=positions, use_kernel=use_kernel,
-        use_rope=cfg.family != "encdec", enc_out=enc_out), remat)
+
+    def layer(p, h, window):
+        h, aux_l = _block(p, h, cfg, positions, window, use_kernel,
+                          use_rope=cfg.family != "encdec", enc_out=enc_out)
+        return sctx.constrain(h, "residual"), aux_l
+    block = _remat(layer, remat)
     h = x
     for p, window in zip(layers, layer_windows(cfg)):
         h, aux_l = block(p, h, window=window)
@@ -455,8 +460,7 @@ def decode_step(params: Dict[str, Any], cfg: ArchConfig,
     states = ssm["state"]
     promoted = torch.promote_types(states.dtype, torch.float32)
     if states.dtype != promoted:
-        states = torch.empty(states.shape, dtype=promoted,
-                             device=states.device)
+        states = torch.empty_like(states, dtype=promoted)
     for i in range(cfg.num_layers):
         p = _layer(params["layers"], i)
         y, new = mamba2_decode_step(p["mamba"], rms_norm(h, p["norm"]),
@@ -474,20 +478,24 @@ def decode_step(params: Dict[str, Any], cfg: ArchConfig,
 
 def prefill(params: Dict[str, Any], cfg: ArchConfig,
             batch: Dict[str, torch.Tensor], *, use_kernel: bool = False,
-            max_seq: Optional[int] = None
+            max_seq: Optional[int] = None,
+            cache: Optional[Dict[str, Any]] = None
             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Process the full prompt; return last-position logits + primed cache.
 
     The cache is allocated at ``max_seq`` (default: the prompt length)
     and filled in place, so decode continues in it without the copy the
-    JAX serve makes when it pads the cache out.  encdec runs the encoder
-    over ``batch["frames"]`` first; its K/V fill the first rows of the
-    cross cache, whose rows past them stay zero."""
+    JAX serve makes when it pads the cache out.  A ``cache`` from the
+    caller (``init_cache``'s tree, zeroed; the dry-run's is laid out as
+    DTensors) is filled instead and ``max_seq`` is ignored.  encdec runs
+    the encoder over ``batch["frames"]`` first; its K/V fill the first
+    rows of the cross cache, whose rows past them stay zero."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = embed_tokens(params, cfg, tokens)
     positions = torch.arange(S, device=tokens.device).expand(B, S)
-    cache = init_cache(cfg, B, max_seq or S, device=tokens.device)
+    if cache is None:
+        cache = init_cache(cfg, B, max_seq or S, device=tokens.device)
     if cfg.family in ("ssm", "hybrid"):
         h = _prime_ssm(params, cfg, x, positions, cache, use_kernel)
     else:

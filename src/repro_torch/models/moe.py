@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from .common import ArchConfig, activation_fn, dense_init, einsum
+from ..sharding import ctx as sctx
 
 Params = Dict[str, torch.Tensor]
 
@@ -88,6 +89,8 @@ def moe_block(p: Params, x: torch.Tensor, cfg: ArchConfig,
     buf = x.new_zeros((g, e, cap + 1, d))
     buf.index_put_((g_ids, flat_idx, pos_safe), vals, accumulate=True)
     buf = buf[:, :, :cap]
+    # the ep profile turns tokens to their experts here
+    buf = sctx.constrain(buf, "moe_buffer")
 
     # --- expert FFN over the E stacked experts -----------------------------
     h = einsum("gecd,edf->gecf", buf, p["w1"])
@@ -96,7 +99,8 @@ def moe_block(p: Params, x: torch.Tensor, cfg: ArchConfig,
             "gecd,edf->gecf", buf, p["w3"])
     else:
         h = activation_fn(cfg.activation)(h)
-    out_buf = einsum("gecf,efd->gecd", h, p["w2"])
+    out_buf = sctx.constrain(einsum("gecf,efd->gecd", h, p["w2"]),
+                             "moe_buffer")
 
     # --- combine: gather back + gate-weighted sum over k -------------------
     # the reference clamps the gather of a dropped slot, then masks it

@@ -39,15 +39,25 @@ def adamw_init(params: Any) -> AdamWState:
                       v=tree_map(zeros, params))
 
 
-def slices(t: torch.Tensor) -> Iterator[torch.Tensor]:
+def slices(t: torch.Tensor, *like: torch.Tensor) -> Iterator[Any]:
     """Views of ``t`` along axis 0 of at most ``SLICE_ELEMS`` elements each
-    (one view of the whole tensor when it is 0-d or small)."""
-    if t.dim() == 0 or t.numel() <= SLICE_ELEMS:
-        yield t
+    (one view of the whole tensor when it is 0-d or small).  With tensors
+    ``like`` of ``t``'s shape, tuples of the same views of each.  A DTensor
+    sharded on axis 0 (in ``t`` or ``like``) is not sliced: a slice across
+    shards would gather it on every rank."""
+    ts = (t, *like)
+    if (t.dim() == 0 or t.numel() <= SLICE_ELEMS
+            or any(_shards_axis0(x) for x in ts)):
+        yield ts if like else t
         return
     rows = max(1, SLICE_ELEMS // max(1, t[0].numel()))
     for i in range(0, t.shape[0], rows):
-        yield t[i:i + rows]
+        yield (tuple(x[i:i + rows] for x in ts) if like
+               else t[i:i + rows])
+
+
+def _shards_axis0(t: torch.Tensor) -> bool:
+    return any(p.is_shard(0) for p in getattr(t, "placements", ()))
 
 
 def global_norm(grads: Any) -> torch.Tensor:
@@ -124,8 +134,7 @@ def adamw_update_(params: Any, grads: Any, state: AdamWState, *,
     c1, c2 = _bias_corrections(step, b1, b2)
     for p, g, m, v in zip(leaves(params), leaves(grads), leaves(state.m),
                           leaves(state.v)):
-        for ps, gs, ms, vs in zip(slices(p), slices(g), slices(m),
-                                  slices(v)):
+        for ps, gs, ms, vs in slices(p, g, m, v):
             p2, m2, v2 = _update_slice(ps, gs, ms, vs, c1, c2, lr, b1, b2,
                                        eps, weight_decay, scale)
             ps.copy_(p2)

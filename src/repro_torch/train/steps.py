@@ -67,6 +67,19 @@ def _grads(loss_fn: Callable, params: Any, batch: Dict[str, torch.Tensor]
     return loss.detach(), unflatten_like(params, grads)
 
 
+def _microbatch(v: torch.Tensor, i: int, n: int) -> torch.Tensor:
+    """Rows ``[i*b/n, (i+1)*b/n)`` of ``v``.  A DTensor keeps its batch's
+    layout: DTensor replicates a slice of a sharded dim, which would make
+    every rank run the whole microbatch, so the slice is laid out again
+    (the reference's ``reshape`` is resharded by GSPMD the same way)."""
+    m = v.shape[0] // n
+    mb = v[i * m:(i + 1) * m]
+    placements = getattr(v, "placements", None)
+    if placements is not None and tuple(mb.placements) != tuple(placements):
+        mb = mb.redistribute(v.device_mesh, placements)
+    return mb
+
+
 def make_train_step(cfg: ArchConfig, *, num_microbatches: int = 1,
                     peak_lr: float = 3e-4, warmup_steps: int = 100,
                     total_steps: int = 1000, max_grad_norm: float = 1.0,
@@ -91,13 +104,12 @@ def make_train_step(cfg: ArchConfig, *, num_microbatches: int = 1,
             if b % n:
                 raise ValueError(f"batch {b} is not a multiple of "
                                  f"{n} microbatches")
-            gsum = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
+            gsum = tree_map(lambda p: torch.zeros_like(
+                p, dtype=torch.float32), params)
             lsum = torch.zeros((), dtype=torch.float32,
                                device=leaves(params)[0].device)
             for i in range(n):
-                mb = {k: v[i * (b // n):(i + 1) * (b // n)]
-                      for k, v in batch.items()}
+                mb = {k: _microbatch(v, i, n) for k, v in batch.items()}
                 l, g = _grads(loss_fn, params, mb)
                 gsum = tree_map(torch.add, gsum, g)
                 lsum = lsum + l

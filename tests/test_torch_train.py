@@ -36,7 +36,9 @@ from repro_torch.train import steps as TS  # noqa: E402
 B, S, STEPS = 4, 16, 3
 STEP_KW = dict(peak_lr=1e-2, warmup_steps=1, total_steps=8)
 FAMILIES = ["codeqwen15_7b", "mamba2_1_3b", "zamba2_2_7b",
-            "granite_moe_3b_a800m", "whisper_large_v3"]
+            "granite_moe_3b_a800m", "whisper_large_v3", "nemotron_4_15b",
+            "command_r_plus_104b", "gemma2_27b", "chameleon_34b",
+            "grok_1_314b"]
 
 
 def cfgs(arch):
