@@ -19,22 +19,32 @@ no result):
    the serve paths' shapes and at every option case in f32 (scalar route)
    and in bf16 (tensor-core route); times of the kernel, the plain version
    and (where one exists) one library call at the path shapes, CUDA
-   events.  Fails if ptxas reported a spill.
-4. serve, for each of five paths in turn: codeqwen1.5-7b (dense, flash
+   events: SDPA, or for a softcapped or windowed case a compiled
+   ``flex_attention``.  Fails if ptxas reported a spill.
+4. serve, for each of eight paths in turn: codeqwen1.5-7b (dense, flash
    kernel), mamba2-1.3b (ssm, SSD kernel), zamba2-2.7b (hybrid, both
-   kernels), granite-moe-3b-a800m (moe, flash) and whisper-large-v3
-   (encdec, flash in the encoder and the decoder).  A smoke config served
-   on the card must give the CPU's tokens.  Then the model at full width
-   and depth (random weights from a seed): its prefill and decode steps
-   timed alone, against their bounds, and profiled; then 8 requests x 16
-   tokens with 512-token prompts through the engine, with every kernel
-   count set to 0 just before and read just after: each kernel of the path
-   must have launched exactly once per layer that runs it per microbatch,
-   on the route its inputs' dtype selects (the full-width models are
-   bf16; whisper's encoder runs f32, from the serve's f32 frames); and
-   full-width prefill logits through the kernels must be finite and near
-   the plain route's.  Each model is freed before the next.
-5. train, after the five serve paths, with every kernel count set to 0:
+   kernels), granite-moe-3b-a800m (moe, flash), whisper-large-v3 (encdec,
+   flash in the encoder and the decoder), gemma2-27b (dense: local window
+   4096 on alternate layers, softcaps), nemotron-4-15b (dense, GQA 6:1)
+   and chameleon-34b (vlm, qk-norm).  A smoke config served on the card
+   must give the CPU's tokens (a windowed one with prompts past its
+   window).  Then the model at full width and depth (random weights from
+   a seed): its prefill and decode steps timed alone, against their
+   bounds, and profiled; then 8 requests x 16 tokens with 512-token
+   prompts (gemma2: 4 x 16 with 8192-token prompts, past its window)
+   through the engine, with every kernel count set to 0 just before and
+   read just after: each kernel of the path must have launched exactly
+   once per layer that runs it per microbatch, on the route its inputs'
+   dtype selects (the full-width models are bf16; whisper's encoder runs
+   f32, from the serve's f32 frames); and full-width prefill logits
+   through the kernels must be finite and near the plain route's (gemma2:
+   one 8192-token sequence).  codeqwen1.5-7b then serves the same
+   requests in the serve driver's other engine modes (``serve_modes``):
+   the compiled substrate, streaming delivery, 3 sessions 2 at a time
+   through a resident manager, and a stats dump; each must give the
+   object substrate's tokens and the expected launches.  Each model is
+   freed before the next.
+5. train, after the serve paths, with every kernel count set to 0:
    both kernel wrappers refuse CUDA inputs that require grad; (a) the
    ``tiny`` preset's train step on the card equals the port on the CPU
    over 4 steps (one and two microbatches, int8 compression); (b)
@@ -51,13 +61,19 @@ no result):
 6. dryrun, with every kernel count set to 0: (a) the port's dry-run of
    mamba2-1.3b x decode_32k on the 256-rank fake mesh ends ok and agrees
    with the reference's committed record on params, chips, decisions and
-   argument bytes; (b) its cost pass on a 1-rank mesh counts the same
+   argument bytes, and four smoke cells (mamba2 prefill, granite decode,
+   codeqwen and zamba2 train) end ok on a (2, 4) fake mesh under this
+   host's torch; (b) its cost pass on a 1-rank mesh counts the same
    FLOPs as ``FlopCounterMode`` on the card for codeqwen1.5-7b's
    plain-route prefill (one serve microbatch, counted in phase 4) and
    (c) its 16-layer train step (one more step, counted in phase 5),
    printed with the roofline's terms beside the measured times; (d) no
    kernel launched.
-7. the kernels line, the card line, then the result line.
+7. examples, with every kernel count set to 0: ``examples/torch/``'s
+   CHILES pipeline recovers its source in band 2, and ``train_lm.py`` at
+   its defaults (lm20m, 200 steps through the engine) lowers the loss; no
+   kernel launched.
+8. the kernels line, the card line, then the result line.
 
 It imports nothing of JAX or of the JAX package.  Without CUDA it exits 2.
 """
@@ -80,6 +96,14 @@ from repro_torch.launch.mesh import (HBM_BW, PEAK_FLOPS_BF16,  # noqa: E402
                                      PEAK_FLOPS_F32)
 
 SERVE = dict(num_requests=8, microbatch=4, prompt_len=512, decode_steps=16)
+# gemma2-27b serves prompts past its 4096-token local window, so its 23
+# local layers attend through the kernel's window route: 2 microbatches of
+# 2 x 8192 tokens (their KV caches 12.4 GB beside 54.4 GB of weights)
+SERVE_BY_PATH = {"gemma2_27b": dict(num_requests=4, microbatch=2,
+                                    prompt_len=8192, decode_steps=16)}
+# the plain route's S x S f32 scores take 8.6 GB a sequence and layer call
+# at 8192 tokens, so gemma2's logits check runs one sequence
+LOGITS_ROWS = {"gemma2_27b": 1}
 H100_BYTES_PER_S = HBM_BW           # the card's constants: launch/mesh.py
 H100_PEAK_FLOPS = {"torch.bfloat16": PEAK_FLOPS_BF16,
                    "torch.float32": PEAK_FLOPS_F32}
@@ -92,6 +116,12 @@ def emit(phase: str, **kw) -> None:
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     raise SystemExit(1)
+
+
+def serve_shape(arch: str) -> dict:
+    """The requests a serve path runs: 8 x 512-token prompts x 16 new
+    tokens in 2 microbatches of 4, unless ``SERVE_BY_PATH`` says other."""
+    return SERVE_BY_PATH.get(arch, SERVE)
 
 
 def card_line() -> str:
@@ -123,7 +153,9 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 FLASH_PATH_CASES = ("path", "d80_bf16_mha", "granite_gqa3_d64_bf16",
-                    "whisper_enc_f32", "whisper_dec_d64_bf16")
+                    "whisper_enc_f32", "whisper_dec_d64_bf16",
+                    "gemma2_local_w4096_cap50", "gemma2_global_cap50",
+                    "nemotron_gqa6", "chameleon_gqa8")
 
 
 def visible_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
@@ -151,7 +183,6 @@ def attention_bound_ms(q, k, causal: bool, window: int) -> tuple:
 
 def phase_kernel(torch, fa):
     """Kernel vs plain version on the card; times at the path shape."""
-    import torch.nn.functional as F
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     bf16, f32 = torch.bfloat16, torch.float32
@@ -192,6 +223,15 @@ def phase_kernel(torch, fa):
         ("whisper_enc_f32", 4, 20, 20, 64, 64, 64, f32, False, 0, 0.0),
         ("whisper_dec_d64_bf16", 4, 20, 20, 512, 512, 64, bf16, True, 0,
          0.0),
+        # gemma2-27b's prefill past its window: a local layer (window 4096)
+        # and a global one, both capped at 50; one 8192-token sequence
+        ("gemma2_local_w4096_cap50", 1, 32, 16, 8192, 8192, 128, bf16, True,
+         4096, 50.0),
+        ("gemma2_global_cap50", 1, 32, 16, 8192, 8192, 128, bf16, True, 0,
+         50.0),
+        # nemotron-4-15b (GQA 6:1) and chameleon-34b (GQA 8:1)
+        ("nemotron_gqa6", 4, 48, 8, 512, 512, 128, bf16, True, 0, 0.0),
+        ("chameleon_gqa8", 4, 64, 8, 512, 512, 128, bf16, True, 0, 0.0),
     ]
     worst = 0.0
     timed = {}
@@ -223,17 +263,17 @@ def phase_kernel(torch, fa):
     for name, (q, k, v, opts) in timed.items():
         kernel_ms = cuda_ms(lambda: fa.flash_attention_bhsd(q, k, v, **opts))
         plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, **opts))
-        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=opts["causal"],
-            enable_gqa=q.shape[1] != k.shape[1]))
+        library, library_note = library_attention(torch, fa, q, k, v, opts)
+        library_ms = cuda_ms(library) if library else None
         bound_ms, bound_by = attention_bound_ms(q, k, opts["causal"],
                                                 opts["window"])
         times[name] = dict(shape=list(q.shape), kv_heads=k.shape[1],
                            dtype=str(q.dtype), route=fa.route(q.dtype),
-                           causal=opts["causal"],
+                           causal=opts["causal"], window=opts["window"],
+                           cap=opts["logit_cap"],
                            kernel_ms=kernel_ms, plain_ms=plain_ms,
-                           library_ms=library_ms, bound_ms=bound_ms,
-                           bound_by=bound_by)
+                           library_ms=library_ms, library=library_note,
+                           bound_ms=bound_ms, bound_by=bound_by)
         emit("kernel_time", kernel="flash_attention_bhsd", case=name,
              **times[name])
     t = times["path"]
@@ -245,6 +285,46 @@ def phase_kernel(torch, fa):
             "kernel_ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "path_shapes": times}
+
+
+def library_attention(torch, fa, q, k, v, opts) -> tuple:
+    """One PyTorch call that computes the kernel's function on these
+    inputs, and its name: SDPA where there is no cap and no window;
+    with them, ``flex_attention`` (compiled) with a tanh-softcap score
+    and a causal sliding-window block mask, held to the plain version
+    first.  (None, reason) where it does not compile or disagrees."""
+    import torch.nn.functional as F
+    if not opts["logit_cap"] and not opts["window"]:
+        return (lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=opts["causal"],
+            enable_gqa=q.shape[1] != k.shape[1])), "sdpa"
+    cap, window, causal = opts["logit_cap"], opts["window"], opts["causal"]
+    try:
+        from torch.nn.attention.flex_attention import (create_block_mask,
+                                                       flex_attention)
+
+        def score_mod(score, b, h, qi, ki):
+            return cap * torch.tanh(score / cap) if cap else score
+
+        def mask_mod(b, h, qi, ki):
+            keep = (ki <= qi) if causal else (ki >= 0)
+            return keep & (qi - ki < window) if window else keep
+
+        mask = create_block_mask(mask_mod, None, None, q.shape[2],
+                                 k.shape[2], device=q.device)
+        flex = torch.compile(flex_attention)
+
+        def call():
+            return flex(q, k, v, score_mod=score_mod, block_mask=mask,
+                        enable_gqa=q.shape[1] != k.shape[1])
+        err = float((call().float()
+                     - fa.flash_attention_plain(q, k, v, **opts).float()
+                     ).abs().max())
+    except Exception as exc:  # noqa: BLE001 - reported as "none"
+        return None, f"none: flex_attention failed: {type(exc).__name__}"
+    if not err <= 2e-2:
+        return None, f"none: flex_attention differs by {err}"
+    return call, f"flex_attention (max_abs_err {err})"
 
 
 def ssd_bound_ms(x, b, chunk: int) -> tuple:
@@ -363,7 +443,8 @@ def phase_ssd_kernel(torch, ss):
 
 
 PATHS = ("codeqwen15_7b", "mamba2_1_3b", "zamba2_2_7b",
-         "granite_moe_3b_a800m", "whisper_large_v3")
+         "granite_moe_3b_a800m", "whisper_large_v3", "gemma2_27b",
+         "nemotron_4_15b", "chameleon_34b")
 
 
 def expected_launches(torch, cfg, n_micro: int, fa, ss) -> dict:
@@ -393,9 +474,10 @@ def expected_launches(torch, cfg, n_micro: int, fa, ss) -> dict:
 def phase_serve(torch, arch, mods):
     """One serve path.  ``mods`` maps a kernel's name to its module, whose
     wrapper of that name holds the launch counts.  Returns the launches of
-    each kernel, in all and by route, over the full-width serve run, and
-    for ``DRYRUN_PREFILL`` the plain-route prefill's FLOPs and times
-    (``prefill_on_card``; else None)."""
+    each kernel, in all and by route, over the full-width serve run, for
+    ``DRYRUN_PREFILL`` the plain-route prefill's FLOPs and times
+    (``prefill_on_card``; else None), and for ``MODES_PATH`` the engine
+    modes' launches (``phase_serve_modes``; else None)."""
     import dataclasses
 
     from repro_torch.configs import get_config, get_smoke_config
@@ -404,21 +486,26 @@ def phase_serve(torch, arch, mods):
 
     # small reference: the smoke config on the card (kernel route, f32)
     # gives exactly the CPU's greedy tokens (plain route) on equal weights;
-    # ssm_chunk=8 makes the SSD scan cross chunks in a 24-token prompt
+    # ssm_chunk=8 makes the SSD scan cross chunks in a 24-token prompt, and
+    # a local window's prompt runs 16 tokens past it
     smoke = get_smoke_config(arch)
     if smoke.family in ("ssm", "hybrid"):
         smoke = dataclasses.replace(smoke, ssm_chunk=8)
     cpu_params = M.init_params(smoke, device="cpu")
     gpu_params = _tree_to(cpu_params, "cuda")
-    small = dict(num_requests=4, microbatch=2, prompt_len=24, decode_steps=6)
+    small = dict(num_requests=4, microbatch=2,
+                 prompt_len=smoke.local_window + 16 if smoke.local_window
+                 else 24, decode_steps=6)
     ref = run_serving(smoke, device="cpu", params=cpu_params, **small)
     got = run_serving(smoke, device="cuda", params=gpu_params, **small)
     same = bool((ref["responses"] == got["responses"]).all())
-    emit("serve_reference", config=smoke.name, **small, tokens_equal=same)
+    emit("serve_reference", config=smoke.name, **small,
+         local_window=smoke.local_window, tokens_equal=same)
     if not same:
         fail(f"{smoke.name} served on the card differs from the CPU")
 
     cfg = get_config(arch)
+    shape = serve_shape(arch)
     t0 = time.monotonic()
     params = M.init_params(cfg, device="cuda")
     torch.cuda.synchronize()
@@ -428,31 +515,27 @@ def phase_serve(torch, arch, mods):
          d_model=cfg.d_model, params=n_params, seconds=init_s,
          bytes=sum(t.numel() * t.element_size() for t in _leaves(params)))
 
-    steps = phase_steps(torch, cfg, params)
+    steps = phase_steps(torch, cfg, params, shape)
     card = (prefill_on_card(torch, cfg, params, steps)
             if arch == DRYRUN_PREFILL else None)
 
-    n_micro = SERVE["num_requests"] // SERVE["microbatch"]
+    n_micro = shape["num_requests"] // shape["microbatch"]
     want = expected_launches(torch, cfg, n_micro, mods["flash_attention_bhsd"],
                              mods["ssd_scan_bhsd"])
     kernels = {name: getattr(mod, name) for name, mod in mods.items()}
     torch.cuda.reset_peak_memory_stats()
-    for fn in kernels.values():
-        fn.launches = 0
-        fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)
-    res = run_serving(cfg, device="cuda", params=params, **SERVE)
-    launches = {name: fn.launches for name, fn in kernels.items()}
-    by_route = {name: dict(fn.launches_by_route)
-                for name, fn in kernels.items()}
+    _zero_counts(kernels)
+    res = run_serving(cfg, device="cuda", params=params, **shape)
+    launches, by_route = _read_counts(kernels)
     resp = res["responses"]
-    emit("serve", config=cfg.name, layers=cfg.num_layers, **SERVE,
-         responses_shape=list(resp.shape), wall_s=res["wall_s"],
-         gen_tokens_per_s=res["gen_tokens_per_s"],
+    emit("serve", config=cfg.name, layers=cfg.num_layers, **shape,
+         local_window=cfg.local_window, responses_shape=list(resp.shape),
+         wall_s=res["wall_s"], gen_tokens_per_s=res["gen_tokens_per_s"],
          prefill_s=res["prefill_s"], decode_s=res["decode_s"],
          max_memory_allocated=torch.cuda.max_memory_allocated(),
          launches=launches, launches_by_route=by_route,
          expected_launches_by_route=want)
-    if tuple(resp.shape) != (SERVE["num_requests"], SERVE["decode_steps"]):
+    if tuple(resp.shape) != (shape["num_requests"], shape["decode_steps"]):
         fail(f"responses shape {resp.shape}")
     if resp.min() < 0 or resp.max() >= cfg.vocab_size:
         fail("token ids outside the vocabulary")
@@ -460,9 +543,84 @@ def phase_serve(torch, arch, mods):
                                         for n, r in want.items()}:
         fail(f"{cfg.name}: kernel launches by route {by_route} (in all "
              f"{launches}), expected {want}")
+    modes = (phase_serve_modes(torch, cfg, params, resp, mods)
+             if arch == MODES_PATH else None)
+    del res
+    gc.collect()                # the engine's drops hold the KV caches
+    torch.cuda.empty_cache()
+    check_full_width_logits(torch, M, cfg, params, shape,
+                            LOGITS_ROWS.get(arch, shape["microbatch"]))
+    return launches, by_route, card, modes
 
-    check_full_width_logits(torch, M, cfg, params)
-    return launches, by_route, card
+
+MODES_PATH = "codeqwen15_7b"
+SERVE_STATS = PROFILE_DIR / "serve_stats.json"
+
+
+def phase_serve_modes(torch, cfg, params, tokens, mods) -> dict:
+    """The serve driver's other engine modes on ``MODES_PATH`` at full
+    width, with the weights and the requests of its serve run: (1) the
+    compiled substrate, (2) streaming token delivery (the chunk lane from
+    ``gen`` to ``assemble``), (3) 3 sessions through a resident
+    ``EngineManager``, 2 at a time in threads that share the card, (4) one
+    session with ``stats_json``.  Each run's tokens must equal the object
+    substrate's (``tokens``); each kernel must launch once per layer per
+    microbatch per session on its route, counted from 0 just before the
+    run; the sessions run must hit the template cache twice; the stats
+    run must write its spans and wall beside the metrics snapshot.
+    Returns each mode's launches by kernel."""
+    import numpy as np
+
+    from repro_torch.launch.serve import run_serving
+    fa, ss = mods["flash_attention_bhsd"], mods["ssd_scan_bhsd"]
+    kernels = {name: getattr(mod, name) for name, mod in mods.items()}
+    n_micro = SERVE["num_requests"] // SERVE["microbatch"]
+    SERVE_STATS.unlink(missing_ok=True)
+    modes = (("compiled", dict(execution="compiled")),
+             ("streaming", dict(streaming=True)),
+             ("sessions", dict(sessions=3, max_concurrent=2)),
+             ("stats_json", dict(stats_json=str(SERVE_STATS))))
+    out = {}
+    for mode, kw in modes:
+        sessions = kw.get("sessions", 1)
+        want = expected_launches(torch, cfg, n_micro * sessions, fa, ss)
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts(kernels)
+        res = run_serving(cfg, device="cuda", params=params, **SERVE, **kw)
+        launches, by_route = _read_counts(kernels)
+        same = bool(np.array_equal(res["responses"], tokens))
+        row = dict(mode=mode, config=cfg.name, options=kw, **SERVE,
+                   wall_s=res["wall_s"],
+                   gen_tokens_per_s=res["gen_tokens_per_s"],
+                   prefill_s=res["prefill_s"], decode_s=res["decode_s"],
+                   max_memory_allocated=torch.cuda.max_memory_allocated(),
+                   tokens_equal=same, launches=launches,
+                   launches_by_route=by_route,
+                   expected_launches_by_route=want)
+        if sessions > 1:
+            row.update({k: res[k] for k in (
+                "sessions", "sessions_per_s", "p50_session_s",
+                "p99_session_s", "template_hits")})
+        if mode == "stats_json":
+            dump = json.loads(SERVE_STATS.read_text())
+            row["stats_keys"] = sorted(dump)
+            row["stats_spans"] = dump.get("spans")
+            if dump.get("wall_s") != res["wall_s"] or "metrics" not in dump \
+                    or "execute" not in {sp["name"] for sp in
+                                         dump.get("spans", [])}:
+                fail(f"serve stats {SERVE_STATS}: {dump}")
+        emit("serve_mode", **row)
+        if not same:
+            fail(f"{cfg.name} {mode}: tokens differ from the object "
+                 f"substrate's")
+        if by_route != want or launches != {n: sum(r.values())
+                                            for n, r in want.items()}:
+            fail(f"{cfg.name} {mode}: kernel launches by route {by_route} "
+                 f"(in all {launches}), expected {want}")
+        if sessions > 1 and res["template_hits"] != sessions - 1:
+            fail(f"{cfg.name} {mode}: {res['template_hits']} template hits")
+        out[mode] = launches
+    return out
 
 
 def prefill_on_card(torch, cfg, params, steps: dict) -> dict:
@@ -497,9 +655,14 @@ def prefill_on_card(torch, cfg, params, steps: dict) -> dict:
             "prefill_bound_ms": steps["prefill_bound_ms"]}
 
 
-def check_full_width_logits(torch, M, cfg, params):
+def check_full_width_logits(torch, M, cfg, params, shape: dict, rows: int):
     """Full-width prefill logits through the kernels vs the plain torch
-    route, on the seeded weights (whisper with the serve's zero frames).
+    route, on the seeded weights (whisper with the serve's zero frames),
+    for ``rows`` prompts of the path's length; the check's peak memory is
+    printed.
+
+    The dense paths are held to 5% of the plain route's logit range and
+    to its top-1 token on every row whose top two it does not tie.
 
     bf16: both routes round activations to bf16 (2^-8 relative) at other
     points (the SSD kernel route rounds y before adding D x, the torch route
@@ -520,9 +683,9 @@ def check_full_width_logits(torch, M, cfg, params):
     import numpy as np
     from repro_torch.launch.serve import prompt_batch
     tokens = torch.from_numpy(np.random.default_rng(1).integers(
-        0, cfg.vocab_size, size=(SERVE["microbatch"], SERVE["prompt_len"]))
-    ).cuda()
+        0, cfg.vocab_size, size=(rows, shape["prompt_len"]))).cuda()
     batch = prompt_batch(cfg, tokens)
+    torch.cuda.reset_peak_memory_stats()
 
     def logits(p, c, use_kernel):
         with torch.inference_mode():
@@ -532,16 +695,30 @@ def check_full_width_logits(torch, M, cfg, params):
     finite = bool(torch.isfinite(lk).all())
     diff = float((lk - lp).abs().max())
     scale = float(lp.abs().max())
-    agree = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
-    out = dict(config=cfg.name, finite=finite, max_abs_diff=diff,
-               max_abs_logit=scale, top1_agreement=agree)
+    same = lk.argmax(-1) == lp.argmax(-1)
+    agree = float(same.float().mean())
+    # a row whose plain route puts its first two tokens within one unit in
+    # the last place of the model's dtype (the head's product is rounded
+    # to it) ties them: it has no top-1 for the kernel route to match
+    top2 = lp.float().topk(2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]
+    ulp = torch.finfo(cfg.torch_dtype).eps * torch.exp2(
+        torch.floor(torch.log2(top2[..., 0].abs())))
+    tied = margin <= ulp
+    out = dict(config=cfg.name, rows=rows, prompt_len=shape["prompt_len"],
+               finite=finite, max_abs_diff=diff, max_abs_logit=scale,
+               top1_agreement=agree, top1_margins=margin.flatten().tolist(),
+               tied_rows=int(tied.sum()),
+               top1_agree_untied=bool((same | tied).all()))
     if cfg.family not in ("ssm", "hybrid", "moe"):
-        emit("prefill_kernel_vs_plain", **out)
+        emit("prefill_kernel_vs_plain", **out,
+             max_memory_allocated=torch.cuda.max_memory_allocated())
         if not finite:
             fail(f"{cfg.name}: non-finite logits at full width")
-        if diff > 0.05 * scale:
+        if diff > 0.05 * scale or not out["top1_agree_untied"]:
             fail(f"{cfg.name}: kernel-route logits differ from the plain "
-                 f"route by {diff}")
+                 f"route by {diff} (top-1 agreement {agree}, "
+                 f"{out['tied_rows']} rows tied)")
         return
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     p32 = _tree_map(params, lambda t: t.float())
@@ -586,9 +763,11 @@ def step_bounds(cfg, params, mb: int, s: int, max_seq: int) -> dict:
       parameters over the frames with non-causal pairs, the cross K/V
       projections over the frames, the tokens x frames cross pairs; bf16:
       the rest of the decoder's parameters over the tokens, causal pairs.
+    A local layer's pairs are those its window leaves visible.
     Decode, bytes: the weights the step reads once (moe: the non-expert
     weights plus min(E, B x top_k) experts a layer; encdec: not the
-    encoder's), the KV cache up to the new position, the whole cross cache
+    encoder's), the KV cache up to the new position (a local layer: its
+    window of it), the whole cross cache
     (the reference attends over its zero rows too), the f32 SSM state read
     and written."""
     def numel(tree):
@@ -597,11 +776,20 @@ def step_bounds(cfg, params, mb: int, s: int, max_seq: int) -> dict:
     def nbytes(tree):
         return sum(t.numel() * t.element_size() for t in _leaves(tree))
 
+    from repro_torch.models.model import layer_windows
     L, hd = cfg.num_layers, cfg.resolved_head_dim
     es = params["embed"].element_size()
     layer_params = numel(params["layers"])
     attn = 4 * mb * cfg.num_heads * hd * visible_pairs(s, s, True, 0)
     kv_bytes = 2 * mb * (s + 1) * cfg.num_kv_heads * hd * es
+    if cfg.family in ("dense", "vlm", "moe", "encdec"):
+        # a local layer's queries see their window, its decode reads it
+        windows = layer_windows(cfg)
+        pairs = {w: visible_pairs(s, s, True, w) for w in set(windows)}
+        attn_all = sum(4 * mb * cfg.num_heads * hd * pairs[w]
+                       for w in windows)
+        kv_all = sum(2 * mb * min(s + 1, w or s + 1) * cfg.num_kv_heads
+                     * hd * es for w in windows)
     bf16 = 2 * mb * cfg.d_model * cfg.padded_vocab
     f32 = 0
     decode_bytes = nbytes(params)
@@ -627,8 +815,8 @@ def step_bounds(cfg, params, mb: int, s: int, max_seq: int) -> dict:
                          * cfg.num_kv_heads * hd * es)
     bf16 += 2 * layer_params * mb * s
     if cfg.family not in ("ssm", "hybrid"):
-        bf16 += L * attn
-        decode_bytes += L * kv_bytes
+        bf16 += attn_all
+        decode_bytes += kv_all
     else:
         h, p, n = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state
         q = min(cfg.ssm_chunk, s)
@@ -647,7 +835,7 @@ def step_bounds(cfg, params, mb: int, s: int, max_seq: int) -> dict:
             "decode_bytes": decode_bytes}
 
 
-def phase_steps(torch, cfg, params):
+def phase_steps(torch, cfg, params, shape: dict):
     """The serve path's prefill and decode steps alone, without the engine:
     warm, each call on the host clock ended by a device synchronise; then a
     torch.profiler trace of one call of each (summary printed, full tables
@@ -655,8 +843,8 @@ def phase_steps(torch, cfg, params):
     import numpy as np
     from repro_torch.launch.serve import prompt_batch
     from repro_torch.train import make_decode_step, make_prefill_step
-    mb, s, steps = (SERVE["microbatch"], SERVE["prompt_len"],
-                    SERVE["decode_steps"])
+    mb, s, steps = (shape["microbatch"], shape["prompt_len"],
+                    shape["decode_steps"])
     prefill_step, decode_one = make_prefill_step(cfg), make_decode_step(cfg)
     batch = prompt_batch(cfg, torch.from_numpy(
         np.random.default_rng(2).integers(0, cfg.vocab_size,
@@ -692,8 +880,10 @@ def phase_steps(torch, cfg, params):
 
 def profile_call(torch, fn, table_name: str) -> dict:
     """One call of ``fn`` under torch.profiler, ended by a device
-    synchronise: its wall ms, device busy ms and idle share, and the ten
-    device kernels with the most time (full table to ``table_name`` under
+    synchronise: its wall ms, device busy ms and idle share, the ten
+    device kernels with the most time, and the device time of the MoE
+    dispatch's and the SSD scan's index ops (``WATCHED_OPS``), where the
+    call ran them (full table to ``table_name`` under
     ``chiprun_out/chip_smoke/``)."""
     from torch.profiler import ProfilerActivity, profile
     PROFILE_DIR.mkdir(parents=True, exist_ok=True)
@@ -713,10 +903,18 @@ def profile_call(torch, fn, table_name: str) -> dict:
                   and not getattr(e, "is_user_annotation", False)),
                  reverse=True)
     busy_ms = sum(d for d, _, _ in dev)
+    watched = {e.key: {"device_ms": _device_us(e) / 1e3, "calls": e.count}
+               for e in events if e.key in WATCHED_OPS}
     return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
                 device_idle_share=max(0.0, 1 - busy_ms / wall_ms),
                 top=[{"op": k[:100], "device_ms": d, "calls": c}
-                     for d, c, k in dev[:10]])
+                     for d, c, k in dev[:10]], ops=watched)
+
+
+# the MoE dispatch (slot cumsum, scatter_add write, gather read) and the
+# SSD scan's cumsum, by their device time under the op
+WATCHED_OPS = ("aten::cumsum", "aten::scatter_add", "aten::gather",
+               "aten::index_put_", "aten::index")
 
 
 TRAIN_FULL = dict(layers=16, batch=8, seq=512, steps=4, peak_lr=3e-4)
@@ -993,9 +1191,7 @@ def phase_train(torch, mods) -> tuple:
     reference does).  Returns each kernel's launches over the phase and
     the full-width train step's FLOPs and times."""
     kernels = {name: getattr(mod, name) for name, mod in mods.items()}
-    for fn in kernels.values():
-        fn.launches = 0
-        fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)
+    _zero_counts(kernels)
     refused = check_kernel_guard(torch, mods)
     worst = train_parity(torch)
     train_engine(torch)
@@ -1003,7 +1199,7 @@ def phase_train(torch, mods) -> tuple:
     torch.cuda.empty_cache()
     cfg, batch, card = train_full_width(torch)
     train_remat(torch, cfg, batch)
-    launches = {name: fn.launches for name, fn in kernels.items()}
+    launches, _ = _read_counts(kernels)
     emit("train_launches", launches=launches, guard_refused=refused,
          parity_max_rel_err=worst)
     if any(launches.values()):
@@ -1015,30 +1211,36 @@ DRYRUN_PREFILL = "codeqwen15_7b"       # its serve path counts a prefill
 DRYRUN_CELL = ("mamba2_1_3b", "decode_32k")
 REFERENCE_RECORD = (ROOT / "results" / "dryrun"
                     / "mamba2_1_3b__decode_32k__single.json")
+DRYRUN_SMOKE_CELLS = (("mamba2_1_3b", "prefill_32k"),
+                      ("granite_moe_3b_a800m", "decode_32k"),
+                      ("codeqwen15_7b", "train_4k"),
+                      ("zamba2_2_7b", "train_4k"))
+DRYRUN_SMOKE_MESH = ((2, 4), ("data", "model"))
 
 
 def phase_dryrun(torch, mods, cards: dict) -> dict:
     """The port's dry-run on the card's host, with every kernel count set
     to 0: (a) the cell of the one committed reference record on the
     256-rank fake mesh ends ok and agrees with that record on params,
-    active params, chips, decisions and argument bytes per device; (b)
-    and (c) the cost pass on the local 1-rank mesh counts, to the FLOP,
+    active params, chips, decisions and argument bytes per device; the
+    smoke cells ``DRYRUN_SMOKE_CELLS`` on a (2, 4) fake mesh end ok under
+    this host's torch; (b) and (c) the cost pass on the local 1-rank mesh
+    counts, to the FLOP,
     what ``FlopCounterMode`` counted on the card for codeqwen1.5-7b's
     plain-route prefill (``prefill_on_card``) and its 16-layer donated,
     rematerialised train step (``train_full_width``), each printed with
     the roofline terms beside the measured times and the bounds; (d) no
     kernel launched.  Returns each kernel's launches over the phase."""
-    from repro_torch.configs import get_config
+    from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.launch import dryrun as D
     from repro_torch.launch.mesh import (LINK_BW, fake_process_group,
                                          make_local_mesh)
     from repro_torch.models.common import ShapeConfig
     from repro_torch.roofline import roofline_terms
+    from repro_torch.sharding import AbstractMesh
     t0 = time.monotonic()
     kernels = {name: getattr(mod, name) for name, mod in mods.items()}
-    for fn in kernels.values():
-        fn.launches = 0
-        fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)
+    _zero_counts(kernels)
 
     arch, shape = DRYRUN_CELL
     rec = D.run_cell(arch, shape, False, PROFILE_DIR / "dryrun",
@@ -1060,6 +1262,24 @@ def phase_dryrun(torch, mods, cards: dict) -> dict:
     if got != {k: ref[k] for k in keys}:
         fail(f"dry-run of {arch} x {shape} differs from the reference "
              f"record: {got}")
+
+    # the ops that torch 2.11's DTensor could not shard (the SSM conv's
+    # pad, the MoE dispatch write, the embedding's backward): smoke cells
+    # that run them end ok on this host's release
+    for arch, shape in DRYRUN_SMOKE_CELLS:
+        rec = D.run_cell(arch, shape, False, PROFILE_DIR / "dryrun_smoke",
+                         verbose=False, cfg=get_smoke_config(arch),
+                         mesh_axes=AbstractMesh(*DRYRUN_SMOKE_MESH))
+        emit("dryrun_smoke_cell", arch=arch, shape=shape,
+             mesh=list(DRYRUN_SMOKE_MESH[0]), torch=torch.__version__,
+             status=rec["status"], error=rec.get("error"),
+             trace_s=rec.get("trace_s"), cost_pass_s=rec.get("cost_pass_s"),
+             cost=rec.get("cost"), collectives=rec.get("collectives"),
+             reshards=rec.get("reshards"))
+        if rec["status"] != "ok":
+            print(rec.get("traceback"), file=sys.stderr, flush=True)
+            fail(f"dry-run of the smoke {arch} x {shape} under torch "
+                 f"{torch.__version__}: {rec.get('error')}")
 
     base = get_config(DRYRUN_PREFILL)
     nm1 = D.make_variant("nm1")
@@ -1084,11 +1304,88 @@ def phase_dryrun(torch, mods, cards: dict) -> dict:
             if fake["flops"] != card["flops"]:
                 fail(f"{cfg.name} {step}: the fake pass counts "
                      f"{fake['flops']} FLOPs, the card {card['flops']}")
-    launches = {name: fn.launches for name, fn in kernels.items()}
+    launches, _ = _read_counts(kernels)
     emit("dryrun_launches", launches=launches,
          seconds=time.monotonic() - t0)
     if any(launches.values()):
         fail(f"the dryrun phase launched kernels: {launches}")
+    return launches
+
+
+EXAMPLES = ROOT / "examples" / "torch"
+TRAIN_LM_CKPT = PROFILE_DIR / "train_lm_ckpt"
+
+
+def _load_example(name: str):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(f"example_{name}",
+                                                  EXAMPLES / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_examples(torch, mods) -> dict:
+    """The port's examples, with every kernel count set to 0: (a)
+    ``chiles_pipeline.main`` (numpy apps through the port's engine, as the
+    reference's) recovers the injected source in band 2, its own check;
+    (b) ``train_lm.py`` at its defaults (lm20m, 200 steps through the
+    engine on the card, which keeps every step's state), checkpoints under
+    ``chiprun_out/`` deleted after: the loss falls, its own check; (c) no
+    kernel launched.  Returns each kernel's launches over the phase."""
+    import shutil
+    kernels = {name: getattr(mod, name) for name, mod in mods.items()}
+    _zero_counts(kernels)
+
+    chiles = _load_example("chiles_pipeline")
+    cubes = []
+
+    class Reading(chiles.Pipeline):
+        def __exit__(self, *exc):
+            cubes.append(self.session.drops["final"].read())
+            return super().__exit__(*exc)
+    chiles.Pipeline = Reading
+    t0 = time.monotonic()
+    try:
+        chiles.main()
+    except AssertionError as err:
+        fail(f"examples/torch/chiles_pipeline.py: {err}")
+    peaks = cubes[0].max(axis=(1, 2))
+    emit("example_chiles", seconds=time.monotonic() - t0,
+         cube_shape=list(cubes[0].shape), band_peaks=peaks.tolist(),
+         source_band=int(peaks.argmax()))
+
+    train_lm = _load_example("train_lm")
+    results = []
+    run_training = train_lm.run_training
+
+    def recording(*args, **kwargs):
+        results.append(run_training(*args, **kwargs))
+        return results[-1]
+    train_lm.run_training = recording
+    shutil.rmtree(TRAIN_LM_CKPT, ignore_errors=True)
+    argv = sys.argv
+    sys.argv = ["train_lm.py", "--ckpt-dir", str(TRAIN_LM_CKPT)]
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        train_lm.main()
+    except AssertionError as err:
+        fail(f"examples/torch/train_lm.py: {err}: {results[0]['losses']}")
+    finally:
+        sys.argv = argv
+    res = results.pop()
+    emit("example_train_lm", preset="lm20m", steps=len(res["losses"]),
+         first_loss=res["first_loss"], last_loss=res["last_loss"],
+         wall_s=res["wall_s"], tokens_per_s=res["tokens_per_s"],
+         drops=res["drops"], final_step=res["final_step"],
+         checkpoints=sorted(p.name for p in TRAIN_LM_CKPT.iterdir()),
+         max_memory_allocated=torch.cuda.max_memory_allocated())
+    del res
+    shutil.rmtree(TRAIN_LM_CKPT)
+    launches, _ = _read_counts(kernels)
+    emit("examples_launches", launches=launches)
+    if any(launches.values()):
+        fail(f"the examples phase launched kernels: {launches}")
     return launches
 
 
@@ -1119,9 +1416,28 @@ def check_kernel_guard(torch, mods) -> list:
     return refused
 
 
+def _zero_counts(kernels: dict) -> None:
+    for fn in kernels.values():
+        fn.launches = 0
+        fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)
+
+
+def _read_counts(kernels: dict) -> tuple:
+    """Each kernel's launches, in all and by route."""
+    return ({name: fn.launches for name, fn in kernels.items()},
+            {name: dict(fn.launches_by_route)
+             for name, fn in kernels.items()})
+
+
 def _self_device_us(event) -> float:
     us = getattr(event, "self_device_time_total", None)
     return us if us is not None else getattr(event, "self_cuda_time_total", 0)
+
+
+def _device_us(event) -> float:
+    """An op's device time, its kernels' included."""
+    us = getattr(event, "device_time_total", None)
+    return us if us is not None else getattr(event, "cuda_time_total", 0)
 
 
 def _leaves(tree):
@@ -1177,20 +1493,25 @@ def main() -> int:
     mods = {e["name"]: mod for e, mod in zip(entries, (fa, ss))}
     by_path, routes, cards = {}, {}, {}
     for arch in PATHS:
-        by_path[arch], routes[arch], card = phase_serve(torch, arch, mods)
+        by_path[arch], routes[arch], card, modes = phase_serve(torch, arch,
+                                                               mods)
         if card is not None:
             cards["prefill"] = card
+        for mode, launches in (modes or {}).items():
+            by_path[f"{arch}/{mode}"] = launches
         gc.collect()                    # free the model before the next
         torch.cuda.empty_cache()
     train, cards["train_step"] = phase_train(torch, mods)
     gc.collect()
     torch.cuda.empty_cache()
     dry = phase_dryrun(torch, mods, cards)
+    examples = phase_examples(torch, mods)
     for e in entries:
         e["launches_by_path"] = {a: n[e["name"]] for a, n in by_path.items()}
         e["launches"] = sum(e["launches_by_path"].values())
         e["launches_by_path"]["train"] = train[e["name"]]
         e["launches_by_path"]["dryrun"] = dry[e["name"]]
+        e["launches_by_path"]["examples"] = examples[e["name"]]
         e["launches_by_route"] = {
             r: sum(routes[a][e["name"]][r] for a in routes)
             for r in routes[PATHS[0]][e["name"]]}

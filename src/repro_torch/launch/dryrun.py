@@ -228,7 +228,10 @@ _VIEWS = (torch.ops.aten.view.default, torch.ops.aten._unsafe_view.default)
 _ARG_REDUCTIONS = (torch.ops.aten.argmax.default,
                    torch.ops.aten.argmin.default)
 _MESH_DIM = re.compile(r"mesh dimension (\d+)")
-_TENSOR_DIM = re.compile(r"dimension (\d+) being sharded")
+# torch 2.13 words it "dimension 2 being sharded", 2.11 "the sharded
+# dimension 2"
+_TENSOR_DIM = re.compile(r"dimension (\d+) being sharded|sharded dimension "
+                         r"(\d+)")
 
 
 class Reshard(TorchDispatchMode):
@@ -289,7 +292,8 @@ class Reshard(TorchDispatchMode):
             return p.is_shard() and (
                 (mesh_dim is not None and i == int(mesh_dim.group(1)))
                 or (tensor_dim is not None
-                    and p.dim == int(tensor_dim.group(1))))
+                    and p.dim == int(tensor_dim.group(1)
+                                     or tensor_dim.group(2))))
 
         def uneven(t, i, p):
             return p.is_shard() and t.shape[p.dim] % t.device_mesh.size(i)

@@ -104,8 +104,12 @@ def run_serving(cfg: ArchConfig, *, num_requests: int = 8,
     n_micro = num_requests // microbatch
     max_seq = prompt_len + decode_steps
 
-    if params is None:
-        params = M.init_params(cfg, device=dev)
+    # the apps stay in the engine's registry after this call returns; they
+    # reach the weights through ``model``, which is emptied on the way out
+    # so that the registry does not keep the model alive
+    model = {"params": (params if params is not None
+                        else M.init_params(cfg, device=dev))}
+    del params
     prefill_step = make_prefill_step(cfg)
     decode_one = make_decode_step(cfg)
     app_seconds = {"prefill": 0.0, "decode": 0.0}
@@ -128,7 +132,8 @@ def run_serving(cfg: ArchConfig, *, num_requests: int = 8,
             prompts[mb * microbatch:(mb + 1) * microbatch]).to(dev)
         # the cache is allocated at max_seq, so decode grows nothing (its
         # cross rows past the frames stay zero, as the reference's padding)
-        next_tok, cache = prefill_step(params, prompt_batch(cfg, chunk),
+        next_tok, cache = prefill_step(model["params"],
+                                       prompt_batch(cfg, chunk),
                                        max_seq)
         _timed("prefill", t0)
         for o in outputs:
@@ -141,7 +146,8 @@ def run_serving(cfg: ArchConfig, *, num_requests: int = 8,
         tok, cache = st["next"], st["cache"]
         toks = [tok]
         for i in range(decode_steps - 1):
-            tok, cache = decode_one(params, cache, tok, prompt_len + i)
+            tok, cache = decode_one(model["params"], cache, tok,
+                                    prompt_len + i)
             toks.append(tok)
         gen = torch.cat(toks, dim=1).cpu().numpy()
         _timed("decode", t0)
@@ -160,7 +166,8 @@ def run_serving(cfg: ArchConfig, *, num_requests: int = 8,
         for o in outputs:
             o.write((mb, 0, tok.cpu().numpy()))
         for i in range(decode_steps - 1):
-            tok, cache = decode_one(params, cache, tok, prompt_len + i)
+            tok, cache = decode_one(model["params"], cache, tok,
+                                    prompt_len + i)
             host = tok.cpu().numpy()
             for o in outputs:
                 o.write((mb, i + 1, host))
@@ -203,52 +210,55 @@ def run_serving(cfg: ArchConfig, *, num_requests: int = 8,
     g.connect("gen", "assemble", streaming=streaming)
     g.chain("assemble", "responses")
 
-    if sessions > 1:
-        result = _run_sessions(g.graph(), sessions=sessions,
-                               num_nodes=num_nodes,
-                               max_concurrent=max_concurrent,
-                               num_requests=num_requests,
-                               decode_steps=decode_steps,
-                               stats_json=stats_json)
-        result.update(prefill_s=app_seconds["prefill"],
-                      decode_s=app_seconds["decode"])
-        return result
+    try:
+        if sessions > 1:
+            result = _run_sessions(g.graph(), sessions=sessions,
+                                   num_nodes=num_nodes,
+                                   max_concurrent=max_concurrent,
+                                   num_requests=num_requests,
+                                   decode_steps=decode_steps,
+                                   stats_json=stats_json)
+            result.update(prefill_s=app_seconds["prefill"],
+                          decode_s=app_seconds["decode"])
+            return result
 
-    telemetry = TelemetryConfig(metrics=True) if stats_json else None
-    engine_cfg = EngineConfig(num_nodes=num_nodes, workers_per_node=2,
-                              execution=execution, telemetry=telemetry)
-    with Pipeline(engine_cfg) as p:
-        p.translate(g.graph())
-        p.deploy()
-        t0 = time.monotonic()
-        rep = p.execute(inputs={"reqs": num_requests}, timeout=3600,
-                        hooks=hooks)
-        wall = time.monotonic() - t0
-        if not rep.ok:
-            raise RuntimeError(f"serve graph failed: {rep.errors[:3]}")
-        out = (p.session.read("responses") if execution == "compiled"
-               else p.session.drops["responses"].read())
-        if stats_json:
-            _dump_stats(stats_json, {
-                "metrics": p.metrics.snapshot() if p.metrics else {},
-                "spans": [{"name": s.name, "seconds": s.duration}
-                          for s in p.spans],
-                "wall_s": wall,
-            })
-    gen_tokens = num_requests * decode_steps
-    result = {
-        "responses": out,
-        "responses_shape": tuple(out.shape),
-        "wall_s": wall,
-        "gen_tokens_per_s": gen_tokens / wall,
-        "prefill_s": app_seconds["prefill"],
-        "decode_s": app_seconds["decode"],
-        "drops": sum(rep.status_counts.values()),
-    }
-    print(f"[serve] {num_requests} requests x {decode_steps} tokens in "
-          f"{wall:.2f}s ({result['gen_tokens_per_s']:.1f} tok/s), "
-          f"responses {out.shape}")
-    return result
+        telemetry = TelemetryConfig(metrics=True) if stats_json else None
+        engine_cfg = EngineConfig(num_nodes=num_nodes, workers_per_node=2,
+                                  execution=execution, telemetry=telemetry)
+        with Pipeline(engine_cfg) as p:
+            p.translate(g.graph())
+            p.deploy()
+            t0 = time.monotonic()
+            rep = p.execute(inputs={"reqs": num_requests}, timeout=3600,
+                            hooks=hooks)
+            wall = time.monotonic() - t0
+            if not rep.ok:
+                raise RuntimeError(f"serve graph failed: {rep.errors[:3]}")
+            out = (p.session.read("responses") if execution == "compiled"
+                   else p.session.drops["responses"].read())
+            if stats_json:
+                _dump_stats(stats_json, {
+                    "metrics": p.metrics.snapshot() if p.metrics else {},
+                    "spans": [{"name": s.name, "seconds": s.duration}
+                              for s in p.spans],
+                    "wall_s": wall,
+                })
+        gen_tokens = num_requests * decode_steps
+        result = {
+            "responses": out,
+            "responses_shape": tuple(out.shape),
+            "wall_s": wall,
+            "gen_tokens_per_s": gen_tokens / wall,
+            "prefill_s": app_seconds["prefill"],
+            "decode_s": app_seconds["decode"],
+            "drops": sum(rep.status_counts.values()),
+        }
+        print(f"[serve] {num_requests} requests x {decode_steps} tokens in "
+              f"{wall:.2f}s ({result['gen_tokens_per_s']:.1f} tok/s), "
+              f"responses {out.shape}")
+        return result
+    finally:
+        model.clear()
 
 
 def _run_sessions(lg, *, sessions: int, num_nodes: int,

@@ -124,7 +124,9 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if window:
             mask = mask & (qpos - kpos < window)
         scores = scores.masked_fill(~mask, -1e30)
-    return _gqa_out(torch.softmax(scores, dim=-1), v)
+    probs = torch.softmax(scores, dim=-1)
+    del scores          # one S x S tensor fewer while the product runs
+    return _gqa_out(probs, v)
 
 
 def attention(p: Params, x: torch.Tensor, cfg: ArchConfig, *,

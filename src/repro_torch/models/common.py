@@ -219,8 +219,15 @@ def activation_fn(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
 
 
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    """``cap * tanh(x / cap)``.  A plain tensor outside autograd takes the
+    tanh and the scaling in place on the quotient: the same values, one
+    full-size temporary fewer (the plain-route prefill's f32 scores are
+    8.6 GB a sequence and layer call at gemma2-27b's 8192 tokens)."""
     if not cap:
         return x
+    if type(x) is torch.Tensor and not (torch.is_grad_enabled()
+                                        and x.requires_grad):
+        return x.div(cap).tanh_().mul_(cap)
     return cap * torch.tanh(x / cap)
 
 

@@ -336,9 +336,35 @@ def encode(params: Dict[str, Any], cfg: ArchConfig, frames: torch.Tensor, *,
     return rms_norm(h, params["enc_norm"])
 
 
+class _EmbedLookup(torch.autograd.Function):
+    """``weight[tokens]`` whose backward is ``embedding_dense_backward``
+    (``F.embedding``'s) instead of the ``index_put`` that an indexing's
+    backward runs.  The values are the indexing's.  Under the dry-run,
+    DTensor shards both ops in every release it meets; torch 2.11 has no
+    usable strategy for ``index_put``, and ``F.embedding`` itself leaves a
+    vocab-parallel lookup's rows as a ``_MaskPartial`` that the next
+    pointwise op refuses."""
+
+    @staticmethod
+    def forward(ctx, weight: torch.Tensor, tokens: torch.Tensor):
+        ctx.save_for_backward(tokens)
+        ctx.num_weights = weight.shape[0]
+        return weight[tokens]
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        (tokens,) = ctx.saved_tensors
+        return torch.ops.aten.embedding_dense_backward(
+            grad, tokens, ctx.num_weights, -1, False), None
+
+
+def _embed_lookup(weight: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    return _EmbedLookup.apply(weight, tokens.long())
+
+
 def embed_tokens(params: Dict[str, Any], cfg: ArchConfig,
                  tokens: torch.Tensor) -> torch.Tensor:
-    x = params["embed"][tokens.long()]
+    x = _embed_lookup(params["embed"], tokens)
     if cfg.family == "encdec":
         x = x + _sinusoid(tokens.shape[-1], cfg.d_model,
                           x.device).to(x.dtype)
@@ -443,7 +469,7 @@ def decode_step(params: Dict[str, Any], cfg: ArchConfig,
     ``pos`` of the cache's length (as the reference slices it)."""
     _check_family(cfg)
     if cfg.family == "encdec":
-        h = params["embed"][tokens.long()] + _sinusoid(
+        h = _embed_lookup(params["embed"], tokens) + _sinusoid(
             cache["kv"]["k"].shape[2], cfg.d_model,
             tokens.device)[pos].to(params["embed"].dtype)
     else:

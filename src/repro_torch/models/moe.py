@@ -84,11 +84,14 @@ def moe_block(p: Params, x: torch.Tensor, cfg: ArchConfig,
     pos_safe = torch.where(keep, pos, cap)
 
     # --- dispatch: buffer[g, e, c, d] via scatter-add ----------------------
+    # over the flattened (expert, slot) axis: a kept slot receives exactly
+    # one token (0 + x), the spare slots sum the dropped ones.  scatter_add
+    # and its backward (gather) have DTensor strategies in every release
+    # the dry-run meets; index_put_ has none in torch 2.11
     vals = xg.repeat_interleave(k, dim=1)                 # (g, n, d)
-    g_ids = torch.arange(g, device=x.device)[:, None].expand(g, n)
-    buf = x.new_zeros((g, e, cap + 1, d))
-    buf.index_put_((g_ids, flat_idx, pos_safe), vals, accumulate=True)
-    buf = buf[:, :, :cap]
+    slot = (flat_idx * (cap + 1) + pos_safe)[..., None].expand(g, n, d)
+    buf = x.new_zeros((g, e * (cap + 1), d)).scatter_add(1, slot, vals)
+    buf = buf.view(g, e, cap + 1, d)[:, :, :cap]
     # the ep profile turns tokens to their experts here
     buf = sctx.constrain(buf, "moe_buffer")
 
@@ -104,7 +107,8 @@ def moe_block(p: Params, x: torch.Tensor, cfg: ArchConfig,
 
     # --- combine: gather back + gate-weighted sum over k -------------------
     # the reference clamps the gather of a dropped slot, then masks it
-    gathered = out_buf[g_ids, flat_idx, pos_safe.clamp_max(cap - 1)]
+    slot = (flat_idx * cap + pos_safe.clamp_max(cap - 1))[..., None]
+    gathered = out_buf.reshape(g, e * cap, d).gather(1, slot.expand(g, n, d))
     gathered = torch.where(keep[..., None], gathered, 0.0)
     gathered = gathered.reshape(g, sg, k, d)
     y = torch.einsum("gskd,gsk->gsd", gathered.float(), gates).to(x.dtype)

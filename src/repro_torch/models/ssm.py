@@ -52,11 +52,37 @@ def _split_proj(cfg: ArchConfig, zxbcdt: torch.Tensor):
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor,
                  b: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv1d.  x: (B,S,C), w: (W,C)."""
+    """Depthwise causal conv1d.  x: (B,S,C), w: (W,C).
+
+    The W-1 leading zeros are a concatenated zero block, not ``F.pad``:
+    the same values, and an op that DTensor shards in every release the
+    dry-run meets (torch 2.11 fails inside ``constant_pad_nd``)."""
     wsz, s = w.shape[0], x.shape[1]
-    xp = F.pad(x, (0, 0, wsz - 1, 0))
+    zeros = x.new_zeros((x.shape[0], wsz - 1, x.shape[2]))
+    xp = torch.cat([zeros, x], dim=1)
     out = sum(xp[:, i:i + s, :] * w[i] for i in range(wsz))
     return F.silu(out + b)
+
+
+class _CumSum(torch.autograd.Function):
+    """``torch.cumsum`` along ``dim`` whose backward reverses the grad with
+    ``gather`` where cumsum's own backward runs ``flip`` (reverse, cumsum,
+    reverse): the same values.  Under the dry-run, DTensor in torch 2.11
+    has no strategy for ``flip``."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, dim: int):
+        ctx.dim = dim
+        return torch.cumsum(x, dim)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        dim, n = ctx.dim, grad.shape[ctx.dim]
+        shape = [1] * grad.ndim
+        shape[dim] = n
+        rev = torch.arange(n - 1, -1, -1, device=grad.device).view(
+            shape).expand(grad.shape)
+        return grad.gather(dim, rev).cumsum(dim).gather(dim, rev), None
 
 
 def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
@@ -91,7 +117,7 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     bc = b_.reshape(B, nc, Q, G, N).repeat_interleave(rep, dim=3)
     cc = c_.reshape(B, nc, Q, G, N).repeat_interleave(rep, dim=3)
 
-    cum = torch.cumsum(dtc * a, dim=2)                     # (B,nc,Q,H)
+    cum = _CumSum.apply(dtc * a, 2)                        # (B,nc,Q,H)
 
     # ---- intra-chunk (the "attention-like" quadratic term) -------------
     # L[i,j] = exp(cum_i - cum_j) for i >= j; selected, since i < j overflows

@@ -1,6 +1,6 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, and
-its engine, data pipeline and config files are verbatim copies of the JAX
-package's."""
+"""The port stands alone: it and its examples (``examples/torch/``) import
+neither JAX nor the JAX package, and its engine, data pipeline and config
+files are verbatim copies of the JAX package's."""
 import json
 import os
 import re
@@ -26,12 +26,16 @@ COPIED = ([f"core/{p.name}" for p in sorted((SRC / "repro" / "core")
              if p.name != "__init__.py"])
 
 _PROBE = r"""
-import importlib, json, pkgutil, sys
+import importlib, importlib.util, json, pathlib, pkgutil, sys
 import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
 for n in names:
     importlib.import_module(n)
+for p in sorted(pathlib.Path("examples/torch").glob("*.py")):
+    spec = importlib.util.spec_from_file_location("example_" + p.stem, p)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+    names.append(str(p))
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "repro" or m.startswith("repro."))
@@ -61,6 +65,7 @@ _IMPORT = re.compile(r"^\s*(import\s+(jax|repro)\b|from\s+(jax|repro)\b)",
 
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT)) for p in list(PORT.rglob("*.py"))
+    + list((ROOT / "examples" / "torch").rglob("*.py"))
     + [ROOT / "chip_smoke.py"]))
 def test_no_absolute_import_of_jax_or_repro(path):
     text = (ROOT / path).read_text()

@@ -243,3 +243,22 @@ def test_moe_encdec_serve_kernel_route_on_cpu_tokens_match(
     res = mod.run_serving(cfg, device="cpu",
                           params=params_from_numpy(tree, "cpu"), **SHAPE)
     np.testing.assert_array_equal(res["responses"], want)
+
+
+def test_served_model_is_not_kept_alive():
+    """The serve apps stay in the engine's registry after ``run_serving``
+    returns; they must not keep its weights alive (a card serving one model
+    after another would hold both)."""
+    import gc
+    import weakref
+
+    from repro_torch.models import model as TM
+    cfg = get_smoke_config(ARCH)
+    params = TM.init_params(cfg, device="cpu")
+    alive = weakref.ref(params["embed"])
+    torch_serve.run_serving(cfg, device="cpu", params=params,
+                            num_requests=2, microbatch=1, prompt_len=4,
+                            decode_steps=2)
+    del params
+    gc.collect()
+    assert alive() is None
