@@ -14,13 +14,20 @@ no result):
 
 1. device: the card's name and power limit; TF32 off for matmuls and cuDNN.
 2. build: compile every CUDA kernel from ``src/repro_torch/csrc`` with nvcc,
-   all at once; ptxas registers and spills per kernel instance.
+   all at once, and beside them flash attention with ``-DFLASH_FORCE_MMA``
+   (the ``mma_bf16`` route at every head dim, for timing the old route);
+   ptxas registers, spills and warnings per kernel instance.  Fails if
+   ptxas reported a spill, a serialised wgmma or an ignored setmaxnreg.
 3. kernel: each kernel against its plain PyTorch version on the card, at
    the serve paths' shapes and at every option case in f32 (scalar route)
-   and in bf16 (tensor-core route); times of the kernel, the plain version
-   and (where one exists) one library call at the path shapes, CUDA
-   events: SDPA, or for a softcapped or windowed case a compiled
-   ``flex_attention``.  Fails if ptxas reported a spill.
+   and in bf16 (flash: ``wgmma_bf16`` at D = 64 and 128, ``mma_bf16`` at
+   the other head dims; every bf16 option case at D = 64 and at 128; the
+   route of each flash call read from its device kernel's name in a
+   profile); times of the kernel, the plain version and (where one exists)
+   one library call at the path shapes, CUDA events: SDPA, or for a
+   softcapped or windowed case a compiled ``flex_attention``; on the
+   ``wgmma_bf16`` path shapes also the ``mma_bf16`` route's time
+   (``prior_ms``), timed in turns with the new route.
 4. serve, for each of eight paths in turn: codeqwen1.5-7b (dense, flash
    kernel), mamba2-1.3b (ssm, SSD kernel), zamba2-2.7b (hybrid, both
    kernels), granite-moe-3b-a800m (moe, flash), whisper-large-v3 (encdec,
@@ -30,13 +37,16 @@ no result):
    must give the CPU's tokens (a windowed one with prompts past its
    window).  Then the model at full width and depth (random weights from
    a seed): its prefill and decode steps timed alone, against their
-   bounds, and profiled; then 8 requests x 16 tokens with 512-token
+   bounds, and profiled (the flash launches each route's wrapper counted
+   in the profiled call must be the device kernels the profile shows);
+   then 8 requests x 16 tokens with 512-token
    prompts (gemma2: 4 x 16 with 8192-token prompts, past its window)
    through the engine, with every kernel count set to 0 just before and
    read just after: each kernel of the path must have launched exactly
    once per layer that runs it per microbatch, on the route its inputs'
-   dtype selects (the full-width models are bf16; whisper's encoder runs
-   f32, from the serve's f32 frames); and full-width prefill logits
+   dtype and head dim select (the full-width models are bf16; whisper's
+   encoder runs f32, from the serve's f32 frames); and full-width prefill
+   logits
    through the kernels must be finite and near the plain route's (gemma2:
    one 8192-token sequence).  codeqwen1.5-7b then serves the same
    requests in the serve driver's other engine modes (``serve_modes``):
@@ -83,6 +93,7 @@ import ctypes
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -155,7 +166,59 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 FLASH_PATH_CASES = ("path", "d80_bf16_mha", "granite_gqa3_d64_bf16",
                     "whisper_enc_f32", "whisper_dec_d64_bf16",
                     "gemma2_local_w4096_cap50", "gemma2_global_cap50",
+                    "gemma2_local_w4096_cap50_b2", "gemma2_global_cap50_b2",
                     "nemotron_gqa6", "chameleon_gqa8")
+# the device kernel of each flash route, as a profile names it
+FLASH_KERNEL_ROUTES = {"flash_wgmma_kernel": "wgmma_bf16",
+                       "flash_mma_kernel": "mma_bf16",
+                       "flash_f32_kernel": "scalar_f32"}
+
+
+def flash_routes_seen(torch, events) -> dict:
+    """Flash launches by route in a profile's ``key_averages()``, read
+    from the names of the device kernels that ran."""
+    cuda = torch.autograd.DeviceType.CUDA
+    seen = {}
+    for e in events:
+        if e.device_type != cuda:
+            continue
+        for kernel, route in FLASH_KERNEL_ROUTES.items():
+            if kernel in e.key:
+                seen[route] = seen.get(route, 0) + e.count
+    return seen
+
+
+def launch_delta(fa, lib, before: dict) -> dict:
+    """Flash launches by route that ``lib`` made since its counts were
+    ``before`` (``fa.kernel_launches``), routes it did not launch left out."""
+    after = fa.kernel_launches(lib)
+    return {r: n - before[r] for r, n in after.items() if n != before[r]}
+
+
+def routes_of_call(torch, fa, lib, fn) -> tuple:
+    """``fn()``'s result, the flash launches by route that the library
+    ``lib`` counted during it, and those a profile of it shows."""
+    from torch.profiler import ProfilerActivity, profile
+    before = fa.kernel_launches(lib)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return (out, launch_delta(fa, lib, before),
+            flash_routes_seen(torch, prof.key_averages()))
+
+
+def route_faults(expected: dict, launched: dict, seen: dict) -> list:
+    """How a call's flash launches by route disagree with ``expected``.
+    The library's own counts (``launched``) must equal it.  A profile's
+    (``seen``) may fall short, since the profiler can lose the device
+    records of a session, but may show no route more often than expected."""
+    faults = []
+    if launched != expected:
+        faults.append(f"the library launched {launched}")
+    if any(n > expected.get(r, 0) for r, n in seen.items()):
+        faults.append(f"the device ran {seen}")
+    return faults
 
 
 def visible_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
@@ -181,8 +244,34 @@ def attention_bound_ms(q, k, causal: bool, window: int) -> tuple:
                                  "operations")
 
 
+MMA_DEFINES = ("FLASH_FORCE_MMA",)   # flash's mma_bf16 route at every D
+PTXAS_FAULT = re.compile(r"wgmma.*serializ|setmaxnreg.*ignor", re.I)
+
+
+def ptxas_faults(ptxas: dict, logs: dict) -> list:
+    """What the build phase fails on: a kernel instance that spills
+    (``ptxas``: per build, ``_build.ptxas_summary``) and any line of a
+    build's log (``logs``) saying that ptxas serialised a wgmma pipeline
+    or ignored a setmaxnreg; either would cost the wgmma route most of
+    its speed."""
+    faults = [f"{lib}: {k['kernel']} spills {k['spill_bytes']} bytes"
+              for lib, ks in ptxas.items() for k in ks if k["spill_bytes"]]
+    faults += [f"{lib}: {line.strip()}" for lib, log in logs.items()
+               for line in log.splitlines() if PTXAS_FAULT.search(line)]
+    return faults
+
+
 def phase_kernel(torch, fa):
-    """Kernel vs plain version on the card; times at the path shape."""
+    """Kernel vs plain version on the card; times at the path shapes,
+    with the mma_bf16 route's (``prior_ms``) where the wgmma route runs."""
+    prior_lib = fa._lib(MMA_DEFINES)
+
+    def prior(q, k, v, opts):
+        out = torch.empty_like(q)
+        fa.launch(prior_lib, q, k, v, out, opts["causal"], opts["window"],
+                  opts["logit_cap"])
+        return out
+
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     bf16, f32 = torch.bfloat16, torch.float32
@@ -190,11 +279,13 @@ def phase_kernel(torch, fa):
     cases = [
         ("path", 4, 32, 32, 512, 512, 128, bf16, True, 0, 0.0),
         ("gqa_4to1", 2, 32, 8, 256, 256, 128, bf16, True, 0, 0.0),
+        ("gqa_4to1_d64", 2, 32, 8, 256, 256, 64, bf16, True, 0, 0.0),
         ("ragged_17x33", 1, 4, 4, 17, 33, 8, f32, True, 0, 0.0),
         ("ragged_noncausal", 2, 2, 2, 48, 80, 32, f32, False, 0, 0.0),
         ("window16_cap50", 2, 4, 2, 200, 200, 64, f32, True, 16, 50.0),
         ("d80_f32", 2, 4, 2, 130, 130, 80, f32, True, 0, 0.0),
         ("noncausal", 2, 8, 2, 300, 300, 128, bf16, False, 0, 0.0),
+        ("noncausal_d64", 2, 8, 2, 300, 300, 64, bf16, False, 0, 0.0),
         ("d256_f32", 1, 2, 1, 100, 100, 256, f32, True, 0, 0.0),
         # rows 12..19 see no key (window 3 ends before key 9): they must
         # average V over every key, as the plain version does
@@ -210,12 +301,22 @@ def phase_kernel(torch, fa):
         ("d256_bf16", 1, 2, 1, 100, 100, 256, bf16, True, 0, 0.0),
         ("no_visible_key_bf16", 1, 2, 1, 20, 10, 8, bf16, True, 3, 0.0),
         ("d40_bf16", 2, 4, 2, 130, 130, 40, bf16, True, 0, 0.0),
-        # D=128 runs other tiles (two m-tiles a warp): its masks and edges
+        # the wgmma route (D = 64 and 128) at the same options: its masks,
+        # ragged edges past Sq and Sk (TMA zero fill, clipped stores),
+        # lengths that are not a multiple of its 128-key tiles
+        ("ragged_17x33_d64_bf16", 1, 4, 4, 17, 33, 64, bf16, True, 0, 0.0),
         ("ragged_17x33_d128_bf16", 1, 4, 4, 17, 33, 128, bf16, True, 0, 0.0),
+        ("ragged_noncausal_d64_bf16", 2, 2, 2, 48, 80, 64, bf16, False, 0,
+         0.0),
+        ("ragged_noncausal_d128_bf16", 2, 2, 2, 48, 80, 128, bf16, False, 0,
+         0.0),
         ("window16_cap50_d128_bf16", 2, 4, 2, 200, 200, 128, bf16, True, 16,
          50.0),
+        ("no_visible_key_d64_bf16", 1, 2, 1, 20, 10, 64, bf16, True, 3, 0.0),
         ("no_visible_key_d128_bf16", 1, 2, 1, 20, 10, 128, bf16, True, 3,
          0.0),
+        ("len130_d64_bf16", 2, 4, 2, 130, 130, 64, bf16, True, 0, 0.0),
+        ("len130_d128_bf16", 2, 4, 2, 130, 130, 128, bf16, True, 0, 0.0),
         # granite-moe-3b's prefill: GQA 3:1 at D=64
         ("granite_gqa3_d64_bf16", 4, 24, 8, 512, 512, 64, bf16, True, 0, 0.0),
         # whisper-large-v3's encoder (f32: the serve's f32 frames promote
@@ -224,10 +325,15 @@ def phase_kernel(torch, fa):
         ("whisper_dec_d64_bf16", 4, 20, 20, 512, 512, 64, bf16, True, 0,
          0.0),
         # gemma2-27b's prefill past its window: a local layer (window 4096)
-        # and a global one, both capped at 50; one 8192-token sequence
+        # and a global one, both capped at 50; one 8192-token sequence,
+        # then the serve path's microbatch of two
         ("gemma2_local_w4096_cap50", 1, 32, 16, 8192, 8192, 128, bf16, True,
          4096, 50.0),
         ("gemma2_global_cap50", 1, 32, 16, 8192, 8192, 128, bf16, True, 0,
+         50.0),
+        ("gemma2_local_w4096_cap50_b2", 2, 32, 16, 8192, 8192, 128, bf16,
+         True, 4096, 50.0),
+        ("gemma2_global_cap50_b2", 2, 32, 16, 8192, 8192, 128, bf16, True, 0,
          50.0),
         # nemotron-4-15b (GQA 6:1) and chameleon-34b (GQA 8:1)
         ("nemotron_gqa6", 4, 48, 8, 512, 512, 128, bf16, True, 0, 0.0),
@@ -240,8 +346,14 @@ def phase_kernel(torch, fa):
         k = torch.randn((b, hkv, sk, d), generator=gen, device="cuda").to(dt)
         v = torch.randn((b, hkv, sk, d), generator=gen, device="cuda").to(dt)
         opts = dict(causal=causal, window=window, logit_cap=cap)
-        got = fa.flash_attention_bhsd(q, k, v, **opts)
-        torch.cuda.synchronize()
+        route = fa.route(dt, d)
+        got, launched, seen = routes_of_call(
+            torch, fa, fa._lib(),
+            lambda: fa.flash_attention_bhsd(q, k, v, **opts))
+        faults = route_faults({route: 1}, launched, seen)
+        if faults:
+            fail(f"flash_attention_bhsd case {name}: the wrapper's route is "
+                 f"{route}; " + "; ".join(faults))
         want = fa.flash_attention_plain(q, k, v, **opts)
         # f32: the kernel sums in another order than the plain version;
         # bf16: both round the f32 result to bf16 once (tests/test_kernels)
@@ -250,10 +362,22 @@ def phase_kernel(torch, fa):
         bad = err > tol + tol * want.float().abs()
         max_err = float(err.max())
         ok = bool(torch.isfinite(got).all()) and not bool(bad.any())
+        extra = {}
+        if route == "wgmma_bf16":    # the old route's error at this case
+            old, old_launched, old_seen = routes_of_call(
+                torch, fa, prior_lib, lambda: prior(q, k, v, opts))
+            faults = route_faults({"mma_bf16": 1}, old_launched, old_seen)
+            if faults:
+                fail(f"{MMA_DEFINES} build at case {name}: "
+                     + "; ".join(faults))
+            extra["prior_max_abs_err"] = float(
+                (old.float() - want.float()).abs().max())
+            del old
         emit("kernel_check", kernel="flash_attention_bhsd", case=name,
-             shape=[b, hq, hkv, sq, sk, d], dtype=str(dt),
-             route=fa.route(dt), causal=causal, window=window, cap=cap,
-             max_abs_err=max_err, tol=tol, ok=ok)
+             shape=[b, hq, hkv, sq, sk, d], dtype=str(dt), route=route,
+             routes_launched=launched, routes_seen=seen, causal=causal,
+             window=window, cap=cap,
+             max_abs_err=max_err, tol=tol, ok=ok, **extra)
         if not ok:
             fail(f"flash_attention_bhsd case {name}: max_abs_err {max_err}")
         if name in FLASH_PATH_CASES:
@@ -261,24 +385,37 @@ def phase_kernel(torch, fa):
             timed[name] = (q, k, v, opts)
     times = {}
     for name, (q, k, v, opts) in timed.items():
-        kernel_ms = cuda_ms(lambda: fa.flash_attention_bhsd(q, k, v, **opts))
+        route = fa.route(q.dtype, q.shape[3])
+        calls = {"kernel": lambda: fa.flash_attention_bhsd(q, k, v, **opts),
+                 "prior": lambda: prior(q, k, v, opts)}
+        runs = {"kernel": [], "prior": []}
+        for which in (("kernel", "prior", "prior", "kernel")
+                      if route == "wgmma_bf16" else ("kernel", "kernel")):
+            runs[which].append(cuda_ms(calls[which]))
+        kernel_runs, prior_runs = runs["kernel"], runs["prior"]
+        kernel_ms = sum(kernel_runs) / len(kernel_runs)
+        prior_ms = sum(prior_runs) / len(prior_runs) if prior_runs else None
         plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, **opts))
         library, library_note = library_attention(torch, fa, q, k, v, opts)
         library_ms = cuda_ms(library) if library else None
         bound_ms, bound_by = attention_bound_ms(q, k, opts["causal"],
                                                 opts["window"])
         times[name] = dict(shape=list(q.shape), kv_heads=k.shape[1],
-                           dtype=str(q.dtype), route=fa.route(q.dtype),
+                           dtype=str(q.dtype), route=route,
                            causal=opts["causal"], window=opts["window"],
                            cap=opts["logit_cap"],
-                           kernel_ms=kernel_ms, plain_ms=plain_ms,
-                           library_ms=library_ms, library=library_note,
-                           bound_ms=bound_ms, bound_by=bound_by)
+                           kernel_ms=kernel_ms, kernel_ms_runs=kernel_runs,
+                           prior_route="mma_bf16" if prior_runs else None,
+                           prior_ms=prior_ms, prior_ms_runs=prior_runs,
+                           plain_ms=plain_ms, library_ms=library_ms,
+                           library=library_note, bound_ms=bound_ms,
+                           bound_by=bound_by)
         emit("kernel_time", kernel="flash_attention_bhsd", case=name,
              **times[name])
     t = times["path"]
     return {"name": "flash_attention_bhsd", "route": "cuda",
-            "kernel_route": fa.route(bf16),
+            "kernel_route": t["route"], "kernel_routes": list(fa.ROUTES),
+            "prior_ms": t["prior_ms"],
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:83",
             "max_abs_err": worst, "max_err": worst, "ms": t["kernel_ms"],
@@ -452,22 +589,23 @@ def expected_launches(torch, cfg, n_micro: int, fa, ss) -> dict:
     once per attention layer (or per call of the hybrid's shared block, or
     per whisper encoder layer) per microbatch's prefill, SSD once per
     Mamba2 layer per microbatch's prefill.  The route follows the inputs'
-    dtype: the model's, except in whisper's encoder, where the serve's f32
-    frames promote the activations to f32 (as JAX does)."""
-    dt = cfg.torch_dtype
-    want = {"flash_attention_bhsd": dict.fromkeys(fa.ROUTES.values(), 0),
+    dtype (the model's, except in whisper's encoder, where the serve's f32
+    frames promote the activations to f32, as JAX does) and, for flash,
+    the head dim."""
+    dt, hd = cfg.torch_dtype, cfg.resolved_head_dim
+    want = {"flash_attention_bhsd": dict.fromkeys(fa.ROUTES, 0),
             "ssd_scan_bhsd": dict.fromkeys(ss.ROUTES.values(), 0)}
     flash = want["flash_attention_bhsd"]
     if cfg.family in ("ssm", "hybrid"):
         want["ssd_scan_bhsd"][ss.route(dt)] += cfg.num_layers * n_micro
     if cfg.family == "hybrid":
-        flash[fa.route(dt)] += (cfg.num_layers // cfg.shared_attn_period
-                                * n_micro)
+        flash[fa.route(dt, hd)] += (cfg.num_layers
+                                    // cfg.shared_attn_period * n_micro)
     elif cfg.family != "ssm":
-        flash[fa.route(dt)] += cfg.num_layers * n_micro
+        flash[fa.route(dt, hd)] += cfg.num_layers * n_micro
     if cfg.family == "encdec":
         enc_dt = torch.promote_types(torch.float32, dt)
-        flash[fa.route(enc_dt)] += cfg.num_encoder_layers * n_micro
+        flash[fa.route(enc_dt, hd)] += cfg.num_encoder_layers * n_micro
     return want
 
 
@@ -515,7 +653,8 @@ def phase_serve(torch, arch, mods):
          d_model=cfg.d_model, params=n_params, seconds=init_s,
          bytes=sum(t.numel() * t.element_size() for t in _leaves(params)))
 
-    steps = phase_steps(torch, cfg, params, shape)
+    steps = phase_steps(torch, cfg, params, shape,
+                        mods["flash_attention_bhsd"])
     card = (prefill_on_card(torch, cfg, params, steps)
             if arch == DRYRUN_PREFILL else None)
 
@@ -523,10 +662,13 @@ def phase_serve(torch, arch, mods):
     want = expected_launches(torch, cfg, n_micro, mods["flash_attention_bhsd"],
                              mods["ssd_scan_bhsd"])
     kernels = {name: getattr(mod, name) for name, mod in mods.items()}
+    fa = mods["flash_attention_bhsd"]
     torch.cuda.reset_peak_memory_stats()
     _zero_counts(kernels)
+    flash_before = fa.kernel_launches(fa._lib())
     res = run_serving(cfg, device="cuda", params=params, **shape)
     launches, by_route = _read_counts(kernels)
+    flash_launched = launch_delta(fa, fa._lib(), flash_before)
     resp = res["responses"]
     emit("serve", config=cfg.name, layers=cfg.num_layers, **shape,
          local_window=cfg.local_window, responses_shape=list(resp.shape),
@@ -534,7 +676,8 @@ def phase_serve(torch, arch, mods):
          prefill_s=res["prefill_s"], decode_s=res["decode_s"],
          max_memory_allocated=torch.cuda.max_memory_allocated(),
          launches=launches, launches_by_route=by_route,
-         expected_launches_by_route=want)
+         expected_launches_by_route=want,
+         flash_library_launches_by_route=flash_launched)
     if tuple(resp.shape) != (shape["num_requests"], shape["decode_steps"]):
         fail(f"responses shape {resp.shape}")
     if resp.min() < 0 or resp.max() >= cfg.vocab_size:
@@ -543,6 +686,12 @@ def phase_serve(torch, arch, mods):
                                         for n, r in want.items()}:
         fail(f"{cfg.name}: kernel launches by route {by_route} (in all "
              f"{launches}), expected {want}")
+    faults = route_faults({r: n for r, n in
+                           by_route["flash_attention_bhsd"].items() if n},
+                          flash_launched, {})
+    if faults:
+        fail(f"{cfg.name}: the flash wrapper counted "
+             f"{by_route['flash_attention_bhsd']}; " + "; ".join(faults))
     modes = (phase_serve_modes(torch, cfg, params, resp, mods)
              if arch == MODES_PATH else None)
     del res
@@ -835,11 +984,13 @@ def step_bounds(cfg, params, mb: int, s: int, max_seq: int) -> dict:
             "decode_bytes": decode_bytes}
 
 
-def phase_steps(torch, cfg, params, shape: dict):
+def phase_steps(torch, cfg, params, shape: dict, fa):
     """The serve path's prefill and decode steps alone, without the engine:
     warm, each call on the host clock ended by a device synchronise; then a
     torch.profiler trace of one call of each (summary printed, full tables
-    written under ``chiprun_out/chip_smoke/``)."""
+    written under ``chiprun_out/chip_smoke/``), in which the flash wrapper's
+    launches by route (module ``fa``) must be those its library made and
+    the profile's flash kernels (``route_faults``)."""
     import numpy as np
     from repro_torch.launch.serve import prompt_batch
     from repro_torch.train import make_decode_step, make_prefill_step
@@ -872,19 +1023,30 @@ def phase_steps(torch, cfg, params, shape: dict):
         out[name + "_ms_all"] = [t * 1e3 for t in times]
     out.update(step_bounds(cfg, params, mb, s, s + steps))
     emit("steps", config=cfg.name, microbatch=mb, prompt_len=s, **out)
+    flash, lib = fa.flash_attention_bhsd, fa._lib()
     for name, fn in (("prefill", prefill), ("decode_step", decode)):
+        _zero_counts({"flash": flash})
+        before = fa.kernel_launches(lib)
+        prof = profile_call(torch, fn, f"profile_{cfg.name}_{name}.txt")
+        launched = launch_delta(fa, lib, before)
+        counted = {r: n for r, n in flash.launches_by_route.items() if n}
         emit("profile", config=cfg.name, step=name,
-             **profile_call(torch, fn, f"profile_{cfg.name}_{name}.txt"))
+             flash_launches_by_route=counted,
+             flash_library_launches_by_route=launched, **prof)
+        faults = route_faults(counted, launched, prof["flash_routes_seen"])
+        if faults:
+            fail(f"{cfg.name} {name}: the flash wrapper counted {counted}; "
+                 + "; ".join(faults))
     return out
 
 
 def profile_call(torch, fn, table_name: str) -> dict:
     """One call of ``fn`` under torch.profiler, ended by a device
     synchronise: its wall ms, device busy ms and idle share, the ten
-    device kernels with the most time, and the device time of the MoE
-    dispatch's and the SSD scan's index ops (``WATCHED_OPS``), where the
-    call ran them (full table to ``table_name`` under
-    ``chiprun_out/chip_smoke/``)."""
+    device kernels with the most time, the flash launches by route
+    (``flash_routes_seen``) and the device time of the MoE dispatch's and
+    the SSD scan's index ops (``WATCHED_OPS``), where the call ran them
+    (full table to ``table_name`` under ``chiprun_out/chip_smoke/``)."""
     from torch.profiler import ProfilerActivity, profile
     PROFILE_DIR.mkdir(parents=True, exist_ok=True)
     with profile(activities=[ProfilerActivity.CPU,
@@ -908,7 +1070,8 @@ def profile_call(torch, fn, table_name: str) -> dict:
     return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
                 device_idle_share=max(0.0, 1 - busy_ms / wall_ms),
                 top=[{"op": k[:100], "device_ms": d, "calls": c}
-                     for d, c, k in dev[:10]], ops=watched)
+                     for d, c, k in dev[:10]], ops=watched,
+                flash_routes_seen=flash_routes_seen(torch, events))
 
 
 # the MoE dispatch (slot cumsum, scatter_add write, gather read) and the
@@ -1477,15 +1640,20 @@ def main() -> int:
          matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
          cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
 
-    build_s = _build.build()
-    ptxas = {n: _build.ptxas_summary(n) for n in _build.KERNEL_SOURCES}
-    emit("build", seconds=build_s, kernels=list(_build.KERNEL_SOURCES),
-         ptxas=ptxas)
+    build_s = _build.build(variants=[("flash_attention", MMA_DEFINES)])
+    builds = {n: (n, ()) for n in _build.KERNEL_SOURCES}
+    builds["flash_attention " + " ".join(MMA_DEFINES)] = ("flash_attention",
+                                                          MMA_DEFINES)
+    ptxas = {b: _build.ptxas_summary(*nd) for b, nd in builds.items()}
+    emit("build", seconds=build_s, kernels=list(ptxas), ptxas=ptxas)
+    faults = ptxas_faults(ptxas, {b: _build.build_log(*nd)
+                                  for b, nd in builds.items()})
+    if faults:
+        fail(f"ptxas: {faults}")
 
     entries = [phase_kernel(torch, fa), phase_ssd_kernel(torch, ss)]
-    spills = [k for ks in ptxas.values() for k in ks if k["spill_bytes"]]
-    if spills:
-        fail(f"ptxas reports spills: {spills}")
+    gc.collect()            # the plain versions' 8192-token scores
+    torch.cuda.empty_cache()
     if "--kernels-only" in sys.argv[1:]:
         emit("done", seconds=time.monotonic() - t_start)
         print(json.dumps({"kernels": entries}), flush=True)

@@ -10,45 +10,83 @@
 //
 // Bound.  At the codeqwen1.5-7b serve shape (B=4, H=32, S=512, D=128, bf16,
 // causal) the function must move q, k, v and o once (67 MB, 20 us at
-// 3.35 TB/s) and do 8.6 GFLOP over the visible pairs (13 us at two thirds of
-// the 989 TFLOP/s peak, about what mma.sync reaches): bytes bound it, so the
-// kernel has to keep the tensor cores fed from tiles that are loaded once.
+// 3.35 TB/s) against 8.6 GFLOP over the visible pairs (9 us at 989
+// TFLOP/s): bytes bound it.  At gemma2-27b's 8192 tokens the FLOPs do
+// (0.42 / 0.56 ms windowed / global), and the capped softmax's two MUFU
+// results a score (tanh, ex2) take about as long again: there the softmax
+// has to run under the products.
 //
-// bf16 route (flash_mma_kernel): tensor cores for both products.  One block
-// per (b * Hq, tile of BQ query rows); each warp owns 16 or 32 query rows
-// (one or two m16 tiles, which then share every K and V fragment).  Q, K and V sit in shared memory as bf16 with D zero-padded to
-// DP (a multiple of 16; zero columns leave Q K^T exact), K and V in a
-// 2-stage cp.async ring so that the next kv tile loads while this one is
-// computed.  S = Q K^T is an mma.sync m16n8k16 product from ldmatrix
-// fragments into f32 registers; the scale, cap, mask, row max, row sum and
-// the online rescale of the output run on those registers (quad shuffles),
-// so S never goes to shared memory; P is rounded to bf16 in registers and
-// is the A operand of P V directly (V through ldmatrix.trans).  Work order:
-// blockIdx.y counts q tiles from the last, so the long causal tiles start
-// first and the last wave holds short ones.  kv tiles that the causal mask
-// or the window hide entirely are skipped, except in a q tile that holds a
-// row seeing no key (that row needs every key).
+// Three routes, fixed by dtype and head dim before the launch:
 //
-// f32 route (flash_f32_kernel): scalar f32 FMAs from f32 shared-memory
+// wgmma_bf16 (flash_wgmma_kernel; bf16, D = 64 or 128): warp-specialised.
+// A work item is (b * Hq, tile of 128 query rows); a block of 384 threads
+// walks its share of them (one block an SM while there are at most 8 items
+// an SM, else one block an item): a producer warpgroup whose one thread
+// issues every TMA load (each item's Q, then K and V
+// tiles of BK keys through rings of ST stages, each stage with a full and
+// an empty mbarrier, so the next item's loads run under this one's tail),
+// and two consumer warpgroups of 64 query rows each (setmaxnreg moves
+// registers from the producer to them).  Tensor maps are 3-D, (D, S,
+// B * H), so rows past Sq or Sk read as zeros and a tile never crosses
+// into the next head; a row of D = 128 is two 64-column boxes in the
+// 128-byte swizzle.  S = Q K^T is wgmma m64nBKk16 with Q and K from
+// shared memory (a row-major K tile is the K-major B operand); the scale,
+// cap (tanh.approx), mask, online softmax (ex2.approx) and rescale run on
+// the accumulator registers; P, packed to bf16 pairs in place, is the
+// register A operand of O += P V (wgmma m64nDk16, V MN-major through the
+// transpose bit).  Within a warpgroup tile j + 1's Q K^T and tile j's P V
+// are in flight while tile j + 1's softmax runs; the two warpgroups take
+// turns to issue (named barriers), so one's softmax runs under the other's
+// products.  The output is staged in its own tile and stored by TMA,
+// clipped at Sq.  The heavy causal tiles come first, dealt to the blocks
+// in zigzag rounds so that each block's sum of work comes out even.
+//
+// mma_bf16 (flash_mma_kernel; bf16, any other D): tensor cores through
+// mma.sync m16n8k16.  One block per (b * Hq, tile of BQ query rows); each
+// warp owns 16 or 32 query rows (one or two m16 tiles, which then share
+// every K and V fragment).  Q, K and V sit in shared memory as bf16 with D
+// zero-padded to DP (a multiple of 16; zero columns leave Q K^T exact), K
+// and V in a 2-stage cp.async ring; S = Q K^T from ldmatrix fragments into
+// f32 registers; the scale, cap, mask, row max, row sum and the online
+// rescale run on those registers (quad shuffles); P is rounded to bf16 in
+// registers and is the A operand of P V directly (V through
+// ldmatrix.trans).  Kept for D other than 64 and 128 (zamba2's D = 80, the
+// test dims 8..256), and for timing at 64 and 128 (-DFLASH_FORCE_MMA).
+//
+// Every route skips kv tiles that the causal mask or the window hide
+// entirely, except in a q tile that holds a row seeing no key (that row
+// needs every key): kv_tiles.
+//
+// scalar_f32 (flash_f32_kernel): scalar f32 FMAs from f32 shared-memory
 // tiles, kept for f32 inputs (tests and f32 checks), where TF32 tensor cores
-// would miss the 1e-4 tolerance.  The dtype alone chooses the route.
+// would miss the 1e-4 tolerance.
 //
 // C interface (loaded with ctypes): flash_attention_bhsd(...) returns the
-// cudaError_t of the launch, 0 on success.
+// cudaError_t of the launch, 0 on success.  The tensor maps are encoded on
+// the host per call through cuTensorMapEncodeTiled, a driver-API function
+// reached by cudaGetDriverEntryPoint (no libcuda link).
+// flash_attention_launches(kernel) is how many launches of that kernel
+// (0 flash_wgmma_kernel, 1 flash_mma_kernel, 2 flash_f32_kernel) this
+// library has made, counted where each kernel is launched, so a caller can
+// see which kernel the dispatch below chose.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <atomic>
+
+#include "hopper.cuh"
 #include "tensor_core.cuh"
 
-// (BQ, BK, MW) of the bf16 route by padded head dim, measured at the serve
-// shapes by repro_torch/kernels/tune.py (PERF.md has the times): at D = 128
-// two m-tiles a warp with 32-key tiles are the fastest that do not spill;
-// at D <= 80 one m-tile a warp with 64-key tiles.  A build
-// with -DFLASH_BQ=.. -DFLASH_BK=.. -DFLASH_MW=.. (tune.py) takes one triple
-// for every D <= 128.
+// (BQ, BK, MW) of the mma_bf16 route by padded head dim, measured at the
+// serve shapes by repro_torch/kernels/tune.py (PERF.md has the times): at
+// D = 128 two m-tiles a warp with 32-key tiles are the fastest that do not
+// spill; at D <= 80 one m-tile a warp with 64-key tiles.  A build with
+// -DFLASH_BQ=.. -DFLASH_BK=.. -DFLASH_MW=.. (tune.py) takes one triple for
+// every D <= 128; with -DFLASH_FORCE_MMA (tune.py, chip_smoke.py's timing of
+// the old route) D = 64 and 128 run this route too.
 #if defined(FLASH_BQ) && defined(FLASH_BK) && defined(FLASH_MW)
 #define FLASH_TILE_D64 FLASH_BQ, FLASH_BK, FLASH_MW
 #define FLASH_TILE_D80 FLASH_BQ, FLASH_BK, FLASH_MW
@@ -64,9 +102,40 @@ namespace {
 using tc::bf16;
 
 constexpr float kNegInf = -1e30f;   // the TPU kernel's mask value
+
+// Launches by kernel, in the order of flash_attention_launches.
+enum Kernel { kWgmma, kMma, kF32, kKernels };
+std::atomic<unsigned long long> g_launches[kKernels];
+
+// The launch's error; a launch that was taken is counted under ``kernel``.
+cudaError_t counted(Kernel kernel) {
+  const cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess)
+    g_launches[kernel].fetch_add(1, std::memory_order_relaxed);
+  return err;
+}
 constexpr float kLog2e = 1.4426950408889634f;
 
-// ------------------------------------------------------------ bf16 route
+// The kv tiles of BK keys that can hold a visible key for some row of the
+// query tile [q0, q0 + rows): the first and how many.  A row that sees no
+// key at all (window shorter than its distance to the last key) averages V
+// over every key, as the oracle does, so a tile holding such a row keeps
+// the whole range.  Every route walks these tiles.
+struct KvTiles {
+  int begin, count;
+};
+
+__device__ __forceinline__ KvTiles kv_tiles(int q0, int rows, int Sq, int Sk,
+                                            int causal, int window, int BK) {
+  const int q_last = min(q0 + rows, Sq) - 1;
+  const int kv_end = causal ? min(Sk, q_last + 1) : Sk;
+  int kv_begin = 0;
+  if (window > 0 && q_last < Sk - 1 + window) kv_begin = max(0, q0 - window + 1);
+  const int begin = kv_begin / BK;
+  return {begin, (kv_end + BK - 1) / BK - begin};
+}
+
+// ------------------------------------------------------- mma_bf16 route
 
 // DP: padded head dim (multiple of 16, >= D); BQ query rows and BK keys per
 // tile; MW 16-row m-tiles per warp (BQ / (16 MW) warps).  A warp with two
@@ -101,16 +170,9 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* vp = v + ((size_t)b * Hkv + hkv) * Sk * D;
   bf16* op = o + (size_t)bh * Sq * D;
 
-  // kv range that can hold a visible key for some row of this tile.  A row
-  // that sees no key at all (window shorter than its distance to the last
-  // key) averages V over every key, as the oracle does; a tile holding such
-  // a row keeps the whole range.
-  const int q_last = min(q0 + BQ, Sq) - 1;
-  const int kv_end = causal ? min(Sk, q_last + 1) : Sk;
-  int kv_begin = 0;
-  if (window > 0 && q_last < Sk - 1 + window) kv_begin = max(0, q0 - window + 1);
-  const int t_begin = kv_begin / BK;
-  const int t_end = (kv_end + BK - 1) / BK;
+  const KvTiles tiles = kv_tiles(q0, BQ, Sq, Sk, causal, window, BK);
+  const int t_begin = tiles.begin;
+  const int t_end = tiles.begin + tiles.count;
 
   tc::load_tile_async<BQ, DP, LD, kThreads>(sQ, qp + (size_t)q0 * D, D,
                                             Sq - q0, D);
@@ -318,13 +380,494 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), Hq, Hq / Hkv, Sq,
       Sk, D, causal, window, cap, scale);
-  return cudaGetLastError();
+  return counted(kMma);
+}
+
+// ------------------------------------------------------- wgmma_bf16 route
+
+// (BK, ST, PINGPONG) of the wgmma route, the same at D = 64 and 128,
+// measured at the serve shapes by repro_torch/kernels/tune.py (PERF.md has
+// the times).  A build with -DFLASH_WG_BK=.. -DFLASH_WG_ST=..
+// -DFLASH_WG_PINGPONG=.. (tune.py) takes others, and -DFLASH_WG_PERSISTENT=0
+// or 1 forces one block a work item or one block an SM at every grid size.
+#ifndef FLASH_WG_BK
+#define FLASH_WG_BK 128
+#endif
+#ifndef FLASH_WG_ST
+#define FLASH_WG_ST 2
+#endif
+#ifndef FLASH_WG_PINGPONG
+#define FLASH_WG_PINGPONG 1
+#endif
+
+constexpr int kWgBQ = 128;        // query rows a work item, 64 a warpgroup
+constexpr int kWgThreads = 384;   // producer + two consumer warpgroups
+// One block an SM walks the work items in zigzag rounds while there are at
+// most this many items an SM; past that, one block an item, and the block
+// scheduler hands the heavy-first items to the SMs as they free up
+// (tune.py: persistent is faster at the 512-token shapes, 3-8 items an
+// SM, and slower at gemma2's 8192 tokens, 16-31).
+constexpr int kPersistentItemsPerSm = 8;
+
+// Shared memory of the wgmma route: Q, ST stages of K and of V, the output
+// staging tile (each D / 64 boxes of rows x 64 columns), the mbarriers.
+template <int D, int BK, int ST>
+struct WgSmem {
+  static constexpr int kBoxes = D / 64;
+  static constexpr int kQBytes = kWgBQ * D * 2;   // also the output tile
+  static constexpr int kKVBytes = BK * D * 2;     // one K or V stage
+  static constexpr int kOOffset = kQBytes + 2 * ST * kKVBytes;
+  static constexpr int kBarOffset = kOOffset + kQBytes;
+  // + 1024: the base is rounded up to the swizzle's 1024-byte atom
+  static constexpr int kBytes = kBarOffset + (2 + 4 * ST) * 8 + 1024;
+};
+
+__device__ __forceinline__ float tanh_approx(float x) {
+  float y;
+  asm("tanh.approx.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Scale (and cap), mask and online softmax of one BK-key score tile in the
+// accumulator registers s: this thread's rows r0 + g and r0 + g + 8 (r0 the
+// warp's first row), keys k0 + 8j + 2t + e.  Leaves exp2(x - m) in s,
+// updates the running max m (log2 domain) and this thread's part of the
+// row sums l, and returns the rescale factors of the two rows in corr.
+template <int BK>
+__device__ __forceinline__ void softmax_tile(float (&s)[BK / 2], float (&m)[2],
+                                             float (&l)[2], float (&corr)[2],
+                                             int r0, int k0, int g, int t,
+                                             int Sk, int causal, int window,
+                                             float cap, float sl2,
+                                             float cap_in, float cap_out) {
+  if (cap != 0.f) {
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i)
+      s[i] = cap_out * tanh_approx(s[i] * cap_in);
+  } else {
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) s[i] *= sl2;
+  }
+  const bool full = k0 + BK <= Sk && (!causal || k0 + BK - 1 <= r0) &&
+                    (window <= 0 || r0 + 15 - k0 < window);
+  if (!full) {
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = r0 + g + (e >> 1) * 8;
+        const int c = k0 + j * 8 + 2 * t + (e & 1);
+        const bool visible = (!causal || c <= r) &&
+                             (window <= 0 || r - c < window);
+        const float x = visible ? s[4 * j + e] : kNegInf;
+        s[4 * j + e] = c >= Sk ? -INFINITY : x;   // past the end: weight 0
+      }
+    }
+  }
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+    mx[0] = fmaxf(mx[0], fmaxf(s[4 * j], s[4 * j + 1]));
+    mx[1] = fmaxf(mx[1], fmaxf(s[4 * j + 2], s[4 * j + 3]));
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    corr[h] = ex2_approx(m[h] - mx[h]);
+    m[h] = mx[h];
+    l[h] *= corr[h];
+  }
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) {
+    s[i] = ex2_approx(s[i] - m[(i >> 1) & 1]);
+    l[(i >> 1) & 1] += s[i];
+  }
+}
+
+// A work item: one (b * Hq + h, tile of 128 query rows).  Items count from
+// the last query tile of every head, so the long causal tiles come first.
+struct WgItem {
+  int bh, bkv, q0, t_begin, n_tiles;
+};
+
+template <int BK>
+__device__ __forceinline__ WgItem wg_item(int w, int BH, int Hq, int group,
+                                          int Sq, int Sk, int causal,
+                                          int window) {
+  WgItem it;
+  const int n_q = (Sq + kWgBQ - 1) / kWgBQ;
+  it.bh = w % BH;
+  it.q0 = (n_q - 1 - w / BH) * kWgBQ;
+  const int b = it.bh / Hq;
+  it.bkv = b * (Hq / group) + (it.bh - b * Hq) / group;
+  const KvTiles tiles = kv_tiles(it.q0, kWgBQ, Sq, Sk, causal, window, BK);
+  it.t_begin = tiles.begin;
+  it.n_tiles = tiles.count;
+  return it;
+}
+
+// The work item of this block in round r (gridDim.x items a round), in
+// zigzag: forward in even rounds, backward in odd ones, so the blocks'
+// sums of heavy-first items come out even; n_items or more: none.
+__device__ __forceinline__ int wg_round_item(int r) {
+  const int g = gridDim.x, b = blockIdx.x;
+  return r * g + ((r & 1) ? g - 1 - b : b);
+}
+
+// D = 64 or 128; BK keys a kv tile (64 or 128); ST stages of K and of V;
+// PINGPONG: the consumer warpgroups take turns to issue their products.
+// Each block walks its work items round by round (wg_round_item); a grid
+// of one block a work item is the non-persistent launch.
+template <int D, int BK, int ST, bool PINGPONG>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv,
+                   const __grid_constant__ CUtensorMap to, int BH, int Hq,
+                   int group, int Sq, int Sk, int causal, int window,
+                   float cap, float scale, int n_items) {
+  using L = WgSmem<D, BK, ST>;
+  constexpr int NB = L::kBoxes;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* base =
+      smem_raw + ((1024 - (hopper::smem_addr(smem_raw) & 1023)) & 1023);
+  bf16* sQ = reinterpret_cast<bf16*>(base);
+  bf16* sK = reinterpret_cast<bf16*>(base + L::kQBytes);
+  bf16* sV = reinterpret_cast<bf16*>(base + L::kQBytes + ST * L::kKVBytes);
+  bf16* sO = reinterpret_cast<bf16*>(base + L::kOOffset);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(base + L::kBarOffset);
+  uint64_t* q_empty = q_full + 1;
+  uint64_t* k_full = q_full + 2;
+  uint64_t* k_empty = k_full + ST;
+  uint64_t* v_full = k_empty + ST;
+  uint64_t* v_empty = v_full + ST;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    hopper::mbar_init(q_empty, 8);     // one arrival a consumer warp
+#pragma unroll
+    for (int s = 0; s < ST; ++s) {
+      hopper::mbar_init(&k_full[s], 1);
+      hopper::mbar_init(&v_full[s], 1);
+      hopper::mbar_init(&k_empty[s], 8);
+      hopper::mbar_init(&v_empty[s], 8);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // producer: one thread issues every load; the rings' counters run on
+    // across work items
+    hopper::reg_dealloc<40>();
+    if (threadIdx.x == 0) {
+      const int rounds = (n_items + gridDim.x - 1) / gridDim.x;
+      int kv = 0, n = 0;
+      for (int r = 0; r < rounds; ++r, ++n) {
+        const int w = wg_round_item(r);
+        if (w >= n_items) break;      // only in a last, partial round
+        const WgItem it =
+            wg_item<BK>(w, BH, Hq, group, Sq, Sk, causal, window);
+        hopper::mbar_wait(q_empty, (n & 1) ^ 1);
+        hopper::mbar_expect_tx(q_full, L::kQBytes);
+#pragma unroll
+        for (int j = 0; j < NB; ++j)
+          hopper::tma_load_3d(sQ + j * kWgBQ * 64, &tq, q_full, 64 * j, it.q0,
+                              it.bh);
+        for (int i = 0; i < it.n_tiles; ++i, ++kv) {
+          const int s = kv % ST;
+          const uint32_t ph = (kv / ST) & 1;
+          const int k0 = (it.t_begin + i) * BK;
+          hopper::mbar_wait(&k_empty[s], ph ^ 1);
+          hopper::mbar_expect_tx(&k_full[s], L::kKVBytes);
+#pragma unroll
+          for (int j = 0; j < NB; ++j)
+            hopper::tma_load_3d(sK + s * BK * D + j * BK * 64, &tk,
+                                &k_full[s], 64 * j, k0, it.bkv);
+          hopper::mbar_wait(&v_empty[s], ph ^ 1);
+          hopper::mbar_expect_tx(&v_full[s], L::kKVBytes);
+#pragma unroll
+          for (int j = 0; j < NB; ++j)
+            hopper::tma_load_3d(sV + s * BK * D + j * BK * 64, &tv,
+                                &v_full[s], 64 * j, k0, it.bkv);
+        }
+      }
+    }
+  } else {
+    // consumers: warpgroup cw owns query rows q0 + 64 cw .. + 63 of each
+    // work item
+    hopper::reg_alloc<232>();
+    const int cw = wg - 1;
+    const int tid = threadIdx.x - 128 * wg;
+    const int warp = tid >> 5;
+    const int lane = tid & 31;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const float sl2 = scale * kLog2e;
+    const float cap_in = cap != 0.f ? scale / cap : 0.f;
+    const float cap_out = cap * kLog2e;
+    const bf16* q_wg = sQ + cw * 64 * 64;      // in box 0; box j: + j*128*64
+
+    float o[D / 2], s[BK / 2], m[2], l[2], corr[2];
+    uint32_t p[BK / 4];
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < BK / 4; ++i) p[i] = 0u;
+
+    // S = Q K^T of the K tile in stage st into s (overwritten)
+    auto issue_s = [&](int st) {
+      const bf16* kt = sK + st * BK * D;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        hopper::wgmma_ss<BK>(
+            s,
+            hopper::desc_sw128(q_wg + (kk / 4) * kWgBQ * 64 + (kk % 4) * 16,
+                               16, 1024),
+            hopper::desc_sw128(kt + (kk / 4) * BK * 64 + (kk % 4) * 16, 16,
+                               1024),
+            kk > 0);
+      hopper::wgmma_commit();
+    };
+    // O += P V of the V tile in stage st
+    auto issue_pv = [&](int st) {
+      const bf16* vt = sV + st * BK * D;
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
+                               p[4 * kk + 3]};
+        hopper::wgmma_rs_tb<D>(
+            o, a, hopper::desc_sw128(vt + kk * 16 * 64, BK * 128, 1024));
+      }
+      hopper::wgmma_commit();
+    };
+    // registers written by other instructions before the next products
+    auto fence_all = [&]() {
+      hopper::fence_regs(o);
+      hopper::fence_regs(s);
+      hopper::fence_regs(p);
+      hopper::wgmma_fence();
+    };
+    auto pack_p = [&]() {
+#pragma unroll
+      for (int j = 0; j < BK / 4; ++j)
+        p[j] = tc::pack_bf16(s[2 * j], s[2 * j + 1]);
+    };
+
+    if (PINGPONG && cw == 1) hopper::bar_arrive(1, 256);  // 0 issues first
+    const int rounds = (n_items + gridDim.x - 1) / gridDim.x;
+    int kv = 0, n = 0;
+    for (int r = 0; r < rounds; ++r, ++n) {
+      const int w = wg_round_item(r);
+      if (w >= n_items) break;      // only in a last, partial round
+      const bool last = r + 1 >= rounds || wg_round_item(r + 1) >= n_items;
+      const WgItem it = wg_item<BK>(w, BH, Hq, group, Sq, Sk, causal, window);
+      const int r0 = it.q0 + 64 * cw + 16 * warp;   // this warp's first row
+      auto softmax = [&](int i) {
+        softmax_tile<BK>(s, m, l, corr, r0, (it.t_begin + i) * BK, g, t, Sk,
+                         causal, window, cap, sl2, cap_in, cap_out);
+      };
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+      m[0] = m[1] = kNegInf;
+      l[0] = l[1] = 0.f;
+      hopper::mbar_wait(q_full, n & 1);
+
+      // first tile: S_0 and its softmax
+      int ks = kv % ST;
+      hopper::mbar_wait(&k_full[ks], (kv / ST) & 1);
+      if (PINGPONG) hopper::bar_sync(1 + cw, 256);
+      fence_all();
+      issue_s(ks);
+      if (PINGPONG) hopper::bar_arrive(2 - cw, 256);
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(s);
+      if (lane == 0) {
+        hopper::mbar_arrive(&k_empty[ks]);
+        if (it.n_tiles == 1) hopper::mbar_arrive(q_empty);   // Q is read
+      }
+      softmax(0);
+      pack_p();
+
+      // tile i: S_i and P_{i-1} V_{i-1} in flight, then S_i's softmax runs
+      // while P V finishes; the rescale waits for it
+      for (int i = 1; i < it.n_tiles; ++i) {
+        ks = (kv + i) % ST;
+        const int vs = (kv + i - 1) % ST;
+        hopper::mbar_wait(&k_full[ks], ((kv + i) / ST) & 1);
+        hopper::mbar_wait(&v_full[vs], ((kv + i - 1) / ST) & 1);
+        if (PINGPONG) hopper::bar_sync(1 + cw, 256);
+        fence_all();
+        issue_s(ks);
+        issue_pv(vs);
+        if (PINGPONG) hopper::bar_arrive(2 - cw, 256);
+        hopper::wgmma_wait<1>();
+        hopper::fence_regs(s);
+        if (lane == 0) {
+          hopper::mbar_arrive(&k_empty[ks]);
+          if (i == it.n_tiles - 1) hopper::mbar_arrive(q_empty);
+        }
+        softmax(i);
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(o);
+        if (lane == 0) hopper::mbar_arrive(&v_empty[vs]);
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          o[4 * j] *= corr[0];
+          o[4 * j + 1] *= corr[0];
+          o[4 * j + 2] *= corr[1];
+          o[4 * j + 3] *= corr[1];
+        }
+        pack_p();
+      }
+
+      // last P V; warpgroup 1's very last turn has no follower
+      const int vs = (kv + it.n_tiles - 1) % ST;
+      hopper::mbar_wait(&v_full[vs], ((kv + it.n_tiles - 1) / ST) & 1);
+      if (PINGPONG) hopper::bar_sync(1 + cw, 256);
+      fence_all();
+      issue_pv(vs);
+      if (PINGPONG && !(cw == 1 && last)) hopper::bar_arrive(2 - cw, 256);
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(o);
+      if (lane == 0) hopper::mbar_arrive(&v_empty[vs]);
+      kv += it.n_tiles;
+
+      // normalise; stage this warpgroup's rows of the output tile in the
+      // 128-byte swizzle (once the previous item's store has read them),
+      // then one TMA store a box, clipped at Sq
+      float inv[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float lh = l[h];
+        lh += __shfl_xor_sync(0xffffffffu, lh, 1);
+        lh += __shfl_xor_sync(0xffffffffu, lh, 2);
+        inv[h] = 1.f / fmaxf(lh, 1e-30f);
+      }
+      if (tid == 0) hopper::tma_store_wait_read();
+      hopper::bar_sync(3 + cw, 128);
+      unsigned char* o_bytes = reinterpret_cast<unsigned char*>(sO);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = 64 * cw + 16 * warp + g + 8 * h;   // row of the tile
+          *reinterpret_cast<uint32_t*>(
+              o_bytes + (j / 8) * kWgBQ * 128 + r * 128 +
+              (((j % 8) ^ (r & 7)) << 4) + 4 * t) =
+              tc::pack_bf16(o[4 * j + 2 * h] * inv[h],
+                            o[4 * j + 2 * h + 1] * inv[h]);
+        }
+      }
+      hopper::fence_async_shared();
+      hopper::bar_sync(3 + cw, 128);
+      if (tid == 0) {
+#pragma unroll
+        for (int j = 0; j < NB; ++j)
+          hopper::tma_store_3d(&to, sO + j * kWgBQ * 64 + cw * 64 * 64,
+                               64 * j, it.q0 + 64 * cw, it.bh);
+        hopper::tma_store_commit();
+      }
+    }
+    if (tid == 0) hopper::tma_store_wait_all();
+  }
+}
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      return static_cast<EncodeTiledFn>(nullptr);
+    return reinterpret_cast<EncodeTiledFn>(p);
+  }();
+  return fn;
+}
+
+// The TMA map of a contiguous bf16 (BH, S, D) tensor as (D, S, BH),
+// innermost first: boxes of 64 columns x `rows` rows x 1, 128-byte swizzle,
+// zeros outside.
+bool tensor_map(CUtensorMap* map, const void* ptr, int BH, int S, int D,
+                int rows) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)S * D * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(ptr), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D, int BK, int ST, bool PINGPONG>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
+                         int B, int Hq, int Hkv, int Sq, int Sk, int causal,
+                         int window, float cap, float scale,
+                         cudaStream_t stream) {
+  static_assert(D == 64 || D == 128, "the wgmma route takes D = 64 or 128");
+  static_assert(BK == 64 || BK == 128, "BK = 64 or 128");
+  CUtensorMap mq, mk, mv, mo;
+  if (!tensor_map(&mq, q, B * Hq, Sq, D, kWgBQ) ||
+      !tensor_map(&mk, k, B * Hkv, Sk, D, BK) ||
+      !tensor_map(&mv, v, B * Hkv, Sk, D, BK) ||
+      !tensor_map(&mo, o, B * Hq, Sq, D, 64))
+    return cudaErrorInvalidValue;
+  constexpr int smem = WgSmem<D, BK, ST>::kBytes;
+  auto kernel = flash_wgmma_kernel<D, BK, ST, PINGPONG>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int n_items = B * Hq * ((Sq + kWgBQ - 1) / kWgBQ);
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return err;
+#ifdef FLASH_WG_PERSISTENT
+  const bool persistent = FLASH_WG_PERSISTENT != 0;
+#else
+  const bool persistent = n_items <= kPersistentItemsPerSm * sms;
+#endif
+  const int grid = persistent ? min(n_items, sms) : n_items;
+  kernel<<<grid, kWgThreads, smem, stream>>>(mq, mk, mv, mo, B * Hq, Hq,
+                                             Hq / Hkv, Sq, Sk, causal, window,
+                                             cap, scale, n_items);
+  return counted(kWgmma);
 }
 
 cudaError_t dispatch_bf16(const void* q, const void* k, const void* v,
                           void* o, int B, int Hq, int Hkv, int Sq, int Sk,
                           int D, int causal, int window, float cap,
                           float scale, cudaStream_t stream) {
+#ifndef FLASH_FORCE_MMA
+  constexpr bool kPingPong = FLASH_WG_PINGPONG != 0;
+  if (D == 64)
+    return launch_wgmma<64, FLASH_WG_BK, FLASH_WG_ST, kPingPong>(
+        q, k, v, o, B, Hq, Hkv, Sq, Sk, causal, window, cap, scale, stream);
+  if (D == 128)
+    return launch_wgmma<128, FLASH_WG_BK, FLASH_WG_ST, kPingPong>(
+        q, k, v, o, B, Hq, Hkv, Sq, Sk, causal, window, cap, scale, stream);
+#endif
   if (D <= 64)
     return launch_mma<64, FLASH_TILE_D64>(q, k, v, o, B, Hq, Hkv, Sq, Sk, D,
                                           causal, window, cap, scale, stream);
@@ -411,13 +954,9 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
 
-  // the kv range, as in the bf16 route
-  const int q_last = min(q0 + BQ, Sq) - 1;
-  const int kv_end = causal ? min(Sk, q_last + 1) : Sk;
-  int kv_begin = 0;
-  if (window > 0 && q_last < Sk - 1 + window) kv_begin = max(0, q0 - window + 1);
-
-  for (int k0 = (kv_begin / BK) * BK; k0 < kv_end; k0 += BK) {
+  const KvTiles tiles = kv_tiles(q0, BQ, Sq, Sk, causal, window, BK);
+  for (int k0 = tiles.begin * BK; k0 < (tiles.begin + tiles.count) * BK;
+       k0 += BK) {
     __syncthreads();   // the previous tile's K, V and P are consumed
     load_tile_f32(sK, kp, k0, BK, Sk, D);
     load_tile_f32(sV, vp, k0, BK, Sk, D);
@@ -539,7 +1078,7 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), Hq, Hq / Hkv, Sq,
       Sk, D, causal, window, cap, scale);
-  return cudaGetLastError();
+  return counted(kF32);
 }
 
 cudaError_t dispatch_f32(const void* q, const void* k, const void* v,
@@ -559,9 +1098,9 @@ cudaError_t dispatch_f32(const void* q, const void* k, const void* v,
 }  // namespace
 
 // q: (B, Hq, Sq, D), k/v: (B, Hkv, Sk, D), o like q; all contiguous, 16-byte
-// aligned.  dtype 0 = float32 (scalar route), 1 = bfloat16 (tensor-core
-// route).  8 <= D <= 256, D % 8 == 0, Hq % Hkv == 0 (checked by the Python
-// wrapper).
+// aligned.  dtype 0 = float32 (scalar_f32), 1 = bfloat16 (wgmma_bf16 at
+// D = 64 and 128, else mma_bf16).  8 <= D <= 256, D % 8 == 0,
+// Hq % Hkv == 0 (checked by the Python wrapper).
 extern "C" int flash_attention_bhsd(const void* q, const void* k,
                                     const void* v, void* o, int B, int Hq,
                                     int Hkv, int Sq, int Sk, int D, int causal,
@@ -574,4 +1113,8 @@ extern "C" int flash_attention_bhsd(const void* q, const void* k,
                  : dispatch_f32(q, k, v, o, B, Hq, Hkv, Sq, Sk, D, causal,
                                 window, cap, scale, s);
   return static_cast<int>(err);
+}
+
+extern "C" unsigned long long flash_attention_launches(int kernel) {
+  return kernel >= 0 && kernel < kKernels ? g_launches[kernel].load() : 0;
 }

@@ -5,8 +5,8 @@ shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds, not minutes).  Libraries land in ``build/kernels/`` at the
 repo root (listed in ``.gitignore``), named by a hash of the source, the
 shared headers (``csrc/*.cuh``) and the flags: the first use builds, a
-rerun on the same sources loads the existing library.  Several sources
-build at once, one ``nvcc`` each.
+rerun on the same sources loads the existing library.  Several sources,
+and several ``-D`` variants of one, build at once, one ``nvcc`` each.
 
 Nothing here runs at import time: the CPU tests import every module on a
 box that has no ``nvcc``.
@@ -64,28 +64,37 @@ def build_log(name: str, defines: Tuple[str, ...] = ()) -> str:
 
 def _kernel_name(mangled: str) -> str:
     """'flash_mma_kernel<128,64,32>' from an Itanium-mangled kernel name:
-    the last identifier of the nested name, with its integer template
-    arguments."""
+    the last identifier of the nested name, with its integer and bool
+    template arguments."""
     pos, ident = 3 if mangled.startswith("_ZN") else 2, mangled
     while pos < len(mangled) and mangled[pos].isdigit():
         n = re.match(r"\d+", mangled[pos:]).group()
         ident = mangled[pos + len(n):pos + len(n) + int(n)]
         pos += len(n) + int(n)
-    args = re.match(r"I((?:Li-?\d+E)+)E", mangled[pos:])
+    args = re.match(r"I((?:L[ib]-?\d+E)+)E", mangled[pos:])
     if args:
-        ident += "<" + ",".join(re.findall(r"Li(-?\d+)E", args.group(1))) + ">"
+        ident += "<" + ",".join(re.findall(r"L[ib](-?\d+)E",
+                                           args.group(1))) + ">"
     return ident
 
 
 def ptxas_summary(name: str, defines: Tuple[str, ...] = ()) -> List[dict]:
     """Per kernel of the last build's log: its name with template
-    arguments, registers and spill bytes (stores + loads, ptxas -v)."""
+    arguments, registers, spill bytes (stores + loads, ptxas -v) and the
+    ptxas warnings that name it (e.g. wgmma serialised, setmaxnreg
+    ignored)."""
     out: List[dict] = []
+    mangled: Dict[str, dict] = {}
     for line in build_log(name, defines).splitlines():
         entry = re.search(r"Compiling entry function '(\w+)'", line)
+        named = re.search(r"function '(\w+)'", line)
         if entry:
             out.append({"kernel": _kernel_name(entry.group(1)),
-                        "registers": None, "spill_bytes": 0})
+                        "registers": None, "spill_bytes": 0, "warnings": []})
+            mangled[entry.group(1)] = out[-1]
+        elif named and named.group(1) in mangled:
+            mangled[named.group(1)]["warnings"].append(
+                line.split(":", 1)[-1].strip())
         elif out and "spill" in line:
             out[-1]["spill_bytes"] = sum(
                 int(n) for n in re.findall(r"(\d+) bytes spill", line))
@@ -96,36 +105,41 @@ def ptxas_summary(name: str, defines: Tuple[str, ...] = ()) -> List[dict]:
 
 
 def build(names: Iterable[str] = KERNEL_SOURCES,
-          defines: Tuple[str, ...] = ()) -> float:
-    """Compile every named source that has no library yet, all at once.
+          defines: Tuple[str, ...] = (),
+          variants: Iterable[Tuple[str, Tuple[str, ...]]] = ()) -> float:
+    """Compile every named source (with ``defines``) and every (source,
+    defines) of ``variants`` that has no library yet, all at once.
 
     Returns the seconds spent; raises with the compiler output on failure."""
     t0 = time.monotonic()
     with _LOCK:
-        todo = [n for n in names if not lib_path(n, defines).exists()]
+        todo = [(n, tuple(d)) for n, d in
+                [(n, defines) for n in names] + list(variants)
+                if not lib_path(n, tuple(d)).exists()]
         if not todo:
             return 0.0
         nvcc = _nvcc()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         jobs = []
-        for n in todo:
-            out = lib_path(n, defines)
+        for n, defs in todo:
+            out = lib_path(n, defs)
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
             log = open(out.with_suffix(".log"), "w")
-            cmd = [nvcc, *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o",
+            cmd = [nvcc, *NVCC_FLAGS, *(f"-D{d}" for d in defs), "-o",
                    str(tmp), str(CSRC / f"{n}.cu")]
-            jobs.append((n, out, tmp, log,
+            jobs.append((n, defs, out, tmp, log,
                          subprocess.Popen(cmd, stdout=log,
                                           stderr=subprocess.STDOUT)))
         failed = []
-        for n, out, tmp, log, proc in jobs:
+        for n, defs, out, tmp, log, proc in jobs:
             rc = proc.wait()
             log.close()
             if rc == 0:
                 os.replace(tmp, out)
             else:
                 tmp.unlink(missing_ok=True)
-                failed.append(f"{n} (rc {rc}):\n{build_log(n, defines)}")
+                failed.append(f"{n} {list(defs)} (rc {rc}):\n"
+                              f"{build_log(n, defs)}")
         if failed:
             raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return time.monotonic() - t0

@@ -7,18 +7,26 @@ by ``nvcc`` into a plain-C shared library and called through ctypes.
 
 What bounds it: at the serve path's shape (B=4, H=32, S=512, D=128, bf16,
 causal) the function must read q, k, v and write o once, 67 MB (20 us at
-3.35 TB/s), against 8.6 GFLOP over the visible pairs (about 13 us at
-mma.sync rates), so the memory traffic bounds it.  What the design does
-about it: one block per (batch x query head, query tile) walks the kv tiles
-with an online softmax, so the S x S scores never reach device memory and
-K/V are read per kv head without repeating them for GQA; kv tiles hidden by
-the causal mask or the window are skipped.
+3.35 TB/s), against 8.6 GFLOP over the visible pairs (9 us at 989
+TFLOP/s), so the memory traffic bounds it; at gemma2-27b's 8192 tokens the
+FLOPs do.  What the design does about it: each (batch x query head,
+query tile) walks the kv tiles with an online softmax, so the S x S
+scores never reach device memory and K/V are read per kv head without
+repeating them for GQA; kv tiles hidden by the causal mask or the window
+are skipped.
 
-Routes, chosen by dtype alone (``route``):
-- bf16 -> ``mma_bf16``: both products on the tensor cores (mma.sync
-  m16n8k16 from ldmatrix fragments), K/V tiles in a 2-stage cp.async ring,
-  the scores, softmax statistics and rescale in registers, P rounded to
-  bf16 as the A operand of P V; the long causal query tiles launch first.
+Routes, fixed by dtype and head dim before the launch (``route``):
+- bf16, D = 64 or 128 -> ``wgmma_bf16``: warp-specialised for Hopper.  A
+  producer warpgroup issues TMA loads (Q once, K and V through mbarrier
+  rings); two consumer warpgroups of 64 query rows run both products as
+  wgmma (S = Q K^T from shared memory, O += P V with P from registers),
+  the softmax on the accumulator registers, and take turns to issue so one
+  warpgroup's softmax runs under the other's products; one block an SM
+  walks the query tiles, heaviest first.
+- bf16, any other D (zamba2's 80, 8..256) -> ``mma_bf16``: both products
+  on the tensor cores through mma.sync m16n8k16 from ldmatrix fragments,
+  K/V tiles in a 2-stage cp.async ring.  Both bf16 routes round P to bf16
+  as the A operand of P V and launch the long causal query tiles first.
 - f32 -> ``scalar_f32``: scalar f32 FMAs (TF32 tensor cores would miss the
   1e-4 f32 tolerance); the tests and the f32 checks use it.
 
@@ -40,14 +48,17 @@ from .ref import mha_reference
 
 _COUNT_LOCK = threading.Lock()
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-ROUTES = {torch.bfloat16: "mma_bf16", torch.float32: "scalar_f32"}
+ROUTES = ("wgmma_bf16", "mma_bf16", "scalar_f32")
+WGMMA_HEAD_DIMS = (64, 128)
 
 
-def route(dtype: torch.dtype) -> str:
-    """The kernel instance a CUDA call of this dtype launches."""
-    if dtype not in ROUTES:
-        raise ValueError(f"dtype {dtype} not supported (float32, bfloat16)")
-    return ROUTES[dtype]
+def route(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel instance a CUDA call of this dtype and head dim launches."""
+    if dtype == torch.float32:
+        return "scalar_f32"
+    if dtype == torch.bfloat16:
+        return "wgmma_bf16" if head_dim in WGMMA_HEAD_DIMS else "mma_bf16"
+    raise ValueError(f"dtype {dtype} not supported (float32, bfloat16)")
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -77,7 +88,17 @@ def _lib(defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, f, f, i, p]
         fn.restype = ctypes.c_int
+        lib.flash_attention_launches.argtypes = [i]
+        lib.flash_attention_launches.restype = ctypes.c_ulonglong
     return lib
+
+
+def kernel_launches(lib: ctypes.CDLL) -> dict:
+    """Launches by route that ``lib`` itself has made since it was loaded:
+    the library counts each kernel where it launches it (kernel i of
+    ``ROUTES``), so the route its dispatch chose can be held to ``route``."""
+    return {r: int(lib.flash_attention_launches(i))
+            for i, r in enumerate(ROUTES)}
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -106,7 +127,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"{name} must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
-    route(q.dtype)
+    route(q.dtype, d)
 
 
 def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -114,9 +135,11 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          logit_cap: float = 0.0) -> torch.Tensor:
     """q: (B, Hq, Sq, D); k/v: (B, Hkv, Sk, D) -> (B, Hq, Sq, D), q's dtype.
 
-    CUDA tensors launch the hand-written kernel on the dtype's route and
-    count the launch in ``flash_attention_bhsd.launches`` and
-    ``.launches_by_route``; CPU tensors take the plain version.  Raises
+    CUDA tensors launch the hand-written kernel on the route of the dtype
+    and head dim (``route``) and count the launch in
+    ``flash_attention_bhsd.launches`` and ``.launches_by_route``; a refused
+    or failed launch raises, and nothing falls back.  CPU tensors take the
+    plain version.  Raises
     RuntimeError, on every device, for inputs that require grad while grad
     mode is on: the kernel has no backward.
     """
@@ -133,7 +156,8 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     launch(_lib(), q, k, v, out, causal, window, logit_cap)
     with _COUNT_LOCK:
         flash_attention_bhsd.launches += 1
-        flash_attention_bhsd.launches_by_route[route(q.dtype)] += 1
+        flash_attention_bhsd.launches_by_route[
+            route(q.dtype, q.shape[3])] += 1
     return out
 
 
@@ -155,4 +179,4 @@ def launch(lib: ctypes.CDLL, q: torch.Tensor, k: torch.Tensor,
 
 
 flash_attention_bhsd.launches = 0
-flash_attention_bhsd.launches_by_route = dict.fromkeys(ROUTES.values(), 0)
+flash_attention_bhsd.launches_by_route = dict.fromkeys(ROUTES, 0)

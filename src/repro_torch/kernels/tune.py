@@ -2,22 +2,38 @@
 
 Run on a CUDA card from the repo root:
 
-    PYTHONPATH=src python -m repro_torch.kernels.tune
+    PYTHONPATH=src python -m repro_torch.kernels.tune [--after-gemm]
 
-Flash attention: one build of ``csrc/flash_attention.cu`` per (FLASH_BQ,
-FLASH_BK, FLASH_MW) tile choice, at the codeqwen1.5-7b shape (D=128) and the
+Flash attention, ``wgmma_bf16`` route (D = 64 and 128): one build of
+``csrc/flash_attention.cu`` per (FLASH_WG_BK, FLASH_WG_ST,
+FLASH_WG_PINGPONG, FLASH_WG_PERSISTENT) choice (keys a kv tile, stages of
+the K and V rings, the consumer warpgroups taking turns to issue or not,
+one block an SM walking the work items or one block a work item, or
+unset: the kernel's own rule by the number of work items), at the
+codeqwen1.5-7b, granite-moe-3b-a800m, nemotron-4-15b, chameleon-34b and
+gemma2-27b (windowed and global, capped, 8192 tokens, one sequence and
+the serve path's two) shapes.  Flash attention, ``mma_bf16`` route: one
+build per (FLASH_BQ, FLASH_BK, FLASH_MW) tile choice with FLASH_FORCE_MMA
+(so D = 128 runs it too), at the codeqwen1.5-7b shape (D=128) and the
 zamba2-2.7b shared-block shape (D=80), beside
 ``F.scaled_dot_product_attention``.  SSD scan: one build of
 ``csrc/ssd_scan.cu`` per SSD_MIN_BLOCKS (blocks an SM, which sets the
-register cap), at the mamba2-1.3b and zamba2-2.7b shapes.  Each build is
-first checked against the plain version (the bf16 tolerance of
-``chip_smoke.py``), then timed with CUDA events over 50 calls after 5
-warm-up calls, variants in turn and then in reverse order.  Prints the
-card's name and power limit, then one JSON line per variant and shape with
-its times and its ptxas registers and spills.
+register cap), at the mamba2-1.3b and zamba2-2.7b shapes.  Every variant
+builds at once, one nvcc each.  Each build is first checked against the
+plain version (the bf16 tolerance of ``chip_smoke.py``), then timed with
+CUDA events over 50 calls after 5 warm-up calls, queued behind a device
+sleep, variants in turn and then in reverse order.  Prints the card's
+name and power limit, then one JSON line per variant and shape with its
+times and its ptxas registers, spills and warnings.
+
+``--after-gemm`` instead times the default build of flash at gemma2-27b's
+8192-token shapes (one sequence and its serve's two) back to back and
+right after bf16 GEMMs of its MLP's size, as its prefill runs it, with
+the SM clock and power draw nvidia-smi reads during each.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 
@@ -28,11 +44,30 @@ from . import _build
 from . import flash_attention as fa
 from . import ssd_scan as ss
 
-# (BQ, BK, MW): query rows, keys per tile, 16-row m-tiles per warp
+# (BK, stages, ping-pong, persistent) of the wgmma_bf16 route; persistent
+# None: the kernel's rule (by work items an SM)
+WGMMA_VARIANTS = ((128, 2, 1, None), (128, 2, 1, 1), (128, 2, 1, 0),
+                  (128, 2, 0, 1), (128, 2, 0, 0), (64, 2, 1, 1),
+                  (64, 4, 1, 1))
+# B, Hq, Hkv, S, D, causal, window, cap
+WGMMA_SHAPES = {"codeqwen": (4, 32, 32, 512, 128, True, 0, 0.0),
+                "granite": (4, 24, 8, 512, 64, True, 0, 0.0),
+                "nemotron": (4, 48, 8, 512, 128, True, 0, 0.0),
+                "chameleon": (4, 64, 8, 512, 128, True, 0, 0.0),
+                "gemma2_local": (1, 32, 16, 8192, 128, True, 4096, 50.0),
+                "gemma2_global": (1, 32, 16, 8192, 128, True, 0, 50.0),
+                "gemma2_local_b2": (2, 32, 16, 8192, 128, True, 4096, 50.0),
+                "gemma2_global_b2": (2, 32, 16, 8192, 128, True, 0, 50.0)}
+# (BQ, BK, MW) of the mma_bf16 route: query rows, keys per tile, 16-row
+# m-tiles per warp
 FLASH_TILES = ((64, 32, 1), (64, 64, 1), (128, 32, 2), (128, 64, 2),
                (64, 32, 2), (256, 32, 2))
 FLASH_SHAPES = {"codeqwen": (4, 32, 512, 128), "zamba2": (4, 32, 512, 80)}
 SSD_MIN_BLOCKS = (2, 1)
+# gemma2-27b's MLP up-projection on its serve microbatch (2 x 8192 tokens,
+# d_model 4608, d_ff 36864): M, K, N of the GEMMs that run between two
+# attention calls in its prefill
+GEMM_LOAD = (16384, 4608, 36864)
 # B, H, S, P, N, chunk
 SSD_SHAPES = {"mamba2": (4, 64, 512, 64, 128, 256),
               "zamba2": (4, 80, 512, 64, 64, 256)}
@@ -40,8 +75,12 @@ TOL = 2e-2
 
 
 def _ms(fn, iters: int = 50, warmup: int = 5) -> float:
+    """Device ms per call, the calls queued behind a ~20 ms device sleep
+    so that short kernels are not timed at the host's pace."""
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(40_000_000)       # clock cycles: ~20 ms at 1.98 GHz
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -60,12 +99,15 @@ def _check(name, got, want) -> None:
             raise SystemExit(f"{name}: max_abs_err {float(err.max())}")
 
 
-def _sweep(source, variants, defines, cases, lib_of, run, plain, extra=None):
+def _sweep(source, variants, defines, cases, lib_of, run, plain,
+           extra=None):
     """Check, then time every (variant, case) in turn and in reverse."""
     libs = {v: lib_of(defines(v)) for v in variants}
-    for v in variants:
-        for name, args in cases.items():
-            _check(f"{source} {v} {name}", run(libs[v], args), plain(args))
+    for name, args in cases.items():
+        want = plain(args)
+        for v in variants:
+            _check(f"{source} {v} {name}", run(libs[v], args), want)
+        del want
     times = {(v, n): [] for v in variants for n in cases}
     ref = {n: [] for n in cases}
     for order in (variants, variants[::-1]):
@@ -82,7 +124,69 @@ def _sweep(source, variants, defines, cases, lib_of, run, plain, extra=None):
               flush=True)
 
 
+def _wgmma_defines(v):
+    return (f"FLASH_WG_BK={v[0]}", f"FLASH_WG_ST={v[1]}",
+            f"FLASH_WG_PINGPONG={v[2]}") + (
+        () if v[3] is None else (f"FLASH_WG_PERSISTENT={v[3]}",))
+
+
+def _mma_defines(v):
+    return ("FLASH_FORCE_MMA", f"FLASH_BQ={v[0]}", f"FLASH_BK={v[1]}",
+            f"FLASH_MW={v[2]}")
+
+
+def _smi_sample() -> subprocess.Popen:
+    return subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                             "--format=csv,noheader"],
+                            stdout=subprocess.PIPE, text=True)
+
+
+def flash_after_gemm(cases: dict, reps: int = 20, gemms: int = 6) -> None:
+    """Per case: flash ms back to back (``_ms``) and, one call at a time,
+    right after ``gemms`` GEMMs of ``GEMM_LOAD``, with the SM clock and
+    power nvidia-smi reads while each runs."""
+    m, k, n = GEMM_LOAD
+    a = torch.randn(m, k, device="cuda").bfloat16()
+    w = torch.randn(k, n, device="cuda").bfloat16()
+    for name, (q, kk, v, causal, window, cap) in cases.items():
+        def call():
+            return fa.flash_attention_bhsd(q, kk, v, causal=causal,
+                                           window=window, logit_cap=cap)
+        alone_ms = _ms(call)
+        for _ in range(400):            # ~1 s of calls queued
+            call()
+        smi = _smi_sample()
+        alone_smi = smi.communicate(timeout=60)[0].strip()
+        torch.cuda.synchronize()
+        events = []
+        for i in range(reps):
+            for _ in range(gemms):
+                a @ w
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            call()
+            end.record()
+            events.append((start, end))
+            if i == reps // 2:
+                smi = _smi_sample()
+        loaded_smi = smi.communicate(timeout=60)[0].strip()
+        torch.cuda.synchronize()
+        print(json.dumps({"experiment": "flash_after_gemm", "shape": name,
+                          "gemm_mkn": list(GEMM_LOAD), "gemms": gemms,
+                          "back_to_back_ms": alone_ms,
+                          "back_to_back_clock_power": alone_smi,
+                          "after_gemm_ms": [s.elapsed_time(e)
+                                            for s, e in events],
+                          "after_gemm_clock_power": loaded_smi}), flush=True)
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--after-gemm", action="store_true",
+                    help="only time flash after GEMMs at gemma2-27b's "
+                         "8192-token shapes")
+    after_gemm = ap.parse_args().after_gemm
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -95,20 +199,46 @@ def main() -> int:
     def randn(*shape, scale=1.0):
         return scale * torch.randn(shape, generator=gen, device="cuda")
 
-    flash_cases = {n: tuple(randn(*s).bfloat16() for _ in range(3))
-                   for n, s in FLASH_SHAPES.items()}
+    if after_gemm:
+        flash_after_gemm({
+            n: (randn(b, hq, s, d).bfloat16(),
+                randn(b, hkv, s, d).bfloat16(),
+                randn(b, hkv, s, d).bfloat16(), causal, window, cap)
+            for n, (b, hq, hkv, s, d, causal, window, cap)
+            in WGMMA_SHAPES.items() if n.startswith("gemma2")})
+        return 0
 
-    def flash_run(lib, qkv):
-        out = torch.empty_like(qkv[0])
-        fa.launch(lib, *qkv, out, True, 0, 0.0)
+    _build.build([], variants=(
+        [("flash_attention", _wgmma_defines(v)) for v in WGMMA_VARIANTS]
+        + [("flash_attention", _mma_defines(v)) for v in FLASH_TILES]
+        + [("ssd_scan", (f"SSD_MIN_BLOCKS={v}",)) for v in SSD_MIN_BLOCKS]))
+
+    def flash_run(lib, args):
+        q, k, v, causal, window, cap = args
+        out = torch.empty_like(q)
+        fa.launch(lib, q, k, v, out, causal, window, cap)
         return (out,)
 
-    _sweep("flash_attention", FLASH_TILES,
-           lambda v: (f"FLASH_BQ={v[0]}", f"FLASH_BK={v[1]}",
-                      f"FLASH_MW={v[2]}"), flash_cases,
-           fa._lib, flash_run, lambda qkv: (fa.flash_attention_plain(*qkv),),
-           extra=lambda qkv: F.scaled_dot_product_attention(*qkv,
-                                                            is_causal=True))
+    def flash_plain(args):
+        q, k, v, causal, window, cap = args
+        return (fa.flash_attention_plain(q, k, v, causal=causal,
+                                         window=window, logit_cap=cap),)
+
+    wgmma_cases = {
+        n: (randn(b, hq, s, d).bfloat16(), randn(b, hkv, s, d).bfloat16(),
+            randn(b, hkv, s, d).bfloat16(), causal, window, cap)
+        for n, (b, hq, hkv, s, d, causal, window, cap)
+        in WGMMA_SHAPES.items()}
+    _sweep("flash_attention", WGMMA_VARIANTS, _wgmma_defines, wgmma_cases,
+           fa._lib, flash_run, flash_plain)
+    del wgmma_cases
+
+    flash_cases = {n: tuple(randn(*s).bfloat16() for _ in range(3))
+                   + (True, 0, 0.0) for n, s in FLASH_SHAPES.items()}
+    _sweep("flash_attention", FLASH_TILES, _mma_defines, flash_cases,
+           fa._lib, flash_run, flash_plain,
+           extra=lambda args: F.scaled_dot_product_attention(
+               *args[:3], is_causal=True))
 
     ssd_cases = {}
     for n, (b, h, s, p, nn, chunk) in SSD_SHAPES.items():

@@ -5,8 +5,14 @@ The port's CPU route of ``flash_attention_bhsd`` (its plain version) and
 the JAX oracle, on the shape, mask/softcap and dtype cases of
 ``tests/test_kernels.py``; tolerances as there (f32 2e-5, bf16 2e-2).  The
 CUDA kernel itself is checked against the plain version on the card by
-``chip_smoke.py``.
+``chip_smoke.py``; here also its build's bookkeeping (library names,
+ptxas summaries) and the launches per route that ``chip_smoke.py``
+expects of each serve path.
 """
+import shutil
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -21,6 +27,9 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
+
+
+ROOT = Path(__file__).resolve().parents[1]
 
 
 def rnd(seed, shape, scale=1.0):
@@ -178,6 +187,181 @@ def test_build_needs_nvcc_and_targets_sm90a():
         pytest.skip("the kernel is already built here")
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.build(["flash_attention"])
+
+
+def test_lib_path_hashes_every_shared_header(tmp_path, monkeypatch):
+    """A new ``csrc/*.cuh`` renames (so rebuilds) every library: each
+    source may include any shared header."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = {n: _build.lib_path(n) for n in _build.KERNEL_SOURCES}
+    assert before == {n: _build.lib_path(n) for n in _build.KERNEL_SOURCES}
+    (csrc / "extra_helpers.cuh").write_text("#pragma once\n")
+    after = {n: _build.lib_path(n) for n in _build.KERNEL_SOURCES}
+    assert all(after[n] != before[n] for n in _build.KERNEL_SOURCES)
+    assert _build.lib_path("flash_attention", ("FLASH_FORCE_MMA",)) \
+        != after["flash_attention"]                    # defines count too
+
+
+def test_ptxas_summary_names_template_args_and_warnings(monkeypatch):
+    """Bool template arguments and the ptxas warnings that name a kernel
+    (a serialised wgmma pipeline) reach ``chip_smoke.py``'s build line."""
+    name = ("_ZN12_GLOBAL__N_118flash_wgmma_kernelILi128ELi128ELi2ELb1EEEv"
+            "14CUtensorMap_stS1_S1_S1_iiiiiiff")
+    log = (f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'\n"
+           f"ptxas info    : Function properties for {name}\n"
+           "    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill "
+           "loads\n"
+           "ptxas info    : Used 168 registers, used 16 barriers\n"
+           "ptxas info    : (C7515) Potential Performance Loss: "
+           "wgmma.mma_async instructions are serialized due to insufficient "
+           f"register resources in the function '{name}'\n")
+    monkeypatch.setattr(_build, "build_log", lambda n, d=(): log)
+    (entry,) = _build.ptxas_summary("flash_attention")
+    assert entry["kernel"] == "flash_wgmma_kernel<128,128,2,1>"
+    assert entry["registers"] == 168 and entry["spill_bytes"] == 12
+    assert len(entry["warnings"]) == 1
+    assert "serialized" in entry["warnings"][0]
+
+
+def _chip_smoke():
+    sys.path.insert(0, str(ROOT))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(ROOT))
+    return chip_smoke
+
+
+WGMMA_ENTRY = ("_ZN12_GLOBAL__N_118flash_wgmma_kernelILi128ELi128ELi2ELb1EEEv"
+               "14CUtensorMap_stS1_S1_S1_iiiiiiffi")
+
+
+@pytest.mark.parametrize("line, spill, faults", [
+    pytest.param("", 0, 0, id="clean"),
+    pytest.param("", 8, 1, id="spill"),
+    pytest.param("ptxas info    : (C7515) Potential Performance Loss: "
+                 "wgmma.mma_async instructions are serialized due to "
+                 f"insufficient register resources in the function "
+                 f"'{WGMMA_ENTRY}'", 0, 1, id="wgmma_serialized"),
+    pytest.param("ptxas warning : (C7508) Potential Performance Loss: "
+                 "setmaxnreg ignored; unable to determine register count at "
+                 "entry", 0, 1, id="setmaxnreg_ignored"),
+    pytest.param("ptxas info    : Used 168 registers, used 16 barriers", 0,
+                 0, id="registers_only"),
+])
+def test_chip_smoke_fails_on_ptxas_faults(line, spill, faults):
+    """The build phase fails on a spill, a serialised wgmma pipeline or an
+    ignored setmaxnreg, and on nothing else ptxas says."""
+    cs = _chip_smoke()
+    summary = {"flash_attention": [{"kernel": "flash_wgmma_kernel<128,128,"
+                                              "2,1>", "registers": 168,
+                                    "spill_bytes": spill, "warnings": []}]}
+    log = ("ptxas info    : Compiling entry function "
+           f"'{WGMMA_ENTRY}' for 'sm_90a'\n{line}\n")
+    got = cs.ptxas_faults(summary, {"flash_attention": log})
+    assert len(got) == faults
+    assert all(g.startswith("flash_attention: ") for g in got)
+
+
+class _Event:
+    def __init__(self, key, device_type, count):
+        self.key, self.device_type, self.count = key, device_type, count
+
+
+def test_chip_smoke_reads_flash_routes_from_kernel_names():
+    """The route a flash call ran is read from the device kernels' names in
+    a profile: one route per kernel template, host-side rows ignored."""
+    cs = _chip_smoke()
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+    events = [
+        _Event("void (anonymous namespace)::flash_wgmma_kernel<128, 128, 2, "
+               "true>(CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap, "
+               "int, int, int, int, int, int, int, float, float, int)",
+               cuda, 46),
+        _Event("void (anonymous namespace)::flash_wgmma_kernel<64, 128, 2, "
+               "true>(...)", cuda, 2),
+        _Event("void (anonymous namespace)::flash_mma_kernel<80, 64, 64, 1>"
+               "(...)", cuda, 9),
+        _Event("void (anonymous namespace)::flash_f32_kernel<64, 64, 4>(...)",
+               cuda, 32),
+        _Event("cudaLaunchKernel", cpu, 89),
+        _Event("flash_wgmma_kernel", cpu, 5),         # not a device row
+        _Event("nvjet_tst_192x192_64x4_1x2_h_bz_coopA_NNT", cuda, 322),
+    ]
+    assert cs.flash_routes_seen(torch, events) == {
+        "wgmma_bf16": 48, "mma_bf16": 9, "scalar_f32": 32}
+    assert cs.flash_routes_seen(torch, events[4:]) == {}
+    assert set(cs.FLASH_KERNEL_ROUTES.values()) == set(fa.ROUTES)
+
+
+class _CountingLib:
+    """A stand-in for the flash library's launch counters."""
+    def __init__(self, counts):
+        self.counts = list(counts)
+
+    def flash_attention_launches(self, kernel):
+        return self.counts[kernel] if 0 <= kernel < len(self.counts) else 0
+
+
+def test_kernel_launches_reads_the_library_counters_in_route_order():
+    """The library counts kernel i of ``ROUTES`` as its counter i, and
+    ``chip_smoke.launch_delta`` keeps only the routes launched since."""
+    cs = _chip_smoke()
+    lib = _CountingLib([5, 7, 11])
+    before = fa.kernel_launches(lib)
+    assert before == {"wgmma_bf16": 5, "mma_bf16": 7, "scalar_f32": 11}
+    lib.counts = [5 + 46, 7, 11 + 2]
+    assert cs.launch_delta(fa, lib, before) == {"wgmma_bf16": 46,
+                                                "scalar_f32": 2}
+    assert cs.launch_delta(fa, lib, fa.kernel_launches(lib)) == {}
+
+
+@pytest.mark.parametrize("launched,seen,faults", [
+    ({"wgmma_bf16": 1}, {"wgmma_bf16": 1}, 0),
+    ({"wgmma_bf16": 1}, {}, 0),            # the profile lost the records
+    ({"mma_bf16": 1}, {"mma_bf16": 1}, 2),  # the library took another route
+    ({"wgmma_bf16": 1}, {"mma_bf16": 1}, 1),
+    ({"wgmma_bf16": 2}, {"wgmma_bf16": 2}, 2),
+    ({}, {}, 1),                           # nothing launched
+], ids=["agree", "profile_short", "library_route", "profile_route",
+        "twice", "none"])
+def test_chip_smoke_route_faults(launched, seen, faults):
+    """A call's flash launches must be the expected ones in the library's
+    own counts; a profile may show fewer, never a route more often."""
+    cs = _chip_smoke()
+    assert len(cs.route_faults({"wgmma_bf16": 1}, launched, seen)) == faults
+
+
+# launches per serve round on each flash route (two microbatches a path)
+EXPECTED_FLASH_ROUTES = {
+    "codeqwen15_7b": {"wgmma_bf16": 64},
+    "mamba2_1_3b": {},
+    "zamba2_2_7b": {"mma_bf16": 18},          # the shared block's D = 80
+    "granite_moe_3b_a800m": {"wgmma_bf16": 64},
+    "whisper_large_v3": {"wgmma_bf16": 64, "scalar_f32": 64},
+    "gemma2_27b": {"wgmma_bf16": 92},
+    "nemotron_4_15b": {"wgmma_bf16": 64},
+    "chameleon_34b": {"wgmma_bf16": 96},
+}
+
+
+@pytest.mark.parametrize("arch", sorted(EXPECTED_FLASH_ROUTES))
+def test_chip_smoke_expected_launches_split_by_route(arch):
+    """chip_smoke.py holds each serve path to these counts on the card."""
+    chip_smoke = _chip_smoke()
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ssd_scan as ss
+    assert set(chip_smoke.PATHS) == set(EXPECTED_FLASH_ROUTES)
+    cfg = get_config(arch)
+    shape = chip_smoke.serve_shape(arch)
+    n_micro = shape["num_requests"] // shape["microbatch"]
+    got = chip_smoke.expected_launches(torch, cfg, n_micro, fa, ss)
+    assert got["flash_attention_bhsd"] == {
+        **dict.fromkeys(fa.ROUTES, 0), **EXPECTED_FLASH_ROUTES[arch]}
+    ssd = {"mamba2_1_3b": 96, "zamba2_2_7b": 108}.get(arch, 0)
+    assert got["ssd_scan_bhsd"] == {"mma_bf16": ssd, "scalar_f32": 0}
 
 
 def test_rows_without_a_visible_key_follow_the_jax_oracle():

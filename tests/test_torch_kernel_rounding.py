@@ -1,9 +1,9 @@
 """The bf16 tensor-core routes' rounding plans, emulated in plain torch.
 
 The bf16 kernels round at points the plain versions do not:
-- flash attention: P (the unnormalised softmax weights of each 64-key tile,
-  against the running row max) is rounded to bf16 before P V; the row sums
-  stay f32.
+- flash attention: P (the unnormalised softmax weights of each key tile,
+  128 keys on the wgmma route, 32 or 64 on the mma route, against the
+  running row max) is rounded to bf16 before P V; the row sums stay f32.
 - SSD scan: the three f32 operands of its products (the state, the
   weighted score tile (C B^T) o L o dt, and x o w) enter as hi + lo bf16
   pairs, about 16 mantissa bits; one bf16 rounding of them would miss the
@@ -13,7 +13,8 @@ bf16 tolerance of ``chip_smoke.py`` (2e-2, absolute plus relative) against
 the port's f32 plain version and against the JAX function on the same
 bf16-valued inputs.  The CUDA kernels themselves are checked against the
 plain versions on the card by ``chip_smoke.py``.  Also here: the pure-Python
-route choice (dtype -> kernel instance) and what the kernels refuse.
+route choice ((dtype, head dim) -> kernel instance) and what the kernels
+refuse.
 """
 import math
 
@@ -55,13 +56,21 @@ def bf16(t):
 
 # ------------------------------------------------------------------ flash
 
+def kernel_block_k(d):
+    """Keys a kv tile of the bf16 route at head dim d: 128 on wgmma_bf16
+    (D = 64 and 128); on mma_bf16 64 at D <= 80, 32 above."""
+    if fa.route(torch.bfloat16, d) == "wgmma_bf16":
+        return 128
+    return 64 if d <= 80 else 32
+
+
 def flash_emulated(q, k, v, *, causal=True, window=0, logit_cap=0.0,
                    round_p=True):
-    """The bf16 kernel's arithmetic: online softmax over key tiles (64 keys
-    at D <= 80, 32 above, as the kernel's tiles), P rounded to bf16 before
-    P V (unless not round_p), f32 row sums, output rounded to bf16."""
+    """The bf16 kernels' arithmetic: online softmax over key tiles (the
+    route's, ``kernel_block_k``), P rounded to bf16 before P V (unless not
+    round_p), f32 row sums, output rounded to bf16."""
     b, hq, sq, d = q.shape
-    block_k = 64 if d <= 80 else 32
+    block_k = kernel_block_k(d)
     group = hq // k.shape[1]
     sk = k.shape[2]
     kf = k.float().repeat_interleave(group, dim=1)
@@ -104,6 +113,12 @@ def flash_emulated(q, k, v, *, causal=True, window=0, logit_cap=0.0,
     (1, 2, 2, 130, 130, 80, True, 0, 0.0),       # zamba2's D=80
     (1, 4, 2, 200, 200, 128, True, 16, 50.0),    # window16_cap50 at D=128
     (1, 2, 1, 20, 10, 128, True, 3, 0.0),        # no_visible_key at D=128
+    # the wgmma route's 128-key tiles: several of them, ragged ends
+    (1, 4, 2, 300, 300, 128, False, 0, 0.0),     # noncausal, 3 kv tiles
+    (1, 4, 4, 17, 33, 64, True, 0, 0.0),         # ragged_17x33 at D=64
+    (1, 2, 2, 48, 80, 128, False, 0, 0.0),       # ragged_noncausal, D=128
+    (1, 4, 2, 130, 130, 64, True, 0, 0.0),       # 130 keys at D=64
+    (1, 2, 1, 20, 10, 64, True, 3, 0.0),         # no_visible_key at D=64
 ])
 def test_flash_rounding_plan(b, hq, hkv, sq, sk, d, causal, window, cap):
     qn, kn, vn = (bf16_values(rnd(seed, shape)) for seed, shape in (
@@ -229,30 +244,70 @@ def test_ssd_one_rounding_would_miss_the_tolerance():
 
 # ----------------------------------------------------------------- routes
 
+# (dtype, head dim, flash's route, the SSD scan's route); None: refused.
+# Only flash reads the head dim: bf16 at D = 64 and 128 runs wgmma_bf16.
+ROUTE_CASES = [
+    pytest.param(torch.bfloat16, 40, "mma_bf16", "mma_bf16",
+                 id="dtype0-mma_bf16"),
+    pytest.param(torch.float32, 40, "scalar_f32", "scalar_f32",
+                 id="dtype1-scalar_f32"),
+    pytest.param(torch.float16, 40, None, None, id="dtype2-None"),
+    pytest.param(torch.float64, 40, None, None, id="dtype3-None"),
+    pytest.param(torch.bfloat16, 64, "wgmma_bf16", "mma_bf16",
+                 id="bf16-d64-wgmma_bf16"),
+    pytest.param(torch.bfloat16, 128, "wgmma_bf16", "mma_bf16",
+                 id="bf16-d128-wgmma_bf16"),
+    pytest.param(torch.bfloat16, 8, "mma_bf16", "mma_bf16",
+                 id="bf16-d8-mma_bf16"),
+    pytest.param(torch.bfloat16, 80, "mma_bf16", "mma_bf16",
+                 id="bf16-d80-mma_bf16"),
+    pytest.param(torch.bfloat16, 256, "mma_bf16", "mma_bf16",
+                 id="bf16-d256-mma_bf16"),
+    pytest.param(torch.float32, 64, "scalar_f32", "scalar_f32",
+                 id="f32-d64-scalar_f32"),
+    pytest.param(torch.float32, 128, "scalar_f32", "scalar_f32",
+                 id="f32-d128-scalar_f32"),
+    pytest.param(torch.float16, 64, None, None, id="f16-d64-None"),
+    pytest.param(torch.float64, 128, None, None, id="f64-d128-None"),
+]
+
+
 @pytest.mark.parametrize("mod", [fa, ss], ids=["flash", "ssd"])
-@pytest.mark.parametrize("dtype,want", [
-    (torch.bfloat16, "mma_bf16"), (torch.float32, "scalar_f32"),
-    (torch.float16, None), (torch.float64, None),
-])
-def test_route_by_dtype(mod, dtype, want):
+@pytest.mark.parametrize("dtype,d,flash_want,ssd_want", ROUTE_CASES)
+def test_route_by_dtype(mod, dtype, d, flash_want, ssd_want):
+    want = flash_want if mod is fa else ssd_want
+    call = (lambda: fa.route(dtype, d)) if mod is fa else \
+        (lambda: ss.route(dtype))
     if want is None:
         with pytest.raises(ValueError, match="not supported"):
-            mod.route(dtype)
+            call()
     else:
-        assert mod.route(dtype) == want
+        assert call() == want
 
 
-@pytest.mark.parametrize("fn", [fa.flash_attention_bhsd, ss.ssd_scan_bhsd],
-                         ids=["flash", "ssd"])
-def test_launch_counts_per_route(fn):
-    assert set(fn.launches_by_route) == {"mma_bf16", "scalar_f32"}
+@pytest.mark.parametrize("fn,dtype,d", [
+    pytest.param(fa.flash_attention_bhsd, torch.bfloat16, 16, id="flash"),
+    pytest.param(ss.ssd_scan_bhsd, torch.bfloat16, 8, id="ssd"),
+    pytest.param(fa.flash_attention_bhsd, torch.bfloat16, 64,
+                 id="flash-bf16-d64"),
+    pytest.param(fa.flash_attention_bhsd, torch.bfloat16, 128,
+                 id="flash-bf16-d128"),
+    pytest.param(fa.flash_attention_bhsd, torch.bfloat16, 80,
+                 id="flash-bf16-d80"),
+    pytest.param(fa.flash_attention_bhsd, torch.float32, 128,
+                 id="flash-f32-d128"),
+])
+def test_launch_counts_per_route(fn, dtype, d):
+    want = ({"wgmma_bf16", "mma_bf16", "scalar_f32"}
+            if fn is fa.flash_attention_bhsd else {"mma_bf16", "scalar_f32"})
+    assert set(fn.launches_by_route) == want
     before = dict(fn.launches_by_route)
     if fn is fa.flash_attention_bhsd:
-        q = torch.zeros((1, 2, 16, 16), dtype=torch.bfloat16)
+        q = torch.zeros((1, 2, 16, d), dtype=dtype)
         fn(q, q, q)
     else:
-        x = torch.zeros((1, 2, 16, 8), dtype=torch.bfloat16)
-        b = torch.zeros((1, 1, 16, 8), dtype=torch.bfloat16)
+        x = torch.zeros((1, 2, 16, d), dtype=dtype)
+        b = torch.zeros((1, 1, 16, 8), dtype=dtype)
         fn(x, torch.zeros((1, 2, 16)), torch.zeros(2), b, b, 8)
     assert fn.launches_by_route == before       # the CPU launches nothing
 
