@@ -15,7 +15,8 @@ no result):
 1. device: the card's name and power limit; TF32 off for matmuls and cuDNN.
 2. build: compile every CUDA kernel from ``src/repro_torch/csrc`` with nvcc,
    all at once, and beside them flash attention with ``-DFLASH_FORCE_MMA``
-   (the ``mma_bf16`` route at every head dim, for timing the old route);
+   and the SSD scan with ``-DSSD_FORCE_MMA`` (the ``mma_bf16`` routes at
+   every shape, for timing the old routes);
    ptxas registers, spills and warnings per kernel instance.  Fails if
    ptxas reported a spill, a serialised wgmma or an ignored setmaxnreg.
 3. kernel: each kernel against its plain PyTorch version on the card, at
@@ -27,7 +28,11 @@ no result):
    one library call at the path shapes, CUDA events: SDPA, or for a
    softcapped or windowed case a compiled ``flex_attention``; on the
    ``wgmma_bf16`` path shapes also the ``mma_bf16`` route's time
-   (``prior_ms``), timed in turns with the new route.
+   (``prior_ms``), timed in turns with the new route.  The SSD scan the
+   same way: each case's route by (dtype, P, N), the library's launches by
+   device kernel equal to the route's and no profile showing more, the
+   path shapes on ``wgmma_bf16`` timed in turns with ``mma_bf16``, and
+   each route's device time split by kernel from a profile.
 4. serve, for each of eight paths in turn: codeqwen1.5-7b (dense, flash
    kernel), mamba2-1.3b (ssm, SSD kernel), zamba2-2.7b (hybrid, both
    kernels), granite-moe-3b-a800m (moe, flash), whisper-large-v3 (encdec,
@@ -89,7 +94,6 @@ It imports nothing of JAX or of the JAX package.  Without CUDA it exits 2.
 """
 from __future__ import annotations
 
-import ctypes
 import gc
 import json
 import math
@@ -163,6 +167,19 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def host_us(torch, fn, iters: int = 50) -> float:
+    """Host microseconds a call of ``fn`` takes to return (the wrapper's
+    checks, allocations and launches), the device left to run behind."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t = (time.perf_counter() - t0) / iters * 1e6
+    torch.cuda.synchronize()
+    return t
+
+
 FLASH_PATH_CASES = ("path", "d80_bf16_mha", "granite_gqa3_d64_bf16",
                     "whisper_enc_f32", "whisper_dec_d64_bf16",
                     "gemma2_local_w4096_cap50", "gemma2_global_cap50",
@@ -172,6 +189,13 @@ FLASH_PATH_CASES = ("path", "d80_bf16_mha", "granite_gqa3_d64_bf16",
 FLASH_KERNEL_ROUTES = {"flash_wgmma_kernel": "wgmma_bf16",
                        "flash_mma_kernel": "mma_bf16",
                        "flash_f32_kernel": "scalar_f32"}
+# the SSD scan's device kernels, as a profile names them, and their routes
+# (each bf16 route launches two kernels a call)
+SSD_KERNEL_ROUTES = {"ssd_wg_state_kernel": "wgmma_bf16",
+                     "ssd_wg_y_kernel": "wgmma_bf16",
+                     "ssd_cbt_kernel": "mma_bf16",
+                     "ssd_mma_kernel": "mma_bf16",
+                     "ssd_f32_kernel": "scalar_f32"}
 
 
 def flash_routes_seen(torch, events) -> dict:
@@ -188,11 +212,60 @@ def flash_routes_seen(torch, events) -> dict:
     return seen
 
 
-def launch_delta(fa, lib, before: dict) -> dict:
-    """Flash launches by route that ``lib`` made since its counts were
-    ``before`` (``fa.kernel_launches``), routes it did not launch left out."""
-    after = fa.kernel_launches(lib)
+def ssd_kernels_seen(torch, events) -> dict:
+    """SSD launches by device kernel in a profile's ``key_averages()``."""
+    cuda = torch.autograd.DeviceType.CUDA
+    seen = {}
+    for e in events:
+        if e.device_type != cuda:
+            continue
+        for kernel in SSD_KERNEL_ROUTES:
+            if kernel in e.key:
+                seen[kernel] = seen.get(kernel, 0) + e.count
+    return seen
+
+
+def ssd_kernel_ms(trace: Path, calls: int) -> dict:
+    """Device ms a call of each SSD kernel: the durations of its device
+    kernels in a chrome trace of ``calls`` calls."""
+    out = {}
+    for e in json.loads(trace.read_text())["traceEvents"]:
+        if e.get("cat") != "kernel":
+            continue
+        for kernel in SSD_KERNEL_ROUTES:
+            if kernel in e.get("name", ""):
+                out[kernel] = out.get(kernel, 0.0) + e["dur"] / 1e3 / calls
+    return out
+
+
+def launch_delta(mod, lib, before: dict) -> dict:
+    """Launches that ``lib`` made since its counts were ``before``
+    (``mod.kernel_launches``: flash's by route, the SSD scan's by device
+    kernel), those it did not launch left out."""
+    after = mod.kernel_launches(lib)
     return {r: n - before[r] for r, n in after.items() if n != before[r]}
+
+
+def ssd_kernels_of_call(torch, ss, lib, fn, calls: int = 1) -> tuple:
+    """The result of ``calls`` calls of ``fn``, the SSD launches by device
+    kernel that ``lib`` counted during them, those a profile of them shows,
+    and each kernel's device ms a call from that profile's trace (the
+    calls queued behind a device sleep, as ``cuda_ms`` times them)."""
+    from torch.profiler import ProfilerActivity, profile
+    before = ss.kernel_launches(lib)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(20_000_000)
+        for _ in range(calls):
+            out = fn()
+        torch.cuda.synchronize()
+    PROFILE_DIR.mkdir(parents=True, exist_ok=True)
+    trace = PROFILE_DIR / "ssd_trace.json"
+    prof.export_chrome_trace(str(trace))
+    split = ssd_kernel_ms(trace, calls)
+    trace.unlink()
+    return (out, launch_delta(ss, lib, before),
+            ssd_kernels_seen(torch, prof.key_averages()), split)
 
 
 def routes_of_call(torch, fa, lib, fn) -> tuple:
@@ -209,7 +282,8 @@ def routes_of_call(torch, fa, lib, fn) -> tuple:
 
 
 def route_faults(expected: dict, launched: dict, seen: dict) -> list:
-    """How a call's flash launches by route disagree with ``expected``.
+    """How a call's launches by route (flash) or by device kernel (the SSD
+    scan) disagree with ``expected``.
     The library's own counts (``launched``) must equal it.  A profile's
     (``seen``) may fall short, since the profiler can lose the device
     records of a session, but may show no route more often than expected."""
@@ -245,6 +319,7 @@ def attention_bound_ms(q, k, causal: bool, window: int) -> tuple:
 
 
 MMA_DEFINES = ("FLASH_FORCE_MMA",)   # flash's mma_bf16 route at every D
+SSD_MMA_DEFINES = ("SSD_FORCE_MMA",)  # the SSD's mma_bf16 route, every shape
 PTXAS_FAULT = re.compile(r"wgmma.*serializ|setmaxnreg.*ignor", re.I)
 
 
@@ -483,11 +558,33 @@ def ssd_bound_ms(x, b, chunk: int) -> tuple:
                                  "operations")
 
 
+def ssd_wgmma_flops(B: int, H: int, G: int, S: int, N: int, chunk: int,
+                    heads: int) -> int:
+    """The ``wgmma_bf16`` route's own tensor-core work at this shape,
+    counted as its kernels issue it (m64n64k16 products, the hi + lo
+    splits included), with ``heads`` heads a y work item: the state kernel
+    N / 64 x 8 products per 64-row tile and chunk; the y kernel, per query
+    tile i and chunk c, C B^T (i + 1) x N / 16 products once for the
+    item's heads, and per head its (i + 1) x 8 intra-chunk products and,
+    for c > 0, 2 x N / 16 for C S_c."""
+    nt, chunks, k16 = -(-chunk // 64), S // chunk, N // 16
+    products = B * H * chunks * (N // 64) * nt * 8
+    for c in range(chunks):
+        for i in range(nt):
+            products += B * H // heads * (
+                (i + 1) * k16 + heads * ((i + 1) * 8 + (2 * k16 if c else 0)))
+    return products * 2 * 64 * 64 * 16
+
+
 def phase_ssd_kernel(torch, ss):
     """SSD kernel vs its plain version on the card; times at the paths'
-    shapes.  No single PyTorch call computes the SSD scan, so there is no
-    library time."""
+    shapes, with the mma_bf16 route's (``prior_ms``, the ``-DSSD_FORCE_MMA``
+    build, in turns with the new route), each route's device time by
+    kernel from a profile of 10 calls and its host time a call
+    (``host_us``).  No single PyTorch call computes the
+    SSD scan, so there is no library time."""
     import torch.nn.functional as F
+    lib, prior_lib = ss._lib(), ss._lib(SSD_MMA_DEFINES)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
     bf16, f32 = torch.bfloat16, torch.float32
@@ -506,21 +603,38 @@ def phase_ssd_kernel(torch, ss):
         ("ragged_c96_p40_n48", 2, 3, 1, 192, 40, 48, 96, f32, "normal"),
         ("strong_decay", 2, 4, 1, 512, 64, 128, 256, f32, "strong"),
         ("weak_decay", 2, 4, 1, 512, 64, 128, 256, f32, "weak"),
-        # the tensor-core route at the options above
+        # the tensor-core routes at the options above (mma_bf16 at P 16 and
+        # P 40, wgmma_bf16 at P 64)
         ("groups_2_of_4_bf16", 2, 4, 2, 64, 16, 8, 16, bf16, "normal"),
         ("single_chunk_bf16", 2, 4, 1, 256, 64, 128, 256, bf16, "normal"),
         ("ragged_c96_p40_n48_bf16", 2, 3, 1, 192, 40, 48, 96, bf16,
          "normal"),
         ("strong_decay_bf16", 2, 4, 1, 512, 64, 128, 256, bf16, "strong"),
         ("weak_decay_bf16", 2, 4, 1, 512, 64, 128, 256, bf16, "weak"),
+        # the wgmma route's edges: chunks that are no multiple of its
+        # 64-row tiles (TMA zero fill, clipped stores) with 3 heads a group
+        # (one head a y work item), and groups with 16-row chunks
+        ("ragged_c96_p64_n64_bf16", 2, 3, 1, 192, 64, 64, 96, bf16,
+         "normal"),
+        ("groups_2_of_4_c16_p64_bf16", 2, 4, 2, 64, 64, 128, 16, bf16,
+         "normal"),
     ]
-    lib = ss._lib()
-    lib.ssd_scan_scratch_floats.restype = ctypes.c_longlong
     for b, g, s, chunk in ((4, 1, 512, 256), (2, 3, 192, 96), (1, 2, 64, 16)):
         if lib.ssd_scan_scratch_floats(b, g, s, chunk) != \
                 ss.scratch_numel(b, g, s, chunk):
             fail(f"scratch size of ({b}, {g}, {s}, {chunk}) differs between "
                  f"the kernel and the wrapper")
+    for b, h, s, p, n, chunk in ((4, 64, 512, 64, 128, 256),
+                                 (4, 80, 512, 64, 64, 256),
+                                 (2, 3, 192, 64, 64, 96)):
+        if lib.ssd_scan_state_scratch_bytes(b, h, s, p, n, chunk) != \
+                ss.state_scratch_bytes(b, h, s, p, n, chunk):
+            fail(f"state scratch size of ({b}, {h}, {s}, {p}, {n}, {chunk}) "
+                 f"differs between the kernel and the wrapper")
+
+    def prior(x, dt, a, bm, cm, chunk):
+        return ss.launch(prior_lib, x, dt, a, bm, cm, chunk, "mma_bf16")
+
     worst, timed = 0.0, {}
     for name, b, h, g, s, p, n, chunk, dt_, decay in cases:
         def rand(*shape):
@@ -534,35 +648,83 @@ def phase_ssd_kernel(torch, ss):
             a = -1e-3 * torch.exp(0.3 * rand(h))
         bm = (0.5 * rand(b, g, s, n)).to(dt_)
         cm = (0.5 * rand(b, g, s, n)).to(dt_)
-        y, st = ss.ssd_scan_bhsd(x, dt, a, bm, cm, chunk)
-        torch.cuda.synchronize()
+        route = ss.route(dt_, p, n)
+        (y, st), launched, seen, _ = ssd_kernels_of_call(
+            torch, ss, lib, lambda: ss.ssd_scan_bhsd(x, dt, a, bm, cm, chunk))
+        faults = route_faults(ss.route_kernels({route: 1}), launched, seen)
+        if faults:
+            fail(f"ssd_scan_bhsd case {name}: the wrapper's route is {route}; "
+                 + "; ".join(faults))
         y0, st0 = ss.ssd_scan_plain(x, dt, a, bm, cm, chunk)
         # f32: the kernel sums in another order than the plain version;
         # bf16: both round the f32 result to bf16 once
         tol = 1e-4 if dt_ == f32 else 2e-2
-        max_err, ok = 0.0, True
-        for got, want in ((y, y0), (st, st0)):
-            err = (got.float() - want.float()).abs()
-            max_err = max(max_err, float(err.max()))
-            ok = ok and bool(torch.isfinite(got).all()) and not bool(
-                (err > tol + tol * want.float().abs()).any())
+
+        def max_err_ok(outs):
+            max_err, ok = 0.0, True
+            for got, want in zip(outs, (y0, st0)):
+                err = (got.float() - want.float()).abs()
+                max_err = max(max_err, float(err.max()))
+                ok = ok and bool(torch.isfinite(got).all()) and not bool(
+                    (err > tol + tol * want.float().abs()).any())
+            return max_err, ok
+        max_err, ok = max_err_ok((y, st))
+        extra = {}
+        if route == "wgmma_bf16":    # the old route's error at this case
+            old, old_launched, old_seen, _ = ssd_kernels_of_call(
+                torch, ss, prior_lib, lambda: prior(x, dt, a, bm, cm, chunk))
+            faults = route_faults(ss.route_kernels({"mma_bf16": 1}),
+                                  old_launched, old_seen)
+            if faults:
+                fail(f"{SSD_MMA_DEFINES} build at case {name}: "
+                     + "; ".join(faults))
+            extra["prior_max_abs_err"] = max_err_ok(old)[0]
+            del old
         emit("kernel_check", kernel="ssd_scan_bhsd", case=name,
              shape=[b, h, g, s, p, n], chunk=chunk, dtype=str(dt_),
-             route=ss.route(dt_), decay=decay, max_abs_err=max_err, tol=tol,
-             ok=ok)
+             route=route, kernels_launched=launched, kernels_seen=seen,
+             decay=decay, max_abs_err=max_err, tol=tol, ok=ok, **extra)
         if not ok:
             fail(f"ssd_scan_bhsd case {name}: max_abs_err {max_err}")
         if name.endswith("_path"):
             worst = max(worst, max_err)
             timed[name] = (x, dt, a, bm, cm, chunk)
     times = {}
-    for name, (x, dt, a, bm, cm, chunk) in timed.items():
-        kernel_ms = cuda_ms(lambda: ss.ssd_scan_bhsd(x, dt, a, bm, cm, chunk))
-        plain_ms = cuda_ms(lambda: ss.ssd_scan_plain(x, dt, a, bm, cm, chunk))
+    for name, args in timed.items():
+        x, bm, chunk = args[0], args[3], args[5]
+        route = ss.route(x.dtype, x.shape[3], bm.shape[3])
+        calls = {"kernel": lambda: ss.ssd_scan_bhsd(*args),
+                 "prior": lambda: prior(*args)}
+        runs = {"kernel": [], "prior": []}
+        for which in (("kernel", "prior", "prior", "kernel")
+                      if route == "wgmma_bf16" else ("kernel", "kernel")):
+            runs[which].append(cuda_ms(calls[which]))
+        kernel_ms = sum(runs["kernel"]) / len(runs["kernel"])
+        prior_ms = (sum(runs["prior"]) / len(runs["prior"])
+                    if runs["prior"] else None)
+        split = ssd_kernels_of_call(torch, ss, lib, calls["kernel"], 10)[3]
+        prior_split = (ssd_kernels_of_call(torch, ss, prior_lib,
+                                           calls["prior"], 10)[3]
+                       if runs["prior"] else None)
+        host = {k: host_us(torch, fn) for k, fn in calls.items()
+                if runs[k]}
+        plain_ms = cuda_ms(lambda: ss.ssd_scan_plain(*args))
         bound_ms, bound_by = ssd_bound_ms(x, bm, chunk)
-        times[name] = dict(shape=list(x.shape) + [bm.shape[1], bm.shape[3]],
-                           chunk=chunk, dtype=str(x.dtype),
-                           kernel_ms=kernel_ms, plain_ms=plain_ms,
+        B, H, S, P = x.shape
+        G, N = bm.shape[1], bm.shape[3]
+        heads = 2 if (H // G) % 2 == 0 else 1
+        flops = (ssd_wgmma_flops(B, H, G, S, N, chunk, heads)
+                 if route == "wgmma_bf16" else None)
+        times[name] = dict(shape=list(x.shape) + [G, N], chunk=chunk,
+                           dtype=str(x.dtype), route=route,
+                           kernel_ms=kernel_ms, kernel_ms_runs=runs["kernel"],
+                           kernel_split_ms=split,
+                           prior_route="mma_bf16" if runs["prior"] else None,
+                           prior_ms=prior_ms, prior_ms_runs=runs["prior"],
+                           prior_split_ms=prior_split,
+                           host_us=host.get("kernel"),
+                           prior_host_us=host.get("prior"),
+                           kernel_mma_flops=flops, plain_ms=plain_ms,
                            library_ms=None, bound_ms=bound_ms,
                            bound_by=bound_by)
         emit("kernel_time", kernel="ssd_scan_bhsd", case=name,
@@ -570,7 +732,8 @@ def phase_ssd_kernel(torch, ss):
              **times[name])
     t = times["mamba2_path"]
     return {"name": "ssd_scan_bhsd", "route": "cuda",
-            "kernel_route": ss.route(bf16),
+            "kernel_route": t["route"], "kernel_routes": list(ss.ROUTES),
+            "prior_ms": t["prior_ms"],
             "source": "src/repro_torch/csrc/ssd_scan.cu",
             "replaces": "src/repro/kernels/ssd_scan.py:74",
             "max_abs_err": worst, "max_err": worst, "ms": t["kernel_ms"],
@@ -591,13 +754,15 @@ def expected_launches(torch, cfg, n_micro: int, fa, ss) -> dict:
     Mamba2 layer per microbatch's prefill.  The route follows the inputs'
     dtype (the model's, except in whisper's encoder, where the serve's f32
     frames promote the activations to f32, as JAX does) and, for flash,
-    the head dim."""
+    the head dim, for the SSD scan its head dim P and state size N."""
     dt, hd = cfg.torch_dtype, cfg.resolved_head_dim
     want = {"flash_attention_bhsd": dict.fromkeys(fa.ROUTES, 0),
-            "ssd_scan_bhsd": dict.fromkeys(ss.ROUTES.values(), 0)}
+            "ssd_scan_bhsd": dict.fromkeys(ss.ROUTES, 0)}
     flash = want["flash_attention_bhsd"]
     if cfg.family in ("ssm", "hybrid"):
-        want["ssd_scan_bhsd"][ss.route(dt)] += cfg.num_layers * n_micro
+        want["ssd_scan_bhsd"][ss.route(dt, cfg.ssm_headdim,
+                                       cfg.ssm_state)] += (cfg.num_layers
+                                                           * n_micro)
     if cfg.family == "hybrid":
         flash[fa.route(dt, hd)] += (cfg.num_layers
                                     // cfg.shared_attn_period * n_micro)
@@ -654,7 +819,7 @@ def phase_serve(torch, arch, mods):
          bytes=sum(t.numel() * t.element_size() for t in _leaves(params)))
 
     steps = phase_steps(torch, cfg, params, shape,
-                        mods["flash_attention_bhsd"])
+                        mods["flash_attention_bhsd"], mods["ssd_scan_bhsd"])
     card = (prefill_on_card(torch, cfg, params, steps)
             if arch == DRYRUN_PREFILL else None)
 
@@ -662,13 +827,15 @@ def phase_serve(torch, arch, mods):
     want = expected_launches(torch, cfg, n_micro, mods["flash_attention_bhsd"],
                              mods["ssd_scan_bhsd"])
     kernels = {name: getattr(mod, name) for name, mod in mods.items()}
-    fa = mods["flash_attention_bhsd"]
+    fa, ss = mods["flash_attention_bhsd"], mods["ssd_scan_bhsd"]
     torch.cuda.reset_peak_memory_stats()
     _zero_counts(kernels)
     flash_before = fa.kernel_launches(fa._lib())
+    ssd_before = ss.kernel_launches(ss._lib())
     res = run_serving(cfg, device="cuda", params=params, **shape)
     launches, by_route = _read_counts(kernels)
     flash_launched = launch_delta(fa, fa._lib(), flash_before)
+    ssd_launched = launch_delta(ss, ss._lib(), ssd_before)
     resp = res["responses"]
     emit("serve", config=cfg.name, layers=cfg.num_layers, **shape,
          local_window=cfg.local_window, responses_shape=list(resp.shape),
@@ -677,7 +844,8 @@ def phase_serve(torch, arch, mods):
          max_memory_allocated=torch.cuda.max_memory_allocated(),
          launches=launches, launches_by_route=by_route,
          expected_launches_by_route=want,
-         flash_library_launches_by_route=flash_launched)
+         flash_library_launches_by_route=flash_launched,
+         ssd_library_launches_by_kernel=ssd_launched)
     if tuple(resp.shape) != (shape["num_requests"], shape["decode_steps"]):
         fail(f"responses shape {resp.shape}")
     if resp.min() < 0 or resp.max() >= cfg.vocab_size:
@@ -692,6 +860,11 @@ def phase_serve(torch, arch, mods):
     if faults:
         fail(f"{cfg.name}: the flash wrapper counted "
              f"{by_route['flash_attention_bhsd']}; " + "; ".join(faults))
+    faults = route_faults(ss.route_kernels(by_route["ssd_scan_bhsd"]),
+                          ssd_launched, {})
+    if faults:
+        fail(f"{cfg.name}: the SSD wrapper counted "
+             f"{by_route['ssd_scan_bhsd']}; " + "; ".join(faults))
     modes = (phase_serve_modes(torch, cfg, params, resp, mods)
              if arch == MODES_PATH else None)
     del res
@@ -984,13 +1157,14 @@ def step_bounds(cfg, params, mb: int, s: int, max_seq: int) -> dict:
             "decode_bytes": decode_bytes}
 
 
-def phase_steps(torch, cfg, params, shape: dict, fa):
+def phase_steps(torch, cfg, params, shape: dict, fa, ss):
     """The serve path's prefill and decode steps alone, without the engine:
     warm, each call on the host clock ended by a device synchronise; then a
     torch.profiler trace of one call of each (summary printed, full tables
     written under ``chiprun_out/chip_smoke/``), in which the flash wrapper's
-    launches by route (module ``fa``) must be those its library made and
-    the profile's flash kernels (``route_faults``)."""
+    launches by route (module ``fa``) and the SSD wrapper's (``ss``, as
+    device kernels) must be those their libraries made and no fewer than
+    the profile's kernels (``route_faults``)."""
     import numpy as np
     from repro_torch.launch.serve import prompt_batch
     from repro_torch.train import make_decode_step, make_prefill_step
@@ -1024,19 +1198,27 @@ def phase_steps(torch, cfg, params, shape: dict, fa):
     out.update(step_bounds(cfg, params, mb, s, s + steps))
     emit("steps", config=cfg.name, microbatch=mb, prompt_len=s, **out)
     flash, lib = fa.flash_attention_bhsd, fa._lib()
+    ssd, ssd_lib = ss.ssd_scan_bhsd, ss._lib()
     for name, fn in (("prefill", prefill), ("decode_step", decode)):
-        _zero_counts({"flash": flash})
+        _zero_counts({"flash": flash, "ssd": ssd})
         before = fa.kernel_launches(lib)
+        ssd_before = ss.kernel_launches(ssd_lib)
         prof = profile_call(torch, fn, f"profile_{cfg.name}_{name}.txt")
         launched = launch_delta(fa, lib, before)
+        ssd_launched = launch_delta(ss, ssd_lib, ssd_before)
         counted = {r: n for r, n in flash.launches_by_route.items() if n}
+        ssd_counted = {r: n for r, n in ssd.launches_by_route.items() if n}
         emit("profile", config=cfg.name, step=name,
              flash_launches_by_route=counted,
-             flash_library_launches_by_route=launched, **prof)
+             flash_library_launches_by_route=launched,
+             ssd_launches_by_route=ssd_counted,
+             ssd_library_launches_by_kernel=ssd_launched, **prof)
         faults = route_faults(counted, launched, prof["flash_routes_seen"])
+        faults += route_faults(ss.route_kernels(ssd_counted), ssd_launched,
+                               prof["ssd_kernels_seen"])
         if faults:
-            fail(f"{cfg.name} {name}: the flash wrapper counted {counted}; "
-                 + "; ".join(faults))
+            fail(f"{cfg.name} {name}: the flash wrapper counted {counted}, "
+                 f"the SSD wrapper {ssd_counted}; " + "; ".join(faults))
     return out
 
 
@@ -1044,9 +1226,11 @@ def profile_call(torch, fn, table_name: str) -> dict:
     """One call of ``fn`` under torch.profiler, ended by a device
     synchronise: its wall ms, device busy ms and idle share, the ten
     device kernels with the most time, the flash launches by route
-    (``flash_routes_seen``) and the device time of the MoE dispatch's and
-    the SSD scan's index ops (``WATCHED_OPS``), where the call ran them
-    (full table to ``table_name`` under ``chiprun_out/chip_smoke/``)."""
+    (``flash_routes_seen``), the SSD launches by device kernel
+    (``ssd_kernels_seen``) and the device time of the MoE dispatch's and
+    the SSD scan's index ops and of the SSD scan's layout copies
+    (``WATCHED_OPS``), where the call ran them (full table to
+    ``table_name`` under ``PROFILE_DIR``)."""
     from torch.profiler import ProfilerActivity, profile
     PROFILE_DIR.mkdir(parents=True, exist_ok=True)
     with profile(activities=[ProfilerActivity.CPU,
@@ -1066,18 +1250,22 @@ def profile_call(torch, fn, table_name: str) -> dict:
                  reverse=True)
     busy_ms = sum(d for d, _, _ in dev)
     watched = {e.key: {"device_ms": _device_us(e) / 1e3, "calls": e.count}
-               for e in events if e.key in WATCHED_OPS}
+               for e in events if e.key in WATCHED_OPS
+               and e.device_type != cuda}
     return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
                 device_idle_share=max(0.0, 1 - busy_ms / wall_ms),
                 top=[{"op": k[:100], "device_ms": d, "calls": c}
                      for d, c, k in dev[:10]], ops=watched,
-                flash_routes_seen=flash_routes_seen(torch, events))
+                flash_routes_seen=flash_routes_seen(torch, events),
+                ssd_kernels_seen=ssd_kernels_seen(torch, events))
 
 
-# the MoE dispatch (slot cumsum, scatter_add write, gather read) and the
-# SSD scan's cumsum, by their device time under the op
+# the MoE dispatch (slot cumsum, scatter_add write, gather read), the SSD
+# scan's cumsum and the four copies into the SSD kernel's layout (the
+# ``ssd_scan_layout`` range of ``kernels/ops.py``), by their device time
+# under the op
 WATCHED_OPS = ("aten::cumsum", "aten::scatter_add", "aten::gather",
-               "aten::index_put_", "aten::index")
+               "aten::index_put_", "aten::index", "ssd_scan_layout")
 
 
 TRAIN_FULL = dict(layers=16, batch=8, seq=512, steps=4, peak_lr=3e-4)
@@ -1640,10 +1828,13 @@ def main() -> int:
          matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
          cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
 
-    build_s = _build.build(variants=[("flash_attention", MMA_DEFINES)])
+    build_s = _build.build(variants=[("flash_attention", MMA_DEFINES),
+                                     ("ssd_scan", SSD_MMA_DEFINES)])
     builds = {n: (n, ()) for n in _build.KERNEL_SOURCES}
     builds["flash_attention " + " ".join(MMA_DEFINES)] = ("flash_attention",
                                                           MMA_DEFINES)
+    builds["ssd_scan " + " ".join(SSD_MMA_DEFINES)] = ("ssd_scan",
+                                                       SSD_MMA_DEFINES)
     ptxas = {b: _build.ptxas_summary(*nd) for b, nd in builds.items()}
     emit("build", seconds=build_s, kernels=list(ptxas), ptxas=ptxas)
     faults = ptxas_faults(ptxas, {b: _build.build_log(*nd)

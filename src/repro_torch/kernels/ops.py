@@ -40,9 +40,11 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         raise NotImplementedError(
             "kernel path starts from zero state; pass initial_state only "
             "on the torch path")
-    xt = x.transpose(1, 2).contiguous()                   # (B,H,S,P)
-    dtt = dt.float().transpose(1, 2).contiguous()         # (B,H,S)
-    bt = b.transpose(1, 2).contiguous()                   # (B,G,S,N)
-    ct = c.transpose(1, 2).contiguous()
+    # the copies into the kernel's layout, one profiler range
+    with torch.profiler.record_function("ssd_scan_layout"):
+        xt = x.transpose(1, 2).contiguous()               # (B,H,S,P)
+        dtt = dt.float().transpose(1, 2).contiguous()     # (B,H,S)
+        bt = b.transpose(1, 2).contiguous()               # (B,G,S,N)
+        ct = c.transpose(1, 2).contiguous()
     y, state = ssd_scan_bhsd(xt, dtt, a.float().contiguous(), bt, ct, chunk)
     return y.transpose(1, 2), state

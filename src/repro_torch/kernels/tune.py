@@ -2,7 +2,7 @@
 
 Run on a CUDA card from the repo root:
 
-    PYTHONPATH=src python -m repro_torch.kernels.tune [--after-gemm]
+    PYTHONPATH=src python -m repro_torch.kernels.tune [--after-gemm | --ssd]
 
 Flash attention, ``wgmma_bf16`` route (D = 64 and 128): one build of
 ``csrc/flash_attention.cu`` per (FLASH_WG_BK, FLASH_WG_ST,
@@ -16,9 +16,10 @@ the serve path's two) shapes.  Flash attention, ``mma_bf16`` route: one
 build per (FLASH_BQ, FLASH_BK, FLASH_MW) tile choice with FLASH_FORCE_MMA
 (so D = 128 runs it too), at the codeqwen1.5-7b shape (D=128) and the
 zamba2-2.7b shared-block shape (D=80), beside
-``F.scaled_dot_product_attention``.  SSD scan: one build of
-``csrc/ssd_scan.cu`` per SSD_MIN_BLOCKS (blocks an SM, which sets the
-register cap), at the mamba2-1.3b and zamba2-2.7b shapes.  Every variant
+``F.scaled_dot_product_attention``.  SSD scan, ``wgmma_bf16`` route: one
+build of ``csrc/ssd_scan.cu`` per SSD_WG_HEADS (heads a y work item: 2,
+the default, or 1), and the old ``mma_bf16`` route built with
+SSD_FORCE_MMA, at the mamba2-1.3b and zamba2-2.7b shapes.  Every variant
 builds at once, one nvcc each.  Each build is first checked against the
 plain version (the bf16 tolerance of ``chip_smoke.py``), then timed with
 CUDA events over 50 calls after 5 warm-up calls, queued behind a device
@@ -26,6 +27,7 @@ sleep, variants in turn and then in reverse order.  Prints the card's
 name and power limit, then one JSON line per variant and shape with its
 times and its ptxas registers, spills and warnings.
 
+``--ssd`` builds and times only the SSD scan's variants.
 ``--after-gemm`` instead times the default build of flash at gemma2-27b's
 8192-token shapes (one sequence and its serve's two) back to back and
 right after bf16 GEMMs of its MLP's size, as its prefill runs it, with
@@ -63,7 +65,9 @@ WGMMA_SHAPES = {"codeqwen": (4, 32, 32, 512, 128, True, 0, 0.0),
 FLASH_TILES = ((64, 32, 1), (64, 64, 1), (128, 32, 2), (128, 64, 2),
                (64, 32, 2), (256, 32, 2))
 FLASH_SHAPES = {"codeqwen": (4, 32, 512, 128), "zamba2": (4, 32, 512, 80)}
-SSD_MIN_BLOCKS = (2, 1)
+# heads a y work item of the SSD's wgmma_bf16 route (SSD_WG_HEADS); None:
+# the old mma_bf16 route (SSD_FORCE_MMA)
+SSD_VARIANTS = (2, 1, None)
 # gemma2-27b's MLP up-projection on its serve microbatch (2 x 8192 tokens,
 # d_model 4608, d_ff 36864): M, K, N of the GEMMs that run between two
 # attention calls in its prefill
@@ -101,19 +105,20 @@ def _check(name, got, want) -> None:
 
 def _sweep(source, variants, defines, cases, lib_of, run, plain,
            extra=None):
-    """Check, then time every (variant, case) in turn and in reverse."""
+    """Check, then time every (variant, case) in turn and in reverse;
+    ``run(v, lib, args)`` calls variant v's library."""
     libs = {v: lib_of(defines(v)) for v in variants}
     for name, args in cases.items():
         want = plain(args)
         for v in variants:
-            _check(f"{source} {v} {name}", run(libs[v], args), want)
+            _check(f"{source} {v} {name}", run(v, libs[v], args), want)
         del want
     times = {(v, n): [] for v in variants for n in cases}
     ref = {n: [] for n in cases}
     for order in (variants, variants[::-1]):
         for v in order:
             for name, args in cases.items():
-                times[(v, name)].append(_ms(lambda: run(libs[v], args)))
+                times[(v, name)].append(_ms(lambda: run(v, libs[v], args)))
                 if extra:
                     ref[name].append(_ms(lambda: extra(args)))
     for (v, name), ms in times.items():
@@ -128,6 +133,17 @@ def _wgmma_defines(v):
     return (f"FLASH_WG_BK={v[0]}", f"FLASH_WG_ST={v[1]}",
             f"FLASH_WG_PINGPONG={v[2]}") + (
         () if v[3] is None else (f"FLASH_WG_PERSISTENT={v[3]}",))
+
+
+def _ssd_defines(v):
+    return ("SSD_FORCE_MMA",) if v is None else (f"SSD_WG_HEADS={v}",)
+
+
+def _ssd_run(v, lib, args):
+    x, bm = args[0], args[3]
+    kind = ("mma_bf16" if v is None
+            else ss.route(x.dtype, x.shape[3], bm.shape[3]))
+    return ss.launch(lib, *args, kind)
 
 
 def _mma_defines(v):
@@ -181,12 +197,28 @@ def flash_after_gemm(cases: dict, reps: int = 20, gemms: int = 6) -> None:
                           "after_gemm_clock_power": loaded_smi}), flush=True)
 
 
+def _ssd_sweep(randn) -> None:
+    """The SSD scan's variants at the serve paths' shapes."""
+    ssd_cases = {}
+    for n, (b, h, s, p, nn, chunk) in SSD_SHAPES.items():
+        ssd_cases[n] = (randn(b, h, s, p, scale=0.5).bfloat16(),
+                        F.softplus(randn(b, h, s)),
+                        -torch.exp(randn(h, scale=0.3)),
+                        randn(b, 1, s, nn, scale=0.5).bfloat16(),
+                        randn(b, 1, s, nn, scale=0.5).bfloat16(), chunk)
+    _sweep("ssd_scan", SSD_VARIANTS, _ssd_defines, ssd_cases, ss._lib,
+           _ssd_run, lambda args: ss.ssd_scan_plain(*args))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--after-gemm", action="store_true",
                     help="only time flash after GEMMs at gemma2-27b's "
                          "8192-token shapes")
-    after_gemm = ap.parse_args().after_gemm
+    ap.add_argument("--ssd", action="store_true",
+                    help="only build and time the SSD scan's variants")
+    args = ap.parse_args()
+    after_gemm, ssd_only = args.after_gemm, args.ssd
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -209,11 +241,12 @@ def main() -> int:
         return 0
 
     _build.build([], variants=(
+        [] if ssd_only else
         [("flash_attention", _wgmma_defines(v)) for v in WGMMA_VARIANTS]
-        + [("flash_attention", _mma_defines(v)) for v in FLASH_TILES]
-        + [("ssd_scan", (f"SSD_MIN_BLOCKS={v}",)) for v in SSD_MIN_BLOCKS]))
+        + [("flash_attention", _mma_defines(v)) for v in FLASH_TILES])
+        + [("ssd_scan", _ssd_defines(v)) for v in SSD_VARIANTS])
 
-    def flash_run(lib, args):
+    def flash_run(v, lib, args):
         q, k, v, causal, window, cap = args
         out = torch.empty_like(q)
         fa.launch(lib, q, k, v, out, causal, window, cap)
@@ -224,6 +257,9 @@ def main() -> int:
         return (fa.flash_attention_plain(q, k, v, causal=causal,
                                          window=window, logit_cap=cap),)
 
+    if ssd_only:
+        _ssd_sweep(randn)
+        return 0
     wgmma_cases = {
         n: (randn(b, hq, s, d).bfloat16(), randn(b, hkv, s, d).bfloat16(),
             randn(b, hkv, s, d).bfloat16(), causal, window, cap)
@@ -240,16 +276,7 @@ def main() -> int:
            extra=lambda args: F.scaled_dot_product_attention(
                *args[:3], is_causal=True))
 
-    ssd_cases = {}
-    for n, (b, h, s, p, nn, chunk) in SSD_SHAPES.items():
-        ssd_cases[n] = (randn(b, h, s, p, scale=0.5).bfloat16(),
-                        F.softplus(randn(b, h, s)),
-                        -torch.exp(randn(h, scale=0.3)),
-                        randn(b, 1, s, nn, scale=0.5).bfloat16(),
-                        randn(b, 1, s, nn, scale=0.5).bfloat16(), chunk)
-    _sweep("ssd_scan", SSD_MIN_BLOCKS, lambda v: (f"SSD_MIN_BLOCKS={v}",),
-           ssd_cases, ss._lib, lambda lib, args: ss.launch(lib, *args),
-           lambda args: ss.ssd_scan_plain(*args))
+    _ssd_sweep(randn)
     return 0
 
 

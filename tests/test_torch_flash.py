@@ -361,7 +361,8 @@ def test_chip_smoke_expected_launches_split_by_route(arch):
     assert got["flash_attention_bhsd"] == {
         **dict.fromkeys(fa.ROUTES, 0), **EXPECTED_FLASH_ROUTES[arch]}
     ssd = {"mamba2_1_3b": 96, "zamba2_2_7b": 108}.get(arch, 0)
-    assert got["ssd_scan_bhsd"] == {"mma_bf16": ssd, "scalar_f32": 0}
+    assert got["ssd_scan_bhsd"] == {"wgmma_bf16": ssd, "mma_bf16": 0,
+                                    "scalar_f32": 0}
 
 
 def test_rows_without_a_visible_key_follow_the_jax_oracle():
