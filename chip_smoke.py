@@ -44,10 +44,18 @@ no result):
    a seed): its prefill and decode steps timed alone, against their
    bounds, and profiled (the flash launches each route's wrapper counted
    in the profiled call must be the device kernels the profile shows);
+   its decode step eager and through its CUDA graph (``decode_graph``:
+   one microbatch's 15 steps each from one prefill's cache, the tokens
+   equal at every step and the last logits equal, one capture, made while
+   another thread copies to the host and synchronises its stream, no
+   kernel launch, an eager step free of synchronises; each step's ms, the
+   capture's ms, device busy and idle);
    then 8 requests x 16 tokens with 512-token
    prompts (gemma2: 4 x 16 with 8192-token prompts, past its window)
    through the engine, with every kernel count set to 0 just before and
-   read just after: each kernel of the path must have launched exactly
+   read just after, as are the decode graphs' captures and replays
+   (each decode app captures once and replays every later step,
+   ``check_graphs``): each kernel of the path must have launched exactly
    once per layer that runs it per microbatch, on the route its inputs'
    dtype and head dim select (the full-width models are bf16; whisper's
    encoder runs f32, from the serve's f32 frames); and full-width prefill
@@ -57,8 +65,9 @@ no result):
    requests in the serve driver's other engine modes (``serve_modes``):
    the compiled substrate, streaming delivery, 3 sessions 2 at a time
    through a resident manager, and a stats dump; each must give the
-   object substrate's tokens and the expected launches.  Each model is
-   freed before the next.
+   object substrate's tokens, the expected launches and the expected
+   decode graphs (the sessions run captures in threads beside other
+   threads' eager work).  Each model is freed before the next.
 5. train, after the serve paths, with every kernel count set to 0:
    both kernel wrappers refuse CUDA inputs that require grad; (a) the
    ``tiny`` preset's train step on the card equals the port on the CPU
@@ -94,12 +103,14 @@ It imports nothing of JAX or of the JAX package.  Without CUDA it exits 2.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
 import re
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -800,12 +811,16 @@ def phase_serve(torch, arch, mods):
                  prompt_len=smoke.local_window + 16 if smoke.local_window
                  else 24, decode_steps=6)
     ref = run_serving(smoke, device="cpu", params=cpu_params, **small)
+    _zero_graph_counts()
     got = run_serving(smoke, device="cuda", params=gpu_params, **small)
+    graphs = _graph_counts()
     same = bool((ref["responses"] == got["responses"]).all())
     emit("serve_reference", config=smoke.name, **small,
-         local_window=smoke.local_window, tokens_equal=same)
+         local_window=smoke.local_window, tokens_equal=same,
+         decode_graphs=graphs)
     if not same:
         fail(f"{smoke.name} served on the card differs from the CPU")
+    check_graphs(smoke.name, graphs, small)
 
     cfg = get_config(arch)
     shape = serve_shape(arch)
@@ -820,20 +835,23 @@ def phase_serve(torch, arch, mods):
 
     steps = phase_steps(torch, cfg, params, shape,
                         mods["flash_attention_bhsd"], mods["ssd_scan_bhsd"])
+    kernels = {name: getattr(mod, name) for name, mod in mods.items()}
+    phase_decode_graph(torch, cfg, params, shape, kernels)
     card = (prefill_on_card(torch, cfg, params, steps)
             if arch == DRYRUN_PREFILL else None)
 
     n_micro = shape["num_requests"] // shape["microbatch"]
     want = expected_launches(torch, cfg, n_micro, mods["flash_attention_bhsd"],
                              mods["ssd_scan_bhsd"])
-    kernels = {name: getattr(mod, name) for name, mod in mods.items()}
     fa, ss = mods["flash_attention_bhsd"], mods["ssd_scan_bhsd"]
     torch.cuda.reset_peak_memory_stats()
     _zero_counts(kernels)
+    _zero_graph_counts()
     flash_before = fa.kernel_launches(fa._lib())
     ssd_before = ss.kernel_launches(ss._lib())
     res = run_serving(cfg, device="cuda", params=params, **shape)
     launches, by_route = _read_counts(kernels)
+    graphs = _graph_counts()
     flash_launched = launch_delta(fa, fa._lib(), flash_before)
     ssd_launched = launch_delta(ss, ss._lib(), ssd_before)
     resp = res["responses"]
@@ -845,9 +863,11 @@ def phase_serve(torch, arch, mods):
          launches=launches, launches_by_route=by_route,
          expected_launches_by_route=want,
          flash_library_launches_by_route=flash_launched,
-         ssd_library_launches_by_kernel=ssd_launched)
+         ssd_library_launches_by_kernel=ssd_launched,
+         decode_graphs=graphs)
     if tuple(resp.shape) != (shape["num_requests"], shape["decode_steps"]):
         fail(f"responses shape {resp.shape}")
+    check_graphs(cfg.name, graphs, shape)
     if resp.min() < 0 or resp.max() >= cfg.vocab_size:
         fail("token ids outside the vocabulary")
     if by_route != want or launches != {n: sum(r.values())
@@ -908,8 +928,10 @@ def phase_serve_modes(torch, cfg, params, tokens, mods) -> dict:
         want = expected_launches(torch, cfg, n_micro * sessions, fa, ss)
         torch.cuda.reset_peak_memory_stats()
         _zero_counts(kernels)
+        _zero_graph_counts()
         res = run_serving(cfg, device="cuda", params=params, **SERVE, **kw)
         launches, by_route = _read_counts(kernels)
+        graphs = _graph_counts()
         same = bool(np.array_equal(res["responses"], tokens))
         row = dict(mode=mode, config=cfg.name, options=kw, **SERVE,
                    wall_s=res["wall_s"],
@@ -918,7 +940,7 @@ def phase_serve_modes(torch, cfg, params, tokens, mods) -> dict:
                    max_memory_allocated=torch.cuda.max_memory_allocated(),
                    tokens_equal=same, launches=launches,
                    launches_by_route=by_route,
-                   expected_launches_by_route=want)
+                   expected_launches_by_route=want, decode_graphs=graphs)
         if sessions > 1:
             row.update({k: res[k] for k in (
                 "sessions", "sessions_per_s", "p50_session_s",
@@ -941,6 +963,7 @@ def phase_serve_modes(torch, cfg, params, tokens, mods) -> dict:
                  f"(in all {launches}), expected {want}")
         if sessions > 1 and res["template_hits"] != sessions - 1:
             fail(f"{cfg.name} {mode}: {res['template_hits']} template hits")
+        check_graphs(f"{cfg.name} {mode}", graphs, SERVE, sessions)
         out[mode] = launches
     return out
 
@@ -1157,8 +1180,38 @@ def step_bounds(cfg, params, mb: int, s: int, max_seq: int) -> dict:
             "decode_bytes": decode_bytes}
 
 
+def step_ms(torch, fn, n: int) -> tuple:
+    """(median, all) host ms of ``n`` calls of ``fn``, each ended by a
+    device synchronise, after one warm call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        t0 = time.monotonic()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.monotonic() - t0) * 1e3)
+    return sorted(times)[len(times) // 2], times
+
+
+def device_span_ms(torch, fn) -> float:
+    """Device ms from an event recorded before one call of ``fn`` to one
+    recorded after it, on the current stream: a CUDA graph's replay is
+    its kernels back to back, so this is its device time."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
 def phase_steps(torch, cfg, params, shape: dict, fa, ss):
-    """The serve path's prefill and decode steps alone, without the engine:
+    """The serve path's prefill and decode steps alone, without the engine
+    (decode through its CUDA graph, the default on CUDA: the warm call
+    captures it, the timed ones replay it):
     warm, each call on the host clock ended by a device synchronise; then a
     torch.profiler trace of one call of each (summary printed, full tables
     written under ``chiprun_out/chip_smoke/``), in which the flash wrapper's
@@ -1185,16 +1238,7 @@ def phase_steps(torch, cfg, params, shape: dict, fa, ss):
 
     out = {}
     for name, fn, n in (("prefill", prefill, 3), ("decode_step", decode, 8)):
-        fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(n):
-            t0 = time.monotonic()
-            fn()
-            torch.cuda.synchronize()
-            times.append(time.monotonic() - t0)
-        out[name + "_ms"] = sorted(times)[len(times) // 2] * 1e3
-        out[name + "_ms_all"] = [t * 1e3 for t in times]
+        out[name + "_ms"], out[name + "_ms_all"] = step_ms(torch, fn, n)
     out.update(step_bounds(cfg, params, mb, s, s + steps))
     emit("steps", config=cfg.name, microbatch=mb, prompt_len=s, **out)
     flash, lib = fa.flash_attention_bhsd, fa._lib()
@@ -1219,6 +1263,137 @@ def phase_steps(torch, cfg, params, shape: dict, fa, ss):
         if faults:
             fail(f"{cfg.name} {name}: the flash wrapper counted {counted}, "
                  f"the SSD wrapper {ssd_counted}; " + "; ".join(faults))
+    decode_one.close()
+    return out
+
+
+@contextlib.contextmanager
+def beside_syncs(torch, counts: dict):
+    """Run the body while another thread does what a serve node thread does
+    beside a decode graph's capture: work on its current stream, a copy to
+    the host, a synchronise of that stream (a capture in ``thread_local``
+    mode must survive them; a device-wide synchronise it would not, which
+    is why the serve apps synchronise their stream).  ``counts["syncs"]``
+    gets the thread's rounds; an error in it fails the script."""
+    stop, errors = threading.Event(), []
+
+    def noise():
+        try:
+            y = torch.ones(1024, device="cuda")
+            while not stop.is_set():
+                (y * 2).cpu()
+                torch.cuda.current_stream().synchronize()
+                counts["syncs"] += 1
+        except Exception as err:  # noqa: BLE001 - failed after the join
+            errors.append(err)
+
+    thread = threading.Thread(target=noise)
+    counts["syncs"] = 0
+    thread.start()
+    try:
+        yield
+    finally:
+        stop.set()
+        thread.join(timeout=60)
+    if errors or thread.is_alive() or not counts["syncs"]:
+        fail(f"the thread beside the capture: {errors or 'did not stop'} "
+             f"after {counts['syncs']} rounds")
+
+
+def phase_decode_graph(torch, cfg, params, shape: dict, kernels: dict
+                       ) -> dict:
+    """The path's decode step eager (``graph=False``) and through its CUDA
+    graph (the default on CUDA), from one prefill's cache copied: one
+    microbatch's ``decode_steps - 1`` steps each, as a decode app runs
+    them (the graph's first step eager, then the capture, then replays).
+
+    The graph's steps (its capture among them) run while another thread
+    copies to the host and synchronises its stream (``beside_syncs``).
+    Held: the greedy tokens equal at every step; the last step's logits
+    equal to the bit, or else within 5% of the eager logits' range (the
+    dense paths' kernel-vs-plain tolerance) with the largest difference
+    printed; one capture; no hand-written kernel launched (decode is torch
+    ops, as in the reference); one eager step under
+    ``torch.cuda.set_sync_debug_mode("error")`` (a synchronise in it
+    raises).  Printed: the decode-step ms eager and replayed (median of 8
+    after a warm call, host clock ended by a synchronise, at the cache's
+    last row), the capture ms, and each one's device busy ms and idle
+    share from one profiled step beside the replay's device span by CUDA
+    events (profile tables under ``PROFILE_DIR``)."""
+    import numpy as np
+    from repro_torch.launch.serve import prompt_batch
+    from repro_torch.train import make_decode_step, make_prefill_step
+    from repro_torch.train.steps import DecodeGraph
+    mb, s, steps = (shape["microbatch"], shape["prompt_len"],
+                    shape["decode_steps"])
+    batch = prompt_batch(cfg, torch.from_numpy(
+        np.random.default_rng(4).integers(0, cfg.vocab_size,
+                                          size=(mb, s))).cuda())
+    first, cache = make_prefill_step(cfg)(params, batch, s + steps)
+    del batch
+    _zero_counts(kernels)
+    captures = DecodeGraph.counts["captures"]
+    runs, noise = {}, {}
+    for name, graph in (("eager", False), ("graph", True)):
+        c = cache if graph else _tree_map(cache, lambda t: t.clone())
+        step = make_decode_step(cfg, graph=graph)
+        tok, toks = first[:, None], []
+        with (beside_syncs(torch, noise) if graph
+              else contextlib.nullcontext()):
+            for i in range(steps - 1):
+                tok, c = step(params, c, tok, s + i)
+                toks.append(tok)
+        runs[name] = dict(step=step, cache=c, tokens=torch.cat(toks, 1).cpu(),
+                          logits=step.logits.clone())
+    del cache
+    eager, graph = runs["eager"], runs["graph"]
+    captured = DecodeGraph.counts["captures"] - captures
+    launches, _ = _read_counts(kernels)
+    same_by_step = (eager["tokens"] == graph["tokens"]).all(0).tolist()
+    bitwise = bool(torch.equal(eager["logits"], graph["logits"]))
+    diff = float((eager["logits"] - graph["logits"]).abs().max())
+    scale = float(eager["logits"].abs().max())
+    finite = bool(torch.isfinite(graph["logits"]).all())
+
+    last, tok = s + steps - 1, first[:, None]
+
+    def eager_step():
+        eager["step"](params, eager["cache"], tok, last)
+
+    def graph_step():
+        graph["step"](params, graph["cache"], tok, last)
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eager_step()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    out = dict(config=cfg.name, microbatch=mb, prompt_len=s,
+               steps=steps - 1, tokens_equal_by_step=same_by_step,
+               logits_bitwise_equal=bitwise, logits_max_abs_diff=diff,
+               logits_max_abs=scale, logits_finite=finite,
+               captures=captured, capture_ms=graph["step"].graph.capture_ms,
+               syncs_beside_graph=noise["syncs"], launches=launches,
+               sync_free_eager_step=True)
+    for name, fn in (("eager", eager_step), ("graph", graph_step)):
+        out[f"{name}_ms"], out[f"{name}_ms_all"] = step_ms(torch, fn, 8)
+        prof = profile_call(torch, fn,
+                            f"profile_{cfg.name}_decode_{name}.txt")
+        out[f"{name}_profile"] = {k: prof[k] for k in (
+            "wall_ms", "device_busy_ms", "device_idle_share", "top")}
+    out["graph_device_span_ms"] = device_span_ms(torch, graph_step)
+    graph["step"].close()
+    emit("decode_graph", **out)
+    if not all(same_by_step):
+        fail(f"{cfg.name}: the decode graph's tokens differ from the eager "
+             f"step's at steps {same_by_step}")
+    if not finite or (not bitwise and diff > 0.05 * scale):
+        fail(f"{cfg.name}: the decode graph's last logits differ from the "
+             f"eager step's by {diff} (range {scale})")
+    if captured != 1 or any(launches.values()):
+        fail(f"{cfg.name}: decode made {captured} captures and launched "
+             f"{launches}")
     return out
 
 
@@ -1765,6 +1940,27 @@ def check_kernel_guard(torch, mods) -> list:
             raise
         fail(f"{name} took CUDA inputs that require grad")
     return refused
+
+
+def _graph_counts() -> dict:
+    from repro_torch.train.steps import DecodeGraph
+    return dict(DecodeGraph.counts)
+
+
+def _zero_graph_counts() -> None:
+    from repro_torch.train.steps import DecodeGraph
+    DecodeGraph.counts.update(captures=0, replays=0)
+
+
+def check_graphs(name: str, graphs: dict, shape: dict,
+                 sessions: int = 1) -> None:
+    """A serve run went through decode graphs: each decode app (one a
+    microbatch a session) captured its graph on its first step and
+    replayed it for each later one."""
+    apps = shape["num_requests"] // shape["microbatch"] * sessions
+    want = {"captures": apps, "replays": apps * (shape["decode_steps"] - 2)}
+    if graphs != want:
+        fail(f"{name}: decode graphs {graphs}, expected {want}")
 
 
 def _zero_counts(kernels: dict) -> None:

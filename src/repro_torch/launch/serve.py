@@ -15,7 +15,10 @@ It serves every family (dense, vlm, moe, ssm, hybrid, encdec).  On CUDA,
 prefill self-attention (the whisper encoder's too) runs the hand-written
 flash-attention kernel and the Mamba2 layers' prefill scan the
 hand-written SSD kernel; decode, cross-attention, the MoE dispatch and
-the projections are torch ops.  encdec prompts come with f32 zero frames
+the projections are torch ops.  Each decode app captures its
+microbatch's decode step as a CUDA graph on its first step and replays
+it for the rest (``train.steps.DecodeGraph``; eager on the CPU), and
+frees the graph when it returns.  encdec prompts come with f32 zero frames
 of ``max(prompt_len // encoder_ratio, 1)`` rows, as the reference serve
 makes them.
 
@@ -54,9 +57,19 @@ def _dump_stats(path: str, payload: Dict[str, Any]) -> None:
     print(f"[serve] stats written to {p}")
 
 
+def _errors(session) -> list:
+    """The first three failed drops of a session with their whole
+    tracebacks (the execution report keeps 200 characters of each)."""
+    return [f"{d.uid}: {d.error_info}" for d in session.errors()][:3]
+
+
 def _sync(device: torch.device) -> None:
+    """Wait for this thread's work: its current stream, which runs all of
+    it (the kernels, the decode graphs' replays).  Not the whole device:
+    CUDA forbids synchronising a context while one of its streams is being
+    captured, and another node thread may be capturing a decode graph."""
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        torch.cuda.current_stream(device).synchronize()
 
 
 def prompt_batch(cfg: ArchConfig,
@@ -90,7 +103,7 @@ def run_serving(cfg: ArchConfig, *, num_requests: int = 8,
     ``prefill_s``/``decode_s``: the host seconds of the prefill and decode
     apps, each ended by a device synchronise, summed over microbatches
     (apps of different microbatches may overlap, so the sum can exceed
-    ``wall_s``).
+    ``wall_s``); ``decode_s`` includes the decode graphs' captures.
 
     ``streaming=True`` switches token delivery to the chunk lane: each
     decode step writes one ``(microbatch, step, tokens)`` chunk onto the
@@ -111,7 +124,6 @@ def run_serving(cfg: ArchConfig, *, num_requests: int = 8,
                         else M.init_params(cfg, device=dev))}
     del params
     prefill_step = make_prefill_step(cfg)
-    decode_one = make_decode_step(cfg)
     app_seconds = {"prefill": 0.0, "decode": 0.0}
     seconds_lock = threading.Lock()
 
@@ -145,11 +157,15 @@ def run_serving(cfg: ArchConfig, *, num_requests: int = 8,
         st = inputs[0].read()
         tok, cache = st["next"], st["cache"]
         toks = [tok]
-        for i in range(decode_steps - 1):
-            tok, cache = decode_one(model["params"], cache, tok,
-                                    prompt_len + i)
-            toks.append(tok)
-        gen = torch.cat(toks, dim=1).cpu().numpy()
+        decode_one = make_decode_step(cfg)
+        try:
+            for i in range(decode_steps - 1):
+                tok, cache = decode_one(model["params"], cache, tok,
+                                        prompt_len + i)
+                toks.append(tok)
+            gen = torch.cat(toks, dim=1).cpu().numpy()
+        finally:
+            decode_one.close()
         _timed("decode", t0)
         for o in outputs:
             o.write(gen)
@@ -165,12 +181,16 @@ def run_serving(cfg: ArchConfig, *, num_requests: int = 8,
         tok, cache = st["next"], st["cache"]
         for o in outputs:
             o.write((mb, 0, tok.cpu().numpy()))
-        for i in range(decode_steps - 1):
-            tok, cache = decode_one(model["params"], cache, tok,
-                                    prompt_len + i)
-            host = tok.cpu().numpy()
-            for o in outputs:
-                o.write((mb, i + 1, host))
+        decode_one = make_decode_step(cfg)
+        try:
+            for i in range(decode_steps - 1):
+                tok, cache = decode_one(model["params"], cache, tok,
+                                        prompt_len + i)
+                host = tok.cpu().numpy()
+                for o in outputs:
+                    o.write((mb, i + 1, host))
+        finally:
+            decode_one.close()
         _timed("decode", t0)
 
     @register_app("serve/assemble")
@@ -233,7 +253,8 @@ def run_serving(cfg: ArchConfig, *, num_requests: int = 8,
                             hooks=hooks)
             wall = time.monotonic() - t0
             if not rep.ok:
-                raise RuntimeError(f"serve graph failed: {rep.errors[:3]}")
+                raise RuntimeError(
+                    f"serve graph failed: {_errors(p.session)}")
             out = (p.session.read("responses") if execution == "compiled"
                    else p.session.drops["responses"].read())
             if stats_json:
@@ -279,9 +300,10 @@ def _run_sessions(lg, *, sessions: int, num_nodes: int,
                    for _ in range(sessions)]
         reports = [t.result() for t in tickets]
         wall = time.monotonic() - t0
-        for rep in reports:
+        for rep, ticket in zip(reports, tickets):
             if not rep.ok:
-                raise RuntimeError(f"serve session failed: {rep.errors[:3]}")
+                raise RuntimeError(
+                    f"serve session failed: {_errors(ticket.session)}")
         out = tickets[-1].session.read("responses")
         lats = sorted(t.latency for t in tickets)
         stats = mgr.stats()

@@ -12,7 +12,7 @@ Supports:
 * attention logit soft-capping (gemma2),
 * qk rms-norm (chameleon),
 * decode against a (batch, max_seq, kv_heads, head_dim) cache written in
-  place,
+  place, at a position given as an int or as a device tensor,
 * cross-attention (whisper decoder): full-sequence against the encoder
   output, decode against the cached encoder K/V; always torch ops, as in
   the reference.
@@ -163,25 +163,50 @@ def init_kv_cache(cfg: ArchConfig, batch: int, max_seq: int,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def decode_attention(p: Params, x: torch.Tensor, cache: Params, pos: int,
+def position(pos, device: torch.device) -> torch.Tensor:
+    """A decode position as a 0-d int64 tensor on ``device``.  An int is
+    filled in by a kernel: no copy from the host, so no synchronise."""
+    if isinstance(pos, torch.Tensor):
+        return pos
+    return torch.full((), pos, dtype=torch.int64, device=device)
+
+
+def _write_row(buf: torch.Tensor, pos, row: torch.Tensor) -> None:
+    """``buf[:, pos] = row[:, 0]`` in place.  A tensor ``pos`` writes by
+    ``index_copy_``, the counterpart of the reference's
+    ``dynamic_update_slice``: it reads the position on the device, where an
+    indexing by a 0-d tensor can read it on the host, which a CUDA graph's
+    capture forbids.  An int writes by select and copy, the form DTensor
+    shards (the dry-run's caches; it has no strategy for ``index_copy_``)."""
+    if isinstance(pos, torch.Tensor):
+        buf.index_copy_(1, pos.view(1), row.to(buf.dtype))
+    else:
+        buf[:, pos] = row[:, 0].to(buf.dtype)
+
+
+def decode_attention(p: Params, x: torch.Tensor, cache: Params, pos,
                      cfg: ArchConfig, *, window: int = 0,
                      use_rope: bool = True) -> Tuple[torch.Tensor, Params]:
-    """One-token decode.  x: (B,1,d); cache k/v: (B,T,nkv,hd); pos int.
+    """One-token decode.  x: (B,1,d); cache k/v: (B,T,nkv,hd).
 
-    The new key and value are written into the cache in place at ``pos``
-    (the JAX version returns a fresh cache from ``dynamic_update_slice``);
-    the returned cache is the same tensors."""
+    ``pos``, the new token's position, is an int or a 0-d int64 tensor on
+    the cache's device (the reference's traced ``pos``: the decode graph
+    reads it from a buffer, so one capture serves every position); both
+    give the same bits.  The new key and value are written into the cache
+    in place at ``pos`` (the JAX version returns a fresh cache from
+    ``dynamic_update_slice``); the returned cache is the same tensors."""
     b = x.shape[0]
-    positions = torch.full((b, 1), pos, dtype=torch.int64, device=x.device)
+    at = position(pos, x.device)
+    positions = at.view(1, 1).expand(b, 1)
     t_max = cache["k"].shape[1]
     q, k_new, v_new = _project_qkv(p, x, cfg, positions, use_rope=use_rope)
-    cache["k"][:, pos] = k_new[:, 0].to(cache["k"].dtype)
-    cache["v"][:, pos] = v_new[:, 0].to(cache["v"].dtype)
+    _write_row(cache["k"], pos, k_new)
+    _write_row(cache["v"], pos, v_new)
     scores = softcap(_gqa_scores(q, cache["k"], cfg), cfg.attn_softcap)
     kpos = torch.arange(t_max, device=x.device)[None, None, None, None, :]
-    mask = kpos <= pos
+    mask = kpos <= at
     if window:
-        mask = mask & (pos - kpos < window)
+        mask = mask & (at - kpos < window)
     scores = scores.masked_fill(~mask, -1e30)
     out = _gqa_out(torch.softmax(scores, dim=-1), cache["v"]).to(x.dtype)
     return _out_proj(p, out, cfg), cache

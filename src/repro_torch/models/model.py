@@ -23,14 +23,14 @@ positions on both sides.
 from __future__ import annotations
 
 import functools
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from .attention import (_attend, _out_proj, _project_qkv, attention,
                         decode_attention, decode_cross_attention,
-                        init_attention, init_kv_cache)
+                        init_attention, init_kv_cache, position)
 from .common import (ArchConfig, activation_fn, cross_entropy, dense_init,
                      einsum, resolve_device, rms_norm, sinusoidal_positions,
                      softcap)
@@ -40,6 +40,7 @@ from .ssm import (init_mamba2, init_ssm_cache, mamba2_decode_step,
 from ..sharding import ctx as sctx
 
 FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec")
+Position = Union[int, torch.Tensor]     # a decode position (see decode_step)
 
 
 def _check_family(cfg: ArchConfig) -> None:
@@ -438,7 +439,7 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, *,
 
 
 def _decode_block(p: Dict[str, Any], h: torch.Tensor, kv: Dict[str, Any],
-                  pos: int, cfg: ArchConfig, window: int,
+                  pos: Position, cfg: ArchConfig, window: int,
                   cross: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
                   ) -> torch.Tensor:
     """One block for one token against its KV cache: attention (no rope
@@ -459,19 +460,25 @@ def _decode_block(p: Dict[str, Any], h: torch.Tensor, kv: Dict[str, Any],
 
 def decode_step(params: Dict[str, Any], cfg: ArchConfig,
                 cache: Dict[str, Any], tokens: torch.Tensor,
-                pos: int) -> Tuple[torch.Tensor, Dict[str, Any]]:
+                pos: Position) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One serve step: tokens (B,1) at position ``pos`` -> (logits, cache).
 
-    The cache is updated in place and returned.  The SSM state is kept in
+    ``pos`` is an int or a 0-d int64 tensor on the tokens' device, as the
+    reference's is a traced array: the decode graph
+    (``train.steps.DecodeGraph``) passes a buffer it refills every step.
+    The step reads it on the device only, so it never synchronises.  The
+    cache is updated in place and returned.  The SSM state is kept in
     f32 from the first step on, as in the reference (see
     ``ssm.mamba2_decode_step``): a cache whose state is still in the model's
     dtype gets a new f32 state tensor.  encdec adds the sinusoid row
     ``pos`` of the cache's length (as the reference slices it)."""
     _check_family(cfg)
     if cfg.family == "encdec":
-        h = _embed_lookup(params["embed"], tokens) + _sinusoid(
-            cache["kv"]["k"].shape[2], cfg.d_model,
-            tokens.device)[pos].to(params["embed"].dtype)
+        table = _sinusoid(cache["kv"]["k"].shape[2], cfg.d_model,
+                          tokens.device)
+        row = table.index_select(0, position(pos, tokens.device).view(1))
+        h = (_embed_lookup(params["embed"], tokens)
+             + row.to(params["embed"].dtype))
     else:
         h = embed_tokens(params, cfg, tokens)
     if cfg.family not in ("ssm", "hybrid"):

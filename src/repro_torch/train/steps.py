@@ -20,10 +20,14 @@ refuse inputs that require grad.
 
 The serve steps are pure functions of (params, inputs) except that the
 caches (KV and SSM) are updated in place; they are the payloads of the
-serve Application Drops.
+serve Application Drops.  On CUDA the decode step is captured once per
+cache as a CUDA graph and replayed (``DecodeGraph``), the counterpart of
+the reference's jitted decode step.
 """
 from __future__ import annotations
 
+import threading
+import time
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -170,23 +174,184 @@ def make_prefill_step(cfg: ArchConfig, *, use_kernel: Optional[bool] = None
     return prefill_step
 
 
-def make_decode_step(cfg: ArchConfig) -> Callable:
-    """``decode_one(params, cache, tokens, pos) -> (next_tok (B,1), cache)``."""
-    def decode_one(params, cache, tokens: torch.Tensor, pos: int):
+def _greedy(cfg: ArchConfig, params, cache, tokens: torch.Tensor, pos
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One decode step: (greedy next token (B, 1) int32, logits)."""
+    logits, _ = M.decode_step(params, cfg, cache, tokens, pos)
+    tok = torch.argmax(logits[:, -1, :cfg.vocab_size], dim=-1)
+    return tok.to(torch.int32)[:, None], logits
+
+
+def _set_position(buf: torch.Tensor, pos) -> None:
+    """Refill the 0-d position buffer on the device, without a sync."""
+    if isinstance(pos, torch.Tensor):
+        buf.copy_(pos)
+    else:
+        buf.fill_(pos)
+
+
+# one capture at a time: concurrent captures from several threads (the
+# serve driver's decode apps) are a path PyTorch's caching allocator and
+# generators exercise little, and a capture holds the GIL for most of its
+# time anyway.  Other threads' eager work and replays go on meanwhile.
+_CAPTURE_LOCK = threading.Lock()
+_COUNTS_LOCK = threading.Lock()     # DecodeGraph.counts
+# the stream each device captures on, used only under _CAPTURE_LOCK: one
+# stream, not one a graph or a thread, because cuBLAS keeps a workspace
+# (32 MiB on Hopper) for each (thread's handle, stream) pair it meets and
+# never frees it
+_CAPTURE_STREAMS: Dict[int, torch.cuda.Stream] = {}
+
+
+def _capture_stream(dev: torch.device) -> "torch.cuda.Stream":
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    if index not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[index] = torch.cuda.Stream(index)
+    return _CAPTURE_STREAMS[index]
+
+
+class DecodeGraph:
+    """One cache's decode step, captured once as a CUDA graph and replayed
+    every later step: the port's counterpart of the reference's
+    ``jax.jit(make_decode_step(cfg))``, whose traced ``pos`` lets one
+    executable serve every position.
+
+    Made by its cache's first decode step, which runs eagerly on the
+    caller's stream and is a real step: it writes the cache, promotes an
+    SSM state to f32 and makes whisper's sinusoid table, so that every
+    tensor the graph reads or writes (params, cache, the table) is
+    allocated before the capture and outlives the graph's private pool.
+    The capture reads the token and the position from static buffers
+    (``tokens`` (B, 1) int32, ``pos`` 0-d int64) and writes the next
+    token and the logits into static outputs; the cache is written in
+    place, at the addresses captured.  Captures run one at a time, on the
+    device's capture stream, after the caching allocator's free blocks are
+    released (as ``torch.cuda.graph`` does), in ``thread_local`` error
+    mode: another thread's synchronise or copy to the host (the serve
+    driver runs decode apps in node threads) neither fails nor
+    invalidates one.  A failed capture or replay raises.
+
+    ``counts`` tallies captures and replays process-wide (the replays of a
+    graph are added when it is released), so that a run can show it went
+    through graphs."""
+
+    counts = {"captures": 0, "replays": 0}
+
+    def __init__(self, cfg: ArchConfig, params, cache: Dict[str, Any],
+                 tokens: torch.Tensor, pos):
+        dev = tokens.device
+        self.params, self.cache = params, cache
+        self.tokens = tokens.to(torch.int32, copy=True)
+        self.pos = torch.empty((), dtype=torch.int64, device=dev)
+        _set_position(self.pos, pos)
+        self.first, self.first_logits = _greedy(cfg, params, cache,
+                                                self.tokens, self.pos)
+        self.graph = torch.cuda.CUDAGraph()
+        self.replays = 0
+        with _CAPTURE_LOCK:
+            t0 = time.perf_counter()
+            # the graph's private pool takes new segments from free memory,
+            # and a capture cannot release the cached blocks of the others
+            torch.cuda.empty_cache()
+            stream = _capture_stream(dev)
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(stream):
+                self.graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    self.next, self.logits = _greedy(cfg, params, cache,
+                                                     self.tokens, self.pos)
+                finally:
+                    self.graph.capture_end()
+            torch.cuda.current_stream(dev).wait_stream(stream)
+            self.capture_ms = (time.perf_counter() - t0) * 1e3
+        with _COUNTS_LOCK:
+            DecodeGraph.counts["captures"] += 1
+
+    def replay(self, tokens: torch.Tensor, pos) -> torch.Tensor:
+        """The next token (B, 1) int32 after ``tokens`` at ``pos``; a
+        clone, since the next replay overwrites the static output."""
+        self.tokens.copy_(tokens)
+        _set_position(self.pos, pos)
+        self.graph.replay()
+        self.replays += 1
+        return self.next.clone()
+
+    def release(self) -> None:
+        """Free the graph and its pool's tensors; add its replays to
+        ``counts``."""
+        with _COUNTS_LOCK:
+            DecodeGraph.counts["replays"] += self.replays
+        self.replays = 0
+        del self.graph, self.next, self.logits
+
+
+class DecodeStep:
+    """``decode_one(params, cache, tokens, pos) -> (next_tok (B,1), cache)``
+    (see ``make_decode_step``).  ``logits`` holds the last step's logits
+    (B, 1, V) (a graph's static output: the next replay overwrites it);
+    ``graph`` the current ``DecodeGraph`` or None."""
+
+    def __init__(self, cfg: ArchConfig, graph: Optional[bool]):
+        self.cfg, self.use_graph = cfg, graph
+        self.graph: Optional[DecodeGraph] = None
+        self.logits: Optional[torch.Tensor] = None
+
+    def __call__(self, params, cache: Dict[str, Any], tokens: torch.Tensor,
+                 pos):
+        cuda = tokens.device.type == "cuda"
+        if self.use_graph and not cuda:
+            raise ValueError("make_decode_step(graph=True) captures a CUDA "
+                             f"graph; the tokens are on {tokens.device}")
         with torch.inference_mode():
-            logits, cache = M.decode_step(params, cfg, cache, tokens, pos)
-            next_tok = torch.argmax(logits[:, -1, :cfg.vocab_size], dim=-1)
-        return next_tok.to(torch.int32)[:, None], cache
-    return decode_one
+            if not (cuda if self.use_graph is None else self.use_graph):
+                tok, self.logits = _greedy(self.cfg, params, cache, tokens,
+                                           pos)
+                return tok, cache
+            g = self.graph
+            if g is None or g.cache is not cache or g.params is not params:
+                self.close()
+                g = self.graph = DecodeGraph(self.cfg, params, cache,
+                                             tokens, pos)
+                self.logits = g.first_logits
+                return g.first, cache
+            tok = g.replay(tokens, pos)
+            self.logits = g.logits
+            return tok, cache
+
+    def close(self) -> None:
+        """Release the graph, if any (a step made again captures anew)."""
+        if self.graph is not None:
+            self.graph.release()
+        self.graph = self.logits = None
+
+
+def make_decode_step(cfg: ArchConfig, *, graph: Optional[bool] = None
+                     ) -> DecodeStep:
+    """``decode_one(params, cache, tokens, pos) -> (next_tok (B,1), cache)``.
+
+    ``pos`` is an int or a 0-d int64 tensor on the tokens' device.
+    ``graph=None`` runs the step through a CUDA graph (``DecodeGraph``)
+    when the tokens are on CUDA and eagerly on the CPU; ``True`` always
+    through a graph, and raises for tokens on the CPU; ``False`` eagerly
+    on either device.  A graph belongs to one (params, cache): the first
+    step on a cache captures it, later steps on that cache replay it, a
+    step on another cache captures anew.  ``decode_one.close()`` frees it.
+    """
+    return DecodeStep(cfg, graph)
 
 
 def decode_fn(cfg: ArchConfig, params: Any, cache: Dict[str, Any],
               first_token: torch.Tensor, start_pos: int, steps: int):
-    """Greedy multi-token decode loop (host-side driver for examples)."""
+    """Greedy multi-token decode loop (host-side driver for examples),
+    through ``make_decode_step``'s default: a CUDA graph on CUDA, as the
+    reference jits its step."""
     step = make_decode_step(cfg)
     toks = [first_token]
     tok = first_token
-    for i in range(steps):
-        tok, cache = step(params, cache, tok, start_pos + i)
-        toks.append(tok)
+    try:
+        for i in range(steps):
+            tok, cache = step(params, cache, tok, start_pos + i)
+            toks.append(tok)
+    finally:
+        step.close()
     return torch.cat(toks, dim=1), cache
