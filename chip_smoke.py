@@ -32,7 +32,16 @@ no result):
    same way: each case's route by (dtype, P, N), the library's launches by
    device kernel equal to the route's and no profile showing more, the
    path shapes on ``wgmma_bf16`` timed in turns with ``mma_bf16``, and
-   each route's device time split by kernel from a profile.
+   each route's device time split by kernel from a profile.  The decode
+   kernel (one-token attention over a KV cache) the same way: every
+   option case in f32 and in bf16 (GQA 1:1 to 12:1, D 16 to 256, a window
+   over several splits, a position in the first split, the last row, the
+   softcap, every row visible, K and V strided views of one tensor) and
+   each serve path's decode shape at its last position, each held to its
+   plain version within 2e-5 x max|V| and its route read from the
+   library's device counter; each case's kernel, plain and bound times,
+   at the path shapes also one library call (SDPA with a row mask, or for
+   gemma2's capped shapes a compiled ``flex_attention``).
 4. serve, for each of eight paths in turn: codeqwen1.5-7b (dense, flash
    kernel), mamba2-1.3b (ssm, SSD kernel), zamba2-2.7b (hybrid, both
    kernels), granite-moe-3b-a800m (moe, flash), whisper-large-v3 (encdec,
@@ -45,20 +54,26 @@ no result):
    bounds, and profiled (the flash launches each route's wrapper counted
    in the profiled call must be the device kernels the profile shows);
    its decode step eager and through its CUDA graph (``decode_graph``:
-   one microbatch's 15 steps each from one prefill's cache, the tokens
-   equal at every step and the last logits equal, one capture, made while
-   another thread copies to the host and synchronises its stream, no
-   kernel launch, an eager step free of synchronises; each step's ms, the
-   capture's ms, device busy and idle);
+   one microbatch's 15 steps each from one prefill's cache, both through
+   the decode kernel, the tokens equal at every step and the last logits
+   equal, one capture, made while another thread copies to the host and
+   synchronises its stream, the decode kernel's launches exact on the
+   host and on the device and no other kernel's, an eager step free of
+   synchronises, one step on the plain route held to the kernel route's
+   logits by the path's rule; each step's ms, the capture's ms, device
+   busy and idle, and the plain route's replayed step, ``prior_ms``);
    then 8 requests x 16 tokens with 512-token
    prompts (gemma2: 4 x 16 with 8192-token prompts, past its window)
    through the engine, with every kernel count set to 0 just before and
    read just after, as are the decode graphs' captures and replays
    (each decode app captures once and replays every later step,
-   ``check_graphs``): each kernel of the path must have launched exactly
-   once per layer that runs it per microbatch, on the route its inputs'
-   dtype and head dim select (the full-width models are bf16; whisper's
-   encoder runs f32, from the serve's f32 frames); and full-width prefill
+   ``check_graphs``): each prefill kernel of the path must have launched
+   exactly once per layer that runs it per microbatch, on the route its
+   inputs' dtype and head dim select (the full-width models are bf16;
+   whisper's encoder runs f32, from the serve's f32 frames), and the
+   decode kernel once per attention call per eager step and capture on
+   the host and per executed step on the device (its replays are counted
+   there); and full-width prefill
    logits
    through the kernels must be finite and near the plain route's (gemma2:
    one 8192-token sequence).  codeqwen1.5-7b then serves the same
@@ -69,7 +84,7 @@ no result):
    decode graphs (the sessions run captures in threads beside other
    threads' eager work).  Each model is freed before the next.
 5. train, after the serve paths, with every kernel count set to 0:
-   both kernel wrappers refuse CUDA inputs that require grad; (a) the
+   every kernel wrapper refuses CUDA inputs that require grad; (a) the
    ``tiny`` preset's train step on the card equals the port on the CPU
    over 4 steps (one and two microbatches, int8 compression); (b)
    ``run_training(lm100m)`` through the engine (40 steps x 1024 tokens,
@@ -753,22 +768,254 @@ def phase_ssd_kernel(torch, ss):
             "library_ms": None, "path_shapes": times}
 
 
+DECODE_KERNEL = "decode_attention_kernel"      # as a profile names it
+
+
+def decode_kernels_seen(torch, events) -> int:
+    """Decode-attention launches in a profile's ``key_averages()``."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return sum(e.count for e in events
+               if e.device_type == cuda and DECODE_KERNEL in e.key)
+
+
+def decode_bound_ms(b: int, nq: int, nkv: int, d: int, rows: int,
+                    elem_bytes: int) -> tuple:
+    """Least time for the card: the visible K and V rows and q read once,
+    the f32 output written once, over HBM rate, vs QK^T and PV over those
+    rows (4 x B x nq x D a row) at the f32 peak (the kernel's math)."""
+    nbytes = (2 * b * rows * nkv * d + b * nq * d) * elem_bytes \
+        + b * nq * d * 4
+    flops = 4 * b * nq * d * rows
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = flops / H100_PEAK_FLOPS["torch.float32"] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                 "operations")
+
+
+def decode_attention_calls(cfg) -> int:
+    """Decode-kernel calls in one decode step: one per attention layer (the
+    hybrid: per call of its shared block; encdec: self and cross)."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.num_layers // cfg.shared_attn_period
+    return cfg.num_layers * (2 if cfg.family == "encdec" else 1)
+
+
+def expected_decode_launches(cfg, apps: int, decode_steps: int) -> dict:
+    """Decode-kernel launches of ``apps`` decode apps of ``decode_steps``
+    tokens (``decode_steps - 1`` steps each: the first eager, then one
+    capture, then replays): on the host, the wrapper's count (the eager
+    step and the capture); on the device (``kernel_launches``), every
+    executed step (the eager step and the replays)."""
+    calls = decode_attention_calls(cfg) * apps
+    steps = max(decode_steps - 1, 0)
+    return {"host": calls * min(steps, 1) * 2, "device": calls * steps}
+
+
+def decode_device_delta(da, before: dict) -> int:
+    """Decode launches the device counted since ``before``, all routes."""
+    after = da.kernel_launches(da._lib())
+    return sum(after[r] - before[r] for r in after)
+
+
+# name, B, nq, nkv, T, D, pos, window, cap, all_rows (each in f32 and bf16)
+DECODE_OPTION_CASES = [
+    ("gqa1_d128", 2, 4, 4, 300, 128, 211, 0, 0.0, False),
+    ("gqa2_d64_last_row", 2, 8, 4, 300, 64, 299, 0, 0.0, False),
+    ("gqa3_d80", 2, 6, 2, 300, 80, 150, 0, 0.0, False),
+    ("gqa6_d128_cap50", 2, 12, 2, 257, 128, 256, 0, 50.0, False),
+    ("gqa8_d64", 2, 16, 2, 200, 64, 150, 0, 0.0, False),
+    # two chunks of 6 query heads a kv head (command-r-plus-104b's group)
+    ("gqa12_d128", 2, 24, 2, 300, 128, 250, 0, 0.0, False),
+    # the window's 300 rows over five splits, its first not on an edge
+    ("window300_cap5_d80", 2, 4, 2, 400, 80, 350, 300, 5.0, False),
+    # pos in the first split: splits 2..4 empty
+    ("pos9_first_split_d128", 2, 4, 4, 512, 128, 9, 0, 0.0, False),
+    ("pos0_d16_gqa8", 1, 8, 1, 200, 16, 0, 0, 0.0, False),
+    ("all_rows_d64", 2, 8, 8, 300, 64, 0, 0, 0.0, True),
+    ("d256_gqa2", 1, 2, 1, 100, 256, 99, 0, 0.0, False),
+    ("strided_kv_d128", 2, 8, 2, 300, 128, 200, 0, 0.0, False),
+]
+# each serve path's decode shapes (bf16, the cache at prompt + 16 rows, the
+# last position): (name, B, nq, nkv, T, D, window, cap, all_rows)
+DECODE_PATH_CASES = [
+    ("codeqwen", 4, 32, 32, 528, 128, 0, 0.0, False),
+    ("gemma2_local", 2, 32, 16, 8208, 128, 4096, 50.0, False),
+    ("gemma2_global", 2, 32, 16, 8208, 128, 0, 50.0, False),
+    ("nemotron", 4, 48, 8, 528, 128, 0, 0.0, False),
+    ("chameleon", 4, 64, 8, 528, 128, 0, 0.0, False),
+    ("granite", 4, 24, 8, 528, 64, 0, 0.0, False),
+    ("whisper_self", 4, 20, 20, 528, 64, 0, 0.0, False),
+    ("whisper_cross", 4, 20, 20, 66, 64, 0, 0.0, True),
+    ("zamba2", 4, 32, 32, 528, 80, 0, 0.0, False),
+]
+
+
+def library_decode(torch, da, q, k, v, pos: int, opts: dict) -> tuple:
+    """One PyTorch call that computes the decode on these inputs, and its
+    name: SDPA with ``enable_gqa`` and a boolean row mask on the (B, H, 1,
+    D) / (B, Hkv, T, D) views of q and the cache; with a cap, a compiled
+    ``flex_attention`` with a tanh score and the row mask as a block mask.
+    Held to the plain version first (2e-2: its output is bf16); (None,
+    reason) where it fails or disagrees."""
+    import torch.nn.functional as F
+    t = k.shape[1]
+    window, cap = opts["window"], opts["logit_cap"]
+    qs, ks, vs = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+    gqa = q.shape[1] != k.shape[2]
+    rows = torch.arange(t, device=q.device)
+    keep = (rows >= 0) if opts["all_rows"] else (rows <= pos)
+    if window:
+        keep = keep & (pos - rows < window)
+    try:
+        if not cap:
+            mask = keep[None, None, None]
+
+            def call():
+                return F.scaled_dot_product_attention(
+                    qs, ks, vs, attn_mask=mask, enable_gqa=gqa)
+            name = "sdpa"
+        else:
+            from torch.nn.attention.flex_attention import (create_block_mask,
+                                                           flex_attention)
+
+            def score_mod(score, b, h, qi, ki):
+                return cap * torch.tanh(score / cap)
+
+            def mask_mod(b, h, qi, ki):
+                m = ki <= pos
+                return m & (pos - ki < window) if window else m
+
+            block = create_block_mask(mask_mod, None, None, 1, t,
+                                      device=q.device)
+            flex = torch.compile(flex_attention)
+
+            def call():
+                return flex(qs, ks, vs, score_mod=score_mod,
+                            block_mask=block, enable_gqa=gqa)
+            name = "flex_attention"
+        want = da.decode_attention_plain(q, k, v, torch.tensor(pos),
+                                         **opts)
+        err = float((call()[:, :, 0].float() - want).abs().max())
+    except Exception as exc:  # noqa: BLE001 - reported as "none"
+        return None, f"none: {type(exc).__name__}: {str(exc)[:120]}"
+    if not err <= 2e-2:
+        return None, f"none: {name} differs by {err}"
+    return call, f"{name} (max_abs_err {err})"
+
+
+def phase_decode_kernel(torch, da):
+    """The decode kernel against its plain version on the card: every
+    option case in f32 and in bf16, then each serve path's decode shape
+    (bf16, the last position); each case's route from the library's own
+    device counter, the tolerance 2e-5 x max|V| (both f32 outputs of the
+    same inputs: only the order of the sums and the exponential differ).
+    Timed per case (``cuda_ms``): the kernel, the plain version, the bound
+    (``decode_bound_ms``); at the path shapes also one library call
+    (``library_decode``) and the host time of a wrapper call."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    lib = da._lib()
+    cases = [(f"{n}_{dt}", b, nq, nkv, t, d, pos, w, cap, rows, dtype)
+             for n, b, nq, nkv, t, d, pos, w, cap, rows in
+             DECODE_OPTION_CASES
+             for dt, dtype in (("f32", torch.float32),
+                               ("bf16", torch.bfloat16))]
+    cases += [(f"{n}_path", b, nq, nkv, t, d, t - 1, w, cap, rows,
+               torch.bfloat16)
+              for n, b, nq, nkv, t, d, w, cap, rows in DECODE_PATH_CASES]
+    worst, times = 0.0, {}
+    for name, b, nq, nkv, t, d, pos, window, cap, all_rows, dt in cases:
+        def rand(*shape):
+            return torch.randn(shape, generator=gen, device="cuda").to(dt)
+        q = rand(b, nq, d)
+        if name.startswith("strided_kv"):     # K and V of one wider tensor
+            kv = rand(b, t, nkv, 2 * d + 8)
+            k, v = kv[..., :d], kv[..., d + 8:]
+        else:
+            k, v = rand(b, t, nkv, d), rand(b, t, nkv, d)
+        at = torch.tensor(pos, device="cuda")
+        opts = dict(window=window, logit_cap=cap, all_rows=all_rows)
+        route = da.route(dt)
+        before = da.kernel_launches(lib)
+        got = da.decode_attention(q, k, v, at, **opts)
+        torch.cuda.synchronize()
+        launched = {r: n - before[r] for r, n in
+                    da.kernel_launches(lib).items() if n != before[r]}
+        want = da.decode_attention_plain(q, k, v, at, **opts)
+        vmax = float(v.float().abs().max())
+        tol = 2e-5 * vmax
+        max_err = float((got - want).abs().max())
+        ok = bool(torch.isfinite(got).all()) and max_err <= tol \
+            and launched == {route: 1}
+        lo, end = da.visible_rows(pos, t, window, all_rows)
+        rows = end - lo
+        splits = da.num_splits(b, nkv, nq // nkv,
+                               da.row_bound(t, window, all_rows),
+                               da.sm_count(q.device))
+        bound_ms, bound_by = decode_bound_ms(b, nq, nkv, d, rows,
+                                             q.element_size())
+        kernel_ms = cuda_ms(lambda: da.decode_attention(q, k, v, at, **opts))
+        plain_ms = cuda_ms(lambda: da.decode_attention_plain(q, k, v, at,
+                                                             **opts))
+        row = dict(shape=[b, nq, nkv, t, d], dtype=str(dt), route=route,
+                   pos=pos, window=window, cap=cap, all_rows=all_rows,
+                   splits=splits, visible_rows=rows,
+                   routes_launched=launched, max_abs_err=max_err, tol=tol,
+                   ok=ok, cuda_ms=kernel_ms, plain_ms=plain_ms,
+                   bound_ms=bound_ms, bound_by=bound_by,
+                   share_of_bound=bound_ms / kernel_ms)
+        if name.endswith("_path"):
+            library, note = library_decode(torch, da, q, k, v, pos, opts)
+            row.update(library_ms=cuda_ms(library) if library else None,
+                       library=note,
+                       host_us=host_us(torch, lambda: da.decode_attention(
+                           q, k, v, at, **opts)))
+            worst = max(worst, max_err)
+            times[name] = row
+        emit("kernel_check", kernel="decode_attention", case=name, **row)
+        if not ok:
+            fail(f"decode_attention case {name}: max_abs_err {max_err} "
+                 f"(tol {tol}), launched {launched} on route {route}")
+        del q, k, v, got, want
+    t = times["codeqwen_path"]
+    return {"name": "decode_attention", "route": "cuda",
+            "kernel_route": t["route"], "kernel_routes": list(da.ROUTES),
+            "source": "src/repro_torch/csrc/decode_attention.cu",
+            "replaces": "src/repro/models/attention.py:149 (jnp inside "
+                        "jax.jit, src/repro/launch/serve.py:76; no Pallas "
+                        "kernel)",
+            "max_abs_err": worst, "max_err": worst, "ms": t["cuda_ms"],
+            "kernel_ms": t["cuda_ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "path_shapes": times}
+
+
 PATHS = ("codeqwen15_7b", "mamba2_1_3b", "zamba2_2_7b",
          "granite_moe_3b_a800m", "whisper_large_v3", "gemma2_27b",
          "nemotron_4_15b", "chameleon_34b")
 
 
-def expected_launches(torch, cfg, n_micro: int, fa, ss) -> dict:
+def expected_launches(torch, cfg, n_micro: int, fa, ss, da=None,
+                      decode_steps: int = 0) -> dict:
     """Kernel launches one serve run must make, by kernel and route: flash
     once per attention layer (or per call of the hybrid's shared block, or
     per whisper encoder layer) per microbatch's prefill, SSD once per
     Mamba2 layer per microbatch's prefill.  The route follows the inputs'
     dtype (the model's, except in whisper's encoder, where the serve's f32
     frames promote the activations to f32, as JAX does) and, for flash,
-    the head dim, for the SSD scan its head dim P and state size N."""
+    the head dim, for the SSD scan its head dim P and state size N.  With
+    ``da``, the decode kernel's launches counted on the host (each
+    microbatch's decode app: its eager first step and its capture,
+    ``expected_decode_launches``), on the model dtype's route."""
     dt, hd = cfg.torch_dtype, cfg.resolved_head_dim
     want = {"flash_attention_bhsd": dict.fromkeys(fa.ROUTES, 0),
             "ssd_scan_bhsd": dict.fromkeys(ss.ROUTES, 0)}
+    if da is not None:
+        want["decode_attention"] = dict.fromkeys(da.ROUTES, 0)
+        want["decode_attention"][da.route(dt)] = expected_decode_launches(
+            cfg, n_micro, decode_steps)["host"]
     flash = want["flash_attention_bhsd"]
     if cfg.family in ("ssm", "hybrid"):
         want["ssd_scan_bhsd"][ss.route(dt, cfg.ssm_headdim,
@@ -834,24 +1081,31 @@ def phase_serve(torch, arch, mods):
          bytes=sum(t.numel() * t.element_size() for t in _leaves(params)))
 
     steps = phase_steps(torch, cfg, params, shape,
-                        mods["flash_attention_bhsd"], mods["ssd_scan_bhsd"])
+                        mods["flash_attention_bhsd"], mods["ssd_scan_bhsd"],
+                        mods["decode_attention"])
     kernels = {name: getattr(mod, name) for name, mod in mods.items()}
-    phase_decode_graph(torch, cfg, params, shape, kernels)
+    phase_decode_graph(torch, cfg, params, shape, kernels,
+                       mods["decode_attention"])
     card = (prefill_on_card(torch, cfg, params, steps)
             if arch == DRYRUN_PREFILL else None)
 
     n_micro = shape["num_requests"] // shape["microbatch"]
-    want = expected_launches(torch, cfg, n_micro, mods["flash_attention_bhsd"],
-                             mods["ssd_scan_bhsd"])
     fa, ss = mods["flash_attention_bhsd"], mods["ssd_scan_bhsd"]
+    da = mods["decode_attention"]
+    want = expected_launches(torch, cfg, n_micro, fa, ss, da,
+                             shape["decode_steps"])
+    want_device = expected_decode_launches(cfg, n_micro,
+                                           shape["decode_steps"])["device"]
     torch.cuda.reset_peak_memory_stats()
     _zero_counts(kernels)
     _zero_graph_counts()
     flash_before = fa.kernel_launches(fa._lib())
     ssd_before = ss.kernel_launches(ss._lib())
+    decode_before = da.kernel_launches(da._lib())
     res = run_serving(cfg, device="cuda", params=params, **shape)
     launches, by_route = _read_counts(kernels)
     graphs = _graph_counts()
+    decode_device = decode_device_delta(da, decode_before)
     flash_launched = launch_delta(fa, fa._lib(), flash_before)
     ssd_launched = launch_delta(ss, ss._lib(), ssd_before)
     resp = res["responses"]
@@ -864,6 +1118,8 @@ def phase_serve(torch, arch, mods):
          expected_launches_by_route=want,
          flash_library_launches_by_route=flash_launched,
          ssd_library_launches_by_kernel=ssd_launched,
+         decode_device_launches=decode_device,
+         expected_decode_device_launches=want_device,
          decode_graphs=graphs)
     if tuple(resp.shape) != (shape["num_requests"], shape["decode_steps"]):
         fail(f"responses shape {resp.shape}")
@@ -885,6 +1141,9 @@ def phase_serve(torch, arch, mods):
     if faults:
         fail(f"{cfg.name}: the SSD wrapper counted "
              f"{by_route['ssd_scan_bhsd']}; " + "; ".join(faults))
+    if decode_device != want_device:
+        fail(f"{cfg.name}: the device counted {decode_device} decode "
+             f"launches, expected {want_device}")
     modes = (phase_serve_modes(torch, cfg, params, resp, mods)
              if arch == MODES_PATH else None)
     del res
@@ -892,7 +1151,7 @@ def phase_serve(torch, arch, mods):
     torch.cuda.empty_cache()
     check_full_width_logits(torch, M, cfg, params, shape,
                             LOGITS_ROWS.get(arch, shape["microbatch"]))
-    return launches, by_route, card, modes
+    return launches, by_route, card, modes, decode_device
 
 
 MODES_PATH = "codeqwen15_7b"
@@ -915,6 +1174,7 @@ def phase_serve_modes(torch, cfg, params, tokens, mods) -> dict:
 
     from repro_torch.launch.serve import run_serving
     fa, ss = mods["flash_attention_bhsd"], mods["ssd_scan_bhsd"]
+    da = mods["decode_attention"]
     kernels = {name: getattr(mod, name) for name, mod in mods.items()}
     n_micro = SERVE["num_requests"] // SERVE["microbatch"]
     SERVE_STATS.unlink(missing_ok=True)
@@ -925,13 +1185,18 @@ def phase_serve_modes(torch, cfg, params, tokens, mods) -> dict:
     out = {}
     for mode, kw in modes:
         sessions = kw.get("sessions", 1)
-        want = expected_launches(torch, cfg, n_micro * sessions, fa, ss)
+        want = expected_launches(torch, cfg, n_micro * sessions, fa, ss, da,
+                                 SERVE["decode_steps"])
+        want_device = expected_decode_launches(
+            cfg, n_micro * sessions, SERVE["decode_steps"])["device"]
         torch.cuda.reset_peak_memory_stats()
         _zero_counts(kernels)
         _zero_graph_counts()
+        decode_before = da.kernel_launches(da._lib())
         res = run_serving(cfg, device="cuda", params=params, **SERVE, **kw)
         launches, by_route = _read_counts(kernels)
         graphs = _graph_counts()
+        decode_device = decode_device_delta(da, decode_before)
         same = bool(np.array_equal(res["responses"], tokens))
         row = dict(mode=mode, config=cfg.name, options=kw, **SERVE,
                    wall_s=res["wall_s"],
@@ -940,7 +1205,9 @@ def phase_serve_modes(torch, cfg, params, tokens, mods) -> dict:
                    max_memory_allocated=torch.cuda.max_memory_allocated(),
                    tokens_equal=same, launches=launches,
                    launches_by_route=by_route,
-                   expected_launches_by_route=want, decode_graphs=graphs)
+                   expected_launches_by_route=want, decode_graphs=graphs,
+                   decode_device_launches=decode_device,
+                   expected_decode_device_launches=want_device)
         if sessions > 1:
             row.update({k: res[k] for k in (
                 "sessions", "sessions_per_s", "p50_session_s",
@@ -961,10 +1228,13 @@ def phase_serve_modes(torch, cfg, params, tokens, mods) -> dict:
                                             for n, r in want.items()}:
             fail(f"{cfg.name} {mode}: kernel launches by route {by_route} "
                  f"(in all {launches}), expected {want}")
+        if decode_device != want_device:
+            fail(f"{cfg.name} {mode}: the device counted {decode_device} "
+                 f"decode launches, expected {want_device}")
         if sessions > 1 and res["template_hits"] != sessions - 1:
             fail(f"{cfg.name} {mode}: {res['template_hits']} template hits")
         check_graphs(f"{cfg.name} {mode}", graphs, SERVE, sessions)
-        out[mode] = launches
+        out[mode] = (launches, decode_device)
     return out
 
 
@@ -1037,33 +1307,20 @@ def check_full_width_logits(torch, M, cfg, params, shape: dict, rows: int):
             return M.prefill(p, c, batch, use_kernel=use_kernel)[0]
 
     lk, lp = logits(params, cfg, True), logits(params, cfg, False)
-    finite = bool(torch.isfinite(lk).all())
-    diff = float((lk - lp).abs().max())
-    scale = float(lp.abs().max())
-    same = lk.argmax(-1) == lp.argmax(-1)
-    agree = float(same.float().mean())
-    # a row whose plain route puts its first two tokens within one unit in
-    # the last place of the model's dtype (the head's product is rounded
-    # to it) ties them: it has no top-1 for the kernel route to match
-    top2 = lp.float().topk(2, dim=-1).values
-    margin = top2[..., 0] - top2[..., 1]
-    ulp = torch.finfo(cfg.torch_dtype).eps * torch.exp2(
-        torch.floor(torch.log2(top2[..., 0].abs())))
-    tied = margin <= ulp
+    rule = top1_rule(torch, cfg, lk, lp)
+    finite = rule.pop("finite")
+    dense_ok = rule.pop("ok")
     out = dict(config=cfg.name, rows=rows, prompt_len=shape["prompt_len"],
-               finite=finite, max_abs_diff=diff, max_abs_logit=scale,
-               top1_agreement=agree, top1_margins=margin.flatten().tolist(),
-               tied_rows=int(tied.sum()),
-               top1_agree_untied=bool((same | tied).all()))
+               finite=finite, **rule)
     if cfg.family not in ("ssm", "hybrid", "moe"):
         emit("prefill_kernel_vs_plain", **out,
              max_memory_allocated=torch.cuda.max_memory_allocated())
         if not finite:
             fail(f"{cfg.name}: non-finite logits at full width")
-        if diff > 0.05 * scale or not out["top1_agree_untied"]:
+        if not dense_ok:
             fail(f"{cfg.name}: kernel-route logits differ from the plain "
-                 f"route by {diff} (top-1 agreement {agree}, "
-                 f"{out['tied_rows']} rows tied)")
+                 f"route by {out['max_abs_diff']} (top-1 agreement "
+                 f"{out['top1_agreement']}, {out['tied_rows']} rows tied)")
         return
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     p32 = _tree_map(params, lambda t: t.float())
@@ -1208,7 +1465,7 @@ def device_span_ms(torch, fn) -> float:
     return start.elapsed_time(end)
 
 
-def phase_steps(torch, cfg, params, shape: dict, fa, ss):
+def phase_steps(torch, cfg, params, shape: dict, fa, ss, da):
     """The serve path's prefill and decode steps alone, without the engine
     (decode through its CUDA graph, the default on CUDA: the warm call
     captures it, the timed ones replay it):
@@ -1217,7 +1474,10 @@ def phase_steps(torch, cfg, params, shape: dict, fa, ss):
     written under ``chiprun_out/chip_smoke/``), in which the flash wrapper's
     launches by route (module ``fa``) and the SSD wrapper's (``ss``, as
     device kernels) must be those their libraries made and no fewer than
-    the profile's kernels (``route_faults``)."""
+    the profile's kernels (``route_faults``); the profiled decode step (a
+    replay) must launch the decode kernel once per attention call, as
+    counted on the device (``da.kernel_launches``), and a profile may show
+    no more."""
     import numpy as np
     from repro_torch.launch.serve import prompt_batch
     from repro_torch.train import make_decode_step, make_prefill_step
@@ -1247,19 +1507,30 @@ def phase_steps(torch, cfg, params, shape: dict, fa, ss):
         _zero_counts({"flash": flash, "ssd": ssd})
         before = fa.kernel_launches(lib)
         ssd_before = ss.kernel_launches(ssd_lib)
+        decode_before = da.kernel_launches(da._lib())
         prof = profile_call(torch, fn, f"profile_{cfg.name}_{name}.txt")
         launched = launch_delta(fa, lib, before)
         ssd_launched = launch_delta(ss, ssd_lib, ssd_before)
+        decode_launched = decode_device_delta(da, decode_before)
+        want_decode = decode_attention_calls(cfg) if name == "decode_step" \
+            else 0
         counted = {r: n for r, n in flash.launches_by_route.items() if n}
         ssd_counted = {r: n for r, n in ssd.launches_by_route.items() if n}
         emit("profile", config=cfg.name, step=name,
              flash_launches_by_route=counted,
              flash_library_launches_by_route=launched,
              ssd_launches_by_route=ssd_counted,
-             ssd_library_launches_by_kernel=ssd_launched, **prof)
+             ssd_library_launches_by_kernel=ssd_launched,
+             decode_device_launches=decode_launched, **prof)
         faults = route_faults(counted, launched, prof["flash_routes_seen"])
         faults += route_faults(ss.route_kernels(ssd_counted), ssd_launched,
                                prof["ssd_kernels_seen"])
+        if decode_launched != want_decode or \
+                prof["decode_kernels_seen"] > want_decode:
+            faults.append(f"the device counted {decode_launched} decode "
+                          f"launches, the profile shows "
+                          f"{prof['decode_kernels_seen']}, expected "
+                          f"{want_decode}")
         if faults:
             fail(f"{cfg.name} {name}: the flash wrapper counted {counted}, "
                  f"the SSD wrapper {ssd_counted}; " + "; ".join(faults))
@@ -1300,26 +1571,33 @@ def beside_syncs(torch, counts: dict):
              f"after {counts['syncs']} rounds")
 
 
-def phase_decode_graph(torch, cfg, params, shape: dict, kernels: dict
+def phase_decode_graph(torch, cfg, params, shape: dict, kernels: dict, da
                        ) -> dict:
     """The path's decode step eager (``graph=False``) and through its CUDA
     graph (the default on CUDA), from one prefill's cache copied: one
     microbatch's ``decode_steps - 1`` steps each, as a decode app runs
-    them (the graph's first step eager, then the capture, then replays).
+    them (the graph's first step eager, then the capture, then replays),
+    both through the decode kernel (the default on CUDA).
 
     The graph's steps (its capture among them) run while another thread
     copies to the host and synchronises its stream (``beside_syncs``).
     Held: the greedy tokens equal at every step; the last step's logits
     equal to the bit, or else within 5% of the eager logits' range (the
     dense paths' kernel-vs-plain tolerance) with the largest difference
-    printed; one capture; no hand-written kernel launched (decode is torch
-    ops, as in the reference); one eager step under
+    printed; one capture; the decode kernel's launches exact, on the host
+    (each eager step and the capture) and on the device (each executed
+    step, the replays included), no other kernel; one eager step under
     ``torch.cuda.set_sync_debug_mode("error")`` (a synchronise in it
-    raises).  Printed: the decode-step ms eager and replayed (median of 8
-    after a warm call, host clock ended by a synchronise, at the cache's
-    last row), the capture ms, and each one's device busy ms and idle
-    share from one profiled step beside the replay's device span by CUDA
-    events (profile tables under ``PROFILE_DIR``)."""
+    raises); one step from the eager run's cache on the plain route
+    (``use_kernel=False``) held to the kernel route's logits by the path's
+    rule (``routes_agree``).  Printed: the decode-step ms eager and
+    replayed (median of 8 after a warm call, host clock ended by a
+    synchronise, at the cache's last row), the capture ms, each one's
+    device busy ms and idle share from one profiled step beside the
+    replay's device span by CUDA events (profile tables under
+    ``PROFILE_DIR``), and the plain route's replayed step the same way
+    (``prior_ms``: its graph captured after the kernel route's is
+    released)."""
     import numpy as np
     from repro_torch.launch.serve import prompt_batch
     from repro_torch.train import make_decode_step, make_prefill_step
@@ -1333,6 +1611,7 @@ def phase_decode_graph(torch, cfg, params, shape: dict, kernels: dict
     del batch
     _zero_counts(kernels)
     captures = DecodeGraph.counts["captures"]
+    decode_before = da.kernel_launches(da._lib())
     runs, noise = {}, {}
     for name, graph in (("eager", False), ("graph", True)):
         c = cache if graph else _tree_map(cache, lambda t: t.clone())
@@ -1349,6 +1628,11 @@ def phase_decode_graph(torch, cfg, params, shape: dict, kernels: dict
     eager, graph = runs["eager"], runs["graph"]
     captured = DecodeGraph.counts["captures"] - captures
     launches, _ = _read_counts(kernels)
+    calls = decode_attention_calls(cfg)
+    want = dict.fromkeys(launches, 0)
+    want["decode_attention"] = calls * (steps - 1 + 2)
+    want_device = calls * 2 * (steps - 1)
+    decode_device = decode_device_delta(da, decode_before)
     same_by_step = (eager["tokens"] == graph["tokens"]).all(0).tolist()
     bitwise = bool(torch.equal(eager["logits"], graph["logits"]))
     diff = float((eager["logits"] - graph["logits"]).abs().max())
@@ -1356,6 +1640,7 @@ def phase_decode_graph(torch, cfg, params, shape: dict, kernels: dict
     finite = bool(torch.isfinite(graph["logits"]).all())
 
     last, tok = s + steps - 1, first[:, None]
+    routes = routes_agree(torch, cfg, params, eager["cache"], tok, last)
 
     def eager_step():
         eager["step"](params, eager["cache"], tok, last)
@@ -1375,7 +1660,9 @@ def phase_decode_graph(torch, cfg, params, shape: dict, kernels: dict
                logits_max_abs=scale, logits_finite=finite,
                captures=captured, capture_ms=graph["step"].graph.capture_ms,
                syncs_beside_graph=noise["syncs"], launches=launches,
-               sync_free_eager_step=True)
+               expected_launches=want, decode_device_launches=decode_device,
+               expected_decode_device_launches=want_device,
+               sync_free_eager_step=True, plain_vs_kernel=routes)
     for name, fn in (("eager", eager_step), ("graph", graph_step)):
         out[f"{name}_ms"], out[f"{name}_ms_all"] = step_ms(torch, fn, 8)
         prof = profile_call(torch, fn,
@@ -1384,6 +1671,24 @@ def phase_decode_graph(torch, cfg, params, shape: dict, kernels: dict
             "wall_ms", "device_busy_ms", "device_idle_share", "top")}
     out["graph_device_span_ms"] = device_span_ms(torch, graph_step)
     graph["step"].close()
+    # the plain route's replayed step, its graph captured on the same cache
+    # once the kernel route's is released (gemma2's serve is at 79 GB)
+    plain = make_decode_step(cfg, graph=True, use_kernel=False)
+
+    def plain_step():
+        plain(params, graph["cache"], tok, last)
+
+    plain_before = da.kernel_launches(da._lib())
+    out["prior_route"] = "plain"
+    out["prior_ms"], out["prior_ms_all"] = step_ms(torch, plain_step, 8)
+    prof = profile_call(torch, plain_step,
+                        f"profile_{cfg.name}_decode_graph_plain.txt")
+    out["prior_profile"] = {k: prof[k] for k in (
+        "wall_ms", "device_busy_ms", "device_idle_share", "top")}
+    out["prior_device_span_ms"] = device_span_ms(torch, plain_step)
+    plain.close()
+    plain_launched = decode_device_delta(da, plain_before)
+    out["prior_decode_device_launches"] = plain_launched
     emit("decode_graph", **out)
     if not all(same_by_step):
         fail(f"{cfg.name}: the decode graph's tokens differ from the eager "
@@ -1391,9 +1696,88 @@ def phase_decode_graph(torch, cfg, params, shape: dict, kernels: dict
     if not finite or (not bitwise and diff > 0.05 * scale):
         fail(f"{cfg.name}: the decode graph's last logits differ from the "
              f"eager step's by {diff} (range {scale})")
-    if captured != 1 or any(launches.values()):
+    if captured != 1 or launches != want or decode_device != want_device \
+            or plain_launched:
         fail(f"{cfg.name}: decode made {captured} captures and launched "
-             f"{launches}")
+             f"{launches} (expected {want}), the device counted "
+             f"{decode_device} decode launches (expected {want_device}), "
+             f"the plain route {plain_launched}")
+    if not routes["ok"]:
+        fail(f"{cfg.name}: the plain route's decode step differs from the "
+             f"kernel route's: {routes}")
+    return out
+
+
+def top1_rule(torch, cfg, lk, lp) -> dict:
+    """The dense paths' rule for kernel-route logits ``lk`` against the
+    plain route's ``lp``: within 5% of the plain logits' range, and the
+    same top-1 token on every row whose top two the plain route does not
+    tie (within one unit in the last place of the model's dtype, to which
+    the head's product is rounded)."""
+    diff = float((lk - lp).abs().max())
+    scale = float(lp.abs().max())
+    same = lk.argmax(-1) == lp.argmax(-1)
+    top2 = lp.float().topk(2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]
+    ulp = torch.finfo(cfg.torch_dtype).eps * torch.exp2(
+        torch.floor(torch.log2(top2[..., 0].abs())))
+    tied = margin <= ulp
+    out = dict(finite=bool(torch.isfinite(lk).all()), max_abs_diff=diff,
+               max_abs_logit=scale,
+               top1_agreement=float(same.float().mean()),
+               top1_margins=margin.flatten().tolist(),
+               tied_rows=int(tied.sum()),
+               top1_agree_untied=bool((same | tied).all()))
+    out["ok"] = (out["finite"] and diff <= 0.05 * scale
+                 and out["top1_agree_untied"])
+    return out
+
+
+def routes_agree(torch, cfg, params, cache, tok, pos: int) -> dict:
+    """One eager decode step at ``pos`` from ``cache`` on the kernel route
+    and on the plain route (``use_kernel=False``), held by the path's rule
+    of ``check_full_width_logits``: the dense paths by ``top1_rule``; the
+    ssm, hybrid and moe paths by the same step in f32 (the weights and
+    the cache cast), the two routes within 1e-3 of the f32 logits' range,
+    and the bf16 kernel route no further from the f32 plain logits than
+    twice the bf16 plain route.  Each step writes the cache's row ``pos``
+    (the same for both routes: every layer writes its row before it
+    reads it); the SSM state, which a step advances, is put back after
+    each."""
+    import dataclasses
+
+    from repro_torch.train import make_decode_step
+
+    def logits(c, p, kcfg, use_kernel):
+        step = make_decode_step(kcfg, graph=False, use_kernel=use_kernel)
+        with torch.inference_mode():
+            saved = _tree_map(c["ssm"], lambda t: t.clone()) \
+                if "ssm" in c else None
+            step(p, c, tok, pos)
+            for k, t in (saved or {}).items():
+                c["ssm"][k].copy_(t)
+        return step.logits.float()
+
+    lk = logits(cache, params, cfg, True)
+    lp = logits(cache, params, cfg, False)
+    out = top1_rule(torch, cfg, lk, lp)
+    if cfg.family not in ("ssm", "hybrid", "moe"):
+        return out
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = _tree_map(params, lambda t: t.float())
+    c32 = _tree_map(cache, lambda t: t.float())
+    lk32 = logits(c32, p32, cfg32, True)
+    lp32 = logits(c32, p32, cfg32, False)
+    del p32, c32
+    diff32 = float((lk32 - lp32).abs().max())
+    scale32 = float(lp32.abs().max())
+    out.update(f32_max_abs_diff=diff32, f32_max_abs_logit=scale32,
+               bf16_kernel_vs_f32=float((lk - lp32).abs().max()),
+               bf16_plain_vs_f32=float((lp - lp32).abs().max()))
+    out["ok"] = (out["finite"] and bool(torch.isfinite(lk32).all())
+                 and diff32 <= 1e-3 * scale32
+                 and out["bf16_kernel_vs_f32"]
+                 <= 2 * out["bf16_plain_vs_f32"])
     return out
 
 
@@ -1432,7 +1816,8 @@ def profile_call(torch, fn, table_name: str) -> dict:
                 top=[{"op": k[:100], "device_ms": d, "calls": c}
                      for d, c, k in dev[:10]], ops=watched,
                 flash_routes_seen=flash_routes_seen(torch, events),
-                ssd_kernels_seen=ssd_kernels_seen(torch, events))
+                ssd_kernels_seen=ssd_kernels_seen(torch, events),
+                decode_kernels_seen=decode_kernels_seen(torch, events))
 
 
 # the MoE dispatch (slot cumsum, scatter_add write, gather read), the SSD
@@ -1916,9 +2301,10 @@ def phase_examples(torch, mods) -> dict:
 
 
 def check_kernel_guard(torch, mods) -> list:
-    """Both kernel wrappers refuse CUDA inputs that require grad (their
+    """Every kernel wrapper refuses CUDA inputs that require grad (its
     output would carry no grad_fn)."""
     fa, ss = mods["flash_attention_bhsd"], mods["ssd_scan_bhsd"]
+    da = mods["decode_attention"]
     q = torch.randn((1, 2, 16, 16), device="cuda", dtype=torch.bfloat16,
                     requires_grad=True)
     x = torch.randn((1, 2, 16, 8), device="cuda", dtype=torch.bfloat16,
@@ -1928,7 +2314,10 @@ def check_kernel_guard(torch, mods) -> list:
     a = -torch.rand((2,), device="cuda")
     calls = {"flash_attention_bhsd": lambda: fa.flash_attention_bhsd(
                  q, q.detach(), q.detach()),
-             "ssd_scan_bhsd": lambda: ss.ssd_scan_bhsd(x, dt, a, bc, bc, 8)}
+             "ssd_scan_bhsd": lambda: ss.ssd_scan_bhsd(x, dt, a, bc, bc, 8),
+             "decode_attention": lambda: da.decode_attention(
+                 q[:, :, 0], q.detach().transpose(1, 2),
+                 q.detach().transpose(1, 2), 3)}
     refused = []
     for name, call in calls.items():
         try:
@@ -2011,6 +2400,7 @@ def main() -> int:
               "script needs an NVIDIA GPU", file=sys.stderr)
         return 2
     from repro_torch.kernels import _build
+    from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan as ss
 
@@ -2038,22 +2428,24 @@ def main() -> int:
     if faults:
         fail(f"ptxas: {faults}")
 
-    entries = [phase_kernel(torch, fa), phase_ssd_kernel(torch, ss)]
+    entries = [phase_kernel(torch, fa), phase_ssd_kernel(torch, ss),
+               phase_decode_kernel(torch, da)]
     gc.collect()            # the plain versions' 8192-token scores
     torch.cuda.empty_cache()
     if "--kernels-only" in sys.argv[1:]:
         emit("done", seconds=time.monotonic() - t_start)
         print(json.dumps({"kernels": entries}), flush=True)
         return 0
-    mods = {e["name"]: mod for e, mod in zip(entries, (fa, ss))}
-    by_path, routes, cards = {}, {}, {}
+    mods = {e["name"]: mod for e, mod in zip(entries, (fa, ss, da))}
+    by_path, routes, cards, decode_device = {}, {}, {}, {}
     for arch in PATHS:
-        by_path[arch], routes[arch], card, modes = phase_serve(torch, arch,
-                                                               mods)
+        (by_path[arch], routes[arch], card, modes,
+         decode_device[arch]) = phase_serve(torch, arch, mods)
         if card is not None:
             cards["prefill"] = card
-        for mode, launches in (modes or {}).items():
+        for mode, (launches, device) in (modes or {}).items():
             by_path[f"{arch}/{mode}"] = launches
+            decode_device[f"{arch}/{mode}"] = device
         gc.collect()                    # free the model before the next
         torch.cuda.empty_cache()
     train, cards["train_step"] = phase_train(torch, mods)
@@ -2070,6 +2462,14 @@ def main() -> int:
         e["launches_by_route"] = {
             r: sum(routes[a][e["name"]][r] for a in routes)
             for r in routes[PATHS[0]][e["name"]]}
+    # the decode kernel runs in CUDA graph replays, which its wrapper does
+    # not see: its launches are the device's count of executed calls, the
+    # wrapper's (the eager steps and the captures) beside them
+    e = entries[2]
+    e["host_launches_by_path"] = dict(e["launches_by_path"])
+    e["host_launches"] = e["launches"]
+    e["launches_by_path"].update(decode_device)
+    e["launches"] = sum(decode_device.values())
 
     emit("done", seconds=time.monotonic() - t_start)
     print(json.dumps({"kernels": entries}), flush=True)

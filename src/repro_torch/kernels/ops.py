@@ -1,8 +1,9 @@
 """Dispatch wrappers: model layout in, kernel layout inside.
 
-``flash_attention`` / ``ssd_scan`` are what the model layers call when
-``use_kernel=True``.  On CUDA tensors they launch the hand-written
-kernels; on CPU tensors the kernels' wrappers take their plain versions.
+``flash_attention`` / ``ssd_scan`` / ``decode_attention`` are what the
+model layers call when ``use_kernel=True``.  On CUDA tensors they launch
+the hand-written kernels; on CPU tensors the kernels' wrappers take their
+plain versions.
 """
 from __future__ import annotations
 
@@ -10,6 +11,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from . import decode_attention as _decode
 from .flash_attention import flash_attention_bhsd
 from .ssd_scan import ssd_scan_bhsd
 
@@ -48,3 +50,13 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         ct = c.transpose(1, 2).contiguous()
     y, state = ssd_scan_bhsd(xt, dtt, a.float().contiguous(), bt, ct, chunk)
     return y.transpose(1, 2), state
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     pos, *, window: int = 0, logit_cap: float = 0.0,
+                     all_rows: bool = False) -> torch.Tensor:
+    """Model layout q (B,1,nq,D), k/v (B,T,nkv,D) (the cache, read in
+    place: no transpose, no copy) -> (B,1,nq,D) f32."""
+    out = _decode.decode_attention(q[:, 0], k, v, pos, window=window,
+                                   logit_cap=logit_cap, all_rows=all_rows)
+    return out[:, None]

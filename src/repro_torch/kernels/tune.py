@@ -2,7 +2,8 @@
 
 Run on a CUDA card from the repo root:
 
-    PYTHONPATH=src python -m repro_torch.kernels.tune [--after-gemm | --ssd]
+    PYTHONPATH=src python -m repro_torch.kernels.tune \
+        [--after-gemm | --ssd | --decode]
 
 Flash attention, ``wgmma_bf16`` route (D = 64 and 128): one build of
 ``csrc/flash_attention.cu`` per (FLASH_WG_BK, FLASH_WG_ST,
@@ -28,6 +29,11 @@ name and power limit, then one JSON line per variant and shape with its
 times and its ptxas registers, spills and warnings.
 
 ``--ssd`` builds and times only the SSD scan's variants.
+``--decode`` builds decode attention and times it at every split count
+from 1 to 8, each checked against the plain version, at each serve
+path's decode shape at its last row (bf16) and at command-r-plus-104b's
+12 query heads a kv head (``splits_ms`` lines, beside the count the
+wrapper's rule picks, ``rule``).
 ``--after-gemm`` instead times the default build of flash at gemma2-27b's
 8192-token shapes (one sequence and its serve's two) back to back and
 right after bf16 GEMMs of its MLP's size, as its prefill runs it, with
@@ -43,6 +49,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from . import decode_attention as da
 from . import flash_attention as fa
 from . import ssd_scan as ss
 
@@ -75,6 +82,17 @@ GEMM_LOAD = (16384, 4608, 36864)
 # B, H, S, P, N, chunk
 SSD_SHAPES = {"mamba2": (4, 64, 512, 64, 128, 256),
               "zamba2": (4, 80, 512, 64, 64, 256)}
+# B, nq, nkv, T, D, window, cap, all rows: each serve path's decode shape
+DECODE_SHAPES = {"codeqwen": (4, 32, 32, 528, 128, 0, 0.0, False),
+                 "gemma2_local": (2, 32, 16, 8208, 128, 4096, 50.0, False),
+                 "gemma2_global": (2, 32, 16, 8208, 128, 0, 50.0, False),
+                 "nemotron": (4, 48, 8, 528, 128, 0, 0.0, False),
+                 "chameleon": (4, 64, 8, 528, 128, 0, 0.0, False),
+                 "granite": (4, 24, 8, 528, 64, 0, 0.0, False),
+                 "whisper_self": (4, 20, 20, 528, 64, 0, 0.0, False),
+                 "whisper_cross": (4, 20, 20, 66, 64, 0, 0.0, True),
+                 "zamba2": (4, 32, 32, 528, 80, 0, 0.0, False),
+                 "command_r_plus": (4, 96, 8, 528, 128, 0, 0.0, False)}
 TOL = 2e-2
 
 
@@ -210,6 +228,38 @@ def _ssd_sweep(randn) -> None:
            _ssd_run, lambda args: ss.ssd_scan_plain(*args))
 
 
+def _decode_run(lib, args, splits):
+    q, k, v, pos, window, cap, all_rows = args
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    da.launch(lib, q, k, v, None if all_rows else pos, out, window, cap,
+              splits)
+    return (out,)
+
+
+def _decode_sweep(randn) -> None:
+    """Decode attention at every split count, checked and timed, at the
+    ``DECODE_SHAPES``, beside the wrapper's rule."""
+    lib = da._lib()
+    for name, (b, nq, nkv, t, d, window, cap, rows) in DECODE_SHAPES.items():
+        args = (randn(b, nq, d).bfloat16(), randn(b, t, nkv, d).bfloat16(),
+                randn(b, t, nkv, d).bfloat16(),
+                torch.tensor(t - 1, device="cuda"), window, cap, rows)
+        want = (da.decode_attention_plain(*args[:4], window=window,
+                                          logit_cap=cap, all_rows=rows),)
+        rule = da.num_splits(b, nkv, nq // nkv, da.row_bound(t, window, rows),
+                             da.sm_count(args[0].device))
+        ms = {}
+        for s in range(1, da.MAX_SPLITS + 1):
+            _check(f"decode_attention {name} splits {s}",
+                   _decode_run(lib, args, s), want)
+            ms[s] = _ms(lambda: _decode_run(lib, args, s))
+        print(json.dumps({"source": "decode_attention", "shape": name,
+                          "splits_ms": ms, "rule": rule,
+                          "ptxas": _build.ptxas_summary("decode_attention")}),
+              flush=True)
+        del args, want
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--after-gemm", action="store_true",
@@ -217,6 +267,9 @@ def main() -> int:
                          "8192-token shapes")
     ap.add_argument("--ssd", action="store_true",
                     help="only build and time the SSD scan's variants")
+    ap.add_argument("--decode", action="store_true",
+                    help="only build and time decode attention's split "
+                         "counts")
     args = ap.parse_args()
     after_gemm, ssd_only = args.after_gemm, args.ssd
     if not torch.cuda.is_available():
@@ -231,6 +284,10 @@ def main() -> int:
     def randn(*shape, scale=1.0):
         return scale * torch.randn(shape, generator=gen, device="cuda")
 
+    if args.decode:
+        _build.build(["decode_attention"])
+        _decode_sweep(randn)
+        return 0
     if after_gemm:
         flash_after_gemm({
             n: (randn(b, hq, s, d).bfloat16(),

@@ -14,8 +14,9 @@ session pays translate+map, every later one is a template-cache hit.
 It serves every family (dense, vlm, moe, ssm, hybrid, encdec).  On CUDA,
 prefill self-attention (the whisper encoder's too) runs the hand-written
 flash-attention kernel and the Mamba2 layers' prefill scan the
-hand-written SSD kernel; decode, cross-attention, the MoE dispatch and
-the projections are torch ops.  Each decode app captures its
+hand-written SSD kernel; the decode's attention over the KV and cross
+caches the hand-written decode kernel; prefill cross-attention, the MoE
+dispatch and the projections are torch ops.  Each decode app captures its
 microbatch's decode step as a CUDA graph on its first step and replays
 it for the rest (``train.steps.DecodeGraph``; eager on the CPU), and
 frees the graph when it returns.  encdec prompts come with f32 zero frames

@@ -12,20 +12,24 @@ Supports:
 * attention logit soft-capping (gemma2),
 * qk rms-norm (chameleon),
 * decode against a (batch, max_seq, kv_heads, head_dim) cache written in
-  place, at a position given as an int or as a device tensor,
+  place, at a position given as an int or as a device tensor; with
+  ``use_kernel=True`` the attention over the cache goes through
+  ``kernels.ops.decode_attention`` (a hand-written CUDA kernel that reads
+  the cache where it lies), else the kernel's plain version (torch ops),
 * cross-attention (whisper decoder): full-sequence against the encoder
-  output, decode against the cached encoder K/V; always torch ops, as in
-  the reference.
+  output (torch ops, as in the reference), decode against the cached
+  encoder K/V (the decode kernel over every row with ``use_kernel=True``).
 Projections promote mixed dtypes as JAX does (``common.einsum``): the
 whisper encoder runs f32 activations through bf16 weights.
 """
 from __future__ import annotations
 
-import math
 from typing import Dict, Optional, Tuple
 
 import torch
 
+from ..kernels.decode_attention import decode_attention_plain
+from ..kernels.ref import gqa_out, gqa_scores
 from .common import (ArchConfig, apply_rope, dense_init, einsum, rms_norm,
                      softcap)
 
@@ -77,23 +81,6 @@ def _project_qkv(p: Params, x: torch.Tensor, cfg: ArchConfig,
     return q, k, v
 
 
-def _gqa_scores(q: torch.Tensor, k: torch.Tensor,
-                cfg: ArchConfig) -> torch.Tensor:
-    """q: (B,S,nq,hd), k: (B,T,nkv,hd) -> scores (B,nkv,G,S,T), f32."""
-    b, s, nq, hd = q.shape
-    nkv = k.shape[2]
-    qg = q.reshape(b, s, nkv, nq // nkv, hd)
-    scores = torch.einsum("bskgd,btkd->bkgst", qg.float(), k.float())
-    return scores / math.sqrt(hd)
-
-
-def _gqa_out(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """probs: (B,nkv,G,S,T), v: (B,T,nkv,hd) -> (B,S,nq,hd), f32."""
-    b, nkv, g, s, t = probs.shape
-    out = torch.einsum("bkgst,btkd->bskgd", probs, v.float())
-    return out.reshape(b, s, nkv * g, -1)
-
-
 def _out_proj(p: Params, out: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     y = einsum("bshk,hkd->bsd", out, p["wo"])
     if cfg.use_bias:
@@ -114,7 +101,7 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         from ..kernels import ops as kops
         return kops.flash_attention(q, k, v, causal=causal, window=window,
                                     logit_cap=cfg.attn_softcap)
-    scores = softcap(_gqa_scores(q, k, cfg), cfg.attn_softcap)
+    scores = softcap(gqa_scores(q, k), cfg.attn_softcap)
     if causal or window:
         qpos = positions[:, None, None, :, None]          # (B,1,1,S,1)
         kpos = positions[:, None, None, None, :]          # (B,1,1,1,T)
@@ -126,7 +113,7 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         scores = scores.masked_fill(~mask, -1e30)
     probs = torch.softmax(scores, dim=-1)
     del scores          # one S x S tensor fewer while the product runs
-    return _gqa_out(probs, v)
+    return gqa_out(probs, v)
 
 
 def attention(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
@@ -186,7 +173,8 @@ def _write_row(buf: torch.Tensor, pos, row: torch.Tensor) -> None:
 
 def decode_attention(p: Params, x: torch.Tensor, cache: Params, pos,
                      cfg: ArchConfig, *, window: int = 0,
-                     use_rope: bool = True) -> Tuple[torch.Tensor, Params]:
+                     use_rope: bool = True, use_kernel: bool = False
+                     ) -> Tuple[torch.Tensor, Params]:
     """One-token decode.  x: (B,1,d); cache k/v: (B,T,nkv,hd).
 
     ``pos``, the new token's position, is an int or a 0-d int64 tensor on
@@ -194,31 +182,39 @@ def decode_attention(p: Params, x: torch.Tensor, cache: Params, pos,
     reads it from a buffer, so one capture serves every position); both
     give the same bits.  The new key and value are written into the cache
     in place at ``pos`` (the JAX version returns a fresh cache from
-    ``dynamic_update_slice``); the returned cache is the same tensors."""
+    ``dynamic_update_slice``); the returned cache is the same tensors.
+    The attention over the cache is ``kernels.ops.decode_attention`` with
+    ``use_kernel`` (the CUDA kernel on CUDA tensors), else its plain
+    version, the torch ops of the reference's formula."""
     b = x.shape[0]
     at = position(pos, x.device)
     positions = at.view(1, 1).expand(b, 1)
-    t_max = cache["k"].shape[1]
     q, k_new, v_new = _project_qkv(p, x, cfg, positions, use_rope=use_rope)
     _write_row(cache["k"], pos, k_new)
     _write_row(cache["v"], pos, v_new)
-    scores = softcap(_gqa_scores(q, cache["k"], cfg), cfg.attn_softcap)
-    kpos = torch.arange(t_max, device=x.device)[None, None, None, None, :]
-    mask = kpos <= at
-    if window:
-        mask = mask & (at - kpos < window)
-    scores = scores.masked_fill(~mask, -1e30)
-    out = _gqa_out(torch.softmax(scores, dim=-1), cache["v"]).to(x.dtype)
-    return _out_proj(p, out, cfg), cache
+    if use_kernel:
+        from ..kernels import ops as kops
+        attend = kops.decode_attention
+    else:
+        attend = decode_attention_plain
+    out = attend(q, cache["k"], cache["v"], at, window=window,
+                 logit_cap=cfg.attn_softcap)
+    return _out_proj(p, out.to(x.dtype), cfg), cache
 
 
 def decode_cross_attention(p: Params, x: torch.Tensor, k: torch.Tensor,
-                           v: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+                           v: torch.Tensor, cfg: ArchConfig, *,
+                           use_kernel: bool = False) -> torch.Tensor:
     """Cross-attention of x (B,1,d) against cached encoder K/V (B,T,nkv,hd),
-    with no mask: every cache row is attended, the zero rows past the
-    encoder output too, as in the reference (ROADMAP queue 3)."""
+    with no mask and no softcap: every cache row is attended, the zero
+    rows past the encoder output too, as in the reference (ROADMAP queue
+    3); through ``kernels.ops.decode_attention`` with ``use_kernel``."""
     q = einsum("bsd,dhk->bshk", x, p["wq"])
     if cfg.use_bias:
         q = q + p["bq"]
-    probs = torch.softmax(_gqa_scores(q, k, cfg), dim=-1)
-    return _out_proj(p, _gqa_out(probs, v).to(x.dtype), cfg)
+    if use_kernel:
+        from ..kernels import ops as kops
+        out = kops.decode_attention(q, k, v, None, all_rows=True)
+    else:
+        out = decode_attention_plain(q, k, v, all_rows=True)
+    return _out_proj(p, out.to(x.dtype), cfg)

@@ -15,6 +15,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+# the model's soft-cap lives beside the attention math that the plain
+# route and the decode kernel's plain version share
+from ..kernels.ref import softcap  # noqa: F401
+
 
 def round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
@@ -216,19 +220,6 @@ def activation_fn(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
     if name == "relu2":   # nemotron squared-ReLU
         return _relu2
     raise ValueError(f"unknown activation {name!r}")
-
-
-def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
-    """``cap * tanh(x / cap)``.  A plain tensor outside autograd takes the
-    tanh and the scaling in place on the quotient: the same values, one
-    full-size temporary fewer (the plain-route prefill's f32 scores are
-    8.6 GB a sequence and layer call at gemma2-27b's 8192 tokens)."""
-    if not cap:
-        return x
-    if type(x) is torch.Tensor and not (torch.is_grad_enabled()
-                                        and x.requires_grad):
-        return x.div(cap).tanh_().mul_(cap)
-    return cap * torch.tanh(x / cap)
 
 
 def rope_freqs(head_dim: int, theta: float,

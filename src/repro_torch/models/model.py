@@ -440,27 +440,30 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, *,
 
 def _decode_block(p: Dict[str, Any], h: torch.Tensor, kv: Dict[str, Any],
                   pos: Position, cfg: ArchConfig, window: int,
-                  cross: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-                  ) -> torch.Tensor:
+                  cross: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                  use_kernel: bool = False) -> torch.Tensor:
     """One block for one token against its KV cache: attention (no rope
     for encdec), cross-attention against ``cross`` = the cached encoder
     (K, V) for encdec, then the MLP or (moe, one dispatch group) the
-    experts."""
+    experts.  ``use_kernel`` sends both attentions to the decode kernel."""
     a, _ = decode_attention(p["attn"], rms_norm(h, p["attn_norm"]), kv, pos,
                             cfg, window=window,
-                            use_rope=cfg.family != "encdec")
+                            use_rope=cfg.family != "encdec",
+                            use_kernel=use_kernel)
     h = h + a
     if cross is not None:
         h = h + decode_cross_attention(p["cross"],
                                        rms_norm(h, p["cross_norm"]),
-                                       cross[0], cross[1], cfg)
+                                       cross[0], cross[1], cfg,
+                                       use_kernel=use_kernel)
     m, _ = _ffn(p, rms_norm(h, p["mlp_norm"]), cfg, num_groups=1)
     return h + m
 
 
 def decode_step(params: Dict[str, Any], cfg: ArchConfig,
                 cache: Dict[str, Any], tokens: torch.Tensor,
-                pos: Position) -> Tuple[torch.Tensor, Dict[str, Any]]:
+                pos: Position, *, use_kernel: bool = False
+                ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One serve step: tokens (B,1) at position ``pos`` -> (logits, cache).
 
     ``pos`` is an int or a 0-d int64 tensor on the tokens' device, as the
@@ -471,7 +474,10 @@ def decode_step(params: Dict[str, Any], cfg: ArchConfig,
     f32 from the first step on, as in the reference (see
     ``ssm.mamba2_decode_step``): a cache whose state is still in the model's
     dtype gets a new f32 state tensor.  encdec adds the sinusoid row
-    ``pos`` of the cache's length (as the reference slices it)."""
+    ``pos`` of the cache's length (as the reference slices it).
+    ``use_kernel`` sends every attention over a cache (self and cross)
+    to the decode kernel (``kernels.ops.decode_attention``); the default
+    is its plain version, the torch ops the dry-run traces."""
     _check_family(cfg)
     if cfg.family == "encdec":
         table = _sinusoid(cache["kv"]["k"].shape[2], cfg.d_model,
@@ -487,7 +493,7 @@ def decode_step(params: Dict[str, Any], cfg: ArchConfig,
                      if cfg.family == "encdec" else None)
             h = _decode_block(_layer(params["layers"], i), h,
                               _layer(cache["kv"], i), pos, cfg, window,
-                              cross)
+                              cross, use_kernel)
         return logits_fn(params, cfg, h), cache
     ssm = cache["ssm"]
     states = ssm["state"]
@@ -504,7 +510,7 @@ def decode_step(params: Dict[str, Any], cfg: ArchConfig,
         g = _shared_after(cfg, i)
         if g >= 0:
             h = _decode_block(params["shared"], h, _layer(cache["kv"], g),
-                              pos, cfg, 0)
+                              pos, cfg, 0, use_kernel=use_kernel)
     ssm["state"] = states
     return logits_fn(params, cfg, h), cache
 

@@ -22,7 +22,8 @@ The serve steps are pure functions of (params, inputs) except that the
 caches (KV and SSM) are updated in place; they are the payloads of the
 serve Application Drops.  On CUDA the decode step is captured once per
 cache as a CUDA graph and replayed (``DecodeGraph``), the counterpart of
-the reference's jitted decode step.
+the reference's jitted decode step, and its attention over the caches is
+the hand-written decode kernel (``kernels.decode_attention``).
 """
 from __future__ import annotations
 
@@ -174,10 +175,11 @@ def make_prefill_step(cfg: ArchConfig, *, use_kernel: Optional[bool] = None
     return prefill_step
 
 
-def _greedy(cfg: ArchConfig, params, cache, tokens: torch.Tensor, pos
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _greedy(cfg: ArchConfig, params, cache, tokens: torch.Tensor, pos,
+            use_kernel: bool) -> Tuple[torch.Tensor, torch.Tensor]:
     """One decode step: (greedy next token (B, 1) int32, logits)."""
-    logits, _ = M.decode_step(params, cfg, cache, tokens, pos)
+    logits, _ = M.decode_step(params, cfg, cache, tokens, pos,
+                              use_kernel=use_kernel)
     tok = torch.argmax(logits[:, -1, :cfg.vocab_size], dim=-1)
     return tok.to(torch.int32)[:, None], logits
 
@@ -231,6 +233,9 @@ class DecodeGraph:
     driver runs decode apps in node threads) neither fails nor
     invalidates one.  A failed capture or replay raises.
 
+    ``use_kernel`` sends the step's attention to the decode kernel, in the
+    eager first step and in the capture alike.
+
     ``counts`` tallies captures and replays process-wide (the replays of a
     graph are added when it is released), so that a run can show it went
     through graphs."""
@@ -238,14 +243,15 @@ class DecodeGraph:
     counts = {"captures": 0, "replays": 0}
 
     def __init__(self, cfg: ArchConfig, params, cache: Dict[str, Any],
-                 tokens: torch.Tensor, pos):
+                 tokens: torch.Tensor, pos, use_kernel: bool = True):
         dev = tokens.device
         self.params, self.cache = params, cache
         self.tokens = tokens.to(torch.int32, copy=True)
         self.pos = torch.empty((), dtype=torch.int64, device=dev)
         _set_position(self.pos, pos)
         self.first, self.first_logits = _greedy(cfg, params, cache,
-                                                self.tokens, self.pos)
+                                                self.tokens, self.pos,
+                                                use_kernel)
         self.graph = torch.cuda.CUDAGraph()
         self.replays = 0
         with _CAPTURE_LOCK:
@@ -259,7 +265,8 @@ class DecodeGraph:
                 self.graph.capture_begin(capture_error_mode="thread_local")
                 try:
                     self.next, self.logits = _greedy(cfg, params, cache,
-                                                     self.tokens, self.pos)
+                                                     self.tokens, self.pos,
+                                                     use_kernel)
                 finally:
                     self.graph.capture_end()
             torch.cuda.current_stream(dev).wait_stream(stream)
@@ -291,8 +298,9 @@ class DecodeStep:
     (B, 1, V) (a graph's static output: the next replay overwrites it);
     ``graph`` the current ``DecodeGraph`` or None."""
 
-    def __init__(self, cfg: ArchConfig, graph: Optional[bool]):
-        self.cfg, self.use_graph = cfg, graph
+    def __init__(self, cfg: ArchConfig, graph: Optional[bool],
+                 use_kernel: Optional[bool] = None):
+        self.cfg, self.use_graph, self.use_kernel = cfg, graph, use_kernel
         self.graph: Optional[DecodeGraph] = None
         self.logits: Optional[torch.Tensor] = None
 
@@ -302,16 +310,17 @@ class DecodeStep:
         if self.use_graph and not cuda:
             raise ValueError("make_decode_step(graph=True) captures a CUDA "
                              f"graph; the tokens are on {tokens.device}")
+        kernel = cuda if self.use_kernel is None else self.use_kernel
         with torch.inference_mode():
             if not (cuda if self.use_graph is None else self.use_graph):
                 tok, self.logits = _greedy(self.cfg, params, cache, tokens,
-                                           pos)
+                                           pos, kernel)
                 return tok, cache
             g = self.graph
             if g is None or g.cache is not cache or g.params is not params:
                 self.close()
                 g = self.graph = DecodeGraph(self.cfg, params, cache,
-                                             tokens, pos)
+                                             tokens, pos, kernel)
                 self.logits = g.first_logits
                 return g.first, cache
             tok = g.replay(tokens, pos)
@@ -325,8 +334,8 @@ class DecodeStep:
         self.graph = self.logits = None
 
 
-def make_decode_step(cfg: ArchConfig, *, graph: Optional[bool] = None
-                     ) -> DecodeStep:
+def make_decode_step(cfg: ArchConfig, *, graph: Optional[bool] = None,
+                     use_kernel: Optional[bool] = None) -> DecodeStep:
     """``decode_one(params, cache, tokens, pos) -> (next_tok (B,1), cache)``.
 
     ``pos`` is an int or a 0-d int64 tensor on the tokens' device.
@@ -336,8 +345,12 @@ def make_decode_step(cfg: ArchConfig, *, graph: Optional[bool] = None
     on either device.  A graph belongs to one (params, cache): the first
     step on a cache captures it, later steps on that cache replay it, a
     step on another cache captures anew.  ``decode_one.close()`` frees it.
+    ``use_kernel=None`` sends the attention over the caches to the decode
+    kernel (``kernels.ops.decode_attention``) when the tokens are on CUDA
+    and to its plain version (torch ops) otherwise, as
+    ``make_prefill_step`` does; ``True`` / ``False`` choose either.
     """
-    return DecodeStep(cfg, graph)
+    return DecodeStep(cfg, graph, use_kernel)
 
 
 def decode_fn(cfg: ArchConfig, params: Any, cache: Dict[str, Any],
