@@ -37,11 +37,13 @@ no result):
    option case in f32 and in bf16 (GQA 1:1 to 12:1, D 16 to 256, a window
    over several splits, a position in the first split, the last row, the
    softcap, every row visible, K and V strided views of one tensor) and
-   each serve path's decode shape at its last position, each held to its
-   plain version within 2e-5 x max|V| and its route read from the
-   library's device counter; each case's kernel, plain and bound times,
-   at the path shapes also one library call (SDPA with a row mask, or for
-   gemma2's capped shapes a compiled ``flex_attention``).
+   each serve path's decode shape at its last position, each on every
+   route that takes it (``splitk_f32``; ``splitk_bf16`` and, at D a
+   multiple of 16, ``mma_bf16``), each launch held to its plain version
+   within 2e-5 x max|V| and to one launch on its route by the library's
+   device counter; the routes timed in turns beside the plain version and
+   the bound, at the path shapes also one library call (SDPA with a row
+   mask, or for gemma2's capped shapes a compiled ``flex_attention``).
 4. serve, for each of eight paths in turn: codeqwen1.5-7b (dense, flash
    kernel), mamba2-1.3b (ssm, SSD kernel), zamba2-2.7b (hybrid, both
    kernels), granite-moe-3b-a800m (moe, flash), whisper-large-v3 (encdec,
@@ -73,7 +75,8 @@ no result):
    whisper's encoder runs f32, from the serve's f32 frames), and the
    decode kernel once per attention call per eager step and capture on
    the host and per executed step on the device (its replays are counted
-   there); and full-width prefill
+   there), on the route ``route(dtype, group, D)`` names for the path's
+   model; and full-width prefill
    logits
    through the kernels must be finite and near the plain route's (gemma2:
    one 8192-token sequence).  codeqwen1.5-7b then serves the same
@@ -768,14 +771,16 @@ def phase_ssd_kernel(torch, ss):
             "library_ms": None, "path_shapes": times}
 
 
-DECODE_KERNEL = "decode_attention_kernel"      # as a profile names it
+# the decode kernel's device functions, as a profile names them (the
+# splitk routes' and mma_bf16's)
+DECODE_KERNELS = ("decode_attention_kernel", "decode_attention_mma_kernel")
 
 
 def decode_kernels_seen(torch, events) -> int:
     """Decode-attention launches in a profile's ``key_averages()``."""
     cuda = torch.autograd.DeviceType.CUDA
-    return sum(e.count for e in events
-               if e.device_type == cuda and DECODE_KERNEL in e.key)
+    return sum(e.count for e in events if e.device_type == cuda
+               and any(f"{n}<" in e.key for n in DECODE_KERNELS))
 
 
 def decode_bound_ms(b: int, nq: int, nkv: int, d: int, rows: int,
@@ -813,10 +818,24 @@ def expected_decode_launches(cfg, apps: int, decode_steps: int) -> dict:
     return {"host": calls * min(steps, 1) * 2, "device": calls * steps}
 
 
-def decode_device_delta(da, before: dict) -> int:
-    """Decode launches the device counted since ``before``, all routes."""
+def decode_route(torch, cfg, da) -> str:
+    """The decode kernel's route on a path: the model dtype's, by its
+    query heads a kv head and head dim (whisper's self and cross caches
+    share them; an attention-free model, which launches none, counts on
+    one head's route)."""
+    group = cfg.num_heads // cfg.num_kv_heads if cfg.num_kv_heads else 1
+    return da.route(cfg.torch_dtype, group, cfg.resolved_head_dim)
+
+
+def decode_device_delta(da, before: dict, route: str) -> int:
+    """Decode launches the device counted since ``before`` on ``route``;
+    fails if another route counted any."""
     after = da.kernel_launches(da._lib())
-    return sum(after[r] - before[r] for r in after)
+    other = {r: after[r] - before[r] for r in after
+             if r != route and after[r] != before[r]}
+    if other:
+        fail(f"decode launches on {other}, expected {route} only")
+    return after[route] - before[route]
 
 
 # name, B, nq, nkv, T, D, pos, window, cap, all_rows (each in f32 and bf16)
@@ -905,15 +924,31 @@ def library_decode(torch, da, q, k, v, pos: int, opts: dict) -> tuple:
     return call, f"{name} (max_abs_err {err})"
 
 
+def decode_routes(torch, da, dtype, d: int) -> list:
+    """Every decode route that takes a cache of this dtype and head dim:
+    f32 ``splitk_f32``; bf16 ``splitk_bf16`` and, at D a multiple of 16,
+    ``mma_bf16``."""
+    if dtype == torch.float32:
+        return ["splitk_f32"]
+    return ["splitk_bf16"] + (["mma_bf16"] if d % 16 == 0 else [])
+
+
 def phase_decode_kernel(torch, da):
     """The decode kernel against its plain version on the card: every
     option case in f32 and in bf16, then each serve path's decode shape
-    (bf16, the last position); each case's route from the library's own
-    device counter, the tolerance 2e-5 x max|V| (both f32 outputs of the
-    same inputs: only the order of the sums and the exponential differ).
-    Timed per case (``cuda_ms``): the kernel, the plain version, the bound
-    (``decode_bound_ms``); at the path shapes also one library call
-    (``library_decode``) and the host time of a wrapper call."""
+    (bf16, the last position), each on every route that takes its dtype
+    and head dim (``decode_routes``): the wrapper's call on the route
+    ``route(dtype, group, D)`` names, each other route launched directly
+    (``da.launch``) with its own split rule; each launch's route read from
+    the library's own device counter (one launch, on that route), each
+    held to 2e-5 x max|V| (both f32 outputs of the same inputs: only the
+    order of the sums, the exponential and, on ``mma_bf16``, the hi + lo
+    halves of P differ).  Timed per case (``cuda_ms``), the routes in
+    turns (each, then each in reverse): every route, the plain version,
+    the bound (``decode_bound_ms``); at the path shapes also one library
+    call (``library_decode``) and the host time of a wrapper call.
+    ``prior_ms``: the old ``splitk_bf16`` route's time where the wrapper
+    takes ``mma_bf16``."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2)
     lib = da._lib()
@@ -925,7 +960,7 @@ def phase_decode_kernel(torch, da):
     cases += [(f"{n}_path", b, nq, nkv, t, d, t - 1, w, cap, rows,
                torch.bfloat16)
               for n, b, nq, nkv, t, d, w, cap, rows in DECODE_PATH_CASES]
-    worst, times = 0.0, {}
+    worst, times, checked = 0.0, {}, {}
     for name, b, nq, nkv, t, d, pos, window, cap, all_rows, dt in cases:
         def rand(*shape):
             return torch.randn(shape, generator=gen, device="cuda").to(dt)
@@ -937,51 +972,89 @@ def phase_decode_kernel(torch, da):
             k, v = rand(b, t, nkv, d), rand(b, t, nkv, d)
         at = torch.tensor(pos, device="cuda")
         opts = dict(window=window, logit_cap=cap, all_rows=all_rows)
-        route = da.route(dt)
-        before = da.kernel_launches(lib)
-        got = da.decode_attention(q, k, v, at, **opts)
-        torch.cuda.synchronize()
-        launched = {r: n - before[r] for r, n in
-                    da.kernel_launches(lib).items() if n != before[r]}
+        route = da.route(dt, nq // nkv, d)
         want = da.decode_attention_plain(q, k, v, at, **opts)
         vmax = float(v.float().abs().max())
         tol = 2e-5 * vmax
-        max_err = float((got - want).abs().max())
-        ok = bool(torch.isfinite(got).all()) and max_err <= tol \
-            and launched == {route: 1}
+        calls, per_route, ok = {}, {}, True
+        for r in decode_routes(torch, da, dt, d):
+            splits = da.splits_for(lib, r, q, k, window, all_rows)
+            if r == route:
+                calls[r] = (lambda: da.decode_attention(q, k, v, at, **opts))
+            else:
+                def call(r=r, splits=splits):
+                    out = torch.empty(q.shape, dtype=torch.float32,
+                                      device="cuda")
+                    da.launch(lib, q, k, v, None if all_rows else at, out,
+                              window, cap, splits, r)
+                    return out
+                calls[r] = call
+            before = da.kernel_launches(lib)
+            got = calls[r]()
+            torch.cuda.synchronize()
+            launched = {x: n - before[x] for x, n in
+                        da.kernel_launches(lib).items() if n != before[x]}
+            max_err = float((got - want).abs().max())
+            r_ok = bool(torch.isfinite(got).all()) and max_err <= tol \
+                and launched == {r: 1}
+            ok = ok and r_ok
+            per_route[r] = dict(splits=splits, max_abs_err=max_err,
+                                routes_launched=launched, ok=r_ok)
+            if name.endswith("_path"):
+                worst = max(worst, max_err)
+            del got
+        order = list(calls)
+        ms = {r: [] for r in order}
+        for r in order + order[::-1]:
+            ms[r].append(cuda_ms(calls[r]))
+        for r in order:
+            per_route[r]["cuda_ms"] = sum(ms[r]) / len(ms[r])
+            per_route[r]["cuda_ms_turns"] = ms[r]
         lo, end = da.visible_rows(pos, t, window, all_rows)
         rows = end - lo
-        splits = da.num_splits(b, nkv, nq // nkv,
-                               da.row_bound(t, window, all_rows),
-                               da.sm_count(q.device))
         bound_ms, bound_by = decode_bound_ms(b, nq, nkv, d, rows,
                                              q.element_size())
-        kernel_ms = cuda_ms(lambda: da.decode_attention(q, k, v, at, **opts))
+        kernel_ms = per_route[route]["cuda_ms"]
         plain_ms = cuda_ms(lambda: da.decode_attention_plain(q, k, v, at,
                                                              **opts))
         row = dict(shape=[b, nq, nkv, t, d], dtype=str(dt), route=route,
                    pos=pos, window=window, cap=cap, all_rows=all_rows,
-                   splits=splits, visible_rows=rows,
-                   routes_launched=launched, max_abs_err=max_err, tol=tol,
-                   ok=ok, cuda_ms=kernel_ms, plain_ms=plain_ms,
-                   bound_ms=bound_ms, bound_by=bound_by,
-                   share_of_bound=bound_ms / kernel_ms)
+                   splits=per_route[route]["splits"], visible_rows=rows,
+                   routes_launched=per_route[route]["routes_launched"],
+                   max_abs_err=max(x["max_abs_err"]
+                                   for x in per_route.values()),
+                   tol=tol, ok=ok, cuda_ms=kernel_ms,
+                   prior_ms=(per_route["splitk_bf16"]["cuda_ms"]
+                             if route == "mma_bf16" else None),
+                   routes=per_route, plain_ms=plain_ms, bound_ms=bound_ms,
+                   bound_by=bound_by, share_of_bound=bound_ms / kernel_ms)
         if name.endswith("_path"):
             library, note = library_decode(torch, da, q, k, v, pos, opts)
             row.update(library_ms=cuda_ms(library) if library else None,
                        library=note,
                        host_us=host_us(torch, lambda: da.decode_attention(
                            q, k, v, at, **opts)))
-            worst = max(worst, max_err)
             times[name] = row
+        else:
+            checked[name] = row
         emit("kernel_check", kernel="decode_attention", case=name, **row)
         if not ok:
-            fail(f"decode_attention case {name}: max_abs_err {max_err} "
-                 f"(tol {tol}), launched {launched} on route {route}")
-        del q, k, v, got, want
+            fail(f"decode_attention case {name}: tol {tol}, by route "
+                 f"{per_route} (the wrapper's route {route})")
+        del q, k, v, want
     t = times["codeqwen_path"]
+    # each route at the first path shape the wrapper sends to it (f32:
+    # the first option case)
+    by_route = {}
+    for name, row in list(times.items()) + list(checked.items()):
+        if row["route"] not in by_route:
+            by_route[row["route"]] = dict(
+                shape=name, ms=row["cuda_ms"], prior_ms=row["prior_ms"],
+                bound_ms=row["bound_ms"], plain_ms=row["plain_ms"],
+                library_ms=row.get("library_ms"), splits=row["splits"])
     return {"name": "decode_attention", "route": "cuda",
             "kernel_route": t["route"], "kernel_routes": list(da.ROUTES),
+            "by_route": by_route, "prior_ms": t["prior_ms"],
             "source": "src/repro_torch/csrc/decode_attention.cu",
             "replaces": "src/repro/models/attention.py:149 (jnp inside "
                         "jax.jit, src/repro/launch/serve.py:76; no Pallas "
@@ -1014,8 +1087,8 @@ def expected_launches(torch, cfg, n_micro: int, fa, ss, da=None,
             "ssd_scan_bhsd": dict.fromkeys(ss.ROUTES, 0)}
     if da is not None:
         want["decode_attention"] = dict.fromkeys(da.ROUTES, 0)
-        want["decode_attention"][da.route(dt)] = expected_decode_launches(
-            cfg, n_micro, decode_steps)["host"]
+        want["decode_attention"][decode_route(torch, cfg, da)] = \
+            expected_decode_launches(cfg, n_micro, decode_steps)["host"]
     flash = want["flash_attention_bhsd"]
     if cfg.family in ("ssm", "hybrid"):
         want["ssd_scan_bhsd"][ss.route(dt, cfg.ssm_headdim,
@@ -1105,7 +1178,8 @@ def phase_serve(torch, arch, mods):
     res = run_serving(cfg, device="cuda", params=params, **shape)
     launches, by_route = _read_counts(kernels)
     graphs = _graph_counts()
-    decode_device = decode_device_delta(da, decode_before)
+    decode_device = decode_device_delta(da, decode_before,
+                                        decode_route(torch, cfg, da))
     flash_launched = launch_delta(fa, fa._lib(), flash_before)
     ssd_launched = launch_delta(ss, ss._lib(), ssd_before)
     resp = res["responses"]
@@ -1196,7 +1270,8 @@ def phase_serve_modes(torch, cfg, params, tokens, mods) -> dict:
         res = run_serving(cfg, device="cuda", params=params, **SERVE, **kw)
         launches, by_route = _read_counts(kernels)
         graphs = _graph_counts()
-        decode_device = decode_device_delta(da, decode_before)
+        decode_device = decode_device_delta(
+            da, decode_before, decode_route(torch, cfg, da))
         same = bool(np.array_equal(res["responses"], tokens))
         row = dict(mode=mode, config=cfg.name, options=kw, **SERVE,
                    wall_s=res["wall_s"],
@@ -1511,7 +1586,8 @@ def phase_steps(torch, cfg, params, shape: dict, fa, ss, da):
         prof = profile_call(torch, fn, f"profile_{cfg.name}_{name}.txt")
         launched = launch_delta(fa, lib, before)
         ssd_launched = launch_delta(ss, ssd_lib, ssd_before)
-        decode_launched = decode_device_delta(da, decode_before)
+        decode_launched = decode_device_delta(
+            da, decode_before, decode_route(torch, cfg, da))
         want_decode = decode_attention_calls(cfg) if name == "decode_step" \
             else 0
         counted = {r: n for r, n in flash.launches_by_route.items() if n}
@@ -1632,7 +1708,8 @@ def phase_decode_graph(torch, cfg, params, shape: dict, kernels: dict, da
     want = dict.fromkeys(launches, 0)
     want["decode_attention"] = calls * (steps - 1 + 2)
     want_device = calls * 2 * (steps - 1)
-    decode_device = decode_device_delta(da, decode_before)
+    decode_device = decode_device_delta(da, decode_before,
+                                        decode_route(torch, cfg, da))
     same_by_step = (eager["tokens"] == graph["tokens"]).all(0).tolist()
     bitwise = bool(torch.equal(eager["logits"], graph["logits"]))
     diff = float((eager["logits"] - graph["logits"]).abs().max())
@@ -1687,7 +1764,8 @@ def phase_decode_graph(torch, cfg, params, shape: dict, kernels: dict, da
         "wall_ms", "device_busy_ms", "device_idle_share", "top")}
     out["prior_device_span_ms"] = device_span_ms(torch, plain_step)
     plain.close()
-    plain_launched = decode_device_delta(da, plain_before)
+    plain_launched = decode_device_delta(da, plain_before,
+                                         decode_route(torch, cfg, da))
     out["prior_decode_device_launches"] = plain_launched
     emit("decode_graph", **out)
     if not all(same_by_step):

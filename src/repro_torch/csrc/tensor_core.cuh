@@ -83,6 +83,17 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
       : "r"(smem_addr(p)));
 }
 
+// The 8 x 8 bf16 matrix whose row lane / 4, columns 2 (lane % 4) and + 1
+// this lane holds in a (the fragment layout of C above, packed), transposed
+// across the warp into the same layout.
+__device__ __forceinline__ uint32_t movmatrix_trans(uint32_t a) {
+  uint32_t d;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n"
+               : "=r"(d)
+               : "r"(a));
+  return d;
+}
+
 // d += a b, one m16n8k16 product.
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {

@@ -29,11 +29,13 @@ name and power limit, then one JSON line per variant and shape with its
 times and its ptxas registers, spills and warnings.
 
 ``--ssd`` builds and times only the SSD scan's variants.
-``--decode`` builds decode attention and times it at every split count
-from 1 to 8, each checked against the plain version, at each serve
-path's decode shape at its last row (bf16) and at command-r-plus-104b's
-12 query heads a kv head (``splits_ms`` lines, beside the count the
-wrapper's rule picks, ``rule``).
+``--decode`` builds decode attention (its default and one build per
+``DECODE_TILES`` tile of the ``mma_bf16`` route) and times both bf16
+routes at every split count from 1 to 8, each launch checked against the
+plain version, at each serve path's decode shape at its last row (bf16)
+and at command-r-plus-104b's 12 query heads a kv head (``splits_ms``
+lines by route and tile, beside the count the wrapper's rule picks from
+that build's occupancy, ``rule``, and the best count, ``best``).
 ``--after-gemm`` instead times the default build of flash at gemma2-27b's
 8192-token shapes (one sequence and its serve's two) back to back and
 right after bf16 GEMMs of its MLP's size, as its prefill runs it, with
@@ -93,6 +95,11 @@ DECODE_SHAPES = {"codeqwen": (4, 32, 32, 528, 128, 0, 0.0, False),
                  "whisper_cross": (4, 20, 20, 66, 64, 0, 0.0, True),
                  "zamba2": (4, 32, 32, 528, 80, 0, 0.0, False),
                  "command_r_plus": (4, 96, 8, 528, 128, 0, 0.0, False)}
+# mma_bf16's tiles (DECODE_MMA_ROWS, _STAGES, _WARPS: K / V rows a ring
+# stage, stages, consumer warps); None: the default build
+DECODE_DEFAULT_TILE = (64, 2, 4)
+DECODE_TILES = (None, (64, 3, 4), (32, 4, 4), (128, 2, 4), (64, 2, 2),
+                (64, 2, 8))
 TOL = 2e-2
 
 
@@ -228,35 +235,73 @@ def _ssd_sweep(randn) -> None:
            _ssd_run, lambda args: ss.ssd_scan_plain(*args))
 
 
-def _decode_run(lib, args, splits):
+def _decode_defines(v):
+    if v is None:
+        return ()
+    return (f"DECODE_MMA_ROWS={v[0]}", f"DECODE_MMA_STAGES={v[1]}",
+            f"DECODE_MMA_WARPS={v[2]}")
+
+
+def _decode_run(lib, args, splits, route):
     q, k, v, pos, window, cap, all_rows = args
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     da.launch(lib, q, k, v, None if all_rows else pos, out, window, cap,
-              splits)
-    return (out,)
+              splits, route)
+    return out
 
 
 def _decode_sweep(randn) -> None:
-    """Decode attention at every split count, checked and timed, at the
-    ``DECODE_SHAPES``, beside the wrapper's rule."""
-    lib = da._lib()
+    """Decode attention at every split count on both bf16 routes (the
+    ``mma_bf16`` route in each tile of ``DECODE_TILES``), each launch
+    checked against the plain version (2e-5 x max|V|, ``chip_smoke.py``'s
+    tolerance), then timed in turn and in reverse, at the
+    ``DECODE_SHAPES``, beside the split count the wrapper's rule picks from
+    that build's occupancy (``rule``) and the best count (``best``)."""
+    _build.build([], variants=[("decode_attention", _decode_defines(v))
+                               for v in DECODE_TILES])
+    runs = [("splitk_bf16", None)] + [("mma_bf16", v) for v in DECODE_TILES]
+    libs = {v: da._lib(_decode_defines(v)) for v in DECODE_TILES}
     for name, (b, nq, nkv, t, d, window, cap, rows) in DECODE_SHAPES.items():
         args = (randn(b, nq, d).bfloat16(), randn(b, t, nkv, d).bfloat16(),
                 randn(b, t, nkv, d).bfloat16(),
                 torch.tensor(t - 1, device="cuda"), window, cap, rows)
-        want = (da.decode_attention_plain(*args[:4], window=window,
-                                          logit_cap=cap, all_rows=rows),)
-        rule = da.num_splits(b, nkv, nq // nkv, da.row_bound(t, window, rows),
-                             da.sm_count(args[0].device))
-        ms = {}
-        for s in range(1, da.MAX_SPLITS + 1):
-            _check(f"decode_attention {name} splits {s}",
-                   _decode_run(lib, args, s), want)
-            ms[s] = _ms(lambda: _decode_run(lib, args, s))
-        print(json.dumps({"source": "decode_attention", "shape": name,
-                          "splits_ms": ms, "rule": rule,
-                          "ptxas": _build.ptxas_summary("decode_attention")}),
-              flush=True)
+        want = da.decode_attention_plain(*args[:4], window=window,
+                                         logit_cap=cap, all_rows=rows)
+        tol = 2e-5 * float(args[2].float().abs().max())
+        counts = range(1, da.MAX_SPLITS + 1)
+        for route, v in runs:
+            for s in counts:
+                err = float((_decode_run(libs[v], args, s, route)
+                             - want).abs().max())
+                if not err <= tol:
+                    raise SystemExit(f"decode_attention {name} {route} {v} "
+                                     f"splits {s}: max_abs_err {err} "
+                                     f"(tol {tol})")
+        ms = {(r, v, s): [] for r, v in runs for s in counts}
+        for order in (runs, runs[::-1]):
+            for r, v in order:
+                for s in counts:
+                    ms[(r, v, s)].append(_ms(
+                        lambda: _decode_run(libs[v], args, s, r)))
+        for r, v in runs:
+            chunks, heads = da.head_chunks(nq // nkv, r, d)
+            occ = da.occupancy(libs[v], r, d, heads)
+            rule = da.num_splits(b * nkv * chunks,
+                                 da.row_bound(t, window, rows),
+                                 2 * d * args[1].element_size(), occ)
+            mean = {s: sum(ms[(r, v, s)]) / 2 for s in counts}
+            best = min(mean, key=mean.get)
+            print(json.dumps({
+                "source": "decode_attention", "shape": name, "route": r,
+                "tile": list(v or DECODE_DEFAULT_TILE),
+                "routed": da.route(torch.bfloat16, nq // nkv, d),
+                "splits_ms": {s: ms[(r, v, s)] for s in counts},
+                "resident_blocks": occ.blocks, "rows_in_flight": occ.rows,
+                "rule": rule, "best": best,
+                "rule_over_best": mean[rule] / mean[best],
+                "ptxas": _build.ptxas_summary("decode_attention",
+                                              _decode_defines(v))}),
+                flush=True)
         del args, want
 
 
@@ -285,7 +330,6 @@ def main() -> int:
         return scale * torch.randn(shape, generator=gen, device="cuda")
 
     if args.decode:
-        _build.build(["decode_attention"])
         _decode_sweep(randn)
         return 0
     if after_gemm:

@@ -49,7 +49,19 @@ from repro_torch.models import model as TM  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 TOL = dict(atol=1e-4, rtol=1e-4)
-H100_SMS = 132
+
+
+def h100_like(per_sm, rows, sms=132, gpc=16):
+    """A made-up occupancy of the kind the card reports: ``per_sm`` blocks
+    an SM, whole clusters of s blocks within GPCs of ``gpc`` SMs, and
+    ``rows`` K / V rows in flight a block."""
+    slots = per_sm * gpc
+    return da.Occupancy({s: sms // gpc * (slots // s) * s
+                         for s in range(1, da.MAX_SPLITS + 1)}, rows)
+
+
+# the splitk routes: at most 8 blocks an SM, 128 rows in flight a block
+SPLITK_OCC = h100_like(8, 128)
 
 
 def rnd(seed, shape, scale=1.0):
@@ -230,15 +242,17 @@ def test_cpu_decode_logits_bitwise_equal_to_the_parent_formula(
 # ---------------------------------------------------------------- (b)
 
 def emulate(q, k, v, pos, window=0, cap=0.0, all_rows=False,
-            sms=H100_SMS):
-    """The kernel's algorithm on the CPU: the wrapper's split count, the
-    rows of each split from ``pos`` as the kernel works them out, a
-    partial (max, sum, P V) a split in f32, the partials combined in split
-    order (an empty one: max -inf, sum 0).  q (B, nq, D) -> f32."""
+            occ=SPLITK_OCC):
+    """The kernel's algorithm on the CPU: the wrapper's split count (from
+    a made-up occupancy ``occ``), the rows of each split from ``pos`` as
+    the kernel works them out, a partial (max, sum, P V) a split in f32,
+    the partials combined in split order (an empty one: max -inf, sum 0).
+    q (B, nq, D) -> f32."""
     b, nq, d = q.shape
     t, nkv = k.shape[1], k.shape[2]
     g = nq // nkv
-    splits = da.num_splits(b, nkv, g, da.row_bound(t, window, all_rows), sms)
+    splits = da.num_splits(b * nkv, da.row_bound(t, window, all_rows),
+                           2 * d * k.element_size(), occ)
     ranges = da.split_rows(pos, t, window, all_rows, splits)
     qf = q.float().reshape(b, nkv, g, d)
     out = torch.empty((b, nkv, g, d))
@@ -330,39 +344,76 @@ def test_emulation_cases_cover_the_split_edges():
     """The cases above hold what they are named for."""
     def ranges(name):
         b, nq, nkv, t, d, pos, window, cap, all_rows = EMULATION_CASES[name]
-        splits = da.num_splits(b, nkv, nq // nkv,
-                               da.row_bound(t, window, all_rows), H100_SMS)
+        splits = da.num_splits(b * nkv, da.row_bound(t, window, all_rows),
+                               2 * d * 4, SPLITK_OCC)
         return splits, da.split_rows(pos, t, window, all_rows, splits)
     splits, r = ranges("d128_gqa1_empty_splits")
     assert splits == 4 and r[0] == (0, 10) and all(e <= s for s, e in r[1:])
     splits, r = ranges("d80_gqa2_window_across_splits")
-    assert splits == 5 and r[0][0] == 51 and r[0][0] % da.ROW_ALIGN
+    assert splits == 3 and r[0][0] == 51 and r[0][0] % da.ROW_ALIGN
     assert r[-1][1] == 351
     splits, r = ranges("d16_gqa8_window_pos_below_it")
-    assert splits == 7 and r[:3] == [(0, 16), (16, 32), (32, 41)]
-    assert all(e <= s for s, e in r[3:])
+    assert splits == 2 and r == [(0, 32), (32, 41)]
     assert ranges("d16_mha_last")[1][-1][1] == 300
     assert ranges("d80_cross_all_rows")[1] == [(0, 112), (112, 224),
                                                (224, 300)]
     assert ranges("d64_cross_one_split")[1] == [(0, 66)]
 
 
-@pytest.mark.parametrize("b,nkv,g,rows,want", [
-    (4, 32, 1, 528, 3),       # codeqwen: 264 / 128 blocks -> 3 a kv head
-    (2, 16, 2, 8208, 7),      # gemma2 global: capped at 7
-    (2, 16, 2, 4096, 7),      # gemma2 local: its window
-    (4, 8, 6, 528, 7),        # nemotron
-    (4, 8, 8, 528, 7),        # chameleon
-    (4, 8, 3, 528, 7),        # granite
-    (4, 8, 1, 528, 5),        # 128 rows a split at one head a block
-    (4, 8, 12, 528, 5),       # command-r-plus: two chunks of 6 heads
-    (4, 20, 1, 528, 4),       # whisper self
-    (4, 20, 1, 66, 1),        # whisper cross: 66 rows, one split
-    (1, 1, 1, 10, 1),
-    (64, 64, 1, 100000, 1),   # more than enough blocks already
+# blocks resident at 1..8 splits a cluster, as the H100 (NVIDIA H100 80GB
+# HBM3, 700 W) reported them for each instance (``tune.py --decode``), and
+# the rows a block keeps in flight
+OCC = {
+    "splitk_g1_d128": da.Occupancy(dict(zip(range(1, 9), (
+        528, 528, 489, 496, 470, 474, 483, 496))), 64),
+    "splitk_g1_d64": da.Occupancy(dict(zip(range(1, 9), (
+        528, 528, 489, 496, 470, 474, 483, 496))), 128),
+    "mma_d128": da.Occupancy(dict(zip(range(1, 9), (
+        396, 396, 372, 368, 345, 372, 329, 360))), 128),
+    "mma_d64": da.Occupancy(dict(zip(range(1, 9), (
+        792, 792, 744, 744, 730, 744, 707, 736))), 128),
+    "mma_d128_16_heads": da.Occupancy(dict(zip(range(1, 9), (
+        264, 264, 237, 248, 235, 234, 224, 240))), 128),
+}
+
+
+@pytest.mark.parametrize("items,rows,row_bytes,occ,want", [
+    # the serve paths' shapes on their routes: (b, kv head, chunk)s, the
+    # static row bound, K + V bytes a row
+    (128, 528, 512, "splitk_g1_d128", 3),   # codeqwen: 3 fit one wave
+    (32, 8208, 512, "mma_d128", 5),         # gemma2 global: 10 MiB in flight
+    (32, 4096, 512, "mma_d128", 5),         # gemma2 local: its window
+    (32, 528, 512, "mma_d128", 5),          # nemotron, chameleon: 5 x 128 rows
+    (32, 528, 256, "mma_d64", 5),           # granite
+    (80, 528, 256, "splitk_g1_d64", 4),     # whisper self: 10 MiB in flight
+    (80, 66, 256, "splitk_g1_d64", 1),      # whisper cross: 66 rows, in flight
+    (128, 528, 320, "splitk_g1_d128", 3),   # zamba2 (D 80)
+    (32, 528, 512, "mma_d128_16_heads", 5),  # command-r-plus: 1 chunk
+    (1, 100000, 512, "mma_d128", 8),        # at most MAX_SPLITS
+    (1000, 100000, 512, "mma_d128", 1),     # no count fits one wave
+    (4, 10, 512, "mma_d128", 1),
 ])
-def test_num_splits(b, nkv, g, rows, want):
-    assert da.num_splits(b, nkv, g, rows, H100_SMS) == want
+def test_num_splits(items, rows, row_bytes, occ, want):
+    assert da.num_splits(items, rows, row_bytes, OCC[occ]) == want
+
+
+def test_num_splits_never_more_than_fit_one_wave():
+    """A made-up card on which clusters of more than 3 blocks fit badly:
+    the rule never picks a count whose blocks are not all resident."""
+    occ = da.Occupancy({1: 400, 2: 400, 3: 399, 4: 100, 5: 100, 6: 96,
+                        7: 98, 8: 96}, 16)
+    for items in (1, 10, 30, 100, 133, 200, 400, 401):
+        s = da.num_splits(items, 10 ** 6, 512, occ)
+        assert 1 <= s <= da.MAX_SPLITS
+        assert s == 1 or items * s <= occ.blocks[s]
+
+
+def test_split_count_reads_no_position():
+    """The count is fixed by the shape (the static row bound), so one CUDA
+    graph capture serves every position."""
+    import inspect
+    for fn in (da.num_splits, da.splits_for):
+        assert "pos" not in inspect.signature(fn).parameters
 
 
 @pytest.mark.parametrize("group,want", [
@@ -370,12 +421,232 @@ def test_num_splits(b, nkv, g, rows, want):
     (17, (3, 6)), (24, (3, 8)),
 ])
 def test_head_chunks(group, want):
-    """Groups past 8 heads go in equal chunks of at most 8, which cover
-    the group once."""
-    chunks, heads = da.head_chunks(group)
+    """On the splitk routes groups past 8 heads go in equal chunks of at
+    most 8, which cover the group once."""
+    chunks, heads = da.head_chunks(group, "splitk_bf16", 128)
     assert (chunks, heads) == want
-    assert heads <= da.MAX_GROUP and (chunks - 1) * heads < group \
-        <= chunks * heads
+    assert heads <= da.max_heads("splitk_bf16", 128) \
+        and (chunks - 1) * heads < group <= chunks * heads
+
+
+@pytest.mark.parametrize("route_name,d,group,want", [
+    ("mma_bf16", 128, 12, (1, 12)),    # command-r-plus-104b: one chunk
+    ("mma_bf16", 128, 16, (1, 16)),
+    ("mma_bf16", 64, 17, (2, 9)),
+    ("mma_bf16", 128, 24, (2, 12)),
+    ("mma_bf16", 256, 12, (2, 6)),     # D 256: 8 heads a block
+    ("mma_bf16", 80, 2, (1, 2)),
+    ("splitk_f32", 128, 12, (2, 6)),
+])
+def test_head_chunks_by_route(route_name, d, group, want):
+    chunks, heads = da.head_chunks(group, route_name, d)
+    assert (chunks, heads) == want
+    assert heads <= da.max_heads(route_name, d) \
+        and (chunks - 1) * heads < group <= chunks * heads
+
+
+@pytest.mark.parametrize("dtype,group,d,want", [
+    # the serve paths' decode shapes
+    (torch.bfloat16, 1, 128, "splitk_bf16"),     # codeqwen
+    (torch.bfloat16, 2, 128, "mma_bf16"),        # gemma2
+    (torch.bfloat16, 6, 128, "mma_bf16"),        # nemotron
+    (torch.bfloat16, 8, 128, "mma_bf16"),        # chameleon
+    (torch.bfloat16, 3, 64, "mma_bf16"),         # granite
+    (torch.bfloat16, 1, 64, "splitk_bf16"),      # whisper, self and cross
+    (torch.bfloat16, 1, 80, "splitk_bf16"),      # zamba2
+    (torch.bfloat16, 12, 128, "mma_bf16"),       # command-r-plus-104b
+    (torch.bfloat16, 2, 256, "mma_bf16"),
+    (torch.bfloat16, 2, 80, "mma_bf16"),
+    # head dims that are not a multiple of 16 keep the CUDA cores
+    (torch.bfloat16, 2, 8, "splitk_bf16"),
+    (torch.bfloat16, 8, 24, "splitk_bf16"),
+    (torch.bfloat16, 3, 40, "splitk_bf16"),
+    (torch.bfloat16, 6, 72, "splitk_bf16"),
+    (torch.bfloat16, 2, 136, "splitk_bf16"),
+    (torch.float32, 8, 128, "splitk_f32"),
+    (torch.float32, 1, 64, "splitk_f32"),
+])
+def test_route_by_dtype_group_and_head_dim(dtype, group, d, want):
+    assert da.route(dtype, group, d) == want
+
+
+# ---------------------------------------------------------------- (b')
+# The ``mma_bf16`` route's arithmetic, emulated in torch: the kernel's
+# ring of MMA_ROWS-row stages, 16-row m-tiles dealt to MMA_WARPS warps in
+# turn, each warp's online softmax over its m-tiles, bf16 q . k products
+# summed in f32, P entering P V as hi + lo bf16 halves, the row sums f32,
+# the warps and then the splits combined in order.
+
+MMA_ROWS, MMA_STAGES, MMA_WARPS = 64, 2, 4
+MMA_OCC = h100_like(3, MMA_ROWS * MMA_STAGES)
+
+
+def _bf16(t):
+    return t.bfloat16().float()
+
+
+def _weights(p, plan):
+    """P as the products see it: hi + lo bf16 halves (the kernel's), one
+    bf16 rounding ("hi"), or f32 (None)."""
+    if plan == "hi_lo":
+        hi = _bf16(p)
+        return [hi, _bf16(p - hi)]
+    return [_bf16(p)] if plan == "hi" else [p]
+
+
+def _rescale(a, m):
+    return torch.where(a == -math.inf, torch.zeros(()),
+                       torch.exp(a - torch.where(m == -math.inf,
+                                                 torch.zeros(()), m)))
+
+
+def _combine(parts):
+    """(max, sum, output) partials combined in order, as the kernel does
+    its warps' and its splits'."""
+    mx = torch.stack([m for m, _, _ in parts]).max(0).values
+    acc, den = 0.0, 0.0
+    for m, l_, a in parts:
+        f = _rescale(m, mx)
+        acc = acc + a * f[:, None]
+        den = den + l_ * f
+    return mx, den, acc
+
+
+def emulate_mma(q, k, v, pos, window=0, cap=0.0, all_rows=False,
+                occ=MMA_OCC, plan="hi_lo"):
+    """The mma_bf16 kernel's arithmetic on the CPU: bf16 q, k, v (B, nq,
+    D), (B, T, nkv, D) -> f32 (B, nq, D)."""
+    b, nq, d = q.shape
+    t, nkv = k.shape[1], k.shape[2]
+    g = nq // nkv
+    chunks, heads = da.head_chunks(g, "mma_bf16", d)
+    splits = da.num_splits(b * nkv * chunks, da.row_bound(t, window, all_rows),
+                           2 * d * k.element_size(), occ)
+    ranges = da.split_rows(pos, t, window, all_rows, splits)
+    qf = q.float().reshape(b, nkv, g, d)
+    kf, vf = k.float(), v.float()
+    scale = torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32)
+    out = torch.empty((b, nkv, g, d))
+    for bi in range(b):
+        for h in range(nkv):
+            parts = []
+            for r0, r1 in ranges:
+                warps = [(torch.full((g,), -math.inf), torch.zeros(g),
+                          torch.zeros(g, d)) for _ in range(MMA_WARPS)]
+                for row0 in range(r0, r1, MMA_ROWS):
+                    for mt in range(MMA_ROWS // 16):
+                        row = row0 + 16 * mt
+                        if row >= r1:
+                            break
+                        kk = kf[bi, row:min(row + 16, r1), h]
+                        vv = vf[bi, row:min(row + 16, r1), h]
+                        sc = (qf[bi, h] @ kk.T) * scale
+                        if cap:
+                            sc = cap * torch.tanh(sc / cap)
+                        m, l_, o = warps[mt % MMA_WARPS]
+                        mn = torch.maximum(m, sc.max(-1).values)
+                        corr = _rescale(m, mn)
+                        p = torch.exp(sc - mn[:, None])
+                        o = o * corr[:, None]
+                        for w in _weights(p, plan):
+                            o = o + w @ vv
+                        warps[mt % MMA_WARPS] = (mn, l_ * corr + p.sum(-1),
+                                                 o)
+                parts.append(_combine(warps))
+            _, den, acc = _combine(parts)
+            out[bi, h] = acc / den[:, None]
+    return out.reshape(b, nq, d)
+
+
+# name: B, nq, nkv, T, D, pos, window, cap, all_rows; the serve paths'
+# decode shapes cut to a few heads and rows (chip_smoke.DECODE_PATH_CASES)
+MMA_PATH_CASES = {
+    "codeqwen": (2, 4, 4, 300, 128, 299, 0, 0.0, False),
+    "gemma2_local": (1, 4, 2, 400, 128, 399, 200, 50.0, False),
+    "gemma2_global": (1, 4, 2, 400, 128, 399, 0, 50.0, False),
+    "nemotron": (2, 12, 2, 300, 128, 299, 0, 0.0, False),
+    "chameleon": (2, 16, 2, 300, 128, 299, 0, 0.0, False),
+    "granite": (2, 6, 2, 300, 64, 299, 0, 0.0, False),
+    "whisper_self": (2, 4, 4, 300, 64, 299, 0, 0.0, False),
+    "whisper_cross": (2, 4, 4, 66, 64, 0, 0, 0.0, True),
+    "zamba2": (2, 4, 4, 300, 80, 299, 0, 0.0, False),
+}
+# chip_smoke.DECODE_OPTION_CASES' names, each held here in bf16
+MMA_OPTION_CASES = (
+    "gqa1_d128", "gqa2_d64_last_row", "gqa3_d80", "gqa6_d128_cap50",
+    "gqa8_d64", "gqa12_d128", "window300_cap5_d80", "pos9_first_split_d128",
+    "pos0_d16_gqa8", "all_rows_d64", "d256_gqa2", "strided_kv_d128")
+
+
+def _option_case(name):
+    for n, *rest in _chip_smoke().DECODE_OPTION_CASES:
+        if n == name:
+            return tuple(rest)
+    raise KeyError(name)
+
+
+def _mma_inputs(b, nq, nkv, t, d, seed=11):
+    q = torch.from_numpy(rnd(seed, (b, nq, d))).bfloat16()
+    k = torch.from_numpy(rnd(seed + 1, (b, t, nkv, d))).bfloat16()
+    v = torch.from_numpy(rnd(seed + 2, (b, t, nkv, d))).bfloat16()
+    return q, k, v
+
+
+def _mma_case(case):
+    if case in MMA_PATH_CASES:
+        return MMA_PATH_CASES[case]
+    return _option_case(case)
+
+
+def test_mma_option_cases_are_chip_smokes():
+    assert set(MMA_OPTION_CASES) == {
+        c[0] for c in _chip_smoke().DECODE_OPTION_CASES}
+
+
+@pytest.mark.parametrize("case", sorted(MMA_PATH_CASES) +
+                         list(MMA_OPTION_CASES))
+def test_mma_rounding_plan_matches_plain_and_jax(case):
+    """Within 2e-5 x max|V| (chip_smoke.py's tolerance on the card) of the
+    plain version and of JAX's decode attention on the same bf16 values."""
+    b, nq, nkv, t, d, pos, window, cap, all_rows = _mma_case(case)
+    q, k, v = _mma_inputs(b, nq, nkv, t, d)
+    tol = 2e-5 * float(v.float().abs().max())
+    got = emulate_mma(q, k, v, pos, window, cap, all_rows)
+    plain = da.decode_attention_plain(q, k, v, torch.tensor(pos),
+                                      window=window, logit_cap=cap,
+                                      all_rows=all_rows)
+    want = jax_attend(q.float().numpy(), k.float().numpy(),
+                      v.float().numpy(), pos, window, cap, all_rows)
+    assert torch.isfinite(got).all()
+    assert float((got - plain).abs().max()) <= tol
+    assert float(np.abs(got.numpy() - want).max()) <= tol
+
+
+def test_mma_emulation_covers_splits_tiles_and_warps():
+    """The path analogues cross several splits, several stages a split and
+    every warp; command-r-plus's 12 heads are one chunk."""
+    def splits(case):
+        b, nq, nkv, t, d, pos, window, cap, all_rows = MMA_PATH_CASES[case]
+        return da.num_splits(b * nkv, da.row_bound(t, window, all_rows),
+                             4 * d, MMA_OCC)
+    assert splits("nemotron") == 3 and splits("gemma2_global") == 4
+    assert splits("gemma2_local") == 2 and splits("whisper_cross") == 1
+    assert da.split_rows(399, 400, 0, False, 4)[0] == (0, 112)   # 2 stages
+    assert da.head_chunks(12, "mma_bf16", 128) == (1, 12)
+
+
+def test_mma_one_rounding_of_p_would_miss_the_tolerance():
+    """Why P enters as hi + lo: one bf16 rounding of the f32 weights moves
+    the output by up to 2^-9 of |V| (here over 2e-5 x max|V|); the f32
+    weights and the hi + lo halves stay within it."""
+    b, nq, nkv, t, d, pos, window, cap, all_rows = MMA_PATH_CASES["nemotron"]
+    q, k, v = _mma_inputs(b, nq, nkv, t, d)
+    tol = 2e-5 * float(v.float().abs().max())
+    plain = da.decode_attention_plain(q, k, v, torch.tensor(pos))
+    err = {plan: float((emulate_mma(q, k, v, pos, plan=plan) - plain)
+                       .abs().max()) for plan in ("hi_lo", "hi", None)}
+    assert err["hi_lo"] <= tol and err[None] <= tol
+    assert err["hi"] > tol
 
 
 def test_split_rows_cover_the_visible_rows_once():
@@ -494,10 +765,11 @@ def test_build_lists_the_source():
     assert "decode_attention" in _build.KERNEL_SOURCES
     assert (_build.CSRC / "decode_attention.cu").exists()
     assert _build.lib_path("decode_attention").parent == _build.BUILD_DIR
-    assert set(da.ROUTES) == {da.route(torch.float32),
-                              da.route(torch.bfloat16)}
+    assert set(da.ROUTES) == {da.route(torch.float32, 1, 64),
+                              da.route(torch.bfloat16, 1, 64),
+                              da.route(torch.bfloat16, 2, 64)}
     with pytest.raises(ValueError):
-        da.route(torch.float16)
+        da.route(torch.float16, 1, 64)
 
 
 class _CountingLib:
@@ -511,9 +783,10 @@ class _CountingLib:
 
 
 def test_kernel_launches_reads_the_device_counters_in_route_order():
-    lib = _CountingLib([3, 40])
-    assert da.kernel_launches(lib) == {"splitk_f32": 3, "splitk_bf16": 40}
-    lib.counts = [3, 2 ** 64 - 1]       # the copy failed
+    lib = _CountingLib([3, 40, 7])
+    assert da.kernel_launches(lib) == {"splitk_f32": 3, "splitk_bf16": 40,
+                                       "mma_bf16": 7}
+    lib.counts = [3, 40, 2 ** 64 - 1]       # the copy failed
     with pytest.raises(RuntimeError, match="failed"):
         da.kernel_launches(lib)
 
@@ -544,6 +817,29 @@ EXPECTED_DECODE_LAUNCHES = {
 }
 
 
+# each config's decode route (bf16, its group and head dim)
+DECODE_ROUTES = {
+    "codeqwen15_7b": "splitk_bf16",
+    "mamba2_1_3b": "splitk_bf16",         # no attention: nothing launches
+    "zamba2_2_7b": "splitk_bf16",
+    "granite_moe_3b_a800m": "mma_bf16",
+    "whisper_large_v3": "splitk_bf16",
+    "gemma2_27b": "mma_bf16",
+    "nemotron_4_15b": "mma_bf16",
+    "chameleon_34b": "mma_bf16",
+    "command_r_plus_104b": "mma_bf16",
+    "grok_1_314b": "mma_bf16",
+}
+
+
+@pytest.mark.parametrize("arch", sorted(DECODE_ROUTES))
+def test_chip_smoke_decode_route_of_every_config(arch):
+    from repro_torch.configs import ARCH_NAMES, get_config
+    assert set(DECODE_ROUTES) == set(ARCH_NAMES)
+    assert _chip_smoke().decode_route(torch, get_config(arch), da) \
+        == DECODE_ROUTES[arch]
+
+
 @pytest.mark.parametrize("arch", sorted(EXPECTED_DECODE_LAUNCHES))
 def test_chip_smoke_expected_decode_launches(arch):
     from repro_torch.configs import get_config
@@ -560,7 +856,10 @@ def test_chip_smoke_expected_decode_launches(arch):
         == {"host": host, "device": device}
     want = cs.expected_launches(torch, cfg, apps, fa, ss, da,
                                 shape["decode_steps"])
-    assert want["decode_attention"] == {"splitk_f32": 0, "splitk_bf16": host}
+    on = DECODE_ROUTES[arch]
+    assert cs.decode_route(torch, cfg, da) == on
+    assert want["decode_attention"] == {r: host if r == on else 0
+                                        for r in da.ROUTES}
     # three sessions of the engine modes: three times the apps
     assert cs.expected_decode_launches(cfg, 3 * apps, 16) == {
         "host": 3 * host, "device": 3 * device}
@@ -605,7 +904,10 @@ def test_chip_smoke_reads_decode_launches_from_kernel_names():
                cuda, 32),
         _Event("void (anonymous namespace)::decode_attention_kernel<"
                "__nv_bfloat16, 8, 1>((anonymous namespace)::Params)", cuda, 32),
+        _Event("void (anonymous namespace)::decode_attention_mma_kernel<"
+               "128, 1>(CUtensorMap_st, CUtensorMap_st, "
+               "(anonymous namespace)::Params)", cuda, 16),
         _Event("decode_attention_kernel", cpu, 7),       # not a device row
         _Event("void at::native::elementwise_kernel<128, 4>", cuda, 99),
     ]
-    assert cs.decode_kernels_seen(torch, events) == 64
+    assert cs.decode_kernels_seen(torch, events) == 80
