@@ -13,7 +13,8 @@ Phases, each printing one JSON line (any failure exits non-zero and prints
 no result):
 
 1. device: the card's name and power limit; TF32 off for matmuls and cuDNN.
-2. build: compile every CUDA kernel from ``src/repro_torch/csrc`` with nvcc,
+2. build: compile every CUDA kernel from ``src/repro_torch/csrc`` with nvcc
+   (flash attention, the SSD scan, decode attention, the optimizer),
    all at once, and beside them flash attention with ``-DFLASH_FORCE_MMA``
    and the SSD scan with ``-DSSD_FORCE_MMA`` (the ``mma_bf16`` routes at
    every shape, for timing the old routes);
@@ -44,6 +45,17 @@ no result):
    device counter; the routes timed in turns beside the plain version and
    the bound, at the path shapes also one library call (SDPA with a row
    mask, or for gemma2's capped shapes a compiled ``flex_attention``).
+   The train step's two optimizer kernels (``adamw_update``, ``sumsq``)
+   through the port's entry points (``optim.adamw``), leaf by leaf: p, m
+   and v equal to the plain version's bit for bit, in place and out of
+   place, on drawn leaves whose sqrt(v_hat) sits near eps (every params /
+   grads dtype pair, with and without the clip factor, aligned, with a
+   tail, unaligned), on tiny's and lm100m's f32 states and on
+   codeqwen1.5-7b's full-width 16-layer bf16 state with the grads of one
+   real backward; ``sumsq`` within 1e-6 relative of an f64 sum and the
+   same bits over 3 calls; each timed over the whole state against its
+   bound, the plain version and the library call (``torch._fused_adamw_``
+   where it takes the dtypes, ``torch._foreach_norm``).
 4. serve, for each of eight paths in turn: codeqwen1.5-7b (dense, flash
    kernel), mamba2-1.3b (ssm, SSD kernel), zamba2-2.7b (hybrid, both
    kernels), granite-moe-3b-a800m (moe, flash), whisper-large-v3 (encdec,
@@ -97,9 +109,14 @@ no result):
    layers, one donated, rematerialised bf16 step on 8 x 512 tokens: time
    against ``train_step_bound``, device busy and idle, peak memory, the
    first loss equal to ``forward_train``'s, the loss falling on the
-   repeated batch, and at 2 layers remat on and off agreeing; (d) no
-   kernel launched in the whole phase (training runs torch ops, as the
-   reference trains with ``use_kernel=False``).
+   repeated batch, and at 2 layers remat on and off agreeing; the step's
+   device time split by part (``train_profile``: optimizer, global norm,
+   bf16 GEMMs, the attention's f32 GEMMs, other elementwise work, idle)
+   beside the same step on the optimizer's plain versions; (d) no
+   attention or SSD kernel launched in the whole phase (training runs
+   them as torch ops, as the reference trains with ``use_kernel=False``),
+   the two optimizer kernels exactly once a param leaf a step on the card,
+   on the host and on the device.
 6. dryrun, with every kernel count set to 0: (a) the port's dry-run of
    mamba2-1.3b x decode_32k on the 256-rank fake mesh ends ok and agrees
    with the reference's committed record on params, chips, decisions and
@@ -110,11 +127,13 @@ no result):
    plain-route prefill (one serve microbatch, counted in phase 4) and
    (c) its 16-layer train step (one more step, counted in phase 5),
    printed with the roofline's terms beside the measured times; (d) no
-   kernel launched.
+   kernel launched (the steps run on meta DTensors, which take the
+   optimizer's plain versions).
 7. examples, with every kernel count set to 0: ``examples/torch/``'s
    CHILES pipeline recovers its source in band 2, and ``train_lm.py`` at
    its defaults (lm20m, 200 steps through the engine) lowers the loss; no
-   kernel launched.
+   attention or SSD kernel launched, the optimizer kernels once a param
+   leaf a step.
 8. the kernels line, the card line, then the result line.
 
 It imports nothing of JAX or of the JAX package.  Without CUDA it exits 2.
@@ -1065,6 +1084,385 @@ def phase_decode_kernel(torch, da):
             "library_ms": t["library_ms"], "path_shapes": times}
 
 
+# The train step's fused update (``kernels/optimizer.py``): the checks' lr
+# and clip; AdamW's other hyperparameters are ``adamw_update``'s defaults,
+# which ``make_train_step`` takes
+ADAMW_HP = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
+OPT_CHECK_LR = 3e-4
+OPT_MAX_NORM = 1.0
+OPT_F32_PRESETS = ("tiny", "lm100m")
+# drawn leaves whose sqrt(v_hat) sits near eps: a multiple of 8 elements
+# (16-byte vectors), one that is not (a tail of n % 8, one element a
+# thread of block 0), and views one element in (unaligned pointers)
+OPT_DRAWN = (("vec", 1 << 20, 0), ("tail", (1 << 20) + 5, 0),
+             ("unaligned", 1 << 20, 1))
+OPT_SOURCE = "src/repro_torch/csrc/optimizer.cu"
+OPT_REPLACES = {
+    "adamw_update": "src/repro/optim/adamw.py:36 adamw_update (jnp inside "
+                    "jax.jit, src/repro/launch/train.py:96; no Pallas "
+                    "kernel)",
+    "sumsq": "src/repro/optim/adamw.py:28 clip_by_global_norm's sum of "
+             "squares (jnp inside jax.jit, src/repro/launch/train.py:96; "
+             "no Pallas kernel)"}
+OPT_SHAPE = "codeqwen1.5-7b 16 layers"
+
+
+@contextlib.contextmanager
+def plain_optimizer():
+    """The optimizer's plain versions on the card, for the checks and the
+    parent's columns only: ``optim.adamw`` is shown no kernel device (its
+    ``K.takes_kernel`` answers False), so it runs as it did before its
+    kernels."""
+    import types
+
+    from repro_torch.optim import adamw as A
+    real = A.K
+    A.K = types.SimpleNamespace(takes_kernel=lambda tensors: False)
+    try:
+        yield
+    finally:
+        A.K = real
+
+
+def same_bits(torch, a, b) -> bool:
+    """Equal shapes, dtypes and bits (NaNs and signed zeros included)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    ints = {2: torch.int16, 4: torch.int32}[a.element_size()]
+    return torch.equal(a.view(ints), b.view(ints))
+
+
+def check_update(torch, A, opt, leaves4, step, lr, scale) -> dict:
+    """Each leaf (p, g, m, v) through the port's entry points, against
+    ``adamw_update_`` under ``plain_optimizer`` (the plain version, in
+    place on the leaf itself), p, m and v to the bit: at ``step``,
+    ``adamw_update_`` (the kernel in place) on copies; at the next step,
+    from the leaf as the plain version left it, ``adamw_update`` (the
+    kernel out of place), which must leave its inputs' bits as they were
+    (their ``sumsq``, which repeats itself to the bit).  One copy of a
+    leaf is alive at a time; the leaves end two steps on."""
+    bad, n, worst = [], 0, 0.0
+
+    def plain(p, g, m, v, at):
+        with plain_optimizer():
+            A.adamw_update_(p, g, A.AdamWState(at, m, v), lr=lr,
+                            scale=scale)
+
+    def compare(form, got, want):
+        nonlocal worst
+        for name, a, b in zip("pmv", got, want):
+            if not same_bits(torch, a, b):
+                worst = max(worst, float((a.float() - b.float()).abs()
+                                         .nan_to_num(float("inf")).max()))
+                bad.append(f"leaf {i} {name} {form}")
+    for i, (p, g, m, v) in enumerate(leaves4):
+        ins = (p.clone(), m.clone(), v.clone())
+        A.adamw_update_(ins[0], g, A.AdamWState(step, ins[1], ins[2]),
+                        lr=lr, scale=scale)
+        plain(p, g, m, v, step)
+        compare("in_place", ins, (p, m, v))
+        del ins
+        sums = [opt.sumsq([t]) for t in (p, m, v)]
+        new_p, new_state = A.adamw_update(
+            p, g, A.AdamWState(step + 1, m, v), lr=lr, scale=scale)
+        if not all(same_bits(torch, a, opt.sumsq([t]))
+                   for a, t in zip(sums, (p, m, v))):
+            bad.append(f"leaf {i} out_of_place wrote its inputs")
+        out = (new_p, new_state.m, new_state.v)
+        del new_p, new_state
+        plain(p, g, m, v, step + 1)
+        compare("out_of_place", out, (p, m, v))
+        del out
+        n += p.numel()
+    return {"leaves": len(leaves4), "elements": n, "bitwise": not bad,
+            "differ": bad[:8], "max_abs_err": worst}
+
+
+def stage_peak(torch, peaks: dict, stage: str) -> None:
+    """The device memory peak since the last stage, under ``stage``."""
+    torch.cuda.synchronize()
+    peaks[stage] = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def check_sumsq(torch, A, opt, grads) -> dict:
+    """``sumsq`` of the grads three times: the same bits each time, within
+    1e-6 relative of an f64 sum of the same grads (slice by slice)."""
+    gs = list(grads)
+    runs = [opt.sumsq(gs) for _ in range(3)]
+    want = sum(float(s.double().square().sum()) for g in gs
+               for s in A.slices(g))
+    got = float(runs[0])
+    rel = abs(got - want) / want if want else abs(got)
+    repeat = all(same_bits(torch, r, runs[0]) for r in runs[1:])
+    return {"sumsq": got, "f64": want, "abs_err": abs(got - want),
+            "rel_err": rel, "repeatable": repeat,
+            "ok": rel <= 1e-6 and repeat}
+
+
+def drawn_update_case(torch, A, opt, gen, n, off, p_dt, g_dt, scale):
+    """One drawn leaf of ``n`` elements (views ``off`` elements in) whose
+    sqrt(v_hat) sits near eps at step 2: grads log-uniform in 1e-11..1e-7
+    with random signs, v in [0, 1e-18), m ~ 1e-8."""
+    def draw(fn, dt, s):
+        return (fn((n + off,), generator=gen, device="cuda") * s).to(dt)[off:]
+    mag = torch.exp(torch.empty((n + off,), device="cuda").uniform_(
+        math.log(1e-11), math.log(1e-7), generator=gen))
+    sign = torch.randint(0, 2, (n + off,), generator=gen, device="cuda")
+    g = (mag * (2 * sign - 1)).to(g_dt)[off:]
+    p = draw(torch.randn, p_dt, 0.02)
+    m = draw(torch.randn, torch.float32, 1e-8)
+    v = draw(torch.rand, torch.float32, 1e-18)
+    step = torch.ones((), dtype=torch.int32, device="cuda")
+    lr = torch.tensor(OPT_CHECK_LR, device="cuda")
+    row = check_update(torch, A, opt, [(p, g, m, v)], step, lr, scale)
+    row.update(sumsq=check_sumsq(torch, A, opt, [g]))
+    return row
+
+
+def real_update_case(torch, A, opt, cfg, batch: int, seq: int,
+                     remat: bool):
+    """``cfg``'s seeded state on the card, the grads of one real backward
+    (``forward_train``, as the train step takes them) and one kernel update
+    to fill m and v; then each leaf at step 2 (``check_update``) and
+    ``sumsq`` of the grads.  Returns the check and the state, grads, step,
+    lr and clip scale for timing."""
+    from repro_torch.data import synthetic_batch
+    from repro_torch.models import model as M
+    from repro_torch.train import train_state_init
+    from repro_torch.train.steps import _grads
+    from repro_torch.tree import leaves
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    peaks = {}
+    stage_peak(torch, peaks, "before")
+    state = train_state_init(cfg, gen, device="cuda")
+    b = _batch_to(torch, synthetic_batch(7, 0, 0, batch, seq,
+                                         cfg.vocab_size), "cuda")
+    _, grads = _grads(lambda params, mb: M.forward_train(
+        params, cfg, mb, remat=remat)[0], state.params, b)
+    del b, _
+    stage_peak(torch, peaks, "backward")
+    lr = torch.tensor(OPT_CHECK_LR, device="cuda")
+    scale = A.clip_scale(A.global_norm(grads), OPT_MAX_NORM)
+    params, opt_state = A.adamw_update_(state.params, grads, state.opt,
+                                        lr=lr, scale=scale)
+    row = check_update(torch, A, opt, list(zip(
+        leaves(params), leaves(grads), leaves(opt_state.m),
+        leaves(opt_state.v))), opt_state.step, lr, scale)
+    stage_peak(torch, peaks, "check_update")
+    row.update(sumsq=check_sumsq(torch, A, opt, leaves(grads)),
+               config=cfg.name, layers=cfg.num_layers,
+               dtype=str(cfg.torch_dtype), peaks=peaks)
+    stage_peak(torch, peaks, "check_sumsq")
+    return row, (params, grads, opt_state, lr, scale)
+
+
+def optimizer_bound_ms(params, grads) -> dict:
+    """Bytes each function must move at 3.35 TB/s against its f32 work at
+    67 TFLOP/s (the larger bounds it): the update reads p and g in their
+    dtype and m, v in f32 once and writes p, m and v once (22 bytes a bf16
+    parameter) and does ~16 f32 operations an element (3 divides and a
+    square root among them); ``sumsq`` reads each grad once and does 2."""
+    from repro_torch.tree import leaves
+    ps, gs = leaves(params), leaves(grads)
+    n = sum(p.numel() for p in ps)
+    upd = sum(p.numel() * (2 * p.element_size() + g.element_size() + 16)
+              for p, g in zip(ps, gs))
+    ss = sum(g.numel() * g.element_size() for g in gs)
+    out = {}
+    for name, nbytes, flops in (("adamw_update", upd, 16 * n),
+                                ("sumsq", ss, 2 * n)):
+        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+        t_ops = flops / H100_PEAK_FLOPS["torch.float32"] * 1e3
+        out[name] = dict(bytes=nbytes, flops=flops,
+                         bound_ms=max(t_bytes, t_ops),
+                         bound_by="bytes" if t_bytes >= t_ops
+                         else "operations")
+    return out
+
+
+def library_adamw(torch, params, grads, opt_state, lr_value: float):
+    """``torch._fused_adamw_`` on the same tensors (grads made contiguous
+    first: it takes only the params' strides), in place, or None and why:
+    it takes moments in the params' dtype only (bf16 params with f32
+    moments it refuses), and whatever else it refuses."""
+    from repro_torch.tree import leaves
+    ps = leaves(params)
+    gs = [g.contiguous() for g in leaves(grads)]
+    ms, vs = leaves(opt_state.m), leaves(opt_state.v)
+    if any(p.dtype != m.dtype for p, m in zip(ps, ms)) or \
+            any(g.dtype != p.dtype for p, g in zip(ps, gs)):
+        return None, ("torch._fused_adamw_ takes no moments of another "
+                      "dtype than the params")
+    steps = [torch.ones((), device="cuda") for _ in ps]
+    hp = ADAMW_HP
+
+    def call():
+        torch._fused_adamw_(ps, gs, ms, vs, [], steps, lr=lr_value,
+                            beta1=hp["b1"], beta2=hp["b2"],
+                            weight_decay=hp["weight_decay"], eps=hp["eps"],
+                            amsgrad=False, maximize=False)
+    try:
+        call()
+    except RuntimeError as err:
+        return None, f"torch._fused_adamw_ refused: {err}"
+    return call, "torch._fused_adamw_"
+
+
+def library_norm(torch, grads):
+    """One call that computes each grad's f32 norm: ``torch._foreach_norm``
+    with an f32 result where it takes ``dtype``, else
+    ``torch.linalg.vector_norm(..., dtype=torch.float32)`` per grad."""
+    from repro_torch.tree import leaves
+    gs = leaves(grads)
+    try:
+        torch._foreach_norm(gs, 2, dtype=torch.float32)
+        return (lambda: torch._foreach_norm(gs, 2, dtype=torch.float32),
+                "torch._foreach_norm(dtype=float32)")
+    except (TypeError, RuntimeError):
+        return (lambda: [torch.linalg.vector_norm(g, dtype=torch.float32)
+                         for g in gs],
+                "torch.linalg.vector_norm(dtype=float32) per grad")
+
+
+def time_optimizer(torch, A, opt, params, grads, opt_state, lr, scale,
+                   lr_value: float) -> dict:
+    """Each kernel over the whole state (one launch a leaf, in place), the
+    plain version (``plain_optimizer``) and the library call, CUDA events
+    (``cuda_ms``); the kernel and the plain version in turns."""
+    from repro_torch.tree import leaves
+    hp = ADAMW_HP
+    c1, c2 = A._bias_corrections(opt_state.step + 1, hp["b1"], hp["b2"])
+    four = list(zip(leaves(params), leaves(grads), leaves(opt_state.m),
+                    leaves(opt_state.v)))
+    gs = leaves(grads)
+
+    def kernel():
+        for p, g, m, v in four:
+            opt.adamw_update(p, g, m, v, c1, c2, lr, hp["b1"], hp["b2"],
+                             hp["eps"], hp["weight_decay"], scale,
+                             inplace=True)
+
+    def plain():
+        with plain_optimizer():
+            A.adamw_update_(params, grads, opt_state, lr=lr, scale=scale)
+
+    def plain_norm():
+        with plain_optimizer():
+            A.global_norm(grads)
+    bounds = optimizer_bound_ms(params, grads)
+    out, peaks = {}, {}
+    for name, fast, slow, iters in (
+            ("adamw_update", kernel, plain, (10, 3)),
+            ("sumsq", lambda: opt.sumsq(gs), plain_norm, (20, 3))):
+        ms = {"kernel": [], "plain": []}
+        for which in ("kernel", "plain", "plain", "kernel"):
+            fn, it = (fast, iters[0]) if which == "kernel" \
+                else (slow, iters[1])
+            ms[which].append(cuda_ms(fn, iters=it, warmup=1))
+        out[name] = dict(ms=sum(ms["kernel"]) / 2,
+                         plain_ms=sum(ms["plain"]) / 2, turns=ms,
+                         **bounds[name])
+        stage_peak(torch, peaks, name)
+    for name, (call, note) in (
+            ("adamw_update", library_adamw(torch, params, grads, opt_state,
+                                           lr_value)),
+            ("sumsq", library_norm(torch, grads))):
+        out[name].update(library_ms=cuda_ms(call, iters=10, warmup=1)
+                         if call else None, library=note)
+        stage_peak(torch, peaks, f"library_{name}")
+    for row in out.values():
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+    out["peaks"] = peaks
+    return out
+
+
+def phase_optimizer_kernel(torch, opt) -> list:
+    """The train step's two kernels against their plain versions on the
+    card, through the port's entry points (``optim.adamw``), bit for bit:
+    (a) drawn leaves whose sqrt(v_hat) sits near eps, every (params,
+    grads) dtype pair, with and without the clip factor, aligned, with a
+    tail and unaligned; (b) the f32 presets' states (tiny, lm100m) with
+    the grads of one real backward; (c) codeqwen1.5-7b at full width cut to
+    16 layers (``TRAIN_FULL``): its state, the grads of one rematerialised
+    backward, leaf by leaf (one leaf's copies alive at a time: the state
+    and grads alone take ~54 GB).  ``sumsq`` within 1e-6 relative of an
+    f64 sum and the same bits over 3 calls in each.  Then each kernel over
+    the whole 16-layer state (and lm100m's) against its bound, the plain
+    version and the library call.  Returns the kernels line's two
+    entries."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import PRESETS
+    from repro_torch.optim import adamw as A
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    t0 = time.monotonic()
+    rows, failed = {}, []
+
+    def checked(name, row):
+        rows[name] = row
+        ok = row["bitwise"] and row["sumsq"]["ok"]
+        emit("kernel_check", kernel="optimizer", case=name, ok=ok, **row)
+        if not ok:
+            failed.append(name)
+    dtypes = (torch.float32, torch.bfloat16)
+    for case, n, off in OPT_DRAWN:
+        for p_dt in dtypes:
+            for g_dt in dtypes:
+                for clip in (None, 0.37):
+                    scale = None if clip is None else \
+                        torch.tensor(clip, device="cuda")
+                    name = (f"{case}_{opt.adamw_route(p_dt, g_dt)}"
+                            f"{'_clip' if clip else ''}")
+                    checked(name, drawn_update_case(
+                        torch, A, opt, gen, n, off, p_dt, g_dt, scale))
+    for preset in OPT_F32_PRESETS:
+        row, held = real_update_case(torch, A, opt, PRESETS[preset], 4, 128,
+                                     remat=False)
+        checked(preset, row)
+        if preset == "lm100m":
+            f32_times = time_optimizer(torch, A, opt, *held, OPT_CHECK_LR)
+        del held
+    gc.collect()
+    torch.cuda.empty_cache()
+    f = TRAIN_FULL
+    cfg = dataclasses.replace(get_config("codeqwen15_7b"),
+                              num_layers=f["layers"])
+    row, full = real_update_case(torch, A, opt, cfg, f["batch"], f["seq"],
+                                 remat=True)
+    checked("codeqwen_16", row)
+    times = time_optimizer(torch, A, opt, *full, OPT_CHECK_LR)
+    peak = max(*row["peaks"].values(), *times["peaks"].values())
+    del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("optimizer_times", config=cfg.name, layers=cfg.num_layers,
+         full_width=times, lm100m=f32_times, max_memory_allocated=peak,
+         seconds=time.monotonic() - t0)
+    if failed:
+        fail(f"optimizer kernels differ from the plain version: {failed}")
+    worst = {"adamw_update": max(r["max_abs_err"] for r in rows.values()),
+             "sumsq": max(r["sumsq"]["abs_err"] for r in rows.values())}
+    entries = []
+    for name in ("adamw_update", "sumsq"):
+        t = times[name]
+        entries.append({
+            "name": name, "route": "cuda",
+            "kernel_route": "bf16_bf16" if name == "adamw_update" else "bf16",
+            "kernel_routes": list(opt.ADAMW_ROUTES if name == "adamw_update"
+                                  else opt.SUMSQ_ROUTES),
+            "source": OPT_SOURCE, "replaces": OPT_REPLACES[name],
+            "shape": OPT_SHAPE, "max_abs_err": worst[name],
+            "ms": t["ms"], "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "library": t["library"],
+            "f32_lm100m": f32_times[name]})
+    return entries
+
+
 PATHS = ("codeqwen15_7b", "mamba2_1_3b", "zamba2_2_7b",
          "granite_moe_3b_a800m", "whisper_large_v3", "gemma2_27b",
          "nemotron_4_15b", "chameleon_34b")
@@ -1859,7 +2257,7 @@ def routes_agree(torch, cfg, params, cache, tok, pos: int) -> dict:
     return out
 
 
-def profile_call(torch, fn, table_name: str) -> dict:
+def profile_call(torch, fn, table_name: str, split: bool = False) -> dict:
     """One call of ``fn`` under torch.profiler, ended by a device
     synchronise: its wall ms, device busy ms and idle share, the ten
     device kernels with the most time, the flash launches by route
@@ -1867,11 +2265,12 @@ def profile_call(torch, fn, table_name: str) -> dict:
     (``ssd_kernels_seen``) and the device time of the MoE dispatch's and
     the SSD scan's index ops and of the SSD scan's layout copies
     (``WATCHED_OPS``), where the call ran them (full table to
-    ``table_name`` under ``PROFILE_DIR``)."""
+    ``table_name`` under ``PROFILE_DIR``); with ``split``, a train step's
+    device time by part (``train_split``, shapes recorded)."""
     from torch.profiler import ProfilerActivity, profile
     PROFILE_DIR.mkdir(parents=True, exist_ok=True)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=split) as prof:
         t0 = time.monotonic()
         fn()
         torch.cuda.synchronize()
@@ -1889,13 +2288,150 @@ def profile_call(torch, fn, table_name: str) -> dict:
     watched = {e.key: {"device_ms": _device_us(e) / 1e3, "calls": e.count}
                for e in events if e.key in WATCHED_OPS
                and e.device_type != cuda}
-    return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
-                device_idle_share=max(0.0, 1 - busy_ms / wall_ms),
-                top=[{"op": k[:100], "device_ms": d, "calls": c}
-                     for d, c, k in dev[:10]], ops=watched,
-                flash_routes_seen=flash_routes_seen(torch, events),
-                ssd_kernels_seen=ssd_kernels_seen(torch, events),
-                decode_kernels_seen=decode_kernels_seen(torch, events))
+    out = dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
+               device_idle_share=max(0.0, 1 - busy_ms / wall_ms),
+               top=[{"op": k[:100], "device_ms": d, "calls": c}
+                    for d, c, k in dev[:10]], ops=watched,
+               flash_routes_seen=flash_routes_seen(torch, events),
+               ssd_kernels_seen=ssd_kernels_seen(torch, events),
+               decode_kernels_seen=decode_kernels_seen(torch, events))
+    if split:
+        out["split"] = train_split(torch, prof, busy_ms)
+    return out
+
+
+# A train step's device time by part (``train_split``): the optimizer's
+# and the global norm's ops (under ``scoped_optimizer``'s ranges), the
+# GEMMs by their inputs' dtype (bf16: the projections and the head; f32:
+# the training attention's einsums, which upcast q, k and v), the rest
+# (elementwise, reductions, copies; remat's recompute included), device
+# time no op claims, and idle
+TRAIN_PARTS = ("optimizer", "global_norm", "gemm_bf16", "gemm_f32",
+               "elementwise")
+GEMM_OPS = ("aten::mm", "aten::bmm", "aten::addmm", "aten::baddbmm",
+            "aten::addbmm", "aten::_addmm_activation")
+TRAIN_SCOPE = "train_step/"
+
+
+# the optimizer's hand-written kernels, which no ATen op launches: their
+# device time goes to their part by name
+OPT_KERNEL_PARTS = {"adamw_update_kernel": "optimizer",
+                    "sumsq_kernel": "global_norm"}
+
+
+def gemm_dtypes(prof) -> dict:
+    """Each GEMM op's input dtypes by its correlation id (a
+    ``FunctionEvent``'s ``id``), from the profiler's own events (a
+    ``FunctionEvent`` has no dtypes in every release).  Fails the phase
+    where they cannot be read: a kernel's name need not say its dtype."""
+    try:
+        return {ev.correlation_id(): " ".join(ev.dtypes())
+                for ev in prof.profiler.kineto_results.events()
+                if ev.name() in GEMM_OPS}
+    except (AttributeError, RuntimeError, TypeError) as err:
+        fail(f"train_profile: the profiler's GEMM dtypes cannot be read "
+             f"({type(err).__name__}: {err})")
+
+
+def train_part(event, dtypes: dict) -> str:
+    """The part of a train step an op's device kernels belong to: the
+    ``scoped_optimizer`` range around it, else a GEMM by its inputs'
+    dtype (``gemm_dtypes``; the phase fails where none was recorded),
+    else ``elementwise``."""
+    scope = event
+    while scope is not None:
+        if scope.name.startswith(TRAIN_SCOPE):
+            return scope.name[len(TRAIN_SCOPE):]
+        scope = scope.cpu_parent
+    if event.name in GEMM_OPS:
+        seen = dtypes.get(event.id)
+        if not seen:
+            fail(f"train_profile: no dtypes recorded for {event.name} "
+                 f"(id {event.id})")
+        return "gemm_bf16" if re.search(r"bfloat16|bf16", seen, re.I) \
+            else "gemm_f32"
+    return "elementwise"
+
+
+def train_split(torch, prof, busy_ms: float) -> dict:
+    """A profiled train step's device ms by ``TRAIN_PARTS``: each ATen
+    op's kernels by ``train_part``, the optimizer kernels by name
+    (``OPT_KERNEL_PARTS``); ``unattributed``, busy time none of them
+    claims; each part's top four kernels."""
+    cpu = torch.autograd.DeviceType.CPU
+    dtypes = gemm_dtypes(prof)
+    parts = dict.fromkeys(TRAIN_PARTS, 0.0)
+    names = {p: {} for p in TRAIN_PARTS}
+
+    def add(part, name, ms):
+        parts[part] += ms
+        names[part][name[:90]] = names[part].get(name[:90], 0.0) + ms
+    for e in prof.events():
+        if e.device_type != cpu:
+            for k, part in OPT_KERNEL_PARTS.items():
+                if k in e.name:
+                    add(part, e.name, (e.time_range.end
+                                       - e.time_range.start) / 1e3)
+            continue
+        for k in e.kernels:
+            if not any(n in k.name for n in OPT_KERNEL_PARTS):
+                add(train_part(e, dtypes), k.name, k.duration / 1e3)
+    out = dict(parts)
+    out["unattributed"] = max(0.0, busy_ms - sum(parts.values()))
+    out["top"] = {p: sorted(names[p].items(), key=lambda kv: -kv[1])[:4]
+                  for p in TRAIN_PARTS}
+    return out
+
+
+def span_ms(spans: list, steps: int, skip: int = 0) -> dict:
+    """The median over ``steps`` steps (the first ``skip`` left out) of
+    each part's device ms a step, from ``scoped_optimizer``'s events (the
+    steps synchronised, so every event has completed)."""
+    per = len(spans) // steps
+    by_step = [{} for _ in range(steps)]
+    for i, (part, start, end) in enumerate(spans):
+        d = by_step[i // per]
+        d[part] = d.get(part, 0.0) + start.elapsed_time(end)
+    kept = by_step[skip:]
+    return {part: sorted(d[part] for d in kept)[len(kept) // 2]
+            for part in kept[0]}
+
+
+@contextlib.contextmanager
+def scoped_optimizer(spans=None):
+    """The train step's global norm and AdamW update (``train.steps``'s
+    ``global_norm``, ``adamw_update``, ``adamw_update_``) each under a
+    profiler range ``train_step/<part>``, for ``train_split``; with a list
+    ``spans``, each call's (part, start, end) CUDA events appended to it
+    (``span_ms``: the part's device span in an unprofiled step)."""
+    import torch
+    from torch.profiler import record_function
+
+    from repro_torch.train import steps as S
+    names = {"global_norm": "global_norm", "adamw_update": "optimizer",
+             "adamw_update_": "optimizer"}
+    real = {n: getattr(S, n) for n in names}
+
+    def scoped(fn, part):
+        def run(*args, **kwargs):
+            if spans is not None:
+                ends = [torch.cuda.Event(enable_timing=True)
+                        for _ in range(2)]
+                ends[0].record()
+            with record_function(TRAIN_SCOPE + part):
+                out = fn(*args, **kwargs)
+            if spans is not None:
+                ends[1].record()
+                spans.append((part, *ends))
+            return out
+        return run
+    for n, part in names.items():
+        setattr(S, n, scoped(real[n], part))
+    try:
+        yield
+    finally:
+        for n, fn in real.items():
+            setattr(S, n, fn)
 
 
 # the MoE dispatch (slot cumsum, scatter_add write, gather read), the SSD
@@ -1907,8 +2443,73 @@ WATCHED_OPS = ("aten::cumsum", "aten::scatter_add", "aten::gather",
 
 
 TRAIN_FULL = dict(layers=16, batch=8, seq=512, steps=4, peak_lr=3e-4)
+TRAIN_PLAIN_STEPS = 3       # the same steps on the optimizer's plain versions
 TRAIN_ENGINE = dict(steps=40, shards=2, batch_per_shard=4, seq=128,
                     ckpt_every=20, resume_steps=4)
+TRAIN_PARITY = (dict(), dict(num_microbatches=2), dict(compress=True))
+TRAIN_PARITY_STEPS = 4
+TRAIN_LM = ("lm20m", 200)   # examples/torch/train_lm.py's preset and steps
+
+
+def optimizer_steps(phase: str) -> list:
+    """(config, train steps on the card) of a phase's runs: each step
+    launches both optimizer kernels once a param leaf."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import PRESETS
+    if phase == "train":
+        e, f = TRAIN_ENGINE, TRAIN_FULL
+        full = dataclasses.replace(get_config("codeqwen15_7b"),
+                                   num_layers=f["layers"])
+        return [(PRESETS["tiny"], len(TRAIN_PARITY) * TRAIN_PARITY_STEPS),
+                # the engine, the plain loop, the resumed run
+                (PRESETS["lm100m"], 2 * e["steps"] + e["resume_steps"]),
+                # timed, profiled, FLOP-counted (the steps on the plain
+                # versions launch none)
+                (full, f["steps"] + 2),
+                (dataclasses.replace(full, num_layers=2), 2)]  # remat on, off
+    if phase == "examples":
+        preset, steps = TRAIN_LM
+        return [(PRESETS[preset], steps)]
+    return []
+
+
+def expected_optimizer_launches(torch, opt, phase: str) -> dict:
+    """The optimizer kernels' launches a phase must make, by kernel and
+    route (``optimizer_steps``): a train step on the card launches
+    ``adamw_update`` and ``sumsq`` once a param leaf each, on the route of
+    the params' and grads' dtypes (one microbatch, or f32 params: the grads
+    have the params' dtype)."""
+    from repro_torch.models import model as M
+    want = {"adamw_update": dict.fromkeys(opt.ADAMW_ROUTES, 0),
+            "sumsq": dict.fromkeys(opt.SUMSQ_ROUTES, 0)}
+    for cfg, steps in optimizer_steps(phase):
+        n = len(list(_leaves(M.init_params(cfg, torch.Generator(),
+                                           device="meta"))))
+        dt = cfg.torch_dtype
+        want["adamw_update"][opt.adamw_route(dt, dt)] += n * steps
+        want["sumsq"][opt.sumsq_route(dt)] += n * steps
+    return want
+
+
+def optimizer_device_delta(opt, before: dict) -> dict:
+    after = opt.kernel_launches(opt._lib())
+    return {k: {r: n - before[k][r] for r, n in by.items()}
+            for k, by in after.items()}
+
+
+def check_phase_launches(phase: str, launches: dict, by_route: dict,
+                         device: dict, want: dict) -> None:
+    """No attention or SSD kernel launched; each optimizer kernel exactly
+    ``want`` by route, on the host and on the device."""
+    others = {n: c for n, c in launches.items() if n not in want}
+    if any(others.values()):
+        fail(f"the {phase} phase launched kernels: {others}")
+    got = {n: by_route[n] for n in want}
+    if got != want or device != want:
+        fail(f"the {phase} phase's optimizer launches: host {got}, device "
+             f"{device}, expected {want}")
 
 
 def train_step_bound(cfg, params, batch: int, seq: int) -> dict:
@@ -1960,7 +2561,7 @@ def train_parity(torch):
     from repro_torch.tree import tree_map
     cfg = PRESETS["tiny"]
     worst = 0.0
-    for kw in (dict(), dict(num_microbatches=2), dict(compress=True)):
+    for kw in TRAIN_PARITY:
         cpu = train_state_init(cfg, torch.Generator().manual_seed(0),
                                compress=kw.get("compress", False),
                                device="cpu")
@@ -1968,7 +2569,7 @@ def train_parity(torch):
         step = make_train_step(cfg, peak_lr=1e-2, warmup_steps=1,
                                total_steps=8, **kw)
         rows = []
-        for i in range(4):
+        for i in range(TRAIN_PARITY_STEPS):
             b = synthetic_batch(5, 0, i, 4, 32, cfg.vocab_size)
             cpu, mc = step(cpu, _batch_to(torch, b, "cpu"))
             gpu, mg = step(gpu, _batch_to(torch, b, "cuda"))
@@ -1981,8 +2582,8 @@ def train_parity(torch):
                 if not (rel <= 1e-4):
                     fail(f"tiny {kw}: step {i} {k} {got} on the card, "
                          f"{want} on the CPU")
-        emit("train_parity", config=cfg.name, options=kw, steps=4,
-             rows=rows)
+        emit("train_parity", config=cfg.name, options=kw,
+             steps=TRAIN_PARITY_STEPS, rows=rows)
     return worst
 
 
@@ -2078,7 +2679,14 @@ def train_full_width(torch):
     """(c) codeqwen1.5-7b at full width, cut to 16 of 32 layers, one
     donated, rematerialised step on 8 x 512 tokens, repeated on one batch:
     the first loss equals ``forward_train``'s, the loss falls by step 4,
-    grad norms are finite; steps 2-4 timed, one more profiled."""
+    grad norms are finite; steps 2-4 timed (the optimizer's and the global
+    norm's device spans by CUDA events, ``scoped_optimizer``), one more
+    profiled and split by part (``train_split``), one FLOP-counted; then
+    the same step on the optimizer's plain versions (``plain_optimizer``,
+    the parent's path): ``TRAIN_PLAIN_STEPS`` timed the same way and one
+    profiled and split, printed as the ``train_profile`` line beside the
+    kernels' split (idle: the timed step's ms less the profiled busy
+    time)."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -2100,10 +2708,11 @@ def train_full_width(torch):
                            total_steps=10, remat=True, donate=True)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    metrics, times = [], []
+    metrics, times, spans = [], [], []
     for _ in range(f["steps"]):
         t0 = time.monotonic()
-        state, m = step(state, batch)
+        with scoped_optimizer(spans):
+            state, m = step(state, batch)
         torch.cuda.synchronize()
         times.append((time.monotonic() - t0) * 1e3)
         metrics.append({k: float(v) for k, v in m.items()})
@@ -2112,11 +2721,27 @@ def train_full_width(torch):
 
     def one_step():
         holder[0], _ = step(holder[0], batch)
-    prof = profile_call(torch, one_step, "profile_train_step.txt")
+    with scoped_optimizer():
+        prof = profile_call(torch, one_step, "profile_train_step.txt",
+                            split=True)
     from torch.utils.flop_counter import FlopCounterMode
     with FlopCounterMode(display=False) as counted:     # one more step
         one_step()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    plain_times, plain_spans = [], []
+    with plain_optimizer():
+        for _ in range(TRAIN_PLAIN_STEPS):
+            t0 = time.monotonic()
+            with scoped_optimizer(plain_spans):
+                one_step()
+            torch.cuda.synchronize()
+            plain_times.append((time.monotonic() - t0) * 1e3)
+        with scoped_optimizer():
+            plain_prof = profile_call(torch, one_step,
+                                      "profile_train_step_plain.txt",
+                                      split=True)
+    plain_peak = torch.cuda.max_memory_allocated()
     card = {"flops": counted.get_total_flops(), "batch": f["batch"],
             "seq": f["seq"], "layers": cfg.num_layers, "step_ms": sorted(times[1:])[
                 len(times[1:]) // 2], "bound_ms": bound["bound_ms"],
@@ -2128,6 +2753,22 @@ def train_full_width(torch):
     norms = [m["grad_norm"] for m in metrics]
     step_ms = sorted(times[1:])[len(times[1:]) // 2]
     free_gb = (torch.cuda.get_device_properties(0).total_memory - peak) / 1e9
+    plain_ms = sorted(plain_times)[len(plain_times) // 2]
+    emit("train_profile", config=cfg.name, layers=cfg.num_layers,
+         kernels=dict(step_ms=step_ms, step_ms_all=times,
+                      span_ms=span_ms(spans, len(times), skip=1),
+                      profiled_wall_ms=prof["wall_ms"],
+                      device_busy_ms=prof["device_busy_ms"],
+                      idle_ms=max(0.0, step_ms - prof["device_busy_ms"]),
+                      max_memory_allocated=peak, **prof["split"]),
+         plain=dict(step_ms=plain_ms, step_ms_all=plain_times,
+                    span_ms=span_ms(plain_spans, len(plain_times)),
+                    profiled_wall_ms=plain_prof["wall_ms"],
+                    device_busy_ms=plain_prof["device_busy_ms"],
+                    idle_ms=max(0.0,
+                                plain_ms - plain_prof["device_busy_ms"]),
+                    max_memory_allocated=plain_peak,
+                    **plain_prof["split"]))
     emit("train_step", config=cfg.name, layers=cfg.num_layers,
          d_model=cfg.d_model, batch=f["batch"], seq=f["seq"],
          remat=True, donate=True, step_ms=step_ms, step_ms_all=times,
@@ -2175,12 +2816,18 @@ def train_remat(torch, cfg, batch):
 
 
 def phase_train(torch, mods) -> tuple:
-    """The train paths on the card, after the serve paths; no kernel may
-    launch (training runs attention and the SSD scan as torch ops, as the
-    reference does).  Returns each kernel's launches over the phase and
-    the full-width train step's FLOPs and times."""
+    """The train paths on the card, after the serve paths: no attention or
+    SSD kernel may launch (training runs them as torch ops, as the
+    reference does), and the two optimizer kernels exactly once a param
+    leaf a step on the card (``expected_optimizer_launches``), counted on
+    the host and on the device.  Returns each kernel's launches over the
+    phase (host, in all and by route), the optimizer kernels' device
+    counts and the full-width train step's FLOPs and times."""
     kernels = {name: getattr(mod, name) for name, mod in mods.items()}
+    opt = mods["adamw_update"]
+    want = expected_optimizer_launches(torch, opt, "train")
     _zero_counts(kernels)
+    before = opt.kernel_launches(opt._lib())
     refused = check_kernel_guard(torch, mods)
     worst = train_parity(torch)
     train_engine(torch)
@@ -2188,12 +2835,15 @@ def phase_train(torch, mods) -> tuple:
     torch.cuda.empty_cache()
     cfg, batch, card = train_full_width(torch)
     train_remat(torch, cfg, batch)
-    launches, _ = _read_counts(kernels)
-    emit("train_launches", launches=launches, guard_refused=refused,
+    launches, by_route = _read_counts(kernels)
+    device = optimizer_device_delta(opt, before)
+    emit("train_launches", launches=launches,
+         optimizer_launches_by_route={n: by_route[n] for n in want},
+         optimizer_device_launches=device,
+         expected_optimizer_launches=want, guard_refused=refused,
          parity_max_rel_err=worst)
-    if any(launches.values()):
-        fail(f"the train phase launched kernels: {launches}")
-    return launches, card
+    check_phase_launches("train", launches, by_route, device, want)
+    return launches, device, card
 
 
 DRYRUN_PREFILL = "codeqwen15_7b"       # its serve path counts a prefill
@@ -2229,7 +2879,9 @@ def phase_dryrun(torch, mods, cards: dict) -> dict:
     from repro_torch.sharding import AbstractMesh
     t0 = time.monotonic()
     kernels = {name: getattr(mod, name) for name, mod in mods.items()}
+    opt = mods["adamw_update"]
     _zero_counts(kernels)
+    before = opt.kernel_launches(opt._lib())
 
     arch, shape = DRYRUN_CELL
     rec = D.run_cell(arch, shape, False, PROFILE_DIR / "dryrun",
@@ -2293,12 +2945,13 @@ def phase_dryrun(torch, mods, cards: dict) -> dict:
             if fake["flops"] != card["flops"]:
                 fail(f"{cfg.name} {step}: the fake pass counts "
                      f"{fake['flops']} FLOPs, the card {card['flops']}")
-    launches, _ = _read_counts(kernels)
+    launches, by_route = _read_counts(kernels)
+    device = optimizer_device_delta(opt, before)
     emit("dryrun_launches", launches=launches,
-         seconds=time.monotonic() - t0)
-    if any(launches.values()):
-        fail(f"the dryrun phase launched kernels: {launches}")
-    return launches
+         optimizer_device_launches=device, seconds=time.monotonic() - t0)
+    check_phase_launches("dryrun", launches, by_route, device,
+                         expected_optimizer_launches(torch, opt, "dryrun"))
+    return launches, device
 
 
 EXAMPLES = ROOT / "examples" / "torch"
@@ -2321,10 +2974,15 @@ def phase_examples(torch, mods) -> dict:
     (b) ``train_lm.py`` at its defaults (lm20m, 200 steps through the
     engine on the card, which keeps every step's state), checkpoints under
     ``chiprun_out/`` deleted after: the loss falls, its own check; (c) no
-    kernel launched.  Returns each kernel's launches over the phase."""
+    attention or SSD kernel launched, the optimizer kernels once a param
+    leaf a step.  Returns each kernel's launches over the phase and the
+    optimizer kernels' device counts."""
     import shutil
     kernels = {name: getattr(mod, name) for name, mod in mods.items()}
+    opt = mods["adamw_update"]
+    want = expected_optimizer_launches(torch, opt, "examples")
     _zero_counts(kernels)
+    before = opt.kernel_launches(opt._lib())
 
     chiles = _load_example("chiles_pipeline")
     cubes = []
@@ -2363,19 +3021,24 @@ def phase_examples(torch, mods) -> dict:
     finally:
         sys.argv = argv
     res = results.pop()
-    emit("example_train_lm", preset="lm20m", steps=len(res["losses"]),
+    emit("example_train_lm", preset=TRAIN_LM[0], steps=len(res["losses"]),
          first_loss=res["first_loss"], last_loss=res["last_loss"],
          wall_s=res["wall_s"], tokens_per_s=res["tokens_per_s"],
          drops=res["drops"], final_step=res["final_step"],
          checkpoints=sorted(p.name for p in TRAIN_LM_CKPT.iterdir()),
          max_memory_allocated=torch.cuda.max_memory_allocated())
+    steps = len(res["losses"])
     del res
     shutil.rmtree(TRAIN_LM_CKPT)
-    launches, _ = _read_counts(kernels)
-    emit("examples_launches", launches=launches)
-    if any(launches.values()):
-        fail(f"the examples phase launched kernels: {launches}")
-    return launches
+    launches, by_route = _read_counts(kernels)
+    device = optimizer_device_delta(opt, before)
+    emit("examples_launches", launches=launches,
+         optimizer_device_launches=device, expected_optimizer_launches=want)
+    if steps != TRAIN_LM[1]:
+        fail(f"examples/torch/train_lm.py ran {steps} steps, expected "
+             f"{TRAIN_LM[1]}")
+    check_phase_launches("examples", launches, by_route, device, want)
+    return launches, device
 
 
 def check_kernel_guard(torch, mods) -> list:
@@ -2480,6 +3143,7 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import optimizer as opt
     from repro_torch.kernels import ssd_scan as ss
 
     t_start = time.monotonic()
@@ -2510,11 +3174,13 @@ def main() -> int:
                phase_decode_kernel(torch, da)]
     gc.collect()            # the plain versions' 8192-token scores
     torch.cuda.empty_cache()
+    entries += phase_optimizer_kernel(torch, opt)
     if "--kernels-only" in sys.argv[1:]:
         emit("done", seconds=time.monotonic() - t_start)
         print(json.dumps({"kernels": entries}), flush=True)
         return 0
     mods = {e["name"]: mod for e, mod in zip(entries, (fa, ss, da))}
+    all_mods = {**mods, "adamw_update": opt, "sumsq": opt}
     by_path, routes, cards, decode_device = {}, {}, {}, {}
     for arch in PATHS:
         (by_path[arch], routes[arch], card, modes,
@@ -2526,12 +3192,12 @@ def main() -> int:
             decode_device[f"{arch}/{mode}"] = device
         gc.collect()                    # free the model before the next
         torch.cuda.empty_cache()
-    train, cards["train_step"] = phase_train(torch, mods)
+    train, train_device, cards["train_step"] = phase_train(torch, all_mods)
     gc.collect()
     torch.cuda.empty_cache()
-    dry = phase_dryrun(torch, mods, cards)
-    examples = phase_examples(torch, mods)
-    for e in entries:
+    dry, dry_device = phase_dryrun(torch, all_mods, cards)
+    examples, examples_device = phase_examples(torch, all_mods)
+    for e in entries[:3]:
         e["launches_by_path"] = {a: n[e["name"]] for a, n in by_path.items()}
         e["launches"] = sum(e["launches_by_path"].values())
         e["launches_by_path"]["train"] = train[e["name"]]
@@ -2548,6 +3214,18 @@ def main() -> int:
     e["host_launches"] = e["launches"]
     e["launches_by_path"].update(decode_device)
     e["launches"] = sum(decode_device.values())
+    # the optimizer kernels run on the train paths: their launches are the
+    # device's count over the train phase (the main path), by route
+    for e in entries[3:]:
+        n = e["name"]
+        e["launches_by_route"] = train_device[n]
+        e["launches_by_path"] = {
+            p: sum(d[n].values()) for p, d in (
+                ("train", train_device), ("dryrun", dry_device),
+                ("examples", examples_device))}
+        e["launches"] = e["launches_by_path"]["train"]
+        e["host_launches_by_path"] = {"train": train[n], "dryrun": dry[n],
+                                      "examples": examples[n]}
 
     emit("done", seconds=time.monotonic() - t_start)
     print(json.dumps({"kernels": entries}), flush=True)

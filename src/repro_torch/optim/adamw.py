@@ -5,19 +5,31 @@ Plain functions over the nested dict of tensors: ``adamw_update`` returns
 new tensors, as the JAX function does.  ``adamw_update_`` (trailing
 underscore) is the donating form, the port's counterpart of jitting the
 update with ``donate_argnums``: it writes the new params, m and v into the
-given tensors.  It goes leaf by leaf, and along axis 0 (the stacked layer
-axis) in slices of at most ``SLICE_ELEMS`` elements, so its f32
-temporaries stay near one layer slice; codeqwen1.5-7b's stacked MLP
-leaves at full width hold 0.88 B elements at 16 layers, and whole-leaf f32
-temporaries would not fit beside the state.  Both forms run
-``_update_slice`` on every element, so they give the same numbers.
+given tensors.  Both take the clip factor as ``scale`` for grads that come
+unclipped, so no f32 copy of the grads is made.
+
+Each function chooses its path by the tensors' device
+(``kernels.optimizer.takes_kernel``).  CUDA tensors launch the hand-written
+kernels of ``kernels/optimizer.py``, the counterpart of what XLA fuses
+under the reference's ``jax.jit``: ``adamw_update`` once a leaf (no
+temporary, so no slicing), ``global_norm`` ``sumsq`` once a grad.  CPU and
+meta tensors, DTensors among them (the dry-run traces the donating step on
+meta DTensors), take the plain versions here: ``_update_slice`` on every
+element, and the donating form goes leaf by leaf along axis 0 (the stacked
+layer axis) in slices of at most ``SLICE_ELEMS`` elements, so its f32
+temporaries stay near one layer slice.  A DTensor on CUDA and any other
+device raise; a failed
+launch raises, and nothing falls back.  The kernel repeats
+``_update_slice``'s f32 ops in its order, so both paths give the same bits.
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Any, Iterator, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..kernels import optimizer as K
 from ..tree import leaves, tree_map, tree_map_n
 
 # 2^26 elements: one layer slice of codeqwen1.5-7b's MLP (4096 x 13440 =
@@ -61,10 +73,14 @@ def _shards_axis0(t: torch.Tensor) -> bool:
 
 
 def global_norm(grads: Any) -> torch.Tensor:
-    """sqrt of the sum of every grad element squared, in f32, summed slice
-    by slice (no f32 copy of a whole leaf)."""
+    """sqrt of the sum of every grad element squared, in f32: on CUDA the
+    ``sumsq`` kernel (each grad read once in its own dtype, a fixed order
+    of sums); else summed slice by slice (no f32 copy of a whole leaf)."""
+    gs = leaves(grads)
+    if K.takes_kernel(gs):
+        return torch.sqrt(K.sumsq(gs))
     total = None
-    for g in leaves(grads):
+    for g in gs:
         for s in slices(g):
             part = s.float().square().sum()
             total = part if total is None else total + part
@@ -106,16 +122,26 @@ def _update_slice(p, g, m, v, c1, c2, lr, b1, b2, eps, weight_decay,
     return p2.to(p.dtype), m2, v2
 
 
+def _on_card(params: Any, grads: Any, state: AdamWState) -> bool:
+    """Whether the update launches the kernel (CUDA leaves)."""
+    trees = (params, grads, state.m, state.v)
+    return K.takes_kernel(t for tree in trees for t in leaves(tree))
+
+
 def adamw_update(params: Any, grads: Any, state: AdamWState, *,
                  lr: Any, b1: float = 0.9, b2: float = 0.95,
-                 eps: float = 1e-8, weight_decay: float = 0.1
+                 eps: float = 1e-8, weight_decay: float = 0.1,
+                 scale: Optional[torch.Tensor] = None
                  ) -> Tuple[Any, AdamWState]:
     """One AdamW step; returns (new params, new state) and leaves the
-    arguments as they were."""
+    arguments as they were.  ``scale`` is the clip factor for grads that
+    come unclipped."""
     step = state.step + 1
     c1, c2 = _bias_corrections(step, b1, b2)
-    new_p, m, v = tree_map_n(lambda p, g, m, v: _update_slice(
-        p, g, m, v, c1, c2, lr, b1, b2, eps, weight_decay),
+    update = (partial(K.adamw_update, inplace=False)
+              if _on_card(params, grads, state) else _update_slice)
+    new_p, m, v = tree_map_n(lambda p, g, m, v: update(
+        p, g, m, v, c1, c2, lr, b1, b2, eps, weight_decay, scale),
         3, params, grads, state.m, state.v)
     return new_p, AdamWState(step=step, m=m, v=v)
 
@@ -126,14 +152,19 @@ def adamw_update_(params: Any, grads: Any, state: AdamWState, *,
                   scale: Optional[torch.Tensor] = None
                   ) -> Tuple[Any, AdamWState]:
     """The donating form of ``adamw_update``: writes the new params, m and
-    v into ``params``, ``state.m`` and ``state.v`` slice by slice and
-    returns them with the next step.  ``scale`` applies the clip factor
-    slice by slice, for grads that come unclipped (``clip_by_global_norm``
-    would make an f32 copy of every grad)."""
+    v into ``params``, ``state.m`` and ``state.v`` (on CUDA one launch a
+    leaf, else slice by slice) and returns them with the next step.
+    ``scale`` applies the clip factor, for grads that come unclipped
+    (``clip_by_global_norm`` would make an f32 copy of every grad)."""
     step = state.step + 1
     c1, c2 = _bias_corrections(step, b1, b2)
+    on_card = _on_card(params, grads, state)
     for p, g, m, v in zip(leaves(params), leaves(grads), leaves(state.m),
                           leaves(state.v)):
+        if on_card:
+            K.adamw_update(p, g, m, v, c1, c2, lr, b1, b2, eps,
+                           weight_decay, scale, inplace=True)
+            continue
         for ps, gs, ms, vs in slices(p, g, m, v):
             p2, m2, v2 = _update_slice(ps, gs, ms, vs, c1, c2, lr, b1, b2,
                                        eps, weight_decay, scale)

@@ -9,14 +9,18 @@ builds the update in the reference's order:
   * optional int8 error-feedback compression of the grads,
   * global-norm clip, ``cosine_schedule(opt.step)``, AdamW.
 
-``donate=True`` updates the state in place (the port's counterpart of
-jitting the step with ``donate_argnums``): the clip factor is applied
-slice by slice inside the AdamW update, so no f32 copy of the grads is
-made.  It is what lets a 16-layer codeqwen1.5-7b step fit one 80 GB card.
+The clip factor is applied inside the AdamW update on both branches, so
+no f32 copy of the grads is made.  ``donate=True`` updates the state in
+place (the port's counterpart of jitting the step with ``donate_argnums``);
+it is what lets a 16-layer codeqwen1.5-7b step fit one 80 GB card.
 
-Training runs attention and the SSD scan as torch ops (``use_kernel=False``,
-as the reference trains): the hand-written kernels have no backward and
-refuse inputs that require grad.
+On CUDA the global norm and the update are the two hand-written kernels of
+``kernels/optimizer.py`` (``sumsq`` once a grad, ``adamw_update`` once a
+leaf), the counterpart of what XLA fuses under the reference's
+``jax.jit``; on the CPU, and on the dry-run's meta DTensors, their plain
+versions.  Training runs attention and the SSD scan as torch ops
+(``use_kernel=False``, as the reference trains): those kernels have no
+backward and refuse inputs that require grad.
 
 The serve steps are pure functions of (params, inputs) except that the
 caches (KV and SSM) are updated in place; they are the payloads of the
@@ -36,8 +40,8 @@ import torch
 from ..models import model as M
 from ..models.common import ArchConfig, resolve_device
 from ..optim import (AdamWState, adamw_init, adamw_update, adamw_update_,
-                     clip_by_global_norm, cosine_schedule,
-                     decompress_gradients, error_feedback_update)
+                     cosine_schedule, decompress_gradients,
+                     error_feedback_update)
 from ..optim.adamw import clip_scale, global_norm
 from ..tree import leaves, tree_map, unflatten_like
 
@@ -134,15 +138,10 @@ def make_train_step(cfg: ArchConfig, *, num_microbatches: int = 1,
         lr = cosine_schedule(state.opt.step, peak_lr=peak_lr,
                              warmup_steps=warmup_steps,
                              total_steps=total_steps)
-        if donate:
-            gnorm = global_norm(grads)
-            new_params, new_opt = adamw_update_(
-                params, grads, state.opt, lr=lr,
-                scale=clip_scale(gnorm, max_grad_norm))
-        else:
-            grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
-            new_params, new_opt = adamw_update(params, grads, state.opt,
-                                               lr=lr)
+        gnorm = global_norm(grads)
+        update = adamw_update_ if donate else adamw_update
+        new_params, new_opt = update(params, grads, state.opt, lr=lr,
+                                     scale=clip_scale(gnorm, max_grad_norm))
         metrics = {"loss": loss, "grad_norm": gnorm, "lr": lr,
                    "step": new_opt.step}
         return TrainState(new_params, new_opt, residual), metrics
