@@ -14,7 +14,8 @@ no result):
 
 1. device: the card's name and power limit; TF32 off for matmuls and cuDNN.
 2. build: compile every CUDA kernel from ``src/repro_torch/csrc`` with nvcc
-   (flash attention, the SSD scan, decode attention, the optimizer),
+   (flash attention, the SSD scan, decode attention, the optimizer, the
+   training attention),
    all at once, and beside them flash attention with ``-DFLASH_FORCE_MMA``
    and the SSD scan with ``-DSSD_FORCE_MMA`` (the ``mma_bf16`` routes at
    every shape, for timing the old routes);
@@ -55,7 +56,16 @@ no result):
    real backward; ``sumsq`` within 1e-6 relative of an f64 sum and the
    same bits over 3 calls; each timed over the whole state against its
    bound, the plain version and the library call (``torch._fused_adamw_``
-   where it takes the dtypes, ``torch._foreach_norm``).
+   where it takes the dtypes, ``torch._foreach_norm``).  The training
+   attention's kernels (``train_attention``: forward, and the backward's
+   delta, dQ and dK dV) through the port's autograd entry point, every
+   case of ``TA_CASES`` (causal and not, window 4096 with cap 50, GQA 6:1
+   and 3:1, D 16 to 128, S != T, S not a multiple of the tile, bf16, f32,
+   bf16 q against f32 k and v): o, the log-sum-exp and dq, dk, dv within
+   the stated tolerance of the plain version in f32 (``ta_within``), the
+   same bits over 3 calls, each launch counted on the device; at
+   codeqwen1.5-7b's train shape the forward, the backward and both timed
+   against their bounds, the plain route and SDPA.
 4. serve, for each of eight paths in turn: codeqwen1.5-7b (dense, flash
    kernel), mamba2-1.3b (ssm, SSD kernel), zamba2-2.7b (hybrid, both
    kernels), granite-moe-3b-a800m (moe, flash), whisper-large-v3 (encdec,
@@ -97,7 +107,8 @@ no result):
    through a resident manager, and a stats dump; each must give the
    object substrate's tokens, the expected launches and the expected
    decode graphs (the sessions run captures in threads beside other
-   threads' eager work).  Each model is freed before the next.
+   threads' eager work).  Each model is freed before the next.  No
+   training attention or optimizer kernel launches while serving.
 5. train, after the serve paths, with every kernel count set to 0:
    every kernel wrapper refuses CUDA inputs that require grad; (a) the
    ``tiny`` preset's train step on the card equals the port on the CPU
@@ -109,14 +120,18 @@ no result):
    layers, one donated, rematerialised bf16 step on 8 x 512 tokens: time
    against ``train_step_bound``, device busy and idle, peak memory, the
    first loss equal to ``forward_train``'s, the loss falling on the
-   repeated batch, and at 2 layers remat on and off agreeing; the step's
+   repeated batch, step 1's loss and grad norm near the plain
+   attention's, and at 2 layers remat on and off agreeing; the step's
    device time split by part (``train_profile``: optimizer, global norm,
-   bf16 GEMMs, the attention's f32 GEMMs, other elementwise work, idle)
-   beside the same step on the optimizer's plain versions; (d) no
-   attention or SSD kernel launched in the whole phase (training runs
-   them as torch ops, as the reference trains with ``use_kernel=False``),
-   the two optimizer kernels exactly once a param leaf a step on the card,
-   on the host and on the device.
+   bf16 GEMMs, f32 GEMMs, the training attention kernels, other
+   elementwise work by op family, idle) beside the same step on the
+   attention's plain ops (the parent's path, ``plain_train_attention``);
+   (d) no serve kernel launched in the whole phase (flash, the SSD scan
+   and decode have no backward: training runs with ``use_kernel=False``,
+   as the reference does), the training attention once a forward (twice
+   under remat) and once a backward an attention call a microbatch, the
+   two optimizer kernels exactly once a param leaf a step on the card, on
+   the host and on the device.
 6. dryrun, with every kernel count set to 0: (a) the port's dry-run of
    mamba2-1.3b x decode_32k on the 256-rank fake mesh ends ok and agrees
    with the reference's committed record on params, chips, decisions and
@@ -125,15 +140,17 @@ no result):
    host's torch; (b) its cost pass on a 1-rank mesh counts the same
    FLOPs as ``FlopCounterMode`` on the card for codeqwen1.5-7b's
    plain-route prefill (one serve microbatch, counted in phase 4) and
-   (c) its 16-layer train step (one more step, counted in phase 5),
+   (c) its 16-layer train step (one more step on the plain attention,
+   counted in phase 5),
    printed with the roofline's terms beside the measured times; (d) no
    kernel launched (the steps run on meta DTensors, which take the
    optimizer's plain versions).
 7. examples, with every kernel count set to 0: ``examples/torch/``'s
    CHILES pipeline recovers its source in band 2, and ``train_lm.py`` at
    its defaults (lm20m, 200 steps through the engine) lowers the loss; no
-   attention or SSD kernel launched, the optimizer kernels once a param
-   leaf a step.
+   serve kernel launched, the training attention once a forward and once
+   a backward a layer a step, the optimizer kernels once a param leaf a
+   step.
 8. the kernels line, the card line, then the result line.
 
 It imports nothing of JAX or of the JAX package.  Without CUDA it exits 2.
@@ -1124,6 +1141,22 @@ def plain_optimizer():
         A.K = real
 
 
+@contextlib.contextmanager
+def plain_train_attention():
+    """The training attention's plain ops on the card, for the parent's
+    column and the FLOP-counted steps (``FlopCounterMode`` cannot see a
+    ctypes launch): ``models.attention._attend`` is shown no kernel device
+    (``kernels.train_attention.takes_kernel`` answers False), so it runs
+    as it did before the kernels."""
+    from repro_torch.kernels import train_attention as TA
+    real = TA.takes_kernel
+    TA.takes_kernel = lambda tensors: False
+    try:
+        yield
+    finally:
+        TA.takes_kernel = real
+
+
 def same_bits(torch, a, b) -> bool:
     """Equal shapes, dtypes and bits (NaNs and signed zeros included)."""
     if a.shape != b.shape or a.dtype != b.dtype:
@@ -1460,6 +1493,303 @@ def phase_optimizer_kernel(torch, opt) -> list:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "library": t["library"],
             "f32_lm100m": f32_times[name]})
+    return entries
+
+
+# The train step's attention kernels (``kernels/train_attention.py``).
+TA_SOURCE = "src/repro_torch/csrc/train_attention.cu"
+TA_REPLACES = ("src/repro/models/attention.py:118 (_gqa_scores, softcap, the "
+               "mask, jax.nn.softmax, _gqa_out: jnp inside jax.jit, "
+               "src/repro/launch/train.py:96; no Pallas kernel)")
+TA_SHAPE = "codeqwen1.5-7b train: B8 32/32 heads S512 D128 causal bf16"
+# (name, B, S, T, Hq, Hkv, D, q dtype, k and v dtype, causal, window, cap):
+# every option of the kernels, f32 and bf16, the train paths' shapes;
+# "path" is codeqwen1.5-7b's train attention and "lm100m_f32" lm100m's
+# through the engine (8 x 128 tokens), both also timed
+TA_CASES = (
+    ("gqa6_d128_bf16", 2, 200, 200, 12, 2, 128, "bf16", "bf16", True, 0, 0.0),
+    ("gqa3_d64_bf16", 2, 200, 200, 6, 2, 64, "bf16", "bf16", True, 0, 0.0),
+    ("mha_d80_bf16", 2, 136, 136, 4, 4, 80, "bf16", "bf16", True, 0, 0.0),
+    ("window4096_cap50_d128_bf16", 1, 4200, 4200, 4, 2, 128, "bf16", "bf16",
+     True, 4096, 50.0),
+    ("cap50_d128_bf16", 1, 300, 300, 4, 2, 128, "bf16", "bf16", True, 0,
+     50.0),
+    ("cross_d64_bf16", 2, 100, 150, 4, 4, 64, "bf16", "bf16", False, 0, 0.0),
+    ("cross_d64_mixed", 2, 100, 150, 4, 4, 64, "bf16", "f32", False, 0, 0.0),
+    ("encoder_d64_f32", 2, 150, 150, 4, 4, 64, "f32", "f32", False, 0, 0.0),
+    ("gqa6_d128_f32", 2, 200, 200, 12, 2, 128, "f32", "f32", True, 0, 0.0),
+    ("d64_f32", 2, 200, 200, 4, 4, 64, "f32", "f32", True, 0, 0.0),
+    ("window100_cap50_d128_f32", 1, 300, 300, 4, 2, 128, "f32", "f32", True,
+     100, 50.0),
+    ("d16_f32", 2, 72, 72, 4, 4, 16, "f32", "f32", True, 0, 0.0),
+    ("lm100m_f32", 8, 128, 128, 12, 12, 64, "f32", "f32", True, 0, 0.0),
+    ("path", 8, 512, 512, 32, 32, 128, "bf16", "bf16", True, 0, 0.0),
+)
+TA_TIMED = ("path", "lm100m_f32")
+# Tolerance against the plain version computed in f32 from the same
+# values (autograd on the plain ops, f32 leaves): a bf16 result is one
+# rounding of an f32 value, so within 2^-8 |b| (half an ulp) plus
+# TA_REL_TOL x max|b| for the kernel's f32 sums in another order and P and
+# dS as hi + lo halves (~2^-17 of each term); an f32 result within
+# TA_REL_TOL x max|b|
+TA_REL_TOL = 1e-5
+TA_BF16_ULP = 2.0 ** -8
+
+
+def ta_within(torch, got, want) -> dict:
+    """``got`` (a kernel result in its dtype) against ``want`` (the plain
+    version in f32) at the stated tolerance."""
+    w = want.detach().float()
+    err = (got.detach().float() - w).abs()
+    scale = float(w.abs().max())
+    tol = TA_REL_TOL * scale + (TA_BF16_ULP * w.abs()
+                                if got.dtype == torch.bfloat16 else 0.0)
+    return {"max_abs_err": float(err.max()),
+            "max_rel_err": float(err.max()) / scale if scale else 0.0,
+            "ok": bool((err <= tol).all())}
+
+
+def ta_plain(torch, ta, q, k, v, do, opts) -> tuple:
+    """The plain version on f32 leaves of the same values: o, the
+    log-sum-exp of each row (B, Hq, S) and the grads (dq, dk, dv), f32."""
+    from repro_torch.kernels.ref import gqa_scores, softcap
+    leaves = [t.detach().float().requires_grad_(True) for t in (q, k, v)]
+    o = ta.train_attention_plain(*leaves, **opts)
+    grads = torch.autograd.grad(o, leaves, do.float())
+    with torch.no_grad():
+        s = softcap(gqa_scores(leaves[0], leaves[1]), opts["logit_cap"])
+        S, T = s.shape[-2:]
+        rows = torch.arange(S, device=s.device)[:, None]
+        cols = torch.arange(T, device=s.device)[None, :]
+        seen = torch.ones((S, T), dtype=torch.bool, device=s.device)
+        if opts["causal"]:
+            seen &= cols <= rows
+        if opts["window"]:
+            seen &= rows - cols < opts["window"]
+        lse = s.masked_fill(~seen, -1e30).logsumexp(-1)
+        lse = lse.reshape(q.shape[0], q.shape[2], S)
+    return o.detach(), lse, grads
+
+
+def ta_inputs(torch, case, gen) -> tuple:
+    """q, k, v of a case, drawn from ``gen``; with one dtype and S == T,
+    views of one fused (B, S, Hq + 2 Hkv, D) tensor, read by strides."""
+    _, B, S, T, Hq, Hkv, D, qdt, kvdt, *_ = case
+    dts = {"bf16": torch.bfloat16, "f32": torch.float32}
+    if qdt == kvdt and S == T:
+        x = torch.randn((B, S, Hq + 2 * Hkv, D), device="cuda",
+                        generator=gen).to(dts[qdt])
+        return x[:, :, :Hq], x[:, :, Hq:Hq + Hkv], x[:, :, Hq + Hkv:]
+    q = torch.randn((B, S, Hq, D), device="cuda", generator=gen)
+    k = torch.randn((B, T, Hkv, D), device="cuda", generator=gen)
+    v = torch.randn((B, T, Hkv, D), device="cuda", generator=gen)
+    return q.to(dts[qdt]), k.to(dts[kvdt]), v.to(dts[kvdt])
+
+
+def ta_check(torch, ta, case, gen) -> dict:
+    """One case through the port's entry point (``train_attention``, the
+    autograd function) three times: o and the grads the same bits each
+    time and within the tolerance of the plain version, the log-sum-exp
+    too (one more forward launch); each launch counted on the device."""
+    *_, causal, window, cap = case
+    opts = dict(causal=causal, window=window, logit_cap=cap)
+    q, k, v = ta_inputs(torch, case, gen)
+    lib = ta._lib()
+    before = ta.kernel_launches(lib)
+    runs = []
+    for _ in range(3):
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        o = ta.train_attention(*leaves, **opts)
+        if not runs:
+            do = torch.randn(o.shape, device="cuda", generator=gen).to(
+                o.dtype)
+        runs.append((o.detach(), *torch.autograd.grad(o, leaves, do)))
+        del o, leaves
+    kq, kk, kv = (t.float() if ta.route(q.dtype, k.dtype, q.shape[3])
+                  == "scalar_f32" else t for t in (q, k, v))
+    lse = ta.train_attention_forward(kq, kk, kv, **opts)[2]
+    torch.cuda.synchronize()
+    after = ta.kernel_launches(lib)
+    r = ta.route(q.dtype, k.dtype, q.shape[3])
+    want = {kn: {rn: (4 if kn == "forward" else 3) * (rn == r)
+                 for rn in ta.ROUTES} for kn in ta.KERNELS}
+    launched = {kn: {rn: after[kn][rn] - before[kn][rn] for rn in ta.ROUTES}
+                for kn in ta.KERNELS}
+    po, plse, pgrads = ta_plain(torch, ta, q, k, v, do, opts)
+    got = dict(zip(("o", "dq", "dk", "dv"), runs[0]))
+    row = {n: ta_within(torch, got[n], w)
+           for n, w in zip(("o", "dq", "dk", "dv"), (po, *pgrads))}
+    row["lse"] = ta_within(torch, lse, plse)
+    row.update(
+        shape=list(case[1:7]), dtypes=list(case[7:9]), causal=causal,
+        window=window, cap=cap, route=r, out_dtypes={
+            n: str(t.dtype) for n, t in got.items()},
+        repeatable=all(same_bits(torch, a, b) for run in runs[1:]
+                       for a, b in zip(run, runs[0])),
+        device_launches=launched, launches_ok=launched == want)
+    row["ok"] = (all(row[n]["ok"] for n in ("o", "lse", "dq", "dk", "dv"))
+                 and row["repeatable"] and row["launches_ok"])
+    return row
+
+
+def ta_bounds(q, k, causal: bool, window: int) -> dict:
+    """Least times at 3.35 TB/s and the dtype's peak: the forward reads q,
+    k, v once and writes o and the f32 log-sum-exp (4 FLOP x D a visible
+    pair: Q K^T and P V); the backward reads q, k, v, o, dO and the
+    log-sum-exp and writes dq, dk, dv (10 FLOP x D a pair: Q K^T again,
+    dO V^T, P^T dO, dS K, dS^T Q)."""
+    b, s, hq, d = q.shape
+    pairs = visible_pairs(s, k.shape[1], causal, window)
+    es = q.element_size()
+    lse = b * hq * s * 4
+    out = {}
+    for name, nbytes, flops in (
+            ("forward", (2 * q.numel() + 2 * k.numel()) * es + lse,
+             4 * b * hq * d * pairs),
+            ("backward", (4 * q.numel() + 4 * k.numel()) * es + lse,
+             10 * b * hq * d * pairs)):
+        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+        t_ops = flops / H100_PEAK_FLOPS[str(q.dtype)] * 1e3
+        out[name] = dict(bytes=nbytes, flops=flops,
+                         bound_ms=max(t_bytes, t_ops),
+                         bound_by="bytes" if t_bytes >= t_ops
+                         else "operations")
+    out["fwd_bwd"] = dict(bound_ms=out["forward"]["bound_ms"]
+                          + out["backward"]["bound_ms"])
+    return out
+
+
+def ta_times(torch, ta, case, gen) -> dict:
+    """At a case's shape: the forward, the backward and both, each on the
+    kernels (``train_attention_forward`` / ``_backward``), the plain route
+    (autograd on the plain ops, leaves of the case's dtype, as training
+    runs it) and the library call (SDPA on (B, H, S, D) views, causal:
+    timed only; in bf16 it rounds P to bf16), CUDA events; kernels and
+    plain in turns."""
+    import torch.nn.functional as F
+    *_, causal, window, cap = case
+    opts = dict(causal=causal, window=window, logit_cap=cap)
+    q, k, v = (t.contiguous() for t in ta_inputs(torch, case, gen))
+    do = torch.randn(q.shape, device="cuda", generator=gen).to(q.dtype)
+    o, o32, lse = ta.train_attention_forward(q, k, v, **opts)
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    po = ta.train_attention_plain(*leaves, **opts)
+    bh = [t.detach().transpose(1, 2).requires_grad_(True)
+          for t in (q, k, v)]
+    lo = F.scaled_dot_product_attention(*bh, is_causal=causal)
+    do_bh = do.transpose(1, 2)
+
+    def k_fwd():
+        ta.train_attention_forward(q, k, v, **opts)
+
+    def k_bwd():
+        ta.train_attention_backward(q, k, v, o32, lse, do, **opts)
+
+    def k_both():
+        _, a32, alse = ta.train_attention_forward(q, k, v, **opts)
+        ta.train_attention_backward(q, k, v, a32, alse, do, **opts)
+
+    def p_fwd():
+        ta.train_attention_plain(*leaves, **opts)
+
+    def p_bwd():
+        torch.autograd.grad(po, leaves, do.float(), retain_graph=True)
+
+    def p_both():
+        torch.autograd.grad(ta.train_attention_plain(*leaves, **opts),
+                            leaves, do.float())
+
+    def l_fwd():
+        F.scaled_dot_product_attention(*bh, is_causal=causal)
+
+    def l_bwd():
+        torch.autograd.grad(lo, bh, do_bh, retain_graph=True)
+
+    def l_both():
+        torch.autograd.grad(F.scaled_dot_product_attention(
+            *bh, is_causal=causal), bh, do_bh)
+    out = {}
+    for part, fast, slow, lib_fn in (("forward", k_fwd, p_fwd, l_fwd),
+                                      ("backward", k_bwd, p_bwd, l_bwd),
+                                      ("fwd_bwd", k_both, p_both, l_both)):
+        turns = {"kernel": [], "plain": []}
+        for which in ("kernel", "plain", "plain", "kernel"):
+            turns[which].append(cuda_ms(fast if which == "kernel" else slow,
+                                        iters=10 if which == "plain" else 20,
+                                        warmup=2))
+        out[part] = dict(ms=sum(turns["kernel"]) / 2,
+                         plain_ms=sum(turns["plain"]) / 2, turns=turns,
+                         library_ms=cuda_ms(lib_fn, iters=20, warmup=2))
+    return out
+
+
+def phase_train_attention_kernel(torch, ta) -> list:
+    """The training attention kernels against their plain version on the
+    card, through the port's entry point (``train_attention``): every case
+    of ``TA_CASES`` (causal and not, window 4096 with cap 50, GQA 6:1 and
+    3:1, D 16 to 128, S != T, S not a multiple of the tile, bf16, f32 and
+    bf16 q against f32 k and v), o, the log-sum-exp and dq, dk, dv within
+    the stated tolerance of the plain version, the same bits over 3 calls,
+    each launch counted on the device; one case's tensors alive at a time.
+    Then the forward, the backward and both at the ``TA_TIMED`` shapes
+    against the bound, the plain route and SDPA.  Returns the kernels
+    line's two entries, at the path shape, lm100m's f32 times beside
+    them (launches filled in by the train phase)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    t0 = time.monotonic()
+    failed, worst = [], {"forward": 0.0, "backward": 0.0}
+    for case in TA_CASES:
+        row = ta_check(torch, ta, case, gen)
+        emit("kernel_check", kernel="train_attention", case=case[0], **row)
+        if not row["ok"]:
+            failed.append(case[0])
+        worst["forward"] = max(worst["forward"], row["o"]["max_abs_err"],
+                               row["lse"]["max_abs_err"])
+        worst["backward"] = max(worst["backward"], *(
+            row[n]["max_abs_err"] for n in ("dq", "dk", "dv")))
+        gc.collect()
+        torch.cuda.empty_cache()
+    if failed:
+        fail(f"train_attention differs from the plain version: {failed}")
+    timed = {}
+    for case in TA_CASES:
+        if case[0] not in TA_TIMED:
+            continue
+        q, k, _ = ta_inputs(torch, case, gen)
+        bounds = ta_bounds(q, k, case[9], case[10])
+        del q, k, _
+        timed[case[0]] = dict(bounds=bounds,
+                              times=ta_times(torch, ta, case, gen))
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit("train_attention_times", shape=TA_SHAPE, **timed,
+         seconds=time.monotonic() - t0)
+    bounds, times = timed["path"]["bounds"], timed["path"]["times"]
+    lm = timed["lm100m_f32"]
+    entries = []
+    for name, part in (("train_attention_forward", "forward"),
+                       ("train_attention_backward", "backward")):
+        t, b = times[part], bounds[part]
+        entry = {
+            "name": name, "route": "cuda", "kernel_route": "mma_bf16",
+            "kernel_routes": list(ta.ROUTES), "source": TA_SOURCE,
+            "replaces": TA_REPLACES, "shape": TA_SHAPE,
+            "max_abs_err": worst[part], "ms": t["ms"], "kernel_ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": b["bound_ms"],
+            "bound_by": b["bound_by"], "library_ms": t["library_ms"],
+            "library": f"F.scaled_dot_product_attention {part} (bf16 P; "
+                       f"timed only)",
+            "f32_lm100m": dict(lm["times"][part],
+                               bound_ms=lm["bounds"][part]["bound_ms"])}
+        if part == "backward":
+            entry.update(
+                kernels="delta, dQ, dK dV (one launch each a call)",
+                fwd_bwd_ms=times["fwd_bwd"]["ms"],
+                fwd_bwd_plain_ms=times["fwd_bwd"]["plain_ms"],
+                fwd_bwd_library_ms=times["fwd_bwd"]["library_ms"],
+                fwd_bwd_bound_ms=bounds["fwd_bwd"]["bound_ms"])
+        entries.append(entry)
     return entries
 
 
@@ -2257,7 +2587,7 @@ def routes_agree(torch, cfg, params, cache, tok, pos: int) -> dict:
     return out
 
 
-def profile_call(torch, fn, table_name: str, split: bool = False) -> dict:
+def profile_call(torch, fn, table_name: str, split=None) -> dict:
     """One call of ``fn`` under torch.profiler, ended by a device
     synchronise: its wall ms, device busy ms and idle share, the ten
     device kernels with the most time, the flash launches by route
@@ -2265,12 +2595,13 @@ def profile_call(torch, fn, table_name: str, split: bool = False) -> dict:
     (``ssd_kernels_seen``) and the device time of the MoE dispatch's and
     the SSD scan's index ops and of the SSD scan's layout copies
     (``WATCHED_OPS``), where the call ran them (full table to
-    ``table_name`` under ``PROFILE_DIR``); with ``split``, a train step's
-    device time by part (``train_split``, shapes recorded)."""
+    ``table_name`` under ``PROFILE_DIR``); with ``split`` (a model's
+    widths, ``train_dims``), a train step's device time by part and its
+    elementwise time by op family (``train_split``, shapes recorded)."""
     from torch.profiler import ProfilerActivity, profile
     PROFILE_DIR.mkdir(parents=True, exist_ok=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=split) as prof:
+                 record_shapes=split is not None) as prof:
         t0 = time.monotonic()
         fn()
         torch.cuda.synchronize()
@@ -2295,28 +2626,69 @@ def profile_call(torch, fn, table_name: str, split: bool = False) -> dict:
                flash_routes_seen=flash_routes_seen(torch, events),
                ssd_kernels_seen=ssd_kernels_seen(torch, events),
                decode_kernels_seen=decode_kernels_seen(torch, events))
-    if split:
-        out["split"] = train_split(torch, prof, busy_ms)
+    if split is not None:
+        out["split"] = train_split(torch, prof, busy_ms, split)
     return out
 
 
 # A train step's device time by part (``train_split``): the optimizer's
 # and the global norm's ops (under ``scoped_optimizer``'s ranges), the
 # GEMMs by their inputs' dtype (bf16: the projections and the head; f32:
-# the training attention's einsums, which upcast q, k and v), the rest
-# (elementwise, reductions, copies; remat's recompute included), device
-# time no op claims, and idle
+# the plain training attention's einsums, which upcast q, k and v), the
+# training attention kernels, the rest (elementwise, reductions, copies;
+# remat's recompute included) split by op family (``ELEMENTWISE_FAMILIES``,
+# from the op's input shapes), device time no op claims, and idle
 TRAIN_PARTS = ("optimizer", "global_norm", "gemm_bf16", "gemm_f32",
-               "elementwise")
+               "attention_kernels", "elementwise")
 GEMM_OPS = ("aten::mm", "aten::bmm", "aten::addmm", "aten::baddbmm",
             "aten::addbmm", "aten::_addmm_activation")
 TRAIN_SCOPE = "train_step/"
+# An elementwise op's family by the shapes of its inputs, the first rule
+# that one input meets (``op_family``): the attention core's S x S scores
+# (the plain route's scale, cap, mask, softmax and their backward), the
+# loss and the head (vocab), the MLP's gate (d_ff), RoPE and the
+# attention's upcasts ((B, S, heads, head_dim), RoPE's halves (B, S, heads,
+# head_dim / 2) too), the norms and residual adds (d_model rows), and casts
+# and copies (the rest)
+ELEMENTWISE_FAMILIES = ("attention_core", "loss_head", "mlp_gate",
+                        "rope_upcasts", "norms_residual", "casts_copies")
 
 
-# the optimizer's hand-written kernels, which no ATen op launches: their
-# device time goes to their part by name
-OPT_KERNEL_PARTS = {"adamw_update_kernel": "optimizer",
-                    "sumsq_kernel": "global_norm"}
+# the hand-written kernels no ATen op launches: their device time goes to
+# their part by name
+NAMED_KERNEL_PARTS = {"adamw_update_kernel": "optimizer",
+                      "sumsq_kernel": "global_norm",
+                      "fwd_mma_kernel": "attention_kernels",
+                      "dq_mma_kernel": "attention_kernels",
+                      "dkdv_mma_kernel": "attention_kernels",
+                      "fwd_f32_kernel": "attention_kernels",
+                      "dq_f32_kernel": "attention_kernels",
+                      "dkdv_f32_kernel": "attention_kernels",
+                      "delta_kernel": "attention_kernels"}
+
+
+def train_dims(cfg, seq: int) -> dict:
+    """The widths ``op_family`` tells the families apart by."""
+    return dict(seq=seq, heads=(cfg.num_heads, cfg.num_kv_heads),
+                head_dim=cfg.resolved_head_dim, d_model=cfg.d_model,
+                d_ff=cfg.d_ff, vocab=cfg.vocab_size)
+
+
+def op_family(shapes, dims: dict) -> str:
+    """The family (``ELEMENTWISE_FAMILIES``) of an op with input
+    ``shapes`` at a model's ``dims``."""
+    shapes = [tuple(x) for x in shapes if x]
+    s = dims["seq"]
+    rules = (("attention_core", lambda x: len(x) >= 2 and x[-2:] == (s, s)),
+             ("loss_head", lambda x: x[-1] == dims["vocab"]),
+             ("mlp_gate", lambda x: x[-1] == dims["d_ff"]),
+             ("rope_upcasts", lambda x: len(x) >= 2 and x[-2] in dims["heads"]
+              and x[-1] in (dims["head_dim"], dims["head_dim"] // 2)),
+             ("norms_residual", lambda x: x[-1] == dims["d_model"]))
+    for family, meets in rules:
+        if any(meets(x) for x in shapes):
+            return family
+    return "casts_copies"
 
 
 def gemm_dtypes(prof) -> dict:
@@ -2353,33 +2725,49 @@ def train_part(event, dtypes: dict) -> str:
     return "elementwise"
 
 
-def train_split(torch, prof, busy_ms: float) -> dict:
+def train_split(torch, prof, busy_ms: float, dims: dict) -> dict:
     """A profiled train step's device ms by ``TRAIN_PARTS``: each ATen
-    op's kernels by ``train_part``, the optimizer kernels by name
-    (``OPT_KERNEL_PARTS``); ``unattributed``, busy time none of them
-    claims; each part's top four kernels."""
+    op's kernels by ``train_part``, the hand-written kernels by name
+    (``NAMED_KERNEL_PARTS``); ``elementwise`` also by op family
+    (``op_family`` of the op's input shapes, recorded); ``unattributed``,
+    busy time none of them claims; each part's and family's top four
+    kernels."""
     cpu = torch.autograd.DeviceType.CPU
     dtypes = gemm_dtypes(prof)
     parts = dict.fromkeys(TRAIN_PARTS, 0.0)
-    names = {p: {} for p in TRAIN_PARTS}
+    families = dict.fromkeys(ELEMENTWISE_FAMILIES, 0.0)
+    names = {p: {} for p in TRAIN_PARTS + ELEMENTWISE_FAMILIES}
 
     def add(part, name, ms):
         parts[part] += ms
         names[part][name[:90]] = names[part].get(name[:90], 0.0) + ms
+
+    def named(kernel):
+        return next((p for k, p in NAMED_KERNEL_PARTS.items()
+                     if k in kernel), None)
     for e in prof.events():
         if e.device_type != cpu:
-            for k, part in OPT_KERNEL_PARTS.items():
-                if k in e.name:
-                    add(part, e.name, (e.time_range.end
-                                       - e.time_range.start) / 1e3)
+            part = named(e.name)
+            if part:
+                add(part, e.name, (e.time_range.end
+                                   - e.time_range.start) / 1e3)
             continue
         for k in e.kernels:
-            if not any(n in k.name for n in OPT_KERNEL_PARTS):
-                add(train_part(e, dtypes), k.name, k.duration / 1e3)
+            if named(k.name):
+                continue
+            part = train_part(e, dtypes)
+            add(part, k.name, k.duration / 1e3)
+            if part == "elementwise":
+                fam = op_family(getattr(e, "input_shapes", None) or [],
+                                dims)
+                families[fam] += k.duration / 1e3
+                names[fam][f"{e.name} {k.name}"[:90]] = names[fam].get(
+                    f"{e.name} {k.name}"[:90], 0.0) + k.duration / 1e3
     out = dict(parts)
+    out["elementwise_families"] = families
     out["unattributed"] = max(0.0, busy_ms - sum(parts.values()))
     out["top"] = {p: sorted(names[p].items(), key=lambda kv: -kv[1])[:4]
-                  for p in TRAIN_PARTS}
+                  for p in TRAIN_PARTS + ELEMENTWISE_FAMILIES}
     return out
 
 
@@ -2443,7 +2831,7 @@ WATCHED_OPS = ("aten::cumsum", "aten::scatter_add", "aten::gather",
 
 
 TRAIN_FULL = dict(layers=16, batch=8, seq=512, steps=4, peak_lr=3e-4)
-TRAIN_PLAIN_STEPS = 3       # the same steps on the optimizer's plain versions
+TRAIN_PLAIN_STEPS = 3       # the same steps on the attention's plain ops
 TRAIN_ENGINE = dict(steps=40, shards=2, batch_per_shard=4, seq=128,
                     ckpt_every=20, resume_steps=4)
 TRAIN_PARITY = (dict(), dict(num_microbatches=2), dict(compress=True))
@@ -2465,9 +2853,9 @@ def optimizer_steps(phase: str) -> list:
         return [(PRESETS["tiny"], len(TRAIN_PARITY) * TRAIN_PARITY_STEPS),
                 # the engine, the plain loop, the resumed run
                 (PRESETS["lm100m"], 2 * e["steps"] + e["resume_steps"]),
-                # timed, profiled, FLOP-counted (the steps on the plain
-                # versions launch none)
-                (full, f["steps"] + 2),
+                # timed, profiled, FLOP-counted; the plain attention's
+                # timed and profiled (step 1's plain grads launch none)
+                (full, f["steps"] + 2 + TRAIN_PLAIN_STEPS + 1),
                 (dataclasses.replace(full, num_layers=2), 2)]  # remat on, off
     if phase == "examples":
         preset, steps = TRAIN_LM
@@ -2493,23 +2881,100 @@ def expected_optimizer_launches(torch, opt, phase: str) -> dict:
     return want
 
 
-def optimizer_device_delta(opt, before: dict) -> dict:
-    after = opt.kernel_launches(opt._lib())
-    return {k: {r: n - before[k][r] for r, n in by.items()}
-            for k, by in after.items()}
+def attention_steps(phase: str) -> list:
+    """(config, train steps on the card, microbatches a step, forward
+    launches a layer) of a phase's runs on the training attention kernels:
+    remat's recompute launches a second forward; every step launches one
+    backward a layer and microbatch."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import PRESETS
+    if phase == "train":
+        e, f = TRAIN_ENGINE, TRAIN_FULL
+        full = dataclasses.replace(get_config("codeqwen15_7b"),
+                                   num_layers=f["layers"])
+        two = dataclasses.replace(full, num_layers=2)
+        return [*((PRESETS["tiny"], TRAIN_PARITY_STEPS,
+                   kw.get("num_microbatches", 1), 2) for kw in TRAIN_PARITY),
+                # run_training's steps do not remat
+                (PRESETS["lm100m"], 2 * e["steps"] + e["resume_steps"], 1, 1),
+                # timed and profiled (the FLOP-counted step and the plain
+                # column run the plain attention)
+                (full, f["steps"] + 1, 1, 2),
+                (two, 1, 1, 2), (two, 1, 1, 1)]      # remat on, off
+    if phase == "examples":
+        preset, steps = TRAIN_LM
+        return [(PRESETS[preset], steps, 1, 1)]
+    return []
+
+
+def attention_calls(cfg) -> int:
+    """Full-sequence attention calls in one ``forward_train``."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.num_layers // cfg.shared_attn_period
+    if cfg.family == "encdec":
+        return cfg.num_encoder_layers + 2 * cfg.num_layers
+    return cfg.num_layers
+
+
+def expected_attention_launches(ta, phase: str) -> dict:
+    """The training attention's launches a phase must make, by call
+    (forward; backward: its delta, dQ and dK dV kernels once each) and
+    route (``attention_steps``, on the route of the model's dtype and head
+    dim)."""
+    want = {n: dict.fromkeys(ta.ROUTES, 0) for n in
+            ("train_attention_forward", "train_attention_backward")}
+    for cfg, steps, micro, forwards in attention_steps(phase):
+        dt = cfg.torch_dtype
+        r = ta.route(dt, dt, cfg.resolved_head_dim)
+        n = attention_calls(cfg) * steps * micro
+        want["train_attention_forward"][r] += n * forwards
+        want["train_attention_backward"][r] += n
+    return want
+
+
+def expected_train_launches(torch, mods, phase: str) -> dict:
+    """The optimizer's and the training attention's expected launches."""
+    return {**expected_optimizer_launches(torch, mods["adamw_update"], phase),
+            **expected_attention_launches(mods["train_attention_forward"],
+                                          phase)}
+
+
+def device_counts(mods) -> tuple:
+    """The optimizer's and the training attention's device counters."""
+    opt, ta = mods["adamw_update"], mods["train_attention_forward"]
+    return opt.kernel_launches(opt._lib()), ta.kernel_launches(ta._lib())
+
+
+def device_delta(mods, before: tuple) -> dict:
+    """Device launches since ``before`` (``device_counts``): the optimizer
+    kernels by name, the training attention by call (its forward kernel;
+    its backward's three kernels, which must agree)."""
+    after = device_counts(mods)
+    opt, ta = ({k: {r: n - b[k][r] for r, n in by.items()}
+                for k, by in a.items()} for a, b in zip(after, before))
+    if not ta["delta"] == ta["dkdv"] == ta["dq"]:
+        fail(f"the training attention's backward kernels launched "
+             f"unequally: {ta}")
+    return {**opt, "train_attention_forward": ta["forward"],
+            "train_attention_backward": ta["dq"]}
 
 
 def check_phase_launches(phase: str, launches: dict, by_route: dict,
                          device: dict, want: dict) -> None:
-    """No attention or SSD kernel launched; each optimizer kernel exactly
-    ``want`` by route, on the host and on the device."""
+    """No serve kernel launched (flash, SSD, decode); each kernel of
+    ``want`` (the optimizer's, the training attention's) exactly ``want``
+    by route, on the host and on the device."""
     others = {n: c for n, c in launches.items() if n not in want}
     if any(others.values()):
         fail(f"the {phase} phase launched kernels: {others}")
     got = {n: by_route[n] for n in want}
-    if got != want or device != want:
-        fail(f"the {phase} phase's optimizer launches: host {got}, device "
-             f"{device}, expected {want}")
+    if got != want or {n: device[n] for n in want} != want:
+        fail(f"the {phase} phase's train kernel launches: host {got}, "
+             f"device {device}, expected {want}")
 
 
 def train_step_bound(cfg, params, batch: int, seq: int) -> dict:
@@ -2678,21 +3143,26 @@ def train_engine(torch):
 def train_full_width(torch):
     """(c) codeqwen1.5-7b at full width, cut to 16 of 32 layers, one
     donated, rematerialised step on 8 x 512 tokens, repeated on one batch:
-    the first loss equals ``forward_train``'s, the loss falls by step 4,
-    grad norms are finite; steps 2-4 timed (the optimizer's and the global
-    norm's device spans by CUDA events, ``scoped_optimizer``), one more
-    profiled and split by part (``train_split``), one FLOP-counted; then
-    the same step on the optimizer's plain versions (``plain_optimizer``,
-    the parent's path): ``TRAIN_PLAIN_STEPS`` timed the same way and one
-    profiled and split, printed as the ``train_profile`` line beside the
-    kernels' split (idle: the timed step's ms less the profiled busy
-    time)."""
+    the first loss equals ``forward_train``'s, step 1's loss and grad norm
+    are the plain attention's (its grads of the same state and batch, under
+    ``plain_train_attention``), the loss falls by step 4, grad norms are
+    finite; steps 2-4 timed (the optimizer's and the global norm's device
+    spans by CUDA events, ``scoped_optimizer``), one more profiled and
+    split by part and elementwise family (``train_split``), one
+    FLOP-counted on the plain attention (``FlopCounterMode`` cannot see
+    the kernels); then the same step on the attention's plain ops
+    (``plain_train_attention``, the parent's path): ``TRAIN_PLAIN_STEPS``
+    timed the same way and one profiled and split, printed as the
+    ``train_profile`` line beside the kernels' split (idle: the timed
+    step's ms less the profiled busy time)."""
     import dataclasses
 
     from repro_torch.configs import get_config
     from repro_torch.data import synthetic_batch
     from repro_torch.models import model as M
+    from repro_torch.optim import adamw as A
     from repro_torch.train import make_train_step, train_state_init
+    from repro_torch.train.steps import _grads
     f = TRAIN_FULL
     cfg = dataclasses.replace(get_config("codeqwen15_7b"),
                               num_layers=f["layers"])
@@ -2704,6 +3174,15 @@ def train_full_width(torch):
     bound = train_step_bound(cfg, state.params, f["batch"], f["seq"])
     with torch.inference_mode():
         ref = float(M.forward_train(state.params, cfg, batch)[0])
+    with plain_train_attention(), plain_optimizer():
+        plain_loss, grads = _grads(lambda params, mb: M.forward_train(
+            params, cfg, mb, remat=True)[0], state.params, batch)
+        plain_first = {"loss": float(plain_loss),
+                       "grad_norm": float(A.global_norm(grads))}
+    del grads, plain_loss
+    gc.collect()
+    torch.cuda.empty_cache()
+    dims = train_dims(cfg, f["seq"])
     step = make_train_step(cfg, peak_lr=f["peak_lr"], warmup_steps=1,
                            total_steps=10, remat=True, donate=True)
     torch.cuda.synchronize()
@@ -2723,14 +3202,15 @@ def train_full_width(torch):
         holder[0], _ = step(holder[0], batch)
     with scoped_optimizer():
         prof = profile_call(torch, one_step, "profile_train_step.txt",
-                            split=True)
+                            split=dims)
     from torch.utils.flop_counter import FlopCounterMode
-    with FlopCounterMode(display=False) as counted:     # one more step
+    with plain_train_attention(), \
+            FlopCounterMode(display=False) as counted:     # one more step
         one_step()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     plain_times, plain_spans = [], []
-    with plain_optimizer():
+    with plain_train_attention():
         for _ in range(TRAIN_PLAIN_STEPS):
             t0 = time.monotonic()
             with scoped_optimizer(plain_spans):
@@ -2740,7 +3220,7 @@ def train_full_width(torch):
         with scoped_optimizer():
             plain_prof = profile_call(torch, one_step,
                                       "profile_train_step_plain.txt",
-                                      split=True)
+                                      split=dims)
     plain_peak = torch.cuda.max_memory_allocated()
     card = {"flops": counted.get_total_flops(), "batch": f["batch"],
             "seq": f["seq"], "layers": cfg.num_layers, "step_ms": sorted(times[1:])[
@@ -2773,12 +3253,21 @@ def train_full_width(torch):
          d_model=cfg.d_model, batch=f["batch"], seq=f["seq"],
          remat=True, donate=True, step_ms=step_ms, step_ms_all=times,
          tokens_per_s=f["batch"] * f["seq"] / step_ms * 1e3,
-         forward_train_loss=ref, losses=losses, grad_norms=norms,
+         forward_train_loss=ref, plain_attention_step_1=plain_first,
+         losses=losses, grad_norms=norms,
          lrs=[m["lr"] for m in metrics], max_memory_allocated=peak,
          free_gb_at_peak=free_gb, **bound, profile=prof)
     if abs(losses[0] - ref) > 1e-3 * abs(ref):
         fail(f"{cfg.name}: first step's loss {losses[0]}, forward_train "
              f"{ref}")
+    # bf16 activations: the two routes' attention outputs differ by at most
+    # one bf16 rounding an element, through 16 bf16 layers (the rule of
+    # forward_train's check for the loss, train_remat's for the norm)
+    if abs(losses[0] - plain_first["loss"]) > 1e-3 * abs(plain_first["loss"]) \
+            or abs(norms[0] - plain_first["grad_norm"]) > \
+            1e-2 * abs(plain_first["grad_norm"]):
+        fail(f"{cfg.name}: step 1 on the kernels: loss {losses[0]}, grad "
+             f"norm {norms[0]}; on the plain attention {plain_first}")
     if not losses[-1] < losses[0]:
         fail(f"{cfg.name}: loss on the repeated batch {losses}")
     if not all(math.isfinite(n) for n in norms):
@@ -2816,18 +3305,20 @@ def train_remat(torch, cfg, batch):
 
 
 def phase_train(torch, mods) -> tuple:
-    """The train paths on the card, after the serve paths: no attention or
-    SSD kernel may launch (training runs them as torch ops, as the
-    reference does), and the two optimizer kernels exactly once a param
-    leaf a step on the card (``expected_optimizer_launches``), counted on
-    the host and on the device.  Returns each kernel's launches over the
-    phase (host, in all and by route), the optimizer kernels' device
-    counts and the full-width train step's FLOPs and times."""
+    """The train paths on the card, after the serve paths: no serve kernel
+    may launch (flash, the SSD scan and decode have no backward; Mamba2's
+    scan trains as torch ops, as the reference's does), the training
+    attention exactly once a forward (twice under remat) and once a
+    backward an attention call a microbatch, and the two optimizer kernels
+    exactly once a param leaf a step on the card
+    (``expected_train_launches``), counted on the host and on the device.
+    Returns each kernel's launches over the phase (host, in all and by
+    route), the train kernels' device counts and the full-width train
+    step's FLOPs and times."""
     kernels = {name: getattr(mod, name) for name, mod in mods.items()}
-    opt = mods["adamw_update"]
-    want = expected_optimizer_launches(torch, opt, "train")
+    want = expected_train_launches(torch, mods, "train")
     _zero_counts(kernels)
-    before = opt.kernel_launches(opt._lib())
+    before = device_counts(mods)
     refused = check_kernel_guard(torch, mods)
     worst = train_parity(torch)
     train_engine(torch)
@@ -2836,12 +3327,11 @@ def phase_train(torch, mods) -> tuple:
     cfg, batch, card = train_full_width(torch)
     train_remat(torch, cfg, batch)
     launches, by_route = _read_counts(kernels)
-    device = optimizer_device_delta(opt, before)
+    device = device_delta(mods, before)
     emit("train_launches", launches=launches,
-         optimizer_launches_by_route={n: by_route[n] for n in want},
-         optimizer_device_launches=device,
-         expected_optimizer_launches=want, guard_refused=refused,
-         parity_max_rel_err=worst)
+         train_launches_by_route={n: by_route[n] for n in want},
+         train_device_launches=device, expected_train_launches=want,
+         guard_refused=refused, parity_max_rel_err=worst)
     check_phase_launches("train", launches, by_route, device, want)
     return launches, device, card
 
@@ -2879,9 +3369,8 @@ def phase_dryrun(torch, mods, cards: dict) -> dict:
     from repro_torch.sharding import AbstractMesh
     t0 = time.monotonic()
     kernels = {name: getattr(mod, name) for name, mod in mods.items()}
-    opt = mods["adamw_update"]
     _zero_counts(kernels)
-    before = opt.kernel_launches(opt._lib())
+    before = device_counts(mods)
 
     arch, shape = DRYRUN_CELL
     rec = D.run_cell(arch, shape, False, PROFILE_DIR / "dryrun",
@@ -2946,11 +3435,11 @@ def phase_dryrun(torch, mods, cards: dict) -> dict:
                 fail(f"{cfg.name} {step}: the fake pass counts "
                      f"{fake['flops']} FLOPs, the card {card['flops']}")
     launches, by_route = _read_counts(kernels)
-    device = optimizer_device_delta(opt, before)
+    device = device_delta(mods, before)
     emit("dryrun_launches", launches=launches,
-         optimizer_device_launches=device, seconds=time.monotonic() - t0)
+         train_device_launches=device, seconds=time.monotonic() - t0)
     check_phase_launches("dryrun", launches, by_route, device,
-                         expected_optimizer_launches(torch, opt, "dryrun"))
+                         expected_train_launches(torch, mods, "dryrun"))
     return launches, device
 
 
@@ -2974,15 +3463,15 @@ def phase_examples(torch, mods) -> dict:
     (b) ``train_lm.py`` at its defaults (lm20m, 200 steps through the
     engine on the card, which keeps every step's state), checkpoints under
     ``chiprun_out/`` deleted after: the loss falls, its own check; (c) no
-    attention or SSD kernel launched, the optimizer kernels once a param
-    leaf a step.  Returns each kernel's launches over the phase and the
-    optimizer kernels' device counts."""
+    serve kernel launched, the training attention once a forward and once
+    a backward a layer a step, the optimizer kernels once a param leaf a
+    step.  Returns each kernel's launches over the phase and the train
+    kernels' device counts."""
     import shutil
     kernels = {name: getattr(mod, name) for name, mod in mods.items()}
-    opt = mods["adamw_update"]
-    want = expected_optimizer_launches(torch, opt, "examples")
+    want = expected_train_launches(torch, mods, "examples")
     _zero_counts(kernels)
-    before = opt.kernel_launches(opt._lib())
+    before = device_counts(mods)
 
     chiles = _load_example("chiles_pipeline")
     cubes = []
@@ -3031,9 +3520,9 @@ def phase_examples(torch, mods) -> dict:
     del res
     shutil.rmtree(TRAIN_LM_CKPT)
     launches, by_route = _read_counts(kernels)
-    device = optimizer_device_delta(opt, before)
+    device = device_delta(mods, before)
     emit("examples_launches", launches=launches,
-         optimizer_device_launches=device, expected_optimizer_launches=want)
+         train_device_launches=device, expected_train_launches=want)
     if steps != TRAIN_LM[1]:
         fail(f"examples/torch/train_lm.py ran {steps} steps, expected "
              f"{TRAIN_LM[1]}")
@@ -3070,6 +3559,26 @@ def check_kernel_guard(torch, mods) -> list:
             raise
         fail(f"{name} took CUDA inputs that require grad")
     return refused
+
+
+def train_kernels_idle(mods):
+    """A check to call after a serve path: the training attention and the
+    optimizer kernels launched nothing since this call, on the host and on
+    the device (serving records no autograd graph and updates nothing)."""
+    names = ("adamw_update", "sumsq", "train_attention_forward",
+             "train_attention_backward")
+    kernels = {n: getattr(mods[n], n) for n in names}
+    _zero_counts(kernels)
+    before = device_counts(mods)
+
+    def check(what: str) -> None:
+        host = _read_counts(kernels)[0]
+        device = device_delta(mods, before)
+        if any(host.values()) or any(n for by in device.values()
+                                     for n in by.values()):
+            fail(f"{what}: train kernels launched while serving: host "
+                 f"{host}, device {device}")
+    return check
 
 
 def _graph_counts() -> dict:
@@ -3145,6 +3654,7 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import optimizer as opt
     from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.kernels import train_attention as ta
 
     t_start = time.monotonic()
     card = card_line()
@@ -3175,16 +3685,21 @@ def main() -> int:
     gc.collect()            # the plain versions' 8192-token scores
     torch.cuda.empty_cache()
     entries += phase_optimizer_kernel(torch, opt)
+    entries += phase_train_attention_kernel(torch, ta)
     if "--kernels-only" in sys.argv[1:]:
         emit("done", seconds=time.monotonic() - t_start)
         print(json.dumps({"kernels": entries}), flush=True)
         return 0
     mods = {e["name"]: mod for e, mod in zip(entries, (fa, ss, da))}
-    all_mods = {**mods, "adamw_update": opt, "sumsq": opt}
+    all_mods = {**mods, "adamw_update": opt, "sumsq": opt,
+                "train_attention_forward": ta,
+                "train_attention_backward": ta}
     by_path, routes, cards, decode_device = {}, {}, {}, {}
     for arch in PATHS:
+        idle = train_kernels_idle(all_mods)
         (by_path[arch], routes[arch], card, modes,
          decode_device[arch]) = phase_serve(torch, arch, mods)
+        idle(arch)
         if card is not None:
             cards["prefill"] = card
         for mode, (launches, device) in (modes or {}).items():
@@ -3214,8 +3729,9 @@ def main() -> int:
     e["host_launches"] = e["launches"]
     e["launches_by_path"].update(decode_device)
     e["launches"] = sum(decode_device.values())
-    # the optimizer kernels run on the train paths: their launches are the
-    # device's count over the train phase (the main path), by route
+    # the optimizer and training attention kernels run on the train paths:
+    # their launches are the device's count over the train phase (the main
+    # path), by route
     for e in entries[3:]:
         n = e["name"]
         e["launches_by_route"] = train_device[n]

@@ -5,11 +5,15 @@ ssd_scan: the Mamba2 SSD chunk scan, CUDA C++.
 decode_attention: one-token attention over a KV cache, CUDA C++.
 optimizer: the train step's fused AdamW update and the grads' sum of
 squares for the global-norm clip, CUDA C++.
+train_attention: the train step's attention, forward and backward in the
+reference's f32 arithmetic (an autograd function), CUDA C++.
 ops: model-layout wrappers; ref: plain PyTorch oracles.
-No attention or SSD kernel has a backward: their wrappers refuse inputs
-that require grad, and training runs attention and the SSD scan as torch
-ops, as the reference trains.  Training on CUDA launches the two optimizer
-kernels (``optim.adamw`` chooses them by the tensors' device).
+The serve kernels (flash, SSD, decode) have no backward: their wrappers
+refuse inputs that require grad.  Training on CUDA launches the training
+attention kernels (``models.attention._attend`` chooses them for calls
+autograd records, by the tensors' device) and the two optimizer kernels
+(``optim.adamw`` chooses them by the tensors' device); Mamba2's scan trains
+as torch ops, as the reference's does.
 """
 from . import ops, ref
 from .flash_attention import flash_attention_bhsd

@@ -76,9 +76,10 @@ def refuse_grad(name: str, *inputs: torch.Tensor) -> None:
     would silently go untrained)."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
         raise RuntimeError(
-            f"{name} has no backward kernel, and an input requires grad; the "
-            f"reference trains with use_kernel=False, which the port's "
-            f"train step does too")
+            f"{name} has no backward kernel, and an input requires grad; "
+            f"train with use_kernel=False, where the training route "
+            f"(kernels.train_attention, forward and backward) runs the "
+            f"attention that autograd records")
 
 
 def _lib(defines: Tuple[str, ...] = ()) -> ctypes.CDLL:

@@ -1,9 +1,10 @@
 """Dispatch wrappers: model layout in, kernel layout inside.
 
 ``flash_attention`` / ``ssd_scan`` / ``decode_attention`` are what the
-model layers call when ``use_kernel=True``.  On CUDA tensors they launch
-the hand-written kernels; on CPU tensors the kernels' wrappers take their
-plain versions.
+model layers call when ``use_kernel=True``; ``train_attention`` is what
+``models.attention._attend`` calls for a full-sequence attention that
+autograd records.  On CUDA tensors they launch the hand-written kernels;
+on CPU tensors the kernels' wrappers take their plain versions.
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import decode_attention as _decode
+from . import train_attention as _train
 from .flash_attention import flash_attention_bhsd
 from .ssd_scan import ssd_scan_bhsd
 
@@ -60,3 +62,13 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = _decode.decode_attention(q[:, 0], k, v, pos, window=window,
                                    logit_cap=logit_cap, all_rows=all_rows)
     return out[:, None]
+
+
+def train_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    logit_cap: float = 0.0) -> torch.Tensor:
+    """Model layout q (B,S,nq,D), k/v (B,T,nkv,D), read by strides (no
+    transposed copies) -> (B,S,nq,D), with a backward: the training
+    kernels on CUDA, their plain version on the CPU and meta."""
+    return _train.train_attention(q, k, v, causal=causal, window=window,
+                                  logit_cap=logit_cap)

@@ -1,4 +1,5 @@
-"""Plain PyTorch oracles for the hand-written kernels (the allclose truth)."""
+"""Plain PyTorch oracles for the hand-written kernels (the allclose truth)
+and the model's attention math that the plain routes share."""
 from __future__ import annotations
 
 import math
@@ -35,6 +36,32 @@ def gqa_out(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     b, nkv, g, s, t = probs.shape
     out = torch.einsum("bkgst,btkd->bskgd", probs, v.float())
     return out.reshape(b, s, nkv * g, -1)
+
+
+def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   positions: Optional[torch.Tensor], *, causal: bool = True,
+                   window: int = 0, logit_cap: float = 0.0) -> torch.Tensor:
+    """The model's full-sequence attention core, q (B,S,nq,hd) over k/v
+    (B,T,nkv,hd) -> (B,S,nq,hd) f32: the scores (``gqa_scores``), the cap,
+    -1e30 where the mask hides a pair, an f32 softmax, the product with v.
+    The causal and window masks compare q's and k's ``positions`` (B,S)
+    (self-attention); with neither, every key is visible and ``positions``
+    is not read (cross-attention).  The plain route of
+    ``models.attention._attend`` and the training kernels' plain version
+    (``kernels.train_attention``)."""
+    scores = softcap(gqa_scores(q, k), logit_cap)
+    if causal or window:
+        qpos = positions[:, None, None, :, None]          # (B,1,1,S,1)
+        kpos = positions[:, None, None, None, :]          # (B,1,1,1,T)
+        mask = torch.ones((), dtype=torch.bool, device=q.device)
+        if causal:
+            mask = mask & (kpos <= qpos)
+        if window:
+            mask = mask & (qpos - kpos < window)
+        scores = scores.masked_fill(~mask, -1e30)
+    probs = torch.softmax(scores, dim=-1)
+    del scores          # one S x S tensor fewer while the product runs
+    return gqa_out(probs, v)
 
 
 def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

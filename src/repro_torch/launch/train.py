@@ -13,8 +13,10 @@ astronomy pipelines:
 
 Loop-carried state uses the paper's "new Data Drops per iteration", so a
 run holds one TrainState per iteration (no donation inside the engine, as
-in the reference).  Attention runs as torch ops: training launches no
-hand-written kernel, as the reference trains with ``use_kernel=False``.
+in the reference).  On CUDA the step's attention runs the training
+attention kernels (forward and backward) and its update the optimizer
+kernels, the counterparts of what XLA fuses in the reference's jitted step
+(which trains with ``use_kernel=False``, as the port does).
 
 CLI:
   PYTHONPATH=src python -m repro_torch.launch.train --device cuda

@@ -4,6 +4,9 @@ PyTorch counterpart of ``repro/models/attention.py``.  The plain path is
 torch ops; with ``use_kernel=True`` full-sequence self-attention goes
 through ``kernels.ops.flash_attention``, which launches the hand-written
 CUDA kernel for CUDA tensors (and takes its plain version on the CPU).
+Training's full-sequence attention (a call autograd records, on CUDA)
+runs the training kernels, forward and backward
+(``kernels.ops.train_attention``).
 
 Supports:
 * grouped-query attention (num_kv_heads <= num_heads),
@@ -28,10 +31,10 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from ..kernels import train_attention as _train_kernels
 from ..kernels.decode_attention import decode_attention_plain
-from ..kernels.ref import gqa_out, gqa_scores
-from .common import (ArchConfig, apply_rope, dense_init, einsum, rms_norm,
-                     softcap)
+from ..kernels.ref import attention_core
+from .common import ArchConfig, apply_rope, dense_init, einsum, rms_norm
 
 Params = Dict[str, torch.Tensor]
 
@@ -92,28 +95,33 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             cfg: ArchConfig, positions: Optional[torch.Tensor], window: int,
             use_kernel: bool, causal: bool = True) -> torch.Tensor:
     """Softmax attention of projected q (B,S,nq,hd) over k/v (B,T,nkv,hd);
-    returns (B,S,nq,hd) in f32 (plain) or q's dtype (kernel).
+    returns (B,S,nq,hd) in f32 (plain) or the kernel's dtype.
 
-    The causal and window masks compare q's and k's ``positions`` (self-
-    attention); with neither, every key is visible and ``positions`` is
-    not read (cross-attention)."""
+    ``use_kernel`` sends the call to the serve's flash kernel, which has no
+    backward.  Otherwise a call that autograd records (grad mode on and an
+    input that requires grad) on CUDA tensors runs the training attention
+    kernels (``kernels.ops.train_attention``: forward and backward, the
+    reference's f32 softmax kept); every other call, and every call on CPU
+    or meta tensors (DTensors among them), takes the plain ops
+    (``ref.attention_core``).  The causal and window masks compare q's and
+    k's ``positions`` (self-attention); with neither, every key is visible
+    and ``positions`` is not read (cross-attention).  Both kernel routes
+    mask by row and column index instead: every full-sequence caller
+    passes ``arange`` positions (``models.model``'s ``forward_train``,
+    ``encode``, ``prefill``)."""
+    cap = cfg.attn_softcap
     if use_kernel:
         from ..kernels import ops as kops
         return kops.flash_attention(q, k, v, causal=causal, window=window,
-                                    logit_cap=cfg.attn_softcap)
-    scores = softcap(gqa_scores(q, k), cfg.attn_softcap)
-    if causal or window:
-        qpos = positions[:, None, None, :, None]          # (B,1,1,S,1)
-        kpos = positions[:, None, None, None, :]          # (B,1,1,1,T)
-        mask = torch.ones((), dtype=torch.bool, device=q.device)
-        if causal:
-            mask = mask & (kpos <= qpos)
-        if window:
-            mask = mask & (qpos - kpos < window)
-        scores = scores.masked_fill(~mask, -1e30)
-    probs = torch.softmax(scores, dim=-1)
-    del scores          # one S x S tensor fewer while the product runs
-    return gqa_out(probs, v)
+                                    logit_cap=cap)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad) \
+            and _train_kernels.takes_kernel((q, k, v)):
+        from ..kernels import ops as kops
+        return kops.train_attention(q, k, v, causal=causal, window=window,
+                                    logit_cap=cap)
+    return attention_core(q, k, v, positions, causal=causal, window=window,
+                          logit_cap=cap)
 
 
 def attention(p: Params, x: torch.Tensor, cfg: ArchConfig, *,

@@ -16,11 +16,15 @@ it is what lets a 16-layer codeqwen1.5-7b step fit one 80 GB card.
 
 On CUDA the global norm and the update are the two hand-written kernels of
 ``kernels/optimizer.py`` (``sumsq`` once a grad, ``adamw_update`` once a
-leaf), the counterpart of what XLA fuses under the reference's
-``jax.jit``; on the CPU, and on the dry-run's meta DTensors, their plain
-versions.  Training runs attention and the SSD scan as torch ops
-(``use_kernel=False``, as the reference trains): those kernels have no
-backward and refuse inputs that require grad.
+leaf), and every full-sequence attention of ``forward_train`` (a call
+autograd records) runs the training attention kernels of
+``kernels/train_attention.py``: a forward launch a layer, a second under
+remat's recompute, and the backward's launches.  Those are the
+counterparts of what XLA fuses under the reference's ``jax.jit``; on the
+CPU, and on the dry-run's meta DTensors, their plain versions run.  The
+step trains with ``use_kernel=False``, as the reference does: the serve
+kernels (flash, the SSD scan, decode) have no backward and refuse inputs
+that require grad, and Mamba2's scan trains as torch ops.
 
 The serve steps are pure functions of (params, inputs) except that the
 caches (KV and SSM) are updated in place; they are the payloads of the

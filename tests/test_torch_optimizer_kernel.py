@@ -542,11 +542,12 @@ def _routes(adamw: dict, sumsq: dict) -> dict:
 
 # per phase: tiny (16 leaves) 3 option sets x 4 steps; lm100m (11) 40
 # engine + 40 plain-loop + 4 resumed steps; codeqwen1.5-7b (16) 4 timed +
-# 1 profiled + 1 FLOP-counted at 16 layers, 2 remat steps at 2; lm20m (11)
-# x train_lm.py's 200 steps; the dry-run's meta DTensors none
+# 1 profiled + 1 FLOP-counted at 16 layers and the same step on the plain
+# attention 3 timed + 1 profiled, 2 remat steps at 2; lm20m (11) x
+# train_lm.py's 200 steps; the dry-run's meta DTensors none
 EXPECTED_OPTIMIZER_LAUNCHES = {
-    "train": _routes({"f32_f32": 12 * 16 + 84 * 11, "bf16_bf16": 8 * 16},
-                     {"f32": 12 * 16 + 84 * 11, "bf16": 8 * 16}),
+    "train": _routes({"f32_f32": 12 * 16 + 84 * 11, "bf16_bf16": 12 * 16},
+                     {"f32": 12 * 16 + 84 * 11, "bf16": 12 * 16}),
     "examples": _routes({"f32_f32": 200 * 11}, {"f32": 200 * 11}),
     "dryrun": _routes({}, {}),
 }
@@ -563,7 +564,7 @@ def test_chip_smoke_train_steps_are_the_phases_own():
     cs = _chip_smoke()
     assert [(cfg.name, cfg.num_layers, n) for cfg, n in
             cs.optimizer_steps("train")] == [
-        ("tiny", 2, 12), ("lm100m", 12, 84), ("codeqwen1.5-7b", 16, 6),
+        ("tiny", 2, 12), ("lm100m", 12, 84), ("codeqwen1.5-7b", 16, 10),
         ("codeqwen1.5-7b", 2, 2)]
     assert [(cfg.name, n) for cfg, n in cs.optimizer_steps("examples")] \
         == [("lm20m", 200)]
