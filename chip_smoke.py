@@ -16,9 +16,10 @@ no result):
 2. build: compile every CUDA kernel from ``src/repro_torch/csrc`` with nvcc
    (flash attention, the SSD scan, decode attention, the optimizer, the
    training attention),
-   all at once, and beside them flash attention with ``-DFLASH_FORCE_MMA``
-   and the SSD scan with ``-DSSD_FORCE_MMA`` (the ``mma_bf16`` routes at
-   every shape, for timing the old routes);
+   all at once, and beside them flash attention with ``-DFLASH_FORCE_MMA``,
+   the SSD scan with ``-DSSD_FORCE_MMA`` and the training attention with
+   ``-DTRAIN_ATTN_FORCE_MMA`` (the ``mma_bf16`` routes at every shape, for
+   checking and timing the old routes);
    ptxas registers, spills and warnings per kernel instance.  Fails if
    ptxas reported a spill, a serialised wgmma or an ignored setmaxnreg.
 3. kernel: each kernel against its plain PyTorch version on the card, at
@@ -61,11 +62,14 @@ no result):
    delta, dQ and dK dV) through the port's autograd entry point, every
    case of ``TA_CASES`` (causal and not, window 4096 with cap 50, GQA 6:1
    and 3:1, D 16 to 128, S != T, S not a multiple of the tile, bf16, f32,
-   bf16 q against f32 k and v): o, the log-sum-exp and dq, dk, dv within
-   the stated tolerance of the plain version in f32 (``ta_within``), the
-   same bits over 3 calls, each launch counted on the device; at
-   codeqwen1.5-7b's train shape the forward, the backward and both timed
-   against their bounds, the plain route and SDPA.
+   bf16 q against f32 k and v, q read by strides): o, the log-sum-exp and
+   dq, dk, dv within the stated tolerance of the plain version in f32
+   (``ta_within``), the same bits over 3 calls, each launch counted on the
+   device by route; every case the wrapper sends to ``wgmma_bf16`` also on
+   the ``-DTRAIN_ATTN_FORCE_MMA`` build (the old ``mma_bf16`` route, held
+   to the same); at codeqwen1.5-7b's train shape the forward, the
+   backward and both timed against their bounds, the old route (in
+   turns), the plain route and SDPA in bf16 and on f32 upcasts.
 4. serve, for each of eight paths in turn: codeqwen1.5-7b (dense, flash
    kernel), mamba2-1.3b (ssm, SSD kernel), zamba2-2.7b (hybrid, both
    kernels), granite-moe-3b-a800m (moe, flash), whisper-large-v3 (encdec,
@@ -1523,6 +1527,20 @@ TA_CASES = (
      100, 50.0),
     ("d16_f32", 2, 72, 72, 4, 4, 16, "f32", "f32", True, 0, 0.0),
     ("lm100m_f32", 8, 128, 128, 12, 12, 64, "f32", "f32", True, 0, 0.0),
+    # the wgmma_bf16 route's own edges: S not a multiple of its 128-row
+    # items at D 64, a window and a cap crossing its 64-key tiles at D 64,
+    # non-causal S != T at D 128, q read by head-major strides (a (B, H, S,
+    # D) tensor's transposed view) at D 64 and 128
+    ("len200_d64_bf16", 2, 200, 200, 4, 4, 64, "bf16", "bf16", True, 0,
+     0.0),
+    ("window100_cap50_d64_bf16", 1, 300, 300, 4, 2, 64, "bf16", "bf16",
+     True, 100, 50.0),
+    ("cross_d128_bf16", 2, 100, 150, 4, 4, 128, "bf16", "bf16", False, 0,
+     0.0),
+    ("q_head_major_d128_bf16", 2, 200, 200, 6, 2, 128, "bf16", "bf16", True,
+     0, 0.0),
+    ("q_head_major_d64_bf16", 2, 136, 136, 4, 4, 64, "bf16", "bf16", False,
+     0, 0.0),
     ("path", 8, 512, 512, 32, 32, 128, "bf16", "bf16", True, 0, 0.0),
 )
 TA_TIMED = ("path", "lm100m_f32")
@@ -1573,9 +1591,17 @@ def ta_plain(torch, ta, q, k, v, do, opts) -> tuple:
 
 def ta_inputs(torch, case, gen) -> tuple:
     """q, k, v of a case, drawn from ``gen``; with one dtype and S == T,
-    views of one fused (B, S, Hq + 2 Hkv, D) tensor, read by strides."""
-    _, B, S, T, Hq, Hkv, D, qdt, kvdt, *_ = case
+    views of one fused (B, S, Hq + 2 Hkv, D) tensor, read by strides; a
+    "q_head_major" case's q the (B, S, H, D) view of a (B, H, S, D)
+    tensor."""
+    name, B, S, T, Hq, Hkv, D, qdt, kvdt, *_ = case
     dts = {"bf16": torch.bfloat16, "f32": torch.float32}
+    if name.startswith("q_head_major"):
+        q = torch.randn((B, Hq, S, D), device="cuda", generator=gen)
+        k = torch.randn((B, T, Hkv, D), device="cuda", generator=gen)
+        v = torch.randn((B, T, Hkv, D), device="cuda", generator=gen)
+        return (q.to(dts[qdt]).transpose(1, 2), k.to(dts[kvdt]),
+                v.to(dts[kvdt]))
     if qdt == kvdt and S == T:
         x = torch.randn((B, S, Hq + 2 * Hkv, D), device="cuda",
                         generator=gen).to(dts[qdt])
@@ -1586,49 +1612,77 @@ def ta_inputs(torch, case, gen) -> tuple:
     return q.to(dts[qdt]), k.to(dts[kvdt]), v.to(dts[kvdt])
 
 
-def ta_check(torch, ta, case, gen) -> dict:
-    """One case through the port's entry point (``train_attention``, the
-    autograd function) three times: o and the grads the same bits each
-    time and within the tolerance of the plain version, the log-sum-exp
-    too (one more forward launch); each launch counted on the device."""
+def ta_runs(torch, ta, q, k, v, do, opts, lib) -> tuple:
+    """Three calls' (o, dq, dk, dv) and one more forward's log-sum-exp:
+    through the port's entry point (``train_attention``, the autograd
+    function) with ``lib`` None, else through ``lib``'s launches
+    (``train_attention_forward`` / ``_backward``, the old route's build)."""
+    runs = []
+    for _ in range(3):
+        if lib is None:
+            leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            o = ta.train_attention(*leaves, **opts)
+            runs.append((o.detach(), *torch.autograd.grad(o, leaves, do)))
+            del o, leaves
+        else:
+            o, o32, lse = ta.train_attention_forward(q, k, v, **opts,
+                                                     lib=lib)
+            runs.append((o, *ta.train_attention_backward(
+                q, k, v, o32, lse, do, **opts, lib=lib)))
+    kq, kk, kv = (t.float() if ta.route(q.dtype, k.dtype, q.shape[3])
+                  == "scalar_f32" else t for t in (q, k, v))
+    lse = ta.train_attention_forward(kq, kk, kv, **opts, lib=lib)[2]
+    return runs, lse
+
+
+def ta_check(torch, ta, case, gen, prior_lib=None) -> dict:
+    """One case through the port's entry point three times: o and the
+    grads the same bits each time and within the tolerance of the plain
+    version, the log-sum-exp too (one more forward launch); each launch
+    counted on the device by route.  Where the wrapper's route is
+    ``wgmma_bf16`` and ``prior_lib`` is given (the -DTRAIN_ATTN_FORCE_MMA
+    build), the same again through that library's launches, on the old
+    ``mma_bf16`` route (``row["prior"]``)."""
     *_, causal, window, cap = case
     opts = dict(causal=causal, window=window, logit_cap=cap)
     q, k, v = ta_inputs(torch, case, gen)
-    lib = ta._lib()
-    before = ta.kernel_launches(lib)
-    runs = []
-    for _ in range(3):
-        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
-        o = ta.train_attention(*leaves, **opts)
-        if not runs:
-            do = torch.randn(o.shape, device="cuda", generator=gen).to(
-                o.dtype)
-        runs.append((o.detach(), *torch.autograd.grad(o, leaves, do)))
-        del o, leaves
-    kq, kk, kv = (t.float() if ta.route(q.dtype, k.dtype, q.shape[3])
-                  == "scalar_f32" else t for t in (q, k, v))
-    lse = ta.train_attention_forward(kq, kk, kv, **opts)[2]
-    torch.cuda.synchronize()
-    after = ta.kernel_launches(lib)
     r = ta.route(q.dtype, k.dtype, q.shape[3])
-    want = {kn: {rn: (4 if kn == "forward" else 3) * (rn == r)
-                 for rn in ta.ROUTES} for kn in ta.KERNELS}
-    launched = {kn: {rn: after[kn][rn] - before[kn][rn] for rn in ta.ROUTES}
-                for kn in ta.KERNELS}
+    odt = torch.float32 if r == "scalar_f32" else q.dtype
+    do = torch.randn(q.shape, device="cuda", generator=gen).to(odt)
     po, plse, pgrads = ta_plain(torch, ta, q, k, v, do, opts)
-    got = dict(zip(("o", "dq", "dk", "dv"), runs[0]))
-    row = {n: ta_within(torch, got[n], w)
-           for n, w in zip(("o", "dq", "dk", "dv"), (po, *pgrads))}
-    row["lse"] = ta_within(torch, lse, plse)
-    row.update(
-        shape=list(case[1:7]), dtypes=list(case[7:9]), causal=causal,
-        window=window, cap=cap, route=r, out_dtypes={
-            n: str(t.dtype) for n, t in got.items()},
-        repeatable=all(same_bits(torch, a, b) for run in runs[1:]
-                       for a, b in zip(run, runs[0])),
-        device_launches=launched, launches_ok=launched == want)
-    row["ok"] = (all(row[n]["ok"] for n in ("o", "lse", "dq", "dk", "dv"))
-                 and row["repeatable"] and row["launches_ok"])
+
+    def check(lib, route) -> dict:
+        counter = ta._lib() if lib is None else lib
+        before = ta.kernel_launches(counter)
+        runs, lse = ta_runs(torch, ta, q, k, v, do, opts, lib)
+        torch.cuda.synchronize()
+        after = ta.kernel_launches(counter)
+        want = {kn: {rn: (4 if kn == "forward" else 3) * (rn == route)
+                     for rn in ta.ROUTES} for kn in ta.KERNELS}
+        launched = {kn: {rn: after[kn][rn] - before[kn][rn]
+                         for rn in ta.ROUTES} for kn in ta.KERNELS}
+        got = dict(zip(("o", "dq", "dk", "dv"), runs[0]))
+        row = {n: ta_within(torch, got[n], w)
+               for n, w in zip(("o", "dq", "dk", "dv"), (po, *pgrads))}
+        row["lse"] = ta_within(torch, lse, plse)
+        row.update(
+            route=route,
+            out_dtypes={n: str(t.dtype) for n, t in got.items()},
+            repeatable=all(same_bits(torch, a, b) for run in runs[1:]
+                           for a, b in zip(run, runs[0])),
+            device_launches=launched, launches_ok=launched == want)
+        row["ok"] = (all(row[n]["ok"] for n in ("o", "lse", "dq", "dk",
+                                                 "dv"))
+                     and row["repeatable"] and row["launches_ok"])
+        return row
+
+    row = check(None, r)
+    row.update(shape=list(case[1:7]), dtypes=list(case[7:9]),
+               causal=causal, window=window, cap=cap,
+               q_strides=list(q.stride()))
+    if r == "wgmma_bf16" and prior_lib is not None:
+        row["prior"] = check(prior_lib, "mma_bf16")
+        row["ok"] = row["ok"] and row["prior"]["ok"]
     return row
 
 
@@ -1659,13 +1713,16 @@ def ta_bounds(q, k, causal: bool, window: int) -> dict:
     return out
 
 
-def ta_times(torch, ta, case, gen) -> dict:
+def ta_times(torch, ta, case, gen, prior_lib=None) -> dict:
     """At a case's shape: the forward, the backward and both, each on the
-    kernels (``train_attention_forward`` / ``_backward``), the plain route
-    (autograd on the plain ops, leaves of the case's dtype, as training
-    runs it) and the library call (SDPA on (B, H, S, D) views, causal:
-    timed only; in bf16 it rounds P to bf16), CUDA events; kernels and
-    plain in turns."""
+    kernels (``train_attention_forward`` / ``_backward``), on the old route
+    where the kernels' route is ``wgmma_bf16`` (``prior_lib``, the
+    -DTRAIN_ATTN_FORCE_MMA build: kernel, old, old, kernel), the plain
+    route (autograd on the plain ops, leaves of the case's dtype, as
+    training runs it: kernel, plain, plain, kernel) and the library call
+    (SDPA on (B, H, S, D) views, causal, timed only: in the case's dtype,
+    where bf16 rounds P to bf16, and on f32 upcasts of the same values,
+    the function the kernels compute), CUDA events."""
     import torch.nn.functional as F
     *_, causal, window, cap = case
     opts = dict(causal=causal, window=window, logit_cap=cap)
@@ -1678,6 +1735,15 @@ def ta_times(torch, ta, case, gen) -> dict:
           for t in (q, k, v)]
     lo = F.scaled_dot_product_attention(*bh, is_causal=causal)
     do_bh = do.transpose(1, 2)
+    bh32 = [t.detach().float().transpose(1, 2).requires_grad_(True)
+            for t in (q, k, v)]
+    lo32 = F.scaled_dot_product_attention(*bh32, is_causal=causal)
+    do_bh32 = do.float().transpose(1, 2)
+    prior = prior_lib is not None and \
+        ta.route(q.dtype, k.dtype, q.shape[3]) == "wgmma_bf16"
+    if prior:
+        _, p32, plse = ta.train_attention_forward(q, k, v, **opts,
+                                                  lib=prior_lib)
 
     def k_fwd():
         ta.train_attention_forward(q, k, v, **opts)
@@ -1688,6 +1754,19 @@ def ta_times(torch, ta, case, gen) -> dict:
     def k_both():
         _, a32, alse = ta.train_attention_forward(q, k, v, **opts)
         ta.train_attention_backward(q, k, v, a32, alse, do, **opts)
+
+    def o_fwd():
+        ta.train_attention_forward(q, k, v, **opts, lib=prior_lib)
+
+    def o_bwd():
+        ta.train_attention_backward(q, k, v, p32, plse, do, **opts,
+                                    lib=prior_lib)
+
+    def o_both():
+        _, a32, alse = ta.train_attention_forward(q, k, v, **opts,
+                                                  lib=prior_lib)
+        ta.train_attention_backward(q, k, v, a32, alse, do, **opts,
+                                    lib=prior_lib)
 
     def p_fwd():
         ta.train_attention_plain(*leaves, **opts)
@@ -1708,18 +1787,36 @@ def ta_times(torch, ta, case, gen) -> dict:
     def l_both():
         torch.autograd.grad(F.scaled_dot_product_attention(
             *bh, is_causal=causal), bh, do_bh)
+
+    def f_fwd():
+        F.scaled_dot_product_attention(*bh32, is_causal=causal)
+
+    def f_bwd():
+        torch.autograd.grad(lo32, bh32, do_bh32, retain_graph=True)
+
+    def f_both():
+        torch.autograd.grad(F.scaled_dot_product_attention(
+            *bh32, is_causal=causal), bh32, do_bh32)
     out = {}
-    for part, fast, slow, lib_fn in (("forward", k_fwd, p_fwd, l_fwd),
-                                      ("backward", k_bwd, p_bwd, l_bwd),
-                                      ("fwd_bwd", k_both, p_both, l_both)):
-        turns = {"kernel": [], "plain": []}
-        for which in ("kernel", "plain", "plain", "kernel"):
-            turns[which].append(cuda_ms(fast if which == "kernel" else slow,
+    for part, fast, old, slow, lib_fn, lib32_fn in (
+            ("forward", k_fwd, o_fwd, p_fwd, l_fwd, f_fwd),
+            ("backward", k_bwd, o_bwd, p_bwd, l_bwd, f_bwd),
+            ("fwd_bwd", k_both, o_both, p_both, l_both, f_both)):
+        turns = {"kernel": [], "prior": [], "plain": []}
+        calls = {"kernel": fast, "prior": old, "plain": slow}
+        order = ["kernel", "plain", "plain", "kernel"]
+        if prior:
+            order = ["kernel", "prior", "prior", "kernel"] + order
+        for which in order:
+            turns[which].append(cuda_ms(calls[which],
                                         iters=10 if which == "plain" else 20,
                                         warmup=2))
-        out[part] = dict(ms=sum(turns["kernel"]) / 2,
-                         plain_ms=sum(turns["plain"]) / 2, turns=turns,
-                         library_ms=cuda_ms(lib_fn, iters=20, warmup=2))
+        out[part] = dict(
+            ms=sum(turns["kernel"]) / len(turns["kernel"]),
+            prior_ms=(sum(turns["prior"]) / 2 if prior else None),
+            plain_ms=sum(turns["plain"]) / 2, turns=turns,
+            library_ms=cuda_ms(lib_fn, iters=20, warmup=2),
+            library_f32_ms=cuda_ms(lib32_fn, iters=20, warmup=2))
     return out
 
 
@@ -1728,19 +1825,23 @@ def phase_train_attention_kernel(torch, ta) -> list:
     card, through the port's entry point (``train_attention``): every case
     of ``TA_CASES`` (causal and not, window 4096 with cap 50, GQA 6:1 and
     3:1, D 16 to 128, S != T, S not a multiple of the tile, bf16, f32 and
-    bf16 q against f32 k and v), o, the log-sum-exp and dq, dk, dv within
-    the stated tolerance of the plain version, the same bits over 3 calls,
-    each launch counted on the device; one case's tensors alive at a time.
-    Then the forward, the backward and both at the ``TA_TIMED`` shapes
-    against the bound, the plain route and SDPA.  Returns the kernels
-    line's two entries, at the path shape, lm100m's f32 times beside
-    them (launches filled in by the train phase)."""
+    bf16 q against f32 k and v, q read by strides), o, the log-sum-exp and
+    dq, dk, dv within the stated tolerance of the plain version, the same
+    bits over 3 calls, each launch counted on the device by route; the
+    cases on ``wgmma_bf16`` also on the old route's build
+    (``ta.FORCE_MMA_DEFINES``), held to the same; one case's tensors alive
+    at a time.  Then the forward, the backward and both at the
+    ``TA_TIMED`` shapes against the bound, the old route, the plain route
+    and SDPA.  Returns the kernels line's two entries, at the path shape,
+    lm100m's f32 times beside them (launches filled in by the train
+    phase)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(5)
     t0 = time.monotonic()
+    prior_lib = ta._lib(ta.FORCE_MMA_DEFINES)
     failed, worst = [], {"forward": 0.0, "backward": 0.0}
     for case in TA_CASES:
-        row = ta_check(torch, ta, case, gen)
+        row = ta_check(torch, ta, case, gen, prior_lib)
         emit("kernel_check", kernel="train_attention", case=case[0], **row)
         if not row["ok"]:
             failed.append(case[0])
@@ -1760,7 +1861,8 @@ def phase_train_attention_kernel(torch, ta) -> list:
         bounds = ta_bounds(q, k, case[9], case[10])
         del q, k, _
         timed[case[0]] = dict(bounds=bounds,
-                              times=ta_times(torch, ta, case, gen))
+                              times=ta_times(torch, ta, case, gen,
+                                             prior_lib))
         gc.collect()
         torch.cuda.empty_cache()
     emit("train_attention_times", shape=TA_SHAPE, **timed,
@@ -1772,20 +1874,26 @@ def phase_train_attention_kernel(torch, ta) -> list:
                        ("train_attention_backward", "backward")):
         t, b = times[part], bounds[part]
         entry = {
-            "name": name, "route": "cuda", "kernel_route": "mma_bf16",
+            "name": name, "route": "cuda",
+            "kernel_route": ta.route(torch.bfloat16, torch.bfloat16, 128),
             "kernel_routes": list(ta.ROUTES), "source": TA_SOURCE,
             "replaces": TA_REPLACES, "shape": TA_SHAPE,
             "max_abs_err": worst[part], "ms": t["ms"], "kernel_ms": t["ms"],
+            "prior_route": "mma_bf16", "prior_ms": t["prior_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": b["bound_ms"],
             "bound_by": b["bound_by"], "library_ms": t["library_ms"],
             "library": f"F.scaled_dot_product_attention {part} (bf16 P; "
                        f"timed only)",
+            "library_f32_ms": t["library_f32_ms"],
+            "library_f32": f"F.scaled_dot_product_attention {part} on f32 "
+                           f"upcasts (the kernels' function; timed only)",
             "f32_lm100m": dict(lm["times"][part],
                                bound_ms=lm["bounds"][part]["bound_ms"])}
         if part == "backward":
             entry.update(
                 kernels="delta, dQ, dK dV (one launch each a call)",
                 fwd_bwd_ms=times["fwd_bwd"]["ms"],
+                fwd_bwd_prior_ms=times["fwd_bwd"]["prior_ms"],
                 fwd_bwd_plain_ms=times["fwd_bwd"]["plain_ms"],
                 fwd_bwd_library_ms=times["fwd_bwd"]["library_ms"],
                 fwd_bwd_bound_ms=bounds["fwd_bwd"]["bound_ms"])
@@ -2658,6 +2766,9 @@ ELEMENTWISE_FAMILIES = ("attention_core", "loss_head", "mlp_gate",
 # their part by name
 NAMED_KERNEL_PARTS = {"adamw_update_kernel": "optimizer",
                       "sumsq_kernel": "global_norm",
+                      "fwd_wgmma_kernel": "attention_kernels",
+                      "dq_wgmma_kernel": "attention_kernels",
+                      "dkdv_wgmma_kernel": "attention_kernels",
                       "fwd_mma_kernel": "attention_kernels",
                       "dq_mma_kernel": "attention_kernels",
                       "dkdv_mma_kernel": "attention_kernels",
@@ -3666,13 +3777,16 @@ def main() -> int:
          matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
          cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
 
-    build_s = _build.build(variants=[("flash_attention", MMA_DEFINES),
-                                     ("ssd_scan", SSD_MMA_DEFINES)])
+    build_s = _build.build(variants=[
+        ("flash_attention", MMA_DEFINES), ("ssd_scan", SSD_MMA_DEFINES),
+        ("train_attention", ta.FORCE_MMA_DEFINES)])
     builds = {n: (n, ()) for n in _build.KERNEL_SOURCES}
     builds["flash_attention " + " ".join(MMA_DEFINES)] = ("flash_attention",
                                                           MMA_DEFINES)
     builds["ssd_scan " + " ".join(SSD_MMA_DEFINES)] = ("ssd_scan",
                                                        SSD_MMA_DEFINES)
+    builds["train_attention " + " ".join(ta.FORCE_MMA_DEFINES)] = (
+        "train_attention", ta.FORCE_MMA_DEFINES)
     ptxas = {b: _build.ptxas_summary(*nd) for b, nd in builds.items()}
     emit("build", seconds=build_s, kernels=list(ptxas), ptxas=ptxas)
     faults = ptxas_faults(ptxas, {b: _build.build_log(*nd)

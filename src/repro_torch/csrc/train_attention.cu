@@ -32,6 +32,34 @@
 // Routes, fixed by the wrapper before the launch (kernels/train_attention.py
 // route):
 //
+// - wgmma_bf16 (bf16 q, k, v at D = 64 and 128): warp-specialised for
+//   Hopper.  Each kernel is a block of 384 threads: a producer warpgroup,
+//   whose one thread issues every TMA load through rings of stages with
+//   full and empty mbarriers, and two consumer warpgroups of 64 rows each
+//   (setmaxnreg moves registers from the producer to them) that take turns
+//   to issue their wgmma products (named barriers), so that one's exact
+//   softmax runs under the other's products.  q, k, v are read where they
+//   lie through 4-D TMA maps (D, H, S, B) with the tensors' own strides; a
+//   row of D = 128 is two 64-column boxes in the 128-byte swizzle.
+//   Forward: a work item is (b, h, 128 query rows); S = Q K^T is wgmma
+//   m64n64k16 from shared memory over 64-key tiles, the exact scale, cap,
+//   mask and online softmax run on the accumulator registers, P's hi and lo
+//   halves are packed in place as the register A operand of two wgmmas into
+//   O (V MN-major through the transpose bit); tile j + 1's Q K^T and tile
+//   j's P V are in flight while tile j + 1's softmax runs.  o and o32 are
+//   staged in swizzled shared memory and stored by TMA, clipped at S; a
+//   persistent grid deals the heavy causal items first in zigzag rounds.
+//   dQ: the same items and K / V ring; S and dP = dO V^T from shared
+//   memory, dS's hi and lo halves into dQ += dS K (K MN-major).  dK dV: a
+//   block owns 128 keys (64 a consumer warpgroup) and walks the G query
+//   heads of its kv head in order, then their 64-row query tiles (Q and dO
+//   by TMA, the log-sum-exp and delta by a producer warp's loads, through
+//   one ring); S^T = K Q^T and dP^T = V dO^T from shared memory, P^T and
+//   dS^T (hi and lo) the register A operands of dV += P^T dO and dK +=
+//   dS^T Q (dO and Q MN-major); dK and dV are staged where K and V were
+//   and stored by TMA.  Built with
+//   -DTRAIN_ATTN_FORCE_MMA the route runs mma_bf16 at every shape (and
+//   counts there): the old route, for timing in turns.
 // - mma_bf16 (bf16 q, k, v with D a multiple of 8 up to 128): the tensor
 //   cores through mma.sync m16n8k16 from ldmatrix fragments, f32
 //   accumulation, K / V (forward, dQ) or Q / dO (dK dV) tiles in a 2-stage
@@ -71,6 +99,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
 #include "tensor_core.cuh"
 
 namespace {
@@ -80,7 +109,7 @@ using tc::bf16;
 constexpr float kMasked = -1e30f;   // the reference's mask value
 
 enum Kernel { kForward, kDelta, kDkdv, kDq, kKernels };
-enum Route { kMma, kF32, kRoutes };
+enum Route { kMma, kF32, kWgmma, kRoutes };
 __device__ unsigned long long g_launches[kKernels * kRoutes];
 
 __device__ __forceinline__ void count_launch(Kernel kernel, Route route) {
@@ -114,26 +143,43 @@ __device__ __forceinline__ bool visible(const Args& a, int row, int col) {
 // sqrt(D), then cap * tanh(. / cap) (th: the tanh, for the backward), then
 // -1e30 where the mask hides the pair; -inf past the last key (a padded
 // column: weight exactly 0).
-__device__ __forceinline__ float masked_score(const Args& a, float s, int row,
-                                              int col, float& th) {
+// CAP: 1 the cap is compiled in, 0 out (the wgmma_bf16 kernels, one
+// instance each, so that a kernel without a cap carries no tanhf code in
+// its unrolled loops), -1 the cap read at run time (the other routes).
+template <int CAP = -1>
+__device__ __forceinline__ float scaled_score(const Args& a, float s,
+                                              float& th) {
   float x = __fmul_rn(s, a.inv_sqrt_d);
   th = 0.f;
-  if (a.cap != 0.f) {
+  if (CAP == 1 || (CAP == -1 && a.cap != 0.f)) {
     th = tanhf(__fmul_rn(x, a.inv_cap));
     x = __fmul_rn(a.cap, th);
   }
+  return x;
+}
+
+// The mask on a scaled score x at (row, col).
+__device__ __forceinline__ float mask_score(const Args& a, float x, int row,
+                                            int col) {
   if (col >= a.T) return -INFINITY;
   return visible(a, row, col) ? x : kMasked;
+}
+
+template <int CAP = -1>
+__device__ __forceinline__ float masked_score(const Args& a, float s, int row,
+                                              int col, float& th) {
+  return mask_score(a, scaled_score<CAP>(a, s, th), row, col);
 }
 
 // The grad of the raw product q . k from P and dP = dO . v of its pair:
 // softmax's P (dP - delta), then back through the cap (cap * g * (1 - th^2)
 // / cap, autograd's order) and the divide by sqrt(D).
+template <int CAP = -1>
 __device__ __forceinline__ float product_grad(const Args& a, float p,
                                               float dp, float delta,
                                               float th) {
   float g = __fmul_rn(p, __fsub_rn(dp, delta));
-  if (a.cap != 0.f)
+  if (CAP == 1 || (CAP == -1 && a.cap != 0.f))
     g = __fmul_rn(__fmul_rn(__fmul_rn(g, a.cap),
                             __fsub_rn(1.f, __fmul_rn(th, th))),
                   a.inv_cap);
@@ -170,9 +216,9 @@ __device__ __forceinline__ void store(bf16* p, float x) {
 }
 
 // delta[b, h, s] = sum_d dO[b, s, h, d] o32[b, s, h, d]: one warp a row.
-template <typename T>
+template <typename T, Route R>
 __global__ void __launch_bounds__(256) delta_kernel(const Args a) {
-  count_launch(kDelta, sizeof(T) == 4 ? kF32 : kMma);
+  count_launch(kDelta, R);
   const long long row = (long long)blockIdx.x * 8 + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   const long long rows = (long long)a.B * a.S * a.Hq;
@@ -626,7 +672,7 @@ cudaError_t launch_mma_forward(const Args& a, cudaStream_t stream) {
 template <int DP>
 cudaError_t launch_mma_backward(const Args& a, cudaStream_t stream) {
   const long long rows = (long long)a.B * a.S * a.Hq;
-  delta_kernel<bf16><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(a);
+  delta_kernel<bf16, kMma><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
@@ -648,6 +694,1082 @@ cudaError_t launch_mma_backward(const Args& a, cudaStream_t stream) {
   if (err != cudaSuccess) return err;
   dkdv_mma_kernel<DP, BQ><<<dim3(a.B * a.Hkv, (a.T + kRows - 1) / kRows),
                             kMmaThreads, kv_smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------- wgmma_bf16
+
+constexpr int kWgThreads = 384;   // a producer and two consumer warpgroups
+constexpr int kWgItem = 128;      // query rows (forward, dQ) or keys (dK dV)
+                                  // a work item, 64 a consumer warpgroup
+constexpr int kWgTile = 64;       // keys a tile (forward, dQ), query rows a
+                                  // tile (dK dV)
+constexpr int kWgBox = 8192;      // bytes of a 64-row x 128-byte box
+// setmaxnreg: 2 x 128 x 232 + 128 x 40 = 64,512 of the SM's 65,536; dK
+// dV, whose consumers hold dK and dV (128 f32 a thread at D = 128) beside
+// S^T and dP^T, 2 x 128 x 240 + 128 x 24
+constexpr int kConsumerRegs = 232;
+constexpr int kProducerRegs = 40;
+constexpr int kDkdvConsumerRegs = 240;
+constexpr int kDkdvProducerRegs = 24;
+// One block an SM walks the forward's and dQ's work items in zigzag rounds
+// while there are at most this many items an SM; past that, one block an
+// item (as serve flash's wgmma route).
+constexpr int kPersistentItemsPerSm = 8;
+
+// Ring stages: K and V tiles (forward, dQ), Q / dO / lse / delta tiles (dK
+// dV).  dQ holds each K tile until its dQ product is done, so it keeps a
+// third stage in flight.  (More stages changed no time at codeqwen's train
+// shape: the loads are not what holds these kernels, PERF.md.)
+constexpr int kFwdStages = 2;
+constexpr int kDqStages = 3;
+constexpr int kDkdvStages = 2;
+
+// Byte offset of the 16-byte chunk `chunk` of row r in a box of 128-byte
+// rows written or read by TMA in the 128-byte swizzle.
+__device__ __forceinline__ int sw128(int r, int chunk) {
+  return r * 128 + ((chunk ^ (r & 7)) << 4);
+}
+
+// A consumer warpgroup's 64 x D accumulator tile (rows 16 warp + g and + 8)
+// as bf16 into D / 64 swizzled boxes of 64 rows x 64 columns, `box` bytes
+// apart, at dst.
+template <int D>
+__device__ __forceinline__ void stage_bf16(unsigned char* dst, int box,
+                                           const float (&acc)[D / 2],
+                                           int warp, int g, int t) {
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = 16 * warp + g + 8 * hh;
+      *reinterpret_cast<uint32_t*>(dst + (j / 8) * box + sw128(r, j % 8) +
+                                   4 * t) =
+          tc::pack_bf16(acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
+    }
+}
+
+// A work item of the forward and dQ: (b, h, 128 query rows from q0), the
+// key tiles [tb, tb + nt).  Items count from the last query tile of every
+// head, so the long causal items come first.
+struct WgItem {
+  int b, h, hk, q0, tb, nt;
+};
+
+__device__ __forceinline__ WgItem wg_item(const Args& a, int w) {
+  WgItem it;
+  const int BH = a.B * a.Hq;
+  const int n_q = (a.S + kWgItem - 1) / kWgItem;
+  const int bh = w % BH;
+  it.q0 = (n_q - 1 - w / BH) * kWgItem;
+  it.b = bh / a.Hq;
+  it.h = bh - it.b * a.Hq;
+  it.hk = it.h / a.G;
+  int te;
+  key_tiles(a, it.q0, kWgItem, kWgTile, it.tb, te);
+  it.nt = te - it.tb;
+  return it;
+}
+
+// The work item of this block in round r (gridDim.x items a round), in
+// zigzag: forward in even rounds, backward in odd ones, so the blocks'
+// sums of heavy-first items come out even; n_items or more: none.
+__device__ __forceinline__ int wg_round_item(int r) {
+  const int g = gridDim.x, b = blockIdx.x;
+  return r * g + ((r & 1) ? g - 1 - b : b);
+}
+
+// A consumer warp's score tile (16 rows from r0, 64 columns from c0; in
+// the accumulator layout s[4 j + e] sits at row r0 + g + 8 (e / 2), column
+// c0 + 8 j + 2 t + e % 2) is wholly visible and inside the keys: no mask.
+__device__ __forceinline__ bool tile_visible(const Args& a, int r0, int c0) {
+  return c0 + kWgTile <= a.T && (!a.causal || c0 + kWgTile - 1 <= r0) &&
+         (a.window <= 0 || r0 + 15 - c0 < a.window);
+}
+
+// The forward's online softmax of one 64-key tile in the accumulator
+// registers s (the raw products q . k): the reference's score, then m, l
+// and the rescale factors corr of the thread's two rows; leaves p = exp(x -
+// m) in s.  The mma_bf16 kernel's arithmetic, op for op.
+template <int CAP>
+__device__ __forceinline__ void wg_softmax(const Args& a,
+                                           float (&s)[kWgTile / 2],
+                                           float (&m)[2], float (&l)[2],
+                                           float (&corr)[2], int r0, int k0,
+                                           int g, int t) {
+  const bool full = tile_visible(a, r0, k0);
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int i = 0; i < kWgTile / 2; ++i) {
+    float th;
+    const int hh = (i >> 1) & 1;
+    s[i] = scaled_score<CAP>(a, s[i], th);
+    if (!full)
+      s[i] = mask_score(a, s[i], r0 + g + 8 * hh,
+                        k0 + (i >> 2) * 8 + 2 * t + (i & 1));
+    mx[hh] = fmaxf(mx[hh], s[i]);
+  }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+    mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+    corr[hh] = expf(m[hh] - mx[hh]);   // 0 on the first tile (m = -inf)
+    m[hh] = mx[hh];
+    l[hh] *= corr[hh];
+  }
+#pragma unroll
+  for (int i = 0; i < kWgTile / 2; ++i) {
+    s[i] = expf(s[i] - m[(i >> 1) & 1]);
+    l[(i >> 1) & 1] += s[i];
+  }
+}
+
+// hi and lo bf16 halves of an f32 accumulator tile, packed in place as the
+// register A operand of the next products (hopper.cuh's layout identity).
+template <int N>
+__device__ __forceinline__ void pack_halves(const float (&x)[N],
+                                            uint32_t (&hi)[N / 2],
+                                            uint32_t (&lo)[N / 2]) {
+#pragma unroll
+  for (int j = 0; j < N / 2; ++j)
+    tc::pack_split_bf16(x[2 * j], x[2 * j + 1], hi[j], lo[j]);
+}
+
+// acc (64 x D) += A B over a 64-deep k: A as its hi and lo halves (two
+// wgmmas against the same B for each k16 slice, hi first), B the 64 x D tile
+// at bt, MN-major (D / 64 boxes of 64 rows x 64 columns).
+template <int D>
+__device__ __forceinline__ void wg_split_product(float (&acc)[D / 2],
+                                                 const uint32_t (&hi)[16],
+                                                 const uint32_t (&lo)[16],
+                                                 const bf16* bt) {
+#pragma unroll
+  for (int kk = 0; kk < kWgTile / 16; ++kk) {
+    const uint64_t db =
+        hopper::desc_sw128(bt + kk * 16 * 64, kWgTile * 128, 1024);
+    const uint32_t ah[4] = {hi[4 * kk], hi[4 * kk + 1], hi[4 * kk + 2],
+                            hi[4 * kk + 3]};
+    const uint32_t al[4] = {lo[4 * kk], lo[4 * kk + 1], lo[4 * kk + 2],
+                            lo[4 * kk + 3]};
+    hopper::wgmma_rs_tb<D>(acc, ah, db);
+    hopper::wgmma_rs_tb<D>(acc, al, db);
+  }
+}
+
+// acc (64 x 64) = A B^T over k = D: A 64 rows of a K-major tile at at whose
+// boxes of 64 columns lie `a_box` elements apart, B the 64-row K-major tile
+// at bt (boxes kWgTile x 64 apart).
+template <int D>
+__device__ __forceinline__ void wg_nt_product(float (&acc)[kWgTile / 2],
+                                              const bf16* at, int a_box,
+                                              const bf16* bt) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    hopper::wgmma_ss<kWgTile>(
+        acc,
+        hopper::desc_sw128(at + (kk / 4) * a_box + (kk % 4) * 16, 16, 1024),
+        hopper::desc_sw128(bt + (kk / 4) * kWgTile * 64 + (kk % 4) * 16, 16,
+                           1024),
+        kk > 0);
+}
+
+// Two split products, their wgmmas interleaved (acc1's hi, acc2's hi,
+// acc1's lo, acc2's lo for each k16 slice): neither chain waits on its own
+// accumulator between two wgmmas, and each keeps wg_split_product's order.
+template <int D>
+__device__ __forceinline__ void wg_split_product2(
+    float (&acc1)[D / 2], const uint32_t (&hi1)[16],
+    const uint32_t (&lo1)[16], const bf16* bt1, float (&acc2)[D / 2],
+    const uint32_t (&hi2)[16], const uint32_t (&lo2)[16], const bf16* bt2) {
+#pragma unroll
+  for (int kk = 0; kk < kWgTile / 16; ++kk) {
+    const uint64_t db1 =
+        hopper::desc_sw128(bt1 + kk * 16 * 64, kWgTile * 128, 1024);
+    const uint64_t db2 =
+        hopper::desc_sw128(bt2 + kk * 16 * 64, kWgTile * 128, 1024);
+    const uint32_t ah1[4] = {hi1[4 * kk], hi1[4 * kk + 1], hi1[4 * kk + 2],
+                             hi1[4 * kk + 3]};
+    const uint32_t al1[4] = {lo1[4 * kk], lo1[4 * kk + 1], lo1[4 * kk + 2],
+                             lo1[4 * kk + 3]};
+    const uint32_t ah2[4] = {hi2[4 * kk], hi2[4 * kk + 1], hi2[4 * kk + 2],
+                             hi2[4 * kk + 3]};
+    const uint32_t al2[4] = {lo2[4 * kk], lo2[4 * kk + 1], lo2[4 * kk + 2],
+                             lo2[4 * kk + 3]};
+    hopper::wgmma_rs_tb<D>(acc1, ah1, db1);
+    hopper::wgmma_rs_tb<D>(acc2, ah2, db2);
+    hopper::wgmma_rs_tb<D>(acc1, al1, db1);
+    hopper::wgmma_rs_tb<D>(acc2, al2, db2);
+  }
+}
+
+// Two products A B^T (wg_nt_product) with their wgmmas interleaved.
+template <int D>
+__device__ __forceinline__ void wg_nt_product2(float (&acc1)[kWgTile / 2],
+                                               const bf16* at1,
+                                               const bf16* bt1,
+                                               float (&acc2)[kWgTile / 2],
+                                               const bf16* at2,
+                                               const bf16* bt2, int a_box) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int ao = (kk / 4) * a_box + (kk % 4) * 16;
+    const int bo = (kk / 4) * kWgTile * 64 + (kk % 4) * 16;
+    hopper::wgmma_ss<kWgTile>(acc1, hopper::desc_sw128(at1 + ao, 16, 1024),
+                              hopper::desc_sw128(bt1 + bo, 16, 1024), kk > 0);
+    hopper::wgmma_ss<kWgTile>(acc2, hopper::desc_sw128(at2 + ao, 16, 1024),
+                              hopper::desc_sw128(bt2 + bo, 16, 1024), kk > 0);
+  }
+}
+
+// Shared memory of the forward: Q (D / 64 boxes of 128 rows), ST stages of
+// K and of V (boxes of 64 rows), each consumer warpgroup's o (D / 64 boxes)
+// and o32 (D / 32 boxes of 32 f32) staging tiles, the mbarriers.
+template <int D, int ST>
+struct FwdSmem {
+  static constexpr int kQ = kWgItem * D * 2;
+  static constexpr int kKV = kWgTile * D * 2;
+  static constexpr int kOWg = 64 * D * 2;
+  static constexpr int kO32Wg = 64 * D * 4;
+  static constexpr int kK = kQ;
+  static constexpr int kV = kK + ST * kKV;
+  static constexpr int kO = kV + ST * kKV;
+  static constexpr int kO32 = kO + 2 * kOWg;
+  static constexpr int kBar = kO32 + 2 * kO32Wg;
+  // + 1024: the base is rounded up to the swizzle's 1024-byte atom
+  static constexpr int kBytes = kBar + (2 + 4 * ST) * 8 + 1024;
+};
+
+template <int D, int ST, int CAP>
+__global__ void __launch_bounds__(kWgThreads, 1)
+fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv,
+                 const __grid_constant__ CUtensorMap to,
+                 const __grid_constant__ CUtensorMap to32, const Args a,
+                 int n_items) {
+  using L = FwdSmem<D, ST>;
+  constexpr int NB = D / 64;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* base =
+      smem_raw + ((1024 - (hopper::smem_addr(smem_raw) & 1023)) & 1023);
+  bf16* sQ = reinterpret_cast<bf16*>(base);
+  bf16* sK = reinterpret_cast<bf16*>(base + L::kK);
+  bf16* sV = reinterpret_cast<bf16*>(base + L::kV);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(base + L::kBar);
+  uint64_t* q_empty = q_full + 1;
+  uint64_t* k_full = q_full + 2;
+  uint64_t* k_empty = k_full + ST;
+  uint64_t* v_full = k_empty + ST;
+  uint64_t* v_empty = v_full + ST;
+  count_launch(kForward, kWgmma);
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    hopper::mbar_init(q_empty, 8);     // one arrival a consumer warp
+#pragma unroll
+    for (int s = 0; s < ST; ++s) {
+      hopper::mbar_init(&k_full[s], 1);
+      hopper::mbar_init(&v_full[s], 1);
+      hopper::mbar_init(&k_empty[s], 8);
+      hopper::mbar_init(&v_empty[s], 8);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  const int rounds = (n_items + gridDim.x - 1) / gridDim.x;
+  if (wg == 0) {
+    // producer: thread 0 issues the Q and K loads, thread 32 the V loads
+    // (the consumers free a K stage a product earlier than a V stage); the
+    // rings' counters run on across work items
+    hopper::reg_dealloc<kProducerRegs>();
+    if (threadIdx.x == 0 || threadIdx.x == 32) {
+      const bool qk = threadIdx.x == 0;
+      uint64_t* full = qk ? k_full : v_full;
+      uint64_t* empty = qk ? k_empty : v_empty;
+      bf16* ring = qk ? sK : sV;
+      const CUtensorMap* map = qk ? &tk : &tv;
+      int kv = 0;
+      for (int r = 0; r < rounds; ++r) {
+        const int w = wg_round_item(r);
+        if (w >= n_items) break;      // only in a last, partial round
+        const WgItem it = wg_item(a, w);
+        if (qk) {
+          hopper::mbar_wait(q_empty, (r & 1) ^ 1);
+          hopper::mbar_expect_tx(q_full, L::kQ);
+#pragma unroll
+          for (int j = 0; j < NB; ++j)
+            hopper::tma_load_4d(sQ + j * kWgItem * 64, &tq, q_full, 64 * j,
+                                it.h, it.q0, it.b);
+        }
+        for (int i = 0; i < it.nt; ++i, ++kv) {
+          const int s = kv % ST;
+          hopper::mbar_wait(&empty[s], ((kv / ST) & 1) ^ 1);
+          hopper::mbar_expect_tx(&full[s], L::kKV);
+#pragma unroll
+          for (int j = 0; j < NB; ++j)
+            hopper::tma_load_4d(ring + s * kWgTile * D + j * kWgTile * 64,
+                                map, &full[s], 64 * j, it.hk,
+                                (it.tb + i) * kWgTile, it.b);
+        }
+      }
+    }
+  } else {
+    // consumers: warpgroup cw owns query rows q0 + 64 cw .. + 63 of each
+    // work item
+    hopper::reg_alloc<kConsumerRegs>();
+    const int cw = wg - 1;
+    const int tid = threadIdx.x - 128 * wg;
+    const int warp = tid >> 5;
+    const int lane = tid & 31;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const bf16* q_wg = sQ + cw * 64 * 64;     // box j at + j * kWgItem * 64
+    unsigned char* o_wg = base + L::kO + cw * L::kOWg;
+    unsigned char* o32_wg = base + L::kO32 + cw * L::kO32Wg;
+
+    float o[D / 2], s[kWgTile / 2], m[2], l[2], corr[2];
+    uint32_t phi[kWgTile / 4], plo[kWgTile / 4];
+#pragma unroll
+    for (int i = 0; i < kWgTile / 2; ++i) s[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kWgTile / 4; ++i) phi[i] = plo[i] = 0u;
+
+    auto issue_s = [&](int st) {
+      wg_nt_product<D>(s, q_wg, kWgItem * 64, sK + st * kWgTile * D);
+      hopper::wgmma_commit();
+    };
+    auto issue_pv = [&](int st) {
+      wg_split_product<D>(o, phi, plo, sV + st * kWgTile * D);
+      hopper::wgmma_commit();
+    };
+    auto fence_all = [&]() {
+      hopper::fence_regs(o);
+      hopper::fence_regs(s);
+      hopper::fence_regs(phi);
+      hopper::fence_regs(plo);
+      hopper::wgmma_fence();
+    };
+
+    if (cw == 1) hopper::bar_arrive(1, 256);   // warpgroup 0 issues first
+    int kv = 0;
+    for (int r = 0; r < rounds; ++r) {
+      const int w = wg_round_item(r);
+      if (w >= n_items) break;
+      const bool last = r + 1 >= rounds || wg_round_item(r + 1) >= n_items;
+      const WgItem it = wg_item(a, w);
+      const int r0 = it.q0 + 64 * cw + 16 * warp;   // this warp's first row
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+      m[0] = m[1] = -INFINITY;
+      l[0] = l[1] = 0.f;
+      hopper::mbar_wait(q_full, r & 1);
+
+      // first tile: S_0 and its softmax
+      int ks = kv % ST;
+      hopper::mbar_wait(&k_full[ks], (kv / ST) & 1);
+      hopper::bar_sync(1 + cw, 256);
+      fence_all();
+      issue_s(ks);
+      hopper::bar_arrive(2 - cw, 256);
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(s);
+      if (lane == 0) {
+        hopper::mbar_arrive(&k_empty[ks]);
+        if (it.nt == 1) hopper::mbar_arrive(q_empty);   // Q is read
+      }
+      wg_softmax<CAP>(a, s, m, l, corr, r0, it.tb * kWgTile, g, t);
+      pack_halves(s, phi, plo);
+
+      // tile i: S_i and P_{i-1} V_{i-1} in flight, then S_i's softmax runs
+      // while P V finishes; the rescale waits for it
+      for (int i = 1; i < it.nt; ++i) {
+        ks = (kv + i) % ST;
+        const int vs = (kv + i - 1) % ST;
+        hopper::mbar_wait(&k_full[ks], ((kv + i) / ST) & 1);
+        hopper::mbar_wait(&v_full[vs], ((kv + i - 1) / ST) & 1);
+        hopper::bar_sync(1 + cw, 256);
+        fence_all();
+        issue_s(ks);
+        issue_pv(vs);
+        hopper::bar_arrive(2 - cw, 256);
+        hopper::wgmma_wait<1>();
+        hopper::fence_regs(s);
+        if (lane == 0) {
+          hopper::mbar_arrive(&k_empty[ks]);
+          if (i == it.nt - 1) hopper::mbar_arrive(q_empty);
+        }
+        wg_softmax<CAP>(a, s, m, l, corr, r0, (it.tb + i) * kWgTile, g, t);
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(o);
+        if (lane == 0) hopper::mbar_arrive(&v_empty[vs]);
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          o[4 * j] *= corr[0];
+          o[4 * j + 1] *= corr[0];
+          o[4 * j + 2] *= corr[1];
+          o[4 * j + 3] *= corr[1];
+        }
+        pack_halves(s, phi, plo);
+      }
+
+      // last P V; warpgroup 1's very last turn has no follower
+      const int vs = (kv + it.nt - 1) % ST;
+      hopper::mbar_wait(&v_full[vs], ((kv + it.nt - 1) / ST) & 1);
+      hopper::bar_sync(1 + cw, 256);
+      fence_all();
+      issue_pv(vs);
+      if (!(cw == 1 && last)) hopper::bar_arrive(2 - cw, 256);
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(o);
+      if (lane == 0) hopper::mbar_arrive(&v_empty[vs]);
+      kv += it.nt;
+
+      // o = acc / l (IEEE divides, as the mma_bf16 kernel), staged in the
+      // 128-byte swizzle once the previous item's stores have read the
+      // tiles, then one TMA store a box, clipped at S
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
+        l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
+      }
+      if (tid == 0) hopper::tma_store_wait_read();
+      hopper::bar_sync(3 + cw, 128);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int rr = 16 * warp + g + 8 * hh;
+          const float v0 = __fdiv_rn(o[4 * j + 2 * hh], l[hh]);
+          const float v1 = __fdiv_rn(o[4 * j + 2 * hh + 1], l[hh]);
+          *reinterpret_cast<uint32_t*>(o_wg + (j / 8) * kWgBox +
+                                       sw128(rr, j % 8) + 4 * t) =
+              tc::pack_bf16(v0, v1);
+          *reinterpret_cast<float2*>(o32_wg + (j / 4) * kWgBox +
+                                     sw128(rr, 2 * (j % 4) + (t >> 1)) +
+                                     8 * (t & 1)) = make_float2(v0, v1);
+        }
+      if (t == 0) {
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int row = r0 + g + 8 * hh;
+          if (row < a.S)
+            a.lse[((long long)it.b * a.Hq + it.h) * a.S + row] =
+                m[hh] + logf(l[hh]);
+        }
+      }
+      hopper::fence_async_shared();
+      hopper::bar_sync(3 + cw, 128);
+      if (tid == 0) {
+#pragma unroll
+        for (int j = 0; j < NB; ++j)
+          hopper::tma_store_4d(&to, o_wg + j * kWgBox, 64 * j, it.h,
+                               it.q0 + 64 * cw, it.b);
+#pragma unroll
+        for (int j = 0; j < D / 32; ++j)
+          hopper::tma_store_4d(&to32, o32_wg + j * kWgBox, 32 * j, it.h,
+                               it.q0 + 64 * cw, it.b);
+        hopper::tma_store_commit();
+      }
+    }
+    if (tid == 0) hopper::tma_store_wait_all();
+  }
+}
+
+// Shared memory of dQ: Q and dO (D / 64 boxes of 128 rows each), ST stages
+// of K and of V (boxes of 64 rows), each consumer warpgroup's dq staging
+// tile, the mbarriers.
+template <int D, int ST>
+struct DqSmem {
+  static constexpr int kQ = kWgItem * D * 2;
+  static constexpr int kKV = kWgTile * D * 2;
+  static constexpr int kOWg = 64 * D * 2;
+  static constexpr int kDo = kQ;
+  static constexpr int kK = 2 * kQ;
+  static constexpr int kV = kK + ST * kKV;
+  static constexpr int kO = kV + ST * kKV;
+  static constexpr int kBar = kO + 2 * kOWg;
+  static constexpr int kBytes = kBar + (2 + 4 * ST) * 8 + 1024;
+};
+
+template <int D, int ST, int CAP>
+__global__ void __launch_bounds__(kWgThreads, 1)
+dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                const __grid_constant__ CUtensorMap tdo,
+                const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv,
+                const __grid_constant__ CUtensorMap tdq, const Args a,
+                int n_items) {
+  using L = DqSmem<D, ST>;
+  constexpr int NB = D / 64;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* base =
+      smem_raw + ((1024 - (hopper::smem_addr(smem_raw) & 1023)) & 1023);
+  bf16* sQ = reinterpret_cast<bf16*>(base);
+  bf16* sDo = reinterpret_cast<bf16*>(base + L::kDo);
+  bf16* sK = reinterpret_cast<bf16*>(base + L::kK);
+  bf16* sV = reinterpret_cast<bf16*>(base + L::kV);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(base + L::kBar);
+  uint64_t* q_empty = q_full + 1;
+  uint64_t* k_full = q_full + 2;
+  uint64_t* k_empty = k_full + ST;
+  uint64_t* v_full = k_empty + ST;
+  uint64_t* v_empty = v_full + ST;
+  count_launch(kDq, kWgmma);
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    hopper::mbar_init(q_empty, 8);
+#pragma unroll
+    for (int s = 0; s < ST; ++s) {
+      hopper::mbar_init(&k_full[s], 1);
+      hopper::mbar_init(&v_full[s], 1);
+      hopper::mbar_init(&k_empty[s], 8);
+      hopper::mbar_init(&v_empty[s], 8);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  const int rounds = (n_items + gridDim.x - 1) / gridDim.x;
+  if (wg == 0) {
+    // producer: thread 0 issues the Q, dO and K loads, thread 32 the V
+    // loads (the consumers free a V stage a product earlier than a K stage)
+    hopper::reg_dealloc<kProducerRegs>();
+    if (threadIdx.x == 0 || threadIdx.x == 32) {
+      const bool qk = threadIdx.x == 0;
+      uint64_t* full = qk ? k_full : v_full;
+      uint64_t* empty = qk ? k_empty : v_empty;
+      bf16* ring = qk ? sK : sV;
+      const CUtensorMap* map = qk ? &tk : &tv;
+      int kv = 0;
+      for (int r = 0; r < rounds; ++r) {
+        const int w = wg_round_item(r);
+        if (w >= n_items) break;
+        const WgItem it = wg_item(a, w);
+        if (qk) {
+          hopper::mbar_wait(q_empty, (r & 1) ^ 1);
+          hopper::mbar_expect_tx(q_full, 2 * L::kQ);
+#pragma unroll
+          for (int j = 0; j < NB; ++j) {
+            hopper::tma_load_4d(sQ + j * kWgItem * 64, &tq, q_full, 64 * j,
+                                it.h, it.q0, it.b);
+            hopper::tma_load_4d(sDo + j * kWgItem * 64, &tdo, q_full,
+                                64 * j, it.h, it.q0, it.b);
+          }
+        }
+        for (int i = 0; i < it.nt; ++i, ++kv) {
+          const int s = kv % ST;
+          hopper::mbar_wait(&empty[s], ((kv / ST) & 1) ^ 1);
+          hopper::mbar_expect_tx(&full[s], L::kKV);
+#pragma unroll
+          for (int j = 0; j < NB; ++j)
+            hopper::tma_load_4d(ring + s * kWgTile * D + j * kWgTile * 64,
+                                map, &full[s], 64 * j, it.hk,
+                                (it.tb + i) * kWgTile, it.b);
+        }
+      }
+    }
+  } else {
+    hopper::reg_alloc<kConsumerRegs>();
+    const int cw = wg - 1;
+    const int tid = threadIdx.x - 128 * wg;
+    const int warp = tid >> 5;
+    const int lane = tid & 31;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const bf16* q_wg = sQ + cw * 64 * 64;
+    const bf16* do_wg = sDo + cw * 64 * 64;
+    unsigned char* dq_wg = base + L::kO + cw * L::kOWg;
+
+    float dq[D / 2], s[kWgTile / 2], dp[kWgTile / 2], lse[2], delta[2];
+    uint32_t dhi[kWgTile / 4], dlo[kWgTile / 4];
+#pragma unroll
+    for (int i = 0; i < kWgTile / 2; ++i) s[i] = dp[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kWgTile / 4; ++i) dhi[i] = dlo[i] = 0u;
+
+    // S = Q K^T and dP = dO V^T of the tiles in stage st, one group
+    auto issue_sdp = [&](int st) {
+      wg_nt_product2<D>(s, q_wg, sK + st * kWgTile * D, dp, do_wg,
+                        sV + st * kWgTile * D, kWgItem * 64);
+      hopper::wgmma_commit();
+    };
+    // dQ += dS K of the K tile in stage st
+    auto issue_dq = [&](int st) {
+      wg_split_product<D>(dq, dhi, dlo, sK + st * kWgTile * D);
+      hopper::wgmma_commit();
+    };
+    auto fence_all = [&]() {
+      hopper::fence_regs(dq);
+      hopper::fence_regs(s);
+      hopper::fence_regs(dp);
+      hopper::fence_regs(dhi);
+      hopper::fence_regs(dlo);
+      hopper::wgmma_fence();
+    };
+
+    if (cw == 1) hopper::bar_arrive(1, 256);
+    int kv = 0;
+    for (int r = 0; r < rounds; ++r) {
+      const int w = wg_round_item(r);
+      if (w >= n_items) break;
+      const bool last = r + 1 >= rounds || wg_round_item(r + 1) >= n_items;
+      const WgItem it = wg_item(a, w);
+      const int r0 = it.q0 + 64 * cw + 16 * warp;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int row = r0 + g + 8 * hh;
+        const long long i = ((long long)it.b * a.Hq + it.h) * a.S + row;
+        lse[hh] = row < a.S ? a.lse[i] : 0.f;
+        delta[hh] = row < a.S ? a.delta[i] : 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+      // dS of the tile from k0 in place of S: P = exp(x - lse), then the
+      // grad of the raw product (the mma_bf16 kernel's arithmetic)
+      auto grad = [&](int k0) {
+        const bool full = tile_visible(a, r0, k0);
+#pragma unroll
+        for (int i = 0; i < kWgTile / 2; ++i) {
+          float th;
+          const int hh = (i >> 1) & 1;
+          float x = scaled_score<CAP>(a, s[i], th);
+          if (!full)
+            x = mask_score(a, x, r0 + g + 8 * hh,
+                           k0 + (i >> 2) * 8 + 2 * t + (i & 1));
+          const float p = expf(x - lse[hh]);
+          s[i] = product_grad<CAP>(a, p, dp[i], delta[hh], th);
+        }
+      };
+      hopper::mbar_wait(q_full, r & 1);
+
+      int ks = kv % ST;
+      hopper::mbar_wait(&k_full[ks], (kv / ST) & 1);
+      hopper::mbar_wait(&v_full[ks], (kv / ST) & 1);
+      hopper::bar_sync(1 + cw, 256);
+      fence_all();
+      issue_sdp(ks);
+      hopper::bar_arrive(2 - cw, 256);
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(s);
+      hopper::fence_regs(dp);
+      if (lane == 0) {
+        hopper::mbar_arrive(&v_empty[ks]);
+        if (it.nt == 1) hopper::mbar_arrive(q_empty);
+      }
+      grad(it.tb * kWgTile);
+      pack_halves(s, dhi, dlo);
+
+      // tile i: S_i, dP_i and dS_{i-1} K_{i-1} in flight, then dS_i runs
+      // while the dQ product finishes
+      for (int i = 1; i < it.nt; ++i) {
+        ks = (kv + i) % ST;
+        const int ps = (kv + i - 1) % ST;
+        hopper::mbar_wait(&k_full[ks], ((kv + i) / ST) & 1);
+        hopper::mbar_wait(&v_full[ks], ((kv + i) / ST) & 1);
+        hopper::bar_sync(1 + cw, 256);
+        fence_all();
+        issue_sdp(ks);
+        issue_dq(ps);
+        hopper::bar_arrive(2 - cw, 256);
+        hopper::wgmma_wait<1>();
+        hopper::fence_regs(s);
+        hopper::fence_regs(dp);
+        if (lane == 0) {
+          hopper::mbar_arrive(&v_empty[ks]);
+          if (i == it.nt - 1) hopper::mbar_arrive(q_empty);
+        }
+        grad((it.tb + i) * kWgTile);
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(dq);
+        if (lane == 0) hopper::mbar_arrive(&k_empty[ps]);
+        pack_halves(s, dhi, dlo);
+      }
+
+      // the last dQ product; warpgroup 1's very last turn has no follower
+      const int ps = (kv + it.nt - 1) % ST;
+      hopper::bar_sync(1 + cw, 256);
+      fence_all();
+      issue_dq(ps);
+      if (!(cw == 1 && last)) hopper::bar_arrive(2 - cw, 256);
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dq);
+      if (lane == 0) hopper::mbar_arrive(&k_empty[ps]);
+      kv += it.nt;
+
+      if (tid == 0) hopper::tma_store_wait_read();
+      hopper::bar_sync(3 + cw, 128);
+      stage_bf16<D>(dq_wg, kWgBox, dq, warp, g, t);
+      hopper::fence_async_shared();
+      hopper::bar_sync(3 + cw, 128);
+      if (tid == 0) {
+#pragma unroll
+        for (int j = 0; j < NB; ++j)
+          hopper::tma_store_4d(&tdq, dq_wg + j * kWgBox, 64 * j, it.h,
+                               it.q0 + 64 * cw, it.b);
+        hopper::tma_store_commit();
+      }
+    }
+    if (tid == 0) hopper::tma_store_wait_all();
+  }
+}
+
+// Shared memory of dK dV: K and V (D / 64 boxes of 128 rows each; dK and dV
+// staged there at the end), ST stages of Q and of dO (boxes of 64 rows) and
+// of the log-sum-exp and delta of their rows, the mbarriers.
+template <int D, int ST>
+struct DkdvSmem {
+  static constexpr int kKV = kWgItem * D * 2;
+  static constexpr int kQ = kWgTile * D * 2;
+  static constexpr int kV = kKV;
+  static constexpr int kQs = 2 * kKV;
+  static constexpr int kDo = kQs + ST * kQ;
+  static constexpr int kLse = kDo + ST * kQ;
+  static constexpr int kDelta = kLse + ST * kWgTile * 4;
+  static constexpr int kBar = kDelta + ST * kWgTile * 4;
+  static constexpr int kBytes = kBar + (1 + 2 * ST) * 8 + 1024;
+};
+
+// One block a (b * Hkv + kv head, 128 keys), the key blocks from the first
+// (the longest causal walk) on.
+template <int D, int ST, int CAP>
+__global__ void __launch_bounds__(kWgThreads, 1)
+dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv,
+                  const __grid_constant__ CUtensorMap tq,
+                  const __grid_constant__ CUtensorMap tdo,
+                  const __grid_constant__ CUtensorMap tdk,
+                  const __grid_constant__ CUtensorMap tdv, const Args a) {
+  using L = DkdvSmem<D, ST>;
+  constexpr int NB = D / 64;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* base =
+      smem_raw + ((1024 - (hopper::smem_addr(smem_raw) & 1023)) & 1023);
+  bf16* sK = reinterpret_cast<bf16*>(base);
+  bf16* sV = reinterpret_cast<bf16*>(base + L::kV);
+  bf16* sQ = reinterpret_cast<bf16*>(base + L::kQs);
+  bf16* sDo = reinterpret_cast<bf16*>(base + L::kDo);
+  float* sLse = reinterpret_cast<float*>(base + L::kLse);
+  float* sDelta = reinterpret_cast<float*>(base + L::kDelta);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(base + L::kBar);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + ST;
+  count_launch(kDkdv, kWgmma);
+
+  const int b = blockIdx.x / a.Hkv, hk = blockIdx.x - b * a.Hkv;
+  const int k0 = blockIdx.y * kWgItem;
+  int qb, qe;
+  query_tiles(a, k0, kWgItem, kWgTile, qb, qe);
+  const int per_head = qe - qb;
+  const int items = a.G * per_head;   // (query head, query tile) in order
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(kv_full, 1);
+#pragma unroll
+    for (int s = 0; s < ST; ++s) {
+      hopper::mbar_init(&full[s], 1 + 32);   // the TMA thread, a warp's lanes
+      hopper::mbar_init(&empty[s], 8);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    hopper::reg_dealloc<kDkdvProducerRegs>();
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    if (threadIdx.x == 0) {
+      // K and V once, then each item's Q and dO through the ring
+      hopper::mbar_expect_tx(kv_full, 2 * L::kKV);
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+        hopper::tma_load_4d(sK + j * kWgItem * 64, &tk, kv_full, 64 * j, hk,
+                            k0, b);
+        hopper::tma_load_4d(sV + j * kWgItem * 64, &tv, kv_full, 64 * j, hk,
+                            k0, b);
+      }
+      for (int i = 0; i < items; ++i) {
+        const int s = i % ST;
+        const int h = hk * a.G + i / per_head;
+        const int q0 = (qb + i % per_head) * kWgTile;
+        hopper::mbar_wait(&empty[s], ((i / ST) & 1) ^ 1);
+        hopper::mbar_expect_tx(&full[s], 2 * L::kQ);
+#pragma unroll
+        for (int j = 0; j < NB; ++j) {
+          hopper::tma_load_4d(sQ + s * kWgTile * D + j * kWgTile * 64, &tq,
+                              &full[s], 64 * j, h, q0, b);
+          hopper::tma_load_4d(sDo + s * kWgTile * D + j * kWgTile * 64, &tdo,
+                              &full[s], 64 * j, h, q0, b);
+        }
+      }
+    } else if (warp == 1) {
+      // the log-sum-exp and delta of each item's rows (0 past S), by plain
+      // loads: a TMA map needs 16-byte row strides, and a (B, Hq, S) f32
+      // row is S x 4 bytes; the warp's 32 arrivals complete the stage
+      for (int i = 0; i < items; ++i) {
+        const int s = i % ST;
+        const int h = hk * a.G + i / per_head;
+        const int q0 = (qb + i % per_head) * kWgTile;
+        hopper::mbar_wait(&empty[s], ((i / ST) & 1) ^ 1);
+        const long long row0 = ((long long)b * a.Hq + h) * a.S + q0;
+#pragma unroll
+        for (int j = lane; j < kWgTile; j += 32) {
+          const bool ok = q0 + j < a.S;
+          sLse[s * kWgTile + j] = ok ? a.lse[row0 + j] : 0.f;
+          sDelta[s * kWgTile + j] = ok ? a.delta[row0 + j] : 0.f;
+        }
+        hopper::mbar_arrive(&full[s]);
+      }
+    }
+  } else {
+    hopper::reg_alloc<kDkdvConsumerRegs>();
+    const int cw = wg - 1;
+    const int tid = threadIdx.x - 128 * wg;
+    const int warp = tid >> 5;
+    const int lane = tid & 31;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const bf16* k_wg = sK + cw * 64 * 64;   // box j at + j * kWgItem * 64
+    const bf16* v_wg = sV + cw * 64 * 64;
+    const int kw0 = k0 + 64 * cw + 16 * warp;   // this warp's first key
+
+    // the packed halves live only from the elementwise pass to the end of
+    // the products that read them (dK, dV, S^T, dP^T and the halves at
+    // once would take 256 registers a thread at D = 128)
+    float dk[D / 2], dv[D / 2], s[kWgTile / 2], dp[kWgTile / 2];
+    uint32_t phi[kWgTile / 4], plo[kWgTile / 4], dhi[kWgTile / 4],
+        dlo[kWgTile / 4];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kWgTile / 2; ++i) s[i] = dp[i] = 0.f;
+
+    hopper::mbar_wait(kv_full, 0);
+    if (cw == 1 && items > 0) hopper::bar_arrive(1, 256);
+    for (int i = 0; i < items; ++i) {
+      const int st = i % ST;
+      const int q0 = (qb + i % per_head) * kWgTile;
+      const bf16* qt = sQ + st * kWgTile * D;
+      const bf16* dot = sDo + st * kWgTile * D;
+      hopper::mbar_wait(&full[st], (i / ST) & 1);
+
+      // S^T = K Q^T and dP^T = V dO^T (keys on M, the tile's queries on N)
+      hopper::bar_sync(1 + cw, 256);
+      hopper::fence_regs(s);
+      hopper::fence_regs(dp);
+      hopper::wgmma_fence();
+      wg_nt_product2<D>(s, k_wg, qt, dp, v_wg, dot, kWgItem * 64);
+      hopper::wgmma_commit();
+      hopper::bar_arrive(2 - cw, 256);
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(s);
+      hopper::fence_regs(dp);
+
+      // P^T and dS^T in place (the mma_bf16 kernel's arithmetic); a padded
+      // query row has no weight and no grad
+      const float* cl = sLse + st * kWgTile;
+      const float* cd = sDelta + st * kWgTile;
+      const bool full_tile =
+          q0 + kWgTile <= a.S && kw0 + 16 <= a.T &&
+          (!a.causal || kw0 + 15 <= q0) &&
+          (a.window <= 0 || q0 + kWgTile - 1 - kw0 < a.window);
+#pragma unroll
+      for (int j = 0; j < kWgTile / 8; ++j) {
+        const int c = 8 * j + 2 * t;   // the query of s[4 j] in the tile
+        const float2 lc = *reinterpret_cast<const float2*>(cl + c);
+        const float2 dc = *reinterpret_cast<const float2*>(cd + c);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i4 = 4 * j + e;
+          const float lse = (e & 1) ? lc.y : lc.x;
+          const float del = (e & 1) ? dc.y : dc.x;
+          const int q = q0 + c + (e & 1);
+          float th;
+          float x = scaled_score<CAP>(a, s[i4], th);
+          if (!full_tile) x = mask_score(a, x, q, kw0 + g + 8 * (e >> 1));
+          const float p = expf(x - lse);
+          const float gs = product_grad<CAP>(a, p, dp[i4], del, th);
+          const bool real = full_tile || q < a.S;
+          s[i4] = real ? p : 0.f;
+          dp[i4] = real ? gs : 0.f;
+        }
+      }
+      pack_halves(s, phi, plo);
+      pack_halves(dp, dhi, dlo);
+
+      // dV += P^T dO and dK += dS^T Q (dO and Q MN-major); warpgroup 1's
+      // very last turn has no follower
+      hopper::bar_sync(1 + cw, 256);
+      hopper::fence_regs(dk);
+      hopper::fence_regs(dv);
+      hopper::fence_regs(phi);
+      hopper::fence_regs(plo);
+      hopper::fence_regs(dhi);
+      hopper::fence_regs(dlo);
+      hopper::wgmma_fence();
+      wg_split_product2<D>(dv, phi, plo, dot, dk, dhi, dlo, qt);
+      hopper::wgmma_commit();
+      if (!(cw == 1 && i == items - 1)) hopper::bar_arrive(2 - cw, 256);
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dk);
+      hopper::fence_regs(dv);
+      if (lane == 0) hopper::mbar_arrive(&empty[st]);
+    }
+
+    // dK and dV into this warpgroup's own rows of the K and V tiles (only
+    // its own products read them), then one TMA store a box, clipped at T
+    unsigned char* k_rows = reinterpret_cast<unsigned char*>(sK) + cw * kWgBox;
+    unsigned char* v_rows = reinterpret_cast<unsigned char*>(sV) + cw * kWgBox;
+    stage_bf16<D>(k_rows, 2 * kWgBox, dk, warp, g, t);
+    stage_bf16<D>(v_rows, 2 * kWgBox, dv, warp, g, t);
+    hopper::fence_async_shared();
+    hopper::bar_sync(3 + cw, 128);
+    if (tid == 0) {
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+        hopper::tma_store_4d(&tdk, k_rows + j * 2 * kWgBox, 64 * j, hk,
+                             k0 + 64 * cw, b);
+        hopper::tma_store_4d(&tdv, v_rows + j * 2 * kWgBox, 64 * j, hk,
+                             k0 + 64 * cw, b);
+      }
+      hopper::tma_store_commit();
+      hopper::tma_store_wait_all();
+    }
+  }
+}
+
+// The TMA map of a bf16 (B, L, H, D) tensor with element strides (sb, sl,
+// sh) and its last dim contiguous, as (D, H, L, B) innermost first: boxes
+// of 64 columns x 1 head x `rows` rows x 1, 128-byte swizzle, zeros read
+// outside, stores clipped.
+bool bshd_map(CUtensorMap* map, const void* ptr, int B, int L, int H, int D,
+              long long sb, long long sl, long long sh, int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)L,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)sl * 2,
+                                 (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  return hopper::tensor_map_bf16(map, ptr, 4, dims, strides, box);
+}
+
+// The same map of a contiguous bf16 (B, L, H, D) tensor.
+bool bshd_map(CUtensorMap* map, const void* ptr, int B, int L, int H, int D,
+              int rows) {
+  return bshd_map(map, ptr, B, L, H, D, (long long)L * H * D,
+                  (long long)H * D, D, rows);
+}
+
+// The map of a contiguous f32 (B, L, H, D) tensor: boxes of 32 columns
+// (128 bytes) x 1 x `rows` x 1, 128-byte swizzle, stores clipped.
+bool bshd_map_f32(CUtensorMap* map, void* ptr, int B, int L, int H, int D,
+                  int rows) {
+  const hopper::EncodeTiledFn encode = hopper::encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)L,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 4, (cuuint64_t)H * D * 4,
+                                 (cuuint64_t)L * H * D * 4};
+  const cuuint32_t box[4] = {32, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, ptr, dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// One block an SM for at most kPersistentItemsPerSm items an SM, else one
+// block an item.
+cudaError_t persistent_grid(int n_items, int& grid) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  grid = n_items <= kPersistentItemsPerSm * sms ? min(n_items, sms) : n_items;
+  return cudaSuccess;
+}
+
+template <int D, int CAP>
+cudaError_t launch_wg_forward(const Args& a, cudaStream_t stream) {
+  CUtensorMap mq, mk, mv, mo, mo32;
+  if (!bshd_map(&mq, a.q, a.B, a.S, a.Hq, D, a.q_sb, a.q_ss, a.q_sh,
+                kWgItem) ||
+      !bshd_map(&mk, a.k, a.B, a.T, a.Hkv, D, a.k_sb, a.k_st, a.k_sh,
+                kWgTile) ||
+      !bshd_map(&mv, a.v, a.B, a.T, a.Hkv, D, a.v_sb, a.v_st, a.v_sh,
+                kWgTile) ||
+      !bshd_map(&mo, a.o, a.B, a.S, a.Hq, D, 64) ||
+      !bshd_map_f32(&mo32, a.o32, a.B, a.S, a.Hq, D, 64))
+    return cudaErrorInvalidValue;
+  constexpr int ST = kFwdStages;
+  constexpr int smem = FwdSmem<D, ST>::kBytes;
+  auto kernel = fwd_wgmma_kernel<D, ST, CAP>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int n_items = a.B * a.Hq * ((a.S + kWgItem - 1) / kWgItem);
+  int grid = 0;
+  if ((err = persistent_grid(n_items, grid)) != cudaSuccess) return err;
+  kernel<<<grid, kWgThreads, smem, stream>>>(mq, mk, mv, mo, mo32, a,
+                                             n_items);
+  return cudaGetLastError();
+}
+
+template <int D, int CAP>
+cudaError_t launch_wg_backward(const Args& a, cudaStream_t stream) {
+  const long long rows = (long long)a.B * a.S * a.Hq;
+  delta_kernel<bf16, kWgmma><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
+      a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  CUtensorMap mq, mdo, mk, mv, mdq;
+  if (!bshd_map(&mq, a.q, a.B, a.S, a.Hq, D, a.q_sb, a.q_ss, a.q_sh,
+                kWgItem) ||
+      !bshd_map(&mdo, a.dout, a.B, a.S, a.Hq, D, kWgItem) ||
+      !bshd_map(&mk, a.k, a.B, a.T, a.Hkv, D, a.k_sb, a.k_st, a.k_sh,
+                kWgTile) ||
+      !bshd_map(&mv, a.v, a.B, a.T, a.Hkv, D, a.v_sb, a.v_st, a.v_sh,
+                kWgTile) ||
+      !bshd_map(&mdq, a.dq, a.B, a.S, a.Hq, D, 64))
+    return cudaErrorInvalidValue;
+  constexpr int DQ_ST = kDqStages;
+  constexpr int dq_smem = DqSmem<D, DQ_ST>::kBytes;
+  auto dq_kernel = dq_wgmma_kernel<D, DQ_ST, CAP>;
+  if ((err = cudaFuncSetAttribute(dq_kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  dq_smem)) != cudaSuccess)
+    return err;
+  const int n_items = a.B * a.Hq * ((a.S + kWgItem - 1) / kWgItem);
+  int grid = 0;
+  if ((err = persistent_grid(n_items, grid)) != cudaSuccess) return err;
+  dq_kernel<<<grid, kWgThreads, dq_smem, stream>>>(mq, mdo, mk, mv, mdq, a,
+                                                   n_items);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  CUtensorMap tk, tv, tq, tdo, tdk, tdv;
+  if (!bshd_map(&tk, a.k, a.B, a.T, a.Hkv, D, a.k_sb, a.k_st, a.k_sh,
+                kWgItem) ||
+      !bshd_map(&tv, a.v, a.B, a.T, a.Hkv, D, a.v_sb, a.v_st, a.v_sh,
+                kWgItem) ||
+      !bshd_map(&tq, a.q, a.B, a.S, a.Hq, D, a.q_sb, a.q_ss, a.q_sh,
+                kWgTile) ||
+      !bshd_map(&tdo, a.dout, a.B, a.S, a.Hq, D, kWgTile) ||
+      !bshd_map(&tdk, a.dk, a.B, a.T, a.Hkv, D, 64) ||
+      !bshd_map(&tdv, a.dv, a.B, a.T, a.Hkv, D, 64))
+    return cudaErrorInvalidValue;
+  constexpr int KV_ST = kDkdvStages;
+  constexpr int kv_smem = DkdvSmem<D, KV_ST>::kBytes;
+  auto kv_kernel = dkdv_wgmma_kernel<D, KV_ST, CAP>;
+  if ((err = cudaFuncSetAttribute(kv_kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  kv_smem)) != cudaSuccess)
+    return err;
+  kv_kernel<<<dim3(a.B * a.Hkv, (a.T + kWgItem - 1) / kWgItem), kWgThreads,
+              kv_smem, stream>>>(tk, tv, tq, tdo, tdk, tdv, a);
   return cudaGetLastError();
 }
 
@@ -1079,7 +2201,7 @@ cudaError_t launch_f32_forward(const Args& a, cudaStream_t stream) {
 template <int BQ, int BK, int NJ>
 cudaError_t launch_f32_backward(const Args& a, cudaStream_t stream) {
   const long long rows = (long long)a.B * a.S * a.Hq;
-  delta_kernel<float><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(a);
+  delta_kernel<float, kF32><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
@@ -1108,6 +2230,26 @@ cudaError_t launch_f32_backward(const Args& a, cudaStream_t stream) {
 // The route's instance for the head dim, forward or backward.
 cudaError_t dispatch(const Args& a, int route, bool backward,
                      cudaStream_t stream) {
+  if (route == kWgmma) {
+    if (a.D != 64 && a.D != 128) return cudaErrorInvalidValue;
+#ifdef TRAIN_ATTN_FORCE_MMA
+    route = kMma;   // the old route at this shape, counted there
+#else
+    const bool cap = a.cap != 0.f;
+    if (a.D == 64) {
+      if (backward)
+        return cap ? launch_wg_backward<64, 1>(a, stream)
+                   : launch_wg_backward<64, 0>(a, stream);
+      return cap ? launch_wg_forward<64, 1>(a, stream)
+                 : launch_wg_forward<64, 0>(a, stream);
+    }
+    if (backward)
+      return cap ? launch_wg_backward<128, 1>(a, stream)
+                 : launch_wg_backward<128, 0>(a, stream);
+    return cap ? launch_wg_forward<128, 1>(a, stream)
+               : launch_wg_forward<128, 0>(a, stream);
+#endif
+  }
   if (route == kMma) {
     if (a.D % 8 || a.D > 128) return cudaErrorInvalidValue;
     if (a.D <= 32)
@@ -1172,12 +2314,13 @@ Args make_args(const void* q, const void* k, const void* v, int B, int S,
 
 // q: (B, S, Hq, D), k and v: (B, T, Hkv, D), in the model's layout with
 // the strides (batch, row, head) in elements and the last dim contiguous
-// (qs, ks, vs: three each); route 0 (mma_bf16: bf16, rows 16-byte aligned)
-// or 1 (scalar_f32: f32).  Writes o (B, S, Hq, D) in the inputs' dtype, o32
-// (f32; on route 1 pass o) and lse (B, Hq, S), all contiguous.  cap 0 is
-// no cap; inv_cap and inv_sqrt_d are the f32 reciprocals of cap and
-// sqrt(D).  The wrapper checks shapes, Hq % Hkv == 0 and S == T where
-// causal or window > 0.
+// (qs, ks, vs: three each); route 0 (mma_bf16: bf16, rows 16-byte aligned),
+// 1 (scalar_f32: f32) or 2 (wgmma_bf16: bf16 at D = 64 or 128, the base and
+// the strides 16-byte aligned; mma_bf16 in a -DTRAIN_ATTN_FORCE_MMA build).
+// Writes o (B, S, Hq, D) in the inputs' dtype, o32 (f32; on route 1 pass
+// o) and lse (B, Hq, S), all contiguous.  cap 0 is no cap; inv_cap and
+// inv_sqrt_d are the f32 reciprocals of cap and sqrt(D).  The wrapper
+// checks shapes, Hq % Hkv == 0 and S == T where causal or window > 0.
 extern "C" int train_attention_forward(
     const void* q, const void* k, const void* v, void* o, float* o32,
     float* lse, int B, int S, int T, int Hq, int Hkv, int D,
@@ -1218,8 +2361,8 @@ extern "C" int train_attention_backward(
 }
 
 // Launches of kernel (0 forward, 1 delta, 2 dK dV, 3 dQ) on route (0
-// mma_bf16, 1 scalar_f32) counted on the device since the library was
-// loaded; ~0 on a bad argument or a failed copy.
+// mma_bf16, 1 scalar_f32, 2 wgmma_bf16) counted on the device since the
+// library was loaded; ~0 on a bad argument or a failed copy.
 extern "C" unsigned long long train_attention_launches(int kernel, int route) {
   if (kernel < 0 || kernel >= kKernels || route < 0 || route >= kRoutes)
     return ~0ull;

@@ -24,10 +24,18 @@ query tiles, hidden tiles skipped, every grad summed in f32 and rounded
 once to the inputs' dtype, no float atomics (the same bits every run).
 
 Routes, fixed before the launch (``route``):
-- ``mma_bf16``: bf16 q, k, v with D a multiple of 8 up to 128.  Q K^T and
-  dO V^T on the tensor cores (mma.sync m16n8k16, f32 accumulation: bf16
-  products are exact); P and dS, f32, enter P V, P^T dO, dS K and dS^T Q as
-  hi + lo bf16 halves (~16 mantissa bits), never rounded once.
+- ``wgmma_bf16``: bf16 q, k, v at D = 64 and 128, the same arithmetic as
+  ``mma_bf16`` in kernels designed for Hopper: a producer warpgroup feeds
+  TMA rings, two consumer warpgroups take turns on wgmma (Q K^T and dO V^T
+  from shared memory; P and dS as hi + lo register operands), a persistent
+  grid for the forward and dQ, 64-row query tiles in dK dV.  A build with
+  ``-DTRAIN_ATTN_FORCE_MMA`` (``FORCE_MMA_DEFINES``) runs ``mma_bf16`` in
+  its place, for timing the old route.
+- ``mma_bf16``: bf16 q, k, v with D a multiple of 8 up to 128 (the other
+  head dims).  Q K^T and dO V^T on the tensor cores (mma.sync m16n8k16, f32
+  accumulation: bf16 products are exact); P and dS, f32, enter P V, P^T dO,
+  dS K and dS^T Q as hi + lo bf16 halves (~16 mantissa bits), never rounded
+  once.
 - ``scalar_f32``: f32 q, k, v (lm100m, lm20m, tiny, whisper's f32
   encoder), scalar f32 FMAs; bf16 at another head dim and mixed dtypes
   (whisper's bf16 q against the f32 encoder's k and v) take it after an
@@ -62,10 +70,14 @@ from . import _build
 from .ref import attention_core
 
 _COUNT_LOCK = threading.Lock()
-ROUTES = ("mma_bf16", "scalar_f32")            # the C route ids
-KERNELS = ("forward", "delta", "dkdv", "dq")   # the C kernel ids
+ROUTES = ("mma_bf16", "scalar_f32", "wgmma_bf16")   # the C route ids
+KERNELS = ("forward", "delta", "dkdv", "dq")        # the C kernel ids
+WGMMA_HEAD_DIMS = (64, 128)
 MMA_MAX_HEAD_DIM = 128
 F32_MAX_HEAD_DIM = 256
+# the build whose wgmma_bf16 route runs mma_bf16 (the old route, timed in
+# turns with the new one)
+FORCE_MMA_DEFINES = ("TRAIN_ATTN_FORCE_MMA",)
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -75,6 +87,8 @@ def route(q_dtype: torch.dtype, kv_dtype: torch.dtype, head_dim: int) -> str:
         if dt not in _DTYPES:
             raise ValueError(f"train_attention: {name} are {dt} "
                              f"(float32, bfloat16)")
+    if q_dtype == kv_dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
+        return "wgmma_bf16"
     if q_dtype == kv_dtype == torch.bfloat16 and head_dim % 8 == 0 \
             and head_dim <= MMA_MAX_HEAD_DIM:
         return "mma_bf16"
@@ -121,8 +135,8 @@ def train_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           logit_cap=logit_cap)
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("train_attention")
+def _lib(defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
+    lib = _build.load("train_attention", tuple(defines))
     if lib.train_attention_forward.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         dims = [i] * 6 + [p] * 3 + [i, i, f, f, f, i, p]
@@ -214,12 +228,14 @@ def _stream(device: torch.device) -> int:
 
 def train_attention_forward(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, *, causal: bool, window: int,
-                            logit_cap: float
+                            logit_cap: float, lib: ctypes.CDLL = None
                             ) -> Tuple[torch.Tensor, torch.Tensor,
                                        torch.Tensor]:
     """One forward launch on CUDA tensors of one dtype (f32, or bf16 on
-    ``mma_bf16``'s head dims): (o (B, S, Hq, D) in their dtype, o32 (its
-    f32 values; o itself on ``scalar_f32``), lse (B, Hq, S) f32)."""
+    the tensor-core routes' head dims): (o (B, S, Hq, D) in their dtype,
+    o32 (its f32 values; o itself on ``scalar_f32``), lse (B, Hq, S) f32).
+    ``lib``: the library to launch from (``_lib(FORCE_MMA_DEFINES)`` for
+    the old route), by default the kernels' own build."""
     window = int(window)
     name = route(q.dtype, k.dtype, q.shape[3])
     _check(q, k, v, causal, window)
@@ -235,7 +251,7 @@ def train_attention_forward(q: torch.Tensor, k: torch.Tensor,
     o32 = o if q.dtype == torch.float32 else torch.empty(
         o.shape, dtype=torch.float32, device=q.device)
     lse = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
-    lib = _lib()
+    lib = lib if lib is not None else _lib()
     with torch.cuda.device(q.device):
         err = lib.train_attention_forward(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -255,7 +271,8 @@ def train_attention_forward(q: torch.Tensor, k: torch.Tensor,
 def train_attention_backward(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, o32: torch.Tensor,
                              lse: torch.Tensor, dout: torch.Tensor, *,
-                             causal: bool, window: int, logit_cap: float
+                             causal: bool, window: int, logit_cap: float,
+                             lib: ctypes.CDLL = None
                              ) -> Tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor]:
     """The backward of ``train_attention_forward`` with the same arguments
@@ -275,7 +292,7 @@ def train_attention_backward(q: torch.Tensor, k: torch.Tensor,
     dk = torch.empty((b, t, hkv, d), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
     delta = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
-    lib = _lib()
+    lib = lib if lib is not None else _lib()
     with torch.cuda.device(q.device):
         err = lib.train_attention_backward(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o32.data_ptr(),
@@ -320,8 +337,9 @@ def train_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     logit_cap: float = 0.0) -> torch.Tensor:
     """q (B, S, Hq, D), k and v (B, T, Hkv, D), model layout -> (B, S, Hq,
     D): in the kernel route's dtype on CUDA (``TrainAttention``; bf16 on
-    ``mma_bf16``, else f32 after an exact upcast), f32 on the CPU and meta
-    (``train_attention_plain``).  Chosen by device (``takes_kernel``)."""
+    the tensor-core routes, else f32 after an exact upcast), f32 on the CPU
+    and meta (``train_attention_plain``).  Chosen by device
+    (``takes_kernel``)."""
     if not takes_kernel((q, k, v)):
         return train_attention_plain(q, k, v, causal=causal, window=window,
                                      logit_cap=logit_cap)

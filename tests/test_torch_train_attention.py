@@ -15,13 +15,18 @@ below.  Here, on the CPU, at small sizes:
     within 1e-5 x max|b| (the same f32 ops, summed in other orders); bf16
     results are one rounding of f32 values that agree that closely, so
     within one bf16 ulp (2^-7 |b|) plus 1e-5 x max|b|;
-(b) an emulation of the kernels' arithmetic (64-row tiles, the online
-    softmax and its log-sum-exp, P recomputed from it in the backward,
-    delta = rowsum(dO o32), P and dS as hi + lo bf16 halves against exact
-    bf16 operands on ``mma_bf16``, f32 sums, each result rounded once)
-    against JAX's f32 values at chip_smoke's tolerance: bf16 within 2^-8
-    |b| (half an ulp) + 1e-5 x max|b|, f32 within 1e-5 x max|b|; P rounded
-    once to bf16, as the serve flash routes do, misses it;
+(b) an emulation of the kernels' arithmetic (the online softmax and its
+    log-sum-exp, P recomputed from it in the backward, delta = rowsum(dO
+    o32), P and dS as hi + lo bf16 halves against exact bf16 operands on
+    the tensor-core routes, f32 sums, each result rounded once), its tile
+    sizes and sum order parameters: ``mma_bf16``'s (64-row query tiles and
+    64-key tiles, 16-row dK dV tiles at D = 128, each tile's hi and lo
+    products summed before they join the sum) and ``wgmma_bf16``'s
+    (128-row forward and dQ items over 64-key tiles, 64-row dK dV tiles,
+    hi then lo joining the running sum 16 deep at a time), against JAX's
+    f32 values at chip_smoke's tolerance: bf16 within 2^-8 |b| (half an
+    ulp) + 1e-5 x max|b|, f32 within 1e-5 x max|b|; P rounded once to
+    bf16, as the serve flash routes do, misses it;
 (c) the choice: calls autograd records on CUDA take the kernels (the
     emulation standing in for the launches, a train step through them
     close to the plain step, a forward launch twice under remat), CPU and
@@ -33,6 +38,7 @@ below.  Here, on the CPU, at small sizes:
 import sys
 from pathlib import Path
 from types import SimpleNamespace
+from typing import Callable, NamedTuple
 
 import numpy as np
 import pytest
@@ -53,6 +59,24 @@ from repro_torch.models import attention as MA  # noqa: E402
 ROOT = Path(__file__).resolve().parents[1]
 TILE = 64            # the kernels' query and key tiles
 REL_TOL = 1e-5       # x max|b|: chip_smoke.TA_REL_TOL
+
+
+class Plan(NamedTuple):
+    """A route's tiles and sum order: query rows a forward / dQ tile,
+    keys a tile, query rows a dK dV tile (by head dim), and how a split
+    product joins its sum: "tile" (hi B + lo B of the whole tile, then
+    added) or "k16" (hi then lo into the running sum, 16 deep at a
+    time)."""
+    rows: int
+    keys: int
+    dkdv_rows: Callable[[int], int]
+    order: str
+
+
+# csrc/train_attention.cu: mma_bf16 (dkdv_rows<DP>: 16 rows past D 80)
+# and wgmma_bf16 (kWgItem, kWgTile)
+MMA_PLAN = Plan(TILE, TILE, lambda d: 16 if d > 80 else TILE, "tile")
+WGMMA_PLAN = Plan(128, TILE, lambda d: TILE, "k16")
 BF16_HALF_ULP = 2.0 ** -8
 BF16_ULP = 2.0 ** -7
 
@@ -211,6 +235,19 @@ def product(a: torch.Tensor, b: torch.Tensor, split) -> torch.Tensor:
     return sum(h @ b for h in halves(a, split))
 
 
+def accumulate(acc: torch.Tensor, a: torch.Tensor, b: torch.Tensor, split,
+               order: str) -> torch.Tensor:
+    """acc + a @ b in a plan's order: "tile" adds the tile's product
+    (``product``), "k16" adds hi then lo of each 16-deep slice of a to the
+    running sum."""
+    if order == "tile":
+        return acc + product(a, b, split)
+    for k0 in range(0, a.shape[-1], 16):
+        for h in halves(a[..., k0:k0 + 16], split):
+            acc = acc + h @ b[..., k0:k0 + 16, :]
+    return acc
+
+
 def scales(opts, D) -> dict:
     """The wrapper's f32 reciprocals of sqrt(D) and the cap."""
     _, inv_cap, inv_sqrt_d = TA._scales(opts["logit_cap"], D)
@@ -236,16 +273,18 @@ def tile_scores(a, qt, kt, rows, cols, opts):
     return x.masked_fill(~seen, -1e30), th
 
 
-def key_range(S, T, q0, opts):
-    q_last = min(q0 + TILE, S) - 1
+def key_range(S, T, q0, opts, rows=TILE, keys=TILE):
+    """The key tiles [begin, end) of ``keys`` keys that a query tile of
+    ``rows`` rows from q0 walks (the kernels' ``key_tiles``)."""
+    q_last = min(q0 + rows, S) - 1
     end = min(T, q_last + 1) if opts["causal"] else T
     begin = max(0, q0 - opts["window"] + 1) if opts["window"] else 0
-    return begin // TILE, -(-end // TILE)
+    return begin // keys, -(-end // keys)
 
 
-def emulate_forward(q, k, v, opts, split):
+def emulate_forward(q, k, v, opts, split, plan=MMA_PLAN):
     """The forward kernel on (B, S, H, D) tensors of the route's dtype:
-    (o in it, o32, lse (B, Hq, S))."""
+    (o in it, o32, lse (B, Hq, S)), in ``plan``'s tiles and sum order."""
     B, S, Hq, D = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -254,31 +293,34 @@ def emulate_forward(q, k, v, opts, split):
     o32 = torch.zeros((B, S, Hq, D))
     lse = torch.zeros((B, Hq, S))
     for h in range(Hq):
-        for q0 in range(0, S, TILE):
-            rows = torch.arange(q0, min(q0 + TILE, S))
+        for q0 in range(0, S, plan.rows):
+            rows = torch.arange(q0, min(q0 + plan.rows, S))
             m = torch.full((B, len(rows)), -float("inf"))
             l = torch.zeros((B, len(rows)))
             acc = torch.zeros((B, len(rows), D))
-            tb, te = key_range(S, T, q0, opts)
+            tb, te = key_range(S, T, q0, opts, plan.rows, plan.keys)
             for it in range(tb, te):
-                cols = torch.arange(it * TILE, min(it * TILE + TILE, T))
+                cols = torch.arange(it * plan.keys,
+                                    min(it * plan.keys + plan.keys, T))
                 x, _ = tile_scores(a, qf[:, rows, h], kf[:, cols, h // G],
                                    rows, cols, opts)
                 mx = torch.maximum(m, x.max(-1).values)
                 corr = torch.exp(m - mx)
                 p = torch.exp(x - mx[..., None])
                 l = l * corr + p.sum(-1)
-                acc = acc * corr[..., None] + product(
-                    p, vf[:, cols, h // G], split)
+                acc = accumulate(acc * corr[..., None], p,
+                                 vf[:, cols, h // G], split, plan.order)
                 m = mx
             o32[:, rows, h] = acc / l[..., None]
             lse[:, h, rows] = m + torch.log(l)
     return o32.to(q.dtype), o32, lse
 
 
-def emulate_backward(q, k, v, o32, lse, do, opts, split):
+def emulate_backward(q, k, v, o32, lse, do, opts, split, plan=MMA_PLAN):
     """The delta, dQ and dK dV kernels: (dq, dk, dv) in the route's
-    dtype, each summed in f32 and rounded once."""
+    dtype, each summed in f32 in ``plan``'s tiles and order and rounded
+    once: dq over the key tiles of each query tile, dk and dv over the G
+    query heads of their kv head in order, then their dK dV query tiles."""
     B, S, Hq, D = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -289,49 +331,73 @@ def emulate_backward(q, k, v, o32, lse, do, opts, split):
     dk = torch.zeros((B, T, Hkv, D))
     dv = torch.zeros((B, T, Hkv, D))
     cap = opts["logit_cap"]
-    for h in range(Hq):
+
+    def grads(h, rows, cols):
         hk = h // G
-        for q0 in range(0, S, TILE):
-            rows = torch.arange(q0, min(q0 + TILE, S))
-            tb, te = key_range(S, T, q0, opts)
+        x, th = tile_scores(a, qf[:, rows, h], kf[:, cols, hk], rows, cols,
+                            opts)
+        p = torch.exp(x - lse[:, h, rows][..., None])
+        dp = dof[:, rows, h] @ vf[:, cols, hk].transpose(-1, -2)
+        g = p * (dp - delta[:, h, rows][..., None])
+        if cap:
+            g = (g * cap) * (1 - th * th) * a["inv_cap"]
+        return p, g * a["inv_sqrt_d"]
+
+    for h in range(Hq):
+        for q0 in range(0, S, plan.rows):            # dQ
+            rows = torch.arange(q0, min(q0 + plan.rows, S))
+            tb, te = key_range(S, T, q0, opts, plan.rows, plan.keys)
             for it in range(tb, te):
-                cols = torch.arange(it * TILE, min(it * TILE + TILE, T))
-                x, th = tile_scores(a, qf[:, rows, h], kf[:, cols, hk],
-                                    rows, cols, opts)
-                p = torch.exp(x - lse[:, h, rows][..., None])
-                dp = dof[:, rows, h] @ vf[:, cols, hk].transpose(-1, -2)
-                g = p * (dp - delta[:, h, rows][..., None])
-                if cap:
-                    g = (g * cap) * (1 - th * th) * a["inv_cap"]
-                g = g * a["inv_sqrt_d"]
-                dq[:, rows, h] += product(g, kf[:, cols, hk], split)
-                dv[:, cols, hk] += product(p.transpose(-1, -2),
-                                           dof[:, rows, h], split)
-                dk[:, cols, hk] += product(g.transpose(-1, -2),
-                                           qf[:, rows, h], split)
+                cols = torch.arange(it * plan.keys,
+                                    min(it * plan.keys + plan.keys, T))
+                _, g = grads(h, rows, cols)
+                dq[:, rows, h] = accumulate(dq[:, rows, h], g,
+                                            kf[:, cols, h // G], split,
+                                            plan.order)
+    qr = plan.dkdv_rows(D)
+    for h in range(Hq):                               # dK dV
+        hk = h // G
+        for q0 in range(0, S, qr):
+            rows = torch.arange(q0, min(q0 + qr, S))
+            tb, te = key_range(S, T, q0, opts, qr, 1)
+            cols = torch.arange(tb, te)
+            p, g = grads(h, rows, cols)
+            dv[:, cols, hk] = accumulate(dv[:, cols, hk],
+                                         p.transpose(-1, -2),
+                                         dof[:, rows, h], split, plan.order)
+            dk[:, cols, hk] = accumulate(dk[:, cols, hk],
+                                         g.transpose(-1, -2),
+                                         qf[:, rows, h], split, plan.order)
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
 EMULATED = [(c, m) for c in CASES for m in ("f32", "bf16")]
+# each case's bf16 route, and in mma_bf16's plan too where that is
+# wgmma_bf16 (the old route, kept at every shape by -DTRAIN_ATTN_FORCE_MMA)
+PLANS = {"mma_bf16": MMA_PLAN, "wgmma_bf16": WGMMA_PLAN}
+EMULATED += [(c, "bf16-mma_plan") for c in CASES if c[6] in TA.WGMMA_HEAD_DIMS]
 
 
 @pytest.mark.parametrize("case,mode", EMULATED,
                          ids=[f"{c[0]}-{m}" for c, m in EMULATED])
 def test_emulated_kernels_match_jax_at_the_chip_tolerance(case, mode):
-    """The route's arithmetic (``mma_bf16``: hi + lo halves; f32: scalar
-    f32) against JAX's f32 o, lse and grads of the same values."""
+    """The route's arithmetic (the tensor-core routes: hi + lo halves in
+    their plan's tiles and sum order; f32: scalar f32) against JAX's f32 o,
+    lse and grads of the same values."""
     q, k, v, do = draw(case, seed=1)
-    dt = torch.bfloat16 if mode == "bf16" else torch.float32
+    dt = torch.float32 if mode == "f32" else torch.bfloat16
     tq, tk, tv = (to_torch(x, dt) for x in (q, k, v))
     opts = opts_of(case)
     r = TA.route(dt, dt, case[6])
-    assert r == ("mma_bf16" if mode == "bf16" else "scalar_f32")
-    split = True if r == "mma_bf16" else None
+    want = {64: "wgmma_bf16", 128: "wgmma_bf16"}.get(case[6], "mma_bf16")
+    assert r == (want if dt == torch.bfloat16 else "scalar_f32")
+    split = None if r == "scalar_f32" else True
+    plan = MMA_PLAN if mode == "bf16-mma_plan" else PLANS.get(r, MMA_PLAN)
     jo, jgrads, jlse = jax_vjp(*(np.asarray(t.float()) for t in (tq, tk, tv)),
                                np.asarray(to_torch(do, dt).float()), opts)
-    o, o32, lse = emulate_forward(tq, tk, tv, opts, split)
+    o, o32, lse = emulate_forward(tq, tk, tv, opts, split, plan)
     dq, dk, dv = emulate_backward(tq, tk, tv, o32, lse, to_torch(do, dt),
-                                  opts, split)
+                                  opts, split, plan)
     ulp = BF16_HALF_ULP if dt == torch.bfloat16 else 0.0
     within(o, jo, ulp=ulp)
     within(lse, jlse, ulp=0.0)
@@ -482,13 +548,17 @@ def test_serve_kernels_still_refuse_grad_and_name_the_training_route():
 
 def test_routes():
     bf, f32 = torch.bfloat16, torch.float32
-    assert TA.route(bf, bf, 128) == "mma_bf16"
+    assert TA.route(bf, bf, 128) == "wgmma_bf16"
+    assert TA.route(bf, bf, 64) == "wgmma_bf16"
     assert TA.route(bf, bf, 80) == "mma_bf16"
     assert TA.route(bf, bf, 72) == "mma_bf16"
+    assert TA.route(bf, bf, 16) == "mma_bf16"
     assert TA.route(bf, bf, 136) == "scalar_f32"     # upcast first
     assert TA.route(bf, bf, 60) == "scalar_f32"
     assert TA.route(f32, f32, 64) == "scalar_f32"
+    assert TA.route(f32, f32, 128) == "scalar_f32"
     assert TA.route(bf, f32, 64) == "scalar_f32"     # whisper's cross
+    assert TA.route(f32, bf, 128) == "scalar_f32"
     with pytest.raises(ValueError, match="float16"):
         TA.route(torch.float16, torch.float16, 64)
     with pytest.raises(ValueError, match="head dim"):
@@ -515,6 +585,10 @@ def test_strided_views_are_read_in_place():
     assert TA._readable(q) is q                     # rows 96 elements apart
     odd = torch.zeros(2, 8, 6, 20, dtype=torch.bfloat16)[..., :12]
     assert TA._readable(odd).is_contiguous()
+    # chip_smoke's "q_head_major" cases: a (B, H, S, D) tensor's (B, S, H,
+    # D) view, read by its strides
+    heads = torch.zeros(2, 6, 200, 128, dtype=torch.bfloat16).transpose(1, 2)
+    assert TA._readable(heads) is heads and not heads.is_contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -525,6 +599,20 @@ def test_strided_views_are_read_in_place():
 def test_build_lists_the_source():
     assert "train_attention" in _build.KERNEL_SOURCES
     assert (_build.CSRC / "train_attention.cu").exists()
+
+
+def test_build_lists_the_old_route_variant():
+    """The -DTRAIN_ATTN_FORCE_MMA build (wgmma_bf16 calls run mma_bf16):
+    a library of its own, built beside the others by chip_smoke.py and
+    read by its checks and times."""
+    assert TA.FORCE_MMA_DEFINES == ("TRAIN_ATTN_FORCE_MMA",)
+    src = (_build.CSRC / "train_attention.cu").read_text()
+    assert "#ifdef TRAIN_ATTN_FORCE_MMA" in src
+    assert _build.lib_path("train_attention", TA.FORCE_MMA_DEFINES) != \
+        _build.lib_path("train_attention")
+    chip = (ROOT / "chip_smoke.py").read_text()
+    assert '("train_attention", ta.FORCE_MMA_DEFINES)' in chip
+    assert "prior_lib = ta._lib(ta.FORCE_MMA_DEFINES)" in chip
 
 
 def _chip_smoke():
@@ -542,17 +630,22 @@ def _chip_smoke():
 # without; examples: lm20m (6 layers) x 200 steps without remat
 EXPECTED_ATTENTION = {
     "train": {"train_attention_forward": {
-        "mma_bf16": 16 * 5 * 2 + 2 * 2 + 2, "scalar_f32": 2 * 16 * 2
-        + 12 * 84},
+        "mma_bf16": 0, "scalar_f32": 2 * 16 * 2 + 12 * 84,
+        "wgmma_bf16": 16 * 5 * 2 + 2 * 2 + 2},
         "train_attention_backward": {
-            "mma_bf16": 16 * 5 + 2 + 2, "scalar_f32": 2 * 16 + 12 * 84}},
+            "mma_bf16": 0, "scalar_f32": 2 * 16 + 12 * 84,
+            "wgmma_bf16": 16 * 5 + 2 + 2}},
     "examples": {"train_attention_forward": {"mma_bf16": 0,
-                                             "scalar_f32": 6 * 200},
+                                             "scalar_f32": 6 * 200,
+                                             "wgmma_bf16": 0},
                  "train_attention_backward": {"mma_bf16": 0,
-                                              "scalar_f32": 6 * 200}},
-    "dryrun": {"train_attention_forward": {"mma_bf16": 0, "scalar_f32": 0},
+                                              "scalar_f32": 6 * 200,
+                                              "wgmma_bf16": 0}},
+    "dryrun": {"train_attention_forward": {"mma_bf16": 0, "scalar_f32": 0,
+                                           "wgmma_bf16": 0},
                "train_attention_backward": {"mma_bf16": 0,
-                                            "scalar_f32": 0}},
+                                            "scalar_f32": 0,
+                                            "wgmma_bf16": 0}},
 }
 
 
@@ -580,6 +673,21 @@ def test_chip_smoke_backward_kernels_must_agree(monkeypatch):
     after["dq"]["mma_bf16"] = 2
     with pytest.raises(SystemExit):
         cs.device_delta(mods, ({}, zero))
+
+
+def test_chip_smoke_profile_names_every_training_attention_kernel():
+    """Every kernel of csrc/train_attention.cu is counted in the train
+    step's "attention_kernels" part by name (``NAMED_KERNEL_PARTS``)."""
+    import re
+    cs = _chip_smoke()
+    src = (_build.CSRC / "train_attention.cu").read_text()
+    names = set(re.findall(
+        r"\b(\w+_kernel)\(const (?:Args|__grid_constant__)", src))
+    assert {"fwd_wgmma_kernel", "dq_wgmma_kernel", "dkdv_wgmma_kernel",
+            "fwd_mma_kernel", "delta_kernel"} <= names
+    for name in names:
+        parts = [p for k, p in cs.NAMED_KERNEL_PARTS.items() if k in name]
+        assert parts[:1] == ["attention_kernels"], name
 
 
 def test_chip_smoke_op_families():
