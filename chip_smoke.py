@@ -18,13 +18,18 @@ no result):
    training attention),
    all at once, and beside them flash attention with ``-DFLASH_FORCE_MMA``,
    the SSD scan with ``-DSSD_FORCE_MMA`` and the training attention with
-   ``-DTRAIN_ATTN_FORCE_MMA`` (the ``mma_bf16`` routes at every shape, for
-   checking and timing the old routes);
+   ``-DTRAIN_ATTN_FORCE_MMA`` (the ``mma_bf16`` routes at every shape), and
+   flash and the training attention with ``-DFLASH_FORCE_SCALAR`` and
+   ``-DTRAIN_ATTN_FORCE_SCALAR`` (``scalar_f32`` where ``mma_3xtf32``
+   runs), for checking and timing the old routes;
    ptxas registers, spills and warnings per kernel instance.  Fails if
    ptxas reported a spill, a serialised wgmma or an ignored setmaxnreg.
 3. kernel: each kernel against its plain PyTorch version on the card, at
-   the serve paths' shapes and at every option case in f32 (scalar route)
-   and in bf16 (flash: ``wgmma_bf16`` at D = 64 and 128, ``mma_bf16`` at
+   the serve paths' shapes and at every option case in f32 (flash:
+   ``mma_3xtf32``, split-f32 products on the tensor cores, at D <= 128,
+   each such case also on the ``scalar_f32`` build and held to the same
+   tolerance; ``scalar_f32`` at D = 256) and in bf16 (flash:
+   ``wgmma_bf16`` at D = 64 and 128, ``mma_bf16`` at
    the other head dims; every bf16 option case at D = 64 and at 128; the
    route of each flash call read from its device kernel's name in a
    profile); times of the kernel, the plain version and (where one exists)
@@ -66,10 +71,13 @@ no result):
    dq, dk, dv within the stated tolerance of the plain version in f32
    (``ta_within``), the same bits over 3 calls, each launch counted on the
    device by route; every case the wrapper sends to ``wgmma_bf16`` also on
-   the ``-DTRAIN_ATTN_FORCE_MMA`` build (the old ``mma_bf16`` route, held
-   to the same); at codeqwen1.5-7b's train shape the forward, the
-   backward and both timed against their bounds, the old route (in
-   turns), the plain route and SDPA in bf16 and on f32 upcasts.
+   the ``-DTRAIN_ATTN_FORCE_MMA`` build (the old ``mma_bf16`` route) and
+   every case it sends to ``mma_3xtf32`` (f32, and bf16 q against f32 k
+   and v) on the ``-DTRAIN_ATTN_FORCE_SCALAR`` build (``scalar_f32``),
+   each held to the same; at codeqwen1.5-7b's train shape (bf16) and
+   lm100m's (f32) the forward, the backward and both timed against their
+   bounds, the old route (in turns), the plain route and SDPA in the
+   inputs' dtype and on f32 upcasts.
 4. serve, for each of eight paths in turn: codeqwen1.5-7b (dense, flash
    kernel), mamba2-1.3b (ssm, SSD kernel), zamba2-2.7b (hybrid, both
    kernels), granite-moe-3b-a800m (moe, flash), whisper-large-v3 (encdec,
@@ -155,7 +163,10 @@ no result):
    serve kernel launched, the training attention once a forward and once
    a backward a layer a step, the optimizer kernels once a param leaf a
    step.
-8. the kernels line, the card line, then the result line.
+8. the kernels line (the ``mma_3xtf32`` routes also on lines of their
+   own: flash at whisper's encoder, the training attention at lm100m's
+   shape, each with its launches on that route), the card line, then the
+   result line.
 
 It imports nothing of JAX or of the JAX package.  Without CUDA it exits 2.
 """
@@ -257,7 +268,8 @@ FLASH_PATH_CASES = ("path", "d80_bf16_mha", "granite_gqa3_d64_bf16",
 # the device kernel of each flash route, as a profile names it
 FLASH_KERNEL_ROUTES = {"flash_wgmma_kernel": "wgmma_bf16",
                        "flash_mma_kernel": "mma_bf16",
-                       "flash_f32_kernel": "scalar_f32"}
+                       "flash_f32_kernel": "scalar_f32",
+                       "flash_3xtf32_kernel": "mma_3xtf32"}
 # the SSD scan's device kernels, as a profile names them, and their routes
 # (each bf16 route launches two kernels a call)
 SSD_KERNEL_ROUTES = {"ssd_wg_state_kernel": "wgmma_bf16",
@@ -388,6 +400,12 @@ def attention_bound_ms(q, k, causal: bool, window: int) -> tuple:
 
 
 MMA_DEFINES = ("FLASH_FORCE_MMA",)   # flash's mma_bf16 route at every D
+# each route that an old route's build replaces: (old route, the build's
+# defines); flash's and the training attention's
+FLASH_OLD_ROUTES = {"wgmma_bf16": ("mma_bf16", MMA_DEFINES),
+                    "mma_3xtf32": ("scalar_f32", ("FLASH_FORCE_SCALAR",))}
+TA_OLD_ROUTES = {"wgmma_bf16": ("mma_bf16", ("TRAIN_ATTN_FORCE_MMA",)),
+                 "mma_3xtf32": ("scalar_f32", ("TRAIN_ATTN_FORCE_SCALAR",))}
 SSD_MMA_DEFINES = ("SSD_FORCE_MMA",)  # the SSD's mma_bf16 route, every shape
 PTXAS_FAULT = re.compile(r"wgmma.*serializ|setmaxnreg.*ignor", re.I)
 
@@ -407,13 +425,18 @@ def ptxas_faults(ptxas: dict, logs: dict) -> list:
 
 def phase_kernel(torch, fa):
     """Kernel vs plain version on the card; times at the path shapes,
-    with the mma_bf16 route's (``prior_ms``) where the wgmma route runs."""
-    prior_lib = fa._lib(MMA_DEFINES)
+    with the old route's (``prior_ms``: ``mma_bf16`` where ``wgmma_bf16``
+    runs, ``scalar_f32`` where ``mma_3xtf32`` does, from the builds of
+    ``FLASH_OLD_ROUTES``), whose f32 cases are held to the same tolerance.
+    Returns the kernels line's entry at the path shape and the
+    ``mma_3xtf32`` route's at whisper's f32 encoder."""
+    prior_libs = {r: (old, fa._lib(defs))
+                  for r, (old, defs) in FLASH_OLD_ROUTES.items()}
 
     def prior(q, k, v, opts):
         out = torch.empty_like(q)
-        fa.launch(prior_lib, q, k, v, out, opts["causal"], opts["window"],
-                  opts["logit_cap"])
+        fa.launch(prior_libs[fa.route(q.dtype, q.shape[3])][1], q, k, v, out,
+                  opts["causal"], opts["window"], opts["logit_cap"])
         return out
 
     gen = torch.Generator(device="cuda")
@@ -483,7 +506,7 @@ def phase_kernel(torch, fa):
         ("nemotron_gqa6", 4, 48, 8, 512, 512, 128, bf16, True, 0, 0.0),
         ("chameleon_gqa8", 4, 64, 8, 512, 512, 128, bf16, True, 0, 0.0),
     ]
-    worst = 0.0
+    worst, worst_by_route = 0.0, {}
     timed = {}
     for name, b, hq, hkv, sq, sk, d, dt, causal, window, cap in cases:
         q = torch.randn((b, hq, sq, d), generator=gen, device="cuda").to(dt)
@@ -507,23 +530,32 @@ def phase_kernel(torch, fa):
         max_err = float(err.max())
         ok = bool(torch.isfinite(got).all()) and not bool(bad.any())
         extra = {}
-        if route == "wgmma_bf16":    # the old route's error at this case
+        if route in prior_libs:    # the old route's error at this case
+            old_route, lib = prior_libs[route]
             old, old_launched, old_seen = routes_of_call(
-                torch, fa, prior_lib, lambda: prior(q, k, v, opts))
-            faults = route_faults({"mma_bf16": 1}, old_launched, old_seen)
+                torch, fa, lib, lambda: prior(q, k, v, opts))
+            faults = route_faults({old_route: 1}, old_launched, old_seen)
             if faults:
-                fail(f"{MMA_DEFINES} build at case {name}: "
+                fail(f"{FLASH_OLD_ROUTES[route][1]} build at case {name}: "
                      + "; ".join(faults))
-            extra["prior_max_abs_err"] = float(
-                (old.float() - want.float()).abs().max())
-            del old
+            old_err = (old.float() - want.float()).abs()
+            extra.update(prior_route=old_route,
+                         prior_max_abs_err=float(old_err.max()))
+            if dt == f32:           # both f32 builds within the tolerance
+                extra["prior_ok"] = bool(torch.isfinite(old).all()) and \
+                    not bool((old_err > tol + tol * want.float().abs())
+                             .any())
+                ok = ok and extra["prior_ok"]
+            del old, old_err
         emit("kernel_check", kernel="flash_attention_bhsd", case=name,
              shape=[b, hq, hkv, sq, sk, d], dtype=str(dt), route=route,
              routes_launched=launched, routes_seen=seen, causal=causal,
              window=window, cap=cap,
              max_abs_err=max_err, tol=tol, ok=ok, **extra)
         if not ok:
-            fail(f"flash_attention_bhsd case {name}: max_abs_err {max_err}")
+            fail(f"flash_attention_bhsd case {name}: max_abs_err {max_err}, "
+                 f"old route {extra.get('prior_max_abs_err')}")
+        worst_by_route[route] = max(worst_by_route.get(route, 0.0), max_err)
         if name in FLASH_PATH_CASES:
             worst = max(worst, max_err)
             timed[name] = (q, k, v, opts)
@@ -534,7 +566,7 @@ def phase_kernel(torch, fa):
                  "prior": lambda: prior(q, k, v, opts)}
         runs = {"kernel": [], "prior": []}
         for which in (("kernel", "prior", "prior", "kernel")
-                      if route == "wgmma_bf16" else ("kernel", "kernel")):
+                      if route in prior_libs else ("kernel", "kernel")):
             runs[which].append(cuda_ms(calls[which]))
         kernel_runs, prior_runs = runs["kernel"], runs["prior"]
         kernel_ms = sum(kernel_runs) / len(kernel_runs)
@@ -549,7 +581,8 @@ def phase_kernel(torch, fa):
                            causal=opts["causal"], window=opts["window"],
                            cap=opts["logit_cap"],
                            kernel_ms=kernel_ms, kernel_ms_runs=kernel_runs,
-                           prior_route="mma_bf16" if prior_runs else None,
+                           prior_route=(FLASH_OLD_ROUTES[route][0]
+                                        if prior_runs else None),
                            prior_ms=prior_ms, prior_ms_runs=prior_runs,
                            plain_ms=plain_ms, library_ms=library_ms,
                            library=library_note, bound_ms=bound_ms,
@@ -557,15 +590,29 @@ def phase_kernel(torch, fa):
         emit("kernel_time", kernel="flash_attention_bhsd", case=name,
              **times[name])
     t = times["path"]
-    return {"name": "flash_attention_bhsd", "route": "cuda",
-            "kernel_route": t["route"], "kernel_routes": list(fa.ROUTES),
-            "prior_ms": t["prior_ms"],
-            "source": "src/repro_torch/csrc/flash_attention.cu",
-            "replaces": "src/repro/kernels/flash_attention.py:83",
-            "max_abs_err": worst, "max_err": worst, "ms": t["kernel_ms"],
-            "kernel_ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
-            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"], "path_shapes": times}
+    entry = {"name": "flash_attention_bhsd", "route": "cuda",
+             "kernel_route": t["route"], "kernel_routes": list(fa.ROUTES),
+             "prior_ms": t["prior_ms"],
+             "source": "src/repro_torch/csrc/flash_attention.cu",
+             "replaces": "src/repro/kernels/flash_attention.py:83",
+             "max_abs_err": worst, "max_err": worst, "ms": t["kernel_ms"],
+             "kernel_ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
+             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+             "library_ms": t["library_ms"], "path_shapes": times}
+    w = times["whisper_enc_f32"]
+    x3 = {"name": "flash_attention_bhsd/mma_3xtf32", "route": "cuda",
+          "kernel_route": w["route"],
+          "source": "src/repro_torch/csrc/flash_attention.cu "
+                    "(flash_3xtf32_kernel; f32_split.cuh)",
+          "replaces": "src/repro/kernels/flash_attention.py:83",
+          "shape": "whisper-large-v3 encoder: B4 20/20 heads S64 D64 f32 "
+                   "non-causal",
+          "max_abs_err": worst_by_route.get(w["route"], 0.0),
+          "ms": w["kernel_ms"], "prior_route": w["prior_route"],
+          "prior_ms": w["prior_ms"], "plain_ms": w["plain_ms"],
+          "bound_ms": w["bound_ms"], "bound_by": w["bound_by"],
+          "library_ms": w["library_ms"], "library": w["library"]}
+    return entry, x3
 
 
 def library_attention(torch, fa, q, k, v, opts) -> tuple:
@@ -1616,7 +1663,10 @@ def ta_runs(torch, ta, q, k, v, do, opts, lib) -> tuple:
     """Three calls' (o, dq, dk, dv) and one more forward's log-sum-exp:
     through the port's entry point (``train_attention``, the autograd
     function) with ``lib`` None, else through ``lib``'s launches
-    (``train_attention_forward`` / ``_backward``, the old route's build)."""
+    (``train_attention_forward`` / ``_backward``, the old route's build;
+    the f32 routes' inputs upcast as the entry point upcasts them)."""
+    kq, kk, kv = (t.float() if ta.route(q.dtype, k.dtype, q.shape[3])
+                  in ta.F32_ROUTES else t for t in (q, k, v))
     runs = []
     for _ in range(3):
         if lib is None:
@@ -1625,29 +1675,28 @@ def ta_runs(torch, ta, q, k, v, do, opts, lib) -> tuple:
             runs.append((o.detach(), *torch.autograd.grad(o, leaves, do)))
             del o, leaves
         else:
-            o, o32, lse = ta.train_attention_forward(q, k, v, **opts,
+            o, o32, lse = ta.train_attention_forward(kq, kk, kv, **opts,
                                                      lib=lib)
             runs.append((o, *ta.train_attention_backward(
-                q, k, v, o32, lse, do, **opts, lib=lib)))
-    kq, kk, kv = (t.float() if ta.route(q.dtype, k.dtype, q.shape[3])
-                  == "scalar_f32" else t for t in (q, k, v))
+                kq, kk, kv, o32, lse, do, **opts, lib=lib)))
     lse = ta.train_attention_forward(kq, kk, kv, **opts, lib=lib)[2]
     return runs, lse
 
 
-def ta_check(torch, ta, case, gen, prior_lib=None) -> dict:
+def ta_check(torch, ta, case, gen, prior_libs=None) -> dict:
     """One case through the port's entry point three times: o and the
     grads the same bits each time and within the tolerance of the plain
     version, the log-sum-exp too (one more forward launch); each launch
-    counted on the device by route.  Where the wrapper's route is
-    ``wgmma_bf16`` and ``prior_lib`` is given (the -DTRAIN_ATTN_FORCE_MMA
-    build), the same again through that library's launches, on the old
-    ``mma_bf16`` route (``row["prior"]``)."""
+    counted on the device by route.  Where the wrapper's route has an old
+    route's build in ``prior_libs`` (route -> (old route, library):
+    ``wgmma_bf16`` -> ``mma_bf16``, -DTRAIN_ATTN_FORCE_MMA; ``mma_3xtf32``
+    -> ``scalar_f32``, -DTRAIN_ATTN_FORCE_SCALAR), the same again through
+    that library's launches, on the old route (``row["prior"]``)."""
     *_, causal, window, cap = case
     opts = dict(causal=causal, window=window, logit_cap=cap)
     q, k, v = ta_inputs(torch, case, gen)
     r = ta.route(q.dtype, k.dtype, q.shape[3])
-    odt = torch.float32 if r == "scalar_f32" else q.dtype
+    odt = torch.float32 if r in ta.F32_ROUTES else q.dtype
     do = torch.randn(q.shape, device="cuda", generator=gen).to(odt)
     po, plse, pgrads = ta_plain(torch, ta, q, k, v, do, opts)
 
@@ -1657,8 +1706,9 @@ def ta_check(torch, ta, case, gen, prior_lib=None) -> dict:
         runs, lse = ta_runs(torch, ta, q, k, v, do, opts, lib)
         torch.cuda.synchronize()
         after = ta.kernel_launches(counter)
-        want = {kn: {rn: (4 if kn == "forward" else 3) * (rn == route)
-                     for rn in ta.ROUTES} for kn in ta.KERNELS}
+        want = {kn: {rn: (4 if kn == "forward" else 3) * (rn == route) * (
+            kn != "delta" or rn not in ta.DELTA_IN_DQ)
+            for rn in ta.ROUTES} for kn in ta.KERNELS}
         launched = {kn: {rn: after[kn][rn] - before[kn][rn]
                          for rn in ta.ROUTES} for kn in ta.KERNELS}
         got = dict(zip(("o", "dq", "dk", "dv"), runs[0]))
@@ -1680,8 +1730,9 @@ def ta_check(torch, ta, case, gen, prior_lib=None) -> dict:
     row.update(shape=list(case[1:7]), dtypes=list(case[7:9]),
                causal=causal, window=window, cap=cap,
                q_strides=list(q.stride()))
-    if r == "wgmma_bf16" and prior_lib is not None:
-        row["prior"] = check(prior_lib, "mma_bf16")
+    if r in (prior_libs or {}):
+        old_route, lib = prior_libs[r]
+        row["prior"] = check(lib, old_route)
         row["ok"] = row["ok"] and row["prior"]["ok"]
     return row
 
@@ -1713,11 +1764,11 @@ def ta_bounds(q, k, causal: bool, window: int) -> dict:
     return out
 
 
-def ta_times(torch, ta, case, gen, prior_lib=None) -> dict:
+def ta_times(torch, ta, case, gen, prior_libs=None) -> dict:
     """At a case's shape: the forward, the backward and both, each on the
     kernels (``train_attention_forward`` / ``_backward``), on the old route
-    where the kernels' route is ``wgmma_bf16`` (``prior_lib``, the
-    -DTRAIN_ATTN_FORCE_MMA build: kernel, old, old, kernel), the plain
+    where the kernels' route has one in ``prior_libs`` (``ta_check``'s:
+    kernel, old, old, kernel), the plain
     route (autograd on the plain ops, leaves of the case's dtype, as
     training runs it: kernel, plain, plain, kernel) and the library call
     (SDPA on (B, H, S, D) views, causal, timed only: in the case's dtype,
@@ -1739,8 +1790,9 @@ def ta_times(torch, ta, case, gen, prior_lib=None) -> dict:
             for t in (q, k, v)]
     lo32 = F.scaled_dot_product_attention(*bh32, is_causal=causal)
     do_bh32 = do.float().transpose(1, 2)
-    prior = prior_lib is not None and \
-        ta.route(q.dtype, k.dtype, q.shape[3]) == "wgmma_bf16"
+    prior_lib = (prior_libs or {}).get(
+        ta.route(q.dtype, k.dtype, q.shape[3]), (None, None))[1]
+    prior = prior_lib is not None
     if prior:
         _, p32, plse = ta.train_attention_forward(q, k, v, **opts,
                                                   lib=prior_lib)
@@ -1828,26 +1880,30 @@ def phase_train_attention_kernel(torch, ta) -> list:
     bf16 q against f32 k and v, q read by strides), o, the log-sum-exp and
     dq, dk, dv within the stated tolerance of the plain version, the same
     bits over 3 calls, each launch counted on the device by route; the
-    cases on ``wgmma_bf16`` also on the old route's build
-    (``ta.FORCE_MMA_DEFINES``), held to the same; one case's tensors alive
-    at a time.  Then the forward, the backward and both at the
-    ``TA_TIMED`` shapes against the bound, the old route, the plain route
-    and SDPA.  Returns the kernels line's two entries, at the path shape,
-    lm100m's f32 times beside them (launches filled in by the train
-    phase)."""
+    cases on ``wgmma_bf16`` and ``mma_3xtf32`` also on their old route's
+    build (``TA_OLD_ROUTES``: ``mma_bf16``, ``scalar_f32``), held to the
+    same; one case's tensors alive at a time.  Then the forward, the
+    backward and both at the ``TA_TIMED`` shapes against the bound, the old
+    route, the plain route and SDPA.  Returns the kernels line's two
+    entries at the path shape, lm100m's f32 times beside them, and the
+    ``mma_3xtf32`` route's two at lm100m's shape (launches filled in by the
+    train phase)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(5)
     t0 = time.monotonic()
-    prior_lib = ta._lib(ta.FORCE_MMA_DEFINES)
-    failed, worst = [], {"forward": 0.0, "backward": 0.0}
+    prior_libs = {r: (old, ta._lib(defs))
+                  for r, (old, defs) in TA_OLD_ROUTES.items()}
+    failed = []
+    worst = {r: {"forward": 0.0, "backward": 0.0} for r in ta.ROUTES}
     for case in TA_CASES:
-        row = ta_check(torch, ta, case, gen, prior_lib)
+        row = ta_check(torch, ta, case, gen, prior_libs)
         emit("kernel_check", kernel="train_attention", case=case[0], **row)
         if not row["ok"]:
             failed.append(case[0])
-        worst["forward"] = max(worst["forward"], row["o"]["max_abs_err"],
-                               row["lse"]["max_abs_err"])
-        worst["backward"] = max(worst["backward"], *(
+        w = worst[row["route"]]
+        w["forward"] = max(w["forward"], row["o"]["max_abs_err"],
+                           row["lse"]["max_abs_err"])
+        w["backward"] = max(w["backward"], *(
             row[n]["max_abs_err"] for n in ("dq", "dk", "dv")))
         gc.collect()
         torch.cuda.empty_cache()
@@ -1862,23 +1918,25 @@ def phase_train_attention_kernel(torch, ta) -> list:
         del q, k, _
         timed[case[0]] = dict(bounds=bounds,
                               times=ta_times(torch, ta, case, gen,
-                                             prior_lib))
+                                             prior_libs))
         gc.collect()
         torch.cuda.empty_cache()
     emit("train_attention_times", shape=TA_SHAPE, **timed,
          seconds=time.monotonic() - t0)
     bounds, times = timed["path"]["bounds"], timed["path"]["times"]
     lm = timed["lm100m_f32"]
-    entries = []
+    entries, x3 = [], []
+    lm_route = ta.route(torch.float32, torch.float32, 64)
     for name, part in (("train_attention_forward", "forward"),
                        ("train_attention_backward", "backward")):
         t, b = times[part], bounds[part]
+        route = ta.route(torch.bfloat16, torch.bfloat16, 128)
         entry = {
-            "name": name, "route": "cuda",
-            "kernel_route": ta.route(torch.bfloat16, torch.bfloat16, 128),
+            "name": name, "route": "cuda", "kernel_route": route,
             "kernel_routes": list(ta.ROUTES), "source": TA_SOURCE,
             "replaces": TA_REPLACES, "shape": TA_SHAPE,
-            "max_abs_err": worst[part], "ms": t["ms"], "kernel_ms": t["ms"],
+            "max_abs_err": worst[route][part], "ms": t["ms"],
+            "kernel_ms": t["ms"],
             "prior_route": "mma_bf16", "prior_ms": t["prior_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": b["bound_ms"],
             "bound_by": b["bound_by"], "library_ms": t["library_ms"],
@@ -1891,14 +1949,36 @@ def phase_train_attention_kernel(torch, ta) -> list:
                                bound_ms=lm["bounds"][part]["bound_ms"])}
         if part == "backward":
             entry.update(
-                kernels="delta, dQ, dK dV (one launch each a call)",
+                kernels="delta, dQ, dK dV (one launch each a call; on "
+                        "mma_3xtf32 dQ with delta, dK dV)",
                 fwd_bwd_ms=times["fwd_bwd"]["ms"],
                 fwd_bwd_prior_ms=times["fwd_bwd"]["prior_ms"],
                 fwd_bwd_plain_ms=times["fwd_bwd"]["plain_ms"],
                 fwd_bwd_library_ms=times["fwd_bwd"]["library_ms"],
                 fwd_bwd_bound_ms=bounds["fwd_bwd"]["bound_ms"])
         entries.append(entry)
-    return entries
+        lt, lb = lm["times"][part], lm["bounds"][part]
+        x3.append({
+            "name": f"{name}/{lm_route}", "route": "cuda",
+            "kernel_route": lm_route,
+            "source": f"{TA_SOURCE} ({part}: "
+                      + ("fwd_3xtf32_kernel" if part == "forward" else
+                         "dq_3xtf32_kernel with delta, dkdv_3xtf32_kernel")
+                      + "; f32_split.cuh)",
+            "replaces": TA_REPLACES,
+            "shape": "lm100m train: B8 12/12 heads S128 D64 causal f32",
+            "max_abs_err": worst[lm_route][part], "ms": lt["ms"],
+            "prior_route": TA_OLD_ROUTES[lm_route][0],
+            "prior_ms": lt["prior_ms"], "plain_ms": lt["plain_ms"],
+            "bound_ms": lb["bound_ms"], "bound_by": lb["bound_by"],
+            "library_ms": lt["library_ms"],
+            "library": f"F.scaled_dot_product_attention {part} on f32 "
+                       f"(TF32 off; timed only)",
+            "fwd_bwd_ms": lm["times"]["fwd_bwd"]["ms"],
+            "fwd_bwd_prior_ms": lm["times"]["fwd_bwd"]["prior_ms"],
+            "fwd_bwd_library_ms": lm["times"]["fwd_bwd"]["library_ms"],
+            "fwd_bwd_bound_ms": lm["bounds"]["fwd_bwd"]["bound_ms"]})
+    return entries, x3
 
 
 PATHS = ("codeqwen15_7b", "mamba2_1_3b", "zamba2_2_7b",
@@ -2775,6 +2855,9 @@ NAMED_KERNEL_PARTS = {"adamw_update_kernel": "optimizer",
                       "fwd_f32_kernel": "attention_kernels",
                       "dq_f32_kernel": "attention_kernels",
                       "dkdv_f32_kernel": "attention_kernels",
+                      "fwd_3xtf32_kernel": "attention_kernels",
+                      "dq_3xtf32_kernel": "attention_kernels",
+                      "dkdv_3xtf32_kernel": "attention_kernels",
                       "delta_kernel": "attention_kernels"}
 
 
@@ -3063,11 +3146,14 @@ def device_counts(mods) -> tuple:
 def device_delta(mods, before: tuple) -> dict:
     """Device launches since ``before`` (``device_counts``): the optimizer
     kernels by name, the training attention by call (its forward kernel;
-    its backward's three kernels, which must agree)."""
+    its backward's kernels, which must agree: delta, dQ and dK dV once
+    each, on ``DELTA_IN_DQ``'s route dQ and dK dV and no delta)."""
     after = device_counts(mods)
+    folded = mods["train_attention_forward"].DELTA_IN_DQ
     opt, ta = ({k: {r: n - b[k][r] for r, n in by.items()}
                 for k, by in a.items()} for a, b in zip(after, before))
-    if not ta["delta"] == ta["dkdv"] == ta["dq"]:
+    delta = {r: 0 if r in folded else n for r, n in ta["dq"].items()}
+    if not (ta["delta"] == delta and ta["dkdv"] == ta["dq"]):
         fail(f"the training attention's backward kernels launched "
              f"unequally: {ta}")
     return {**opt, "train_attention_forward": ta["forward"],
@@ -3777,16 +3863,14 @@ def main() -> int:
          matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
          cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
 
-    build_s = _build.build(variants=[
-        ("flash_attention", MMA_DEFINES), ("ssd_scan", SSD_MMA_DEFINES),
-        ("train_attention", ta.FORCE_MMA_DEFINES)])
+    variants = [("flash_attention", MMA_DEFINES),
+                ("flash_attention", fa.FORCE_SCALAR_DEFINES),
+                ("ssd_scan", SSD_MMA_DEFINES),
+                ("train_attention", ta.FORCE_MMA_DEFINES),
+                ("train_attention", ta.FORCE_SCALAR_DEFINES)]
+    build_s = _build.build(variants=variants)
     builds = {n: (n, ()) for n in _build.KERNEL_SOURCES}
-    builds["flash_attention " + " ".join(MMA_DEFINES)] = ("flash_attention",
-                                                          MMA_DEFINES)
-    builds["ssd_scan " + " ".join(SSD_MMA_DEFINES)] = ("ssd_scan",
-                                                       SSD_MMA_DEFINES)
-    builds["train_attention " + " ".join(ta.FORCE_MMA_DEFINES)] = (
-        "train_attention", ta.FORCE_MMA_DEFINES)
+    builds.update({f"{n} {' '.join(d)}": (n, d) for n, d in variants})
     ptxas = {b: _build.ptxas_summary(*nd) for b, nd in builds.items()}
     emit("build", seconds=build_s, kernels=list(ptxas), ptxas=ptxas)
     faults = ptxas_faults(ptxas, {b: _build.build_log(*nd)
@@ -3794,15 +3878,18 @@ def main() -> int:
     if faults:
         fail(f"ptxas: {faults}")
 
-    entries = [phase_kernel(torch, fa), phase_ssd_kernel(torch, ss),
+    flash_entry, flash_x3 = phase_kernel(torch, fa)
+    entries = [flash_entry, phase_ssd_kernel(torch, ss),
                phase_decode_kernel(torch, da)]
     gc.collect()            # the plain versions' 8192-token scores
     torch.cuda.empty_cache()
     entries += phase_optimizer_kernel(torch, opt)
-    entries += phase_train_attention_kernel(torch, ta)
+    ta_entries, ta_x3 = phase_train_attention_kernel(torch, ta)
+    entries += ta_entries
     if "--kernels-only" in sys.argv[1:]:
         emit("done", seconds=time.monotonic() - t_start)
-        print(json.dumps({"kernels": entries}), flush=True)
+        print(json.dumps({"kernels": entries + [flash_x3, *ta_x3]}),
+              flush=True)
         return 0
     mods = {e["name"]: mod for e, mod in zip(entries, (fa, ss, da))}
     all_mods = {**mods, "adamw_update": opt, "sumsq": opt,
@@ -3856,6 +3943,20 @@ def main() -> int:
         e["launches"] = e["launches_by_path"]["train"]
         e["host_launches_by_path"] = {"train": train[n], "dryrun": dry[n],
                                       "examples": examples[n]}
+    # the f32 routes' own lines: their launches on that route alone (flash's
+    # whisper encoder in the serve runs; the training attention's f32 train
+    # paths on the device)
+    x3 = flash_x3["kernel_route"]
+    flash_x3["launches_by_path"] = {
+        a: routes[a]["flash_attention_bhsd"][x3] for a in routes}
+    flash_x3["launches"] = sum(flash_x3["launches_by_path"].values())
+    for e in ta_x3:
+        n, r = e["name"].split("/")
+        e["launches_by_path"] = {p: d[n][r] for p, d in (
+            ("train", train_device), ("dryrun", dry_device),
+            ("examples", examples_device))}
+        e["launches"] = e["launches_by_path"]["train"]
+    entries += [flash_x3, *ta_x3]
 
     emit("done", seconds=time.monotonic() - t_start)
     print(json.dumps({"kernels": entries}), flush=True)

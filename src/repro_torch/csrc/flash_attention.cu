@@ -57,16 +57,28 @@
 // entirely, except in a q tile that holds a row seeing no key (that row
 // needs every key): kv_tiles.
 //
+// mma_3xtf32 (flash_3xtf32_kernel; f32, D <= 128): both products on the
+// tensor cores as split-f32 products (f32_split.cuh, shared with the
+// training attention: each f32 operand a TF32 big part plus its TF32
+// remainder, three mma.sync m16n8k8.tf32 products, ~21 bits a product,
+// where one TF32 rounding keeps 11 and would miss the f32 tolerance).  One
+// block per (b * Hq, tile of 32 query rows), so whisper's encoder (B 4 x
+// 20 heads x 64 rows) runs on 160 blocks; two warps a 16-row strip split
+// its 32-key tiles (by cp.async) and merge at the end; the score, mask
+// and online softmax as scalar_f32's on the mma registers.
+// -DFLASH_FORCE_SCALAR runs scalar_f32 in its place (the old route, for
+// timing in turns).
+//
 // scalar_f32 (flash_f32_kernel): scalar f32 FMAs from f32 shared-memory
-// tiles, kept for f32 inputs (tests and f32 checks), where TF32 tensor cores
-// would miss the 1e-4 tolerance.
+// tiles, kept for f32 at D > 128.
 //
 // C interface (loaded with ctypes): flash_attention_bhsd(...) returns the
 // cudaError_t of the launch, 0 on success.  The tensor maps are encoded on
 // the host per call through cuTensorMapEncodeTiled, a driver-API function
 // reached by cudaGetDriverEntryPoint (no libcuda link).
 // flash_attention_launches(kernel) is how many launches of that kernel
-// (0 flash_wgmma_kernel, 1 flash_mma_kernel, 2 flash_f32_kernel) this
+// (0 flash_wgmma_kernel, 1 flash_mma_kernel, 2 flash_f32_kernel, 3
+// flash_3xtf32_kernel) this
 // library has made, counted where each kernel is launched, so a caller can
 // see which kernel the dispatch below chose.
 
@@ -77,6 +89,7 @@
 
 #include <atomic>
 
+#include "f32_split.cuh"
 #include "hopper.cuh"
 #include "tensor_core.cuh"
 
@@ -104,7 +117,7 @@ using tc::bf16;
 constexpr float kNegInf = -1e30f;   // the TPU kernel's mask value
 
 // Launches by kernel, in the order of flash_attention_launches.
-enum Kernel { kWgmma, kMma, kF32, kKernels };
+enum Kernel { kWgmma, kMma, kF32, kX3, kKernels };
 std::atomic<unsigned long long> g_launches[kKernels];
 
 // The launch's error; a launch that was taken is counted under ``kernel``.
@@ -1081,10 +1094,162 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
   return counted(kF32);
 }
 
+// ------------------------------------------------------ mma_3xtf32 route
+
+// As the training attention's forward (train_attention.cu, mma_3xtf32): a
+// block owns 32 query rows, two strips of 16, each worked by two warps
+// that split the strip's kv tiles between them and merge at the end
+// (x3::merge_softmax); a step's two tiles come by cp.async into one
+// stage.
+constexpr int kX3Threads = 64 * x3::kSplit;
+constexpr int kX3Rows = 32;
+
+// One block a (b * Hq, tile of 32 query rows), the heavy causal tiles
+// first; each warp runs x3::forward_tile over its half of the strip's kv
+// tiles with this route's score (scalar_f32's: scale, tanh cap, -1e30
+// where masked, -inf past Sk) from a running max of -1e30, so a row that
+// sees no key averages V over every key, as the oracle does.  CAP: the cap
+// compiled in (1) or out (0), so the uncapped kernel carries no tanhf in
+// its unrolled tiles.
+template <int DP, int CAP>
+__global__ void __launch_bounds__(kX3Threads)
+flash_3xtf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, float* __restrict__ o,
+                    int Hq, int group, int Sq, int Sk, int D, int causal,
+                    int window, float cap, float scale) {
+  constexpr int OB = DP / 8;
+  constexpr int TK = x3::kKeys * x3::ld<DP>();
+  extern __shared__ __align__(16) float x3_smem[];
+  float* sQ = x3_smem;                        // kX3Rows rows
+  float* sK = sQ + kX3Rows * x3::ld<DP>();    // kSplit tiles, one a half
+  float* sV = sK + x3::kSplit * TK;           // kSplit tiles, one a half
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int strip = warp & 1, half = warp >> 1;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x;                  // b * Hq + h
+  const int b = bh / Hq;
+  const int hkv = (bh - b * Hq) / group;
+  const int Hkv = Hq / group;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kX3Rows;
+  const float* qp = q + (size_t)bh * Sq * D;
+  const float* kp = k + ((size_t)b * Hkv + hkv) * Sk * D;
+  const float* vp = v + ((size_t)b * Hkv + hkv) * Sk * D;
+  const KvTiles tiles = kv_tiles(q0, kX3Rows, Sq, Sk, causal, window,
+                                 x3::kKeys);
+  const int tb = tiles.begin, te = tiles.begin + tiles.count;
+  const int steps = (tiles.count + x3::kSplit - 1) / x3::kSplit;
+  auto load_step = [&](int p) {   // step p's kv tiles, one a half
+#pragma unroll
+    for (int hf = 0; hf < x3::kSplit; ++hf) {
+      const int it = tb + p * x3::kSplit + hf;
+      if (it < te) {
+        x3::load_rows<x3::kKeys, DP, kX3Threads>(sK + hf * TK, kp, D,
+                                                 it * x3::kKeys, Sk, D);
+        x3::load_rows<x3::kKeys, DP, kX3Threads>(sV + hf * TK, vp, D,
+                                                 it * x3::kKeys, Sk, D);
+      }
+    }
+    tc::cp_async_commit();
+  };
+
+  x3::load_rows<kX3Rows, DP, kX3Threads>(sQ, qp, D, q0, Sq, D);
+
+  float acc[OB][4];
+#pragma unroll
+  for (int j = 0; j < OB; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  const int row[2] = {q0 + strip * 16 + g, q0 + strip * 16 + g + 8};
+
+  for (int p = 0; p < steps; ++p) {
+    load_step(p);   // Q joins step 0
+    tc::cp_async_wait<0>();
+    __syncthreads();
+    const int it = tb + p * x3::kSplit + half;
+    if (it < te) {
+      const int k0 = it * x3::kKeys;
+      x3::forward_tile<DP>(
+          acc, m, l, sQ, strip * 16, sK + half * TK, sV + half * TK, lane,
+          [&](float s, int hh, int cc) {
+            const int r = row[hh], c = k0 + cc;
+            float x = s * scale;
+            if (CAP) x = cap * tanhf(x / cap);
+            bool visible = true;
+            if (causal) visible = visible && c <= r;
+            if (window > 0) visible = visible && (r - c) < window;
+            x = visible ? x : kNegInf;
+            return c >= Sk ? -INFINITY : x;
+          });
+    }
+    __syncthreads();   // this step's tiles are consumed before the next
+  }
+  if (half == 1) x3::hand_over_softmax(sK, acc, m, l, strip, lane);
+  __syncthreads();
+  if (half == 1) return;
+  x3::merge_softmax(acc, m, l, sK, strip, lane);
+
+  float* op = o + (size_t)bh * Sq * D;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const float inv = 1.f / fmaxf(x3::quad_sum(l[hh]), 1e-30f);
+    if (row[hh] >= Sq) continue;
+#pragma unroll
+    for (int j = 0; j < OB; ++j) {
+      const int c = j * 8 + 2 * t;
+      if (c < D)
+        *reinterpret_cast<float2*>(op + (size_t)row[hh] * D + c) =
+            make_float2(acc[j][2 * hh] * inv, acc[j][2 * hh + 1] * inv);
+    }
+  }
+}
+
+template <int DP, int CAP>
+cudaError_t launch_x3_cap(const void* q, const void* k, const void* v,
+                          void* o, int B, int Hq, int Hkv, int Sq, int Sk,
+                          int D, int causal, int window, float cap,
+                          float scale, cudaStream_t stream) {
+  const int smem = (int)sizeof(float) *
+                   (kX3Rows + 2 * x3::kSplit * x3::kKeys) *
+                   x3::ld<DP>();
+  auto kernel = flash_3xtf32_kernel<DP, CAP>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * Hq, (Sq + kX3Rows - 1) / kX3Rows);
+  kernel<<<grid, kX3Threads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), Hq, Hq / Hkv, Sq,
+      Sk, D, causal, window, cap, scale);
+  return counted(kX3);
+}
+
+template <int DP>
+cudaError_t launch_x3(const void* q, const void* k, const void* v, void* o,
+                      int B, int Hq, int Hkv, int Sq, int Sk, int D,
+                      int causal, int window, float cap, float scale,
+                      cudaStream_t stream) {
+  return cap != 0.f
+             ? launch_x3_cap<DP, 1>(q, k, v, o, B, Hq, Hkv, Sq, Sk, D,
+                                    causal, window, cap, scale, stream)
+             : launch_x3_cap<DP, 0>(q, k, v, o, B, Hq, Hkv, Sq, Sk, D,
+                                    causal, window, cap, scale, stream);
+}
+
 cudaError_t dispatch_f32(const void* q, const void* k, const void* v,
                          void* o, int B, int Hq, int Hkv, int Sq, int Sk,
                          int D, int causal, int window, float cap,
                          float scale, cudaStream_t stream) {
+#ifndef FLASH_FORCE_SCALAR
+  if (D <= 32)
+    return launch_x3<32>(q, k, v, o, B, Hq, Hkv, Sq, Sk, D, causal, window,
+                         cap, scale, stream);
+  if (D <= 64)
+    return launch_x3<64>(q, k, v, o, B, Hq, Hkv, Sq, Sk, D, causal, window,
+                         cap, scale, stream);
+  if (D <= 128)
+    return launch_x3<128>(q, k, v, o, B, Hq, Hkv, Sq, Sk, D, causal, window,
+                          cap, scale, stream);
+#endif
   if (D <= 64)
     return launch_f32<64, 64, 4>(q, k, v, o, B, Hq, Hkv, Sq, Sk, D, causal,
                                  window, cap, scale, stream);
@@ -1098,8 +1263,9 @@ cudaError_t dispatch_f32(const void* q, const void* k, const void* v,
 }  // namespace
 
 // q: (B, Hq, Sq, D), k/v: (B, Hkv, Sk, D), o like q; all contiguous, 16-byte
-// aligned.  dtype 0 = float32 (scalar_f32), 1 = bfloat16 (wgmma_bf16 at
-// D = 64 and 128, else mma_bf16).  8 <= D <= 256, D % 8 == 0,
+// aligned.  dtype 0 = float32 (mma_3xtf32 at D <= 128, else scalar_f32;
+// scalar_f32 at every D with -DFLASH_FORCE_SCALAR), 1 = bfloat16
+// (wgmma_bf16 at D = 64 and 128, else mma_bf16).  8 <= D <= 256, D % 8 == 0,
 // Hq % Hkv == 0 (checked by the Python wrapper).
 extern "C" int flash_attention_bhsd(const void* q, const void* k,
                                     const void* v, void* o, int B, int Hq,

@@ -69,22 +69,38 @@
 //   enter P V, P^T dO, dS K and dS^T Q as a hi and a lo bf16 half (two
 //   products against the same fragment of the other operand): ~16 mantissa
 //   bits, where one bf16 rounding would move the result by ~2^-9 of it.
-// - scalar_f32 (f32 q, k, v; the wrapper takes bf16 at other D, and whisper's
-//   bf16 q against the f32 encoder's k and v, here after an exact upcast):
-//   scalar f32 FMAs from f32 shared-memory tiles (TF32 tensor cores would
-//   keep ~10 bits).
+// - mma_3xtf32 (f32 q, k, v with D a multiple of 8 up to 128; whisper's
+//   bf16 q against the f32 encoder's k and v comes here after an exact
+//   upcast): every product, Q K^T, P V, dO V^T, dS K, dS^T Q and P^T dO, on
+//   the tensor cores as a split-f32 product (f32_split.cuh: each operand
+//   as a TF32 big part and a TF32 remainder, three mma.sync m16n8k8.tf32
+//   products, ~21 bits a product; one TF32 rounding keeps 11 and misses the
+//   f32 tolerance).  Blocks of 32 query rows (dK dV: keys) in two strips
+//   of 16, each worked by two warps that split its 32-key tiles (dK dV:
+//   query tiles of 32 rows, 16 at D = 128) and merge at the end, tiles by
+//   cp.async, the fragments loaded from f32 tiles whose row stride avoids
+//   bank conflicts; kernels templated on the cap; the dQ kernel computes
+//   delta, so a backward is two launches.
+//   The softmax, the mask and the grads are scalar_f32's, op for op.  Built
+//   with -DTRAIN_ATTN_FORCE_SCALAR the route runs scalar_f32 (and counts
+//   there): the old route, for timing in turns.
+// - scalar_f32 (f32 q, k, v at the other head dims up to 256, the wrapper
+//   taking bf16 there after an exact upcast): scalar f32 FMAs from f32
+//   shared-memory tiles.
 //
-// Four kernels a route: the forward (o in the inputs' dtype, the f32
-// output o32 for the backward (o itself on the f32 route) and the f32
-// log-sum-exp of each row); delta = rowsum(dO o32); dK dV over key tiles,
+// Four kernels a route (mma_3xtf32: three, delta inside dQ): the forward
+// (o in the inputs' dtype, the f32 output o32 for the backward (o itself
+// on the f32 routes) and the f32 log-sum-exp of each row); delta =
+// rowsum(dO o32); dK dV over key tiles,
 // one block a (b, kv head, key tile) that sums the G query heads of its kv
 // head in a fixed order; dQ over query tiles.  Both backward passes
 // recompute P = exp(x - lse).  Each grad is summed in f32 and rounded once
 // to the inputs' dtype.  No float atomics: the same bits on every run.
 //
 // Positions: the mask compares row and column indices, which equals the
-// reference's mask on positions wherever they are arange (every train
-// caller's; the causal and windowed calls need S == T, which the wrapper
+// reference's mask on positions wherever they are arange (the callers say
+// so: models.attention._attend takes these kernels for a masked call only
+// then; the causal and windowed calls need S == T, which the wrapper
 // checks, so every row sees its own key).
 //
 // C interface (loaded with ctypes): train_attention_forward(...) and
@@ -99,6 +115,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "f32_split.cuh"
 #include "hopper.cuh"
 #include "tensor_core.cuh"
 
@@ -109,7 +126,7 @@ using tc::bf16;
 constexpr float kMasked = -1e30f;   // the reference's mask value
 
 enum Kernel { kForward, kDelta, kDkdv, kDq, kKernels };
-enum Route { kMma, kF32, kWgmma, kRoutes };
+enum Route { kMma, kF32, kWgmma, kX3, kRoutes };
 __device__ unsigned long long g_launches[kKernels * kRoutes];
 
 __device__ __forceinline__ void count_launch(Kernel kernel, Route route) {
@@ -2227,6 +2244,448 @@ cudaError_t launch_f32_backward(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// --------------------------------------------------------- mma_3xtf32
+
+// A block owns 32 query rows (forward, dQ) or keys (dK dV): two strips of
+// 16, each worked by two warps that split the strip's key tiles (dK dV: its
+// items of query rows) between them, taking turns, and merge at the end
+// (x3::merge_softmax, x3::merge_sum).  The kernels are bound by the
+// latency of each warp's chain of tiles, not by issue: the split halves
+// the chain of lm100m's heaviest causal tiles and doubles the warps in
+// flight.  A step's two tiles (one a half) come by cp.async into one stage:
+// a ring that prefetched the next step measured slower at lm100m's shape
+// (its shared memory held two blocks an SM in place of five).  The kernels
+// are templated on the cap (CAP 1 in, 0 out): a run-time cap test inlines
+// tanhf into every score of the unrolled tiles.
+constexpr int kX3Threads = 64 * x3::kSplit;
+constexpr int kX3Rows = 32;
+constexpr int kX3Keys = x3::kKeys;
+
+template <int DP>
+__host__ __device__ constexpr int x3_tile_floats(int rows) {
+  return rows * x3::ld<DP>();
+}
+
+// Forward: one block a (b * Hq + h, tile of 32 query rows), the heavy
+// causal tiles first; each warp runs x3::forward_tile over its half of the
+// strip's key tiles.
+template <int DP, int CAP>
+__global__ void __launch_bounds__(kX3Threads)
+fwd_3xtf32_kernel(const Args a) {
+  constexpr int OB = DP / 8;
+  constexpr int TK = x3_tile_floats<DP>(kX3Keys);
+  extern __shared__ __align__(16) float x3_smem[];
+  float* sQ = x3_smem;                            // kX3Rows rows
+  float* sK = sQ + x3_tile_floats<DP>(kX3Rows);   // kSplit tiles, one a half
+  float* sV = sK + x3::kSplit * TK;               // kSplit tiles, one a half
+  count_launch(kForward, kX3);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int strip = warp & 1, half = warp >> 1;
+  const int g = lane >> 2, t = lane & 3;
+  const int b = blockIdx.x / a.Hq, h = blockIdx.x - b * a.Hq;
+  const int hk = h / a.G;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kX3Rows;
+  const float* qh = static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh;
+  const float* kh = static_cast<const float*>(a.k) + b * a.k_sb + hk * a.k_sh;
+  const float* vh = static_cast<const float*>(a.v) + b * a.v_sb + hk * a.v_sh;
+  int tb, te;
+  key_tiles(a, q0, kX3Rows, kX3Keys, tb, te);
+  const int steps = (te - tb + x3::kSplit - 1) / x3::kSplit;
+  auto load_step = [&](int p) {   // step p's key tiles, one a half
+#pragma unroll
+    for (int hf = 0; hf < x3::kSplit; ++hf) {
+      const int it = tb + p * x3::kSplit + hf;
+      if (it < te) {
+        x3::load_rows<kX3Keys, DP, kX3Threads>(sK + hf * TK, kh, a.k_st,
+                                               it * kX3Keys, a.T, a.D);
+        x3::load_rows<kX3Keys, DP, kX3Threads>(sV + hf * TK, vh, a.v_st,
+                                               it * kX3Keys, a.T, a.D);
+      }
+    }
+    tc::cp_async_commit();
+  };
+
+  x3::load_rows<kX3Rows, DP, kX3Threads>(sQ, qh, a.q_ss, q0, a.S, a.D);
+
+  float acc[OB][4];
+#pragma unroll
+  for (int j = 0; j < OB; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  const int row[2] = {q0 + strip * 16 + g, q0 + strip * 16 + g + 8};
+
+  for (int p = 0; p < steps; ++p) {
+    load_step(p);   // Q joins step 0
+    tc::cp_async_wait<0>();
+    __syncthreads();
+    const int it = tb + p * x3::kSplit + half;
+    if (it < te) {
+      const int k0 = it * kX3Keys;
+      x3::forward_tile<DP>(acc, m, l, sQ, strip * 16, sK + half * TK,
+                           sV + half * TK, lane, [&](float s, int hh, int c) {
+                             float th;
+                             return masked_score<CAP>(a, s, row[hh], k0 + c,
+                                                      th);
+                           });
+    }
+    __syncthreads();   // this step's tiles are consumed before the next
+  }
+  if (half == 1) x3::hand_over_softmax(sK, acc, m, l, strip, lane);
+  __syncthreads();
+  if (half == 1) return;
+  x3::merge_softmax(acc, m, l, sK, strip, lane);
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = row[hh];
+    const float lr = x3::quad_sum(l[hh]);
+    if (r >= a.S) continue;
+    const long long base = (((long long)b * a.S + r) * a.Hq + h) * a.D;
+#pragma unroll
+    for (int j = 0; j < OB; ++j) {
+      const int c = j * 8 + 2 * t;
+      if (c < a.D)
+        *reinterpret_cast<float2*>(a.o32 + base + c) =
+            make_float2(__fdiv_rn(acc[j][2 * hh], lr),
+                        __fdiv_rn(acc[j][2 * hh + 1], lr));
+    }
+    if (t == 0)
+      a.lse[((long long)b * a.Hq + h) * a.S + r] = m[hh] + logf(lr);
+  }
+}
+
+// dQ: one block a (b * Hq + h, tile of 32 query rows).  It first computes
+// delta = rowsum(dO o32) of its rows (two lanes a row, o32 staged in shared
+// memory beside dO) and writes it for the dK dV pass that follows on the
+// stream: no delta launch.
+template <int DP, int CAP>
+__global__ void __launch_bounds__(kX3Threads)
+dq_3xtf32_kernel(const Args a) {
+  constexpr int NB = kX3Keys / 8;
+  constexpr int OB = DP / 8;
+  constexpr int LD = x3::ld<DP>();
+  constexpr int TQ = x3_tile_floats<DP>(kX3Rows);
+  constexpr int TK = x3_tile_floats<DP>(kX3Keys);
+  extern __shared__ __align__(16) float x3_smem[];
+  float* sQ = x3_smem;                   // kX3Rows rows
+  float* sO = sQ + TQ;                   // dO: kX3Rows rows
+  float* sO32 = sO + TQ;                 // o32: kX3Rows rows
+  float* sK = sO32 + TQ;                 // kSplit tiles, one a half
+  float* sV = sK + x3::kSplit * TK;
+  count_launch(kDq, kX3);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int strip = warp & 1, half = warp >> 1;
+  const int g = lane >> 2, t = lane & 3;
+  const int b = blockIdx.x / a.Hq, h = blockIdx.x - b * a.Hq;
+  const int hk = h / a.G;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kX3Rows;
+  const long long row_ld = (long long)a.Hq * a.D;   // dO, o32, dQ: contiguous
+  const long long head = (long long)b * a.S * row_ld + (long long)h * a.D;
+  const float* qh = static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh;
+  const float* kh = static_cast<const float*>(a.k) + b * a.k_sb + hk * a.k_sh;
+  const float* vh = static_cast<const float*>(a.v) + b * a.v_sb + hk * a.v_sh;
+  int tb, te;
+  key_tiles(a, q0, kX3Rows, kX3Keys, tb, te);
+  const int steps = (te - tb + x3::kSplit - 1) / x3::kSplit;
+  auto load_step = [&](int p) {
+#pragma unroll
+    for (int hf = 0; hf < x3::kSplit; ++hf) {
+      const int it = tb + p * x3::kSplit + hf;
+      if (it < te) {
+        x3::load_rows<kX3Keys, DP, kX3Threads>(sK + hf * TK, kh, a.k_st,
+                                               it * kX3Keys, a.T, a.D);
+        x3::load_rows<kX3Keys, DP, kX3Threads>(sV + hf * TK, vh, a.v_st,
+                                               it * kX3Keys, a.T, a.D);
+      }
+    }
+    tc::cp_async_commit();
+  };
+
+  x3::load_rows<kX3Rows, DP, kX3Threads>(sQ, qh, a.q_ss, q0, a.S, a.D);
+  x3::load_rows<kX3Rows, DP, kX3Threads>(
+      sO, static_cast<const float*>(a.dout) + head, row_ld, q0, a.S, a.D);
+  x3::load_rows<kX3Rows, DP, kX3Threads>(sO32, a.o32 + head, row_ld, q0, a.S,
+                                         a.D);
+  tc::cp_async_commit();
+
+  const int row[2] = {q0 + strip * 16 + g, q0 + strip * 16 + g + 8};
+  float lse[2], delta[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh)
+    lse[hh] = row[hh] < a.S
+                  ? a.lse[((long long)b * a.Hq + h) * a.S + row[hh]] : 0.f;
+  tc::cp_async_wait<0>();   // Q, dO and o32
+  __syncthreads();
+  {   // delta of the strip's row lane / 2 (both halves alike): even columns
+      // in even lanes, odd in odd ones (zero past D), then their sum
+    const int i = strip * 16 + (lane >> 1);
+    float sum = 0.f;
+#pragma unroll 8
+    for (int d = lane & 1; d < DP; d += 2)
+      sum = fmaf(sO[i * LD + d], sO32[i * LD + d], sum);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    delta[0] = __shfl_sync(0xffffffffu, sum, 2 * g);
+    delta[1] = __shfl_sync(0xffffffffu, sum, 2 * g + 16);
+    if (half == 0 && (lane & 1) == 0 && q0 + i < a.S)
+      a.delta[((long long)b * a.Hq + h) * a.S + q0 + i] = sum;
+  }
+
+  float acc[OB][4];
+#pragma unroll
+  for (int j = 0; j < OB; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  for (int p = 0; p < steps; ++p) {
+    load_step(p);
+    tc::cp_async_wait<0>();
+    __syncthreads();
+    const int it = tb + p * x3::kSplit + half;
+    if (it < te) {
+      const int k0 = it * kX3Keys;
+      const float* cK = sK + half * TK;
+      const float* cV = sV + half * TK;
+      float s[NB][4], dp[NB][4];
+      x3::product_nt<DP, NB>(s, sQ, strip * 16, cK, lane);
+      x3::product_nt<DP, NB>(dp, sO, strip * 16, cV, lane);
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float th;
+          const float x = masked_score<CAP>(a, s[nb][e], row[e >> 1],
+                                            k0 + nb * 8 + 2 * t + (e & 1),
+                                            th);
+          const float pr = expf(x - lse[e >> 1]);
+          s[nb][e] = product_grad<CAP>(a, pr, dp[nb][e], delta[e >> 1], th);
+        }
+      x3::product_nn<DP, NB>(acc, s, cK, lane);   // dQ += dS K
+    }
+    __syncthreads();
+  }
+  if (half == 1) x3::hand_over_sum(sK, acc, strip, lane);
+  __syncthreads();
+  if (half == 1) return;
+  x3::merge_sum(acc, sK, strip, lane);
+
+  float* dq = static_cast<float*>(a.dq);
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = row[hh];
+    if (r >= a.S) continue;
+    const long long base = (((long long)b * a.S + r) * a.Hq + h) * a.D;
+#pragma unroll
+    for (int j = 0; j < OB; ++j) {
+      const int c = j * 8 + 2 * t;
+      if (c < a.D)
+        *reinterpret_cast<float2*>(dq + base + c) =
+            make_float2(acc[j][2 * hh], acc[j][2 * hh + 1]);
+    }
+  }
+}
+
+// Query rows an item of the dK dV pass: 32, and 16 at DP = 128, whose dK
+// and dV accumulators take 128 registers a thread (at 32 ptxas spilled).
+template <int DP>
+__host__ __device__ constexpr int x3_item_rows() {
+  return DP > 64 ? 16 : kX3Keys;
+}
+
+// dK, dV: one block a (b * Hkv + kv head, tile of 32 keys), a strip 16
+// keys; the block walks the G query heads of its kv head, each over its
+// query tiles (x3_item_rows) that see the keys, in that order, the two
+// halves taking the items in turns (a fixed sum order).
+template <int DP, int CAP>
+__global__ void __launch_bounds__(kX3Threads)
+dkdv_3xtf32_kernel(const Args a) {
+  constexpr int BQ = x3_item_rows<DP>();   // query rows an item
+  constexpr int NQ = BQ / 8;
+  constexpr int OB = DP / 8;
+  constexpr int NI = x3::kSplit;   // item slots, one a half
+  constexpr int TR = x3_tile_floats<DP>(kX3Rows);
+  constexpr int TQ = x3_tile_floats<DP>(BQ);
+  extern __shared__ __align__(16) float x3_smem[];
+  float* sK = x3_smem;          // kX3Rows keys
+  float* sV = sK + TR;          // kX3Rows keys
+  float* sQ = sV + TR;          // NI slots of BQ rows
+  float* sO = sQ + NI * TQ;     // dO: NI slots
+  float* sLse = sO + NI * TQ;   // NI x BQ
+  float* sDelta = sLse + NI * BQ;
+  count_launch(kDkdv, kX3);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int strip = warp & 1, half = warp >> 1;
+  const int g = lane >> 2, t = lane & 3;
+  const int b = blockIdx.x / a.Hkv, hk = blockIdx.x - b * a.Hkv;
+  const int k0 = blockIdx.y * kX3Rows;   // the long causal key tiles first
+  const long long row_ld = (long long)a.Hq * a.D;
+  const float* kh = static_cast<const float*>(a.k) + b * a.k_sb + hk * a.k_sh;
+  const float* vh = static_cast<const float*>(a.v) + b * a.v_sb + hk * a.v_sh;
+  int qb, qe;
+  query_tiles(a, k0, kX3Rows, BQ, qb, qe);
+  const int per_head = qe - qb;
+  const int items = a.G * per_head;
+  const int steps = (items + x3::kSplit - 1) / x3::kSplit;
+
+  // item i: query head hk * G + i / per_head, query tile qb + i % per_head
+  auto load_step = [&](int p) {
+#pragma unroll
+    for (int hf = 0; hf < x3::kSplit; ++hf) {
+      const int i = p * x3::kSplit + hf;
+      if (i < items) {
+        const int h = hk * a.G + i / per_head;
+        const int q0 = (qb + i % per_head) * BQ;
+        x3::load_rows<BQ, DP, kX3Threads>(
+            sQ + hf * TQ,
+            static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh, a.q_ss,
+            q0, a.S, a.D);
+        x3::load_rows<BQ, DP, kX3Threads>(
+            sO + hf * TQ, static_cast<const float*>(a.dout) +
+                                (long long)b * a.S * row_ld +
+                                (long long)h * a.D,
+            row_ld, q0, a.S, a.D);
+        const long long r = ((long long)b * a.Hq + h) * a.S + q0;
+        for (int j = threadIdx.x; j < BQ; j += kX3Threads) {
+          const bool ok = q0 + j < a.S;
+          x3::cp_async4(sLse + hf * BQ + j, ok ? a.lse + r + j : a.lse, ok);
+          x3::cp_async4(sDelta + hf * BQ + j,
+                        ok ? a.delta + r + j : a.delta, ok);
+        }
+      }
+    }
+    tc::cp_async_commit();
+  };
+
+  x3::load_rows<kX3Rows, DP, kX3Threads>(sK, kh, a.k_st, k0, a.T, a.D);
+  x3::load_rows<kX3Rows, DP, kX3Threads>(sV, vh, a.v_st, k0, a.T, a.D);
+
+  float dk[OB][4], dv[OB][4];
+#pragma unroll
+  for (int j = 0; j < OB; ++j) {
+    dk[j][0] = dk[j][1] = dk[j][2] = dk[j][3] = 0.f;
+    dv[j][0] = dv[j][1] = dv[j][2] = dv[j][3] = 0.f;
+  }
+  const int key[2] = {k0 + strip * 16 + g, k0 + strip * 16 + g + 8};
+
+  for (int p = 0; p < steps; ++p) {
+    load_step(p);
+    tc::cp_async_wait<0>();
+    __syncthreads();
+    const int i = p * x3::kSplit + half;
+    if (i < items) {
+      const int q0 = (qb + i % per_head) * BQ;
+      const float* cQ = sQ + half * TQ;
+      const float* cO = sO + half * TQ;
+      const float* cLse = sLse + half * BQ;
+      const float* cDelta = sDelta + half * BQ;
+      // S^T = K Q^T and dP^T = V dO^T: the strip's keys (rows) against the
+      // item's queries (columns)
+      float s[NQ][4], dp[NQ][4];
+      x3::product_nt<DP, NQ>(s, sK, strip * 16, cQ, lane);
+      x3::product_nt<DP, NQ>(dp, sV, strip * 16, cO, lane);
+#pragma unroll
+      for (int nb = 0; nb < NQ; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = nb * 8 + 2 * t + (e & 1);   // query within the item
+          if (q0 + c >= a.S) {   // a padded query row: no weight, no grad
+            s[nb][e] = 0.f;
+            dp[nb][e] = 0.f;
+            continue;
+          }
+          float th;
+          const float x = masked_score<CAP>(a, s[nb][e], q0 + c,
+                                            key[e >> 1], th);
+          const float pr = expf(x - cLse[c]);
+          dp[nb][e] = product_grad<CAP>(a, pr, dp[nb][e], cDelta[c], th);
+          s[nb][e] = pr;
+        }
+      x3::product_nn<DP, NQ>(dv, s, cO, lane);    // dV += P^T dO
+      x3::product_nn<DP, NQ>(dk, dp, cQ, lane);   // dK += dS^T Q
+    }
+    __syncthreads();
+  }
+  float* dk_scratch = sQ;
+  float* dv_scratch = sQ + 2 * 32 * OB * 4;
+  if (half == 1) {
+    x3::hand_over_sum(dk_scratch, dk, strip, lane);
+    x3::hand_over_sum(dv_scratch, dv, strip, lane);
+  }
+  __syncthreads();
+  if (half == 1) return;
+  x3::merge_sum(dk, dk_scratch, strip, lane);
+  x3::merge_sum(dv, dv_scratch, strip, lane);
+
+  float* dkp = static_cast<float*>(a.dk);
+  float* dvp = static_cast<float*>(a.dv);
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = key[hh];
+    if (r >= a.T) continue;
+    const long long base = (((long long)b * a.T + r) * a.Hkv + hk) * a.D;
+#pragma unroll
+    for (int j = 0; j < OB; ++j) {
+      const int c = j * 8 + 2 * t;
+      if (c >= a.D) continue;
+      *reinterpret_cast<float2*>(dkp + base + c) =
+          make_float2(dk[j][2 * hh], dk[j][2 * hh + 1]);
+      *reinterpret_cast<float2*>(dvp + base + c) =
+          make_float2(dv[j][2 * hh], dv[j][2 * hh + 1]);
+    }
+  }
+}
+
+template <int DP, int CAP>
+cudaError_t launch_x3_forward(const Args& a, cudaStream_t stream) {
+  constexpr int NI = x3::kSplit;   // tile slots, one a half
+  const int smem = (int)sizeof(float) * (x3_tile_floats<DP>(kX3Rows) +
+                                         2 * NI * x3_tile_floats<DP>(kX3Keys));
+  auto kernel = fwd_3xtf32_kernel<DP, CAP>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(a.B * a.Hq, (a.S + kX3Rows - 1) / kX3Rows), kX3Threads, smem,
+           stream>>>(a);
+  return cudaGetLastError();
+}
+
+// Two launches: dQ (with delta), then dK dV, which reads that delta.
+template <int DP, int CAP>
+cudaError_t launch_x3_backward(const Args& a, cudaStream_t stream) {
+  constexpr int NI = x3::kSplit;
+  const int dq_smem = (int)sizeof(float) *
+                      (3 * x3_tile_floats<DP>(kX3Rows) +
+                       2 * NI * x3_tile_floats<DP>(kX3Keys));
+  auto dq_kernel = dq_3xtf32_kernel<DP, CAP>;
+  cudaError_t err = cudaFuncSetAttribute(
+      dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_smem);
+  if (err != cudaSuccess) return err;
+  dq_kernel<<<dim3(a.B * a.Hq, (a.S + kX3Rows - 1) / kX3Rows), kX3Threads,
+              dq_smem, stream>>>(a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  constexpr int BQ = x3_item_rows<DP>();
+  const int kv_smem = (int)sizeof(float) *
+                      (2 * x3_tile_floats<DP>(kX3Rows) +
+                       2 * NI * (x3_tile_floats<DP>(BQ) + BQ));
+  auto kv_kernel = dkdv_3xtf32_kernel<DP, CAP>;
+  err = cudaFuncSetAttribute(kv_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kv_smem);
+  if (err != cudaSuccess) return err;
+  kv_kernel<<<dim3(a.B * a.Hkv, (a.T + kX3Rows - 1) / kX3Rows), kX3Threads,
+              kv_smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <int DP>
+cudaError_t launch_x3(const Args& a, bool backward, cudaStream_t stream) {
+  if (a.cap != 0.f)
+    return backward ? launch_x3_backward<DP, 1>(a, stream)
+                    : launch_x3_forward<DP, 1>(a, stream);
+  return backward ? launch_x3_backward<DP, 0>(a, stream)
+                  : launch_x3_forward<DP, 0>(a, stream);
+}
+
 // The route's instance for the head dim, forward or backward.
 cudaError_t dispatch(const Args& a, int route, bool backward,
                      cudaStream_t stream) {
@@ -2263,6 +2722,16 @@ cudaError_t dispatch(const Args& a, int route, bool backward,
                       : launch_mma_forward<80>(a, stream);
     return backward ? launch_mma_backward<128>(a, stream)
                     : launch_mma_forward<128>(a, stream);
+  }
+  if (route == kX3) {
+    if (a.D % 8 || a.D > 128) return cudaErrorInvalidValue;
+#ifdef TRAIN_ATTN_FORCE_SCALAR
+    route = kF32;   // the old route at this shape, counted there
+#else
+    if (a.D <= 32) return launch_x3<32>(a, backward, stream);
+    if (a.D <= 64) return launch_x3<64>(a, backward, stream);
+    return launch_x3<128>(a, backward, stream);
+#endif
   }
   if (route == kF32) {
     if (a.D > 256) return cudaErrorInvalidValue;
@@ -2315,10 +2784,12 @@ Args make_args(const void* q, const void* k, const void* v, int B, int S,
 // q: (B, S, Hq, D), k and v: (B, T, Hkv, D), in the model's layout with
 // the strides (batch, row, head) in elements and the last dim contiguous
 // (qs, ks, vs: three each); route 0 (mma_bf16: bf16, rows 16-byte aligned),
-// 1 (scalar_f32: f32) or 2 (wgmma_bf16: bf16 at D = 64 or 128, the base and
-// the strides 16-byte aligned; mma_bf16 in a -DTRAIN_ATTN_FORCE_MMA build).
-// Writes o (B, S, Hq, D) in the inputs' dtype, o32 (f32; on route 1 pass
-// o) and lse (B, Hq, S), all contiguous.  cap 0 is no cap; inv_cap and
+// 1 (scalar_f32: f32), 2 (wgmma_bf16: bf16 at D = 64 or 128, the base and
+// the strides 16-byte aligned; mma_bf16 in a -DTRAIN_ATTN_FORCE_MMA build)
+// or 3 (mma_3xtf32: f32 at D % 8 == 0, D <= 128, the base and the strides
+// 16-byte aligned; scalar_f32 in a -DTRAIN_ATTN_FORCE_SCALAR build).
+// Writes o (B, S, Hq, D) in the inputs' dtype, o32 (f32; on routes 1 and 3
+// pass o) and lse (B, Hq, S), all contiguous.  cap 0 is no cap; inv_cap and
 // inv_sqrt_d are the f32 reciprocals of cap and sqrt(D).  The wrapper
 // checks shapes, Hq % Hkv == 0 and S == T where causal or window > 0.
 extern "C" int train_attention_forward(
@@ -2339,7 +2810,8 @@ extern "C" int train_attention_forward(
 // The backward of a forward with the same arguments: dout (B, S, Hq, D)
 // contiguous in the inputs' dtype, o32 and lse the forward's, delta a (B,
 // Hq, S) f32 scratch; writes dq (B, S, Hq, D), dk and dv (B, T, Hkv, D),
-// contiguous, in the inputs' dtype.  Three launches: delta, dQ, dK dV.
+// contiguous, in the inputs' dtype.  Three launches: delta, dQ, dK dV (two
+// on mma_3xtf32, whose dQ kernel computes delta).
 extern "C" int train_attention_backward(
     const void* q, const void* k, const void* v, const float* o32,
     const float* lse, const void* dout, float* delta, void* dq, void* dk,
@@ -2361,7 +2833,7 @@ extern "C" int train_attention_backward(
 }
 
 // Launches of kernel (0 forward, 1 delta, 2 dK dV, 3 dQ) on route (0
-// mma_bf16, 1 scalar_f32, 2 wgmma_bf16) counted on the device since the
+// mma_bf16, 1 scalar_f32, 2 wgmma_bf16, 3 mma_3xtf32) counted on the device since the
 // library was loaded; ~0 on a bad argument or a failed copy.
 extern "C" unsigned long long train_attention_launches(int kernel, int route) {
   if (kernel < 0 || kernel >= kKernels || route < 0 || route >= kRoutes)

@@ -27,8 +27,14 @@ Routes, fixed by dtype and head dim before the launch (``route``):
   on the tensor cores through mma.sync m16n8k16 from ldmatrix fragments,
   K/V tiles in a 2-stage cp.async ring.  Both bf16 routes round P to bf16
   as the A operand of P V and launch the long causal query tiles first.
-- f32 -> ``scalar_f32``: scalar f32 FMAs (TF32 tensor cores would miss the
-  1e-4 f32 tolerance); the tests and the f32 checks use it.
+- f32, D <= 128 -> ``mma_3xtf32`` (whisper's f32 encoder): both products
+  on the tensor cores as split-f32 products (``csrc/f32_split.cuh``, shared
+  with the training attention: each f32 operand a TF32 big part plus its
+  TF32 remainder, three mma.sync m16n8k8.tf32 products, ~21 bits a
+  product; one TF32 rounding keeps 11 bits and would miss the f32
+  tolerance), 32 query rows a block.  A build with ``-DFLASH_FORCE_SCALAR``
+  (``FORCE_SCALAR_DEFINES``) runs ``scalar_f32`` in its place.
+- f32, D > 128 -> ``scalar_f32``: scalar f32 FMAs.
 
 Layout: (batch, heads, seq, head_dim).  ``flash_attention_bhsd`` launches
 the kernel for CUDA tensors and raises on what the kernel does not take;
@@ -48,14 +54,18 @@ from .ref import mha_reference
 
 _COUNT_LOCK = threading.Lock()
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-ROUTES = ("wgmma_bf16", "mma_bf16", "scalar_f32")
+ROUTES = ("wgmma_bf16", "mma_bf16", "scalar_f32", "mma_3xtf32")
 WGMMA_HEAD_DIMS = (64, 128)
+X3_MAX_HEAD_DIM = 128
+# the build whose mma_3xtf32 calls run scalar_f32 (the old route, timed in
+# turns with the new one)
+FORCE_SCALAR_DEFINES = ("FLASH_FORCE_SCALAR",)
 
 
 def route(dtype: torch.dtype, head_dim: int) -> str:
     """The kernel instance a CUDA call of this dtype and head dim launches."""
     if dtype == torch.float32:
-        return "scalar_f32"
+        return "mma_3xtf32" if head_dim <= X3_MAX_HEAD_DIM else "scalar_f32"
     if dtype == torch.bfloat16:
         return "wgmma_bf16" if head_dim in WGMMA_HEAD_DIMS else "mma_bf16"
     raise ValueError(f"dtype {dtype} not supported (float32, bfloat16)")

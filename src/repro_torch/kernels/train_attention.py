@@ -36,15 +36,28 @@ Routes, fixed before the launch (``route``):
   accumulation: bf16 products are exact); P and dS, f32, enter P V, P^T dO,
   dS K and dS^T Q as hi + lo bf16 halves (~16 mantissa bits), never rounded
   once.
-- ``scalar_f32``: f32 q, k, v (lm100m, lm20m, tiny, whisper's f32
-  encoder), scalar f32 FMAs; bf16 at another head dim and mixed dtypes
-  (whisper's bf16 q against the f32 encoder's k and v) take it after an
-  exact upcast, which autograd records, so their grads come back in the
-  inputs' dtypes as the plain route's do.
+- ``mma_3xtf32``: f32 q, k, v with D a multiple of 8 up to 128 (lm100m,
+  lm20m, tiny, whisper's f32 encoder), and mixed dtypes there (whisper's
+  bf16 q against the f32 encoder's k and v) after an exact upcast.  Every
+  product on the tensor cores as a split-f32 product (``csrc/f32_split.cuh``:
+  each f32 operand a TF32 big part plus its TF32 remainder, three
+  mma.sync m16n8k8.tf32 products, ~21 bits a product; one TF32 rounding
+  keeps 11 bits and misses the f32 tolerance); blocks of 32 query rows or
+  keys, two 16-row strips each split between two warps, so lm100m's
+  shape fills the card; the dQ kernel computes delta, so a backward is
+  two launches.  A build with
+  ``-DTRAIN_ATTN_FORCE_SCALAR`` (``FORCE_SCALAR_DEFINES``) runs
+  ``scalar_f32`` in its place, for timing the old route.
+- ``scalar_f32``: the rest up to D = 256 (D > 128, or D not a multiple
+  of 8), scalar f32 FMAs; bf16 and mixed dtypes there after an exact
+  upcast.  An upcast is recorded by autograd, so the grads come back in
+  the inputs' dtypes as the plain route's do.
 
 The mask compares row and column indices: the plain route's mask on
-positions wherever they are ``arange`` (``forward_train``'s and
-``encode``'s), and causal or windowed calls must have S == T.
+positions wherever they are ``arange``.  ``models.attention._attend``
+sends a masked call here only when its caller states that its positions
+are ``arange`` (``forward_train``, ``encode``, ``prefill``); causal or
+windowed calls must have S == T.
 
 ``train_attention`` chooses by device: CUDA tensors run ``TrainAttention``
 (the forward kernel, then on the backward the delta, dQ and dK dV
@@ -53,7 +66,7 @@ version; a DTensor on CUDA and any other device raise.  A refused or failed
 launch raises; nothing falls back.  Launches are counted on the host
 (``train_attention_forward.launches`` / ``.launches_by_route``,
 ``train_attention_backward.launches`` / ``.launches_by_route``: one a call,
-the backward's three kernels together) and on the device, by kernel and
+the backward's kernels together) and on the device, by kernel and
 route (``kernel_launches``).
 """
 from __future__ import annotations
@@ -70,14 +83,22 @@ from . import _build
 from .ref import attention_core
 
 _COUNT_LOCK = threading.Lock()
-ROUTES = ("mma_bf16", "scalar_f32", "wgmma_bf16")   # the C route ids
+ROUTES = ("mma_bf16", "scalar_f32", "wgmma_bf16",
+          "mma_3xtf32")                             # the C route ids
 KERNELS = ("forward", "delta", "dkdv", "dq")        # the C kernel ids
 WGMMA_HEAD_DIMS = (64, 128)
 MMA_MAX_HEAD_DIM = 128
+X3_MAX_HEAD_DIM = 128
 F32_MAX_HEAD_DIM = 256
+# routes that take f32 q, k, v (the others bf16): the wrapper upcasts
+F32_ROUTES = ("mma_3xtf32", "scalar_f32")
+# the route whose dQ kernel computes delta: no delta launch
+DELTA_IN_DQ = ("mma_3xtf32",)
 # the build whose wgmma_bf16 route runs mma_bf16 (the old route, timed in
 # turns with the new one)
 FORCE_MMA_DEFINES = ("TRAIN_ATTN_FORCE_MMA",)
+# the build whose mma_3xtf32 route runs scalar_f32, likewise
+FORCE_SCALAR_DEFINES = ("TRAIN_ATTN_FORCE_SCALAR",)
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -95,6 +116,8 @@ def route(q_dtype: torch.dtype, kv_dtype: torch.dtype, head_dim: int) -> str:
     if head_dim > F32_MAX_HEAD_DIM:
         raise ValueError(f"train_attention: head dim {head_dim} > "
                          f"{F32_MAX_HEAD_DIM}")
+    if head_dim % 8 == 0 and head_dim <= X3_MAX_HEAD_DIM:
+        return "mma_3xtf32"
     return "scalar_f32"
 
 
@@ -233,16 +256,17 @@ def train_attention_forward(q: torch.Tensor, k: torch.Tensor,
                                        torch.Tensor]:
     """One forward launch on CUDA tensors of one dtype (f32, or bf16 on
     the tensor-core routes' head dims): (o (B, S, Hq, D) in their dtype,
-    o32 (its f32 values; o itself on ``scalar_f32``), lse (B, Hq, S) f32).
-    ``lib``: the library to launch from (``_lib(FORCE_MMA_DEFINES)`` for
-    the old route), by default the kernels' own build."""
+    o32 (its f32 values; o itself on the f32 routes), lse (B, Hq, S) f32).
+    ``lib``: the library to launch from (``_lib(FORCE_MMA_DEFINES)`` or
+    ``_lib(FORCE_SCALAR_DEFINES)`` for the old routes), by default the
+    kernels' own build."""
     window = int(window)
     name = route(q.dtype, k.dtype, q.shape[3])
     _check(q, k, v, causal, window)
     if q.device.type != "cuda":
         raise ValueError(f"train_attention launches on CUDA tensors, got "
                          f"{q.device}")
-    if name == "scalar_f32" and q.dtype != torch.float32:
+    if name in F32_ROUTES and q.dtype != torch.float32:
         raise ValueError(f"train_attention: {q.dtype} at head dim "
                          f"{q.shape[3]} takes {name}: upcast first")
     q, k, v = _readable(q), _readable(k), _readable(v)
@@ -277,7 +301,8 @@ def train_attention_backward(q: torch.Tensor, k: torch.Tensor,
                                         torch.Tensor]:
     """The backward of ``train_attention_forward`` with the same arguments
     (o32 and lse its outputs, dout the grad of o, read in the inputs'
-    dtype): (dq, dk, dv) in the inputs' dtype, from three launches."""
+    dtype): (dq, dk, dv) in the inputs' dtype, from three launches (two on
+    ``DELTA_IN_DQ``'s route)."""
     window = int(window)
     name = route(q.dtype, k.dtype, q.shape[3])
     _check(q, k, v, causal, window)
@@ -337,13 +362,13 @@ def train_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     logit_cap: float = 0.0) -> torch.Tensor:
     """q (B, S, Hq, D), k and v (B, T, Hkv, D), model layout -> (B, S, Hq,
     D): in the kernel route's dtype on CUDA (``TrainAttention``; bf16 on
-    the tensor-core routes, else f32 after an exact upcast), f32 on the CPU
+    the bf16 routes, else f32 after an exact upcast), f32 on the CPU
     and meta (``train_attention_plain``).  Chosen by device
     (``takes_kernel``)."""
     if not takes_kernel((q, k, v)):
         return train_attention_plain(q, k, v, causal=causal, window=window,
                                      logit_cap=logit_cap)
-    if route(q.dtype, k.dtype, q.shape[3]) == "scalar_f32":
+    if route(q.dtype, k.dtype, q.shape[3]) in F32_ROUTES:
         q, k, v = q.float(), k.float(), v.float()
     return TrainAttention.apply(q, k, v, bool(causal), int(window),
                                 float(logit_cap))

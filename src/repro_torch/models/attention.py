@@ -93,7 +93,8 @@ def _out_proj(p: Params, out: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
 
 def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             cfg: ArchConfig, positions: Optional[torch.Tensor], window: int,
-            use_kernel: bool, causal: bool = True) -> torch.Tensor:
+            use_kernel: bool, causal: bool = True, *,
+            arange_positions: bool = False) -> torch.Tensor:
     """Softmax attention of projected q (B,S,nq,hd) over k/v (B,T,nkv,hd);
     returns (B,S,nq,hd) in f32 (plain) or the kernel's dtype.
 
@@ -105,17 +106,23 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     or meta tensors (DTensors among them), takes the plain ops
     (``ref.attention_core``).  The causal and window masks compare q's and
     k's ``positions`` (self-attention); with neither, every key is visible
-    and ``positions`` is not read (cross-attention).  Both kernel routes
-    mask by row and column index instead: every full-sequence caller
-    passes ``arange`` positions (``models.model``'s ``forward_train``,
-    ``encode``, ``prefill``)."""
+    and ``positions`` is not read (cross-attention).  The training kernels
+    mask by row and column index instead, so a masked call takes them only
+    when its caller states that ``positions`` are ``arange``
+    (``arange_positions``: ``models.model``'s ``forward_train``,
+    ``encode``, ``prefill``); any other masked call takes the plain ops on
+    its positions.  Nothing compares the positions on the device (a read
+    would synchronise and break a graph capture).  The serve flash route
+    (``use_kernel``) masks by index as the reference's Pallas kernel
+    does."""
     cap = cfg.attn_softcap
     if use_kernel:
         from ..kernels import ops as kops
         return kops.flash_attention(q, k, v, causal=causal, window=window,
                                     logit_cap=cap)
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad) \
+    by_index = arange_positions or not (causal or window)
+    if by_index and torch.is_grad_enabled() \
+            and (q.requires_grad or k.requires_grad or v.requires_grad) \
             and _train_kernels.takes_kernel((q, k, v)):
         from ..kernels import ops as kops
         return kops.train_attention(q, k, v, causal=causal, window=window,
@@ -127,13 +134,16 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def attention(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
               positions: torch.Tensor, window: int = 0, causal: bool = True,
               kv_src: Optional[torch.Tensor] = None, use_rope: bool = True,
-              use_kernel: bool = False) -> torch.Tensor:
+              use_kernel: bool = False,
+              arange_positions: bool = False) -> torch.Tensor:
     """Full-sequence attention (train / prefill).
 
     ``window``: sliding-window size for this layer; 0 = full attention.
     ``kv_src``: encoder output for cross-attention, which attends to every
     encoder row, uses no rope and never the kernel (as in the
-    reference)."""
+    reference).  ``arange_positions``: the caller states that
+    ``positions`` are ``arange`` (each row's index), which lets a masked
+    call that autograd records run the training kernels (``_attend``)."""
     cross = kv_src is not None
     q, k, v = _project_qkv(p, x, cfg, positions, kv_src=kv_src,
                            use_rope=use_rope and not cross)
@@ -141,7 +151,7 @@ def attention(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
         out = _attend(q, k, v, cfg, None, 0, False, causal=False)
     else:
         out = _attend(q, k, v, cfg, positions, window, use_kernel,
-                      causal=causal)
+                      causal=causal, arange_positions=arange_positions)
     return _out_proj(p, out.to(x.dtype), cfg)
 
 

@@ -250,10 +250,14 @@ def layer_windows(cfg: ArchConfig) -> List[int]:
 
 def backbone(params: Dict[str, Any], cfg: ArchConfig, x: torch.Tensor,
              positions: torch.Tensor, *, use_kernel: bool = False,
-             remat: bool = False, enc_out: Optional[torch.Tensor] = None
+             remat: bool = False, enc_out: Optional[torch.Tensor] = None,
+             arange_positions: bool = False
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run the layers.  Returns (hidden, aux_loss): the moe aux loss summed
     over layers, 0 for the other families.  encdec needs ``enc_out``.
+    ``arange_positions``: the caller states that ``positions`` are
+    ``arange`` (``models.attention._attend`` may then run the training
+    kernels, which mask by index).
 
     ``remat`` checkpoints each layer's body, as the reference does; the
     hybrid family also checkpoints each group of ``shared_attn_period``
@@ -278,7 +282,7 @@ def backbone(params: Dict[str, Any], cfg: ArchConfig, x: torch.Tensor,
             for p in layers[g * per:(g + 1) * per]:
                 h = mamba(h, p)
             return _block(params["shared"], h, cfg, positions, 0,
-                          use_kernel)[0]
+                          use_kernel, arange_positions=arange_positions)[0]
         group = _remat(group, remat)
         h = x
         for g in range(_shared_groups(cfg)):
@@ -289,7 +293,8 @@ def backbone(params: Dict[str, Any], cfg: ArchConfig, x: torch.Tensor,
 
     def layer(p, h, window):
         h, aux_l = _block(p, h, cfg, positions, window, use_kernel,
-                          use_rope=cfg.family != "encdec", enc_out=enc_out)
+                          use_rope=cfg.family != "encdec", enc_out=enc_out,
+                          arange_positions=arange_positions)
         return sctx.constrain(h, "residual"), aux_l
     block = _remat(layer, remat)
     h = x
@@ -303,7 +308,8 @@ def backbone(params: Dict[str, Any], cfg: ArchConfig, x: torch.Tensor,
 def _block(p: Dict[str, Any], h: torch.Tensor, cfg: ArchConfig,
            positions: torch.Tensor, window: int, use_kernel: bool, *,
            causal: bool = True, use_rope: bool = True,
-           enc_out: Optional[torch.Tensor] = None
+           enc_out: Optional[torch.Tensor] = None,
+           arange_positions: bool = False
            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One block over the full sequence (a decoder layer, the hybrid's
     shared block, a whisper encoder layer): self-attention, cross-attention
@@ -311,7 +317,8 @@ def _block(p: Dict[str, Any], h: torch.Tensor, cfg: ArchConfig,
     (h, moe aux loss or None)."""
     h = h + attention(p["attn"], rms_norm(h, p["attn_norm"]), cfg,
                       positions=positions, window=window, causal=causal,
-                      use_rope=use_rope, use_kernel=use_kernel)
+                      use_rope=use_rope, use_kernel=use_kernel,
+                      arange_positions=arange_positions)
     if enc_out is not None:
         h = h + attention(p["cross"], rms_norm(h, p["cross_norm"]), cfg,
                           positions=positions, kv_src=enc_out)
@@ -331,7 +338,8 @@ def encode(params: Dict[str, Any], cfg: ArchConfig, frames: torch.Tensor, *,
     positions = torch.arange(T, device=frames.device).expand(B, T)
     block = _remat(functools.partial(
         _block, cfg=cfg, positions=positions, window=0,
-        use_kernel=use_kernel, causal=False, use_rope=False), remat)
+        use_kernel=use_kernel, causal=False, use_rope=False,
+        arange_positions=True), remat)
     for p in _unstack(params["enc_layers"], cfg.num_encoder_layers):
         h, _ = block(p, h)
     return rms_norm(h, params["enc_norm"])
@@ -398,7 +406,7 @@ def forward_train(params: Dict[str, Any], cfg: ArchConfig,
         enc_out = encode(params, cfg, batch["frames"], use_kernel=use_kernel,
                          remat=remat)
     h, aux = backbone(params, cfg, x, positions, use_kernel=use_kernel,
-                      remat=remat, enc_out=enc_out)
+                      remat=remat, enc_out=enc_out, arange_positions=True)
     loss = cross_entropy(logits_fn(params, cfg, h), labels, cfg.vocab_size)
     return loss + 0.01 * aux, {"loss": loss, "aux_loss": aux}
 
@@ -536,7 +544,8 @@ def prefill(params: Dict[str, Any], cfg: ArchConfig,
     if cache is None:
         cache = init_cache(cfg, B, max_seq or S, device=tokens.device)
     if cfg.family in ("ssm", "hybrid"):
-        h = _prime_ssm(params, cfg, x, positions, cache, use_kernel)
+        h = _prime_ssm(params, cfg, x, positions, cache, use_kernel,
+                       arange_positions=True)
     else:
         enc_out = None
         if cfg.family == "encdec":
@@ -546,14 +555,16 @@ def prefill(params: Dict[str, Any], cfg: ArchConfig,
                 raise ValueError(
                     f"{enc_out.shape[1]} encoder frames do not fit the "
                     f"cross cache's {cache['cross_k'].shape[2]} rows")
-        h = _prime_kv(params, cfg, x, positions, cache, enc_out, use_kernel)
+        h = _prime_kv(params, cfg, x, positions, cache, enc_out, use_kernel,
+                      arange_positions=True)
     return logits_fn(params, cfg, h[:, -1:, :]), cache
 
 
 def _prime_block(p: Dict[str, Any], h: torch.Tensor, cfg: ArchConfig,
                  positions: torch.Tensor, cache: Dict[str, Any], j: int,
                  window: int, use_kernel: bool,
-                 enc_out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 enc_out: Optional[torch.Tensor] = None, *,
+                 arange_positions: bool = False) -> torch.Tensor:
     """One block over the prompt, writing its K/V into slot ``j`` of the
     stacked ``cache["kv"]`` (and, with ``enc_out``, the encoder K/V into
     slot ``j`` of the cross cache).  K/V are projected once and feed both
@@ -564,7 +575,8 @@ def _prime_block(p: Dict[str, Any], h: torch.Tensor, cfg: ArchConfig,
                            use_rope=cfg.family != "encdec")
     cache["kv"]["k"][j, :, :S] = k
     cache["kv"]["v"][j, :, :S] = v
-    out = _attend(q, k, v, cfg, positions, window, use_kernel)
+    out = _attend(q, k, v, cfg, positions, window, use_kernel,
+                  arange_positions=arange_positions)
     h = h + _out_proj(p["attn"], out.to(h.dtype), cfg)
     if enc_out is not None:
         T = enc_out.shape[1]
@@ -580,17 +592,20 @@ def _prime_block(p: Dict[str, Any], h: torch.Tensor, cfg: ArchConfig,
     return h + m
 
 
-def _prime_kv(params, cfg, x, positions, cache, enc_out, use_kernel):
+def _prime_kv(params, cfg, x, positions, cache, enc_out, use_kernel, *,
+              arange_positions=False):
     """Run the layers once, writing each layer's K/V into the cache: the
     priming pass is the forward pass."""
     h = x
     for i, window in enumerate(layer_windows(cfg)):
         h = _prime_block(_layer(params["layers"], i), h, cfg, positions,
-                         cache, i, window, use_kernel, enc_out)
+                         cache, i, window, use_kernel, enc_out,
+                         arange_positions=arange_positions)
     return h
 
 
-def _prime_ssm(params, cfg, x, positions, cache, use_kernel):
+def _prime_ssm(params, cfg, x, positions, cache, use_kernel, *,
+               arange_positions=False):
     """Run the layers once, writing each Mamba2 layer's conv window and
     final state (and the K/V of each call of the hybrid's shared block)
     into the cache.
@@ -613,5 +628,6 @@ def _prime_ssm(params, cfg, x, positions, cache, use_kernel):
         g = _shared_after(cfg, i)
         if g >= 0:
             h = _prime_block(params["shared"], h, cfg, positions, cache, g,
-                             0, use_kernel)
+                             0, use_kernel,
+                             arange_positions=arange_positions)
     return h

@@ -286,13 +286,15 @@ def test_chip_smoke_reads_flash_routes_from_kernel_names():
                "(...)", cuda, 9),
         _Event("void (anonymous namespace)::flash_f32_kernel<64, 64, 4>(...)",
                cuda, 32),
+        _Event("void (anonymous namespace)::flash_3xtf32_kernel<64, 0>(...)",
+               cuda, 64),
         _Event("cudaLaunchKernel", cpu, 89),
         _Event("flash_wgmma_kernel", cpu, 5),         # not a device row
         _Event("nvjet_tst_192x192_64x4_1x2_h_bz_coopA_NNT", cuda, 322),
     ]
     assert cs.flash_routes_seen(torch, events) == {
-        "wgmma_bf16": 48, "mma_bf16": 9, "scalar_f32": 32}
-    assert cs.flash_routes_seen(torch, events[4:]) == {}
+        "wgmma_bf16": 48, "mma_bf16": 9, "scalar_f32": 32, "mma_3xtf32": 64}
+    assert cs.flash_routes_seen(torch, events[5:]) == {}
     assert set(cs.FLASH_KERNEL_ROUTES.values()) == set(fa.ROUTES)
 
 
@@ -309,12 +311,14 @@ def test_kernel_launches_reads_the_library_counters_in_route_order():
     """The library counts kernel i of ``ROUTES`` as its counter i, and
     ``chip_smoke.launch_delta`` keeps only the routes launched since."""
     cs = _chip_smoke()
-    lib = _CountingLib([5, 7, 11])
+    lib = _CountingLib([5, 7, 11, 13])
     before = fa.kernel_launches(lib)
-    assert before == {"wgmma_bf16": 5, "mma_bf16": 7, "scalar_f32": 11}
-    lib.counts = [5 + 46, 7, 11 + 2]
+    assert before == {"wgmma_bf16": 5, "mma_bf16": 7, "scalar_f32": 11,
+                      "mma_3xtf32": 13}
+    lib.counts = [5 + 46, 7, 11 + 2, 13 + 64]
     assert cs.launch_delta(fa, lib, before) == {"wgmma_bf16": 46,
-                                                "scalar_f32": 2}
+                                                "scalar_f32": 2,
+                                                "mma_3xtf32": 64}
     assert cs.launch_delta(fa, lib, fa.kernel_launches(lib)) == {}
 
 
@@ -340,7 +344,7 @@ EXPECTED_FLASH_ROUTES = {
     "mamba2_1_3b": {},
     "zamba2_2_7b": {"mma_bf16": 18},          # the shared block's D = 80
     "granite_moe_3b_a800m": {"wgmma_bf16": 64},
-    "whisper_large_v3": {"wgmma_bf16": 64, "scalar_f32": 64},
+    "whisper_large_v3": {"wgmma_bf16": 64, "mma_3xtf32": 64},
     "gemma2_27b": {"wgmma_bf16": 92},
     "nemotron_4_15b": {"wgmma_bf16": 64},
     "chameleon_34b": {"wgmma_bf16": 96},
@@ -378,3 +382,159 @@ def test_rows_without_a_visible_key_follow_the_jax_oracle():
     close(fa.flash_attention_bhsd(q, k, v, **opts)[:, :, 12:],
           np.broadcast_to(np.asarray(jv).mean(axis=2, keepdims=True),
                           (1, 2, 8, 8)), 2e-5)
+
+
+# ---------------------------------------------------------------------------
+# The f32 route on the tensor cores (mma_3xtf32), emulated
+# ---------------------------------------------------------------------------
+
+X3_ROWS = X3_KEYS = 32          # flash_3xtf32_kernel's query and key tiles
+
+
+def tf32(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to TF32 (10 mantissa bits, to nearest, ties away from
+    zero): ``x3::tf32`` in ``csrc/f32_split.cuh``."""
+    mag = x.float().abs().contiguous().view(torch.int32)
+    r = ((mag + 0x1000) & ~0x1FFF).view(torch.float32)
+    return torch.where(x < 0, -r, r)
+
+
+def x3_accumulate(acc, a, b, split="3xtf32"):
+    """acc + a @ b as ``x3::product_nt`` / ``product_nn`` sum it: the
+    tile's product 8 deep at a time in a fresh accumulator, each f32
+    operand a TF32 big part and its TF32 remainder, small a x big b, big a
+    x small b, then big x big ("3xtf32"), or each operand rounded to TF32
+    once ("tf32"); then added to acc."""
+    ab, bb = tf32(a), tf32(b)
+    a_s, b_s = tf32(a - ab), tf32(b - bb)
+    part = torch.zeros_like(acc)
+    for k0 in range(0, a.shape[-1], 8):
+        sl = slice(k0, k0 + 8)
+        terms = [ab[..., sl] @ bb[..., sl, :]]
+        if split == "3xtf32":
+            terms = [a_s[..., sl] @ bb[..., sl, :],
+                     ab[..., sl] @ b_s[..., sl, :]] + terms
+        for t in terms:
+            part = part + t
+    return acc + part
+
+
+def kv_tiles(q0, rows, sq, sk, causal, window, bk):
+    """The kernel's ``kv_tiles``: the first key tile and how many."""
+    q_last = min(q0 + rows, sq) - 1
+    kv_end = min(sk, q_last + 1) if causal else sk
+    kv_begin = 0
+    if window > 0 and q_last < sk - 1 + window:
+        kv_begin = max(0, q0 - window + 1)
+    begin = kv_begin // bk
+    return begin, -(-kv_end // bk) - begin
+
+
+def emulate_flash_x3(q, k, v, *, causal=True, window=0, logit_cap=0.0,
+                     qk_split="3xtf32"):
+    """``flash_3xtf32_kernel`` on f32 (B, H, S, D) tensors: 32-row query
+    tiles over 32-key tiles dealt in turns to two halves, each with its own
+    online softmax from a running max of -1e30, merged at the end
+    (``x3::merge_softmax``); its score (the scale as the wrapper rounds it
+    to f32, the tanh cap, -1e30 where masked, keys past Sk left out) and
+    the products of ``x3_accumulate`` (Q K^T's operands split as
+    ``qk_split`` says)."""
+    b, hq, sq, d = q.shape
+    g = hq // k.shape[1]
+    sk = k.shape[2]
+    kh, vh = k.repeat_interleave(g, 1), v.repeat_interleave(g, 1)
+    scale = float(np.float32(1.0 / np.sqrt(d)))
+    out = torch.zeros_like(q)
+    for q0 in range(0, sq, X3_ROWS):
+        rows = torch.arange(q0, min(q0 + X3_ROWS, sq))
+        begin, count = kv_tiles(q0, X3_ROWS, sq, sk, causal, window, X3_KEYS)
+        state = []
+        for half in range(2):
+            m = torch.full((b, hq, len(rows)), -1e30)
+            l = torch.zeros((b, hq, len(rows)))
+            acc = torch.zeros((b, hq, len(rows), d))
+            for it in range(begin + half, begin + count, 2):
+                cols = torch.arange(it * X3_KEYS,
+                                    min(it * X3_KEYS + X3_KEYS, sk))
+                s = x3_accumulate(torch.zeros((b, hq, len(rows), len(cols))),
+                                  q[:, :, rows],
+                                  kh[:, :, cols].transpose(-1, -2), qk_split)
+                x = s * scale
+                if logit_cap:
+                    x = logit_cap * torch.tanh(x / logit_cap)
+                r, c = rows[:, None], cols[None, :]
+                seen = torch.ones_like(x, dtype=torch.bool)
+                if causal:
+                    seen &= c <= r
+                if window:
+                    seen &= r - c < window
+                x = torch.where(seen, x, torch.tensor(-1e30))
+                mx = torch.maximum(m, x.max(-1).values)
+                corr = torch.exp(m - mx)
+                p = torch.exp(x - mx[..., None])
+                l = l * corr + p.sum(-1)
+                acc = x3_accumulate(acc * corr[..., None], p, vh[:, :, cols])
+                m = mx
+            state.append((m, l, acc))
+        (m, l, acc), (m1, l1, acc1) = state
+        mx = torch.maximum(m, m1)
+        c0, c1 = torch.exp(m - mx), torch.exp(m1 - mx)
+        l = l * c0 + l1 * c1
+        acc = acc * c0[..., None] + acc1 * c1[..., None]
+        out[:, :, rows] = acc * (1.0 / l.clamp(min=1e-30))[..., None]
+    return out
+
+
+# (b, hq, hkv, sq, sk, d, causal, window, cap): the f32 cases of
+# chip_smoke.py's flash phase at CPU sizes, whisper's encoder among them
+X3_CASES = {
+    "whisper_enc": (2, 4, 4, 64, 64, 64, False, 0, 0.0),
+    "gqa2_d32": (2, 4, 2, 64, 64, 32, True, 0, 0.0),
+    "ragged_noncausal": (2, 2, 2, 48, 80, 32, False, 0, 0.0),
+    "ragged_17x33_d8": (1, 4, 4, 17, 33, 8, True, 0, 0.0),
+    "window8_cap50": (2, 4, 2, 64, 64, 32, True, 8, 50.0),
+    "d80": (1, 2, 1, 40, 40, 80, True, 0, 0.0),
+    "d128_gqa4": (1, 8, 2, 40, 40, 128, True, 0, 20.0),
+    # rows 12..19 see no key: they average V over every key (the oracle)
+    "no_visible_key": (1, 2, 1, 20, 10, 8, True, 3, 0.0),
+}
+
+
+@pytest.mark.parametrize("name", sorted(X3_CASES))
+def test_x3_route_emulated_matches_jax(name):
+    """The ``mma_3xtf32`` route's arithmetic against the JAX oracle at
+    f32's 2e-5."""
+    b, hq, hkv, sq, sk, d, causal, window, cap = X3_CASES[name]
+    assert fa.route(torch.float32, d) == "mma_3xtf32"
+    (jq, q), (jk, k), (jv, v) = (both(rnd(20, (b, hq, sq, d))),
+                                 both(rnd(21, (b, hkv, sk, d))),
+                                 both(rnd(22, (b, hkv, sk, d))))
+    opts = dict(causal=causal, window=window, logit_cap=cap)
+    close(emulate_flash_x3(q, k, v, **opts),
+          jref.mha_reference(jq, jk, jv, **opts), 2e-5)
+
+
+def test_tf32_rounded_q_and_k_miss_the_f32_tolerance():
+    """Q K^T from one TF32 rounding of q and k (what TF32 tensor cores do
+    to f32 inputs) misses f32's 2e-5: the split is what meets it."""
+    b, hq, hkv, sq, sk, d, causal, window, cap = X3_CASES["whisper_enc"]
+    (jq, q), (jk, k), (jv, v) = (both(rnd(20, (b, hq, sq, d))),
+                                 both(rnd(21, (b, hkv, sk, d))),
+                                 both(rnd(22, (b, hkv, sk, d))))
+    want = jref.mha_reference(jq, jk, jv, causal=causal)
+    close(emulate_flash_x3(q, k, v, causal=causal), want, 2e-5)
+    with pytest.raises(AssertionError):
+        close(emulate_flash_x3(q, k, v, causal=causal, qk_split="tf32"),
+              want, 2e-5)
+
+
+def test_routes_by_dtype_and_head_dim():
+    f32, bf = torch.float32, torch.bfloat16
+    assert [fa.route(f32, d) for d in (8, 16, 64, 80, 128)] == \
+        ["mma_3xtf32"] * 5
+    assert fa.route(f32, 136) == fa.route(f32, 256) == "scalar_f32"
+    assert fa.route(bf, 64) == fa.route(bf, 128) == "wgmma_bf16"
+    assert fa.route(bf, 80) == fa.route(bf, 256) == "mma_bf16"
+    assert fa.ROUTES.index("mma_3xtf32") == 3          # the C kernel id
+    src = (_build.CSRC / "flash_attention.cu").read_text()
+    assert "enum Kernel { kWgmma, kMma, kF32, kX3, kKernels };" in src

@@ -387,13 +387,14 @@ def test_ssd_wgmma_emulation_without_splits_is_the_plain_version():
 # ----------------------------------------------------------------- routes
 
 # (dtype, head dim, flash's route, the SSD scan's route); None: refused.
-# Flash reads the head dim: bf16 at D = 64 and 128 runs wgmma_bf16.  The
+# Flash reads the head dim: bf16 at D = 64 and 128 runs wgmma_bf16, f32 at
+# D <= 128 mma_3xtf32 (split-f32 products on the tensor cores).  The
 # SSD scan is asked at P = 64 and N = the head dim: bf16 at N = 64 and 128
 # runs wgmma_bf16.
 ROUTE_CASES = [
     pytest.param(torch.bfloat16, 40, "mma_bf16", "mma_bf16",
                  id="dtype0-mma_bf16"),
-    pytest.param(torch.float32, 40, "scalar_f32", "scalar_f32",
+    pytest.param(torch.float32, 40, "mma_3xtf32", "scalar_f32",
                  id="dtype1-scalar_f32"),
     pytest.param(torch.float16, 40, None, None, id="dtype2-None"),
     pytest.param(torch.float64, 40, None, None, id="dtype3-None"),
@@ -407,10 +408,12 @@ ROUTE_CASES = [
                  id="bf16-d80-mma_bf16"),
     pytest.param(torch.bfloat16, 256, "mma_bf16", "mma_bf16",
                  id="bf16-d256-mma_bf16"),
-    pytest.param(torch.float32, 64, "scalar_f32", "scalar_f32",
+    pytest.param(torch.float32, 64, "mma_3xtf32", "scalar_f32",
                  id="f32-d64-scalar_f32"),
-    pytest.param(torch.float32, 128, "scalar_f32", "scalar_f32",
+    pytest.param(torch.float32, 128, "mma_3xtf32", "scalar_f32",
                  id="f32-d128-scalar_f32"),
+    pytest.param(torch.float32, 256, "scalar_f32", "scalar_f32",
+                 id="f32-d256-scalar_f32"),
     pytest.param(torch.float16, 64, None, None, id="f16-d64-None"),
     pytest.param(torch.float64, 128, None, None, id="f64-d128-None"),
 ]
@@ -442,8 +445,10 @@ def test_route_by_dtype(mod, dtype, d, flash_want, ssd_want):
                  id="flash-f32-d128"),
 ])
 def test_launch_counts_per_route(fn, dtype, d):
+    # flash's f32 route on the tensor cores, mma_3xtf32, is its fourth
     assert set(fn.launches_by_route) == {"wgmma_bf16", "mma_bf16",
-                                         "scalar_f32"}
+                                         "scalar_f32"} | (
+        {"mma_3xtf32"} if fn is fa.flash_attention_bhsd else set())
     before = dict(fn.launches_by_route)
     if fn is fa.flash_attention_bhsd:
         q = torch.zeros((1, 2, 16, d), dtype=dtype)
