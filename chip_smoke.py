@@ -29,8 +29,8 @@ no result):
    ``mma_3xtf32``, split-f32 products on the tensor cores, at D <= 128,
    each such case also on the ``scalar_f32`` build and held to the same
    tolerance; ``scalar_f32`` at D = 256) and in bf16 (flash:
-   ``wgmma_bf16`` at D = 64 and 128, ``mma_bf16`` at
-   the other head dims; every bf16 option case at D = 64 and at 128; the
+   ``wgmma_bf16`` at D = 64, 80 and 128, ``mma_bf16`` at
+   the other head dims; every bf16 option case at D = 64, 80 and 128; the
    route of each flash call read from its device kernel's name in a
    profile); times of the kernel, the plain version and (where one exists)
    one library call at the path shapes, CUDA events: SDPA, or for a
@@ -59,8 +59,9 @@ no result):
    grads dtype pair, with and without the clip factor, aligned, with a
    tail, unaligned), on tiny's and lm100m's f32 states and on
    codeqwen1.5-7b's full-width 16-layer bf16 state with the grads of one
-   real backward; ``sumsq`` within 1e-6 relative of an f64 sum and the
-   same bits over 3 calls; each timed over the whole state against its
+   real backward; ``sumsq`` (one launch over every grad) within 1e-6
+   relative of an f64 sum and the same bits over 3 calls; each timed over
+   the whole state against its
    bound, the plain version and the library call (``torch._fused_adamw_``
    where it takes the dtypes, ``torch._foreach_norm``).  The training
    attention's kernels (``train_attention``: forward, and the backward's
@@ -428,8 +429,9 @@ def phase_kernel(torch, fa):
     with the old route's (``prior_ms``: ``mma_bf16`` where ``wgmma_bf16``
     runs, ``scalar_f32`` where ``mma_3xtf32`` does, from the builds of
     ``FLASH_OLD_ROUTES``), whose f32 cases are held to the same tolerance.
-    Returns the kernels line's entry at the path shape and the
-    ``mma_3xtf32`` route's at whisper's f32 encoder."""
+    Returns the kernels line's entry at the path shape, the
+    ``wgmma_bf16`` route's at zamba2's D = 80 and the ``mma_3xtf32``
+    route's at whisper's f32 encoder."""
     prior_libs = {r: (old, fa._lib(defs))
                   for r, (old, defs) in FLASH_OLD_ROUTES.items()}
 
@@ -484,6 +486,19 @@ def phase_kernel(torch, fa):
          0.0),
         ("len130_d64_bf16", 2, 4, 2, 130, 130, 64, bf16, True, 0, 0.0),
         ("len130_d128_bf16", 2, 4, 2, 130, 130, 128, bf16, True, 0, 0.0),
+        # the wgmma route at zamba2's D = 80 (a 64-column box in the
+        # 128-byte swizzle and a 16-column one in the 32-byte swizzle) at
+        # every option: GQA, ragged Sq and Sk, window and cap, rows that
+        # see no key, lengths past one 128-key tile
+        ("gqa_4to1_d80_bf16", 2, 32, 8, 256, 256, 80, bf16, True, 0, 0.0),
+        ("ragged_17x33_d80_bf16", 1, 4, 4, 17, 33, 80, bf16, True, 0, 0.0),
+        ("ragged_noncausal_d80_bf16", 2, 2, 2, 48, 80, 80, bf16, False, 0,
+         0.0),
+        ("window16_cap50_d80_bf16", 2, 4, 2, 200, 200, 80, bf16, True, 16,
+         50.0),
+        ("no_visible_key_d80_bf16", 1, 2, 1, 20, 10, 80, bf16, True, 3, 0.0),
+        ("len130_d80_bf16", 2, 4, 2, 130, 130, 80, bf16, True, 0, 0.0),
+        ("noncausal_d80_bf16", 2, 8, 2, 300, 300, 80, bf16, False, 0, 0.0),
         # granite-moe-3b's prefill: GQA 3:1 at D=64
         ("granite_gqa3_d64_bf16", 4, 24, 8, 512, 512, 64, bf16, True, 0, 0.0),
         # whisper-large-v3's encoder (f32: the serve's f32 frames promote
@@ -506,7 +521,7 @@ def phase_kernel(torch, fa):
         ("nemotron_gqa6", 4, 48, 8, 512, 512, 128, bf16, True, 0, 0.0),
         ("chameleon_gqa8", 4, 64, 8, 512, 512, 128, bf16, True, 0, 0.0),
     ]
-    worst, worst_by_route = 0.0, {}
+    worst, worst_by_route, worst_d80 = 0.0, {}, 0.0
     timed = {}
     for name, b, hq, hkv, sq, sk, d, dt, causal, window, cap in cases:
         q = torch.randn((b, hq, sq, d), generator=gen, device="cuda").to(dt)
@@ -556,6 +571,8 @@ def phase_kernel(torch, fa):
             fail(f"flash_attention_bhsd case {name}: max_abs_err {max_err}, "
                  f"old route {extra.get('prior_max_abs_err')}")
         worst_by_route[route] = max(worst_by_route.get(route, 0.0), max_err)
+        if d == 80 and dt == bf16:
+            worst_d80 = max(worst_d80, max_err)
         if name in FLASH_PATH_CASES:
             worst = max(worst, max_err)
             timed[name] = (q, k, v, opts)
@@ -599,6 +616,20 @@ def phase_kernel(torch, fa):
              "kernel_ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
              "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
              "library_ms": t["library_ms"], "path_shapes": times}
+    z = times["d80_bf16_mha"]
+    d80 = {"name": "flash_attention_bhsd/wgmma_bf16_d80", "route": "cuda",
+           "kernel_route": z["route"],
+           "source": "src/repro_torch/csrc/flash_attention.cu "
+                     "(flash_wgmma_kernel<80, ...>; hopper.cuh desc_sw32, "
+                     "wgmma_rs_n16_tb)",
+           "replaces": "src/repro/kernels/flash_attention.py:83",
+           "shape": "zamba2-2.7b shared block: B4 32/32 heads S512 D80 bf16 "
+                    "causal",
+           "max_abs_err": worst_d80,
+           "ms": z["kernel_ms"], "prior_route": z["prior_route"],
+           "prior_ms": z["prior_ms"], "plain_ms": z["plain_ms"],
+           "bound_ms": z["bound_ms"], "bound_by": z["bound_by"],
+           "library_ms": z["library_ms"], "library": z["library"]}
     w = times["whisper_enc_f32"]
     x3 = {"name": "flash_attention_bhsd/mma_3xtf32", "route": "cuda",
           "kernel_route": w["route"],
@@ -612,7 +643,7 @@ def phase_kernel(torch, fa):
           "prior_ms": w["prior_ms"], "plain_ms": w["plain_ms"],
           "bound_ms": w["bound_ms"], "bound_by": w["bound_by"],
           "library_ms": w["library_ms"], "library": w["library"]}
-    return entry, x3
+    return entry, d80, x3
 
 
 def library_attention(torch, fa, q, k, v, opts) -> tuple:
@@ -1412,7 +1443,8 @@ def library_norm(torch, grads):
 
 def time_optimizer(torch, A, opt, params, grads, opt_state, lr, scale,
                    lr_value: float) -> dict:
-    """Each kernel over the whole state (one launch a leaf, in place), the
+    """Each kernel over the whole state (``adamw_update`` one launch a
+    leaf, in place; ``sumsq`` one launch over every grad), the
     plain version (``plain_optimizer``) and the library call, CUDA events
     (``cuda_ms``); the kernel and the plain version in turns."""
     from repro_torch.tree import leaves
@@ -3060,18 +3092,20 @@ def optimizer_steps(phase: str) -> list:
 def expected_optimizer_launches(torch, opt, phase: str) -> dict:
     """The optimizer kernels' launches a phase must make, by kernel and
     route (``optimizer_steps``): a train step on the card launches
-    ``adamw_update`` and ``sumsq`` once a param leaf each, on the route of
-    the params' and grads' dtypes (one microbatch, or f32 params: the grads
-    have the params' dtype)."""
+    ``adamw_update`` once a param leaf and ``sumsq`` once over every grad
+    (``sumsq_plan``: one launch up to ``SUMSQ_LEAVES`` leaves), on the
+    route of the params' and grads' dtypes (one microbatch, or f32 params:
+    the grads have the params' dtype)."""
     from repro_torch.models import model as M
     want = {"adamw_update": dict.fromkeys(opt.ADAMW_ROUTES, 0),
             "sumsq": dict.fromkeys(opt.SUMSQ_ROUTES, 0)}
     for cfg, steps in optimizer_steps(phase):
-        n = len(list(_leaves(M.init_params(cfg, torch.Generator(),
-                                           device="meta"))))
+        sizes = [t.numel() for t in _leaves(M.init_params(
+            cfg, torch.Generator(), device="meta"))]
         dt = cfg.torch_dtype
-        want["adamw_update"][opt.adamw_route(dt, dt)] += n * steps
-        want["sumsq"][opt.sumsq_route(dt)] += n * steps
+        want["adamw_update"][opt.adamw_route(dt, dt)] += len(sizes) * steps
+        want["sumsq"][opt.sumsq_route([dt])] += steps * len(
+            opt.sumsq_plan([(n, dt) for n in sizes]))
     return want
 
 
@@ -3878,7 +3912,7 @@ def main() -> int:
     if faults:
         fail(f"ptxas: {faults}")
 
-    flash_entry, flash_x3 = phase_kernel(torch, fa)
+    flash_entry, flash_d80, flash_x3 = phase_kernel(torch, fa)
     entries = [flash_entry, phase_ssd_kernel(torch, ss),
                phase_decode_kernel(torch, da)]
     gc.collect()            # the plain versions' 8192-token scores
@@ -3888,8 +3922,8 @@ def main() -> int:
     entries += ta_entries
     if "--kernels-only" in sys.argv[1:]:
         emit("done", seconds=time.monotonic() - t_start)
-        print(json.dumps({"kernels": entries + [flash_x3, *ta_x3]}),
-              flush=True)
+        print(json.dumps({"kernels": entries + [flash_d80, flash_x3,
+                                                 *ta_x3]}), flush=True)
         return 0
     mods = {e["name"]: mod for e, mod in zip(entries, (fa, ss, da))}
     all_mods = {**mods, "adamw_update": opt, "sumsq": opt,
@@ -3950,13 +3984,18 @@ def main() -> int:
     flash_x3["launches_by_path"] = {
         a: routes[a]["flash_attention_bhsd"][x3] for a in routes}
     flash_x3["launches"] = sum(flash_x3["launches_by_path"].values())
+    # D = 80 runs only in zamba2's shared block: its launches on the route
+    flash_d80["launches_by_path"] = {
+        a: routes[a]["flash_attention_bhsd"][flash_d80["kernel_route"]]
+        for a in routes if a == "zamba2_2_7b"}
+    flash_d80["launches"] = sum(flash_d80["launches_by_path"].values())
     for e in ta_x3:
         n, r = e["name"].split("/")
         e["launches_by_path"] = {p: d[n][r] for p, d in (
             ("train", train_device), ("dryrun", dry_device),
             ("examples", examples_device))}
         e["launches"] = e["launches_by_path"]["train"]
-    entries += [flash_x3, *ta_x3]
+    entries += [flash_d80, flash_x3, *ta_x3]
 
     emit("done", seconds=time.monotonic() - t_start)
     print(json.dumps({"kernels": entries}), flush=True)

@@ -21,6 +21,8 @@ copy to a writer thread, so the training loop never blocks on disk.
 """
 from __future__ import annotations
 
+import heapq
+import itertools
 import json
 import os
 import shutil
@@ -137,30 +139,59 @@ def load_checkpoint(directory: str, tree_like: Any,
 
 
 class CheckpointManager:
-    """Async, bounded-keep checkpointer."""
+    """Async, bounded-keep checkpointer, safe to call from several threads
+    at once (``launch/train.py``'s checkpoint apps run on the engine's
+    workers, so two may overlap).
+
+    One writer thread at a time drains the pending saves, lowest step
+    first, so writes keep their step order and ``_gc`` never runs beside
+    another write; ``wait`` returns once every save handed over before it
+    is on disk, and raises the first error a write hit."""
 
     def __init__(self, directory: str, keep: int = 3) -> None:
         self.directory = directory
         self.keep = keep
+        self._lock = threading.Lock()
+        self._pending: List[Tuple[int, int, Any]] = []   # a heap by step
+        self._order = itertools.count()
         self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
         self.saved_steps: List[int] = []
 
     def save_async(self, step: int, tree: Any) -> None:
         host = tree_map(_to_host, tree)        # device->host copy now
-        self.wait()
+        with self._lock:
+            heapq.heappush(self._pending, (step, next(self._order), host))
+            if self._thread is None:
+                self._thread = threading.Thread(target=self._drain,
+                                                daemon=True)
+                self._thread.start()
 
-        def work() -> None:
-            save_checkpoint(self.directory, step, host)
-            self.saved_steps.append(step)
-            self._gc()
-
-        self._thread = threading.Thread(target=work, daemon=True)
-        self._thread.start()
+    def _drain(self) -> None:
+        while True:
+            with self._lock:
+                if not self._pending:
+                    self._thread = None
+                    return
+                step, _, host = heapq.heappop(self._pending)
+            try:
+                save_checkpoint(self.directory, step, host)
+                self.saved_steps.append(step)
+                self._gc()
+            except BaseException as err:   # noqa: BLE001 - raised by wait
+                with self._lock:
+                    self._error = self._error or err
 
     def wait(self) -> None:
-        if self._thread is not None:
-            self._thread.join()
-            self._thread = None
+        while True:
+            with self._lock:
+                thread = self._thread
+                if thread is None:
+                    err, self._error = self._error, None
+                    break
+            thread.join()
+        if err is not None:
+            raise err
 
     def _gc(self) -> None:
         d = Path(self.directory)

@@ -18,7 +18,7 @@
 //
 // Three routes, fixed by dtype and head dim before the launch:
 //
-// wgmma_bf16 (flash_wgmma_kernel; bf16, D = 64 or 128): warp-specialised.
+// wgmma_bf16 (flash_wgmma_kernel; bf16, D = 64, 80 or 128): warp-specialised.
 // A work item is (b * Hq, tile of 128 query rows); a block of 384 threads
 // walks its share of them (one block an SM while there are at most 8 items
 // an SM, else one block an item): a producer warpgroup whose one thread
@@ -29,7 +29,12 @@
 // registers from the producer to them).  Tensor maps are 3-D, (D, S,
 // B * H), so rows past Sq or Sk read as zeros and a tile never crosses
 // into the next head; a row of D = 128 is two 64-column boxes in the
-// 128-byte swizzle.  S = Q K^T is wgmma m64nBKk16 with Q and K from
+// 128-byte swizzle, and a row of zamba2's D = 80 one such box plus a
+// 16-column box in the 32-byte swizzle (a second tensor map an operand),
+// so D = 80 moves and multiplies no padding: Q K^T takes a fifth k16 step
+// on the 16-column boxes and P V an m64n16k16 product beside the
+// m64n64k16 one (120 KB of shared memory at BK = 128, ST = 2; 40 f32 of O
+// a thread).  S = Q K^T is wgmma m64nBKk16 with Q and K from
 // shared memory (a row-major K tile is the K-major B operand); the scale,
 // cap (tanh.approx), mask, online softmax (ex2.approx) and rescale run on
 // the accumulator registers; P, packed to bf16 pairs in place, is the
@@ -50,8 +55,8 @@
 // f32 registers; the scale, cap, mask, row max, row sum and the online
 // rescale run on those registers (quad shuffles); P is rounded to bf16 in
 // registers and is the A operand of P V directly (V through
-// ldmatrix.trans).  Kept for D other than 64 and 128 (zamba2's D = 80, the
-// test dims 8..256), and for timing at 64 and 128 (-DFLASH_FORCE_MMA).
+// ldmatrix.trans).  Kept for D other than 64, 80 and 128 (the test dims
+// 8..256), and for timing at 64, 80 and 128 (-DFLASH_FORCE_MMA).
 //
 // Every route skips kv tiles that the causal mask or the window hide
 // entirely, except in a q tile that holds a row seeing no key (that row
@@ -99,7 +104,7 @@
 // spill; at D <= 80 one m-tile a warp with 64-key tiles.  A build with
 // -DFLASH_BQ=.. -DFLASH_BK=.. -DFLASH_MW=.. (tune.py) takes one triple for
 // every D <= 128; with -DFLASH_FORCE_MMA (tune.py, chip_smoke.py's timing of
-// the old route) D = 64 and 128 run this route too.
+// the old route) D = 64, 80 and 128 run this route too.
 #if defined(FLASH_BQ) && defined(FLASH_BK) && defined(FLASH_MW)
 #define FLASH_TILE_D64 FLASH_BQ, FLASH_BK, FLASH_MW
 #define FLASH_TILE_D80 FLASH_BQ, FLASH_BK, FLASH_MW
@@ -398,7 +403,7 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
 
 // ------------------------------------------------------- wgmma_bf16 route
 
-// (BK, ST, PINGPONG) of the wgmma route, the same at D = 64 and 128,
+// (BK, ST, PINGPONG) of the wgmma route, the same at D = 64, 80 and 128,
 // measured at the serve shapes by repro_torch/kernels/tune.py (PERF.md has
 // the times).  A build with -DFLASH_WG_BK=.. -DFLASH_WG_ST=..
 // -DFLASH_WG_PINGPONG=.. (tune.py) takes others, and -DFLASH_WG_PERSISTENT=0
@@ -423,10 +428,14 @@ constexpr int kWgThreads = 384;   // producer + two consumer warpgroups
 constexpr int kPersistentItemsPerSm = 8;
 
 // Shared memory of the wgmma route: Q, ST stages of K and of V, the output
-// staging tile (each D / 64 boxes of rows x 64 columns), the mbarriers.
+// staging tile, the mbarriers.  A tile of R rows holds D / 64 boxes of R
+// rows x 64 columns in the 128-byte swizzle and, at D = 80, one box of R
+// rows x the last 16 columns in the 32-byte swizzle after them.
 template <int D, int BK, int ST>
 struct WgSmem {
   static constexpr int kBoxes = D / 64;
+  static constexpr int kTail = D % 64;            // 0 or 16 columns
+  static_assert(kTail == 0 || kTail == 16, "D = 64 n or 64 n + 16");
   static constexpr int kQBytes = kWgBQ * D * 2;   // also the output tile
   static constexpr int kKVBytes = BK * D * 2;     // one K or V stage
   static constexpr int kOOffset = kQBytes + 2 * ST * kKVBytes;
@@ -534,20 +543,27 @@ __device__ __forceinline__ int wg_round_item(int r) {
   return r * g + ((r & 1) ? g - 1 - b : b);
 }
 
-// D = 64 or 128; BK keys a kv tile (64 or 128); ST stages of K and of V;
-// PINGPONG: the consumer warpgroups take turns to issue their products.
-// Each block walks its work items round by round (wg_round_item); a grid
-// of one block a work item is the non-persistent launch.
+// D = 64, 80 or 128; BK keys a kv tile (64 or 128); ST stages of K and of
+// V; PINGPONG: the consumer warpgroups take turns to issue their products.
+// tq, tk, tv, to: the 64-column boxes; tqt, tkt, tvt, tot: at D = 80 the
+// 16-column boxes of columns 64-79 (unused at 64 and 128).  Each block
+// walks its work items round by round (wg_round_item); a grid of one block
+// a work item is the non-persistent launch.
 template <int D, int BK, int ST, bool PINGPONG>
 __global__ void __launch_bounds__(kWgThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv,
-                   const __grid_constant__ CUtensorMap to, int BH, int Hq,
+                   const __grid_constant__ CUtensorMap to,
+                   const __grid_constant__ CUtensorMap tqt,
+                   const __grid_constant__ CUtensorMap tkt,
+                   const __grid_constant__ CUtensorMap tvt,
+                   const __grid_constant__ CUtensorMap tot, int BH, int Hq,
                    int group, int Sq, int Sk, int causal, int window,
                    float cap, float scale, int n_items) {
   using L = WgSmem<D, BK, ST>;
   constexpr int NB = L::kBoxes;
+  constexpr bool kTail = L::kTail != 0;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* base =
       smem_raw + ((1024 - (hopper::smem_addr(smem_raw) & 1023)) & 1023);
@@ -595,6 +611,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         for (int j = 0; j < NB; ++j)
           hopper::tma_load_3d(sQ + j * kWgBQ * 64, &tq, q_full, 64 * j, it.q0,
                               it.bh);
+        if constexpr (kTail)
+          hopper::tma_load_3d(sQ + NB * kWgBQ * 64, &tqt, q_full, 64 * NB,
+                              it.q0, it.bh);
         for (int i = 0; i < it.n_tiles; ++i, ++kv) {
           const int s = kv % ST;
           const uint32_t ph = (kv / ST) & 1;
@@ -605,12 +624,18 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
           for (int j = 0; j < NB; ++j)
             hopper::tma_load_3d(sK + s * BK * D + j * BK * 64, &tk,
                                 &k_full[s], 64 * j, k0, it.bkv);
+          if constexpr (kTail)
+            hopper::tma_load_3d(sK + s * BK * D + NB * BK * 64, &tkt,
+                                &k_full[s], 64 * NB, k0, it.bkv);
           hopper::mbar_wait(&v_empty[s], ph ^ 1);
           hopper::mbar_expect_tx(&v_full[s], L::kKVBytes);
 #pragma unroll
           for (int j = 0; j < NB; ++j)
             hopper::tma_load_3d(sV + s * BK * D + j * BK * 64, &tv,
                                 &v_full[s], 64 * j, k0, it.bkv);
+          if constexpr (kTail)
+            hopper::tma_load_3d(sV + s * BK * D + NB * BK * 64, &tvt,
+                                &v_full[s], 64 * NB, k0, it.bkv);
         }
       }
     }
@@ -628,6 +653,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const float cap_in = cap != 0.f ? scale / cap : 0.f;
     const float cap_out = cap * kLog2e;
     const bf16* q_wg = sQ + cw * 64 * 64;      // in box 0; box j: + j*128*64
+    const bf16* q_wg_tail = sQ + NB * kWgBQ * 64 + cw * 64 * 16;
 
     float o[D / 2], s[BK / 2], m[2], l[2], corr[2];
     uint32_t p[BK / 4];
@@ -636,11 +662,12 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
     for (int i = 0; i < BK / 4; ++i) p[i] = 0u;
 
-    // S = Q K^T of the K tile in stage st into s (overwritten)
+    // S = Q K^T of the K tile in stage st into s (overwritten): four k16
+    // steps a 64-column box, and at D = 80 one on the 16-column box
     auto issue_s = [&](int st) {
       const bf16* kt = sK + st * BK * D;
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
+      for (int kk = 0; kk < NB * 4; ++kk)
         hopper::wgmma_ss<BK>(
             s,
             hopper::desc_sw128(q_wg + (kk / 4) * kWgBQ * 64 + (kk % 4) * 16,
@@ -648,17 +675,30 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
             hopper::desc_sw128(kt + (kk / 4) * BK * 64 + (kk % 4) * 16, 16,
                                1024),
             kk > 0);
+      if constexpr (kTail)
+        hopper::wgmma_ss<BK>(s, hopper::desc_sw32(q_wg_tail, 16, 256),
+                             hopper::desc_sw32(kt + NB * BK * 64, 16, 256),
+                             1);
       hopper::wgmma_commit();
     };
-    // O += P V of the V tile in stage st
+    // O += P V of the V tile in stage st: m64n(64 NB)k16 on the 64-column
+    // boxes into o[0 .. 32 NB), and at D = 80 m64n16k16 on the 16-column
+    // box into o[32 NB ..) (the accumulator layout continues along N)
     auto issue_pv = [&](int st) {
       const bf16* vt = sV + st * BK * D;
+      auto& o_boxes = *reinterpret_cast<float(*)[NB * 32]>(&o[0]);
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) {
         const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
                                p[4 * kk + 3]};
-        hopper::wgmma_rs_tb<D>(
-            o, a, hopper::desc_sw128(vt + kk * 16 * 64, BK * 128, 1024));
+        hopper::wgmma_rs_tb<NB * 64>(
+            o_boxes, a,
+            hopper::desc_sw128(vt + kk * 16 * 64, BK * 128, 1024));
+        if constexpr (kTail)
+          hopper::wgmma_rs_n16_tb(
+              *reinterpret_cast<float(*)[8]>(&o[NB * 32]), a,
+              hopper::desc_sw32(vt + NB * BK * 64 + kk * 16 * 16, BK * 32,
+                                256));
       }
       hopper::wgmma_commit();
     };
@@ -755,7 +795,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       kv += it.n_tiles;
 
       // normalise; stage this warpgroup's rows of the output tile in the
-      // 128-byte swizzle (once the previous item's store has read them),
+      // boxes' swizzles (once the previous item's store has read them),
       // then one TMA store a box, clipped at Sq
       float inv[2];
 #pragma unroll
@@ -773,9 +813,15 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int r = 64 * cw + 16 * warp + g + 8 * h;   // row of the tile
-          *reinterpret_cast<uint32_t*>(
-              o_bytes + (j / 8) * kWgBQ * 128 + r * 128 +
-              (((j % 8) ^ (r & 7)) << 4) + 4 * t) =
+          // 128-byte swizzle: chunk j % 8 of a 128-byte row at
+          // (j % 8) ^ (r % 8); 32-byte swizzle (the last 16 columns):
+          // chunk j - 8 NB of a 32-byte row at (j - 8 NB) ^ ((r / 4) % 2)
+          const int at =
+              j < NB * 8 ? (j / 8) * kWgBQ * 128 + r * 128 +
+                               (((j % 8) ^ (r & 7)) << 4)
+                         : NB * kWgBQ * 128 + r * 32 +
+                               (((j - NB * 8) ^ ((r >> 2) & 1)) << 4);
+          *reinterpret_cast<uint32_t*>(o_bytes + at + 4 * t) =
               tc::pack_bf16(o[4 * j + 2 * h] * inv[h],
                             o[4 * j + 2 * h + 1] * inv[h]);
         }
@@ -787,6 +833,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         for (int j = 0; j < NB; ++j)
           hopper::tma_store_3d(&to, sO + j * kWgBQ * 64 + cw * 64 * 64,
                                64 * j, it.q0 + 64 * cw, it.bh);
+        if constexpr (kTail)
+          hopper::tma_store_3d(&tot, sO + NB * kWgBQ * 64 + cw * 64 * 16,
+                               64 * NB, it.q0 + 64 * cw, it.bh);
         hopper::tma_store_commit();
       }
     }
@@ -794,42 +843,17 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
-                                  cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static const EncodeTiledFn fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &found) != cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      return static_cast<EncodeTiledFn>(nullptr);
-    return reinterpret_cast<EncodeTiledFn>(p);
-  }();
-  return fn;
-}
-
 // The TMA map of a contiguous bf16 (BH, S, D) tensor as (D, S, BH),
-// innermost first: boxes of 64 columns x `rows` rows x 1, 128-byte swizzle,
-// zeros outside.
+// innermost first: boxes of `cols` columns x `rows` rows x 1 (64 columns
+// in the 128-byte swizzle, 16 in the 32-byte one), zeros outside.
 bool tensor_map(CUtensorMap* map, const void* ptr, int BH, int S, int D,
-                int rows) {
-  const EncodeTiledFn encode = encode_tiled();
-  if (encode == nullptr) return false;
+                int rows, int cols = 64) {
   const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)BH};
   const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)S * D * 2};
-  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                const_cast<void*>(ptr), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  const cuuint32_t box[3] = {(cuuint32_t)cols, (cuuint32_t)rows, 1};
+  return hopper::tensor_map_bf16(map, ptr, 3, dims, strides, box,
+                                 cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                            : CU_TENSOR_MAP_SWIZZLE_32B);
 }
 
 template <int D, int BK, int ST, bool PINGPONG>
@@ -837,13 +861,21 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
                          int B, int Hq, int Hkv, int Sq, int Sk, int causal,
                          int window, float cap, float scale,
                          cudaStream_t stream) {
-  static_assert(D == 64 || D == 128, "the wgmma route takes D = 64 or 128");
+  static_assert(D == 64 || D == 80 || D == 128,
+                "the wgmma route takes D = 64, 80 or 128");
   static_assert(BK == 64 || BK == 128, "BK = 64 or 128");
   CUtensorMap mq, mk, mv, mo;
   if (!tensor_map(&mq, q, B * Hq, Sq, D, kWgBQ) ||
       !tensor_map(&mk, k, B * Hkv, Sk, D, BK) ||
       !tensor_map(&mv, v, B * Hkv, Sk, D, BK) ||
       !tensor_map(&mo, o, B * Hq, Sq, D, 64))
+    return cudaErrorInvalidValue;
+  // D = 80: columns 64-79 as 16-column boxes; else unused copies
+  CUtensorMap mqt = mq, mkt = mk, mvt = mv, mot = mo;
+  if (D % 64 != 0 && (!tensor_map(&mqt, q, B * Hq, Sq, D, kWgBQ, 16) ||
+                      !tensor_map(&mkt, k, B * Hkv, Sk, D, BK, 16) ||
+                      !tensor_map(&mvt, v, B * Hkv, Sk, D, BK, 16) ||
+                      !tensor_map(&mot, o, B * Hq, Sq, D, 64, 16)))
     return cudaErrorInvalidValue;
   constexpr int smem = WgSmem<D, BK, ST>::kBytes;
   auto kernel = flash_wgmma_kernel<D, BK, ST, PINGPONG>;
@@ -862,9 +894,9 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
   const bool persistent = n_items <= kPersistentItemsPerSm * sms;
 #endif
   const int grid = persistent ? min(n_items, sms) : n_items;
-  kernel<<<grid, kWgThreads, smem, stream>>>(mq, mk, mv, mo, B * Hq, Hq,
-                                             Hq / Hkv, Sq, Sk, causal, window,
-                                             cap, scale, n_items);
+  kernel<<<grid, kWgThreads, smem, stream>>>(
+      mq, mk, mv, mo, mqt, mkt, mvt, mot, B * Hq, Hq, Hq / Hkv, Sq, Sk,
+      causal, window, cap, scale, n_items);
   return counted(kWgmma);
 }
 
@@ -876,6 +908,9 @@ cudaError_t dispatch_bf16(const void* q, const void* k, const void* v,
   constexpr bool kPingPong = FLASH_WG_PINGPONG != 0;
   if (D == 64)
     return launch_wgmma<64, FLASH_WG_BK, FLASH_WG_ST, kPingPong>(
+        q, k, v, o, B, Hq, Hkv, Sq, Sk, causal, window, cap, scale, stream);
+  if (D == 80)
+    return launch_wgmma<80, FLASH_WG_BK, FLASH_WG_ST, kPingPong>(
         q, k, v, o, B, Hq, Hkv, Sq, Sk, causal, window, cap, scale, stream);
   if (D == 128)
     return launch_wgmma<128, FLASH_WG_BK, FLASH_WG_ST, kPingPong>(
@@ -1265,8 +1300,8 @@ cudaError_t dispatch_f32(const void* q, const void* k, const void* v,
 // q: (B, Hq, Sq, D), k/v: (B, Hkv, Sk, D), o like q; all contiguous, 16-byte
 // aligned.  dtype 0 = float32 (mma_3xtf32 at D <= 128, else scalar_f32;
 // scalar_f32 at every D with -DFLASH_FORCE_SCALAR), 1 = bfloat16
-// (wgmma_bf16 at D = 64 and 128, else mma_bf16).  8 <= D <= 256, D % 8 == 0,
-// Hq % Hkv == 0 (checked by the Python wrapper).
+// (wgmma_bf16 at D = 64, 80 and 128, else mma_bf16).  8 <= D <= 256,
+// D % 8 == 0, Hq % Hkv == 0 (checked by the Python wrapper).
 extern "C" int flash_attention_bhsd(const void* q, const void* k,
                                     const void* v, void* o, int B, int Hq,
                                     int Hkv, int Sq, int Sk, int D, int causal,

@@ -177,6 +177,19 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo,
          static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32 | 1ull << 62;
 }
 
+// Descriptor of a 32-byte-swizzled shared tile at p (rows of 16 bf16, 8-row
+// atoms of 256 bytes, the 16-byte chunk c of row r stored at chunk
+// c ^ ((r / 4) % 2); the tile starts on a 256-byte boundary): K-major, one
+// k16 slice a row: sbo = 256 (the next 8 rows), lbo unused (16); MN-major
+// (the transpose bit, rows of 16 n): sbo = 256 (the next 8 rows of k), lbo
+// the distance to the next 16 columns of n.
+__device__ __forceinline__ uint64_t desc_sw32(const void* p, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((smem_addr(p) & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16 |
+         static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32 | 3ull << 62;
+}
+
 // Make register writes visible to the next wgmma (accumulators, A).
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -315,6 +328,17 @@ __device__ __forceinline__ void wgmma_rs_n128_tb(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
 }
 
+// d += A B, m64n16k16: A (64 x 16) from registers (a[0..3], as above), B
+// (16 x 16) MN-major in shared memory (the transpose bit).
+__device__ __forceinline__ void wgmma_rs_n16_tb(float (&d)[8],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, 1, 1, 1, 1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
 
 // m64nNk16 by N, both operands from shared memory (K-major).
 template <int N>
@@ -359,16 +383,17 @@ inline EncodeTiledFn encode_tiled() {
 
 // The TMA map of a bf16 tensor of `rank` dims (innermost first, the
 // innermost contiguous), byte strides of the outer dims, boxes of `box`,
-// 128-byte swizzle, zeros read outside the tensor.
-inline bool tensor_map_bf16(CUtensorMap* map, const void* ptr, int rank,
-                            const cuuint64_t* dims, const cuuint64_t* strides,
-                            const cuuint32_t* box) {
+// 128-byte swizzle (or `swizzle`), zeros read outside the tensor.
+inline bool tensor_map_bf16(
+    CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
+    const cuuint64_t* strides, const cuuint32_t* box,
+    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
                 const_cast<void*>(ptr), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

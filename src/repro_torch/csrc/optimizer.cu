@@ -14,13 +14,14 @@
 // 28 an f32 one); the sum of squares reads g once (2 or 4 bytes).  Neither
 // does more than a few operations a byte.
 //
-// What the design does: a grid-stride loop over 16-byte vectors (8 elements
-// a thread a step: one vector of bf16, two of f32) with 64-bit offsets (a
-// stacked leaf of codeqwen1.5-7b's MLP holds 0.88 B elements at 16 layers),
-// the last n % 8 elements one a thread of block 0, and a one-element path
-// where a pointer is not 16-byte aligned.
+// What the design does: 16-byte vector loads (8 elements a thread a step:
+// one vector of bf16, two of f32) with 64-bit offsets (a stacked leaf of
+// codeqwen1.5-7b's MLP holds 0.88 B elements at 16 layers), the last n % 8
+// elements one a thread, and a one-element path where a pointer is not
+// 16-byte aligned.
 //
-// - adamw_update_kernel: the reference's f32 ops in its order, each one
+// - adamw_update_kernel: a grid-stride loop over a leaf; the reference's
+//   f32 ops in its order, each one
 //   IEEE-rounded (__fmul_rn, __fadd_rn, __fdiv_rn, __fsqrt_rn cannot be
 //   contracted into an FMA), so p, m and v equal the plain version's to the
 //   bit: g * scale; b1 m + (1 - b1) g; b2 v + (1 - b2) g^2; m2 / c1;
@@ -29,12 +30,23 @@
 //   c2 are read from device memory, so the step makes no host synchronise
 //   and a captured step replays them.  The outputs may be the inputs (the
 //   donating form) or new tensors.
-// - sumsq_kernel: per-thread f32 sums in the grid-stride order, a fixed
-//   shuffle tree a warp and the warps in index order, one partial a block
-//   over a grid fixed by the leaf's size; the last block to finish (a
-//   ticket) sums the partials in index order and adds the leaf's total to
-//   the running total of earlier launches on the stream.  Every sum has a
-//   fixed order, so a run repeats itself to the bit.
+// - sumsq_kernel: one launch over every grad of a step (up to kSumsqLeaves
+//   leaves, any mix of f32 and bf16; more split into launches of that many
+//   in leaf order).  The leaf table (pointer, element count, dtype and
+//   alignment flags, first chunk) is a by-value kernel parameter, so a
+//   launch copies nothing from the host and a captured step can replay it.
+//   Each leaf is cut into chunks of kChunkBytes (the last one shorter), a
+//   block and a partial a chunk: per-thread f32 sums in the chunk's
+//   stride order, a fixed shuffle tree a warp and the warps in index order.
+//   The last block to finish (a ticket) sums the partials in chunk order
+//   (thread t the groups of four t, t + 256, ..., then the tree) and adds
+//   the launch's total to the running total of earlier launches of the
+//   call.  Every sum has a fixed order that depends only on the leaves'
+//   sizes, dtypes and order (not on the grid or the SM count), so a run
+//   repeats itself to the bit.  The ticket returns to 0 at the end of each
+//   launch, so a caller keeps one ticket a stream, zeroed once, and fills
+//   nothing before a launch.  One launch a step in place of one a leaf:
+//   small leaves (lm100m's 11) paid a launch, a grid and a ticket each.
 //
 // C interface (loaded with ctypes): adamw_update(...) and sumsq(...) return
 // the cudaError_t of the launch, 0 on success.  Each launch adds one to a
@@ -47,18 +59,29 @@
 #include <stdint.h>
 #include <string.h>
 
+// A leaf of a sumsq launch, also in its C interface: flags bit 0 bf16,
+// bit 1 16-byte aligned.
+struct SumsqLeaf {
+  const void* ptr;
+  long long n;
+  int first_chunk;   // its first chunk (block) in the launch
+  int flags;
+};
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kVec = 8;              // elements a thread a step (aligned)
 constexpr int kBlocksPerSm = 8;      // adamw: the most resident at 256 threads
-constexpr int kSumsqBlocks = 1024;   // sumsq: the largest grid (the partials)
+constexpr int kChunkBytes = 131072;  // sumsq: a chunk of a leaf, a partial
+constexpr int kSumsqLeaves = 64;     // sumsq: leaves a launch (the table)
 constexpr int kSumsqUnroll = 4;      // sumsq: vectors in flight a thread
 constexpr int kMaxDevices = 64;
 
-// instance ids: adamw (p bf16) * 2 + (g bf16); sumsq (g bf16)
+// instance ids: adamw (p bf16) * 2 + (g bf16); sumsq: 0 every leaf f32,
+// 1 every leaf bf16, 2 both
 __device__ unsigned long long g_adamw_launches[4];
-__device__ unsigned long long g_sumsq_launches[2];
+__device__ unsigned long long g_sumsq_launches[3];
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -194,52 +217,97 @@ __device__ __forceinline__ float block_sum(float x) {
   return s;
 }
 
-// ws: kSumsqBlocks partials, a ticket (0 between launches), the total
+struct SumsqTable {
+  SumsqLeaf leaf[kSumsqLeaves];
+  int count;
+};
+
+// this thread's sum of squares over a chunk of m elements at g (V = 8: g
+// 16-byte aligned): the groups of V elements t, t + kThreads, ... in
+// order, then the last m % V elements one a thread
 template <typename G, int V>
-__global__ void __launch_bounds__(kThreads)
-    sumsq_kernel(const G* g, long long n, float* ws, int accumulate) {
-  const long long groups = n / V;
-  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
-  const long long tid =
-      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+__device__ __forceinline__ float chunk_sumsq(const G* g, long long m) {
+  const long long groups = m / V;
   float acc = 0.0f;
-  for (long long i = tid; i < groups; i += kSumsqUnroll * stride) {
+  for (long long i = threadIdx.x; i < groups;
+       i += kSumsqUnroll * kThreads) {
     float x[kSumsqUnroll][V];
 #pragma unroll
     for (int u = 0; u < kSumsqUnroll; ++u)
-      if (i + u * stride < groups) load<G, V>(g + (i + u * stride) * V, x[u]);
+      if (i + u * kThreads < groups) load<G, V>(g + (i + u * kThreads) * V,
+                                                x[u]);
 #pragma unroll
     for (int u = 0; u < kSumsqUnroll; ++u)
-      if (i + u * stride < groups)
+      if (i + u * kThreads < groups)
 #pragma unroll
         for (int j = 0; j < V; ++j)
           acc = __fadd_rn(acc, __fmul_rn(x[u][j], x[u][j]));
   }
-  // the last n % V elements: one a thread of block 0
-  if (blockIdx.x == 0 && groups * V + threadIdx.x < n) {
+  if (groups * V + threadIdx.x < m) {
     const float x = to_f32(g[groups * V + threadIdx.x]);
     acc = __fadd_rn(acc, __fmul_rn(x, x));
   }
+  return acc;
+}
+
+// One block a chunk (gridDim.x = the launch's chunks); partials: one float
+// a chunk; ticket: 0 between launches; out: the total, replaced
+// (accumulate 0) or added to.
+__global__ void __launch_bounds__(kThreads)
+    sumsq_kernel(const __grid_constant__ SumsqTable table, float* partials,
+                 unsigned* ticket, float* out, int accumulate, int route) {
+  const int c = blockIdx.x;
+  int i = 0;
+  while (i + 1 < table.count && table.leaf[i + 1].first_chunk <= c) ++i;
+  const SumsqLeaf& leaf = table.leaf[i];
+  const bool bf16 = leaf.flags & 1, vec = leaf.flags & 2;
+  const long long per = kChunkBytes / (bf16 ? 2 : 4);
+  const long long o = static_cast<long long>(c - leaf.first_chunk) * per;
+  const long long m = leaf.n - o < per ? leaf.n - o : per;
+  float acc;
+  if (bf16) {
+    const auto* g = static_cast<const __nv_bfloat16*>(leaf.ptr) + o;
+    acc = vec ? chunk_sumsq<__nv_bfloat16, kVec>(g, m)
+              : chunk_sumsq<__nv_bfloat16, 1>(g, m);
+  } else {
+    const auto* g = static_cast<const float*>(leaf.ptr) + o;
+    acc = vec ? chunk_sumsq<float, kVec>(g, m) : chunk_sumsq<float, 1>(g, m);
+  }
   const float part = block_sum(acc);
   __shared__ bool last;
-  unsigned* ticket = reinterpret_cast<unsigned*>(ws + kSumsqBlocks);
   if (threadIdx.x == 0) {
-    ws[blockIdx.x] = part;
+    partials[c] = part;
     __threadfence();
     last = atomicAdd(ticket, 1u) == gridDim.x - 1;
   }
   __syncthreads();
   if (!last) return;
   __threadfence();
+  // the partials in chunk order: groups of four, t + kThreads * k
+  const int quads = gridDim.x / 4;
+  const float4* p4 = reinterpret_cast<const float4*>(partials);
   float s = 0.0f;
-  for (int b = threadIdx.x; b < gridDim.x; b += kThreads)
-    s = __fadd_rn(s, __ldcg(ws + b));
+  for (int q = threadIdx.x; q < quads; q += kSumsqUnroll * kThreads) {
+    float4 x[kSumsqUnroll];
+#pragma unroll
+    for (int u = 0; u < kSumsqUnroll; ++u)
+      if (q + u * kThreads < quads) x[u] = __ldcg(p4 + q + u * kThreads);
+#pragma unroll
+    for (int u = 0; u < kSumsqUnroll; ++u)
+      if (q + u * kThreads < quads) {
+        s = __fadd_rn(s, x[u].x);
+        s = __fadd_rn(s, x[u].y);
+        s = __fadd_rn(s, x[u].z);
+        s = __fadd_rn(s, x[u].w);
+      }
+  }
+  if (4 * quads + static_cast<int>(threadIdx.x) < static_cast<int>(gridDim.x))
+    s = __fadd_rn(s, __ldcg(partials + 4 * quads + threadIdx.x));
   const float total = block_sum(s);
   if (threadIdx.x == 0) {
-    float* out = ws + kSumsqBlocks + 1;
     *out = accumulate ? __fadd_rn(*out, total) : total;
     *ticket = 0u;
-    atomicAdd(&g_sumsq_launches[sizeof(G) == 2], 1ull);
+    atomicAdd(&g_sumsq_launches[route], 1ull);
   }
 }
 
@@ -289,21 +357,6 @@ cudaError_t launch_adamw(void* p_out, const void* p, const void* g,
   return cudaGetLastError();
 }
 
-template <typename G>
-cudaError_t launch_sumsq(const void* g, long long n, float* ws,
-                         int accumulate, cudaStream_t stream) {
-  const bool vec = aligned(g);
-  const long long groups = vec ? n / kVec : n;
-  const int grid = grid_for(groups, kSumsqBlocks);
-  auto* gi = static_cast<const G*>(g);
-  if (vec)
-    sumsq_kernel<G, kVec><<<grid, kThreads, 0, stream>>>(gi, n, ws,
-                                                         accumulate);
-  else
-    sumsq_kernel<G, 1><<<grid, kThreads, 0, stream>>>(gi, n, ws, accumulate);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 // p_bf16 / g_bf16: 1 for bf16, 0 for f32; m, v f32.  The outputs may alias
@@ -337,24 +390,46 @@ extern "C" int adamw_update(void* p_out, const void* p, const void* g,
   return static_cast<int>(err);
 }
 
-// ws: sumsq_workspace() floats, zero before the first launch on it; the
-// total lands in ws[sumsq_workspace() - 1], replaced (accumulate 0) or added
-// to (accumulate 1).
-extern "C" int sumsq(const void* g, long long n, int g_bf16, float* ws,
-                     int accumulate, void* stream) {
-  if (n < 1 || !g || !ws) return static_cast<int>(cudaErrorInvalidValue);
-  auto s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(
-      g_bf16 ? launch_sumsq<__nv_bfloat16>(g, n, ws, accumulate, s)
-             : launch_sumsq<float>(g, n, ws, accumulate, s));
+// The sum of squares of `count` leaves (each: ptr, n >= 1, flags bit 0 for
+// bf16; first_chunk and the alignment bit are filled in here) in one
+// launch, count <= kSumsqLeaves.  partials: `capacity` floats, at
+// least the launch's chunks (sum of ceil(n / (kChunkBytes / element
+// size))), 16-byte aligned; ticket: an unsigned 0 before the first launch
+// on it (each launch leaves it 0); out: the total, replaced (accumulate 0)
+// or added to (1); route: the device counter's instance (0 f32, 1 bf16, 2
+// both).
+extern "C" int sumsq(const SumsqLeaf* leaves, int count, float* partials,
+                     int capacity, unsigned* ticket, float* out,
+                     int accumulate, int route, void* stream) {
+  if (count < 1 || count > kSumsqLeaves || !leaves || !partials ||
+      !ticket || !out || route < 0 || route > 2 ||
+      (reinterpret_cast<uintptr_t>(partials) & 15))
+    return static_cast<int>(cudaErrorInvalidValue);
+  SumsqTable table;
+  memset(&table, 0, sizeof(table));
+  table.count = count;
+  long long chunks = 0;
+  for (int i = 0; i < count; ++i) {
+    SumsqLeaf leaf = leaves[i];
+    if (leaf.n < 1 || !leaf.ptr)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const long long per = kChunkBytes / ((leaf.flags & 1) ? 2 : 4);
+    leaf.first_chunk = static_cast<int>(chunks);
+    leaf.flags = (leaf.flags & 1) | (aligned(leaf.ptr) ? 2 : 0);
+    table.leaf[i] = leaf;
+    chunks += (leaf.n + per - 1) / per;
+    if (chunks > capacity) return static_cast<int>(cudaErrorInvalidValue);
+  }
+  sumsq_kernel<<<static_cast<int>(chunks), kThreads, 0,
+                 static_cast<cudaStream_t>(stream)>>>(
+      table, partials, ticket, out, accumulate, route);
+  return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int sumsq_workspace() { return kSumsqBlocks + 2; }
-
 // kernel 0: adamw_update (instance (p bf16) * 2 + (g bf16)); 1: sumsq
-// (instance g bf16).  ~0 on a bad argument or a failed copy.
+// (instance 0 f32, 1 bf16, 2 both).  ~0 on a bad argument or a failed copy.
 extern "C" unsigned long long optimizer_launches(int kernel, int instance) {
-  const int count = kernel == 0 ? 4 : 2;
+  const int count = kernel == 0 ? 4 : 3;
   if (kernel < 0 || kernel > 1 || instance < 0 || instance >= count)
     return ~0ull;
   unsigned long long n = 0;

@@ -16,17 +16,22 @@ repeating them for GQA; kv tiles hidden by the causal mask or the window
 are skipped.
 
 Routes, fixed by dtype and head dim before the launch (``route``):
-- bf16, D = 64 or 128 -> ``wgmma_bf16``: warp-specialised for Hopper.  A
-  producer warpgroup issues TMA loads (Q once, K and V through mbarrier
+- bf16, D = 64, 80 or 128 -> ``wgmma_bf16``: warp-specialised for Hopper.
+  A producer warpgroup issues TMA loads (Q once, K and V through mbarrier
   rings); two consumer warpgroups of 64 query rows run both products as
   wgmma (S = Q K^T from shared memory, O += P V with P from registers),
   the softmax on the accumulator registers, and take turns to issue so one
   warpgroup's softmax runs under the other's products; one block an SM
-  walks the query tiles, heaviest first.
-- bf16, any other D (zamba2's 80, 8..256) -> ``mma_bf16``: both products
-  on the tensor cores through mma.sync m16n8k16 from ldmatrix fragments,
-  K/V tiles in a 2-stage cp.async ring.  Both bf16 routes round P to bf16
-  as the A operand of P V and launch the long causal query tiles first.
+  walks the query tiles, heaviest first.  Each operand row is 64-column
+  boxes in the 128-byte swizzle and, at zamba2's D = 80, a 16-column box
+  in the 32-byte swizzle: Q K^T takes one more k16 step and P V one more
+  m64n16k16 product, so D = 80 does its own work and no padded columns.
+- bf16, any other D (8..256) -> ``mma_bf16``: both products on the tensor
+  cores through mma.sync m16n8k16 from ldmatrix fragments, K/V tiles in a
+  2-stage cp.async ring (every bf16 D with ``-DFLASH_FORCE_MMA``,
+  ``chip_smoke.MMA_DEFINES``: the old route, timed in turns).  Both bf16
+  routes round P to bf16 as the A operand of P V and launch the long
+  causal query tiles first.
 - f32, D <= 128 -> ``mma_3xtf32`` (whisper's f32 encoder): both products
   on the tensor cores as split-f32 products (``csrc/f32_split.cuh``, shared
   with the training attention: each f32 operand a TF32 big part plus its
@@ -55,7 +60,7 @@ from .ref import mha_reference
 _COUNT_LOCK = threading.Lock()
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ROUTES = ("wgmma_bf16", "mma_bf16", "scalar_f32", "mma_3xtf32")
-WGMMA_HEAD_DIMS = (64, 128)
+WGMMA_HEAD_DIMS = (64, 80, 128)
 X3_MAX_HEAD_DIM = 128
 # the build whose mma_3xtf32 calls run scalar_f32 (the old route, timed in
 # turns with the new one)

@@ -15,10 +15,15 @@ does: 16-byte vector loads in a grid-stride loop with 64-bit offsets, no
 temporary in device memory; the update's f32 ops are the reference's, in
 its order, each IEEE-rounded (no FMA contraction), so p, m and v equal the
 plain version's to the bit; ``lr``, the clip scale and the bias corrections
-are read on the device, so a step makes no host synchronise.  ``sumsq``
-sums in a fixed order (threads in grid-stride order, a fixed tree a block,
-the blocks' partials in index order, the leaves in launch order on the
-stream), so it repeats itself to the bit.
+are read on the device, so a step makes no host synchronise.  ``sumsq`` is
+one launch over every grad of a step (``SUMSQ_LEAVES`` leaves a launch, f32
+and bf16 mixed; the leaf table a by-value kernel parameter): each leaf cut
+into chunks of ``CHUNK_BYTES``, a block and a partial a chunk, the last
+block summing the partials in chunk order.  Its order of sums depends only
+on the leaves' sizes, dtypes and order (``sumsq_plan``), so it repeats
+itself to the bit; its ticket returns to 0 after each launch, so one
+zeroed ticket a stream serves every call and nothing is filled before a
+launch.
 
 The plain versions are ``repro_torch.optim.adamw``'s ``_update_slice`` over
 ``slices`` and ``global_norm``'s f32 sums; ``optim.adamw`` chooses by the
@@ -43,15 +48,19 @@ from . import _build
 _COUNT_LOCK = threading.Lock()
 _BF16 = {torch.float32: 0, torch.bfloat16: 1}
 _NAMES = {torch.float32: "f32", torch.bfloat16: "bf16"}
-# the C instance ids: adamw (params bf16) * 2 + (grads bf16); sumsq (grads
-# bf16).  An adamw route is named params_grads.
+# the C instance ids: adamw (params bf16) * 2 + (grads bf16); sumsq by its
+# launch's leaves: all f32, all bf16, both.  An adamw route is named
+# params_grads.
 ADAMW_ROUTES = ("f32_f32", "f32_bf16", "bf16_f32", "bf16_bf16")
-SUMSQ_ROUTES = ("f32", "bf16")
-# sumsq's launch shape, as ``grid_for`` / ``launch_sumsq`` in optimizer.cu
-# work it out (the CPU tests emulate its order of sums from these)
+SUMSQ_ROUTES = ("f32", "bf16", "mixed")
+# sumsq's launch shape, as ``sumsq`` / ``sumsq_kernel`` in optimizer.cu work
+# it out (the CPU tests emulate its order of sums from these): threads a
+# block, elements a thread a step from a 16-byte aligned leaf (else 1),
+# bytes a chunk, leaves a launch
 THREADS = 256
 VEC = 8
-SUMSQ_BLOCKS = 1024
+CHUNK_BYTES = 131072
+SUMSQ_LEAVES = 64
 
 
 def adamw_route(p_dtype: torch.dtype, g_dtype: torch.dtype) -> str:
@@ -64,20 +73,36 @@ def adamw_route(p_dtype: torch.dtype, g_dtype: torch.dtype) -> str:
     return f"{_NAMES[p_dtype]}_{_NAMES[g_dtype]}"
 
 
-def sumsq_route(dtype: torch.dtype) -> str:
-    if dtype not in _NAMES:
-        raise ValueError(f"sumsq: grads are {dtype} (float32, bfloat16)")
-    return _NAMES[dtype]
+def sumsq_route(dtypes: Iterable[torch.dtype]) -> str:
+    """The instance a launch over leaves of these dtypes runs: their
+    common dtype's name, or ``mixed``."""
+    names = set()
+    for dt in dtypes:
+        if dt not in _NAMES:
+            raise ValueError(f"sumsq: grads are {dt} (float32, bfloat16)")
+        names.add(_NAMES[dt])
+    if not names:
+        raise ValueError("sumsq of no leaves")
+    return names.pop() if len(names) == 1 else "mixed"
 
 
-def sumsq_plan(n: int, aligned: bool = True) -> Tuple[int, int]:
-    """(elements a thread a step, blocks) of a ``sumsq`` launch over ``n``
-    elements: 8 from a 16-byte aligned pointer (the last ``n % 8`` one a
-    thread of block 0), else 1; a block a 256 x that many elements, at most
-    ``SUMSQ_BLOCKS``."""
-    vec = VEC if aligned else 1
-    groups = n // vec
-    return vec, max(1, min(-(-groups // THREADS), SUMSQ_BLOCKS))
+def sumsq_chunk(dtype: torch.dtype) -> int:
+    """Elements of a ``sumsq`` chunk of a leaf of ``dtype``."""
+    return CHUNK_BYTES // (2 if dtype == torch.bfloat16 else 4)
+
+
+def sumsq_plan(leaves: Sequence[Tuple[int, torch.dtype]]
+               ) -> List[Tuple[int, int, int]]:
+    """The launches of one ``sumsq`` call over non-empty leaves of these
+    (elements, dtype): (first leaf, leaves, chunks) each.  ``SUMSQ_LEAVES``
+    leaves a launch in leaf order; a leaf ``ceil(n / sumsq_chunk(dtype))``
+    chunks, one block and one partial each."""
+    plan = []
+    for first in range(0, len(leaves), SUMSQ_LEAVES):
+        part = leaves[first:first + SUMSQ_LEAVES]
+        chunks = sum(-(-n // sumsq_chunk(dt)) for n, dt in part)
+        plan.append((first, len(part), chunks))
+    return plan
 
 
 def takes_kernel(tensors: Iterable[Any]) -> bool:
@@ -113,10 +138,8 @@ def _lib() -> ctypes.CDLL:
         lib.adamw_update.argtypes = ([p] * 7 + [ll, i, i] + [p] * 4
                                      + [f] * 6 + [p])
         lib.adamw_update.restype = ctypes.c_int
-        lib.sumsq.argtypes = [p, ll, i, p, i, p]
+        lib.sumsq.argtypes = [p, i, p, i, p, p, i, i, p]
         lib.sumsq.restype = ctypes.c_int
-        lib.sumsq_workspace.argtypes = []
-        lib.sumsq_workspace.restype = ctypes.c_int
         lib.optimizer_launches.argtypes = [i, i]
         lib.optimizer_launches.restype = ctypes.c_ulonglong
     return lib
@@ -219,11 +242,30 @@ def adamw_update(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
     return outs
 
 
+class _SumsqLeaf(ctypes.Structure):
+    """``SumsqLeaf`` of optimizer.cu."""
+    _fields_ = [("ptr", ctypes.c_void_p), ("n", ctypes.c_longlong),
+                ("first_chunk", ctypes.c_int), ("flags", ctypes.c_int)]
+
+
+# one zeroed ticket a (device, stream): each launch leaves it 0
+_TICKETS: dict = {}
+_TICKET_LOCK = threading.Lock()
+
+
+def _ticket(device: torch.device, stream: int) -> torch.Tensor:
+    key = (device.index, stream)
+    with _TICKET_LOCK:
+        if key not in _TICKETS:
+            _TICKETS[key] = torch.zeros((), dtype=torch.int32, device=device)
+        return _TICKETS[key]
+
+
 def sumsq(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     """The sum of every element of ``tensors`` squared, a 0-d f32 tensor on
-    their CUDA device: one launch a non-empty tensor (f32 or bf16, read in
-    its own dtype), each adding its total to the last one's in launch
-    order."""
+    their CUDA device: one launch over every non-empty tensor (f32 or bf16,
+    each read in its own dtype; ``SUMSQ_LEAVES`` a launch, in order, each
+    launch adding its total to the last one's)."""
     tensors: List[torch.Tensor] = list(tensors)
     if not tensors:
         raise ValueError("sumsq of no tensors")
@@ -233,27 +275,35 @@ def sumsq(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     for t in tensors:
         if t.device != dev:
             raise ValueError(f"sumsq: tensors on {t.device} and {dev}")
-        sumsq_route(t.dtype)
+    sumsq_route(t.dtype for t in tensors)
+    leaves = [t.contiguous() for t in tensors if t.numel()]
+    out = torch.empty((), dtype=torch.float32, device=dev)
+    if not leaves:
+        return out.zero_()
+    plan = sumsq_plan([(t.numel(), t.dtype) for t in leaves])
     lib = _lib()
-    ws = torch.zeros(lib.sumsq_workspace(), dtype=torch.float32, device=dev)
-    first = True
     with torch.cuda.device(dev):
         stream = _stream(dev)
-        for t in tensors:
-            if t.numel() == 0:
-                continue
-            t = t.contiguous()
-            err = lib.sumsq(t.data_ptr(), t.numel(), _BF16[t.dtype],
-                            ws.data_ptr(), int(not first), stream)
+        ticket = _ticket(dev, stream)
+        partials = torch.empty(max(c for _, _, c in plan),
+                               dtype=torch.float32, device=dev)
+        for k, (first, count, _) in enumerate(plan):
+            part = leaves[first:first + count]
+            table = (_SumsqLeaf * count)(*(
+                _SumsqLeaf(t.data_ptr(), t.numel(), 0,
+                           _BF16[t.dtype]) for t in part))
+            route = sumsq_route(t.dtype for t in part)
+            err = lib.sumsq(table, count, partials.data_ptr(),
+                            partials.numel(), ticket.data_ptr(),
+                            out.data_ptr(), int(k > 0),
+                            SUMSQ_ROUTES.index(route), stream)
             if err != 0:
-                raise RuntimeError(f"sumsq launch failed on "
-                                   f"{sumsq_route(t.dtype)}: CUDA error "
-                                   f"{err}")
-            first = False
+                raise RuntimeError(f"sumsq launch failed on {route}: CUDA "
+                                   f"error {err}")
             with _COUNT_LOCK:
                 sumsq.launches += 1
-                sumsq.launches_by_route[sumsq_route(t.dtype)] += 1
-    return ws[-1]
+                sumsq.launches_by_route[route] += 1
+    return out
 
 
 adamw_update.launches = 0

@@ -5,15 +5,16 @@ Run on a CUDA card from the repo root:
     PYTHONPATH=src python -m repro_torch.kernels.tune \
         [--after-gemm | --ssd | --decode]
 
-Flash attention, ``wgmma_bf16`` route (D = 64 and 128): one build of
+Flash attention, ``wgmma_bf16`` route (D = 64, 80 and 128): one build of
 ``csrc/flash_attention.cu`` per (FLASH_WG_BK, FLASH_WG_ST,
 FLASH_WG_PINGPONG, FLASH_WG_PERSISTENT) choice (keys a kv tile, stages of
 the K and V rings, the consumer warpgroups taking turns to issue or not,
 one block an SM walking the work items or one block a work item, or
 unset: the kernel's own rule by the number of work items), at the
-codeqwen1.5-7b, granite-moe-3b-a800m, nemotron-4-15b, chameleon-34b and
-gemma2-27b (windowed and global, capped, 8192 tokens, one sequence and
-the serve path's two) shapes.  Flash attention, ``mma_bf16`` route: one
+codeqwen1.5-7b, granite-moe-3b-a800m, nemotron-4-15b, chameleon-34b,
+zamba2-2.7b (its shared block's D = 80) and gemma2-27b (windowed and
+global, capped, 8192 tokens, one sequence and the serve path's two)
+shapes.  Flash attention, ``mma_bf16`` route: one
 build per (FLASH_BQ, FLASH_BK, FLASH_MW) tile choice with FLASH_FORCE_MMA
 (so D = 128 runs it too), at the codeqwen1.5-7b shape (D=128) and the
 zamba2-2.7b shared-block shape (D=80), beside
@@ -65,6 +66,7 @@ WGMMA_SHAPES = {"codeqwen": (4, 32, 32, 512, 128, True, 0, 0.0),
                 "granite": (4, 24, 8, 512, 64, True, 0, 0.0),
                 "nemotron": (4, 48, 8, 512, 128, True, 0, 0.0),
                 "chameleon": (4, 64, 8, 512, 128, True, 0, 0.0),
+                "zamba2": (4, 32, 32, 512, 80, True, 0, 0.0),
                 "gemma2_local": (1, 32, 16, 8192, 128, True, 4096, 50.0),
                 "gemma2_global": (1, 32, 16, 8192, 128, True, 0, 50.0),
                 "gemma2_local_b2": (2, 32, 16, 8192, 128, True, 4096, 50.0),

@@ -12,7 +12,8 @@ Each function chooses its path by the tensors' device
 (``kernels.optimizer.takes_kernel``).  CUDA tensors launch the hand-written
 kernels of ``kernels/optimizer.py``, the counterpart of what XLA fuses
 under the reference's ``jax.jit``: ``adamw_update`` once a leaf (no
-temporary, so no slicing), ``global_norm`` ``sumsq`` once a grad.  CPU and
+temporary, so no slicing), ``global_norm`` ``sumsq`` once over every grad
+of the step.  CPU and
 meta tensors, DTensors among them (the dry-run traces the donating step on
 meta DTensors), take the plain versions here: ``_update_slice`` on every
 element, and the donating form goes leaf by leaf along axis 0 (the stacked

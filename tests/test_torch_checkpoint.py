@@ -185,6 +185,74 @@ class TestCheckpoint:
         _, back = load_checkpoint(str(tmp_path), t)
         assert float(back["params"]["w"].max()) == 11.0
 
+    def test_two_writers_at_once(self, tmp_path, monkeypatch):
+        """Two threads (``run_training``'s checkpoint apps on two engine
+        workers) meet at a barrier and save steps 2 and 4 at once, each
+        write slowed by a sleep: after ``wait`` both are on disk, the
+        latest is 4 and nothing raised.  Eight rounds, a fresh manager
+        each, so an overlap that loses a write shows in some round."""
+        import threading
+        import time
+
+        from repro_torch.checkpointing import checkpoint as C
+        real = C.save_checkpoint
+
+        def slow(*args, **kwargs):
+            time.sleep(0.05)
+            return real(*args, **kwargs)
+        monkeypatch.setattr(C, "save_checkpoint", slow)
+        t = self.tree()
+        for r in range(8):
+            d = tmp_path / f"round{r}"
+            mgr = CheckpointManager(str(d))
+            barrier = threading.Barrier(2)
+            errors = []
+
+            def app(step):
+                try:
+                    barrier.wait(timeout=30)
+                    mgr.save_async(step, t)
+                except BaseException as err:   # noqa: BLE001
+                    errors.append(err)
+            apps = [threading.Thread(target=app, args=(s,)) for s in (2, 4)]
+            for a in apps:
+                a.start()
+            for a in apps:
+                a.join(timeout=30)
+            mgr.wait()
+            assert not errors, errors
+            assert sorted(p for p in os.listdir(d)
+                          if p.startswith("step_")) == ["step_00000002",
+                                                        "step_00000004"]
+            assert latest_step(str(d)) == 4
+            assert sorted(mgr.saved_steps) == [2, 4]
+
+    def test_manager_writes_in_step_order_and_raises_in_wait(
+            self, tmp_path, monkeypatch):
+        """Saves handed over while a write runs are written lowest step
+        first; a failed write raises from ``wait``, once."""
+        import threading
+
+        from repro_torch.checkpointing import checkpoint as C
+        real, gate = C.save_checkpoint, threading.Event()
+
+        def gated(directory, step, tree, shards=1):
+            gate.wait(timeout=30)
+            if step == 9:
+                raise OSError("disk full")
+            return real(directory, step, tree, shards)
+        monkeypatch.setattr(C, "save_checkpoint", gated)
+        mgr = CheckpointManager(str(tmp_path), keep=10)
+        t = self.tree()
+        for s in (1, 5, 3, 9, 2):
+            mgr.save_async(s, t)
+        gate.set()
+        with pytest.raises(OSError, match="disk full"):
+            mgr.wait()
+        mgr.wait()
+        assert mgr.saved_steps == [1, 2, 3, 5]
+        assert latest_step(str(tmp_path)) == 5
+
     def test_restore_latest_without_checkpoints(self, tmp_path):
         assert CheckpointManager(str(tmp_path)).restore_latest(
             self.tree()) is None

@@ -342,7 +342,7 @@ def test_chip_smoke_route_faults(launched, seen, faults):
 EXPECTED_FLASH_ROUTES = {
     "codeqwen15_7b": {"wgmma_bf16": 64},
     "mamba2_1_3b": {},
-    "zamba2_2_7b": {"mma_bf16": 18},          # the shared block's D = 80
+    "zamba2_2_7b": {"wgmma_bf16": 18},        # the shared block's D = 80
     "granite_moe_3b_a800m": {"wgmma_bf16": 64},
     "whisper_large_v3": {"wgmma_bf16": 64, "mma_3xtf32": 64},
     "gemma2_27b": {"wgmma_bf16": 92},
@@ -534,7 +534,9 @@ def test_routes_by_dtype_and_head_dim():
         ["mma_3xtf32"] * 5
     assert fa.route(f32, 136) == fa.route(f32, 256) == "scalar_f32"
     assert fa.route(bf, 64) == fa.route(bf, 128) == "wgmma_bf16"
-    assert fa.route(bf, 80) == fa.route(bf, 256) == "mma_bf16"
+    assert fa.route(bf, 80) == "wgmma_bf16"            # zamba2's shared block
+    assert [fa.route(bf, d) for d in (8, 40, 72, 88, 96, 136, 144, 256)] \
+        == ["mma_bf16"] * 8
     assert fa.ROUTES.index("mma_3xtf32") == 3          # the C kernel id
     src = (_build.CSRC / "flash_attention.cu").read_text()
     assert "enum Kernel { kWgmma, kMma, kF32, kX3, kKernels };" in src

@@ -66,7 +66,7 @@ def bf16(t):
 
 def kernel_block_k(d):
     """Keys a kv tile of the bf16 route at head dim d: 128 on wgmma_bf16
-    (D = 64 and 128); on mma_bf16 64 at D <= 80, 32 above."""
+    (D = 64, 80 and 128); on mma_bf16 64 at D <= 80, 32 above."""
     if fa.route(torch.bfloat16, d) == "wgmma_bf16":
         return 128
     return 64 if d <= 80 else 32
@@ -127,6 +127,12 @@ def flash_emulated(q, k, v, *, causal=True, window=0, logit_cap=0.0,
     (1, 2, 2, 48, 80, 128, False, 0, 0.0),       # ragged_noncausal, D=128
     (1, 4, 2, 130, 130, 64, True, 0, 0.0),       # 130 keys at D=64
     (1, 2, 1, 20, 10, 64, True, 3, 0.0),         # no_visible_key at D=64
+    # zamba2's D = 80 on wgmma_bf16's 128-key tiles at every option
+    (1, 4, 4, 17, 33, 80, True, 0, 0.0),         # ragged_17x33 at D=80
+    (1, 2, 2, 48, 80, 80, False, 0, 0.0),        # ragged_noncausal, D=80
+    (1, 4, 2, 200, 200, 80, True, 16, 50.0),     # window16_cap50, GQA 2:1
+    (1, 2, 1, 20, 10, 80, True, 3, 0.0),         # no_visible_key at D=80
+    (1, 8, 2, 300, 300, 80, True, 0, 0.0),       # GQA 4:1, 3 kv tiles
 ])
 def test_flash_rounding_plan(b, hq, hkv, sq, sk, d, causal, window, cap):
     qn, kn, vn = (bf16_values(rnd(seed, shape)) for seed, shape in (
@@ -404,7 +410,7 @@ ROUTE_CASES = [
                  id="bf16-d128-wgmma_bf16"),
     pytest.param(torch.bfloat16, 8, "mma_bf16", "mma_bf16",
                  id="bf16-d8-mma_bf16"),
-    pytest.param(torch.bfloat16, 80, "mma_bf16", "mma_bf16",
+    pytest.param(torch.bfloat16, 80, "wgmma_bf16", "mma_bf16",
                  id="bf16-d80-mma_bf16"),
     pytest.param(torch.bfloat16, 256, "mma_bf16", "mma_bf16",
                  id="bf16-d256-mma_bf16"),

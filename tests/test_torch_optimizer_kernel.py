@@ -19,9 +19,12 @@ the CPU:
     equals the JAX package's ``adamw_update`` within
     ``test_torch_optim.py``'s tolerances (m and v atol 1e-6, params atol
     1e-5, f32);
-(b) an emulation of ``sumsq``'s fixed order of sums (grid-stride threads,
-    the xor tree a warp, the warps in order, the blocks' partials in
-    order, the leaves in launch order) within 1e-6 relative of an f64 sum;
+(b) an emulation of ``sumsq``'s fixed order of sums (each leaf in chunks
+    of ``CHUNK_BYTES``, a block a chunk: threads in the chunk's stride
+    order, the xor tree a warp, the warps in order; the last block's sum
+    of the partials in chunk order, by groups of four; the launches of
+    ``SUMSQ_LEAVES`` leaves in order) within 1e-6 relative of an f64 sum,
+    the same bits on every call;
 (c) the dispatch: CPU and meta tensors take the plain versions, a CUDA
     stand-in takes the kernels once a leaf (the emulations standing in for
     the launches), other devices and mixes raise; the launch functions
@@ -54,6 +57,21 @@ ROOT = Path(__file__).resolve().parents[1]
 F32 = np.float32
 HP = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
 DTYPES = (torch.float32, torch.bfloat16)
+
+
+@pytest.fixture(autouse=True)
+def one_cpu_thread():
+    """Each test on one intra-op thread.  ATen's f32 square root on the
+    CPU splits a tensor into ``at::parallel_for`` chunks of 2,048 elements,
+    and a chunk computed on a pool thread has given other bits than the
+    same call on the calling thread (the last third of a 4,099-element
+    leaf, in about one run in thirty of this file under ``-n 4``), so the
+    plain version would not repeat its own bits; on one thread every
+    square root runs on the calling thread."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 # ---------------------------------------------------------------------------
@@ -126,30 +144,44 @@ def block_sums(a: np.ndarray) -> np.ndarray:
     return s
 
 
-def emulate_sumsq(arrays, aligned: bool = True) -> F32:
-    """``sumsq`` over the leaves (f32 values) in the kernel's order."""
+def emulate_block(values: np.ndarray, width: int) -> F32:
+    """One block's sum of ``values`` (f32): thread t adds the groups of
+    ``width`` values t, t + 256, ... in order, then the last
+    ``size % width`` values one a thread; then ``block_sum``.  A chunk's
+    partial (``width`` 8 from an aligned leaf, else 1) and the last
+    block's sum of the partials (``width`` 4)."""
+    v = np.asarray(values, F32)
+    groups = v.size // width
+    rounds = -(-groups // K.THREADS)
+    body = np.zeros(rounds * K.THREADS * width, F32)
+    body[:groups * width] = v[:groups * width]
+    body = body.reshape(rounds, K.THREADS, width)
+    acc = np.zeros(K.THREADS, F32)
+    for r in range(rounds):
+        for j in range(width):
+            acc = acc + body[r, :, j]      # + 0.0 past the end: exact
+    rest = v[groups * width:]
+    acc[:rest.size] = acc[:rest.size] + rest
+    return block_sums(acc[None, :])[0]
+
+
+def emulate_sumsq(tensors, aligned: bool = True) -> F32:
+    """``sumsq`` over the tensors (f32 or bf16) in the kernel's order:
+    ``sumsq_plan``'s launches, each leaf's chunks in order."""
+    tensors = [t for t in tensors if t.numel()]
     total = None
-    for x in arrays:
-        x = np.ascontiguousarray(x, dtype=F32).ravel()
-        n = x.size
-        vec, blocks = K.sumsq_plan(n, aligned)
-        threads = blocks * K.THREADS
-        groups = n // vec
-        sq = x * x
-        acc = np.zeros(threads, F32)
-        for start in range(0, groups, threads):
-            idx = np.arange(start, min(start + threads, groups))
-            for j in range(vec):
-                acc[idx - start] = acc[idx - start] + sq[idx * vec + j]
-        tail = sq[groups * vec:]
-        acc[:tail.size] = acc[:tail.size] + tail
-        partials = block_sums(acc.reshape(blocks, K.THREADS))
-        s = np.zeros(K.THREADS, F32)
-        for b0 in range(0, blocks, K.THREADS):
-            chunk = partials[b0:b0 + K.THREADS]
-            s[:chunk.size] = s[:chunk.size] + chunk
-        leaf = block_sums(s[None, :])[0]
-        total = leaf if total is None else F32(total + leaf)
+    for first, count, chunks in K.sumsq_plan([(t.numel(), t.dtype)
+                                              for t in tensors]):
+        partials = []
+        for t in tensors[first:first + count]:
+            sq = np.square(as_f32(t).ravel())
+            per = K.sumsq_chunk(t.dtype)
+            for o in range(0, sq.size, per):
+                partials.append(emulate_block(sq[o:o + per],
+                                              K.VEC if aligned else 1))
+        assert len(partials) == chunks
+        launch = emulate_block(np.array(partials, F32), 4)
+        total = launch if total is None else F32(total + launch)
     return total
 
 
@@ -316,26 +348,59 @@ def test_bf16_rounding_is_torchs():
 @pytest.mark.parametrize("aligned", [True, False],
                          ids=["vectors", "elements"])
 def test_emulated_sumsq_is_within_1e6_of_an_f64_sum(aligned):
-    """Leaves of 3 elements, a tail of 5 after whole vectors, and one past
-    a full grid (several rounds a thread), f32 and bf16 values."""
+    """Leaves of 3 elements, a tail of 5 after whole vectors, one of five
+    whole f32 chunks and a short one (partials not a multiple of four), and
+    a bf16 leaf (chunks of twice the elements), f32 and bf16 values, in
+    one launch."""
     rng = np.random.default_rng(9)
-    sizes = (3, 300_005, 2 * K.SUMSQ_BLOCKS * K.THREADS * K.VEC + 13)
-    arrays = [(rng.standard_normal(n) * 10.0 ** rng.uniform(-4, 0))
-              .astype(F32) for n in sizes]
-    arrays.append(as_f32(torch.from_numpy(arrays[1]).bfloat16()))
-    got = emulate_sumsq(arrays, aligned)
-    want = sum(float(np.square(a.astype(np.float64)).sum()) for a in arrays)
+    f32_chunk = K.sumsq_chunk(torch.float32)
+    sizes = (3, 300_005, 5 * f32_chunk + 13)
+    leaves = [torch.from_numpy((rng.standard_normal(n)
+                                * 10.0 ** rng.uniform(-4, 0)).astype(F32))
+              for n in sizes]
+    leaves.append(leaves[1].bfloat16())
+    assert len(K.sumsq_plan([(t.numel(), t.dtype) for t in leaves])) == 1
+    got = emulate_sumsq(leaves, aligned)
+    want = sum(float(np.square(as_f32(t).astype(np.float64)).sum())
+               for t in leaves)
     assert got.dtype == F32
     assert abs(float(got) - want) <= 1e-6 * want
-    assert emulate_sumsq(arrays, aligned) == got      # a fixed order
+    assert emulate_sumsq(leaves, aligned) == got      # a fixed order
+
+
+def test_emulated_sumsq_over_many_launches_is_within_1e6():
+    """Past ``SUMSQ_LEAVES`` leaves the call splits into launches in leaf
+    order, each adding its total to the last one's: still within 1e-6 of
+    an f64 sum, f32 and bf16 leaves mixed."""
+    rng = np.random.default_rng(11)
+    leaves = [torch.from_numpy(rng.standard_normal(int(n)).astype(F32))
+              for n in rng.integers(1, 5000, K.SUMSQ_LEAVES + 7)]
+    leaves = [t.bfloat16() if i % 3 == 0 else t
+              for i, t in enumerate(leaves)]
+    plan = K.sumsq_plan([(t.numel(), t.dtype) for t in leaves])
+    assert [(f, c) for f, c, _ in plan] == [(0, K.SUMSQ_LEAVES),
+                                           (K.SUMSQ_LEAVES, 7)]
+    got = emulate_sumsq(leaves)
+    want = sum(float(np.square(as_f32(t).astype(np.float64)).sum())
+               for t in leaves)
+    assert abs(float(got) - want) <= 1e-6 * want
 
 
 def test_sumsq_plan():
-    assert K.sumsq_plan(3) == (8, 1)
-    assert K.sumsq_plan(8 * 256 + 1) == (8, 1)
-    assert K.sumsq_plan(8 * 256 * 5) == (8, 5)
-    assert K.sumsq_plan(8 * 256 * 5, aligned=False) == (1, 40)
-    assert K.sumsq_plan(1 << 31) == (8, K.SUMSQ_BLOCKS)
+    f32, bf16 = torch.float32, torch.bfloat16
+    c32 = K.CHUNK_BYTES // 4
+    assert K.sumsq_chunk(f32) == c32 and K.sumsq_chunk(bf16) == 2 * c32
+    assert K.sumsq_plan([(3, f32)]) == [(0, 1, 1)]
+    assert K.sumsq_plan([(c32, f32), (c32 + 1, f32), (c32 + 1, bf16)]) \
+        == [(0, 3, 4)]
+    assert K.sumsq_plan([(1 << 31, bf16)]) == [(0, 1, (1 << 31) // (2 * c32))]
+    # lm100m's 11 f32 grads (114.8 M elements) and codeqwen's 16 bf16
+    # ones: one launch a step
+    many = [(10, f32)] * (2 * K.SUMSQ_LEAVES + 1)
+    assert K.sumsq_plan(many) == [(0, K.SUMSQ_LEAVES, K.SUMSQ_LEAVES),
+                                  (K.SUMSQ_LEAVES, K.SUMSQ_LEAVES,
+                                   K.SUMSQ_LEAVES),
+                                  (2 * K.SUMSQ_LEAVES, 1, 1)]
 
 
 def test_launch_constants_are_the_sources():
@@ -344,8 +409,9 @@ def test_launch_constants_are_the_sources():
     def const(name):
         return int(re.search(rf"constexpr int {name} = (\d+);",
                              src).group(1))
-    assert (const("kThreads"), const("kVec"), const("kSumsqBlocks")) == (
-        K.THREADS, K.VEC, K.SUMSQ_BLOCKS)
+    assert (const("kThreads"), const("kVec"), const("kChunkBytes"),
+            const("kSumsqLeaves")) == (K.THREADS, K.VEC, K.CHUNK_BYTES,
+                                       K.SUMSQ_LEAVES)
 
 
 # ---------------------------------------------------------------------------
@@ -424,8 +490,9 @@ def _emulating_kernels(monkeypatch):
         return p, m, v
 
     def sumsq(tensors):
-        calls["sumsq"] += len(tensors)
-        return torch.tensor(emulate_sumsq([as_f32(t) for t in tensors]))
+        calls["sumsq"] += len(K.sumsq_plan([(t.numel(), t.dtype)
+                                            for t in tensors if t.numel()]))
+        return torch.tensor(emulate_sumsq(tensors))
     monkeypatch.setattr(K, "adamw_update", adamw)
     monkeypatch.setattr(K, "sumsq", sumsq)
     monkeypatch.setattr(K, "takes_kernel", lambda tensors: all(
@@ -436,7 +503,8 @@ def _emulating_kernels(monkeypatch):
 @pytest.mark.parametrize("donate", [True, False])
 def test_a_kernel_train_step_launches_once_a_leaf(donate, monkeypatch):
     """With the emulations standing in for the kernels (``takes_kernel``
-    true), a train step launches each once a leaf, in place only when
+    true), a train step launches the update once a leaf and the norm once
+    over every grad, the update in place only when
     donating, leaves a non-donated state alone, and lands within 1e-6 of
     the plain step (the norm's order of sums and the CPU's square root
     differ from the plain version's in the last bits)."""
@@ -455,7 +523,7 @@ def test_a_kernel_train_step_launches_once_a_leaf(donate, monkeypatch):
     calls = _emulating_kernels(monkeypatch)
     step = make_train_step(cfg, warmup_steps=1, donate=donate)
     got, gm = step(state, batch)
-    assert calls["sumsq"] == n and calls["adamw_update"] == [donate] * n
+    assert calls["sumsq"] == 1 and calls["adamw_update"] == [donate] * n
     assert float(gm["grad_norm"]) == pytest.approx(float(wm["grad_norm"]),
                                                    rel=1e-6)
     if not donate:     # the out-of-place form leaves the state alone
@@ -509,11 +577,12 @@ def test_routes():
     assert K.adamw_route(torch.bfloat16, torch.float32) == "bf16_f32"
     assert [K.adamw_route(p, g) for p in DTYPES for g in DTYPES] == \
         list(K.ADAMW_ROUTES)
-    assert [K.sumsq_route(d) for d in DTYPES] == list(K.SUMSQ_ROUTES)
+    assert [K.sumsq_route([d]) for d in DTYPES] + [K.sumsq_route(DTYPES)] \
+        == list(K.SUMSQ_ROUTES)
     with pytest.raises(ValueError, match="float16"):
         K.adamw_route(torch.float16, torch.float32)
     with pytest.raises(ValueError, match="float16"):
-        K.sumsq_route(torch.float16)
+        K.sumsq_route([torch.float32, torch.float16])
 
 
 # ---------------------------------------------------------------------------
@@ -544,11 +613,12 @@ def _routes(adamw: dict, sumsq: dict) -> dict:
 # engine + 40 plain-loop + 4 resumed steps; codeqwen1.5-7b (16) 4 timed +
 # 1 profiled + 1 FLOP-counted at 16 layers and the same step on the plain
 # attention 3 timed + 1 profiled, 2 remat steps at 2; lm20m (11) x
-# train_lm.py's 200 steps; the dry-run's meta DTensors none
+# train_lm.py's 200 steps; the dry-run's meta DTensors none.  The update
+# launches once a leaf a step, the norm once a step.
 EXPECTED_OPTIMIZER_LAUNCHES = {
     "train": _routes({"f32_f32": 12 * 16 + 84 * 11, "bf16_bf16": 12 * 16},
-                     {"f32": 12 * 16 + 84 * 11, "bf16": 12 * 16}),
-    "examples": _routes({"f32_f32": 200 * 11}, {"f32": 200 * 11}),
+                     {"f32": 12 + 84, "bf16": 12}),
+    "examples": _routes({"f32_f32": 200 * 11}, {"f32": 200}),
     "dryrun": _routes({}, {}),
 }
 
@@ -575,11 +645,11 @@ def test_chip_smoke_checks_launches_on_host_and_device():
     cs = _chip_smoke()
     want = EXPECTED_OPTIMIZER_LAUNCHES["examples"]
     launches = {"flash_attention_bhsd": 0, "adamw_update": 2200,
-                "sumsq": 2200}
+                "sumsq": 200}
     cs.check_phase_launches("examples", launches, want, want, want)
     for bad in ({**launches, "flash_attention_bhsd": 1},):
         with pytest.raises(SystemExit):
             cs.check_phase_launches("examples", bad, want, want, want)
-    short = _routes({"f32_f32": 2199}, {"f32": 2200})
+    short = _routes({"f32_f32": 2199}, {"f32": 200})
     with pytest.raises(SystemExit):
         cs.check_phase_launches("examples", launches, want, short, want)

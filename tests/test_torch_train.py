@@ -269,6 +269,33 @@ class TestLossTrains:
 # ---------------------------------------------------------------------------
 
 
+# How long the reference's checkpoint writer may take to finish after its
+# ``run_training`` returns.  The reference's
+# ``CheckpointManager.save_async`` hands over its writer thread without a
+# lock, so when two of the engine's
+# checkpoint apps overlap, ``wait`` joins only one writer and
+# ``run_training`` can return before its last checkpoint is on disk (the
+# port's manager drains every write before ``wait`` returns).
+REFERENCE_WRITER_DEADLINE_S = 60.0
+
+
+def _await_reference_checkpoint(directory, step: int) -> None:
+    """Block until the reference ``run_training``'s checkpoint of ``step``
+    is on disk under ``directory`` and no write is left in flight (no
+    ``.tmp-*`` directory); fail after ``REFERENCE_WRITER_DEADLINE_S``."""
+    import time
+    final = directory / f"step_{step:08d}" / "manifest.json"
+    deadline = time.monotonic() + REFERENCE_WRITER_DEADLINE_S
+    while not (final.exists() and not any(
+            p.name.startswith(".tmp-") for p in directory.iterdir())):
+        if time.monotonic() > deadline:
+            pytest.fail(f"the reference's checkpoint writer did not put step "
+                        f"{step} on disk in {directory} within "
+                        f"{REFERENCE_WRITER_DEADLINE_S} s: found "
+                        f"{sorted(p.name for p in directory.iterdir())}")
+        time.sleep(0.05)
+
+
 def test_run_training_resumed_matches_jax(tmp_path, capsys):
     """The JAX driver trains ``tiny`` 4 steps and checkpoints; both drivers
     resume from that checkpoint (the same start state) for 4 more steps.
@@ -285,10 +312,12 @@ def test_run_training_resumed_matches_jax(tmp_path, capsys):
               log_every=0)
     JT.run_training(JT.PRESETS["tiny"], ckpt_dir=str(tmp_path / "first"),
                     **kw)
+    _await_reference_checkpoint(tmp_path / "first", 4)
     for name in ("jax", "port"):
         shutil.copytree(tmp_path / "first", tmp_path / name)
     want = JT.run_training(JT.PRESETS["tiny"], ckpt_dir=str(tmp_path / "jax"),
                            resume=True, **kw)
+    _await_reference_checkpoint(tmp_path / "jax", 8)
     got = TT.run_training(TT.PRESETS["tiny"], ckpt_dir=str(tmp_path / "port"),
                           resume=True, device="cpu", **kw)
     assert got["start_step"] == 4 and got["final_step"] == want[
