@@ -6,7 +6,9 @@ Run from the repo root with no arguments:
     python3 chip_smoke.py
 
 (``--kernels-only`` stops after phase 3 and prints its kernels line but
-no result line.)
+no result line; ``--serve-parent`` times each serve path's prefill and
+replayed decode step on the norm and RoPE kernels and on their plain
+versions, in turns, after the build, and prints no result line.)
 
 Full profiler tables land in ``chiprun_out/chip_smoke/`` (gitignored).
 Phases, each printing one JSON line (any failure exits non-zero and prints
@@ -15,7 +17,7 @@ no result):
 1. device: the card's name and power limit; TF32 off for matmuls and cuDNN.
 2. build: compile every CUDA kernel from ``src/repro_torch/csrc`` with nvcc
    (flash attention, the SSD scan, decode attention, the optimizer, the
-   training attention),
+   training attention, RMSNorm and RoPE),
    all at once, and beside them flash attention with ``-DFLASH_FORCE_MMA``,
    the SSD scan with ``-DSSD_FORCE_MMA`` and the training attention with
    ``-DTRAIN_ATTN_FORCE_MMA`` (the ``mma_bf16`` routes at every shape), and
@@ -78,7 +80,19 @@ no result):
    each held to the same; at codeqwen1.5-7b's train shape (bf16) and
    lm100m's (f32) the forward, the backward and both timed against their
    bounds, the old route (in turns), the plain route and SDPA in the
-   inputs' dtype and on f32 upcasts.
+   inputs' dtype and on f32 upcasts.  RMSNorm's forward and backward
+   (dx; dscale by a second kernel) and RoPE's rotation of q and k (one
+   launch, the backward by -angle) through their launch functions
+   (``kernels.norm_rope``), at the paths' widths and heads
+   (``NR_NORM_CASES``, ``NR_ROPE_CASES``: d_model, the SSM's f32 gated
+   norm, chameleon's qk-norm, decode's (B, 1), GQA, D = 80, 8192
+   positions, odd widths, an unaligned x): within the training
+   attention's tolerance of the plain versions on f32 upcasts, RoPE the
+   plain rotation's bits or within 1 bf16 ulp (its largest ulp
+   difference printed), the same bits over 3 calls, one device launch a
+   kernel a call; each timed at codeqwen1.5-7b's train shape in turns
+   with its plain version, beside its bound and ``F.rms_norm`` on the f32
+   upcast (RoPE: no library call).
 4. serve, for each of eight paths in turn: codeqwen1.5-7b (dense, flash
    kernel), mamba2-1.3b (ssm, SSD kernel), zamba2-2.7b (hybrid, both
    kernels), granite-moe-3b-a800m (moe, flash), whisper-large-v3 (encdec,
@@ -111,7 +125,9 @@ no result):
    decode kernel once per attention call per eager step and capture on
    the host and per executed step on the device (its replays are counted
    there), on the route ``route(dtype, group, D)`` names for the path's
-   model; and full-width prefill
+   model, and the norm and RoPE kernels as often as the path's norms and
+   self-attention calls imply (``expected_norm_rope_serve``, host and
+   device); and full-width prefill
    logits
    through the kernels must be finite and near the plain route's (gemma2:
    one 8192-token sequence).  codeqwen1.5-7b then serves the same
@@ -137,14 +153,17 @@ no result):
    attention's, and at 2 layers remat on and off agreeing; the step's
    device time split by part (``train_profile``: optimizer, global norm,
    bf16 GEMMs, f32 GEMMs, the training attention kernels, other
-   elementwise work by op family, idle) beside the same step on the
-   attention's plain ops (the parent's path, ``plain_train_attention``);
+   elementwise work by op family, idle) beside the same step on the norms'
+   and RoPE's plain ops (the parent's path, ``plain_norm_rope``); the
+   kernels' peak no higher than the parent's;
    (d) no serve kernel launched in the whole phase (flash, the SSD scan
    and decode have no backward: training runs with ``use_kernel=False``,
    as the reference does), the training attention once a forward (twice
    under remat) and once a backward an attention call a microbatch, the
-   two optimizer kernels exactly once a param leaf a step on the card, on
-   the host and on the device.
+   two optimizer kernels exactly once a param leaf a step on the card, the
+   norm and RoPE kernels once a norm or self-attention call a forward (the
+   layers' twice under remat) and a backward
+   (``expected_norm_rope_launches``), on the host and on the device.
 6. dryrun, with every kernel count set to 0: (a) the port's dry-run of
    mamba2-1.3b x decode_32k on the 256-rank fake mesh ends ok and agrees
    with the reference's committed record on params, chips, decisions and
@@ -157,17 +176,18 @@ no result):
    counted in phase 5),
    printed with the roofline's terms beside the measured times; (d) no
    kernel launched (the steps run on meta DTensors, which take the
-   optimizer's plain versions).
+   optimizer's, the norms' and RoPE's plain versions).
 7. examples, with every kernel count set to 0: ``examples/torch/``'s
    CHILES pipeline recovers its source in band 2, and ``train_lm.py`` at
    its defaults (lm20m, 200 steps through the engine) lowers the loss; no
    serve kernel launched, the training attention once a forward and once
    a backward a layer a step, the optimizer kernels once a param leaf a
-   step.
+   step, the norm and RoPE kernels once a call a forward and a backward.
 8. the kernels line (the ``mma_3xtf32`` routes also on lines of their
    own: flash at whisper's encoder, the training attention at lm100m's
-   shape, each with its launches on that route), the card line, then the
-   result line.
+   shape, each with its launches on that route; the norm and RoPE
+   kernels with their device launches by serve path and phase), the card
+   line, then the result line.
 
 It imports nothing of JAX or of the JAX package.  Without CUDA it exits 2.
 """
@@ -183,6 +203,7 @@ import sys
 import threading
 import time
 from pathlib import Path
+from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -1225,8 +1246,8 @@ def plain_optimizer():
 
 @contextlib.contextmanager
 def plain_train_attention():
-    """The training attention's plain ops on the card, for the parent's
-    column and the FLOP-counted steps (``FlopCounterMode`` cannot see a
+    """The training attention's plain ops on the card, for step 1's plain
+    grads and the FLOP-counted steps (``FlopCounterMode`` cannot see a
     ctypes launch): ``models.attention._attend`` is shown no kernel device
     (``kernels.train_attention.takes_kernel`` answers False), so it runs
     as it did before the kernels."""
@@ -2013,6 +2034,552 @@ def phase_train_attention_kernel(torch, ta) -> list:
     return entries, x3
 
 
+# RMSNorm and RoPE (``kernels/norm_rope.py``): every rms_norm and
+# apply_rope on CUDA tensors, forward and backward, on every train and
+# serve path
+NR_SOURCE = "src/repro_torch/csrc/norm_rope.cu"
+NR_REPLACES = {
+    "rms_norm_fwd": "src/repro/models/common.py:167 rms_norm (jnp inside "
+                    "jax.jit, src/repro/launch/train.py:96 and "
+                    "src/repro/launch/serve.py:75-76; no Pallas kernel)",
+    "rms_norm_bwd": "src/repro/models/common.py:167 rms_norm's vjp "
+                    "(jax.grad inside jax.jit, src/repro/launch/train.py:96;"
+                    " no Pallas kernel)",
+    "rope": "src/repro/models/common.py:196 apply_rope and its vjp (jnp "
+            "inside jax.jit; no Pallas kernel)"}
+NR_SHAPE = {"rms_norm_fwd": "codeqwen1.5-7b train: B8 S512 d4096 bf16",
+            "rms_norm_bwd": "codeqwen1.5-7b train: B8 S512 d4096 bf16",
+            "rope": "codeqwen1.5-7b train: q and k B8 S512 32/32 heads x "
+                    "128 bf16"}
+# name, shape, x dtype, scale dtype, x at an unaligned address: the paths'
+# widths (d_model, the SSM's gated norm over d_inner in f32, chameleon's
+# qk-norm over (B, S, H, hd)), command-r-plus's 12,288 (rows in passes,
+# several rows a backward chunk), decode's (B, 1, d), odd widths
+NR_NORM_CASES = (
+    ("codeqwen_train", (8, 512, 4096), "bf16", "bf16", False),
+    ("codeqwen_decode", (4, 1, 4096), "bf16", "bf16", False),
+    ("mamba2_gated_f32", (4, 512, 4096), "f32", "bf16", False),
+    ("lm100m_f32", (8, 128, 768), "f32", "f32", False),
+    ("mamba2_2048", (4, 64, 2048), "bf16", "bf16", False),
+    ("zamba2_2560", (4, 64, 2560), "bf16", "bf16", False),
+    ("zamba2_gated_5120", (4, 64, 5120), "f32", "bf16", False),
+    ("granite_1536", (4, 64, 1536), "bf16", "bf16", False),
+    ("whisper_enc_1280", (4, 64, 1280), "f32", "bf16", False),
+    ("gemma2_4608", (2, 64, 4608), "bf16", "bf16", False),
+    ("nemotron_decode_6144", (4, 1, 6144), "bf16", "bf16", False),
+    ("chameleon_8192", (4, 16, 8192), "bf16", "bf16", False),
+    ("command_r_12288", (4, 128, 12288), "bf16", "bf16", False),
+    ("command_r_decode_12288_f32", (4, 1, 12288), "f32", "f32", False),
+    ("chameleon_qk_128", (4, 64, 64, 128), "bf16", "bf16", False),
+    ("odd_17_f32", (3, 7, 17), "f32", "f32", False),
+    ("odd_83_bf16", (5, 83), "bf16", "bf16", False),
+    ("unaligned_4096_bf16", (6, 4096), "bf16", "bf16", True),
+    ("unaligned_8192_f32", (3, 8192), "f32", "bf16", True),
+    ("unaligned_12288_bf16", (600, 12288), "bf16", "bf16", True),
+    ("odd_12289_f32", (3, 12289), "f32", "bf16", False),
+)
+# name, B, S, q heads, k heads (0: q alone), head dim, dtype, first position
+NR_ROPE_CASES = (
+    ("codeqwen_train", 8, 512, 32, 32, 128, "bf16", 0),
+    ("codeqwen_decode", 4, 1, 32, 32, 128, "bf16", 527),
+    ("granite_gqa3_d64", 4, 512, 24, 8, 64, "bf16", 0),
+    ("zamba2_d80", 4, 64, 32, 32, 80, "bf16", 0),
+    ("gemma2_8192", 1, 8192, 32, 16, 128, "bf16", 0),
+    ("chameleon_gqa8", 4, 64, 64, 8, 128, "bf16", 0),
+    ("lm100m_f32", 8, 128, 12, 12, 64, "f32", 0),
+    ("shifted_hd18_f32", 2, 33, 3, 1, 18, "f32", 3),
+    ("shifted_hd18_bf16", 2, 33, 3, 1, 18, "bf16", 3),
+    ("q_alone_bf16", 2, 16, 4, 0, 32, "bf16", 0),
+)
+NR_DTYPES = {"f32": "float32", "bf16": "bfloat16"}
+NR_THETA = 1e6                  # codeqwen1.5-7b's rope_theta
+
+
+@contextlib.contextmanager
+def plain_norm_rope():
+    """The norms' and RoPE's plain versions on the card, for the parent's
+    column of the train step: ``models.common``'s ``rms_norm`` and
+    ``apply_rope`` are shown no kernel device (``kernels.norm_rope.
+    takes_kernel`` answers False), so they run as they did before the
+    kernels."""
+    from repro_torch.kernels import norm_rope as NR
+    real = NR.takes_kernel
+    NR.takes_kernel = lambda tensors: False
+    try:
+        yield
+    finally:
+        NR.takes_kernel = real
+
+
+def ulp_diff(torch, got, want) -> int:
+    """The largest distance in units in the last place between two tensors
+    of one float dtype (their bits as ordered integers)."""
+    ints = {2: torch.int16, 4: torch.int32}[got.element_size()]
+
+    def ordered(t):
+        b = t.contiguous().view(ints).long()
+        top = 1 << (8 * got.element_size() - 1)
+        return torch.where(b < 0, -(b + top), b)
+    return int((ordered(got) - ordered(want)).abs().max())
+
+
+def nr_norm_inputs(torch, shape, x_dt, s_dt, unaligned, gen):
+    dt = {k: getattr(torch, v) for k, v in NR_DTYPES.items()}
+    n, numel = shape[-1], math.prod(shape)
+    # one element in: an address 2 or 4 bytes past a 16-byte boundary
+    base = torch.randn(numel + 1, generator=gen, device="cuda").to(dt[x_dt])
+    x = (base[1:] if unaligned else base[:numel]).view(shape)
+    scale = (0.1 * torch.randn(n, generator=gen, device="cuda")).to(dt[s_dt])
+    dy = torch.randn(shape, generator=gen, device="cuda").to(dt[x_dt])
+    return x, scale, dy
+
+
+def nr_norm_check(torch, nr, C, case, gen) -> dict:
+    """A norm case: the forward and the backward (dx, dscale) against the
+    plain versions on f32 upcasts of the same values (``ta_within``), the
+    same bits over 3 calls, one device launch each per call."""
+    name, shape, x_dt, s_dt, unaligned = case
+    x, scale, dy = nr_norm_inputs(torch, shape, x_dt, s_dt, unaligned, gen)
+    if unaligned and x.data_ptr() % 16 == 0:
+        fail(f"norm case {name}: x is aligned")
+    lib = nr._lib()
+    before = nr.kernel_launches(lib)
+    ys = [nr.rms_norm_fwd(x, scale) for _ in range(3)]
+    grads = [nr.rms_norm_bwd(x, scale, dy) for _ in range(3)]
+    torch.cuda.synchronize()
+    after = nr.kernel_launches(lib)
+    route = nr.norm_route(x.dtype, scale.dtype)
+    launched = {k: after[k][route] - before[k][route]
+                for k in ("rms_norm_fwd", "rms_norm_bwd", "rms_norm_dscale")}
+    want_y = C.rms_norm_plain(x.float(), scale.float())
+    want_dx, want_ds = nr.rms_norm_bwd_plain(x.float(), scale.float(),
+                                             dy.float())
+    row = {"shape": list(shape), "x": x_dt, "scale": s_dt,
+           "unaligned": unaligned, "route": route,
+           "plan": nr.plan(x.numel() // shape[-1], shape[-1],
+                           not unaligned and shape[-1] % nr.VEC == 0),
+           "forward": ta_within(torch, ys[0], want_y),
+           "dx": ta_within(torch, grads[0][0], want_dx),
+           "dscale": ta_within(torch, grads[0][1], want_ds),
+           "repeats": all(same_bits(torch, y, ys[0]) for y in ys)
+           and all(same_bits(torch, a, grads[0][0])
+                   and same_bits(torch, b, grads[0][1]) for a, b in grads),
+           "device_launches": launched}
+    row["ok"] = (row["forward"]["ok"] and row["dx"]["ok"]
+                 and row["dscale"]["ok"] and row["repeats"]
+                 and launched == dict.fromkeys(launched, 3))
+    return row
+
+
+def nr_rope_inputs(torch, case, gen):
+    name, b, s, hq, hk, hd, dt, first = case
+    dtype = getattr(torch, NR_DTYPES[dt])
+    xs = [torch.randn((b, s, h, hd), generator=gen, device="cuda")
+          .to(dtype) for h in (hq, hk) if h]
+    dys = [torch.randn_like(x.float()).to(dtype) for x in xs]
+    if s == 1:           # a decode step's position: a (B, 1) view of one
+        pos = torch.full((), first, dtype=torch.int64,
+                         device="cuda").view(1, 1).expand(b, 1)
+    else:
+        pos = (torch.arange(s, device="cuda") + first).expand(b, s)
+    return xs, dys, pos
+
+
+def nr_rope_check(torch, nr, C, case, gen) -> dict:
+    """A RoPE case: q and k (one launch) forward and backward against the
+    plain rotation and ``rope_bwd_plain`` on the card: the same bits, or
+    within 1 bf16 ulp (f32: ``ta_within`` of an f32 plain result) where
+    the card's cosf / sinf differ from torch's; the same bits over 3
+    calls; one device launch a call."""
+    name, b, s, hq, hk, hd, dt, first = case
+    xs, dys, pos = nr_rope_inputs(torch, case, gen)
+    freqs = C.rope_freqs(hd, NR_THETA, torch.device("cuda"))
+    lib = nr._lib()
+    before = nr.kernel_launches(lib)["rope"]
+    outs = [nr.rope(xs, pos, freqs) for _ in range(3)]
+    backs = [nr.rope(dys, pos, freqs, backward=True) for _ in range(3)]
+    torch.cuda.synchronize()
+    after = nr.kernel_launches(lib)["rope"]
+    launched = {r: after[r] - before[r] for r in after
+                if after[r] != before[r]}
+    row = {"B": b, "S": s, "heads": [hq, hk], "head_dim": hd, "dtype": dt,
+           "first_position": first, "device_launches": launched}
+    ok = launched == {nr.rope_route(xs[0].dtype): 3,
+                      nr.rope_route(xs[0].dtype, True): 3}
+    for part, got, want in (
+            ("forward", outs[0],
+             [C.apply_rope_plain(x, pos, NR_THETA) for x in xs]),
+            ("backward", backs[0],
+             [nr.rope_bwd_plain(d, pos, NR_THETA) for d in dys])):
+        same = all(same_bits(torch, g, w) for g, w in zip(got, want))
+        ulps = max(ulp_diff(torch, g, w) for g, w in zip(got, want))
+        row[part] = {"same_bits": same, "max_ulp": ulps,
+                     "max_abs_err": max(float((g.float() - w.float()).abs()
+                                              .max())
+                                        for g, w in zip(got, want))}
+        if dt == "bf16":
+            ok = ok and ulps <= 1
+        else:
+            f32 = [C.apply_rope_plain(x.float(), pos, NR_THETA) for x in xs] \
+                if part == "forward" else want
+            ok = ok and all(ta_within(torch, g, w)["ok"]
+                            for g, w in zip(got, f32))
+    row["repeats"] = all(same_bits(torch, a, c) for o in (outs, backs)
+                         for other in o for a, c in zip(other, o[0]))
+    row["ok"] = ok and row["repeats"]
+    return row
+
+
+def nr_bounds(tensors_in, tensors_out, flops: int) -> dict:
+    """Bytes (each input read and each output written once) at 3.35 TB/s
+    against ``flops`` f32 operations at 67 TFLOP/s; the larger bounds."""
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (*tensors_in, *tensors_out))
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = flops / H100_PEAK_FLOPS["torch.float32"] * 1e3
+    return dict(bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def nr_times(torch, nr, C, gen) -> dict:
+    """At codeqwen1.5-7b's train shape (bf16): the norm's forward and
+    backward and RoPE's (q and k together) forward and backward, each in
+    turns with its plain version (kernel, plain, plain, kernel; the plain
+    backward is autograd's over the plain ops, as the parent ran it),
+    beside its bound and the library call: ``F.rms_norm`` on the f32
+    upcast with weight 1 + scale (forward; its autograd backward), none
+    for RoPE (no PyTorch call computes it); and the host's microseconds a
+    call through ``models.common`` at a decode step's shape, kernel and
+    plain (``host_us``)."""
+    import torch.nn.functional as F
+    x, scale, dy = nr_norm_inputs(torch, (8, 512, 4096), "bf16", "bf16",
+                                  False, gen)
+    n = x.shape[-1]
+    xs, dys, pos = nr_rope_inputs(torch, NR_ROPE_CASES[0], gen)
+    freqs = C.rope_freqs(128, NR_THETA, torch.device("cuda"))
+    xl = x.detach().requires_grad_()
+    sl = scale.detach().requires_grad_()
+    y_plain = C.rms_norm_plain(xl, sl)
+    xf = x.float().requires_grad_()
+    w = (1.0 + scale.float()).requires_grad_()
+    y_lib = F.rms_norm(xf, (n,), w, 1e-6)
+    dyf = dy.float()
+    ql = [t.detach().requires_grad_() for t in xs]
+    r_plain = [C.apply_rope_plain(t, pos, NR_THETA) for t in ql]
+    rows = x.numel() // n
+    hd, pairs = 128, sum(t.numel() for t in xs) // 2
+    cases = {
+        "rms_norm_fwd": (
+            lambda: nr.rms_norm_fwd(x, scale),
+            lambda: C.rms_norm_plain(x, scale),
+            lambda: F.rms_norm(xf.detach(), (n,), w.detach(), 1e-6),
+            nr_bounds((x, scale), (x,), 4 * x.numel() + 2 * rows)),
+        "rms_norm_bwd": (
+            lambda: nr.rms_norm_bwd(x, scale, dy),
+            lambda: torch.autograd.grad(y_plain, (xl, sl), dy,
+                                        retain_graph=True),
+            lambda: torch.autograd.grad(y_lib, (xf, w), dyf,
+                                        retain_graph=True),
+            nr_bounds((x, dy, scale), (x, scale), 10 * x.numel())),
+        "rope": (
+            lambda: nr.rope(xs, pos, freqs),
+            lambda: [C.apply_rope_plain(t, pos, NR_THETA) for t in xs],
+            None,
+            nr_bounds((*xs, pos, freqs), xs,
+                      6 * pairs + 40 * pos.numel() * (hd // 2))),
+        "rope_backward": (
+            lambda: nr.rope(dys, pos, freqs, backward=True),
+            lambda: torch.autograd.grad(r_plain, ql, dys,
+                                        retain_graph=True),
+            None,
+            nr_bounds((*dys, pos, freqs), dys,
+                      6 * pairs + 40 * pos.numel() * (hd // 2))),
+    }
+    out = {}
+    for name, (fast, slow, lib_call, bound) in cases.items():
+        ms = {"kernel": [], "plain": []}
+        for which in ("kernel", "plain", "plain", "kernel"):
+            ms[which].append(cuda_ms(fast if which == "kernel" else slow,
+                                     iters=20, warmup=2))
+        row = dict(ms=sum(ms["kernel"]) / 2, plain_ms=sum(ms["plain"]) / 2,
+                   turns=ms, library_ms=(cuda_ms(lib_call, iters=20,
+                                                 warmup=2)
+                                         if lib_call else None), **bound)
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        out[name] = row
+    out["rms_norm_fwd"]["library"] = ("torch.nn.functional.rms_norm on the "
+                                      "f32 upcast, weight 1 + scale (the "
+                                      "upcasts outside the timed call)")
+    out["rms_norm_bwd"]["library"] = ("autograd of torch.nn.functional."
+                                      "rms_norm on the f32 upcast")
+    for k in ("rope", "rope_backward"):
+        out[k]["library"] = "none: no PyTorch call computes RoPE"
+    # the host's time a call through the model's entry points at a decode
+    # step's shape (the serve's eager steps and prefills pay it)
+    xd, sd, _ = nr_norm_inputs(torch, (4, 1, 4096), "bf16", "bf16", False,
+                               gen)
+    (qd, kd), _, pd = nr_rope_inputs(torch, NR_ROPE_CASES[1], gen)
+    # ("launch": the launch function called alone, without the autograd
+    # function that the entry points go through)
+    out["host_us"] = {
+        "rms_norm": {"kernel": host_us(torch, lambda: C.rms_norm(xd, sd)),
+                     "launch": host_us(torch,
+                                       lambda: nr.rms_norm_fwd(xd, sd)),
+                     "plain": host_us(torch,
+                                      lambda: C.rms_norm_plain(xd, sd))},
+        "rope_qk": {"kernel": host_us(torch, lambda: C.apply_rope_qk(
+                        qd, kd, pd, NR_THETA)),
+                    "launch": host_us(torch, lambda: nr.rope(
+                        (qd, kd), pd, C.rope_freqs(qd.shape[-1], NR_THETA,
+                                                   qd.device))),
+                    "plain": host_us(torch, lambda: [
+                        C.apply_rope_plain(t, pd, NR_THETA)
+                        for t in (qd, kd)])}}
+    return out
+
+
+def phase_norm_rope_kernel(torch, nr) -> list:
+    """The norm and RoPE kernels against their plain versions on the card
+    (``NR_NORM_CASES``, ``NR_ROPE_CASES``: the paths' widths and heads,
+    decode's (B, 1), odd widths, an unaligned x, f32 and bf16, a scale of
+    the other dtype), forward and backward, the same bits over 3 calls,
+    one device launch a kernel a call; then each timed at codeqwen's train
+    shape (``nr_times``).  Returns the kernels line's three entries."""
+    from repro_torch.models import common as C
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    t0 = time.monotonic()
+    failed, worst = [], {"rms_norm_fwd": 0.0, "rms_norm_bwd": 0.0,
+                         "rope": 0.0}
+    rope_bits = {"forward": True, "backward": True}
+    rope_ulps = {"forward": 0, "backward": 0}
+    for case in NR_NORM_CASES:
+        row = nr_norm_check(torch, nr, C, case, gen)
+        emit("kernel_check", kernel="norm", case=case[0], **row)
+        worst["rms_norm_fwd"] = max(worst["rms_norm_fwd"],
+                                    row["forward"]["max_abs_err"])
+        worst["rms_norm_bwd"] = max(worst["rms_norm_bwd"],
+                                    row["dx"]["max_abs_err"],
+                                    row["dscale"]["max_abs_err"])
+        if not row["ok"]:
+            failed.append(f"norm {case[0]}")
+    for case in NR_ROPE_CASES:
+        row = nr_rope_check(torch, nr, C, case, gen)
+        emit("kernel_check", kernel="rope", case=case[0], **row)
+        for part in ("forward", "backward"):
+            worst["rope"] = max(worst["rope"], row[part]["max_abs_err"])
+            rope_bits[part] = rope_bits[part] and row[part]["same_bits"]
+            rope_ulps[part] = max(rope_ulps[part], row[part]["max_ulp"])
+        if not row["ok"]:
+            failed.append(f"rope {case[0]}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    times = nr_times(torch, nr, C, gen)
+    emit("norm_rope_times", shape=NR_SHAPE, times=times,
+         rope_same_bits=rope_bits, rope_max_ulp=rope_ulps,
+         seconds=time.monotonic() - t0)
+    if failed:
+        fail(f"norm / rope kernels differ from the plain versions: {failed}")
+    entries = []
+    for name in ("rms_norm_fwd", "rms_norm_bwd", "rope"):
+        t = times[name]
+        entry = {
+            "name": name, "route": "cuda",
+            "kernel_route": "forward_bf16" if name == "rope" else "bf16_bf16",
+            "kernel_routes": list(nr.ROPE_ROUTES if name == "rope"
+                                  else nr.NORM_ROUTES),
+            "source": NR_SOURCE + {
+                "rms_norm_fwd": " (rms_norm_fwd_kernel)",
+                "rms_norm_bwd": " (rms_norm_bwd_kernel, "
+                                "rms_norm_dscale_kernel)",
+                "rope": " (rope_kernel, forward and backward)"}[name],
+            "replaces": NR_REPLACES[name], "shape": NR_SHAPE[name],
+            "max_abs_err": worst[name], "ms": t["ms"], "kernel_ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "library": t["library"]}
+        if name == "rope":
+            b = times["rope_backward"]
+            entry.update(backward_ms=b["ms"], backward_plain_ms=b["plain_ms"],
+                         backward_bound_ms=b["bound_ms"],
+                         same_bits=rope_bits, max_ulp=rope_ulps)
+        entries.append(entry)
+    return entries
+
+
+def norm_rope_calls(cfg, step: str) -> dict:
+    """The norms and RoPE launches of one pass of ``cfg``: ``step``
+    "forward" (``forward_train``'s or a prefill's) or "decode" (one decode
+    step).  ``layer_norms``: the norms inside the layers (remat recomputes
+    them): a block's attn and mlp norms, the cross norm of whisper's
+    decoder, chameleon's q and k norms a q / k projection, the Mamba2
+    layer's norm and its gated norm; ``outer_norms``: the final norm (and
+    the encoder's); ``ropes``: one a self-attention call (q and k in one
+    launch; none in whisper)."""
+    from repro_torch.models import model as M
+    qk = 2 if cfg.qk_norm else 0
+    out = {"layer_norms": (2 + qk) * cfg.num_layers, "outer_norms": 1,
+           "ropes": cfg.num_layers}
+    if cfg.family in ("ssm", "hybrid"):
+        calls = M._shared_groups(cfg) if cfg.family == "hybrid" else 0
+        out.update(layer_norms=2 * cfg.num_layers + (2 + qk) * calls,
+                   ropes=calls)
+    elif cfg.family == "encdec":
+        # the forward's cross-attention projects q and k (their qk norms);
+        # the decode step's reads the cached encoder K / V
+        dec = (3 + 2 * qk if step == "forward" else 3 + qk) * cfg.num_layers
+        enc = (2 + qk) * cfg.num_encoder_layers if step == "forward" else 0
+        out.update(layer_norms=dec + enc, ropes=0,
+                   outer_norms=2 if step == "forward" else 1)
+    return out
+
+
+def expected_norm_rope_serve(cfg, n_micro: int, decode_steps: int) -> dict:
+    """The norm and RoPE launches of a serve run, in all a kernel, on the
+    host and on the device: each microbatch's prefill one forward; each
+    microbatch's decode app ``decode_steps - 1`` steps on the device (its
+    replays counted there), its eager first step and its capture on the
+    host (``expected_decode_launches``' rule); no backward."""
+    fwd, dec = norm_rope_calls(cfg, "forward"), norm_rope_calls(cfg, "decode")
+    steps = max(decode_steps - 1, 0)
+    out = {}
+    for name, per in (("rms_norm_fwd", lambda c: c["layer_norms"]
+                       + c["outer_norms"]), ("rope", lambda c: c["ropes"])):
+        out[name] = {"host": n_micro * (per(fwd) + min(steps, 1) * 2
+                                        * per(dec)),
+                     "device": n_micro * (per(fwd) + steps * per(dec))}
+    for name in ("rms_norm_bwd", "rms_norm_dscale"):
+        out[name] = {"host": 0, "device": 0}
+    return out
+
+
+def norm_rope_steps(phase: str) -> list:
+    """(config, steps, microbatches a step, forwards a layer, backward) of
+    a phase's passes through the norm and RoPE kernels: every step of
+    ``attention_steps`` (remat's recompute runs the layers' forwards
+    again), and in the train phase two more full-width steps (the
+    FLOP-counted one and step 1's grads on the plain attention) and
+    ``forward_train``'s loss (no grad: one forward).  The parent
+    column's steps run the plain norms and RoPE."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    out = [(cfg, steps, micro, fwd, True)
+           for cfg, steps, micro, fwd in attention_steps(phase)]
+    if phase == "train":
+        full = dataclasses.replace(get_config("codeqwen15_7b"),
+                                   num_layers=TRAIN_FULL["layers"])
+        out += [(full, 2, 1, 2, True), (full, 1, 1, 1, False)]
+    return out
+
+
+def expected_norm_rope_launches(nr, phase: str) -> dict:
+    """The norm and RoPE kernels' launches a train, examples or dry-run
+    phase must make, by kernel and route (``norm_rope_steps``, each
+    model's dtype for x and the scale): the norm's forward once a norm a
+    forward (the layers' twice under remat), its backward and dscale once
+    a norm a backward, RoPE once a self-attention call a forward and once
+    a backward."""
+    want = {"rms_norm_fwd": dict.fromkeys(nr.NORM_ROUTES, 0),
+            "rms_norm_bwd": dict.fromkeys(nr.NORM_ROUTES, 0),
+            "rms_norm_dscale": dict.fromkeys(nr.NORM_ROUTES, 0),
+            "rope": dict.fromkeys(nr.ROPE_ROUTES, 0)}
+    for cfg, steps, micro, forwards, backward in norm_rope_steps(phase):
+        dt = cfg.torch_dtype
+        c = norm_rope_calls(cfg, "forward")
+        n, r = micro * steps, nr.norm_route(dt, dt)
+        want["rms_norm_fwd"][r] += n * (c["layer_norms"] * forwards
+                                        + c["outer_norms"])
+        want["rope"][nr.rope_route(dt)] += n * c["ropes"] * forwards
+        if backward:
+            for k in ("rms_norm_bwd", "rms_norm_dscale"):
+                want[k][r] += n * (c["layer_norms"] + c["outer_norms"])
+            want["rope"][nr.rope_route(dt, True)] += n * c["ropes"]
+    return want
+
+
+NORM_ROPE_LAUNCHES: dict = {}    # phase or path -> host and device counts
+
+
+def phase_serve_parent(torch) -> None:
+    """``--serve-parent``: each serve path's prefill and replayed decode
+    step at full width and depth (``phase_steps``' batch), on the norm and
+    RoPE kernels and on their plain versions (``plain_norm_rope``, the
+    parent's path), in turns (kernels, parent, parent, kernels): the
+    medians of 3 prefills and of 8 replays a turn on the host clock, each
+    ended by a synchronise; each turn captures its own decode graph."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import prompt_batch
+    from repro_torch.models import model as M
+    from repro_torch.train import make_decode_step, make_prefill_step
+    for arch in PATHS:
+        cfg, shape = get_config(arch), serve_shape(arch)
+        mb, s, steps = (shape["microbatch"], shape["prompt_len"],
+                        shape["decode_steps"])
+        params = M.init_params(cfg, device="cuda")
+        batch = prompt_batch(cfg, torch.from_numpy(
+            np.random.default_rng(2).integers(0, cfg.vocab_size,
+                                              size=(mb, s))).cuda())
+        prefill_step = make_prefill_step(cfg)
+        turns = {w: {"prefill_ms": [], "decode_step_ms": []}
+                 for w in ("kernels", "parent")}
+        for which in ("kernels", "parent", "parent", "kernels"):
+            with (plain_norm_rope() if which == "parent"
+                  else contextlib.nullcontext()):
+                first, cache = prefill_step(params, batch, s + steps)
+                tok, decode_one = first[:, None], make_decode_step(cfg)
+                turns[which]["prefill_ms"].append(step_ms(
+                    torch, lambda: prefill_step(params, batch, s + steps),
+                    3)[0])
+                turns[which]["decode_step_ms"].append(step_ms(
+                    torch, lambda: decode_one(params, cache, tok, s), 8)[0])
+                decode_one.close()
+            del first, cache, tok, decode_one
+        emit("serve_parent", config=cfg.name, microbatch=mb, prompt_len=s,
+             turns=turns, **{f"{w}_{k}": sum(v) / 2 for w, t in turns.items()
+                             for k, v in t.items()})
+        del params, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def norm_rope_window(nr):
+    """Counts the norm and RoPE kernels' launches from this call on: the
+    host's (the wrappers' counts, set to 0 here) and the device's.  The
+    returned ``check(what, want)`` fails unless each kernel's launches in
+    all equal ``want`` (``expected_norm_rope_serve``'s host and device
+    totals), or, with ``want`` by route (``expected_norm_rope_launches``:
+    no graph replays), the host and the device each equal it by route;
+    it keeps the counts in ``NORM_ROPE_LAUNCHES[what]``."""
+    fns = {"rms_norm_fwd": nr.rms_norm_fwd, "rms_norm_bwd": nr.rms_norm_bwd,
+           "rope": nr.rope}
+    _zero_counts(fns)
+    lib = nr._lib()
+    before = nr.kernel_launches(lib)
+
+    def check(what: str, want: dict) -> None:
+        after = nr.kernel_launches(lib)
+        device = {k: {r: n - before[k][r] for r, n in by.items()}
+                  for k, by in after.items()}
+        host = {k: dict(fn.launches_by_route) for k, fn in fns.items()}
+        host["rms_norm_dscale"] = dict(host["rms_norm_bwd"])
+        NORM_ROPE_LAUNCHES[what] = {"host": host, "device": device}
+        emit("norm_rope_launches", what=what, host=host, device=device,
+             expected=want)
+        if all("host" in w for w in want.values()):
+            got = {k: {"host": sum(host[k].values()),
+                       "device": sum(device[k].values())} for k in want}
+            bad = got != want or any(device[k][r] < host[k][r]
+                                     for k in host for r in host[k])
+        else:
+            bad = host != want or device != want
+        if bad:
+            fail(f"{what}: norm / rope launches host {host}, device "
+                 f"{device}, expected {want}")
+    return check
+
+
 PATHS = ("codeqwen15_7b", "mamba2_1_3b", "zamba2_2_7b",
          "granite_moe_3b_a800m", "whisper_large_v3", "gemma2_27b",
          "nemotron_4_15b", "chameleon_34b")
@@ -2063,6 +2630,7 @@ def phase_serve(torch, arch, mods):
     import dataclasses
 
     from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.kernels import norm_rope as nr
     from repro_torch.launch.serve import run_serving
     from repro_torch.models import model as M
 
@@ -2123,8 +2691,11 @@ def phase_serve(torch, arch, mods):
     flash_before = fa.kernel_launches(fa._lib())
     ssd_before = ss.kernel_launches(ss._lib())
     decode_before = da.kernel_launches(da._lib())
+    norm_rope_check = norm_rope_window(nr)
     res = run_serving(cfg, device="cuda", params=params, **shape)
     launches, by_route = _read_counts(kernels)
+    norm_rope_check(arch, expected_norm_rope_serve(
+        cfg, n_micro, shape["decode_steps"]))
     graphs = _graph_counts()
     decode_device = decode_device_delta(da, decode_before,
                                         decode_route(torch, cfg, da))
@@ -2855,11 +3426,12 @@ def profile_call(torch, fn, table_name: str, split=None) -> dict:
 # and the global norm's ops (under ``scoped_optimizer``'s ranges), the
 # GEMMs by their inputs' dtype (bf16: the projections and the head; f32:
 # the plain training attention's einsums, which upcast q, k and v), the
-# training attention kernels, the rest (elementwise, reductions, copies;
-# remat's recompute included) split by op family (``ELEMENTWISE_FAMILIES``,
-# from the op's input shapes), device time no op claims, and idle
+# training attention kernels, the norm and RoPE kernels, the rest
+# (elementwise, reductions, copies; remat's recompute included) split by op
+# family (``ELEMENTWISE_FAMILIES``, from the op's input shapes; the d_model
+# family also by op, ``RESIDUAL_OPS``), device time no op claims, and idle
 TRAIN_PARTS = ("optimizer", "global_norm", "gemm_bf16", "gemm_f32",
-               "attention_kernels", "elementwise")
+               "attention_kernels", "norm_rope_kernels", "elementwise")
 GEMM_OPS = ("aten::mm", "aten::bmm", "aten::addmm", "aten::baddbmm",
             "aten::addbmm", "aten::_addmm_activation")
 TRAIN_SCOPE = "train_step/"
@@ -2872,6 +3444,10 @@ TRAIN_SCOPE = "train_step/"
 # and copies (the rest)
 ELEMENTWISE_FAMILIES = ("attention_core", "loss_head", "mlp_gate",
                         "rope_upcasts", "norms_residual", "casts_copies")
+# the d_model family's adds: the residual adds and the grads' accumulation;
+# its other ops are the plain norms' (upcast, square, mean, rsqrt,
+# products, cast, and their backward)
+RESIDUAL_OPS = ("aten::add", "aten::add_")
 
 
 # the hand-written kernels no ATen op launches: their device time goes to
@@ -2890,7 +3466,11 @@ NAMED_KERNEL_PARTS = {"adamw_update_kernel": "optimizer",
                       "fwd_3xtf32_kernel": "attention_kernels",
                       "dq_3xtf32_kernel": "attention_kernels",
                       "dkdv_3xtf32_kernel": "attention_kernels",
-                      "delta_kernel": "attention_kernels"}
+                      "delta_kernel": "attention_kernels",
+                      "rms_norm_fwd_kernel": "norm_rope_kernels",
+                      "rms_norm_bwd_kernel": "norm_rope_kernels",
+                      "rms_norm_dscale_kernel": "norm_rope_kernels",
+                      "rope_kernel": "norm_rope_kernels"}
 
 
 def train_dims(cfg, seq: int) -> dict:
@@ -2957,11 +3537,13 @@ def train_split(torch, prof, busy_ms: float, dims: dict) -> dict:
     (``NAMED_KERNEL_PARTS``); ``elementwise`` also by op family
     (``op_family`` of the op's input shapes, recorded); ``unattributed``,
     busy time none of them claims; each part's and family's top four
-    kernels."""
+    kernels; ``norms_residual`` split into its ``adds`` (``RESIDUAL_OPS``)
+    and its ``other_ops``."""
     cpu = torch.autograd.DeviceType.CPU
     dtypes = gemm_dtypes(prof)
     parts = dict.fromkeys(TRAIN_PARTS, 0.0)
     families = dict.fromkeys(ELEMENTWISE_FAMILIES, 0.0)
+    residual = {"adds": 0.0, "other_ops": 0.0}
     names = {p: {} for p in TRAIN_PARTS + ELEMENTWISE_FAMILIES}
 
     def add(part, name, ms):
@@ -2987,10 +3569,14 @@ def train_split(torch, prof, busy_ms: float, dims: dict) -> dict:
                 fam = op_family(getattr(e, "input_shapes", None) or [],
                                 dims)
                 families[fam] += k.duration / 1e3
+                if fam == "norms_residual":
+                    residual["adds" if e.name in RESIDUAL_OPS
+                             else "other_ops"] += k.duration / 1e3
                 names[fam][f"{e.name} {k.name}"[:90]] = names[fam].get(
                     f"{e.name} {k.name}"[:90], 0.0) + k.duration / 1e3
     out = dict(parts)
     out["elementwise_families"] = families
+    out["norms_residual_split"] = residual
     out["unattributed"] = max(0.0, busy_ms - sum(parts.values()))
     out["top"] = {p: sorted(names[p].items(), key=lambda kv: -kv[1])[:4]
                   for p in TRAIN_PARTS + ELEMENTWISE_FAMILIES}
@@ -3079,7 +3665,7 @@ def optimizer_steps(phase: str) -> list:
         return [(PRESETS["tiny"], len(TRAIN_PARITY) * TRAIN_PARITY_STEPS),
                 # the engine, the plain loop, the resumed run
                 (PRESETS["lm100m"], 2 * e["steps"] + e["resume_steps"]),
-                # timed, profiled, FLOP-counted; the plain attention's
+                # timed, profiled, FLOP-counted; the parent column's
                 # timed and profiled (step 1's plain grads launch none)
                 (full, f["steps"] + 2 + TRAIN_PLAIN_STEPS + 1),
                 (dataclasses.replace(full, num_layers=2), 2)]  # remat on, off
@@ -3148,14 +3734,16 @@ def attention_calls(cfg) -> int:
     return cfg.num_layers
 
 
-def expected_attention_launches(ta, phase: str) -> dict:
+def expected_attention_launches(ta, phase: str,
+                                steps: Optional[list] = None) -> dict:
     """The training attention's launches a phase must make, by call
     (forward; backward: its delta, dQ and dK dV kernels once each) and
     route (``attention_steps``, on the route of the model's dtype and head
     dim)."""
     want = {n: dict.fromkeys(ta.ROUTES, 0) for n in
             ("train_attention_forward", "train_attention_backward")}
-    for cfg, steps, micro, forwards in attention_steps(phase):
+    for cfg, steps, micro, forwards in (attention_steps(phase)
+                                        if steps is None else steps):
         dt = cfg.torch_dtype
         r = ta.route(dt, dt, cfg.resolved_head_dim)
         n = attention_calls(cfg) * steps * micro
@@ -3164,11 +3752,34 @@ def expected_attention_launches(ta, phase: str) -> dict:
     return want
 
 
+def parent_steps(phase: str) -> list:
+    """(config, steps) of the train step's parent column in ``phase``
+    (``train_full_width``: the plain norms and RoPE beside the other
+    kernels, ``TRAIN_PLAIN_STEPS`` timed and one profiled, remat; its
+    optimizer launches are among ``optimizer_steps``')."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    if phase != "train":
+        return []
+    return [(dataclasses.replace(get_config("codeqwen15_7b"),
+                                 num_layers=TRAIN_FULL["layers"]),
+             TRAIN_PLAIN_STEPS + 1)]
+
+
 def expected_train_launches(torch, mods, phase: str) -> dict:
-    """The optimizer's and the training attention's expected launches."""
-    return {**expected_optimizer_launches(torch, mods["adamw_update"], phase),
-            **expected_attention_launches(mods["train_attention_forward"],
-                                          phase)}
+    """The optimizer's and the training attention's expected launches: the
+    phase's steps, and the training attention's in the train step's
+    parent column (``parent_steps``)."""
+    ta = mods["train_attention_forward"]
+    want = {**expected_optimizer_launches(torch, mods["adamw_update"],
+                                          phase),
+            **expected_attention_launches(ta, phase)}
+    more = expected_attention_launches(
+        ta, phase, steps=[(c, n, 1, 2) for c, n in parent_steps(phase)])
+    for k, by in more.items():
+        want[k] = {r: n + by[r] for r, n in want[k].items()}
+    return want
 
 
 def device_counts(mods) -> tuple:
@@ -3381,11 +3992,12 @@ def train_full_width(torch):
     spans by CUDA events, ``scoped_optimizer``), one more profiled and
     split by part and elementwise family (``train_split``), one
     FLOP-counted on the plain attention (``FlopCounterMode`` cannot see
-    the kernels); then the same step on the attention's plain ops
-    (``plain_train_attention``, the parent's path): ``TRAIN_PLAIN_STEPS``
-    timed the same way and one profiled and split, printed as the
+    the kernels); then the same step on the norms' and RoPE's plain ops
+    (``plain_norm_rope``, the parent's path): ``TRAIN_PLAIN_STEPS`` timed
+    the same way and one profiled and split, printed as the
     ``train_profile`` line beside the kernels' split (idle: the timed
-    step's ms less the profiled busy time)."""
+    step's ms less the profiled busy time); the kernels' peak must not
+    pass the parent's."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -3438,21 +4050,33 @@ def train_full_width(torch):
     with plain_train_attention(), \
             FlopCounterMode(display=False) as counted:     # one more step
         one_step()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    plain_times, plain_spans = [], []
-    with plain_train_attention():
-        for _ in range(TRAIN_PLAIN_STEPS):
-            t0 = time.monotonic()
-            with scoped_optimizer(plain_spans):
-                one_step()
-            torch.cuda.synchronize()
-            plain_times.append((time.monotonic() - t0) * 1e3)
-        with scoped_optimizer():
-            plain_prof = profile_call(torch, one_step,
-                                      "profile_train_step_plain.txt",
-                                      split=dims)
-    plain_peak = torch.cuda.max_memory_allocated()
+
+    def column(plain, table: str) -> dict:
+        """``TRAIN_PLAIN_STEPS`` steps timed and one profiled and split
+        under ``plain`` (a context that selects plain versions)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times_, spans_ = [], []
+        with plain():
+            for _ in range(TRAIN_PLAIN_STEPS):
+                t0 = time.monotonic()
+                with scoped_optimizer(spans_):
+                    one_step()
+                torch.cuda.synchronize()
+                times_.append((time.monotonic() - t0) * 1e3)
+            with scoped_optimizer():
+                prof_ = profile_call(torch, one_step, table, split=dims)
+        ms = sorted(times_)[len(times_) // 2]
+        return dict(step_ms=ms, step_ms_all=times_,
+                    span_ms=span_ms(spans_, len(times_)),
+                    profiled_wall_ms=prof_["wall_ms"],
+                    device_busy_ms=prof_["device_busy_ms"],
+                    idle_ms=max(0.0, ms - prof_["device_busy_ms"]),
+                    max_memory_allocated=torch.cuda.max_memory_allocated(),
+                    **prof_["split"])
+    # the parent's path: the norms and RoPE as plain ops beside the other
+    # kernels
+    parent = column(plain_norm_rope, "profile_train_step_parent.txt")
     card = {"flops": counted.get_total_flops(), "batch": f["batch"],
             "seq": f["seq"], "layers": cfg.num_layers, "step_ms": sorted(times[1:])[
                 len(times[1:]) // 2], "bound_ms": bound["bound_ms"],
@@ -3464,7 +4088,6 @@ def train_full_width(torch):
     norms = [m["grad_norm"] for m in metrics]
     step_ms = sorted(times[1:])[len(times[1:]) // 2]
     free_gb = (torch.cuda.get_device_properties(0).total_memory - peak) / 1e9
-    plain_ms = sorted(plain_times)[len(plain_times) // 2]
     emit("train_profile", config=cfg.name, layers=cfg.num_layers,
          kernels=dict(step_ms=step_ms, step_ms_all=times,
                       span_ms=span_ms(spans, len(times), skip=1),
@@ -3472,14 +4095,7 @@ def train_full_width(torch):
                       device_busy_ms=prof["device_busy_ms"],
                       idle_ms=max(0.0, step_ms - prof["device_busy_ms"]),
                       max_memory_allocated=peak, **prof["split"]),
-         plain=dict(step_ms=plain_ms, step_ms_all=plain_times,
-                    span_ms=span_ms(plain_spans, len(plain_times)),
-                    profiled_wall_ms=plain_prof["wall_ms"],
-                    device_busy_ms=plain_prof["device_busy_ms"],
-                    idle_ms=max(0.0,
-                                plain_ms - plain_prof["device_busy_ms"]),
-                    max_memory_allocated=plain_peak,
-                    **plain_prof["split"]))
+         parent=parent)
     emit("train_step", config=cfg.name, layers=cfg.num_layers,
          d_model=cfg.d_model, batch=f["batch"], seq=f["seq"],
          remat=True, donate=True, step_ms=step_ms, step_ms_all=times,
@@ -3505,6 +4121,11 @@ def train_full_width(torch):
         fail(f"{cfg.name}: grad norms {norms}")
     if free_gb < 8:
         fail(f"{cfg.name}: {free_gb:.1f} GB free at the step's peak")
+    # the norm and RoPE kernels save only their inputs: the step's peak
+    # must not grow over the parent's (the plain norms and RoPE)
+    if peak > parent["max_memory_allocated"]:
+        fail(f"{cfg.name}: peak {peak} bytes on the norm and RoPE kernels, "
+             f"{parent['max_memory_allocated']} on their plain versions")
     return cfg, batch, card
 
 
@@ -3546,10 +4167,12 @@ def phase_train(torch, mods) -> tuple:
     Returns each kernel's launches over the phase (host, in all and by
     route), the train kernels' device counts and the full-width train
     step's FLOPs and times."""
+    from repro_torch.kernels import norm_rope as nr
     kernels = {name: getattr(mod, name) for name, mod in mods.items()}
     want = expected_train_launches(torch, mods, "train")
     _zero_counts(kernels)
     before = device_counts(mods)
+    norm_rope_check = norm_rope_window(nr)
     refused = check_kernel_guard(torch, mods)
     worst = train_parity(torch)
     train_engine(torch)
@@ -3564,6 +4187,7 @@ def phase_train(torch, mods) -> tuple:
          train_device_launches=device, expected_train_launches=want,
          guard_refused=refused, parity_max_rel_err=worst)
     check_phase_launches("train", launches, by_route, device, want)
+    norm_rope_check("train", expected_norm_rope_launches(nr, "train"))
     return launches, device, card
 
 
@@ -3592,6 +4216,7 @@ def phase_dryrun(torch, mods, cards: dict) -> dict:
     the roofline terms beside the measured times and the bounds; (d) no
     kernel launched.  Returns each kernel's launches over the phase."""
     from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.kernels import norm_rope as nr
     from repro_torch.launch import dryrun as D
     from repro_torch.launch.mesh import (LINK_BW, fake_process_group,
                                          make_local_mesh)
@@ -3602,6 +4227,7 @@ def phase_dryrun(torch, mods, cards: dict) -> dict:
     kernels = {name: getattr(mod, name) for name, mod in mods.items()}
     _zero_counts(kernels)
     before = device_counts(mods)
+    norm_rope_check = norm_rope_window(nr)
 
     arch, shape = DRYRUN_CELL
     rec = D.run_cell(arch, shape, False, PROFILE_DIR / "dryrun",
@@ -3671,6 +4297,7 @@ def phase_dryrun(torch, mods, cards: dict) -> dict:
          train_device_launches=device, seconds=time.monotonic() - t0)
     check_phase_launches("dryrun", launches, by_route, device,
                          expected_train_launches(torch, mods, "dryrun"))
+    norm_rope_check("dryrun", expected_norm_rope_launches(nr, "dryrun"))
     return launches, device
 
 
@@ -3699,10 +4326,13 @@ def phase_examples(torch, mods) -> dict:
     step.  Returns each kernel's launches over the phase and the train
     kernels' device counts."""
     import shutil
+
+    from repro_torch.kernels import norm_rope as nr
     kernels = {name: getattr(mod, name) for name, mod in mods.items()}
     want = expected_train_launches(torch, mods, "examples")
     _zero_counts(kernels)
     before = device_counts(mods)
+    norm_rope_check = norm_rope_window(nr)
 
     chiles = _load_example("chiles_pipeline")
     cubes = []
@@ -3758,6 +4388,7 @@ def phase_examples(torch, mods) -> dict:
         fail(f"examples/torch/train_lm.py ran {steps} steps, expected "
              f"{TRAIN_LM[1]}")
     check_phase_launches("examples", launches, by_route, device, want)
+    norm_rope_check("examples", expected_norm_rope_launches(nr, "examples"))
     return launches, device
 
 
@@ -3883,6 +4514,7 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import norm_rope as nr
     from repro_torch.kernels import optimizer as opt
     from repro_torch.kernels import ssd_scan as ss
     from repro_torch.kernels import train_attention as ta
@@ -3911,6 +4543,11 @@ def main() -> int:
                                   for b, nd in builds.items()})
     if faults:
         fail(f"ptxas: {faults}")
+    if "--serve-parent" in sys.argv[1:]:
+        phase_serve_parent(torch)
+        emit("done", seconds=time.monotonic() - t_start)
+        print(card_line(), flush=True)
+        return 0
 
     flash_entry, flash_d80, flash_x3 = phase_kernel(torch, fa)
     entries = [flash_entry, phase_ssd_kernel(torch, ss),
@@ -3920,10 +4557,14 @@ def main() -> int:
     entries += phase_optimizer_kernel(torch, opt)
     ta_entries, ta_x3 = phase_train_attention_kernel(torch, ta)
     entries += ta_entries
+    nr_entries = phase_norm_rope_kernel(torch, nr)
+    gc.collect()
+    torch.cuda.empty_cache()
     if "--kernels-only" in sys.argv[1:]:
         emit("done", seconds=time.monotonic() - t_start)
         print(json.dumps({"kernels": entries + [flash_d80, flash_x3,
-                                                 *ta_x3]}), flush=True)
+                                                 *ta_x3, *nr_entries]}),
+              flush=True)
         return 0
     mods = {e["name"]: mod for e, mod in zip(entries, (fa, ss, da))}
     all_mods = {**mods, "adamw_update": opt, "sumsq": opt,
@@ -3995,7 +4636,25 @@ def main() -> int:
             ("train", train_device), ("dryrun", dry_device),
             ("examples", examples_device))}
         e["launches"] = e["launches_by_path"]["train"]
-    entries += [flash_d80, flash_x3, *ta_x3]
+    # the norm and RoPE kernels run on every train and serve path: their
+    # launches are the device's counts over each serve run and the train,
+    # dry-run and examples phases (the wrappers' beside them)
+    for e in nr_entries:
+        n = e["name"]
+        counts = NORM_ROPE_LAUNCHES.items()
+        e["launches_by_path"] = {w: sum(c["device"][n].values())
+                                 for w, c in counts}
+        e["host_launches_by_path"] = {w: sum(c["host"][n].values())
+                                      for w, c in counts}
+        e["launches_by_route"] = {
+            r: sum(c["device"][n][r] for _, c in counts)
+            for r in e["kernel_routes"]}
+        e["launches"] = sum(e["launches_by_path"].values())
+        if n == "rms_norm_bwd":
+            e["dscale_launches"] = sum(
+                sum(c["device"]["rms_norm_dscale"].values())
+                for _, c in counts)
+    entries += [flash_d80, flash_x3, *ta_x3, *nr_entries]
 
     emit("done", seconds=time.monotonic() - t_start)
     print(json.dumps({"kernels": entries}), flush=True)

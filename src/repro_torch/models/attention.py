@@ -34,7 +34,7 @@ import torch
 from ..kernels import train_attention as _train_kernels
 from ..kernels.decode_attention import decode_attention_plain
 from ..kernels.ref import attention_core
-from .common import ArchConfig, apply_rope, dense_init, einsum, rms_norm
+from .common import ArchConfig, apply_rope_qk, dense_init, einsum, rms_norm
 
 Params = Dict[str, torch.Tensor]
 
@@ -79,8 +79,7 @@ def _project_qkv(p: Params, x: torch.Tensor, cfg: ArchConfig,
         q = rms_norm(q, p["q_norm"])
         k = rms_norm(k, p["k_norm"])
     if use_rope:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        q, k = apply_rope_qk(q, k, positions, cfg.rope_theta)
     return q, k, v
 
 

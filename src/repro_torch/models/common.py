@@ -15,6 +15,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..kernels import norm_rope as _norm_rope
 # the model's soft-cap lives beside the attention math that the plain
 # route and the decode kernel's plain version share
 from ..kernels.ref import softcap  # noqa: F401
@@ -196,6 +197,17 @@ def einsum(equation: str, *operands: torch.Tensor) -> torch.Tensor:
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
+    """``x * rsqrt(mean(x^2) + eps) * (1 + scale)`` in f32, cast to x's
+    dtype.  CUDA tensors go through the hand-written kernels, forward and
+    backward (``kernels.norm_rope.RMSNorm``); CPU and meta tensors take
+    ``rms_norm_plain``."""
+    if _norm_rope.takes_kernel((x, scale)):
+        return _norm_rope.RMSNorm.apply(x, scale, eps)
+    return rms_norm_plain(x, scale, eps)
+
+
+def rms_norm_plain(x: torch.Tensor, scale: torch.Tensor,
+                   eps: float = 1e-6) -> torch.Tensor:
     dt = x.dtype
     x = x.float()
     var = x.square().mean(dim=-1, keepdim=True)
@@ -234,7 +246,28 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """x: (..., seq, heads, head_dim); positions: (..., seq).
 
-    Split-half rotation, computed in f32."""
+    Split-half rotation, computed in f32.  CUDA tensors go through the
+    hand-written kernel, forward and backward (``kernels.norm_rope.Rope``);
+    CPU and meta tensors take ``apply_rope_plain``."""
+    if _norm_rope.takes_kernel((x, positions)):
+        return _norm_rope.Rope.apply(
+            positions, rope_freqs(x.shape[-1], theta, x.device), x)[0]
+    return apply_rope_plain(x, positions, theta)
+
+
+def apply_rope_qk(q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor,
+                  theta: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``apply_rope`` of q and of k at the same positions: one kernel
+    launch for both on CUDA tensors (their head counts may differ)."""
+    if _norm_rope.takes_kernel((q, k, positions)):
+        return _norm_rope.Rope.apply(
+            positions, rope_freqs(q.shape[-1], theta, q.device), q, k)
+    return (apply_rope_plain(q, positions, theta),
+            apply_rope_plain(k, positions, theta))
+
+
+def apply_rope_plain(x: torch.Tensor, positions: torch.Tensor,
+                     theta: float) -> torch.Tensor:
     hd = x.shape[-1]
     freqs = rope_freqs(hd, theta, x.device)               # (hd/2,)
     angles = positions[..., None].float() * freqs         # (..., S, hd/2)
