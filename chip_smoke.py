@@ -8,7 +8,8 @@ Run from the repo root with no arguments:
 (``--kernels-only`` stops after phase 3 and prints its kernels line but
 no result line; ``--serve-parent`` times each serve path's prefill and
 replayed decode step on the norm and RoPE kernels and on their plain
-versions, in turns, after the build, and prints no result line.)
+versions (granite's also on its MoE kernels and on the block's plain
+route), in turns, after the build, and prints no result line.)
 
 Full profiler tables land in ``chiprun_out/chip_smoke/`` (gitignored).
 Phases, each printing one JSON line (any failure exits non-zero and prints
@@ -17,7 +18,7 @@ no result):
 1. device: the card's name and power limit; TF32 off for matmuls and cuDNN.
 2. build: compile every CUDA kernel from ``src/repro_torch/csrc`` with nvcc
    (flash attention, the SSD scan, decode attention, the optimizer, the
-   training attention, RMSNorm and RoPE),
+   training attention, RMSNorm and RoPE, the MoE dispatch),
    all at once, and beside them flash attention with ``-DFLASH_FORCE_MMA``,
    the SSD scan with ``-DSSD_FORCE_MMA`` and the training attention with
    ``-DTRAIN_ATTN_FORCE_MMA`` (the ``mma_bf16`` routes at every shape), and
@@ -92,7 +93,16 @@ no result):
    difference printed), the same bits over 3 calls, one device launch a
    kernel a call; each timed at codeqwen1.5-7b's train shape in turns
    with its plain version, beside its bound and ``F.rms_norm`` on the f32
-   upcast (RoPE: no library call).
+   upcast (RoPE: no library call).  The MoE dispatch's three kernels
+   (``kernels.moe_dispatch``: slot positions, dispatch, combine) at
+   ``MOE_CASES`` (granite's prefill and decode shapes, grok's width, a
+   forced capacity overflow, f32, 64 groups of 32 tokens, the smoke
+   widths, an odd d, unaligned rows, 256 experts): pos, keep, the inverse
+   map and the buffer equal to the plain versions', y within 1e-6 x
+   max|y| (bf16: + 2^-8 |y|) of the plain combine's f32 sum, the same
+   bits over 3 calls, one device launch a call; each, the three together
+   and the plain route's glue they replace timed at granite's prefill
+   shape, beside their byte bounds and ``index_select`` for the dispatch.
 4. serve, for each of eight paths in turn: codeqwen1.5-7b (dense, flash
    kernel), mamba2-1.3b (ssm, SSD kernel), zamba2-2.7b (hybrid, both
    kernels), granite-moe-3b-a800m (moe, flash), whisper-large-v3 (encdec,
@@ -127,7 +137,12 @@ no result):
    there), on the route ``route(dtype, group, D)`` names for the path's
    model, and the norm and RoPE kernels as often as the path's norms and
    self-attention calls imply (``expected_norm_rope_serve``, host and
-   device); and full-width prefill
+   device), and the MoE kernels once a MoE layer a prefill and a decode
+   step (``expected_moe_serve``, host and device; granite only); granite's
+   prefill profile must show none of the MoE's plain ops (``aten::cumsum``,
+   ``scatter_add``, ``gather``), and its prefill, profiled and timed in
+   turns with its replayed decode step, also on the MoE block's plain
+   route (``moe_parent``); and full-width prefill
    logits
    through the kernels must be finite and near the plain route's (gemma2:
    one 8192-token sequence).  codeqwen1.5-7b then serves the same
@@ -163,7 +178,8 @@ no result):
    two optimizer kernels exactly once a param leaf a step on the card, the
    norm and RoPE kernels once a norm or self-attention call a forward (the
    layers' twice under remat) and a backward
-   (``expected_norm_rope_launches``), on the host and on the device.
+   (``expected_norm_rope_launches``), on the host and on the device; no
+   MoE kernel (the block trains on its plain route).
 6. dryrun, with every kernel count set to 0: (a) the port's dry-run of
    mamba2-1.3b x decode_32k on the 256-rank fake mesh ends ok and agrees
    with the reference's committed record on params, chips, decisions and
@@ -176,18 +192,20 @@ no result):
    counted in phase 5),
    printed with the roofline's terms beside the measured times; (d) no
    kernel launched (the steps run on meta DTensors, which take the
-   optimizer's, the norms' and RoPE's plain versions).
+   optimizer's, the norms' and RoPE's plain versions; none calls the MoE
+   kernels).
 7. examples, with every kernel count set to 0: ``examples/torch/``'s
    CHILES pipeline recovers its source in band 2, and ``train_lm.py`` at
    its defaults (lm20m, 200 steps through the engine) lowers the loss; no
    serve kernel launched, the training attention once a forward and once
    a backward a layer a step, the optimizer kernels once a param leaf a
-   step, the norm and RoPE kernels once a call a forward and a backward.
+   step, the norm and RoPE kernels once a call a forward and a backward,
+   no MoE kernel.
 8. the kernels line (the ``mma_3xtf32`` routes also on lines of their
    own: flash at whisper's encoder, the training attention at lm100m's
    shape, each with its launches on that route; the norm and RoPE
-   kernels with their device launches by serve path and phase), the card
-   line, then the result line.
+   kernels and the MoE kernels with their device launches by serve path
+   and phase), the card line, then the result line.
 
 It imports nothing of JAX or of the JAX package.  Without CUDA it exits 2.
 """
@@ -2501,44 +2519,57 @@ def expected_norm_rope_launches(nr, phase: str) -> dict:
 NORM_ROPE_LAUNCHES: dict = {}    # phase or path -> host and device counts
 
 
+def route_turns(torch, cfg, params, batch, shape: dict, parent) -> dict:
+    """``cfg``'s prefill and replayed decode step at ``shape``'s
+    microbatch (``batch``) on the kernels and under ``parent`` (a context
+    manager that gives the parent's path), in turns (kernels, parent,
+    parent, kernels): the medians of 3 prefills and of 8 replays a turn on
+    the host clock, each ended by a synchronise; each turn captures its
+    own decode graph."""
+    from repro_torch.train import make_decode_step, make_prefill_step
+    s, steps = shape["prompt_len"], shape["decode_steps"]
+    prefill_step = make_prefill_step(cfg)
+    turns = {w: {"prefill_ms": [], "decode_step_ms": []}
+             for w in ("kernels", "parent")}
+    for which in ("kernels", "parent", "parent", "kernels"):
+        with (parent() if which == "parent" else contextlib.nullcontext()):
+            first, cache = prefill_step(params, batch, s + steps)
+            tok, decode_one = first[:, None], make_decode_step(cfg)
+            turns[which]["prefill_ms"].append(step_ms(
+                torch, lambda: prefill_step(params, batch, s + steps), 3)[0])
+            turns[which]["decode_step_ms"].append(step_ms(
+                torch, lambda: decode_one(params, cache, tok, s), 8)[0])
+            decode_one.close()
+        del first, cache, tok, decode_one
+    return dict(turns=turns, **{f"{w}_{k}": sum(v) / 2
+                                for w, t in turns.items()
+                                for k, v in t.items()})
+
+
 def phase_serve_parent(torch) -> None:
     """``--serve-parent``: each serve path's prefill and replayed decode
     step at full width and depth (``phase_steps``' batch), on the norm and
     RoPE kernels and on their plain versions (``plain_norm_rope``, the
-    parent's path), in turns (kernels, parent, parent, kernels): the
-    medians of 3 prefills and of 8 replays a turn on the host clock, each
-    ended by a synchronise; each turn captures its own decode graph."""
+    parent's path), in turns (``route_turns``); the moe path's also on its
+    MoE kernels and on the block's plain route (``plain_moe``)."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import prompt_batch
     from repro_torch.models import model as M
-    from repro_torch.train import make_decode_step, make_prefill_step
     for arch in PATHS:
         cfg, shape = get_config(arch), serve_shape(arch)
-        mb, s, steps = (shape["microbatch"], shape["prompt_len"],
-                        shape["decode_steps"])
+        mb, s = shape["microbatch"], shape["prompt_len"]
         params = M.init_params(cfg, device="cuda")
         batch = prompt_batch(cfg, torch.from_numpy(
             np.random.default_rng(2).integers(0, cfg.vocab_size,
                                               size=(mb, s))).cuda())
-        prefill_step = make_prefill_step(cfg)
-        turns = {w: {"prefill_ms": [], "decode_step_ms": []}
-                 for w in ("kernels", "parent")}
-        for which in ("kernels", "parent", "parent", "kernels"):
-            with (plain_norm_rope() if which == "parent"
-                  else contextlib.nullcontext()):
-                first, cache = prefill_step(params, batch, s + steps)
-                tok, decode_one = first[:, None], make_decode_step(cfg)
-                turns[which]["prefill_ms"].append(step_ms(
-                    torch, lambda: prefill_step(params, batch, s + steps),
-                    3)[0])
-                turns[which]["decode_step_ms"].append(step_ms(
-                    torch, lambda: decode_one(params, cache, tok, s), 8)[0])
-                decode_one.close()
-            del first, cache, tok, decode_one
         emit("serve_parent", config=cfg.name, microbatch=mb, prompt_len=s,
-             turns=turns, **{f"{w}_{k}": sum(v) / 2 for w, t in turns.items()
-                             for k, v in t.items()})
+             **route_turns(torch, cfg, params, batch, shape,
+                           plain_norm_rope))
+        if cfg.family == "moe":     # and on the MoE block's plain route
+            emit("moe_parent", config=cfg.name, microbatch=mb, prompt_len=s,
+                 threads=[t.name for t in threading.enumerate()],
+                 **route_turns(torch, cfg, params, batch, shape, plain_moe))
         del params, batch
         gc.collect()
         torch.cuda.empty_cache()
@@ -2578,6 +2609,336 @@ def norm_rope_window(nr):
             fail(f"{what}: norm / rope launches host {host}, device "
                  f"{device}, expected {want}")
     return check
+
+
+MOE_SOURCE = "src/repro_torch/csrc/moe_dispatch.cu"
+MOE_REPLACES = {
+    "moe_slots": "src/repro/models/moe.py:73-81 (slot positions: one_hot, "
+                 "cumsum, take_along_axis, keep; jnp inside jax.jit, "
+                 "src/repro/launch/serve.py:75-76; no Pallas kernel)",
+    "moe_dispatch": "src/repro/models/moe.py:84-91 (token rows and "
+                    "buf.at[...].add(mode='drop'); jnp inside jax.jit; no "
+                    "Pallas kernel)",
+    "moe_combine": "src/repro/models/moe.py:106-111 (gather, where and the "
+                   "gate-weighted einsum over k; jnp inside jax.jit; no "
+                   "Pallas kernel)"}
+MOE_SHAPE = "granite-moe-3b-a800m prefill: g4 sg512 k8 e40 cap128 d1536 bf16"
+MOE_CAPACITY_FACTOR = 1.25      # granite's and grok's
+MOE_REL_TOL = 1e-6
+# name, groups, tokens a group, k, experts, d, dtype, skew (a bias falling
+# with the expert's number: the first experts overflow), unaligned (x and
+# the experts' output one element past a 16-byte boundary)
+MOE_CASES = (
+    ("granite_prefill", 4, 512, 8, 40, 1536, "bf16", 0.0, False),
+    ("granite_decode", 1, 4, 8, 40, 1536, "bf16", 0.0, False),
+    ("grok_width", 2, 512, 2, 8, 6144, "bf16", 0.0, False),
+    ("granite_overflow", 4, 512, 8, 40, 1536, "bf16", 0.5, False),
+    ("granite_f32", 4, 512, 8, 40, 1536, "f32", 0.0, False),
+    ("g64_sg32", 64, 32, 8, 40, 1536, "bf16", 0.0, False),
+    ("granite_smoke_f32", 2, 24, 4, 8, 64, "f32", 0.0, False),
+    ("grok_smoke_f32", 2, 24, 2, 4, 64, "f32", 0.0, False),
+    ("odd_d77_bf16", 2, 64, 4, 8, 77, "bf16", 0.0, False),
+    ("unaligned_f32", 2, 64, 4, 8, 64, "f32", 0.0, True),
+    ("e256_k8", 2, 300, 8, 256, 128, "bf16", 0.02, False),
+)
+
+
+def moe_capacity(sg: int, k: int, e: int) -> int:
+    from types import SimpleNamespace
+
+    from repro_torch.models.moe import expert_capacity
+    return expert_capacity(SimpleNamespace(
+        top_k=k, num_experts=e, capacity_factor=MOE_CAPACITY_FACTOR), sg)
+
+
+def moe_inputs(torch, case, gen) -> dict:
+    """A case's router output (idx, f32 gates renormalised as the block
+    does), tokens x (g, sg, d) and an experts' output (g, e, cap, d) laid
+    out e-major, as the experts' einsum returns it."""
+    name, g, sg, k, e, d, dt, skew, unaligned = case
+    dtype = getattr(torch, NR_DTYPES[dt])
+    cap = moe_capacity(sg, k, e)
+    logits = torch.randn((g, sg, e), generator=gen, device="cuda") - skew * \
+        torch.arange(e, device="cuda")
+    gates, idx = torch.topk(torch.softmax(logits, -1), k, dim=-1)
+    gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+
+    def drawn(*shape):
+        n = math.prod(shape)
+        t = torch.randn(n + 1, generator=gen, device="cuda").to(dtype)
+        return (t[1:] if unaligned else t[:n]).view(*shape)
+    x = drawn(g, sg, d)
+    out_buf = drawn(e, g, cap, d).permute(1, 0, 2, 3)
+    return dict(idx=idx, gates=gates, x=x, out_buf=out_buf, e=e, cap=cap)
+
+
+def moe_within(torch, got, want) -> dict:
+    """The combine's y (its dtype) against the plain combine's f32 sum:
+    within 1e-6 x max|want|, and in bf16 2^-8 |want| more (one rounding
+    of the sum to bf16: at most half an ulp)."""
+    w = want.float()
+    err = (got.float() - w).abs()
+    scale = float(w.abs().max())
+    tol = MOE_REL_TOL * scale + (TA_BF16_ULP * w.abs()
+                                 if got.dtype == torch.bfloat16 else 0.0)
+    return {"max_abs_err": float(err.max()),
+            "max_rel_err": float(err.max()) / scale if scale else 0.0,
+            "ok": bool((err <= tol).all())}
+
+
+def moe_check(torch, md, case, gen) -> dict:
+    """A case through the three kernels, each called 3 times: pos, keep
+    and src equal to ``moe_slots_plain``'s, the buffer to
+    ``moe_dispatch_plain``'s (``torch.equal``), y within 1e-6 x max|y|
+    (bf16: + 2^-8 |y|) of the plain combine's f32 sum, the same bits over
+    the 3 calls, one device launch a call on the dtype's route."""
+    a = moe_inputs(torch, case, gen)
+    idx, gates, x, out_buf, e, cap = (a[k] for k in (
+        "idx", "gates", "x", "out_buf", "e", "cap"))
+    lib = md._lib()
+    before = md.kernel_launches(lib)
+    slots = [md.moe_slots(idx, e, cap) for _ in range(3)]
+    pos, keep, src = slots[0]
+    bufs = [md.moe_dispatch(x, src) for _ in range(3)]
+    ys = [md.moe_combine(out_buf, idx, pos, keep, gates, x.dtype)
+          for _ in range(3)]
+    torch.cuda.synchronize()
+    after = md.kernel_launches(lib)
+    route = md.route(x.dtype)
+    launched = {k: {r: n - before[k][r] for r, n in by.items()}
+                for k, by in after.items()}
+    want_launched = {k: {r: 3 if r in ("int64", route) else 0
+                         for r in md.ROUTES[k]} for k in md.KERNELS}
+    p_pos, p_keep, p_src = md.moe_slots_plain(idx, e, cap)
+    p_buf = md.moe_dispatch_plain(x, p_src)
+    y_f32 = md.moe_combine_plain(out_buf, idx, p_pos, p_keep, gates,
+                                 torch.float32)
+    kept = int(p_keep.sum())
+    row = {"shape": dict(g=case[1], sg=case[2], k=case[3], e=e, cap=cap,
+                         d=case[5]), "dtype": case[6],
+           "unaligned": case[8], "route": route,
+           "kept": kept, "dropped": p_keep.numel() - kept,
+           "slots_equal": bool(torch.equal(pos, p_pos)
+                               and torch.equal(keep, p_keep)
+                               and torch.equal(src, p_src)),
+           "buf_equal": bool(torch.equal(bufs[0], p_buf)),
+           "y": moe_within(torch, ys[0], y_f32),
+           "repeats": all(all(torch.equal(u, v) for u, v in zip(s, slots[0]))
+                          for s in slots)
+           and all(same_bits(torch, b, bufs[0]) for b in bufs)
+           and all(same_bits(torch, y, ys[0]) for y in ys),
+           "device_launches": launched}
+    row["ok"] = (row["slots_equal"] and row["buf_equal"] and row["y"]["ok"]
+                 and row["repeats"] and launched == want_launched
+                 and (case[7] == 0.0 or row["dropped"] > 0))
+    return row
+
+
+def moe_bound(tensors, extra_bytes: int = 0) -> dict:
+    """Bytes (each input read and each output written once, ``extra``
+    more) at 3.35 TB/s; the kernels do no arithmetic worth a bound."""
+    nbytes = extra_bytes + sum(t.numel() * t.element_size() for t in tensors)
+    return dict(bytes=nbytes, bound_ms=nbytes / H100_BYTES_PER_S * 1e3,
+                bound_by="bytes")
+
+
+def moe_times(torch, md, gen) -> dict:
+    """At granite's prefill shape (``MOE_CASES[0]``): each kernel, the
+    three in sequence and the plain route's ops they replace
+    (``models.moe.dispatch_ops`` and ``moe_combine_plain``, the experts
+    excluded), each in turns with its plain version (kernel, plain, plain,
+    kernel), beside its byte bound and the nearest library call
+    (``index_select`` of the token rows for the dispatch; none for the
+    others)."""
+    from repro_torch.models import moe as MoE
+    a = moe_inputs(torch, MOE_CASES[0], gen)
+    idx, gates, x, out_buf, e, cap = (a[k] for k in (
+        "idx", "gates", "x", "out_buf", "e", "cap"))
+    g, sg, d = x.shape
+    pos, keep, src = md.moe_slots(idx, e, cap)
+    buf = md.moe_dispatch(x, src)
+    y = md.moe_combine(out_buf, idx, pos, keep, gates, x.dtype)
+    kept = int(keep.sum())
+    rows = (src.long().clamp_min(0) + sg * torch.arange(
+        g, device="cuda")[:, None, None]).reshape(-1)
+    flat_x = x.reshape(g * sg, d)
+    row_bytes = d * x.element_size()
+    slots_bound = moe_bound((idx, pos, keep, src))
+    dispatch_bound = moe_bound((x, src, buf))
+    combine_bound = moe_bound((idx, pos, keep, gates, y), kept * row_bytes)
+
+    def kernels():
+        p, kp, s = md.moe_slots(idx, e, cap)
+        md.moe_combine(out_buf, idx, p, kp, gates, x.dtype)
+        return md.moe_dispatch(x, s)
+
+    def plain_route():
+        _, p, kp = MoE.dispatch_ops(x, idx, e, cap)
+        return md.moe_combine_plain(out_buf, idx, p, kp, gates, x.dtype)
+    both = sum(b["bytes"] for b in (slots_bound, dispatch_bound,
+                                     combine_bound))
+    cases = {
+        "moe_slots": (lambda: md.moe_slots(idx, e, cap),
+                      lambda: md.moe_slots_plain(idx, e, cap), None,
+                      slots_bound),
+        "moe_dispatch": (lambda: md.moe_dispatch(x, src),
+                         lambda: md.moe_dispatch_plain(x, src),
+                         lambda: flat_x.index_select(0, rows),
+                         dispatch_bound),
+        "moe_combine": (lambda: md.moe_combine(out_buf, idx, pos, keep,
+                                               gates, x.dtype),
+                        lambda: md.moe_combine_plain(out_buf, idx, pos, keep,
+                                                     gates, x.dtype),
+                        None, combine_bound),
+        "all_three": (kernels, plain_route, None,
+                      dict(bytes=both, bound_ms=both / H100_BYTES_PER_S * 1e3,
+                           bound_by="bytes")),
+    }
+    out = {}
+    for name, (fast, slow, lib_call, bound) in cases.items():
+        ms = {"kernel": [], "plain": []}
+        for which in ("kernel", "plain", "plain", "kernel"):
+            ms[which].append(cuda_ms(fast if which == "kernel" else slow,
+                                     iters=20, warmup=2))
+        row = dict(ms=sum(ms["kernel"]) / 2, plain_ms=sum(ms["plain"]) / 2,
+                   turns=ms, library_ms=(cuda_ms(lib_call, iters=20,
+                                                 warmup=2)
+                                         if lib_call else None), **bound)
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        out[name] = row
+    out["moe_dispatch"]["library"] = ("torch.index_select of the token rows "
+                                      "(no zero rows for empty slots)")
+    for name in ("moe_slots", "moe_combine", "all_three"):
+        out[name]["library"] = "none: no one PyTorch call computes it"
+    out["all_three"]["plain"] = ("models.moe.dispatch_ops + "
+                                 "moe_combine_plain: the plain route's glue "
+                                 "from idx to y, the experts excluded")
+    out["kept_slots"] = kept
+    # the host's microseconds a layer's glue takes to return, the kernels
+    # and the plain route's ops (20 calls: the plain ops' launches stay
+    # within the device's queue), at the prefill's shape and at the decode
+    # step's (its eager first step and its capture pay it; replays do not)
+    dec = moe_inputs(torch, MOE_CASES[1], gen)
+
+    def dec_kernels():
+        p, kp, s = md.moe_slots(dec["idx"], dec["e"], dec["cap"])
+        md.moe_dispatch(dec["x"], s)
+        return md.moe_combine(dec["out_buf"], dec["idx"], p, kp,
+                              dec["gates"], dec["x"].dtype)
+    out["host_us"] = {"prefill_kernels": host_us(torch, kernels, iters=20),
+                      "prefill_plain": host_us(torch, plain_route, iters=20),
+                      "decode_kernels": host_us(torch, dec_kernels)}
+    return out
+
+
+def phase_moe_kernel(torch, md) -> list:
+    """The MoE dispatch's three kernels against their plain versions on
+    the card (``MOE_CASES``: granite's prefill and decode shapes, grok's
+    width, a forced overflow, f32, 64 groups of 32 tokens, the smoke
+    widths, an odd d, unaligned rows, 256 experts), then timed at
+    granite's prefill shape (``moe_times``).  Returns the kernels line's
+    three entries."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    t0 = time.monotonic()
+    failed, worst = [], 0.0
+    for case in MOE_CASES:
+        row = moe_check(torch, md, case, gen)
+        emit("kernel_check", kernel="moe_dispatch", case=case[0], **row)
+        worst = max(worst, row["y"]["max_abs_err"])
+        if not row["ok"]:
+            failed.append(case[0])
+    gc.collect()
+    torch.cuda.empty_cache()
+    times = moe_times(torch, md, gen)
+    emit("moe_times", shape=MOE_SHAPE, times=times,
+         seconds=time.monotonic() - t0)
+    if failed:
+        fail(f"MoE dispatch kernels differ from the plain versions: {failed}")
+    entries = []
+    for name in md.KERNELS:
+        t = times[name]
+        entries.append({
+            "name": name, "route": "cuda",
+            "kernel_route": "int64" if name == "moe_slots" else "bf16",
+            "kernel_routes": list(md.ROUTES[name]),
+            "source": f"{MOE_SOURCE} ({name}_kernel)",
+            "replaces": MOE_REPLACES[name], "shape": MOE_SHAPE,
+            "max_abs_err": worst if name == "moe_combine" else 0.0,
+            "ms": t["ms"], "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "library": t["library"],
+            "all_three_ms": times["all_three"]["ms"],
+            "all_three_plain_ms": times["all_three"]["plain_ms"],
+            "all_three_bound_ms": times["all_three"]["bound_ms"]})
+    return entries
+
+
+def expected_moe_serve(cfg, n_micro: int, decode_steps: int) -> dict:
+    """Each MoE kernel's launches in a serve run, on the host and on the
+    device: once a MoE layer a microbatch's prefill, and a decode app's
+    steps as ``expected_norm_rope_serve`` counts them (the host its eager
+    first step and its capture, the device every executed step)."""
+    layers = cfg.num_layers if cfg.family == "moe" else 0
+    steps = max(decode_steps - 1, 0)
+    per = {"host": n_micro * layers * (1 + min(steps, 1) * 2),
+           "device": n_micro * layers * (1 + steps)}
+    return {name: dict(per) for name in ("moe_slots", "moe_dispatch",
+                                         "moe_combine")}
+
+
+MOE_LAUNCHES: dict = {}     # phase or path -> host and device counts
+
+
+def moe_window(md, route: Optional[str] = None):
+    """Counts the MoE kernels' launches from this call on, on the host
+    (the wrappers' counts, set to 0 here) and on the device.  The returned
+    ``check(what, want)`` fails unless each kernel's launches in all equal
+    ``want`` (``expected_moe_serve``'s host and device totals), or with
+    ``route`` (the model's dtype) any dispatch or combine launch lies on
+    another route; it keeps the counts in ``MOE_LAUNCHES[what]``."""
+    fns = {name: getattr(md, name) for name in md.KERNELS}
+    _zero_counts(fns)
+    lib = md._lib()
+    before = md.kernel_launches(lib)
+
+    def check(what: str, want: dict) -> None:
+        after = md.kernel_launches(lib)
+        device = {k: {r: n - before[k][r] for r, n in by.items()}
+                  for k, by in after.items()}
+        host = {k: dict(fn.launches_by_route) for k, fn in fns.items()}
+        MOE_LAUNCHES[what] = {"host": host, "device": device}
+        emit("moe_launches", what=what, host=host, device=device,
+             expected=want)
+        got = {k: {"host": sum(host[k].values()),
+                   "device": sum(device[k].values())} for k in want}
+        stray = route is not None and any(
+            n for k in ("moe_dispatch", "moe_combine")
+            for by in (host[k], device[k]) for r, n in by.items()
+            if r != route)
+        if got != want or stray:
+            fail(f"{what}: MoE launches host {host}, device {device}, "
+                 f"expected {want} on {route}")
+    return check
+
+
+MOE_IDLE = dict.fromkeys(("moe_slots", "moe_dispatch", "moe_combine"),
+                         {"host": 0, "device": 0})
+
+
+@contextlib.contextmanager
+def plain_moe():
+    """The MoE block's plain route on the card (the parent's path):
+    ``models.model``'s blocks call ``moe_block`` with ``use_kernel``
+    forced off, so the dispatch runs as the torch ops it did before the
+    kernels."""
+    from repro_torch.models import model as M
+    real = M.moe_block
+    M.moe_block = lambda *a, **kw: real(*a, **{**kw, "use_kernel": False})
+    try:
+        yield
+    finally:
+        M.moe_block = real
 
 
 PATHS = ("codeqwen15_7b", "mamba2_1_3b", "zamba2_2_7b",
@@ -2630,6 +2991,7 @@ def phase_serve(torch, arch, mods):
     import dataclasses
 
     from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.kernels import moe_dispatch as md
     from repro_torch.kernels import norm_rope as nr
     from repro_torch.launch.serve import run_serving
     from repro_torch.models import model as M
@@ -2692,10 +3054,12 @@ def phase_serve(torch, arch, mods):
     ssd_before = ss.kernel_launches(ss._lib())
     decode_before = da.kernel_launches(da._lib())
     norm_rope_check = norm_rope_window(nr)
+    moe_check = moe_window(md, md.route(cfg.torch_dtype))
     res = run_serving(cfg, device="cuda", params=params, **shape)
     launches, by_route = _read_counts(kernels)
     norm_rope_check(arch, expected_norm_rope_serve(
         cfg, n_micro, shape["decode_steps"]))
+    moe_check(arch, expected_moe_serve(cfg, n_micro, shape["decode_steps"]))
     graphs = _graph_counts()
     decode_device = decode_device_delta(da, decode_before,
                                         decode_route(torch, cfg, da))
@@ -3126,11 +3490,37 @@ def phase_steps(torch, cfg, params, shape: dict, fa, ss, da):
                           f"launches, the profile shows "
                           f"{prof['decode_kernels_seen']}, expected "
                           f"{want_decode}")
+        if cfg.family == "moe" and name == "prefill":
+            left = {k: v for k, v in prof["ops"].items()
+                    if k in MOE_PLAIN_OPS}
+            if left:
+                faults.append(f"the MoE's plain ops ran: {left}")
         if faults:
             fail(f"{cfg.name} {name}: the flash wrapper counted {counted}, "
                  f"the SSD wrapper {ssd_counted}; " + "; ".join(faults))
     decode_one.close()
+    if cfg.family == "moe":
+        out["moe_parent"] = moe_parent(torch, cfg, params, batch, shape,
+                                       prefill)
     return out
+
+
+def moe_parent(torch, cfg, params, batch, shape: dict, prefill) -> dict:
+    """The MoE path's parent column: a profile of one prefill on the MoE
+    block's plain route (``plain_moe``; table ``profile_<config>_prefill_
+    plain_moe.txt``, its MoE ops beside the kernel route's), then the
+    prefill and the replayed decode step on the kernels and on the plain
+    MoE route in turns (``route_turns``)."""
+    with plain_moe():
+        prof = profile_call(torch, prefill,
+                            f"profile_{cfg.name}_prefill_plain_moe.txt")
+    emit("profile", config=cfg.name, step="prefill_plain_moe", **prof)
+    row = route_turns(torch, cfg, params, batch, shape, plain_moe)
+    # the prefill is paced by the host: the threads alive beside it
+    emit("moe_parent", config=cfg.name, microbatch=shape["microbatch"],
+         prompt_len=shape["prompt_len"],
+         threads=[t.name for t in threading.enumerate()], **row)
+    return row
 
 
 @contextlib.contextmanager
@@ -3640,6 +4030,9 @@ def scoped_optimizer(spans=None):
 # under the op
 WATCHED_OPS = ("aten::cumsum", "aten::scatter_add", "aten::gather",
                "aten::index_put_", "aten::index", "ssd_scan_layout")
+# the MoE dispatch's plain ops, which a prefill through its kernels runs
+# none of
+MOE_PLAIN_OPS = ("aten::cumsum", "aten::scatter_add", "aten::gather")
 
 
 TRAIN_FULL = dict(layers=16, batch=8, seq=512, steps=4, peak_lr=3e-4)
@@ -4167,12 +4560,14 @@ def phase_train(torch, mods) -> tuple:
     Returns each kernel's launches over the phase (host, in all and by
     route), the train kernels' device counts and the full-width train
     step's FLOPs and times."""
+    from repro_torch.kernels import moe_dispatch as md
     from repro_torch.kernels import norm_rope as nr
     kernels = {name: getattr(mod, name) for name, mod in mods.items()}
     want = expected_train_launches(torch, mods, "train")
     _zero_counts(kernels)
     before = device_counts(mods)
     norm_rope_check = norm_rope_window(nr)
+    moe_idle = moe_window(md)
     refused = check_kernel_guard(torch, mods)
     worst = train_parity(torch)
     train_engine(torch)
@@ -4188,6 +4583,7 @@ def phase_train(torch, mods) -> tuple:
          guard_refused=refused, parity_max_rel_err=worst)
     check_phase_launches("train", launches, by_route, device, want)
     norm_rope_check("train", expected_norm_rope_launches(nr, "train"))
+    moe_idle("train", MOE_IDLE)
     return launches, device, card
 
 
@@ -4216,6 +4612,7 @@ def phase_dryrun(torch, mods, cards: dict) -> dict:
     the roofline terms beside the measured times and the bounds; (d) no
     kernel launched.  Returns each kernel's launches over the phase."""
     from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.kernels import moe_dispatch as md
     from repro_torch.kernels import norm_rope as nr
     from repro_torch.launch import dryrun as D
     from repro_torch.launch.mesh import (LINK_BW, fake_process_group,
@@ -4228,6 +4625,7 @@ def phase_dryrun(torch, mods, cards: dict) -> dict:
     _zero_counts(kernels)
     before = device_counts(mods)
     norm_rope_check = norm_rope_window(nr)
+    moe_idle = moe_window(md)
 
     arch, shape = DRYRUN_CELL
     rec = D.run_cell(arch, shape, False, PROFILE_DIR / "dryrun",
@@ -4298,6 +4696,7 @@ def phase_dryrun(torch, mods, cards: dict) -> dict:
     check_phase_launches("dryrun", launches, by_route, device,
                          expected_train_launches(torch, mods, "dryrun"))
     norm_rope_check("dryrun", expected_norm_rope_launches(nr, "dryrun"))
+    moe_idle("dryrun", MOE_IDLE)
     return launches, device
 
 
@@ -4327,12 +4726,14 @@ def phase_examples(torch, mods) -> dict:
     kernels' device counts."""
     import shutil
 
+    from repro_torch.kernels import moe_dispatch as md
     from repro_torch.kernels import norm_rope as nr
     kernels = {name: getattr(mod, name) for name, mod in mods.items()}
     want = expected_train_launches(torch, mods, "examples")
     _zero_counts(kernels)
     before = device_counts(mods)
     norm_rope_check = norm_rope_window(nr)
+    moe_idle = moe_window(md)
 
     chiles = _load_example("chiles_pipeline")
     cubes = []
@@ -4389,12 +4790,14 @@ def phase_examples(torch, mods) -> dict:
              f"{TRAIN_LM[1]}")
     check_phase_launches("examples", launches, by_route, device, want)
     norm_rope_check("examples", expected_norm_rope_launches(nr, "examples"))
+    moe_idle("examples", MOE_IDLE)
     return launches, device
 
 
 def check_kernel_guard(torch, mods) -> list:
     """Every kernel wrapper refuses CUDA inputs that require grad (its
     output would carry no grad_fn)."""
+    from repro_torch.kernels import moe_dispatch as md
     fa, ss = mods["flash_attention_bhsd"], mods["ssd_scan_bhsd"]
     da = mods["decode_attention"]
     q = torch.randn((1, 2, 16, 16), device="cuda", dtype=torch.bfloat16,
@@ -4404,12 +4807,22 @@ def check_kernel_guard(torch, mods) -> list:
     bc = torch.randn((1, 1, 16, 8), device="cuda", dtype=torch.bfloat16)
     dt = torch.rand((1, 2, 16), device="cuda")
     a = -torch.rand((2,), device="cuda")
+    idx = torch.zeros((1, 2, 1), device="cuda", dtype=torch.int64)
+    gates = torch.ones((1, 2, 1), device="cuda")
+    pos = torch.zeros((1, 2), device="cuda", dtype=torch.int32)
+    keep = torch.ones((1, 2), device="cuda", dtype=torch.bool)
     calls = {"flash_attention_bhsd": lambda: fa.flash_attention_bhsd(
                  q, q.detach(), q.detach()),
              "ssd_scan_bhsd": lambda: ss.ssd_scan_bhsd(x, dt, a, bc, bc, 8),
              "decode_attention": lambda: da.decode_attention(
                  q[:, :, 0], q.detach().transpose(1, 2),
-                 q.detach().transpose(1, 2), 3)}
+                 q.detach().transpose(1, 2), 3),
+             # (moe_slots takes int64 experts only, which cannot need grad)
+             "moe_dispatch": lambda: md.moe_dispatch(
+                 x[0], torch.zeros((2, 2, 8), device="cuda",
+                                   dtype=torch.int32)),
+             "moe_combine": lambda: md.moe_combine(
+                 x, idx, pos, keep, gates, torch.bfloat16)}
     refused = []
     for name, call in calls.items():
         try:
@@ -4514,6 +4927,7 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_dispatch as md
     from repro_torch.kernels import norm_rope as nr
     from repro_torch.kernels import optimizer as opt
     from repro_torch.kernels import ssd_scan as ss
@@ -4558,12 +4972,14 @@ def main() -> int:
     ta_entries, ta_x3 = phase_train_attention_kernel(torch, ta)
     entries += ta_entries
     nr_entries = phase_norm_rope_kernel(torch, nr)
+    moe_entries = phase_moe_kernel(torch, md)
     gc.collect()
     torch.cuda.empty_cache()
     if "--kernels-only" in sys.argv[1:]:
         emit("done", seconds=time.monotonic() - t_start)
         print(json.dumps({"kernels": entries + [flash_d80, flash_x3,
-                                                 *ta_x3, *nr_entries]}),
+                                                 *ta_x3, *nr_entries,
+                                                 *moe_entries]}),
               flush=True)
         return 0
     mods = {e["name"]: mod for e, mod in zip(entries, (fa, ss, da))}
@@ -4654,7 +5070,22 @@ def main() -> int:
             e["dscale_launches"] = sum(
                 sum(c["device"]["rms_norm_dscale"].values())
                 for _, c in counts)
-    entries += [flash_d80, flash_x3, *ta_x3, *nr_entries]
+    # the MoE kernels run on granite's serve path: their launches are the
+    # device's counts over each serve run (the prefills and every executed
+    # decode step, replays included) and the train, dry-run and examples
+    # phases (none), the wrappers' beside them
+    for e in moe_entries:
+        n = e["name"]
+        counts = MOE_LAUNCHES.items()
+        e["launches_by_path"] = {w: sum(c["device"][n].values())
+                                 for w, c in counts}
+        e["host_launches_by_path"] = {w: sum(c["host"][n].values())
+                                      for w, c in counts}
+        e["launches_by_route"] = {
+            r: sum(c["device"][n][r] for _, c in counts)
+            for r in e["kernel_routes"]}
+        e["launches"] = sum(e["launches_by_path"].values())
+    entries += [flash_d80, flash_x3, *ta_x3, *nr_entries, *moe_entries]
 
     emit("done", seconds=time.monotonic() - t_start)
     print(json.dumps({"kernels": entries}), flush=True)

@@ -7,6 +7,8 @@ optimizer: the train step's fused AdamW update and the grads' sum of
 squares for the global-norm clip, CUDA C++.
 train_attention: the train step's attention, forward and backward in the
 reference's f32 arithmetic (an autograd function), CUDA C++.
+moe_dispatch: the MoE block's slot positions, dispatch and combine on the
+serve steps (no backward), CUDA C++.
 ops: model-layout wrappers; ref: plain PyTorch oracles.
 The serve kernels (flash, SSD, decode) have no backward: their wrappers
 refuse inputs that require grad.  Training on CUDA launches the training

@@ -27,7 +27,8 @@ from typing import Dict, Iterable, List, Tuple
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 KERNEL_SOURCES = ("flash_attention", "ssd_scan", "decode_attention",
-                  "optimizer", "train_attention", "norm_rope")
+                  "optimizer", "train_attention", "norm_rope",
+                  "moe_dispatch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -155,3 +156,15 @@ def load(name: str, defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
             build([name], key[1])
             _LIBS[key] = ctypes.CDLL(str(lib_path(name, key[1])))
         return _LIBS[key]
+
+
+def launch(device, fn, *args) -> int:
+    """``fn(*args, stream)``: a C entry point called with ``device`` (a
+    CUDA ``torch.device``) current and its current stream, with no device
+    switch when it is current already.  Returns what ``fn`` returns (the
+    launch's ``cudaError_t``)."""
+    import torch
+    if device.index is None or device.index == torch.cuda.current_device():
+        return fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    with torch.cuda.device(device):
+        return fn(*args, torch.cuda.current_stream(device).cuda_stream)

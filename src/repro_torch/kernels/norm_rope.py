@@ -42,6 +42,7 @@ from typing import Any, Iterable, Sequence, Tuple
 import torch
 
 from . import _build
+from ._build import launch as _launch
 
 _COUNT_LOCK = threading.Lock()
 _BF16 = {torch.float32: 0, torch.bfloat16: 1}
@@ -211,15 +212,6 @@ def kernel_launches(lib: ctypes.CDLL) -> dict:
                                    "device failed")
             out[name][r] = n
     return out
-
-
-def _launch(device: torch.device, fn, *args) -> int:
-    """``fn(*args, stream)`` with ``device`` current and its current
-    stream (no device switch when it is current already)."""
-    if device.index is None or device.index == torch.cuda.current_device():
-        return fn(*args, torch.cuda.current_stream(device).cuda_stream)
-    with torch.cuda.device(device):
-        return fn(*args, torch.cuda.current_stream(device).cuda_stream)
 
 
 def _check_cuda(name: str, tensors: Sequence[torch.Tensor]) -> None:

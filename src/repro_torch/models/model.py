@@ -119,11 +119,14 @@ def _mlp(p: Dict[str, torch.Tensor], x: torch.Tensor,
 
 
 def _ffn(p: Dict[str, Any], x: torch.Tensor, cfg: ArchConfig,
-         num_groups: Optional[int] = None
+         num_groups: Optional[int] = None, use_kernel: bool = False
          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """A block's feed-forward half: (y, moe aux loss or None)."""
+    """A block's feed-forward half: (y, moe aux loss or None).
+    ``use_kernel`` sends the experts' dispatch to the MoE kernels (no
+    backward: the full-sequence ``_block`` that trains passes False)."""
     if "moe" in p:
-        return moe_block(p["moe"], x, cfg, num_groups=num_groups)
+        return moe_block(p["moe"], x, cfg, num_groups=num_groups,
+                         use_kernel=use_kernel)
     return _mlp(p["mlp"], x, cfg), None
 
 
@@ -453,7 +456,8 @@ def _decode_block(p: Dict[str, Any], h: torch.Tensor, kv: Dict[str, Any],
     """One block for one token against its KV cache: attention (no rope
     for encdec), cross-attention against ``cross`` = the cached encoder
     (K, V) for encdec, then the MLP or (moe, one dispatch group) the
-    experts.  ``use_kernel`` sends both attentions to the decode kernel."""
+    experts.  ``use_kernel`` sends both attentions to the decode kernel
+    and the experts' dispatch to the MoE kernels."""
     a, _ = decode_attention(p["attn"], rms_norm(h, p["attn_norm"]), kv, pos,
                             cfg, window=window,
                             use_rope=cfg.family != "encdec",
@@ -464,7 +468,8 @@ def _decode_block(p: Dict[str, Any], h: torch.Tensor, kv: Dict[str, Any],
                                        rms_norm(h, p["cross_norm"]),
                                        cross[0], cross[1], cfg,
                                        use_kernel=use_kernel)
-    m, _ = _ffn(p, rms_norm(h, p["mlp_norm"]), cfg, num_groups=1)
+    m, _ = _ffn(p, rms_norm(h, p["mlp_norm"]), cfg, num_groups=1,
+                use_kernel=use_kernel)
     return h + m
 
 
@@ -588,7 +593,7 @@ def _prime_block(p: Dict[str, Any], h: torch.Tensor, cfg: ArchConfig,
         cache["cross_v"][j, :, :T] = v
         out = _attend(q, k, v, cfg, None, 0, False, causal=False)
         h = h + _out_proj(p["cross"], out.to(h.dtype), cfg)
-    m, _ = _ffn(p, rms_norm(h, p["mlp_norm"]), cfg)
+    m, _ = _ffn(p, rms_norm(h, p["mlp_norm"]), cfg, use_kernel=use_kernel)
     return h + m
 
 

@@ -7,8 +7,11 @@ positions instead of a one-hot dispatch einsum.
 
 Dispatch is group-wise (GShard-style): tokens are viewed as (groups, S, d)
 with per-group expert capacity C = S*top_k*capacity_factor/E.  The
-reference computes all of it in plain ``jnp`` outside any Pallas kernel,
-so the port is torch ops throughout.
+reference computes all of it in plain ``jnp`` outside any Pallas kernel.
+The serve steps on the card (``use_kernel=True``) run the glue between the
+router and the experts, and between the experts and y, as hand-written
+kernels (``kernels.moe_dispatch``); training, the dry-run's DTensors and
+``use_kernel=False`` keep the torch ops.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from .common import ArchConfig, activation_fn, dense_init, einsum
+from ..kernels import moe_dispatch as MD
 from ..sharding import ctx as sctx
 
 Params = Dict[str, torch.Tensor]
@@ -43,15 +47,47 @@ def expert_capacity(cfg: ArchConfig, tokens_per_group: int) -> int:
     return max(8, (c + 7) // 8 * 8)
 
 
+def dispatch_ops(xg: torch.Tensor, idx: torch.Tensor, num_experts: int,
+                 cap: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain route's dispatch of tokens xg (g, sg, d) to the top-k
+    experts idx (g, sg, k): (buf (g, e, cap, d), pos (g, n), keep (g, n)),
+    as torch ops that autograd and the dry-run's DTensors take."""
+    g, sg, d = xg.shape
+    k = idx.shape[-1]
+    n = sg * k
+    # --- slot positions within each expert's capacity ----------------------
+    flat_idx = idx.reshape(g, n)
+    pos, keep = MD.slot_positions(flat_idx, num_experts, cap)   # (g, n)
+    # dropped slots go to a spare slot ``cap``, sliced off after the add
+    # (the reference's scatter with mode="drop")
+    pos_safe = torch.where(keep, pos, cap)
+
+    # --- dispatch: buffer[g, e, c, d] via scatter-add ----------------------
+    # over the flattened (expert, slot) axis: a kept slot receives exactly
+    # one token (0 + x), the spare slots sum the dropped ones.  scatter_add
+    # and its backward (gather) have DTensor strategies in every release
+    # the dry-run meets; index_put_ has none in torch 2.11
+    vals = xg.repeat_interleave(k, dim=1)                 # (g, n, d)
+    slot = (flat_idx * (cap + 1) + pos_safe)[..., None].expand(g, n, d)
+    buf = xg.new_zeros((g, num_experts * (cap + 1), d)).scatter_add(
+        1, slot, vals)
+    return buf.view(g, num_experts, cap + 1, d)[:, :, :cap], pos, keep
+
+
 def moe_block(p: Params, x: torch.Tensor, cfg: ArchConfig,
-              num_groups: Optional[int] = None
+              num_groups: Optional[int] = None, use_kernel: bool = False
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (y, aux_loss).
 
     ``num_groups``: dispatch groups (defaults to B).  Tokens within a group
     share one capacity budget; the assignment slots are taken in token
     order, top-1 before top-2 within a token, and those past an expert's
-    capacity are dropped (they add nothing to y)."""
+    capacity are dropped (they add nothing to y).  ``use_kernel`` runs the
+    slot positions, the dispatch and the combine through
+    ``kernels.moe_dispatch`` (its kernels on CUDA, its plain versions on
+    the CPU; no backward); else they are the torch ops autograd and the
+    dry-run's DTensors take."""
     b, s, d = x.shape
     e, k = cfg.num_experts, cfg.top_k
     g = num_groups if num_groups else b
@@ -59,7 +95,6 @@ def moe_block(p: Params, x: torch.Tensor, cfg: ArchConfig,
     if tokens % g:
         raise ValueError(f"{tokens} tokens do not split into {g} groups")
     sg = tokens // g
-    n = sg * k
     xg = x.reshape(g, sg, d)
     cap = expert_capacity(cfg, sg)
 
@@ -74,24 +109,11 @@ def moe_block(p: Params, x: torch.Tensor, cfg: ArchConfig,
     ce = F.one_hot(idx[..., 0], e).float().mean(dim=(0, 1))
     aux = e * torch.sum(me * ce)
 
-    # --- slot positions within each expert's capacity ----------------------
-    flat_idx = idx.reshape(g, n)
-    pos_in_expert = F.one_hot(flat_idx, e).cumsum(dim=1) - 1   # (g, n, e)
-    pos = pos_in_expert.gather(-1, flat_idx[..., None])[..., 0]
-    keep = pos < cap
-    # dropped slots go to a spare slot ``cap``, sliced off after the add
-    # (the reference's scatter with mode="drop")
-    pos_safe = torch.where(keep, pos, cap)
-
-    # --- dispatch: buffer[g, e, c, d] via scatter-add ----------------------
-    # over the flattened (expert, slot) axis: a kept slot receives exactly
-    # one token (0 + x), the spare slots sum the dropped ones.  scatter_add
-    # and its backward (gather) have DTensor strategies in every release
-    # the dry-run meets; index_put_ has none in torch 2.11
-    vals = xg.repeat_interleave(k, dim=1)                 # (g, n, d)
-    slot = (flat_idx * (cap + 1) + pos_safe)[..., None].expand(g, n, d)
-    buf = x.new_zeros((g, e * (cap + 1), d)).scatter_add(1, slot, vals)
-    buf = buf.view(g, e, cap + 1, d)[:, :, :cap]
+    if use_kernel:
+        pos, keep, src = MD.moe_slots(idx, e, cap)
+        buf = MD.moe_dispatch(xg, src)
+    else:
+        buf, pos, keep = dispatch_ops(xg, idx, e, cap)
     # the ep profile turns tokens to their experts here
     buf = sctx.constrain(buf, "moe_buffer")
 
@@ -106,10 +128,6 @@ def moe_block(p: Params, x: torch.Tensor, cfg: ArchConfig,
                              "moe_buffer")
 
     # --- combine: gather back + gate-weighted sum over k -------------------
-    # the reference clamps the gather of a dropped slot, then masks it
-    slot = (flat_idx * cap + pos_safe.clamp_max(cap - 1))[..., None]
-    gathered = out_buf.reshape(g, e * cap, d).gather(1, slot.expand(g, n, d))
-    gathered = torch.where(keep[..., None], gathered, 0.0)
-    gathered = gathered.reshape(g, sg, k, d)
-    y = torch.einsum("gskd,gsk->gsd", gathered.float(), gates).to(x.dtype)
+    combine = MD.moe_combine if use_kernel else MD.moe_combine_plain
+    y = combine(out_buf, idx, pos, keep, gates, x.dtype)
     return y.reshape(b, s, d), aux
