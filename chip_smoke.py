@@ -24,7 +24,8 @@ no result):
    ``-DTRAIN_ATTN_FORCE_MMA`` (the ``mma_bf16`` routes at every shape), and
    flash and the training attention with ``-DFLASH_FORCE_SCALAR`` and
    ``-DTRAIN_ATTN_FORCE_SCALAR`` (``scalar_f32`` where ``mma_3xtf32``
-   runs), for checking and timing the old routes;
+   runs), and the MoE dispatch with ``-DMOE_DISPATCH_FORCE_PLAIN_COPY`` (a
+   load a store, default stores), for checking and timing the old routes;
    ptxas registers, spills and warnings per kernel instance.  Fails if
    ptxas reported a spill, a serialised wgmma or an ignored setmaxnreg.
 3. kernel: each kernel against its plain PyTorch version on the card, at
@@ -2551,7 +2552,8 @@ def phase_serve_parent(torch) -> None:
     step at full width and depth (``phase_steps``' batch), on the norm and
     RoPE kernels and on their plain versions (``plain_norm_rope``, the
     parent's path), in turns (``route_turns``); the moe path's also on its
-    MoE kernels and on the block's plain route (``plain_moe``)."""
+    MoE kernels against the slot-scan route (``slot_scan_moe``) and the
+    block's plain route (``plain_moe``)."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import prompt_batch
@@ -2566,10 +2568,13 @@ def phase_serve_parent(torch) -> None:
         emit("serve_parent", config=cfg.name, microbatch=mb, prompt_len=s,
              **route_turns(torch, cfg, params, batch, shape,
                            plain_norm_rope))
-        if cfg.family == "moe":     # and on the MoE block's plain route
+        if cfg.family == "moe":     # and on the slot-scan and plain routes
             emit("moe_parent", config=cfg.name, microbatch=mb, prompt_len=s,
                  threads=[t.name for t in threading.enumerate()],
-                 **route_turns(torch, cfg, params, batch, shape, plain_moe))
+                 slot_scan=route_turns(torch, cfg, params, batch,
+                                       shape, slot_scan_moe),
+                 plain=route_turns(torch, cfg, params, batch, shape,
+                                   plain_moe))
         del params, batch
         gc.collect()
         torch.cuda.empty_cache()
@@ -2612,7 +2617,12 @@ def norm_rope_window(nr):
 
 
 MOE_SOURCE = "src/repro_torch/csrc/moe_dispatch.cu"
+MOE_KERNELS = ("moe_slots", "moe_dispatch", "moe_combine", "moe_route")
 MOE_REPLACES = {
+    "moe_route": "src/repro/models/moe.py:62-81 (softmax, lax.top_k, the "
+                 "gates' renormalisation, the aux loss, one_hot, cumsum, "
+                 "take_along_axis, keep; jnp inside jax.jit, "
+                 "src/repro/launch/serve.py:75-76; no Pallas kernel)",
     "moe_slots": "src/repro/models/moe.py:73-81 (slot positions: one_hot, "
                  "cumsum, take_along_axis, keep; jnp inside jax.jit, "
                  "src/repro/launch/serve.py:75-76; no Pallas kernel)",
@@ -2622,24 +2632,37 @@ MOE_REPLACES = {
     "moe_combine": "src/repro/models/moe.py:106-111 (gather, where and the "
                    "gate-weighted einsum over k; jnp inside jax.jit; no "
                    "Pallas kernel)"}
+# the device kernel of each kernel, and the kernels line's route of each
+# entry (the slot scan has none: it left the path)
+MOE_DEVICE_KERNELS = {"moe_route": "moe_route_kernel",
+                      "moe_slots": "moe_slots_kernel",
+                      "moe_dispatch": "moe_dispatch_kernel",
+                      "moe_combine": "moe_combine_kernel"}
+MOE_ENTRY_ROUTES = {"moe_route": "f32", "moe_dispatch": "bf16",
+                    "moe_combine": "bf16"}
 MOE_SHAPE = "granite-moe-3b-a800m prefill: g4 sg512 k8 e40 cap128 d1536 bf16"
 MOE_CAPACITY_FACTOR = 1.25      # granite's and grok's
 MOE_REL_TOL = 1e-6
 # name, groups, tokens a group, k, experts, d, dtype, skew (a bias falling
 # with the expert's number: the first experts overflow), unaligned (x and
-# the experts' output one element past a 16-byte boundary)
+# the experts' output one element past a 16-byte boundary), ties (each odd
+# expert's logit equal to the even one's before it: equal probabilities,
+# the lower expert first)
 MOE_CASES = (
-    ("granite_prefill", 4, 512, 8, 40, 1536, "bf16", 0.0, False),
-    ("granite_decode", 1, 4, 8, 40, 1536, "bf16", 0.0, False),
-    ("grok_width", 2, 512, 2, 8, 6144, "bf16", 0.0, False),
-    ("granite_overflow", 4, 512, 8, 40, 1536, "bf16", 0.5, False),
-    ("granite_f32", 4, 512, 8, 40, 1536, "f32", 0.0, False),
-    ("g64_sg32", 64, 32, 8, 40, 1536, "bf16", 0.0, False),
-    ("granite_smoke_f32", 2, 24, 4, 8, 64, "f32", 0.0, False),
-    ("grok_smoke_f32", 2, 24, 2, 4, 64, "f32", 0.0, False),
-    ("odd_d77_bf16", 2, 64, 4, 8, 77, "bf16", 0.0, False),
-    ("unaligned_f32", 2, 64, 4, 8, 64, "f32", 0.0, True),
-    ("e256_k8", 2, 300, 8, 256, 128, "bf16", 0.02, False),
+    ("granite_prefill", 4, 512, 8, 40, 1536, "bf16", 0.0, False, False),
+    ("granite_decode", 1, 4, 8, 40, 1536, "bf16", 0.0, False, False),
+    ("grok_width", 2, 512, 2, 8, 6144, "bf16", 0.0, False, False),
+    ("granite_overflow", 4, 512, 8, 40, 1536, "bf16", 0.5, False, False),
+    ("granite_f32", 4, 512, 8, 40, 1536, "f32", 0.0, False, False),
+    ("g64_sg32", 64, 32, 8, 40, 1536, "bf16", 0.0, False, False),
+    ("granite_smoke_f32", 2, 24, 4, 8, 64, "f32", 0.0, False, False),
+    ("grok_smoke_f32", 2, 24, 2, 4, 64, "f32", 0.0, False, False),
+    ("odd_d77_bf16", 2, 64, 4, 8, 77, "bf16", 0.0, False, False),
+    ("unaligned_f32", 2, 64, 4, 8, 64, "f32", 0.0, True, False),
+    ("e256_k8", 2, 300, 8, 256, 128, "bf16", 0.02, False, False),
+    ("granite_ties", 4, 512, 8, 40, 1536, "bf16", 0.0, False, True),
+    ("decode_ties", 1, 4, 8, 40, 1536, "bf16", 0.0, False, True),
+    ("e256_ties_overflow", 2, 300, 8, 256, 128, "bf16", 0.02, False, True),
 )
 
 
@@ -2652,16 +2675,18 @@ def moe_capacity(sg: int, k: int, e: int) -> int:
 
 
 def moe_inputs(torch, case, gen) -> dict:
-    """A case's router output (idx, f32 gates renormalised as the block
-    does), tokens x (g, sg, d) and an experts' output (g, e, cap, d) laid
-    out e-major, as the experts' einsum returns it."""
-    name, g, sg, k, e, d, dt, skew, unaligned = case
+    """A case's router logits (g, sg, e) f32 and their plain routing (idx,
+    f32 gates), tokens x (g, sg, d) and an experts' output (g, e, cap, d)
+    laid out e-major, as the experts' einsum returns it."""
+    from repro_torch.kernels import moe_dispatch as md
+    name, g, sg, k, e, d, dt, skew, unaligned, ties = case
     dtype = getattr(torch, NR_DTYPES[dt])
     cap = moe_capacity(sg, k, e)
     logits = torch.randn((g, sg, e), generator=gen, device="cuda") - skew * \
         torch.arange(e, device="cuda")
-    gates, idx = torch.topk(torch.softmax(logits, -1), k, dim=-1)
-    gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+    if ties:
+        logits[..., 1::2] = logits[..., 0::2]
+    idx, gates = md.moe_route_plain(logits, k, cap)[:2]
 
     def drawn(*shape):
         n = math.prod(shape)
@@ -2669,13 +2694,14 @@ def moe_inputs(torch, case, gen) -> dict:
         return (t[1:] if unaligned else t[:n]).view(*shape)
     x = drawn(g, sg, d)
     out_buf = drawn(e, g, cap, d).permute(1, 0, 2, 3)
-    return dict(idx=idx, gates=gates, x=x, out_buf=out_buf, e=e, cap=cap)
+    return dict(logits=logits, k=k, idx=idx, gates=gates, x=x,
+                out_buf=out_buf, e=e, cap=cap)
 
 
 def moe_within(torch, got, want) -> dict:
-    """The combine's y (its dtype) against the plain combine's f32 sum:
-    within 1e-6 x max|want|, and in bf16 2^-8 |want| more (one rounding
-    of the sum to bf16: at most half an ulp)."""
+    """``got`` (its dtype) against ``want`` (f32): within 1e-6 x
+    max|want|, and in bf16 2^-8 |want| more (one rounding to bf16: at
+    most half an ulp)."""
     w = want.float()
     err = (got.float() - w).abs()
     scale = float(w.abs().max())
@@ -2686,49 +2712,150 @@ def moe_within(torch, got, want) -> dict:
             "ok": bool((err <= tol).all())}
 
 
+def slot_scan_route(torch, md, logits, k: int, cap: int) -> tuple:
+    """The slot-scan route of the logits, as ``models.moe`` ran it before
+    ``moe_route``: the router's softmax, ``topk``, renormalisation and aux
+    loss as torch ops, then ``moe_slots`` (a block a group) and its
+    group-major map."""
+    import torch.nn.functional as F
+    e = logits.shape[-1]
+    probs = torch.softmax(logits, dim=-1)
+    gates, idx = torch.topk(probs, k, dim=-1)
+    gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+    me = probs.mean(dim=(0, 1))
+    ce = F.one_hot(idx[..., 0], e).float().mean(dim=(0, 1))
+    aux = e * torch.sum(me * ce)
+    pos, keep, src = md.moe_slots(idx, e, cap)
+    return idx, gates, pos, keep, src, aux
+
+
+def plain_copy_dispatch(md, x, src):
+    """The dispatch on the ``-DMOE_DISPATCH_FORCE_PLAIN_COPY`` build (a
+    vector a load, default stores: the copy before the batched streaming
+    one), into ``src``'s layout, counted by no wrapper; off the card the
+    wrapper's plain version."""
+    if x.device.type != "cuda":
+        return md.moe_dispatch(x, src)
+    return md.launch_dispatch(md._lib(md.FORCE_PLAIN_COPY_DEFINES), x, src)
+
+
+@contextlib.contextmanager
+def slot_scan_moe():
+    """The MoE block's kernel route before ``moe_route`` (the parent's
+    path): ``models.moe`` calls the same kernels, with ``moe_route``
+    replaced by ``slot_scan_route``, whose group-major map gives a
+    group-major buffer, so the experts' einsums copy it into e-major, and
+    the dispatch by ``plain_copy_dispatch``."""
+    import torch
+    from repro_torch.kernels import moe_dispatch as md
+    from repro_torch.models import moe as MoE
+
+    class SlotScan:
+        def __getattr__(self, name):
+            return getattr(md, name)
+
+        @staticmethod
+        def moe_route(logits, k, cap):
+            return slot_scan_route(torch, md, logits, k, cap)
+
+        @staticmethod
+        def moe_dispatch(x, src):
+            return plain_copy_dispatch(md, x, src)
+    real = MoE.MD
+    MoE.MD = SlotScan()
+    try:
+        yield
+    finally:
+        MoE.MD = real
+
+
+def moe_expected_check(md, dtype: str, n: int = 3) -> dict:
+    """The device launches ``moe_check`` makes, by kernel and route: n of
+    the route, the slots and the combine, n of the dispatch a map
+    layout."""
+    want = {k: dict.fromkeys(md.ROUTES[k], 0) for k in md.KERNELS}
+    want["moe_route"]["f32"] = n
+    want["moe_slots"]["int64"] = n
+    want["moe_combine"][dtype] = n
+    want["moe_dispatch"][dtype] = 2 * n
+    return want
+
+
 def moe_check(torch, md, case, gen) -> dict:
-    """A case through the three kernels, each called 3 times: pos, keep
-    and src equal to ``moe_slots_plain``'s, the buffer to
-    ``moe_dispatch_plain``'s (``torch.equal``), y within 1e-6 x max|y|
-    (bf16: + 2^-8 |y|) of the plain combine's f32 sum, the same bits over
-    the 3 calls, one device launch a call on the dtype's route."""
+    """A case through the kernels, each called 3 times: ``moe_route``'s
+    idx, pos, keep and src equal to ``moe_route_plain``'s (``torch.equal``),
+    its gates and aux within 1e-6 x max|want|; ``moe_slots``' pos, keep and
+    src equal to ``moe_slots_plain``'s; the buffer from each map (e-major
+    and group-major), on the kernel and on ``plain_copy_dispatch``, equal
+    to ``moe_dispatch_plain``'s and laid out as its map; y within 1e-6 x max|y| (bf16: + 2^-8 |y|) of the
+    plain combine's f32 sum; the same bits over the 3 calls; the device's
+    launches exact by kernel and route."""
     a = moe_inputs(torch, case, gen)
-    idx, gates, x, out_buf, e, cap = (a[k] for k in (
-        "idx", "gates", "x", "out_buf", "e", "cap"))
+    logits, k, idx, gates, x, out_buf, e, cap = (a[n] for n in (
+        "logits", "k", "idx", "gates", "x", "out_buf", "e", "cap"))
     lib = md._lib()
     before = md.kernel_launches(lib)
+    routes = [md.moe_route(logits, k, cap) for _ in range(3)]
     slots = [md.moe_slots(idx, e, cap) for _ in range(3)]
-    pos, keep, src = slots[0]
-    bufs = [md.moe_dispatch(x, src) for _ in range(3)]
+    e_src, g_src = routes[0][4], slots[0][2]
+    bufs = {f"{n}{m}": [fn(x, s) for _ in range(3)]
+            for n, fn in (("", md.moe_dispatch),
+                          ("plain_copy/", lambda x, s: plain_copy_dispatch(
+                              md, x, s)))
+            for m, s in (("e_major", e_src), ("group_major", g_src))}
+    pos, keep = slots[0][:2]
     ys = [md.moe_combine(out_buf, idx, pos, keep, gates, x.dtype)
           for _ in range(3)]
     torch.cuda.synchronize()
     after = md.kernel_launches(lib)
-    route = md.route(x.dtype)
-    launched = {k: {r: n - before[k][r] for r, n in by.items()}
-                for k, by in after.items()}
-    want_launched = {k: {r: 3 if r in ("int64", route) else 0
-                         for r in md.ROUTES[k]} for k in md.KERNELS}
+    dtype = md.route(x.dtype)
+    launched = {n: {r: c - before[n][r] for r, c in by.items()}
+                for n, by in after.items()}
+    want_launched = moe_expected_check(md, dtype)
+    p_route = md.moe_route_plain(logits, k, cap)
     p_pos, p_keep, p_src = md.moe_slots_plain(idx, e, cap)
     p_buf = md.moe_dispatch_plain(x, p_src)
     y_f32 = md.moe_combine_plain(out_buf, idx, p_pos, p_keep, gates,
                                  torch.float32)
-    kept = int(p_keep.sum())
-    row = {"shape": dict(g=case[1], sg=case[2], k=case[3], e=e, cap=cap,
+    got = routes[0]
+    kept = int(p_route[3].sum())
+    row = {"shape": dict(g=case[1], sg=case[2], k=k, e=e, cap=cap,
                          d=case[5]), "dtype": case[6],
-           "unaligned": case[8], "route": route,
-           "kept": kept, "dropped": p_keep.numel() - kept,
-           "slots_equal": bool(torch.equal(pos, p_pos)
-                               and torch.equal(keep, p_keep)
-                               and torch.equal(src, p_src)),
-           "buf_equal": bool(torch.equal(bufs[0], p_buf)),
+           "unaligned": case[8], "ties": case[9], "route": dtype,
+           "kept": kept, "dropped": p_route[3].numel() - kept,
+           "route_equal": {n: bool(torch.equal(got[i], p_route[i]))
+                           for i, n in ((0, "idx"), (2, "pos"), (3, "keep"),
+                                        (4, "src"))},
+           "gates": moe_within(torch, got[1], p_route[1]),
+           "aux": moe_within(torch, got[5], p_route[5]),
+           "slots_equal": bool(torch.equal(slots[0][0], p_pos)
+                               and torch.equal(slots[0][1], p_keep)
+                               and torch.equal(g_src, p_src)),
+           "buf_equal": {m: bool(torch.equal(b[0], p_buf))
+                         for m, b in bufs.items()},
+           "buf_layout": {m: bool(
+               (b[0].transpose(0, 1) if m.endswith("e_major") else b[0])
+               .is_contiguous()) for m, b in bufs.items()},
            "y": moe_within(torch, ys[0], y_f32),
-           "repeats": all(all(torch.equal(u, v) for u, v in zip(s, slots[0]))
-                          for s in slots)
-           and all(same_bits(torch, b, bufs[0]) for b in bufs)
+           "repeats": all(all(same_bits(torch, u, v)
+                                  if u.is_floating_point()
+                                  else torch.equal(u, v)
+                                  for u, v in zip(r, routes[0]))
+                          for r in routes)
+           and all(all(torch.equal(u, v) for u, v in zip(s, slots[0]))
+                   for s in slots)
+           and all(same_bits(torch, b, bs[0])
+                   for bs in bufs.values() for b in bs)
            and all(same_bits(torch, y, ys[0]) for y in ys),
-           "device_launches": launched}
-    row["ok"] = (row["slots_equal"] and row["buf_equal"] and row["y"]["ok"]
+           "device_launches": launched,
+           # every launch leaves the route's persistent state zero
+           "state_zero": all(int(t.count_nonzero()) == 0
+                             for t in md._STATES.values())}
+    row["ok"] = (all(row["route_equal"].values()) and row["gates"]["ok"]
+                 and row["state_zero"]
+                 and row["aux"]["ok"] and row["slots_equal"]
+                 and all(row["buf_equal"].values())
+                 and all(row["buf_layout"].values()) and row["y"]["ok"]
                  and row["repeats"] and launched == want_launched
                  and (case[7] == 0.0 or row["dropped"] > 0))
     return row
@@ -2742,110 +2869,213 @@ def moe_bound(tensors, extra_bytes: int = 0) -> dict:
                 bound_by="bytes")
 
 
+def launches_of(torch, fn) -> dict:
+    """The launches one call of ``fn`` makes: the CUDA runtime's launch and
+    memset calls on the host, by name, and the device kernels a profile
+    shows (a profile can lose device records: it may show fewer)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.key_averages()
+    return {"host": {e.key: e.count for e in events
+                     if e.device_type != cuda and ("LaunchKernel" in e.key
+                                                   or "Memset" in e.key)},
+            "device": {e.key[:60]: e.count for e in events
+                       if e.device_type == cuda}}
+
+
 def moe_times(torch, md, gen) -> dict:
-    """At granite's prefill shape (``MOE_CASES[0]``): each kernel, the
-    three in sequence and the plain route's ops they replace
-    (``models.moe.dispatch_ops`` and ``moe_combine_plain``, the experts
-    excluded), each in turns with its plain version (kernel, plain, plain,
-    kernel), beside its byte bound and the nearest library call
-    (``index_select`` of the token rows for the dispatch; none for the
-    others)."""
+    """At granite's prefill shape (``MOE_CASES[0]``), each in turns with
+    the route it replaces (new, old, old, new), beside its byte bound, its
+    plain version and the nearest library call: ``moe_route`` against
+    the slot-scan route's glue (``slot_scan_route``: softmax, topk,
+    renormalisation, aux loss and ``moe_slots``), with the device launches
+    of each; the dispatch into the e-major buffer against
+    ``plain_copy_dispatch`` into the group-major one (the slot-scan
+    route's; library: ``index_select`` of the token rows), and each of
+    the two into each layout; logits to the experts' (e, g * cap, d) input, both
+    (the slot-scan route's with the einsum's copy into e-major); ``moe_slots`` and ``moe_combine`` against their
+    plain versions; the route, the dispatch and the combine together
+    against the plain route's glue."""
     from repro_torch.models import moe as MoE
     a = moe_inputs(torch, MOE_CASES[0], gen)
-    idx, gates, x, out_buf, e, cap = (a[k] for k in (
-        "idx", "gates", "x", "out_buf", "e", "cap"))
+    logits, k, x, out_buf, e, cap = (a[n] for n in (
+        "logits", "k", "x", "out_buf", "e", "cap"))
     g, sg, d = x.shape
-    pos, keep, src = md.moe_slots(idx, e, cap)
+    idx, gates, pos, keep, src, aux = md.moe_route(logits, k, cap)
+    g_src = md.moe_slots(idx, e, cap)[2]
     buf = md.moe_dispatch(x, src)
     y = md.moe_combine(out_buf, idx, pos, keep, gates, x.dtype)
     kept = int(keep.sum())
-    rows = (src.long().clamp_min(0) + sg * torch.arange(
+    rows = (g_src.long().clamp_min(0) + sg * torch.arange(
         g, device="cuda")[:, None, None]).reshape(-1)
     flat_x = x.reshape(g * sg, d)
     row_bytes = d * x.element_size()
-    slots_bound = moe_bound((idx, pos, keep, src))
+    route_bound = moe_bound((logits, idx, gates, pos, keep, src, aux))
+    slots_bound = moe_bound((idx, pos, keep, g_src))
     dispatch_bound = moe_bound((x, src, buf))
     combine_bound = moe_bound((idx, pos, keep, gates, y), kept * row_bytes)
+    to_experts_bound = moe_bound((logits, x, buf))
+
+    def new_to_experts():
+        s = md.moe_route(logits, k, cap)[4]
+        return md.moe_dispatch(x, s).transpose(0, 1).reshape(e, g * cap, d)
+
+    def old_to_experts():
+        s = slot_scan_route(torch, md, logits, k, cap)[4]
+        return plain_copy_dispatch(md, x, s).permute(1, 0, 2, 3).reshape(
+            e, g * cap, d)
 
     def kernels():
-        p, kp, s = md.moe_slots(idx, e, cap)
-        md.moe_combine(out_buf, idx, p, kp, gates, x.dtype)
-        return md.moe_dispatch(x, s)
+        i, gt, p, kp, s, _ = md.moe_route(logits, k, cap)
+        md.moe_dispatch(x, s)
+        return md.moe_combine(out_buf, i, p, kp, gt, x.dtype)
 
     def plain_route():
-        _, p, kp = MoE.dispatch_ops(x, idx, e, cap)
-        return md.moe_combine_plain(out_buf, idx, p, kp, gates, x.dtype)
-    both = sum(b["bytes"] for b in (slots_bound, dispatch_bound,
+        i, gt, p, kp, s, _ = md.moe_route_plain(logits, k, cap)
+        MoE.dispatch_ops(x, i, e, cap)
+        return md.moe_combine_plain(out_buf, i, p, kp, gt, x.dtype)
+    both = sum(b["bytes"] for b in (route_bound, dispatch_bound,
                                      combine_bound))
+    # name: (new, old or None, plain, library call or None, bound)
     cases = {
-        "moe_slots": (lambda: md.moe_slots(idx, e, cap),
-                      lambda: md.moe_slots_plain(idx, e, cap), None,
-                      slots_bound),
+        "moe_route": (lambda: md.moe_route(logits, k, cap),
+                      lambda: slot_scan_route(torch, md, logits, k, cap),
+                      lambda: md.moe_route_plain(logits, k, cap), None,
+                      route_bound),
         "moe_dispatch": (lambda: md.moe_dispatch(x, src),
+                         lambda: plain_copy_dispatch(md, x, g_src),
                          lambda: md.moe_dispatch_plain(x, src),
                          lambda: flat_x.index_select(0, rows),
                          dispatch_bound),
+        "logits_to_experts": (new_to_experts, old_to_experts, None, None,
+                              to_experts_bound),
+        "moe_slots": (lambda: md.moe_slots(idx, e, cap), None,
+                      lambda: md.moe_slots_plain(idx, e, cap), None,
+                      slots_bound),
         "moe_combine": (lambda: md.moe_combine(out_buf, idx, pos, keep,
-                                               gates, x.dtype),
+                                               gates, x.dtype), None,
                         lambda: md.moe_combine_plain(out_buf, idx, pos, keep,
                                                      gates, x.dtype),
                         None, combine_bound),
-        "all_three": (kernels, plain_route, None,
+        "all_three": (kernels, None, plain_route, None,
                       dict(bytes=both, bound_ms=both / H100_BYTES_PER_S * 1e3,
                            bound_by="bytes")),
     }
     out = {}
-    for name, (fast, slow, lib_call, bound) in cases.items():
-        ms = {"kernel": [], "plain": []}
-        for which in ("kernel", "plain", "plain", "kernel"):
+    for name, (fast, old, plain, lib_call, bound) in cases.items():
+        slow = old or plain
+        ms = {"kernel": [], "other": []}
+        for which in ("kernel", "other", "other", "kernel"):
             ms[which].append(cuda_ms(fast if which == "kernel" else slow,
                                      iters=20, warmup=2))
-        row = dict(ms=sum(ms["kernel"]) / 2, plain_ms=sum(ms["plain"]) / 2,
-                   turns=ms, library_ms=(cuda_ms(lib_call, iters=20,
-                                                 warmup=2)
-                                         if lib_call else None), **bound)
+        row = dict(ms=sum(ms["kernel"]) / 2, turns=ms,
+                   old_ms=sum(ms["other"]) / 2 if old else None,
+                   plain_ms=(sum(ms["other"]) / 2 if not old else
+                             cuda_ms(plain, iters=20, warmup=2)
+                             if plain else None),
+                   library_ms=(cuda_ms(lib_call, iters=20, warmup=2)
+                               if lib_call else None), **bound)
         row["share_of_bound"] = row["bound_ms"] / row["ms"]
         out[name] = row
     out["moe_dispatch"]["library"] = ("torch.index_select of the token rows "
                                       "(no zero rows for empty slots)")
-    for name in ("moe_slots", "moe_combine", "all_three"):
+    # the same three with x just read, as the prefill's router product
+    # leaves it (in L2), whatever an earlier call left there: each call
+    # after a sum of x, less the sum's own time, in turns
+    touch = lambda: x.sum()                                     # noqa: E731
+    layouts = {"e_major": lambda: md.moe_dispatch(x, src),
+               "group_major": lambda: md.moe_dispatch(x, g_src),
+               "plain_copy_e_major": lambda: plain_copy_dispatch(md, x, src),
+               "plain_copy_group_major": lambda: plain_copy_dispatch(
+                   md, x, g_src),
+               "index_select": lambda: flat_x.index_select(0, rows)}
+    turns = {n: [] for n in layouts}
+    for n in (*layouts, *reversed(layouts)):
+        turns[n].append(cuda_ms(layouts[n], iters=20, warmup=2))
+    out["moe_dispatch"]["layouts_ms"] = {n: sum(t) / 2
+                                         for n, t in turns.items()}
+    out["moe_dispatch"]["layouts_turns"] = turns
+    warm = {"e_major": lambda: md.moe_dispatch(x, src),
+            "plain_copy_group_major": lambda: plain_copy_dispatch(
+                md, x, g_src),
+            "index_select": lambda: flat_x.index_select(0, rows)}
+    turns = {n: [] for n in warm}
+    for n in (*warm, *reversed(warm)):
+        fn = warm[n]
+        turns[n].append(cuda_ms(lambda: (touch(), fn()), iters=20,
+                                warmup=2) - cuda_ms(touch, iters=20,
+                                                    warmup=2))
+    out["moe_dispatch"]["x_warm_ms"] = {n: sum(t) / 2
+                                        for n, t in turns.items()}
+    out["moe_dispatch"]["x_warm_turns"] = turns
+    out["moe_dispatch"]["old"] = ("the plain copy (a vector a load, default "
+                                  "stores) into the group-major buffer")
+    out["moe_route"]["old"] = ("the slot-scan route: softmax, topk, "
+                               "renormalisation, aux loss, moe_slots")
+    out["logits_to_experts"]["old"] = ("the slot-scan route: the glue, the "
+                                       "plain copy into the group-major "
+                                       "buffer and the einsum's copy into "
+                                       "e-major")
+    for name in ("moe_route", "moe_slots", "moe_combine", "all_three",
+                 "logits_to_experts"):
         out[name]["library"] = "none: no one PyTorch call computes it"
-    out["all_three"]["plain"] = ("models.moe.dispatch_ops + "
-                                 "moe_combine_plain: the plain route's glue "
-                                 "from idx to y, the experts excluded")
+    out["all_three"]["plain"] = ("models.moe's plain route: the router's "
+                                 "ops, dispatch_ops and moe_combine_plain, "
+                                 "the experts excluded")
+    out["launches_a_call"] = {
+        "moe_route": launches_of(
+            torch, lambda: md.moe_route(logits, k, cap)),
+        "slot_scan_route": launches_of(
+            torch, lambda: slot_scan_route(torch, md, logits, k, cap))}
     out["kept_slots"] = kept
-    # the host's microseconds a layer's glue takes to return, the kernels
-    # and the plain route's ops (20 calls: the plain ops' launches stay
-    # within the device's queue), at the prefill's shape and at the decode
-    # step's (its eager first step and its capture pay it; replays do not)
+    # the host's microseconds a layer's glue takes to return, the kernels,
+    # the slot-scan route's and the plain route's ops (20 calls: the plain
+    # ops' launches stay within the device's queue), at the prefill's shape
+    # and at the decode step's (its eager first step and its capture pay
+    # it; replays do not)
     dec = moe_inputs(torch, MOE_CASES[1], gen)
 
+    def old_kernels():
+        i, gt, p, kp, s, _ = slot_scan_route(torch, md, logits, k, cap)
+        plain_copy_dispatch(md, x, s)
+        return md.moe_combine(out_buf, i, p, kp, gt, x.dtype)
+
     def dec_kernels():
-        p, kp, s = md.moe_slots(dec["idx"], dec["e"], dec["cap"])
+        i, gt, p, kp, s, _ = md.moe_route(dec["logits"], dec["k"],
+                                          dec["cap"])
         md.moe_dispatch(dec["x"], s)
-        return md.moe_combine(dec["out_buf"], dec["idx"], p, kp,
-                              dec["gates"], dec["x"].dtype)
+        return md.moe_combine(dec["out_buf"], i, p, kp, gt, dec["x"].dtype)
     out["host_us"] = {"prefill_kernels": host_us(torch, kernels, iters=20),
+                      "prefill_slot_scan": host_us(torch, old_kernels,
+                                                 iters=20),
                       "prefill_plain": host_us(torch, plain_route, iters=20),
                       "decode_kernels": host_us(torch, dec_kernels)}
     return out
 
 
 def phase_moe_kernel(torch, md) -> list:
-    """The MoE dispatch's three kernels against their plain versions on
-    the card (``MOE_CASES``: granite's prefill and decode shapes, grok's
-    width, a forced overflow, f32, 64 groups of 32 tokens, the smoke
-    widths, an odd d, unaligned rows, 256 experts), then timed at
-    granite's prefill shape (``moe_times``).  Returns the kernels line's
-    three entries."""
+    """The MoE kernels against their plain versions on the card
+    (``MOE_CASES``: granite's prefill and decode shapes, grok's width, a
+    forced overflow, f32, 64 groups of 32 tokens, the smoke widths, an odd
+    d, unaligned rows, 256 experts, exact ties), then timed at granite's
+    prefill shape (``moe_times``).  Returns the kernels line's entries, one
+    a kernel of the serve path (``moe_slots``, the slot scan, left the path
+    for ``moe_route``: it is checked and timed here, and not listed)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(13)
     t0 = time.monotonic()
-    failed, worst = [], 0.0
+    failed, worst = [], {"y": 0.0, "gates": 0.0}
     for case in MOE_CASES:
         row = moe_check(torch, md, case, gen)
         emit("kernel_check", kernel="moe_dispatch", case=case[0], **row)
-        worst = max(worst, row["y"]["max_abs_err"])
+        for n in worst:
+            worst[n] = max(worst[n], row[n]["max_abs_err"])
         if not row["ok"]:
             failed.append(case[0])
     gc.collect()
@@ -2854,49 +3084,64 @@ def phase_moe_kernel(torch, md) -> list:
     emit("moe_times", shape=MOE_SHAPE, times=times,
          seconds=time.monotonic() - t0)
     if failed:
-        fail(f"MoE dispatch kernels differ from the plain versions: {failed}")
+        fail(f"MoE kernels differ from the plain versions: {failed}")
     entries = []
-    for name in md.KERNELS:
+    for name in (n for n in md.KERNELS if n != "moe_slots"):
         t = times[name]
         entries.append({
             "name": name, "route": "cuda",
-            "kernel_route": "int64" if name == "moe_slots" else "bf16",
+            "kernel_route": MOE_ENTRY_ROUTES[name],
             "kernel_routes": list(md.ROUTES[name]),
-            "source": f"{MOE_SOURCE} ({name}_kernel)",
+            "source": f"{MOE_SOURCE} ({MOE_DEVICE_KERNELS[name]})",
             "replaces": MOE_REPLACES[name], "shape": MOE_SHAPE,
-            "max_abs_err": worst if name == "moe_combine" else 0.0,
-            "ms": t["ms"], "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
+            "max_abs_err": {"moe_combine": worst["y"],
+                            "moe_route": worst["gates"]}.get(name, 0.0),
+            "ms": t["ms"], "kernel_ms": t["ms"], "old_ms": t["old_ms"],
+            "old_route": t.get("old"), "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "library": t["library"],
             "all_three_ms": times["all_three"]["ms"],
             "all_three_plain_ms": times["all_three"]["plain_ms"],
-            "all_three_bound_ms": times["all_three"]["bound_ms"]})
+            "all_three_bound_ms": times["all_three"]["bound_ms"],
+            "logits_to_experts_ms": times["logits_to_experts"]["ms"],
+            "logits_to_experts_old_ms": times["logits_to_experts"]["old_ms"],
+            **({"layouts_ms": t["layouts_ms"]} if "layouts_ms" in t else {})})
     return entries
+
+
+def moe_serve_routes(md, cfg) -> dict:
+    """The route of each MoE kernel a serve path of ``cfg`` launches: the
+    route's one, the dispatch's and the combine's the model's dtype."""
+    dt = md.route(cfg.torch_dtype)
+    return {"moe_route": "f32", "moe_dispatch": dt,
+            "moe_combine": dt, "moe_slots": "int64"}
 
 
 def expected_moe_serve(cfg, n_micro: int, decode_steps: int) -> dict:
     """Each MoE kernel's launches in a serve run, on the host and on the
-    device: once a MoE layer a microbatch's prefill, and a decode app's
-    steps as ``expected_norm_rope_serve`` counts them (the host its eager
-    first step and its capture, the device every executed step)."""
+    device: the route, the dispatch and the combine once a MoE layer a
+    microbatch's prefill, and a decode app's steps as
+    ``expected_norm_rope_serve`` counts them (the host its eager first
+    step and its capture, the device every executed step); the slot scan
+    of the router's idx none (the route took its place)."""
     layers = cfg.num_layers if cfg.family == "moe" else 0
     steps = max(decode_steps - 1, 0)
     per = {"host": n_micro * layers * (1 + min(steps, 1) * 2),
            "device": n_micro * layers * (1 + steps)}
-    return {name: dict(per) for name in ("moe_slots", "moe_dispatch",
-                                         "moe_combine")}
+    return {name: dict(per) if name != "moe_slots"
+            else {"host": 0, "device": 0} for name in MOE_KERNELS}
 
 
 MOE_LAUNCHES: dict = {}     # phase or path -> host and device counts
 
 
-def moe_window(md, route: Optional[str] = None):
+def moe_window(md, routes: Optional[dict] = None):
     """Counts the MoE kernels' launches from this call on, on the host
     (the wrappers' counts, set to 0 here) and on the device.  The returned
     ``check(what, want)`` fails unless each kernel's launches in all equal
     ``want`` (``expected_moe_serve``'s host and device totals), or with
-    ``route`` (the model's dtype) any dispatch or combine launch lies on
-    another route; it keeps the counts in ``MOE_LAUNCHES[what]``."""
+    ``routes`` (``moe_serve_routes``) any launch lies on another route
+    than its kernel's; it keeps the counts in ``MOE_LAUNCHES[what]``."""
     fns = {name: getattr(md, name) for name in md.KERNELS}
     _zero_counts(fns)
     lib = md._lib()
@@ -2909,29 +3154,27 @@ def moe_window(md, route: Optional[str] = None):
         host = {k: dict(fn.launches_by_route) for k, fn in fns.items()}
         MOE_LAUNCHES[what] = {"host": host, "device": device}
         emit("moe_launches", what=what, host=host, device=device,
-             expected=want)
+             expected=want, routes=routes)
         got = {k: {"host": sum(host[k].values()),
                    "device": sum(device[k].values())} for k in want}
-        stray = route is not None and any(
-            n for k in ("moe_dispatch", "moe_combine")
-            for by in (host[k], device[k]) for r, n in by.items()
-            if r != route)
+        stray = routes is not None and any(
+            n for k in routes for by in (host[k], device[k])
+            for r, n in by.items() if r != routes[k])
         if got != want or stray:
             fail(f"{what}: MoE launches host {host}, device {device}, "
-                 f"expected {want} on {route}")
+                 f"expected {want} on {routes}")
     return check
 
 
-MOE_IDLE = dict.fromkeys(("moe_slots", "moe_dispatch", "moe_combine"),
-                         {"host": 0, "device": 0})
+MOE_IDLE = dict.fromkeys(MOE_KERNELS, {"host": 0, "device": 0})
 
 
 @contextlib.contextmanager
 def plain_moe():
-    """The MoE block's plain route on the card (the parent's path):
-    ``models.model``'s blocks call ``moe_block`` with ``use_kernel``
-    forced off, so the dispatch runs as the torch ops it did before the
-    kernels."""
+    """The MoE block's plain route on the card (the path before the MoE
+    kernels): ``models.model``'s blocks call ``moe_block`` with
+    ``use_kernel`` forced off, so the routing and the dispatch run as
+    torch ops."""
     from repro_torch.models import model as M
     real = M.moe_block
     M.moe_block = lambda *a, **kw: real(*a, **{**kw, "use_kernel": False})
@@ -3054,7 +3297,7 @@ def phase_serve(torch, arch, mods):
     ssd_before = ss.kernel_launches(ss._lib())
     decode_before = da.kernel_launches(da._lib())
     norm_rope_check = norm_rope_window(nr)
-    moe_check = moe_window(md, md.route(cfg.torch_dtype))
+    moe_check = moe_window(md, moe_serve_routes(md, cfg))
     res = run_serving(cfg, device="cuda", params=params, **shape)
     launches, by_route = _read_counts(kernels)
     norm_rope_check(arch, expected_norm_rope_serve(
@@ -3466,7 +3709,11 @@ def phase_steps(torch, cfg, params, shape: dict, fa, ss, da):
         before = fa.kernel_launches(lib)
         ssd_before = ss.kernel_launches(ssd_lib)
         decode_before = da.kernel_launches(da._lib())
-        prof = profile_call(torch, fn, f"profile_{cfg.name}_{name}.txt")
+        moe_prefill = cfg.family == "moe" and name == "prefill"
+        prof = profile_call(torch, fn, f"profile_{cfg.name}_{name}.txt",
+                            copies=moe_prefill)
+        if moe_prefill:
+            moe_prof = prof
         launched = launch_delta(fa, lib, before)
         ssd_launched = launch_delta(ss, ssd_lib, ssd_before)
         decode_launched = decode_device_delta(
@@ -3501,21 +3748,50 @@ def phase_steps(torch, cfg, params, shape: dict, fa, ss, da):
     decode_one.close()
     if cfg.family == "moe":
         out["moe_parent"] = moe_parent(torch, cfg, params, batch, shape,
-                                       prefill)
+                                       prefill, moe_prof)
     return out
 
 
-def moe_parent(torch, cfg, params, batch, shape: dict, prefill) -> dict:
-    """The MoE path's parent column: a profile of one prefill on the MoE
-    block's plain route (``plain_moe``; table ``profile_<config>_prefill_
-    plain_moe.txt``, its MoE ops beside the kernel route's), then the
-    prefill and the replayed decode step on the kernels and on the plain
-    MoE route in turns (``route_turns``)."""
+def moe_parent(torch, cfg, params, batch, shape: dict, prefill,
+               kernel_prof: dict) -> dict:
+    """The MoE path's parent columns: a profile of one prefill on the
+    slot-scan route (``slot_scan_moe``: the router's glue, the slot scan,
+    the plain copy into the group-major buffer; table ``profile_<config>_
+    prefill_slot_scan_moe.txt``) and on the block's plain route
+    (``plain_moe``); the kernel route's prefill (``kernel_prof``) must run
+    at least two ``aten::copy_`` calls a layer fewer than the slot-scan
+    route's (the experts' einsums no longer copy the buffer into e-major;
+    the copies of both by input shape); then the prefill and the replayed decode
+    step on the kernels against the slot-scan route and the plain route,
+    each in turns (``route_turns``), beside each route's device busy ms."""
+    with slot_scan_moe():
+        old = profile_call(torch, prefill,
+                           f"profile_{cfg.name}_prefill_slot_scan_moe.txt",
+                           copies=True)
+    emit("profile", config=cfg.name, step="prefill_slot_scan_moe", **old)
     with plain_moe():
         prof = profile_call(torch, prefill,
                             f"profile_{cfg.name}_prefill_plain_moe.txt")
     emit("profile", config=cfg.name, step="prefill_plain_moe", **prof)
-    row = route_turns(torch, cfg, params, batch, shape, plain_moe)
+    copies = {w: p["ops"].get("aten::copy_", {}).get("calls", 0)
+              for w, p in (("kernels", kernel_prof), ("slot_scan", old))}
+    fewer = copies["slot_scan"] - copies["kernels"]
+    emit("moe_copies", config=cfg.name, calls=copies,
+         fewer_a_layer=fewer / cfg.num_layers,
+         kernels_by_shape=kernel_prof["copies_by_shape"],
+         slot_scan_by_shape=old["copies_by_shape"])
+    if fewer < 2 * cfg.num_layers:
+        fail(f"{cfg.name} prefill: aten::copy_ {copies}, expected at least "
+             f"{2 * cfg.num_layers} fewer on the kernels than on the "
+             "slot-scan route")
+    busy = {"kernels": kernel_prof["device_busy_ms"],
+            "slot_scan": old["device_busy_ms"],
+            "plain": prof["device_busy_ms"]}
+    row = {"device_busy_ms": busy,
+           "slot_scan": route_turns(torch, cfg, params, batch, shape,
+                                     slot_scan_moe),
+           "plain": route_turns(torch, cfg, params, batch, shape,
+                                plain_moe)}
     # the prefill is paced by the host: the threads alive beside it
     emit("moe_parent", config=cfg.name, microbatch=shape["microbatch"],
          prompt_len=shape["prompt_len"],
@@ -3768,7 +4044,8 @@ def routes_agree(torch, cfg, params, cache, tok, pos: int) -> dict:
     return out
 
 
-def profile_call(torch, fn, table_name: str, split=None) -> dict:
+def profile_call(torch, fn, table_name: str, split=None,
+                 copies: bool = False) -> dict:
     """One call of ``fn`` under torch.profiler, ended by a device
     synchronise: its wall ms, device busy ms and idle share, the ten
     device kernels with the most time, the flash launches by route
@@ -3778,11 +4055,13 @@ def profile_call(torch, fn, table_name: str, split=None) -> dict:
     (``WATCHED_OPS``), where the call ran them (full table to
     ``table_name`` under ``PROFILE_DIR``); with ``split`` (a model's
     widths, ``train_dims``), a train step's device time by part and its
-    elementwise time by op family (``train_split``, shapes recorded)."""
+    elementwise time by op family (``train_split``, shapes recorded); with
+    ``copies``, the ``aten::copy_`` calls by their input shapes
+    (``copies_by_shape``)."""
     from torch.profiler import ProfilerActivity, profile
     PROFILE_DIR.mkdir(parents=True, exist_ok=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=split is not None) as prof:
+                 record_shapes=split is not None or copies) as prof:
         t0 = time.monotonic()
         fn()
         torch.cuda.synchronize()
@@ -3809,6 +4088,13 @@ def profile_call(torch, fn, table_name: str, split=None) -> dict:
                decode_kernels_seen=decode_kernels_seen(torch, events))
     if split is not None:
         out["split"] = train_split(torch, prof, busy_ms, split)
+    if copies:
+        out["copies_by_shape"] = sorted(
+            ({"shapes": str(e.input_shapes)[:120], "calls": e.count,
+              "device_ms": _device_us(e) / 1e3}
+             for e in prof.key_averages(group_by_input_shape=True)
+             if e.key == "aten::copy_" and e.device_type != cuda),
+            key=lambda r: -r["device_ms"])
     return out
 
 
@@ -4024,15 +4310,21 @@ def scoped_optimizer(spans=None):
             setattr(S, n, fn)
 
 
-# the MoE dispatch (slot cumsum, scatter_add write, gather read), the SSD
-# scan's cumsum and the four copies into the SSD kernel's layout (the
+# the MoE dispatch (slot cumsum, scatter_add write, gather read), the MoE
+# router's glue (softmax, topk, the aux loss's means), every copy (the
+# experts' einsums copy a group-major buffer into e-major), the SSD scan's
+# cumsum and the four copies into the SSD kernel's layout (the
 # ``ssd_scan_layout`` range of ``kernels/ops.py``), by their device time
 # under the op
 WATCHED_OPS = ("aten::cumsum", "aten::scatter_add", "aten::gather",
-               "aten::index_put_", "aten::index", "ssd_scan_layout")
-# the MoE dispatch's plain ops, which a prefill through its kernels runs
-# none of
-MOE_PLAIN_OPS = ("aten::cumsum", "aten::scatter_add", "aten::gather")
+               "aten::index_put_", "aten::index", "aten::topk",
+               "aten::softmax", "aten::mean", "aten::copy_",
+               "ssd_scan_layout")
+# the MoE block's plain ops and the slot-scan route's router glue, which
+# a prefill
+# through its kernels runs none of
+MOE_PLAIN_OPS = ("aten::cumsum", "aten::scatter_add", "aten::gather",
+                 "aten::topk", "aten::softmax", "aten::mean")
 
 
 TRAIN_FULL = dict(layers=16, batch=8, seq=512, steps=4, peak_lr=3e-4)
@@ -4818,6 +5110,9 @@ def check_kernel_guard(torch, mods) -> list:
                  q[:, :, 0], q.detach().transpose(1, 2),
                  q.detach().transpose(1, 2), 3),
              # (moe_slots takes int64 experts only, which cannot need grad)
+             "moe_route": lambda: md.moe_route(
+                 torch.zeros((1, 2, 8), device="cuda", requires_grad=True),
+                 2, 8),
              "moe_dispatch": lambda: md.moe_dispatch(
                  x[0], torch.zeros((2, 2, 8), device="cuda",
                                    dtype=torch.int32)),
@@ -4947,7 +5242,8 @@ def main() -> int:
                 ("flash_attention", fa.FORCE_SCALAR_DEFINES),
                 ("ssd_scan", SSD_MMA_DEFINES),
                 ("train_attention", ta.FORCE_MMA_DEFINES),
-                ("train_attention", ta.FORCE_SCALAR_DEFINES)]
+                ("train_attention", ta.FORCE_SCALAR_DEFINES),
+                ("moe_dispatch", md.FORCE_PLAIN_COPY_DEFINES)]
     build_s = _build.build(variants=variants)
     builds = {n: (n, ()) for n in _build.KERNEL_SOURCES}
     builds.update({f"{n} {' '.join(d)}": (n, d) for n, d in variants})

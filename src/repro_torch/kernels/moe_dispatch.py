@@ -1,28 +1,36 @@
-"""The MoE block's dispatch on Hopper: slot positions, dispatch, combine.
+"""The MoE block's routing and dispatch on Hopper: the router's softmax,
+top-k, slot positions and aux loss; the dispatch; the combine.
 
 Replaces no Pallas kernel: the reference computes the whole MoE block with
 jnp inside its jitted serve steps (``repro/models/moe.py`` ``moe_block``,
 under ``jax.jit`` in ``repro/launch/serve.py``), where XLA fuses the
 routing glue.  The kernels are CUDA C++ written by hand for sm_90a
 (``repro_torch/csrc/moe_dispatch.cu``), built by ``nvcc`` into a plain-C
-shared library and called through ctypes.  They start from the router's
-top-k experts ``idx`` (g, sg, k) and gates; the router, the experts'
-products and the aux loss stay torch ops.
+shared library and called through ctypes.  The router's f32 product and
+the experts' products stay torch products.
 
-What bounds them: bytes.  ``moe_slots`` reads idx and writes each slot's
-position in its expert, whether it is kept and the inverse map ``src``
-(g, e, cap): the token row that fills each expert slot, or -1;
-``moe_dispatch`` writes the (g, e, cap, d) buffer from the tokens' rows;
+What bounds them: latency and bytes.  ``moe_route`` reads the router's
+logits (g, sg, e) f32 and writes the top-k experts ``idx``, their
+renormalised ``gates``, each slot's position in its expert ``pos``, whether
+it is kept, the inverse map ``src`` (the token row that fills each expert
+slot, or -1) and the aux loss: a chain of dependent steps over few bytes,
+so a block a tile of 16 tokens (a warp a token) and a single-pass chained
+scan of the tiles' per-expert counts spread it over many SMs (exact in
+integers, the aux loss's partials summed in tile order: the same bits
+every call).  ``moe_dispatch`` writes the experts' buffer from the tokens'
+rows (a warp a row, in 16-byte vectors where the rows allow, several
+loaded before they are stored, the stores streamed), laid out as ``src``
+is: expert-major from ``moe_route``, so the experts' einsums take
+it without a copy;
 ``moe_combine`` reads the kept rows of the experts' output and writes y.
-What the design does: a block a group ranks its slots by warp matches and a
-shared-memory scan of per-warp counts (exact, no atomics); the dispatch
-and the combine copy and sum 16-byte vectors, a warp a row, the combine in
-f32 in slot order and rounded once.
+``moe_slots`` is the slot scan of the router's idx in one block a group,
+the route before ``moe_route``.
 
-``models.moe.moe_block(..., use_kernel=True)`` calls the three wrappers
-here.  Each validates its inputs, raises for a tensor that requires grad
-(no backward: training takes the block's plain route), then launches its
-kernel for CUDA tensors or takes its plain version (``moe_slots_plain``,
+``models.moe.moe_block(..., use_kernel=True)`` calls ``moe_route``,
+``moe_dispatch`` and ``moe_combine``.  Each wrapper validates its inputs,
+raises for a tensor that requires grad (no backward: training takes the
+block's plain route), then launches its kernel for CUDA tensors or takes
+its plain version (``moe_route_plain``, ``moe_slots_plain``,
 ``moe_dispatch_plain``, ``moe_combine_plain``) for CPU and meta ones; a
 DTensor on CUDA, any other device and a mix raise.  No wrapper reads a
 tensor's values on the host, so a decode step that calls them can be
@@ -42,11 +50,16 @@ import torch.nn.functional as F
 from . import _build
 from ._build import launch as _launch
 
-MAX_EXPERTS = 256       # the slot kernel's shared-memory counts
-KERNELS = ("moe_slots", "moe_dispatch", "moe_combine")
-# the C instance ids: slots one; dispatch and combine (bf16)
+MAX_EXPERTS = 256       # the kernels' shared-memory counts
+# in the C kernel ids' order
+KERNELS = ("moe_slots", "moe_dispatch", "moe_combine", "moe_route")
+# the C instance ids: slots one; dispatch and combine a dtype; route one
+# (f32 logits)
 ROUTES = {"moe_slots": ("int64",), "moe_dispatch": ("f32", "bf16"),
-          "moe_combine": ("f32", "bf16")}
+          "moe_combine": ("f32", "bf16"), "moe_route": ("f32",)}
+# the build whose dispatch copies a vector a load with default stores (the
+# copy before the batched streaming one), timed in turns against it
+FORCE_PLAIN_COPY_DEFINES = ("MOE_DISPATCH_FORCE_PLAIN_COPY",)
 _BF16 = {torch.float32: 0, torch.bfloat16: 1}
 _NAMES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _COUNT_LOCK = threading.Lock()
@@ -86,6 +99,38 @@ def moe_slots_plain(idx: torch.Tensor, num_experts: int, cap: int
     return pos.to(torch.int32), keep, src.to(torch.int32)
 
 
+def top_k(probs: torch.Tensor, k: int
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(values, indices) of the k largest of ``probs`` along the last dim,
+    in descending order, the lower index first among equal values
+    (``lax.top_k``'s order): the first k of a stable descending sort."""
+    vals, order = probs.sort(dim=-1, descending=True, stable=True)
+    return vals[..., :k], order[..., :k]
+
+
+def e_major(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (g, e, ...) with the same values, its storage laid out (e, g,
+    ...): a permuted view of an e-major copy."""
+    return t.transpose(0, 1).contiguous().transpose(0, 1)
+
+
+def moe_route_plain(logits: torch.Tensor, k: int, cap: int
+                    ) -> Tuple[torch.Tensor, ...]:
+    """``moe_route`` as torch ops, the plain route's own (``models.moe``):
+    (idx (g, sg, k) int64, gates (g, sg, k) f32, pos (g, n) int32, keep
+    (g, n) bool, src (g, e, cap) int32 laid out e-major, aux f32 scalar)
+    of the router's logits (g, sg, e) f32, n = sg * k."""
+    e = logits.shape[-1]
+    probs = torch.softmax(logits, dim=-1)
+    gates, idx = top_k(probs, k)
+    gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+    me = probs.mean(dim=(0, 1))
+    ce = F.one_hot(idx[..., 0], e).float().mean(dim=(0, 1))
+    aux = e * torch.sum(me * ce)
+    pos, keep, src = moe_slots_plain(idx, e, cap)
+    return idx, gates, pos, keep, e_major(src), aux
+
+
 def moe_dispatch_plain(x: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
     """``moe_dispatch`` as torch ops: buf (g, e, cap, d) with buf[g, e, c]
     = x[g, src[g, e, c]], zeros where src is -1."""
@@ -118,25 +163,25 @@ def moe_combine_plain(out_buf: torch.Tensor, idx: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-_LIB = None
-
-
-def _lib() -> ctypes.CDLL:
-    global _LIB
-    if _LIB is None:
-        lib = _build.load("moe_dispatch")
+def _lib(defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
+    lib = _build.load("moe_dispatch", defines)
+    if lib.moe_dispatch_launches.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.moe_slots.argtypes = [p, i, i, i, i, i, p, p, p, p]
         lib.moe_slots.restype = i
-        lib.moe_dispatch.argtypes = [p, p, p, i, i, i, i, ll, ll, i, p]
+        lib.moe_dispatch.argtypes = [p, p, p, i, i, i, i, ll, ll, i, i, p]
         lib.moe_dispatch.restype = i
+        lib.moe_route.argtypes = [p, i, i, i, i, i, p, p, p, p, p, p, p, ll,
+                                  p, ll, i, p]
+        lib.moe_route.restype = i
+        lib.moe_route_scratch_bytes.argtypes = [i, i, i, i]
+        lib.moe_route_scratch_bytes.restype = ll
         lib.moe_combine.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, ll,
                                     ll, ll, i, p]
         lib.moe_combine.restype = i
         lib.moe_dispatch_launches.argtypes = [i, i]
         lib.moe_dispatch_launches.restype = ctypes.c_ulonglong
-        _LIB = lib
-    return _LIB
+    return lib
 
 
 def kernel_launches(lib: ctypes.CDLL) -> dict:
@@ -184,10 +229,89 @@ def _count(fn, inst: str) -> None:
 
 
 def route(dtype: torch.dtype, name: str = "moe_dispatch") -> str:
-    """The instance the dispatch and the combine run for x in ``dtype``."""
+    """The instance the dispatch or the combine runs for ``dtype``."""
     if dtype not in _NAMES:
         raise ValueError(f"{name}: {dtype} (float32, bfloat16)")
     return _NAMES[dtype]
+
+
+def is_e_major(src: torch.Tensor) -> bool:
+    """True if the map ``src`` (g, e, cap) is laid out e-major (as
+    ``moe_route`` returns it), False if group-major (``moe_slots``')."""
+    g, e, cap = src.shape
+    return g > 1 and e > 1 and src.stride() == (cap, g * cap, 1)
+
+
+# moe_route's state a (device, stream): zeroed once, and every launch
+# leaves its tickets and words 0
+_STATES: dict = {}
+_STATE_LOCK = threading.Lock()
+
+
+def _route_state(device: torch.device, stream: int, nbytes: int
+                 ) -> torch.Tensor:
+    key = (device.index, stream)
+    with _STATE_LOCK:
+        state = _STATES.get(key)
+        if state is None or state.numel() < nbytes:
+            size = max(nbytes, 2 * state.numel() if state is not None else 0)
+            state = _STATES[key] = torch.zeros(size, dtype=torch.uint8,
+                                               device=device)
+        return state
+
+
+def moe_route(logits: torch.Tensor, k: int, cap: int
+              ) -> Tuple[torch.Tensor, ...]:
+    """(idx (g, sg, k) int64, gates (g, sg, k) f32, pos (g, n) int32, keep
+    (g, n) bool, src (g, e, cap) int32, aux f32 scalar) of the router's
+    logits (g, sg, e) f32, n = sg * k: each token's k most probable experts
+    (softmax; ties to the lower expert), their probabilities renormalised
+    to sum 1, each slot's position among the group's earlier slots of its
+    expert (token order, top-1 before top-2), whether it is within the
+    expert's capacity ``cap``, the token row that fills each expert slot
+    (-1 where none does; laid out e-major, (e, g, cap), so ``moe_dispatch``
+    writes an e-major buffer), and the load-balancing aux loss over all g *
+    sg tokens.  One launch a call (inside a CUDA graph capture a memset of
+    its scratch before it)."""
+    if logits.dim() != 3 or logits.dtype != torch.float32:
+        raise ValueError(f"moe_route: logits {tuple(logits.shape)} "
+                         f"{logits.dtype}, want (g, sg, e) float32")
+    g, sg, e = logits.shape
+    if not (1 <= k <= e <= MAX_EXPERTS) or cap < 1 or g * sg == 0 or \
+            sg * k >= 2 ** 30:
+        raise ValueError(f"moe_route: logits {tuple(logits.shape)}, top {k} "
+                         f"of the experts (k <= e <= {MAX_EXPERTS}), "
+                         f"capacity {cap}")
+    if not _on_card("moe_route", (logits,)):
+        return moe_route_plain(logits, k, cap)
+    logits = logits.contiguous()
+    dev, n = logits.device, sg * k
+    lib = _lib()
+    idx = torch.empty((g, sg, k), dtype=torch.int64, device=dev)
+    gates = torch.empty((g, sg, k), dtype=torch.float32, device=dev)
+    pos = torch.empty((g, n), dtype=torch.int32, device=dev)
+    keep = torch.empty((g, n), dtype=torch.bool, device=dev)
+    src = torch.empty((e, g, cap), dtype=torch.int32,
+                      device=dev).transpose(0, 1)
+    aux = torch.empty((), dtype=torch.float32, device=dev)
+    nbytes, pbytes = (int(lib.moe_route_scratch_bytes(g, sg, e, part))
+                      for part in (0, 1))
+    # inside a capture the state comes from the graph's pool, which no
+    # launch has zeroed: the C entry point memsets it first
+    capturing = torch.cuda.is_current_stream_capturing()
+    state = (torch.empty(nbytes, dtype=torch.uint8, device=dev)
+             if capturing else _route_state(
+                 dev, torch.cuda.current_stream(dev).cuda_stream, nbytes))
+    partials = torch.empty(pbytes, dtype=torch.uint8, device=dev)
+    err = _launch(dev, lib.moe_route, logits.data_ptr(), g, sg, e, k, cap,
+                  idx.data_ptr(), gates.data_ptr(), pos.data_ptr(),
+                  keep.data_ptr(), src.data_ptr(), aux.data_ptr(),
+                  state.data_ptr(), state.numel(), partials.data_ptr(),
+                  partials.numel(), int(capturing))
+    if err != 0:
+        raise RuntimeError(f"moe_route launch failed: CUDA error {err}")
+    _count(moe_route, "f32")
+    return idx, gates, pos, keep, src, aux
 
 
 def moe_slots(idx: torch.Tensor, num_experts: int, cap: int
@@ -227,7 +351,10 @@ def moe_slots(idx: torch.Tensor, num_experts: int, cap: int
 def moe_dispatch(x: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
     """buf (g, e, cap, d) in x's dtype with buf[g, e, c] = x[g, src[g, e,
     c]], zeros where src is -1: the experts' input, of tokens x (g, sg, d)
-    (f32 or bf16) and ``moe_slots``' src.  One launch a call."""
+    (f32 or bf16) and the inverse map src of ``moe_route`` or
+    ``moe_slots``.  The buffer is laid out as src is: e-major storage (e,
+    g, cap, d), returned as a permuted view, for ``moe_route``'s map;
+    group-major for ``moe_slots``'.  One launch a call."""
     inst = route(x.dtype)
     if x.dim() != 3 or src.dim() != 3 or src.shape[0] != x.shape[0] or \
             src.dtype != torch.int32 or src.shape[1] > MAX_EXPERTS or \
@@ -235,20 +362,34 @@ def moe_dispatch(x: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"moe_dispatch: x {tuple(x.shape)}, src "
                          f"{tuple(src.shape)} {src.dtype}")
     if not _on_card("moe_dispatch", (x, src)):
-        return moe_dispatch_plain(x, src)
+        buf = moe_dispatch_plain(x, src)
+        return e_major(buf) if is_e_major(src) else buf
+    buf = launch_dispatch(_lib(), x, src)
+    _count(moe_dispatch, inst)
+    return buf
+
+
+def launch_dispatch(lib: ctypes.CDLL, x: torch.Tensor, src: torch.Tensor
+                    ) -> torch.Tensor:
+    """``moe_dispatch``'s launch on ``lib`` (``_lib(defines)``) for CUDA x
+    and src that it has checked: the buffer, laid out as src is."""
     g, e, cap = src.shape
-    sg, d = x.shape[1:]
+    d = x.shape[-1]
     if x.stride(-1) != 1:
         x = x.contiguous()
-    src = src.contiguous()
-    buf = torch.empty((g, e, cap, d), dtype=x.dtype, device=x.device)
-    err = _launch(x.device, _lib().moe_dispatch, buf.data_ptr(),
-                  x.data_ptr(), src.data_ptr(), g, e, cap, d, x.stride(0),
-                  x.stride(1), _BF16[x.dtype])
+    major = is_e_major(src)
+    if major:
+        buf = torch.empty((e, g, cap, d), dtype=x.dtype,
+                          device=x.device).transpose(0, 1)
+    else:
+        src = src.contiguous()
+        buf = torch.empty((g, e, cap, d), dtype=x.dtype, device=x.device)
+    err = _launch(x.device, lib.moe_dispatch, buf.data_ptr(), x.data_ptr(),
+                  src.data_ptr(), g, e, cap, d, x.stride(0), x.stride(1),
+                  int(major), _BF16[x.dtype])
     if err != 0:
-        raise RuntimeError(f"moe_dispatch launch failed on {inst}: CUDA "
-                           f"error {err}")
-    _count(moe_dispatch, inst)
+        raise RuntimeError(f"moe_dispatch launch failed on "
+                           f"{route(x.dtype)}: CUDA error {err}")
     return buf
 
 
@@ -258,8 +399,8 @@ def moe_combine(out_buf: torch.Tensor, idx: torch.Tensor, pos: torch.Tensor,
     """y (g, sg, d) in ``dtype`` (out_buf's): for each token the sum over
     its k slots, in order, of keep * gate * out_buf[g, idx, pos] in f32,
     rounded once.  out_buf (g, e, cap, d) f32 or bf16, any strides;
-    idx and gates (g, sg, k) int64 and f32; pos and keep of ``moe_slots``.
-    One launch a call."""
+    idx and gates (g, sg, k) int64 and f32; pos and keep of ``moe_route``
+    or ``moe_slots``.  One launch a call."""
     inst = route(out_buf.dtype, "moe_combine")
     if out_buf.dim() != 4 or idx.dim() != 3:
         raise ValueError(f"moe_combine: out_buf {tuple(out_buf.shape)}, idx "
@@ -295,7 +436,7 @@ def moe_combine(out_buf: torch.Tensor, idx: torch.Tensor, pos: torch.Tensor,
     return y
 
 
-for _fn in (moe_slots, moe_dispatch, moe_combine):
+for _fn in (moe_slots, moe_dispatch, moe_combine, moe_route):
     _fn.launches = 0
     _fn.launches_by_route = dict.fromkeys(ROUTES[_fn.__name__], 0)
 del _fn

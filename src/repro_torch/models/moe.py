@@ -9,9 +9,10 @@ Dispatch is group-wise (GShard-style): tokens are viewed as (groups, S, d)
 with per-group expert capacity C = S*top_k*capacity_factor/E.  The
 reference computes all of it in plain ``jnp`` outside any Pallas kernel.
 The serve steps on the card (``use_kernel=True``) run the glue between the
-router and the experts, and between the experts and y, as hand-written
-kernels (``kernels.moe_dispatch``); training, the dry-run's DTensors and
-``use_kernel=False`` keep the torch ops.
+router's product and the experts, and between the experts and y, as
+hand-written kernels (``kernels.moe_dispatch``: the routing in one launch,
+the buffer written e-major, the combine); training, the dry-run's DTensors
+and ``use_kernel=False`` keep the torch ops.
 """
 from __future__ import annotations
 
@@ -84,10 +85,10 @@ def moe_block(p: Params, x: torch.Tensor, cfg: ArchConfig,
     share one capacity budget; the assignment slots are taken in token
     order, top-1 before top-2 within a token, and those past an expert's
     capacity are dropped (they add nothing to y).  ``use_kernel`` runs the
-    slot positions, the dispatch and the combine through
-    ``kernels.moe_dispatch`` (its kernels on CUDA, its plain versions on
-    the CPU; no backward); else they are the torch ops autograd and the
-    dry-run's DTensors take."""
+    routing (softmax, top-k, gates, slot positions, aux loss), the dispatch
+    and the combine through ``kernels.moe_dispatch`` (its kernels on CUDA,
+    its plain versions on the CPU; no backward); else they are the torch
+    ops autograd and the dry-run's DTensors take."""
     b, s, d = x.shape
     e, k = cfg.num_experts, cfg.top_k
     g = num_groups if num_groups else b
@@ -100,19 +101,21 @@ def moe_block(p: Params, x: torch.Tensor, cfg: ArchConfig,
 
     # --- routing (f32) -----------------------------------------------------
     logits = torch.einsum("gsd,de->gse", xg.float(), p["router"])
-    probs = torch.softmax(logits, dim=-1)
-    gates, idx = torch.topk(probs, k, dim=-1)             # (g, sg, k)
-    gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
-
-    # load-balancing aux loss (Switch/GShard): E * mean(frac_i * prob_i)
-    me = probs.mean(dim=(0, 1))                           # (e,)
-    ce = F.one_hot(idx[..., 0], e).float().mean(dim=(0, 1))
-    aux = e * torch.sum(me * ce)
-
     if use_kernel:
-        pos, keep, src = MD.moe_slots(idx, e, cap)
+        # softmax, top-k, gates, slot positions, the inverse map and the aux
+        # loss in one launch; the buffer e-major, as the experts' einsums
+        # batch it
+        idx, gates, pos, keep, src, aux = MD.moe_route(logits, k, cap)
         buf = MD.moe_dispatch(xg, src)
     else:
+        probs = torch.softmax(logits, dim=-1)
+        gates, idx = torch.topk(probs, k, dim=-1)         # (g, sg, k)
+        gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+
+        # load-balancing aux loss (Switch/GShard): E * mean(frac_i * prob_i)
+        me = probs.mean(dim=(0, 1))                       # (e,)
+        ce = F.one_hot(idx[..., 0], e).float().mean(dim=(0, 1))
+        aux = e * torch.sum(me * ce)
         buf, pos, keep = dispatch_ops(xg, idx, e, cap)
     # the ep profile turns tokens to their experts here
     buf = sctx.constrain(buf, "moe_buffer")

@@ -200,11 +200,12 @@ def test_slot_kernel_constants_are_the_wrappers():
     src = (_build.CSRC / "moe_dispatch.cu").read_text()
     assert int(re.search(r"constexpr int kMaxExperts = (\d+);",
                          src).group(1)) == MD.MAX_EXPERTS
-    for name in ("moe_slots", "moe_dispatch", "moe_combine",
-                 "moe_dispatch_launches"):
+    for name in ("moe_slots", "moe_dispatch", "moe_combine", "moe_route",
+                 "moe_route_scratch_bytes", "moe_dispatch_launches"):
         assert re.search(rf'extern "C" \w+(?: \w+)* {name}\(', src), name
     assert set(re.findall(r"\b(moe_\w+_kernel)\b", src)) == {
-        "moe_slots_kernel", "moe_dispatch_kernel", "moe_combine_kernel"}
+        "moe_slots_kernel", "moe_dispatch_kernel", "moe_combine_kernel",
+        "moe_route_kernel"}
     assert "moe_dispatch" in _build.KERNEL_SOURCES
 
 
@@ -334,9 +335,11 @@ def test_granite_serve_through_the_kernels_gives_jax_tokens(monkeypatch):
             got.append(tok)
     np.testing.assert_array_equal(torch.cat(got, 1).numpy(),
                                   np.concatenate(want, axis=1))
-    # one call a layer a prefill and a decode step
-    assert calls == dict.fromkeys(MD.KERNELS,
-                                  cfg.num_layers * (1 + steps))
+    # one call a layer a prefill and a decode step; the slot scan of the
+    # router's idx gave way to the route
+    assert calls == {**dict.fromkeys(MD.KERNELS,
+                                     cfg.num_layers * (1 + steps)),
+                     "moe_slots": 0}
 
 
 def _spy(monkeypatch):
@@ -440,5 +443,6 @@ def test_serve_launches_are_chip_smokes(arch, monkeypatch):
     want = cs.expected_moe_serve(cfg, 2, shape["decode_steps"])
     assert calls == {n: w["device"] for n, w in want.items()}
     assert all(w["host"] == (2 * cfg.num_layers * 3
-                             if cfg.family == "moe" else 0)
-               for w in want.values())
+                             if cfg.family == "moe" and n != "moe_slots"
+                             else 0)
+               for n, w in want.items())
