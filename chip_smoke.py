@@ -7,9 +7,9 @@ Run from the repo root with no arguments:
 
 (``--kernels-only`` stops after phase 3 and prints its kernels line but
 no result line; ``--serve-parent`` times each serve path's prefill and
-replayed decode step on the norm and RoPE kernels and on their plain
-versions (granite's also on its MoE kernels and on the block's plain
-route), in turns, after the build, and prints no result line.)
+replayed decode step on the gate's kernel and on its plain ops (granite's
+also on its MoE kernels and on the block's plain route), in turns, after
+the build, and prints no result line.)
 
 Full profiler tables land in ``chiprun_out/chip_smoke/`` (gitignored).
 Phases, each printing one JSON line (any failure exits non-zero and prints
@@ -18,7 +18,8 @@ no result):
 1. device: the card's name and power limit; TF32 off for matmuls and cuDNN.
 2. build: compile every CUDA kernel from ``src/repro_torch/csrc`` with nvcc
    (flash attention, the SSD scan, decode attention, the optimizer, the
-   training attention, RMSNorm and RoPE, the MoE dispatch),
+   training attention, RMSNorm and RoPE, the MoE dispatch, the gated MLP's
+   activation, the capped cross-entropy),
    all at once, and beside them flash attention with ``-DFLASH_FORCE_MMA``,
    the SSD scan with ``-DSSD_FORCE_MMA`` and the training attention with
    ``-DTRAIN_ATTN_FORCE_MMA`` (the ``mma_bf16`` routes at every shape), and
@@ -104,6 +105,20 @@ no result):
    bits over 3 calls, one device launch a call; each, the three together
    and the plain route's glue they replace timed at granite's prefill
    shape, beside their byte bounds and ``index_select`` for the dispatch.
+   The gated MLP's activation (``kernels.gated_mlp``: ``act(a) * b``
+   forward; da and db in one backward launch) at ``GATE_CASES`` (the
+   paths' d_ff, decode's (B, 1), granite's experts in their e-major
+   layout, swiglu and geglu, f32 and bf16, odd widths, unaligned) and the
+   capped cross-entropy (``kernels.cross_entropy``: the rows' lse and
+   loss, their sum; the grad of the pre-cap logits) at ``LOSS_CASES``
+   (codeqwen's train shape, gemma2's cap 30 over 256,000, granite's
+   padded vocab, f32, odd widths, unaligned; labels -1, in the padding and
+   at and past the width): the gate the plain ops' bits or within one
+   bf16 ulp (f32 within 1e-6 x max|plain|), the loss and lse within 2e-6
+   relative, the grad within one bf16 ulp (f32 1e-6 x max|plain|), the
+   same bits over 3 calls, one device launch a kernel a call; each timed
+   at codeqwen's train shape in turns with its plain version, beside its
+   bound and (the loss) ``F.cross_entropy`` on the f32 upcast.
 4. serve, for each of eight paths in turn: codeqwen1.5-7b (dense, flash
    kernel), mamba2-1.3b (ssm, SSD kernel), zamba2-2.7b (hybrid, both
    kernels), granite-moe-3b-a800m (moe, flash), whisper-large-v3 (encdec,
@@ -138,6 +153,8 @@ no result):
    there), on the route ``route(dtype, group, D)`` names for the path's
    model, and the norm and RoPE kernels as often as the path's norms and
    self-attention calls imply (``expected_norm_rope_serve``, host and
+   device), the gate's forward once a gated MLP call a prefill and a
+   decode step and no loss kernel (``expected_gate_serve``, host and
    device), and the MoE kernels once a MoE layer a prefill and a decode
    step (``expected_moe_serve``, host and device; granite only); granite's
    prefill profile must show none of the MoE's plain ops (``aten::cumsum``,
@@ -169,9 +186,10 @@ no result):
    attention's, and at 2 layers remat on and off agreeing; the step's
    device time split by part (``train_profile``: optimizer, global norm,
    bf16 GEMMs, f32 GEMMs, the training attention kernels, other
-   elementwise work by op family, idle) beside the same step on the norms'
-   and RoPE's plain ops (the parent's path, ``plain_norm_rope``); the
-   kernels' peak no higher than the parent's;
+   elementwise work by op family, idle) beside the same step on the
+   gate's and the loss's plain ops (the parent's path, ``plain_gate_loss``,
+   its steps in turns with the kernels', ``TRAIN_TURNS``); the kernels'
+   peak no higher than the parent's;
    (d) no serve kernel launched in the whole phase (flash, the SSD scan
    and decode have no backward: training runs with ``use_kernel=False``,
    as the reference does), the training attention once a forward (twice
@@ -179,8 +197,11 @@ no result):
    two optimizer kernels exactly once a param leaf a step on the card, the
    norm and RoPE kernels once a norm or self-attention call a forward (the
    layers' twice under remat) and a backward
-   (``expected_norm_rope_launches``), on the host and on the device; no
-   MoE kernel (the block trains on its plain route).
+   (``expected_norm_rope_launches``), the gate once a gated call a forward
+   and a backward and the loss's kernels once a forward and a backward
+   (``expected_gate_loss_launches``; the parent column's steps none), on
+   the host and on the device; no MoE kernel (the block trains on its
+   plain route).
 6. dryrun, with every kernel count set to 0: (a) the port's dry-run of
    mamba2-1.3b x decode_32k on the 256-rank fake mesh ends ok and agrees
    with the reference's committed record on params, chips, decisions and
@@ -193,20 +214,21 @@ no result):
    counted in phase 5),
    printed with the roofline's terms beside the measured times; (d) no
    kernel launched (the steps run on meta DTensors, which take the
-   optimizer's, the norms' and RoPE's plain versions; none calls the MoE
-   kernels).
+   optimizer's, the norms' and RoPE's, the gate's and the loss's plain
+   versions; none calls the MoE kernels).
 7. examples, with every kernel count set to 0: ``examples/torch/``'s
    CHILES pipeline recovers its source in band 2, and ``train_lm.py`` at
    its defaults (lm20m, 200 steps through the engine) lowers the loss; no
    serve kernel launched, the training attention once a forward and once
    a backward a layer a step, the optimizer kernels once a param leaf a
    step, the norm and RoPE kernels once a call a forward and a backward,
-   no MoE kernel.
+   the gate and the loss likewise, no MoE kernel.
 8. the kernels line (the ``mma_3xtf32`` routes also on lines of their
    own: flash at whisper's encoder, the training attention at lm100m's
    shape, each with its launches on that route; the norm and RoPE
-   kernels and the MoE kernels with their device launches by serve path
-   and phase), the card line, then the result line.
+   kernels, the MoE kernels and the gate's and the loss's with their
+   device launches by serve path and phase), the card line, then the
+   result line.
 
 It imports nothing of JAX or of the JAX package.  Without CUDA it exits 2.
 """
@@ -2114,22 +2136,6 @@ NR_DTYPES = {"f32": "float32", "bf16": "bfloat16"}
 NR_THETA = 1e6                  # codeqwen1.5-7b's rope_theta
 
 
-@contextlib.contextmanager
-def plain_norm_rope():
-    """The norms' and RoPE's plain versions on the card, for the parent's
-    column of the train step: ``models.common``'s ``rms_norm`` and
-    ``apply_rope`` are shown no kernel device (``kernels.norm_rope.
-    takes_kernel`` answers False), so they run as they did before the
-    kernels."""
-    from repro_torch.kernels import norm_rope as NR
-    real = NR.takes_kernel
-    NR.takes_kernel = lambda tensors: False
-    try:
-        yield
-    finally:
-        NR.takes_kernel = real
-
-
 def ulp_diff(torch, got, want) -> int:
     """The largest distance in units in the last place between two tensors
     of one float dtype (their bits as ordered integers)."""
@@ -2472,14 +2478,15 @@ def expected_norm_rope_serve(cfg, n_micro: int, decode_steps: int) -> dict:
     return out
 
 
-def norm_rope_steps(phase: str) -> list:
+def kernel_steps(phase: str) -> list:
     """(config, steps, microbatches a step, forwards a layer, backward) of
-    a phase's passes through the norm and RoPE kernels: every step of
+    a phase's passes through every train-path kernel: every step of
     ``attention_steps`` (remat's recompute runs the layers' forwards
     again), and in the train phase two more full-width steps (the
     FLOP-counted one and step 1's grads on the plain attention) and
-    ``forward_train``'s loss (no grad: one forward).  The parent
-    column's steps run the plain norms and RoPE."""
+    ``forward_train``'s loss (no grad: one forward).  The parent column's
+    steps (``parent_steps``) are not among them: they run the gate's and
+    the loss's plain ops."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -2490,6 +2497,13 @@ def norm_rope_steps(phase: str) -> list:
                                    num_layers=TRAIN_FULL["layers"])
         out += [(full, 2, 1, 2, True), (full, 1, 1, 1, False)]
     return out
+
+
+def norm_rope_steps(phase: str) -> list:
+    """``kernel_steps`` and the parent column's (remat), whose norms and
+    RoPE run on their kernels too."""
+    return kernel_steps(phase) + [(cfg, n, 1, 2, True)
+                                  for cfg, n in parent_steps(phase)]
 
 
 def expected_norm_rope_launches(nr, phase: str) -> dict:
@@ -2549,11 +2563,11 @@ def route_turns(torch, cfg, params, batch, shape: dict, parent) -> dict:
 
 def phase_serve_parent(torch) -> None:
     """``--serve-parent``: each serve path's prefill and replayed decode
-    step at full width and depth (``phase_steps``' batch), on the norm and
-    RoPE kernels and on their plain versions (``plain_norm_rope``, the
-    parent's path), in turns (``route_turns``); the moe path's also on its
-    MoE kernels against the slot-scan route (``slot_scan_moe``) and the
-    block's plain route (``plain_moe``)."""
+    step at full width and depth (``phase_steps``' batch), on the gate's
+    kernel and on its plain ops (``plain_gate_loss``, the parent's path),
+    in turns (``route_turns``); the moe path's also on its MoE kernels
+    against the slot-scan route (``slot_scan_moe``) and the block's plain
+    route (``plain_moe``)."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import prompt_batch
@@ -2567,7 +2581,7 @@ def phase_serve_parent(torch) -> None:
                                               size=(mb, s))).cuda())
         emit("serve_parent", config=cfg.name, microbatch=mb, prompt_len=s,
              **route_turns(torch, cfg, params, batch, shape,
-                           plain_norm_rope))
+                           plain_gate_loss))
         if cfg.family == "moe":     # and on the slot-scan and plain routes
             emit("moe_parent", config=cfg.name, microbatch=mb, prompt_len=s,
                  threads=[t.name for t in threading.enumerate()],
@@ -3184,6 +3198,560 @@ def plain_moe():
         M.moe_block = real
 
 
+GL_SOURCE = {"gate": "src/repro_torch/csrc/gated_mlp.cu",
+             "loss": "src/repro_torch/csrc/cross_entropy.cu"}
+# the gate's two kernels and the loss's three (its forward's row kernel and
+# the sum of the rows, one launch function)
+GL_KERNELS = ("gated_act_fwd", "gated_act_bwd", "cross_entropy_fwd",
+              "cross_entropy_sum", "cross_entropy_bwd")
+GL_REPLACES = {
+    "gated_act_fwd": "src/repro/models/model.py:93-94 _mlp's gate(h) * g "
+                     "and the experts' src/repro/models/moe.py:98-100 (jnp "
+                     "inside jax.jit, src/repro/launch/train.py:96, "
+                     "serve.py:75-76; no Pallas kernel)",
+    "gated_act_bwd": "the vjp of src/repro/models/model.py:93-94 and "
+                     "moe.py:98-100 (jax.grad inside jax.jit, "
+                     "src/repro/launch/train.py:96; no Pallas kernel)",
+    "cross_entropy_fwd": "src/repro/models/model.py:323 logits_fn's "
+                         "softcap(logits.astype(f32)) and :339 "
+                         "cross_entropy (src/repro/models/common.py:185-188,"
+                         " :218-227; jnp inside jax.jit, "
+                         "src/repro/launch/train.py:96; no Pallas kernel)",
+    "cross_entropy_bwd": "their vjp (jax.grad inside jax.jit, "
+                         "src/repro/launch/train.py:96; no Pallas kernel)"}
+GL_SHAPE = {"gate": "codeqwen1.5-7b train: a, b (8, 512, 13440) bf16, "
+                    "swiglu",
+            "loss": "codeqwen1.5-7b train: logits (8, 512, 92416) bf16, "
+                    "cap 0"}
+# name, shape, activation, dtype, layout: contiguous, unaligned (one
+# element in) or e_major (the MoE experts' (g, e, c, f) product, a view of
+# an (e, g, c, f) tensor): the paths' d_ff (decode's (B, 1), granite's
+# experts, gemma2's 36,864), grok's geglu, the f32 train presets, odd
+# widths
+GATE_CASES = (
+    ("codeqwen_train", (8, 512, 13440), "swiglu", "bf16", "contiguous"),
+    ("codeqwen_decode", (4, 1, 13440), "swiglu", "bf16", "contiguous"),
+    ("granite_experts", (4, 40, 128, 512), "swiglu", "bf16", "e_major"),
+    ("gemma2_prefill", (2, 64, 36864), "swiglu", "bf16", "contiguous"),
+    ("grok_geglu", (2, 16, 32768), "geglu", "bf16", "contiguous"),
+    ("lm100m_f32", (8, 128, 3072), "swiglu", "f32", "contiguous"),
+    ("geglu_f32", (4, 64, 2048), "geglu", "f32", "contiguous"),
+    ("odd_33_f32", (3, 7, 33), "geglu", "f32", "contiguous"),
+    ("odd_83_bf16", (5, 83), "swiglu", "bf16", "contiguous"),
+    ("unaligned_bf16", (6, 4096), "geglu", "bf16", "unaligned"),
+    ("unaligned_f32", (3, 8192), "swiglu", "f32", "unaligned"),
+)
+# name, rows, width, vocab_size, cap, dtype, logits at an unaligned
+# address: codeqwen's train shape, gemma2's capped 256,000, granite's
+# padded vocab, the f32 presets, odd widths (one element a thread); every
+# case has labels -1, at and past the width and (where the vocab is padded)
+# in [vocab_size, width)
+LOSS_CASES = (
+    ("codeqwen_train", (8, 512), 92416, 92416, 0.0, "bf16", False),
+    ("gemma2_capped", (2, 256), 256000, 256000, 30.0, "bf16", False),
+    ("granite_padded", (4, 64), 49408, 49155, 0.0, "bf16", False),
+    ("lm100m_f32", (8, 128), 2048, 2048, 0.0, "f32", False),
+    ("capped_f32", (4, 33), 1024, 1000, 30.0, "f32", False),
+    ("odd_1001_f32", (3, 5), 1001, 990, 30.0, "f32", False),
+    ("odd_999_bf16", (3, 5), 999, 999, 0.0, "bf16", False),
+    ("unaligned_bf16", (4, 16), 4096, 4000, 30.0, "bf16", True),
+)
+GL_F32_TOL = 1e-6       # f32 gate results: within 1e-6 x max|plain|
+GL_LOSS_TOL = 2e-6      # the loss and lse: within 2e-6 relative
+# f32 loss grads: within 1e-6 relative of the f64 reference, and 1e-7 of
+# its largest (the label's exp(c - lse) - 1 cancels where p is near 1)
+GL_GRAD_REL, GL_GRAD_FLOOR = 1e-6, 1e-7
+
+
+@contextlib.contextmanager
+def plain_gate_loss():
+    """The gate's and the loss's plain ops on the card (the parent's path):
+    ``models.common``'s ``gated_act`` and ``capped_cross_entropy`` are shown
+    no kernel device, so they run ``act(a) * b`` and ``cross_entropy(
+    softcap(logits.float()))`` as they did before the kernels."""
+    from repro_torch.kernels import cross_entropy as CE
+    from repro_torch.kernels import gated_mlp as GM
+    real = GM.takes_kernel, CE.takes_kernel
+    GM.takes_kernel = lambda tensors, what="gated_act": False
+    CE.takes_kernel = lambda tensors: False
+    try:
+        yield
+    finally:
+        GM.takes_kernel, CE.takes_kernel = real
+
+
+def gl_gate_inputs(torch, case, gen):
+    name, shape, activation, dt, layout = case
+    dtype = getattr(torch, NR_DTYPES[dt])
+
+    def draw():
+        if layout == "e_major":
+            return (3 * torch.randn((shape[1], shape[0], *shape[2:]),
+                                    generator=gen, device="cuda")).to(
+                dtype).transpose(0, 1)
+        n = math.prod(shape)
+        # one element in: an address 2 or 4 bytes past a 16-byte boundary
+        base = (3 * torch.randn(n + 1, generator=gen, device="cuda")).to(
+            dtype)
+        return (base[1:] if layout == "unaligned" else base[:n]).view(shape)
+    return draw(), draw(), draw()
+
+
+def gl_compare(torch, got, want) -> dict:
+    """A kernel result against the plain version's in its dtype: the same
+    bits, or (bf16) at most one ulp apart, or (f32) within ``GL_F32_TOL``
+    x max|want|."""
+    err = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    row = {"same_bits": same_bits(torch, got, want),
+           "max_ulp": ulp_diff(torch, got, want), "max_abs_err": err}
+    row["ok"] = row["same_bits"] or (row["max_ulp"] <= 1 if
+                                     got.dtype == torch.bfloat16 else
+                                     err <= GL_F32_TOL * scale)
+    return row
+
+
+def gl_gate_check(torch, gm, case, gen) -> dict:
+    """A gate case: forward and backward against the plain version on the
+    card (``gl_compare``), the same bits over 3 calls, one device launch a
+    call on the case's route, the output in the inputs' layout."""
+    name, shape, activation, dt, layout = case
+    a, b, dy = gl_gate_inputs(torch, case, gen)
+    if layout == "unaligned" and a.data_ptr() % 16 == 0:
+        fail(f"gate case {name}: a is aligned")
+    lib = gm._lib()
+    before = gm.kernel_launches(lib)
+    ys = [gm.gated_act_fwd(a, b, activation) for _ in range(3)]
+    grads = [gm.gated_act_bwd(a, b, dy, activation) for _ in range(3)]
+    torch.cuda.synchronize()
+    after = gm.kernel_launches(lib)
+    r = gm.route(activation, a.dtype)
+    launched = {k: after[k][r] - before[k][r] for k in gm.KERNELS}
+    want_da, want_db = gm.gated_act_bwd_plain(a, b, dy, activation)
+    row = {"shape": list(shape), "activation": activation, "dtype": dt,
+           "layout": layout, "route": r,
+           "vectorised": gm.vectorised((a, b, ys[0])),
+           "forward": gl_compare(torch, ys[0],
+                                 gm.gated_act_plain(a, b, activation)),
+           "da": gl_compare(torch, grads[0][0], want_da),
+           "db": gl_compare(torch, grads[0][1], want_db),
+           "repeats": all(same_bits(torch, y, ys[0]) for y in ys)
+           and all(same_bits(torch, p, grads[0][0])
+                   and same_bits(torch, q, grads[0][1]) for p, q in grads),
+           "same_layout": ys[0].stride() == a.stride()
+           and grads[0][0].stride() == a.stride(),
+           "device_launches": launched}
+    row["ok"] = (row["forward"]["ok"] and row["da"]["ok"] and row["db"]["ok"]
+                 and row["repeats"] and row["same_layout"]
+                 and launched == dict.fromkeys(launched, 3))
+    return row
+
+
+def gl_loss_inputs(torch, case, gen, masked: bool = True):
+    name, rows, width, vocab, cap, dt, unaligned = case
+    dtype = getattr(torch, NR_DTYPES[dt])
+    n = math.prod(rows) * width
+    base = (4 * torch.randn(n + 1, generator=gen, device="cuda")).to(dtype)
+    logits = (base[1:] if unaligned else base[:n]).view(*rows, width)
+    labels = torch.randint(0, vocab, rows, generator=gen, device="cuda")
+    if masked:
+        flat = labels.view(-1)
+        flat[0], flat[1], flat[2] = -1, width, width + 1000
+        if vocab < width and flat.numel() > 3:
+            flat[3] = vocab + (width - vocab) // 2
+    return logits, labels
+
+
+def gl_loss_reference(torch, ce, logits, labels, cap: float, vocab: int,
+                      g) -> tuple:
+    """(lse, grad) in f64 from the plain route's f32 capped logits on the
+    card (x times the f32 reciprocal of the cap, tanh, times the cap: the
+    kernels' bits) and its f32 tanh: exp(c - lse) less one at the label,
+    times the cap's 1 - tanh^2, times the mask and g / max(kept, 1)."""
+    from repro_torch.kernels.ref import softcap
+    x = logits.float()
+    c = softcap(x, cap).double()
+    lse = torch.logsumexp(c, -1, keepdim=True)
+    lab = labels.long()
+    mask = (lab >= 0) & (lab < vocab)
+    w = g.double() / mask.sum().clamp_min(1) * mask
+    grad = torch.exp(c - lse) * w[..., None]
+    grad = grad.scatter_add(-1, lab.clamp(0, x.shape[-1] - 1)[..., None],
+                            -w[..., None])
+    if cap:
+        t = torch.tanh(x * ce.inv_cap(cap)).double()
+        grad = grad * (1 - t * t)
+    return lse.view(-1), grad
+
+
+def gl_grad_compare(torch, got, want64) -> dict:
+    """A loss grad against the f64 reference: bf16 at most one ulp from
+    its rounding, f32 within ``GL_GRAD_REL`` x |want| + ``GL_GRAD_FLOOR``
+    x max|want|."""
+    err = (got.double() - want64).abs()
+    row = {"max_abs_err": float(err.max()),
+           "max_ulp": ulp_diff(torch, got, want64.to(got.dtype))}
+    if got.dtype == torch.bfloat16:
+        row["ok"] = row["max_ulp"] <= 1
+    else:
+        tol = (GL_GRAD_REL * want64.abs()
+               + GL_GRAD_FLOOR * float(want64.abs().max()))
+        row["ok"] = bool((err <= tol).all())
+    return row
+
+
+def gl_loss_check(torch, ce, case, gen) -> dict:
+    """A loss case: the loss within ``GL_LOSS_TOL`` relative of the plain
+    version's on the card, lse (value + remainder) within it of an f64
+    log-sum-exp, the kept count exact, the grad of an upstream 0.7
+    against the f64 reference (``gl_grad_compare``; beside it the plain
+    backward formula's f32 result), the same bits over 3 calls, one device
+    launch a kernel a call."""
+    name, rows, width, vocab, cap, dt, unaligned = case
+    logits, labels = gl_loss_inputs(torch, case, gen)
+    if unaligned and logits.data_ptr() % 16 == 0:
+        fail(f"loss case {name}: logits are aligned")
+    g = torch.full((), 0.7, device="cuda")
+    lib = ce._lib()
+    before = ce.kernel_launches(lib)
+    outs = [ce.cross_entropy_fwd(logits, labels, cap, vocab)
+            for _ in range(3)]
+    grads = [ce.cross_entropy_bwd(logits, labels, outs[0][1], g,
+                                  outs[0][2], cap, vocab) for _ in range(3)]
+    torch.cuda.synchronize()
+    after = ce.kernel_launches(lib)
+    r = ce.route(logits.dtype)
+    launched = {k: after[k][r] - before[k][r] for k in ce.KERNELS}
+    loss, lse, denom = outs[0]
+    want = ce.capped_cross_entropy_plain(logits, labels, cap, vocab)
+    want_lse, want_grad = gl_loss_reference(torch, ce, logits, labels, cap,
+                                            vocab, g)
+    kept = int(((labels >= 0) & (labels < vocab)).sum())
+    lse_err = float(((lse.double().sum(-1) - want_lse).abs()
+                     / want_lse.abs()).max())
+    row = {"rows": list(rows), "width": width, "vocab_size": vocab,
+           "cap": cap, "dtype": dt, "unaligned": unaligned, "route": r,
+           "loss": float(loss), "plain_loss": float(want),
+           "loss_rel_err": abs(float(loss) - float(want)) / abs(float(want)),
+           "lse_max_rel_err": lse_err,
+           "kept": kept, "denominator": float(denom),
+           "grad": gl_grad_compare(torch, grads[0], want_grad),
+           "grad_vs_plain_formula": gl_compare(
+               torch, grads[0], ce.capped_cross_entropy_bwd_plain(
+                   logits, labels, cap, vocab, g)),
+           "repeats": all(same_bits(torch, o[i], outs[0][i]) for o in outs
+                          for i in range(3))
+           and all(same_bits(torch, x, grads[0]) for x in grads),
+           "device_launches": launched}
+    row["ok"] = (row["loss_rel_err"] <= GL_LOSS_TOL
+                 and lse_err <= GL_LOSS_TOL and float(denom) == max(kept, 1)
+                 and row["grad"]["ok"] and row["repeats"]
+                 and launched == dict.fromkeys(launched, 3))
+    return row
+
+
+def gl_times(torch, gm, ce, gen) -> dict:
+    """At codeqwen1.5-7b's train shape (bf16): the gate's forward and
+    backward and the loss's forward, backward and both, each in turns with
+    its plain version (kernel, plain, plain, kernel; the plain backwards
+    are autograd's over the plain ops, as the parent ran them), beside its
+    bound (``nr_bounds``: bytes at 3.35 TB/s against f32 operations at 67
+    TFLOP/s) and the library call: none for the gate (no one PyTorch call
+    computes act(a) * b), ``F.cross_entropy`` on the f32 upcast for the
+    loss (cap 0; the upcast outside the timed call; its autograd backward);
+    and the host's microseconds a call through ``models.common`` at a
+    decode step's gate (``host_us``)."""
+    import torch.nn.functional as F
+    from repro_torch.models import common as C
+    a, b, dy = gl_gate_inputs(torch, GATE_CASES[0], gen)
+    al, bl = a.detach().requires_grad_(), b.detach().requires_grad_()
+    y_plain = gm.gated_act_plain(al, bl, "swiglu")
+    n = a.numel()
+    case = LOSS_CASES[0]
+    logits, labels = gl_loss_inputs(torch, case, gen, masked=False)
+    vocab = case[3]
+    g = torch.ones((), device="cuda")
+    loss, lse, denom = ce.cross_entropy_fwd(logits, labels, 0.0, vocab)
+    leaf = logits.detach().requires_grad_()
+    loss_plain = ce.capped_cross_entropy_plain(leaf, labels, 0.0, vocab)
+    xf = logits.float().view(-1, vocab).requires_grad_()
+    flat = labels.view(-1)
+    loss_lib = F.cross_entropy(xf, flat)
+    m = logits.numel()
+
+    def both_kernel():
+        _, l_, d_ = ce.cross_entropy_fwd(logits, labels, 0.0, vocab)
+        return ce.cross_entropy_bwd(logits, labels, l_, g, d_, 0.0, vocab)
+
+    def both_plain():
+        return torch.autograd.grad(ce.capped_cross_entropy_plain(
+            leaf, labels, 0.0, vocab), leaf)
+
+    def both_library():
+        return torch.autograd.grad(F.cross_entropy(xf, flat), xf)
+    cases = {
+        "gated_act_fwd": (
+            lambda: gm.gated_act_fwd(a, b, "swiglu"),
+            lambda: gm.gated_act_plain(a, b, "swiglu"), None,
+            nr_bounds((a, b), (a,), 5 * n)),
+        "gated_act_bwd": (
+            lambda: gm.gated_act_bwd(a, b, dy, "swiglu"),
+            lambda: torch.autograd.grad(y_plain, (al, bl), dy,
+                                        retain_graph=True), None,
+            nr_bounds((a, b, dy), (a, b), 12 * n)),
+        "cross_entropy_fwd": (
+            lambda: ce.cross_entropy_fwd(logits, labels, 0.0, vocab),
+            lambda: ce.capped_cross_entropy_plain(logits, labels, 0.0,
+                                                  vocab),
+            lambda: F.cross_entropy(xf.detach(), flat),
+            nr_bounds((logits, labels), (lse,), 4 * m)),
+        "cross_entropy_bwd": (
+            lambda: ce.cross_entropy_bwd(logits, labels, lse, g, denom, 0.0,
+                                         vocab),
+            lambda: torch.autograd.grad(loss_plain, leaf, retain_graph=True),
+            lambda: torch.autograd.grad(loss_lib, xf, retain_graph=True),
+            nr_bounds((logits, labels, lse), (logits,), 4 * m)),
+        "cross_entropy_both": (
+            both_kernel, both_plain, both_library,
+            nr_bounds((logits, labels), (lse, logits), 8 * m)),
+    }
+    out = {}
+    for name, (fast, slow, lib_call, bound) in cases.items():
+        ms = {"kernel": [], "plain": []}
+        for which in ("kernel", "plain", "plain", "kernel"):
+            ms[which].append(cuda_ms(fast if which == "kernel" else slow,
+                                     iters=20, warmup=2))
+        row = dict(ms=sum(ms["kernel"]) / 2, plain_ms=sum(ms["plain"]) / 2,
+                   turns=ms, library_ms=(cuda_ms(lib_call, iters=20,
+                                                 warmup=2)
+                                         if lib_call else None), **bound)
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        out[name] = row
+    for k in ("gated_act_fwd", "gated_act_bwd"):
+        out[k]["library"] = "none: no one PyTorch call computes act(a) * b"
+    out["cross_entropy_fwd"]["library"] = (
+        "torch.nn.functional.cross_entropy on the f32 upcast (cap 0; the "
+        "upcast outside the timed call)")
+    out["cross_entropy_bwd"]["library"] = ("autograd of torch.nn.functional"
+                                           ".cross_entropy on the f32 upcast")
+    out["cross_entropy_both"]["library"] = "both of those"
+    # the loss's own memory: the peak of requested bytes over a forward and
+    # a backward, above what was allocated before (the logits, labels)
+    out["cross_entropy_both"]["peak_bytes"] = {}
+    for which, fn in (("kernel", both_kernel), ("plain", both_plain),
+                      ("library", both_library)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_stats()["requested_bytes.all.current"]
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        out["cross_entropy_both"]["peak_bytes"][which] = (
+            torch.cuda.memory_stats()["requested_bytes.all.peak"] - base)
+    ad, bd, _ = gl_gate_inputs(torch, GATE_CASES[1], gen)
+    out["host_us"] = {
+        "gated_act": {"kernel": host_us(torch, lambda: C.gated_act(
+                          ad, bd, "swiglu")),
+                      "plain": host_us(torch, lambda: gm.gated_act_plain(
+                          ad, bd, "swiglu"))}}
+    return out
+
+
+def phase_gate_loss_kernel(torch, gm, ce) -> list:
+    """The gate's and the loss's kernels against their plain versions on
+    the card (``GATE_CASES``, ``LOSS_CASES``), forward and backward, the
+    same bits over 3 calls, one device launch a kernel a call; then each
+    timed at codeqwen's train shape (``gl_times``).  Returns the kernels
+    line's four entries."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    t0 = time.monotonic()
+    failed = []
+    worst = dict.fromkeys(("gated_act_fwd", "gated_act_bwd",
+                           "cross_entropy_fwd", "cross_entropy_bwd"), 0.0)
+    bits = {"forward": True, "backward": True}
+    ulps = {"forward": 0, "backward": 0}
+    for case in GATE_CASES:
+        row = gl_gate_check(torch, gm, case, gen)
+        emit("kernel_check", kernel="gated_act", case=case[0], **row)
+        worst["gated_act_fwd"] = max(worst["gated_act_fwd"],
+                                     row["forward"]["max_abs_err"])
+        worst["gated_act_bwd"] = max(worst["gated_act_bwd"],
+                                     row["da"]["max_abs_err"],
+                                     row["db"]["max_abs_err"])
+        bits["forward"] = bits["forward"] and row["forward"]["same_bits"]
+        bits["backward"] = (bits["backward"] and row["da"]["same_bits"]
+                            and row["db"]["same_bits"])
+        ulps["forward"] = max(ulps["forward"], row["forward"]["max_ulp"])
+        ulps["backward"] = max(ulps["backward"], row["da"]["max_ulp"],
+                               row["db"]["max_ulp"])
+        if not row["ok"]:
+            failed.append(f"gate {case[0]}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    for case in LOSS_CASES:
+        row = gl_loss_check(torch, ce, case, gen)
+        emit("kernel_check", kernel="cross_entropy", case=case[0], **row)
+        worst["cross_entropy_fwd"] = max(worst["cross_entropy_fwd"],
+                                         abs(row["loss"]
+                                             - row["plain_loss"]))
+        worst["cross_entropy_bwd"] = max(worst["cross_entropy_bwd"],
+                                         row["grad"]["max_abs_err"])
+        if not row["ok"]:
+            failed.append(f"loss {case[0]}")
+        gc.collect()
+        torch.cuda.empty_cache()
+    times = gl_times(torch, gm, ce, gen)
+    emit("gate_loss_times", shape=GL_SHAPE, times=times,
+         gate_same_bits=bits, gate_max_ulp=ulps,
+         seconds=time.monotonic() - t0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    if failed:
+        fail(f"gate / loss kernels differ from the plain versions: {failed}")
+    entries = []
+    for name in ("gated_act_fwd", "gated_act_bwd", "cross_entropy_fwd",
+                 "cross_entropy_bwd"):
+        t = times[name]
+        gate = name.startswith("gated")
+        entry = {
+            "name": name, "route": "cuda",
+            "kernel_route": "silu_bf16" if gate else "bf16",
+            "kernel_routes": list(gm.ROUTES if gate else ce.ROUTES),
+            "source": GL_SOURCE["gate" if gate else "loss"] + {
+                "gated_act_fwd": " (gated_act_fwd_kernel)",
+                "gated_act_bwd": " (gated_act_bwd_kernel)",
+                "cross_entropy_fwd": " (cross_entropy_fwd_kernel, "
+                                     "cross_entropy_sum_kernel)",
+                "cross_entropy_bwd": " (cross_entropy_bwd_kernel)"}[name],
+            "replaces": GL_REPLACES[name],
+            "shape": GL_SHAPE["gate" if gate else "loss"],
+            "max_abs_err": worst[name], "ms": t["ms"], "kernel_ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "library": t["library"]}
+        if gate:
+            entry.update(same_bits=bits, max_ulp=ulps)
+        else:
+            both = times["cross_entropy_both"]
+            entry.update(both_ms=both["ms"], both_plain_ms=both["plain_ms"],
+                         both_bound_ms=both["bound_ms"],
+                         both_library_ms=both["library_ms"])
+        entries.append(entry)
+    return entries
+
+
+def gate_calls(cfg, step: str = "forward") -> int:
+    """The gated activations of one pass of ``cfg``: ``step`` "forward"
+    (``forward_train``'s or a prefill's) or "decode" (one decode step):
+    one a gated MLP call (each layer's MLP or MoE block; the hybrid's
+    shared block a call; whisper's encoder in the forward too), none for
+    a non-gated activation (gelu, relu2) or the SSM family."""
+    from repro_torch.models import model as M
+    if cfg.activation not in ("swiglu", "geglu") or cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return M._shared_groups(cfg)
+    if cfg.family == "encdec" and step == "forward":
+        return cfg.num_layers + cfg.num_encoder_layers
+    return cfg.num_layers
+
+
+def expected_gate_serve(cfg, n_micro: int, decode_steps: int) -> dict:
+    """The gate's and the loss's launches in a serve run, in all a kernel,
+    on the host and on the device: the gate's forward as
+    ``expected_norm_rope_serve`` counts the norm's (each microbatch's
+    prefill one forward, its decode app's eager first step and capture on
+    the host, every executed step on the device); no backward, no loss."""
+    fwd, dec = gate_calls(cfg, "forward"), gate_calls(cfg, "decode")
+    steps = max(decode_steps - 1, 0)
+    out = {k: {"host": 0, "device": 0} for k in GL_KERNELS}
+    out["gated_act_fwd"] = {"host": n_micro * (fwd + min(steps, 1) * 2 * dec),
+                            "device": n_micro * (fwd + steps * dec)}
+    return out
+
+
+def gate_loss_step(gm, ce, cfg, passes: int, forwards: int,
+                   backward: bool) -> dict:
+    """The gate's and the loss's launches by kernel and route of
+    ``passes`` ``forward_train`` passes of ``cfg`` (each with
+    ``forwards`` forwards of the layers: 2 under remat; with
+    ``backward``, one backward): the gate once a gated call a layer
+    forward and once a backward, the loss's kernels once a pass."""
+    dt = cfg.torch_dtype
+    want = {k: dict.fromkeys(gm.ROUTES if k.startswith("gated")
+                             else ce.ROUTES, 0) for k in GL_KERNELS}
+    calls = gate_calls(cfg, "forward")
+    if calls:
+        r = gm.route(cfg.activation, dt)
+        want["gated_act_fwd"][r] += passes * calls * forwards
+        if backward:
+            want["gated_act_bwd"][r] += passes * calls
+    r = ce.route(dt)
+    for k in ("cross_entropy_fwd", "cross_entropy_sum") + (
+            ("cross_entropy_bwd",) if backward else ()):
+        want[k][r] += passes
+    return want
+
+
+def expected_gate_loss_launches(gm, ce, phase: str) -> dict:
+    """The gate's and the loss's launches a train, examples or dry-run
+    phase must make, by kernel and route (``kernel_steps``: every step
+    but the parent column's, which runs the plain ops)."""
+    want = {k: dict.fromkeys(gm.ROUTES if k.startswith("gated")
+                             else ce.ROUTES, 0) for k in GL_KERNELS}
+    for cfg, steps, micro, forwards, backward in kernel_steps(phase):
+        for k, by in gate_loss_step(gm, ce, cfg, steps * micro, forwards,
+                                    backward).items():
+            for r, n in by.items():
+                want[k][r] += n
+    return want
+
+
+GATE_LOSS_LAUNCHES: dict = {}    # phase or path -> host and device counts
+
+
+def gate_loss_window(gm, ce):
+    """Counts the gate's and the loss's launches from this call on, on
+    the host (the wrappers' counts, set to 0 here; the loss's forward
+    stands for its sum kernel too) and on the device.  The returned
+    ``check(what, want)`` fails unless each kernel's launches in all equal
+    ``want`` (``expected_gate_serve``'s host and device totals), or, with
+    ``want`` by route (``expected_gate_loss_launches``), the host and the
+    device each equal it by route; it keeps the counts in
+    ``GATE_LOSS_LAUNCHES[what]``."""
+    fns = {"gated_act_fwd": gm.gated_act_fwd,
+           "gated_act_bwd": gm.gated_act_bwd,
+           "cross_entropy_fwd": ce.cross_entropy_fwd,
+           "cross_entropy_bwd": ce.cross_entropy_bwd}
+    _zero_counts(fns)
+    libs = gm._lib(), ce._lib()
+
+    def device_now():
+        return {**gm.kernel_launches(libs[0]),
+                **ce.kernel_launches(libs[1])}
+    before = device_now()
+
+    def check(what: str, want: dict) -> None:
+        device = {k: {r: n - before[k][r] for r, n in by.items()}
+                  for k, by in device_now().items()}
+        host = {k: dict(fn.launches_by_route) for k, fn in fns.items()}
+        host["cross_entropy_sum"] = dict(host["cross_entropy_fwd"])
+        GATE_LOSS_LAUNCHES[what] = {"host": host, "device": device}
+        emit("gate_loss_launches", what=what, host=host, device=device,
+             expected=want)
+        if all("host" in w for w in want.values()):
+            got = {k: {"host": sum(host[k].values()),
+                       "device": sum(device[k].values())} for k in want}
+            bad = got != want or any(device[k][r] < host[k][r]
+                                     for k in host for r in host[k])
+        else:
+            bad = host != want or device != want
+        if bad:
+            fail(f"{what}: gate / loss launches host {host}, device "
+                 f"{device}, expected {want}")
+    return check
+
+
 PATHS = ("codeqwen15_7b", "mamba2_1_3b", "zamba2_2_7b",
          "granite_moe_3b_a800m", "whisper_large_v3", "gemma2_27b",
          "nemotron_4_15b", "chameleon_34b")
@@ -3234,6 +3802,8 @@ def phase_serve(torch, arch, mods):
     import dataclasses
 
     from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.kernels import cross_entropy as ce
+    from repro_torch.kernels import gated_mlp as gm
     from repro_torch.kernels import moe_dispatch as md
     from repro_torch.kernels import norm_rope as nr
     from repro_torch.launch.serve import run_serving
@@ -3298,10 +3868,13 @@ def phase_serve(torch, arch, mods):
     decode_before = da.kernel_launches(da._lib())
     norm_rope_check = norm_rope_window(nr)
     moe_check = moe_window(md, moe_serve_routes(md, cfg))
+    gate_loss_check = gate_loss_window(gm, ce)
     res = run_serving(cfg, device="cuda", params=params, **shape)
     launches, by_route = _read_counts(kernels)
     norm_rope_check(arch, expected_norm_rope_serve(
         cfg, n_micro, shape["decode_steps"]))
+    gate_loss_check(arch, expected_gate_serve(cfg, n_micro,
+                                              shape["decode_steps"]))
     moe_check(arch, expected_moe_serve(cfg, n_micro, shape["decode_steps"]))
     graphs = _graph_counts()
     decode_device = decode_device_delta(da, decode_before,
@@ -4102,12 +4675,14 @@ def profile_call(torch, fn, table_name: str, split=None,
 # and the global norm's ops (under ``scoped_optimizer``'s ranges), the
 # GEMMs by their inputs' dtype (bf16: the projections and the head; f32:
 # the plain training attention's einsums, which upcast q, k and v), the
-# training attention kernels, the norm and RoPE kernels, the rest
+# training attention kernels, the norm and RoPE kernels, the gate's and the
+# loss's kernels, the rest
 # (elementwise, reductions, copies; remat's recompute included) split by op
 # family (``ELEMENTWISE_FAMILIES``, from the op's input shapes; the d_model
 # family also by op, ``RESIDUAL_OPS``), device time no op claims, and idle
 TRAIN_PARTS = ("optimizer", "global_norm", "gemm_bf16", "gemm_f32",
-               "attention_kernels", "norm_rope_kernels", "elementwise")
+               "attention_kernels", "norm_rope_kernels", "gate_kernels",
+               "loss_kernels", "elementwise")
 GEMM_OPS = ("aten::mm", "aten::bmm", "aten::addmm", "aten::baddbmm",
             "aten::addbmm", "aten::_addmm_activation")
 TRAIN_SCOPE = "train_step/"
@@ -4146,7 +4721,12 @@ NAMED_KERNEL_PARTS = {"adamw_update_kernel": "optimizer",
                       "rms_norm_fwd_kernel": "norm_rope_kernels",
                       "rms_norm_bwd_kernel": "norm_rope_kernels",
                       "rms_norm_dscale_kernel": "norm_rope_kernels",
-                      "rope_kernel": "norm_rope_kernels"}
+                      "rope_kernel": "norm_rope_kernels",
+                      "gated_act_fwd_kernel": "gate_kernels",
+                      "gated_act_bwd_kernel": "gate_kernels",
+                      "cross_entropy_fwd_kernel": "loss_kernels",
+                      "cross_entropy_sum_kernel": "loss_kernels",
+                      "cross_entropy_bwd_kernel": "loss_kernels"}
 
 
 def train_dims(cfg, seq: int) -> dict:
@@ -4328,7 +4908,11 @@ MOE_PLAIN_OPS = ("aten::cumsum", "aten::scatter_add", "aten::gather",
 
 
 TRAIN_FULL = dict(layers=16, batch=8, seq=512, steps=4, peak_lr=3e-4)
-TRAIN_PLAIN_STEPS = 3       # the same steps on the attention's plain ops
+TRAIN_PLAIN_STEPS = 3       # the same steps on the parent's path
+# the order of the full-width steps: TRAIN_FULL["steps"] on the kernels,
+# TRAIN_PLAIN_STEPS on the parent's path
+TRAIN_TURNS = ("kernels", "kernels", "parent", "parent", "kernels",
+               "kernels", "parent")
 TRAIN_ENGINE = dict(steps=40, shards=2, batch_per_shard=4, seq=128,
                     ckpt_every=20, resume_steps=4)
 TRAIN_PARITY = (dict(), dict(num_microbatches=2), dict(compress=True))
@@ -4672,17 +5256,19 @@ def train_full_width(torch):
     donated, rematerialised step on 8 x 512 tokens, repeated on one batch:
     the first loss equals ``forward_train``'s, step 1's loss and grad norm
     are the plain attention's (its grads of the same state and batch, under
-    ``plain_train_attention``), the loss falls by step 4, grad norms are
-    finite; steps 2-4 timed (the optimizer's and the global norm's device
-    spans by CUDA events, ``scoped_optimizer``), one more profiled and
-    split by part and elementwise family (``train_split``), one
-    FLOP-counted on the plain attention (``FlopCounterMode`` cannot see
-    the kernels); then the same step on the norms' and RoPE's plain ops
-    (``plain_norm_rope``, the parent's path): ``TRAIN_PLAIN_STEPS`` timed
-    the same way and one profiled and split, printed as the
-    ``train_profile`` line beside the kernels' split (idle: the timed
-    step's ms less the profiled busy time); the kernels' peak must not
-    pass the parent's."""
+    ``plain_train_attention``), the loss falls on the kernels' steps, grad
+    norms are finite.  ``TRAIN_FULL["steps"]`` steps on the kernels and
+    ``TRAIN_PLAIN_STEPS`` on the parent's path (the gate's and the loss's
+    plain ops, ``plain_gate_loss``) in turns (``TRAIN_TURNS``), each
+    timed (the optimizer's and the global norm's device spans by CUDA
+    events, ``scoped_optimizer``) with its peak memory; the first kernels'
+    step is left out of their median.  Then one step of each profiled and
+    split by part and elementwise family (``train_split``), printed as the
+    ``train_profile`` line (idle: the timed step's ms less the profiled
+    busy time), and one kernels' step FLOP-counted on the plain attention
+    (``FlopCounterMode`` cannot see the kernels).  The kernels' peak of
+    requested bytes (each column's first step left out) must not pass the
+    parent's."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -4713,74 +5299,77 @@ def train_full_width(torch):
     dims = train_dims(cfg, f["seq"])
     step = make_train_step(cfg, peak_lr=f["peak_lr"], warmup_steps=1,
                            total_steps=10, remat=True, donate=True)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    metrics, times, spans = [], [], []
-    for _ in range(f["steps"]):
-        t0 = time.monotonic()
-        with scoped_optimizer(spans):
-            state, m = step(state, batch)
-        torch.cuda.synchronize()
-        times.append((time.monotonic() - t0) * 1e3)
-        metrics.append({k: float(v) for k, v in m.items()})
-    peak = torch.cuda.max_memory_allocated()
     holder = [state]
+    del state
+    # the kernels' steps and the parent's path's (the gate and the loss as
+    # plain ops beside every other kernel) in turns
+    runs = {w: dict(times=[], spans=[], metrics=[], peaks=[], requested=[])
+            for w in ("kernels", "parent")}
+    for which in TRAIN_TURNS:
+        run = runs[which]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with (plain_gate_loss() if which == "parent"
+              else contextlib.nullcontext()):
+            t0 = time.monotonic()
+            with scoped_optimizer(run["spans"]):
+                holder[0], m = step(holder[0], batch)
+            torch.cuda.synchronize()
+        run["times"].append((time.monotonic() - t0) * 1e3)
+        run["metrics"].append({k: float(v) for k, v in m.items()})
+        run["peaks"].append(torch.cuda.max_memory_allocated())
+        run["requested"].append(
+            torch.cuda.memory_stats()["requested_bytes.all.peak"])
+    peak = max(runs["kernels"]["peaks"])
 
     def one_step():
         holder[0], _ = step(holder[0], batch)
-    with scoped_optimizer():
-        prof = profile_call(torch, one_step, "profile_train_step.txt",
-                            split=dims)
+
+    def profiled(plain, table: str) -> dict:
+        """One step under ``plain`` (a context that selects plain
+        versions, or none) profiled and split by part."""
+        with plain(), scoped_optimizer():
+            return profile_call(torch, one_step, table, split=dims)
+    prof = profiled(contextlib.nullcontext, "profile_train_step.txt")
+    prof_parent = profiled(plain_gate_loss, "profile_train_step_parent.txt")
     from torch.utils.flop_counter import FlopCounterMode
     with plain_train_attention(), \
             FlopCounterMode(display=False) as counted:     # one more step
         one_step()
 
-    def column(plain, table: str) -> dict:
-        """``TRAIN_PLAIN_STEPS`` steps timed and one profiled and split
-        under ``plain`` (a context that selects plain versions)."""
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        times_, spans_ = [], []
-        with plain():
-            for _ in range(TRAIN_PLAIN_STEPS):
-                t0 = time.monotonic()
-                with scoped_optimizer(spans_):
-                    one_step()
-                torch.cuda.synchronize()
-                times_.append((time.monotonic() - t0) * 1e3)
-            with scoped_optimizer():
-                prof_ = profile_call(torch, one_step, table, split=dims)
-        ms = sorted(times_)[len(times_) // 2]
-        return dict(step_ms=ms, step_ms_all=times_,
-                    span_ms=span_ms(spans_, len(times_)),
+    def column(which: str, prof_: dict, skip: int) -> dict:
+        run = runs[which]
+        kept = run["times"][skip:]
+        ms = sorted(kept)[len(kept) // 2]
+        return dict(step_ms=ms, step_ms_all=run["times"],
+                    span_ms=span_ms(run["spans"], len(run["times"]),
+                                    skip=skip),
                     profiled_wall_ms=prof_["wall_ms"],
                     device_busy_ms=prof_["device_busy_ms"],
                     idle_ms=max(0.0, ms - prof_["device_busy_ms"]),
-                    max_memory_allocated=torch.cuda.max_memory_allocated(),
+                    max_memory_allocated=max(run["peaks"]),
+                    max_memory_allocated_steps=run["peaks"],
+                    requested_peak_steps=run["requested"],
+                    requested_peak=max(run["requested"][1:]),
                     **prof_["split"])
-    # the parent's path: the norms and RoPE as plain ops beside the other
-    # kernels
-    parent = column(plain_norm_rope, "profile_train_step_parent.txt")
+    kernels = column("kernels", prof, 1)
+    parent = column("parent", prof_parent, 0)
+    step_ms = kernels["step_ms"]
     card = {"flops": counted.get_total_flops(), "batch": f["batch"],
-            "seq": f["seq"], "layers": cfg.num_layers, "step_ms": sorted(times[1:])[
-                len(times[1:]) // 2], "bound_ms": bound["bound_ms"],
+            "seq": f["seq"], "layers": cfg.num_layers, "step_ms": step_ms,
+            "bound_ms": bound["bound_ms"],
             "bound_flops_ms": bound["bound_flops_ms"]}
-    del state, holder
+    del holder
     gc.collect()
     torch.cuda.empty_cache()
+    metrics, times = runs["kernels"]["metrics"], runs["kernels"]["times"]
     losses = [m["loss"] for m in metrics]
     norms = [m["grad_norm"] for m in metrics]
-    step_ms = sorted(times[1:])[len(times[1:]) // 2]
     free_gb = (torch.cuda.get_device_properties(0).total_memory - peak) / 1e9
     emit("train_profile", config=cfg.name, layers=cfg.num_layers,
-         kernels=dict(step_ms=step_ms, step_ms_all=times,
-                      span_ms=span_ms(spans, len(times), skip=1),
-                      profiled_wall_ms=prof["wall_ms"],
-                      device_busy_ms=prof["device_busy_ms"],
-                      idle_ms=max(0.0, step_ms - prof["device_busy_ms"]),
-                      max_memory_allocated=peak, **prof["split"]),
-         parent=parent)
+         turns=list(TRAIN_TURNS), kernels=kernels, parent=parent,
+         requested_peak_saved_bytes=parent["requested_peak"]
+         - kernels["requested_peak"])
     emit("train_step", config=cfg.name, layers=cfg.num_layers,
          d_model=cfg.d_model, batch=f["batch"], seq=f["seq"],
          remat=True, donate=True, step_ms=step_ms, step_ms_all=times,
@@ -4806,11 +5395,15 @@ def train_full_width(torch):
         fail(f"{cfg.name}: grad norms {norms}")
     if free_gb < 8:
         fail(f"{cfg.name}: {free_gb:.1f} GB free at the step's peak")
-    # the norm and RoPE kernels save only their inputs: the step's peak
-    # must not grow over the parent's (the plain norms and RoPE)
-    if peak > parent["max_memory_allocated"]:
-        fail(f"{cfg.name}: peak {peak} bytes on the norm and RoPE kernels, "
-             f"{parent['max_memory_allocated']} on their plain versions")
+    # the gate's kernels save only their inputs and the loss's the logits
+    # in their dtype: the step's peak of requested bytes (the allocator's
+    # unsplit-block slack, up to 1 MiB a block, left out) must not grow
+    # over the parent's (the plain gate and loss), each column's first step
+    # (the run's first-call allocations) left out
+    if kernels["requested_peak"] > parent["requested_peak"]:
+        fail(f"{cfg.name}: requested peak {kernels['requested_peak']} "
+             f"bytes on the gate and loss kernels, "
+             f"{parent['requested_peak']} on their plain versions")
     return cfg, batch, card
 
 
@@ -4852,6 +5445,8 @@ def phase_train(torch, mods) -> tuple:
     Returns each kernel's launches over the phase (host, in all and by
     route), the train kernels' device counts and the full-width train
     step's FLOPs and times."""
+    from repro_torch.kernels import cross_entropy as ce
+    from repro_torch.kernels import gated_mlp as gm
     from repro_torch.kernels import moe_dispatch as md
     from repro_torch.kernels import norm_rope as nr
     kernels = {name: getattr(mod, name) for name, mod in mods.items()}
@@ -4860,6 +5455,7 @@ def phase_train(torch, mods) -> tuple:
     before = device_counts(mods)
     norm_rope_check = norm_rope_window(nr)
     moe_idle = moe_window(md)
+    gate_loss_check = gate_loss_window(gm, ce)
     refused = check_kernel_guard(torch, mods)
     worst = train_parity(torch)
     train_engine(torch)
@@ -4876,6 +5472,7 @@ def phase_train(torch, mods) -> tuple:
     check_phase_launches("train", launches, by_route, device, want)
     norm_rope_check("train", expected_norm_rope_launches(nr, "train"))
     moe_idle("train", MOE_IDLE)
+    gate_loss_check("train", expected_gate_loss_launches(gm, ce, "train"))
     return launches, device, card
 
 
@@ -4904,6 +5501,8 @@ def phase_dryrun(torch, mods, cards: dict) -> dict:
     the roofline terms beside the measured times and the bounds; (d) no
     kernel launched.  Returns each kernel's launches over the phase."""
     from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.kernels import cross_entropy as ce
+    from repro_torch.kernels import gated_mlp as gm
     from repro_torch.kernels import moe_dispatch as md
     from repro_torch.kernels import norm_rope as nr
     from repro_torch.launch import dryrun as D
@@ -4918,6 +5517,7 @@ def phase_dryrun(torch, mods, cards: dict) -> dict:
     before = device_counts(mods)
     norm_rope_check = norm_rope_window(nr)
     moe_idle = moe_window(md)
+    gate_loss_check = gate_loss_window(gm, ce)
 
     arch, shape = DRYRUN_CELL
     rec = D.run_cell(arch, shape, False, PROFILE_DIR / "dryrun",
@@ -4989,6 +5589,7 @@ def phase_dryrun(torch, mods, cards: dict) -> dict:
                          expected_train_launches(torch, mods, "dryrun"))
     norm_rope_check("dryrun", expected_norm_rope_launches(nr, "dryrun"))
     moe_idle("dryrun", MOE_IDLE)
+    gate_loss_check("dryrun", expected_gate_loss_launches(gm, ce, "dryrun"))
     return launches, device
 
 
@@ -5018,6 +5619,8 @@ def phase_examples(torch, mods) -> dict:
     kernels' device counts."""
     import shutil
 
+    from repro_torch.kernels import cross_entropy as ce
+    from repro_torch.kernels import gated_mlp as gm
     from repro_torch.kernels import moe_dispatch as md
     from repro_torch.kernels import norm_rope as nr
     kernels = {name: getattr(mod, name) for name, mod in mods.items()}
@@ -5026,6 +5629,7 @@ def phase_examples(torch, mods) -> dict:
     before = device_counts(mods)
     norm_rope_check = norm_rope_window(nr)
     moe_idle = moe_window(md)
+    gate_loss_check = gate_loss_window(gm, ce)
 
     chiles = _load_example("chiles_pipeline")
     cubes = []
@@ -5083,6 +5687,8 @@ def phase_examples(torch, mods) -> dict:
     check_phase_launches("examples", launches, by_route, device, want)
     norm_rope_check("examples", expected_norm_rope_launches(nr, "examples"))
     moe_idle("examples", MOE_IDLE)
+    gate_loss_check("examples", expected_gate_loss_launches(gm, ce,
+                                                            "examples"))
     return launches, device
 
 
@@ -5220,8 +5826,10 @@ def main() -> int:
               "script needs an NVIDIA GPU", file=sys.stderr)
         return 2
     from repro_torch.kernels import _build
+    from repro_torch.kernels import cross_entropy as ce
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gated_mlp as gm
     from repro_torch.kernels import moe_dispatch as md
     from repro_torch.kernels import norm_rope as nr
     from repro_torch.kernels import optimizer as opt
@@ -5271,11 +5879,13 @@ def main() -> int:
     moe_entries = phase_moe_kernel(torch, md)
     gc.collect()
     torch.cuda.empty_cache()
+    gl_entries = phase_gate_loss_kernel(torch, gm, ce)
     if "--kernels-only" in sys.argv[1:]:
         emit("done", seconds=time.monotonic() - t_start)
         print(json.dumps({"kernels": entries + [flash_d80, flash_x3,
                                                  *ta_x3, *nr_entries,
-                                                 *moe_entries]}),
+                                                 *moe_entries,
+                                                 *gl_entries]}),
               flush=True)
         return 0
     mods = {e["name"]: mod for e, mod in zip(entries, (fa, ss, da))}
@@ -5381,7 +5991,27 @@ def main() -> int:
             r: sum(c["device"][n][r] for _, c in counts)
             for r in e["kernel_routes"]}
         e["launches"] = sum(e["launches_by_path"].values())
-    entries += [flash_d80, flash_x3, *ta_x3, *nr_entries, *moe_entries]
+    # the gate and the loss run on every train path, the gate also on every
+    # gated serve path: their launches are the device's counts over each
+    # serve run and the train, dry-run and examples phases (the wrappers'
+    # beside them; the loss's forward counts its sum kernel's too)
+    for e in gl_entries:
+        n = e["name"]
+        counts = GATE_LOSS_LAUNCHES.items()
+        e["launches_by_path"] = {w: sum(c["device"][n].values())
+                                 for w, c in counts}
+        e["host_launches_by_path"] = {w: sum(c["host"][n].values())
+                                      for w, c in counts}
+        e["launches_by_route"] = {
+            r: sum(c["device"][n][r] for _, c in counts)
+            for r in e["kernel_routes"]}
+        e["launches"] = sum(e["launches_by_path"].values())
+        if n == "cross_entropy_fwd":
+            e["sum_launches"] = sum(
+                sum(c["device"]["cross_entropy_sum"].values())
+                for _, c in counts)
+    entries += [flash_d80, flash_x3, *ta_x3, *nr_entries, *moe_entries,
+                *gl_entries]
 
     emit("done", seconds=time.monotonic() - t_start)
     print(json.dumps({"kernels": entries}), flush=True)

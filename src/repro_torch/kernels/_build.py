@@ -28,7 +28,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 KERNEL_SOURCES = ("flash_attention", "ssd_scan", "decode_attention",
                   "optimizer", "train_attention", "norm_rope",
-                  "moe_dispatch")
+                  "moe_dispatch", "gated_mlp", "cross_entropy")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

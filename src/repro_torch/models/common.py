@@ -15,6 +15,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..kernels import cross_entropy as _cross_entropy
+from ..kernels import gated_mlp as _gated_mlp
 from ..kernels import norm_rope as _norm_rope
 # the model's soft-cap lives beside the attention math that the plain
 # route and the decode kernel's plain version share
@@ -234,6 +236,20 @@ def activation_fn(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
     raise ValueError(f"unknown activation {name!r}")
 
 
+def gated_act(a: torch.Tensor, b: torch.Tensor,
+              activation: str) -> torch.Tensor:
+    """The gated MLP's ``act(a) * b`` (``activation`` swiglu or geglu).
+    CUDA tensors go through the hand-written kernels
+    (``kernels.gated_mlp``: ``GatedAct`` where autograd records, its
+    forward launch alone where it does not); CPU and meta tensors take
+    ``activation_fn(activation)(a) * b`` (``gated_act_plain``)."""
+    if _gated_mlp.takes_kernel((a, b)):
+        if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+            return _gated_mlp.GatedAct.apply(a, b, activation)
+        return _gated_mlp.gated_act_fwd(a, b, activation)
+    return _gated_mlp.gated_act_plain(a, b, activation)
+
+
 def rope_freqs(head_dim: int, theta: float,
                device: Optional[torch.device] = None) -> torch.Tensor:
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
@@ -303,6 +319,21 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     # axis of a gather from vocab-sharded logits before it is reduced
     loss = (lse[..., None] - gold)[..., 0] * mask
     return loss.sum() / mask.sum().clamp_min(1)
+
+
+def capped_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                         cap: float, vocab_size: int) -> torch.Tensor:
+    """``cross_entropy(softcap(logits.float(), cap), labels, vocab_size)``
+    of the head's logits in their own dtype.  CUDA tensors go through the
+    hand-written kernels, forward and backward
+    (``kernels.cross_entropy.CappedCrossEntropy``: no f32 copy of the
+    logits); CPU and meta tensors take those ops
+    (``capped_cross_entropy_plain``)."""
+    if _cross_entropy.takes_kernel((logits, labels)):
+        return _cross_entropy.CappedCrossEntropy.apply(logits, labels, cap,
+                                                      vocab_size)
+    return _cross_entropy.capped_cross_entropy_plain(logits, labels, cap,
+                                                     vocab_size)
 
 
 # ---------------------------------------------------------------------------

@@ -31,9 +31,9 @@ from torch.utils.checkpoint import checkpoint
 from .attention import (_attend, _out_proj, _project_qkv, attention,
                         decode_attention, decode_cross_attention,
                         init_attention, init_kv_cache, position)
-from .common import (ArchConfig, activation_fn, cross_entropy, dense_init,
-                     einsum, resolve_device, rms_norm, sinusoidal_positions,
-                     softcap)
+from .common import (ArchConfig, activation_fn, capped_cross_entropy,
+                     dense_init, einsum, gated_act, resolve_device, rms_norm,
+                     sinusoidal_positions, softcap)
 from .moe import init_moe, moe_block
 from .ssm import (init_mamba2, init_ssm_cache, mamba2_decode_step,
                   mamba2_forward, mamba2_prime)
@@ -111,8 +111,7 @@ def _mlp(p: Dict[str, torch.Tensor], x: torch.Tensor,
          cfg: ArchConfig) -> torch.Tensor:
     h = einsum("bsd,df->bsf", x, p["w1"])
     if cfg.activation in ("swiglu", "geglu"):
-        gate = activation_fn(cfg.activation)
-        h = gate(h) * einsum("bsd,df->bsf", x, p["w3"])
+        h = gated_act(h, einsum("bsd,df->bsf", x, p["w3"]), cfg.activation)
     else:
         h = activation_fn(cfg.activation)(h)
     return einsum("bsf,fd->bsd", h, p["w2"])
@@ -383,13 +382,19 @@ def embed_tokens(params: Dict[str, Any], cfg: ArchConfig,
     return x
 
 
+def _head(params: Dict[str, Any], cfg: ArchConfig,
+          h: torch.Tensor) -> torch.Tensor:
+    """Final norm, then the (tied or separate) head: the logits in the
+    activations' dtype."""
+    h = rms_norm(h, params["final_norm"])
+    head = (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
+    return einsum("bsd,dv->bsv", h, head)
+
+
 def logits_fn(params: Dict[str, Any], cfg: ArchConfig,
               h: torch.Tensor) -> torch.Tensor:
     """Final norm, then the (tied or separate) head; f32 logits, soft-capped."""
-    h = rms_norm(h, params["final_norm"])
-    head = (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
-    logits = einsum("bsd,dv->bsv", h, head)
-    return softcap(logits.float(), cfg.final_softcap)
+    return softcap(_head(params, cfg, h).float(), cfg.final_softcap)
 
 
 def forward_train(params: Dict[str, Any], cfg: ArchConfig,
@@ -410,7 +415,11 @@ def forward_train(params: Dict[str, Any], cfg: ArchConfig,
                          remat=remat)
     h, aux = backbone(params, cfg, x, positions, use_kernel=use_kernel,
                       remat=remat, enc_out=enc_out, arange_positions=True)
-    loss = cross_entropy(logits_fn(params, cfg, h), labels, cfg.vocab_size)
+    # on CUDA the capped loss reads the head's logits in their own dtype
+    # (one kernel forward and one backward); elsewhere softcap(.float())
+    # and cross_entropy, as logits_fn and the reference compute them
+    loss = capped_cross_entropy(_head(params, cfg, h), labels,
+                                cfg.final_softcap, cfg.vocab_size)
     return loss + 0.01 * aux, {"loss": loss, "aux_loss": aux}
 
 

@@ -21,7 +21,8 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from .common import ArchConfig, activation_fn, dense_init, einsum
+from .common import (ArchConfig, activation_fn, dense_init, einsum,
+                     gated_act)
 from ..kernels import moe_dispatch as MD
 from ..sharding import ctx as sctx
 
@@ -109,7 +110,9 @@ def moe_block(p: Params, x: torch.Tensor, cfg: ArchConfig,
         buf = MD.moe_dispatch(xg, src)
     else:
         probs = torch.softmax(logits, dim=-1)
-        gates, idx = torch.topk(probs, k, dim=-1)         # (g, sg, k)
+        # lax.top_k's order: the lower expert first among equal
+        # probabilities (torch.topk leaves ties unordered)
+        gates, idx = MD.top_k(probs, k)                   # (g, sg, k)
         gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
 
         # load-balancing aux loss (Switch/GShard): E * mean(frac_i * prob_i)
@@ -123,8 +126,8 @@ def moe_block(p: Params, x: torch.Tensor, cfg: ArchConfig,
     # --- expert FFN over the E stacked experts -----------------------------
     h = einsum("gecd,edf->gecf", buf, p["w1"])
     if cfg.activation in ("swiglu", "geglu"):
-        h = activation_fn(cfg.activation)(h) * einsum(
-            "gecd,edf->gecf", buf, p["w3"])
+        h = gated_act(h, einsum("gecd,edf->gecf", buf, p["w3"]),
+                      cfg.activation)
     else:
         h = activation_fn(cfg.activation)(h)
     out_buf = sctx.constrain(einsum("gecf,efd->gecd", h, p["w2"]),

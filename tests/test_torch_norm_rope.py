@@ -559,22 +559,23 @@ def _routes(routes, **by_route):
 # train: tiny (2 layers, f32, 2 norms a layer + the final) 4 steps each of
 # 1, 2 and 1 microbatches with remat; lm100m (12 layers) 84 steps without
 # remat; codeqwen1.5-7b (bf16) at 16 layers 5 timed and profiled steps, the
-# FLOP-counted one and step 1's plain-attention grads (remat), and
-# forward_train's loss (one forward, no backward); at 2 layers a step with
-# and one without remat; examples: lm20m (6 layers) x 200 steps
+# FLOP-counted one and step 1's plain-attention grads, the parent column's
+# 4 timed and profiled steps on the gate's and the loss's plain ops (all
+# remat), and forward_train's loss (one forward, no backward); at 2 layers
+# a step with and one without remat; examples: lm20m (6 layers) x 200 steps
 EXPECTED_NORM_ROPE = {
     "train": {
         "rms_norm_fwd": _routes(K.NORM_ROUTES,
                                 f32_f32=16 * 9 + 84 * 25,
-                                bf16_bf16=7 * 65 + 33 + 9 + 5),
+                                bf16_bf16=11 * 65 + 33 + 9 + 5),
         "rms_norm_bwd": _routes(K.NORM_ROUTES, f32_f32=16 * 5 + 84 * 25,
-                                bf16_bf16=7 * 33 + 5 + 5),
+                                bf16_bf16=11 * 33 + 5 + 5),
         "rms_norm_dscale": _routes(K.NORM_ROUTES, f32_f32=16 * 5 + 84 * 25,
-                                   bf16_bf16=7 * 33 + 5 + 5),
+                                   bf16_bf16=11 * 33 + 5 + 5),
         "rope": _routes(K.ROPE_ROUTES, forward_f32=16 * 4 + 84 * 12,
                         backward_f32=16 * 2 + 84 * 12,
-                        forward_bf16=7 * 32 + 16 + 4 + 2,
-                        backward_bf16=7 * 16 + 2 + 2)},
+                        forward_bf16=11 * 32 + 16 + 4 + 2,
+                        backward_bf16=11 * 16 + 2 + 2)},
     "examples": {
         "rms_norm_fwd": _routes(K.NORM_ROUTES, f32_f32=200 * 13),
         "rms_norm_bwd": _routes(K.NORM_ROUTES, f32_f32=200 * 13),
