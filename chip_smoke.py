@@ -171,36 +171,52 @@ no result):
    decode graphs (the sessions run captures in threads beside other
    threads' eager work).  Each model is freed before the next.  No
    training attention or optimizer kernel launches while serving.
-5. train, after the serve paths, with every kernel count set to 0:
-   every kernel wrapper refuses CUDA inputs that require grad; (a) the
-   ``tiny`` preset's train step on the card equals the port on the CPU
-   over 4 steps (one and two microbatches, int8 compression); (b)
+5. train, after the serve paths, with every kernel count set to 0, each
+   step through the train step's CUDA graph (``TrainGraph``: the first
+   step on a state eager, then a capture, then replays) unless named
+   eager: every kernel wrapper refuses CUDA inputs that require grad; (a)
+   the ``tiny`` preset's train step on the card equals the port on the
+   CPU over 4 steps (one and two microbatches, int8 compression); (b)
+   replayed steps equal eager ones (``graph=False``) to the bit over 4
+   steps from equal states (params, m, v, step, residual, loss, grad
+   norm, lr): lm100m (f32, not donated; its capture beside another
+   thread's copies of a state to the host, as the checkpoint app makes
+   them), tiny (2 microbatches, compression, donated), codeqwen1.5-7b at
+   full width cut to 2 layers (bf16, remat, donated), and lm100m's step
+   eager and replayed on the host clock beside the replay's device span;
+   (c)
    ``run_training(lm100m)`` through the engine (40 steps x 1024 tokens,
    f32, checkpoints under ``chiprun_out/``) equals the same steps without
-   the engine, its last checkpoint restores bit for bit and a resumed run
-   starts from the saved step; (c) codeqwen1.5-7b at full width cut to 16
-   layers, one donated, rematerialised bf16 step on 8 x 512 tokens: time
-   against ``train_step_bound``, device busy and idle, peak memory, the
-   first loss equal to ``forward_train``'s, the loss falling on the
-   repeated batch, step 1's loss and grad norm near the plain
-   attention's, and at 2 layers remat on and off agreeing; the step's
-   device time split by part (``train_profile``: optimizer, global norm,
-   bf16 GEMMs, f32 GEMMs, the training attention kernels, other
-   elementwise work by op family, idle) beside the same step on the
-   gate's and the loss's plain ops (the parent's path, ``plain_gate_loss``,
-   its steps in turns with the kernels', ``TRAIN_TURNS``); the kernels'
-   peak no higher than the parent's;
-   (d) no serve kernel launched in the whole phase (flash, the SSD scan
-   and decode have no backward: training runs with ``use_kernel=False``,
-   as the reference does), the training attention once a forward (twice
-   under remat) and once a backward an attention call a microbatch, the
-   two optimizer kernels exactly once a param leaf a step on the card, the
-   norm and RoPE kernels once a norm or self-attention call a forward (the
-   layers' twice under remat) and a backward
-   (``expected_norm_rope_launches``), the gate once a gated call a forward
-   and a backward and the loss's kernels once a forward and a backward
-   (``expected_gate_loss_launches``; the parent column's steps none), on
-   the host and on the device; no MoE kernel (the block trains on its
+   the engine (a plain loop, through the graph and eager), its last
+   checkpoint restores bit for bit and a resumed run starts from the saved
+   step; then the engine eager and through the graph in turns
+   (``TRAIN_ENGINE_TURNS``); (d) codeqwen1.5-7b at full width cut to 16
+   layers, one donated, rematerialised bf16 step on 8 x 512 tokens, in
+   three columns in turns (``TRAIN_TURNS``): through its graph, eager (the
+   parent's path) and eager on the gate's and the loss's plain ops
+   (``plain_gate_loss``): time against ``train_step_bound``, device busy
+   and idle, peaks of allocated, requested and reserved bytes, the
+   capture's ms, the first loss equal to ``forward_train``'s, the loss
+   falling on the repeated batch, step 1's loss and grad norm near the
+   plain attention's, and at 2 layers remat on and off agreeing over two
+   steps; each column's device time split by part (``train_profile``:
+   optimizer, global norm, bf16 GEMMs, f32 GEMMs, the training attention
+   kernels, other elementwise work by op family, idle; the replay by its
+   kernels' names in the eager step's proportions, ``replay_split``); the
+   eager kernels' peak no higher than the plain gate and loss's; (e) each
+   part's graph captures and replays as ``expected_train_graphs`` says
+   (``train_graph``); no serve kernel launched in the whole phase (flash,
+   the SSD scan and decode have no backward: training runs with
+   ``use_kernel=False``, as the reference does), the training attention
+   once a forward (twice under remat) and once a backward an attention
+   call a microbatch, the two optimizer kernels exactly once a param leaf
+   a step on the card, the norm and RoPE kernels once a norm or
+   self-attention call a forward (the layers' twice under remat) and a
+   backward (``expected_norm_rope_launches``), the gate once a gated call
+   a forward and a backward and the loss's kernels once a forward and a
+   backward (``expected_gate_loss_launches``; the plain column's steps
+   none), counted on the device (a capture launches on the host only, a
+   replay on the device only); no MoE kernel (the block trains on its
    plain route).
 6. dryrun, with every kernel count set to 0: (a) the port's dry-run of
    mamba2-1.3b x decode_32k on the 256-rank fake mesh ends ok and agrees
@@ -218,8 +234,8 @@ no result):
    versions; none calls the MoE kernels).
 7. examples, with every kernel count set to 0: ``examples/torch/``'s
    CHILES pipeline recovers its source in band 2, and ``train_lm.py`` at
-   its defaults (lm20m, 200 steps through the engine) lowers the loss; no
-   serve kernel launched, the training attention once a forward and once
+   its defaults (lm20m, 200 steps through the engine, one capture and 199
+   replays) lowers the loss; no serve kernel launched, the training attention once a forward and once
    a backward a layer a step, the optimizer kernels once a param leaf a
    step, the norm and RoPE kernels once a call a forward and a backward,
    the gate and the loss likewise, no MoE kernel.
@@ -1321,8 +1337,8 @@ def check_update(torch, A, opt, leaves4, step, lr, scale) -> dict:
     bad, n, worst = [], 0, 0.0
 
     def plain(p, g, m, v, at):
-        with plain_optimizer():
-            A.adamw_update_(p, g, A.AdamWState(at, m, v), lr=lr,
+        with plain_optimizer():       # a copy: it advances the step
+            A.adamw_update_(p, g, A.AdamWState(at.clone(), m, v), lr=lr,
                             scale=scale)
 
     def compare(form, got, want):
@@ -1334,8 +1350,8 @@ def check_update(torch, A, opt, leaves4, step, lr, scale) -> dict:
                 bad.append(f"leaf {i} {name} {form}")
     for i, (p, g, m, v) in enumerate(leaves4):
         ins = (p.clone(), m.clone(), v.clone())
-        A.adamw_update_(ins[0], g, A.AdamWState(step, ins[1], ins[2]),
-                        lr=lr, scale=scale)
+        A.adamw_update_(ins[0], g, A.AdamWState(step.clone(), ins[1],
+                                                ins[2]), lr=lr, scale=scale)
         plain(p, g, m, v, step)
         compare("in_place", ins, (p, m, v))
         del ins
@@ -2599,13 +2615,15 @@ def norm_rope_window(nr):
     host's (the wrappers' counts, set to 0 here) and the device's.  The
     returned ``check(what, want)`` fails unless each kernel's launches in
     all equal ``want`` (``expected_norm_rope_serve``'s host and device
-    totals), or, with ``want`` by route (``expected_norm_rope_launches``:
-    no graph replays), the host and the device each equal it by route;
-    it keeps the counts in ``NORM_ROPE_LAUNCHES[what]``."""
+    totals), or, with ``want`` by route (``expected_norm_rope_launches``),
+    the device equals it by route, and the host too where no train step
+    was captured in the window; it keeps the counts in
+    ``NORM_ROPE_LAUNCHES[what]``."""
     fns = {"rms_norm_fwd": nr.rms_norm_fwd, "rms_norm_bwd": nr.rms_norm_bwd,
            "rope": nr.rope}
     _zero_counts(fns)
     lib = nr._lib()
+    graphs_at = train_graph_counts()
     before = nr.kernel_launches(lib)
 
     def check(what: str, want: dict) -> None:
@@ -2623,7 +2641,11 @@ def norm_rope_window(nr):
             bad = got != want or any(device[k][r] < host[k][r]
                                      for k in host for r in host[k])
         else:
-            bad = host != want or device != want
+            # a captured train step launches on the host and not on the
+            # device, its replays the other way round: the host is held
+            # only where no train step was captured
+            captured = graph_delta(graphs_at)["captures"] > 0
+            bad = device != want or (not captured and host != want)
         if bad:
             fail(f"{what}: norm / rope launches host {host}, device "
                  f"{device}, expected {want}")
@@ -3716,9 +3738,9 @@ def gate_loss_window(gm, ce):
     stands for its sum kernel too) and on the device.  The returned
     ``check(what, want)`` fails unless each kernel's launches in all equal
     ``want`` (``expected_gate_serve``'s host and device totals), or, with
-    ``want`` by route (``expected_gate_loss_launches``), the host and the
-    device each equal it by route; it keeps the counts in
-    ``GATE_LOSS_LAUNCHES[what]``."""
+    ``want`` by route (``expected_gate_loss_launches``), the device equals
+    it by route, and the host too where no train step was captured in the
+    window; it keeps the counts in ``GATE_LOSS_LAUNCHES[what]``."""
     fns = {"gated_act_fwd": gm.gated_act_fwd,
            "gated_act_bwd": gm.gated_act_bwd,
            "cross_entropy_fwd": ce.cross_entropy_fwd,
@@ -3729,6 +3751,7 @@ def gate_loss_window(gm, ce):
     def device_now():
         return {**gm.kernel_launches(libs[0]),
                 **ce.kernel_launches(libs[1])}
+    graphs_at = train_graph_counts()
     before = device_now()
 
     def check(what: str, want: dict) -> None:
@@ -3745,7 +3768,11 @@ def gate_loss_window(gm, ce):
             bad = got != want or any(device[k][r] < host[k][r]
                                      for k in host for r in host[k])
         else:
-            bad = host != want or device != want
+            # a captured train step launches on the host and not on the
+            # device, its replays the other way round: the host is held
+            # only where no train step was captured
+            captured = graph_delta(graphs_at)["captures"] > 0
+            bad = device != want or (not captured and host != want)
         if bad:
             fail(f"{what}: gate / loss launches host {host}, device "
                  f"{device}, expected {want}")
@@ -4618,7 +4645,7 @@ def routes_agree(torch, cfg, params, cache, tok, pos: int) -> dict:
 
 
 def profile_call(torch, fn, table_name: str, split=None,
-                 copies: bool = False) -> dict:
+                 copies: bool = False, replay=None) -> dict:
     """One call of ``fn`` under torch.profiler, ended by a device
     synchronise: its wall ms, device busy ms and idle share, the ten
     device kernels with the most time, the flash launches by route
@@ -4628,9 +4655,11 @@ def profile_call(torch, fn, table_name: str, split=None,
     (``WATCHED_OPS``), where the call ran them (full table to
     ``table_name`` under ``PROFILE_DIR``); with ``split`` (a model's
     widths, ``train_dims``), a train step's device time by part and its
-    elementwise time by op family (``train_split``, shapes recorded); with
-    ``copies``, the ``aten::copy_`` calls by their input shapes
-    (``copies_by_shape``)."""
+    elementwise time by op family (``train_split``, shapes recorded; the
+    kernels' shares by name under ``by_kernel``); with ``replay`` (such a
+    profile of an eager step), a replayed train step split the same way
+    (``replay_split``); with ``copies``, the ``aten::copy_`` calls by their
+    input shapes (``copies_by_shape``)."""
     from torch.profiler import ProfilerActivity, profile
     PROFILE_DIR.mkdir(parents=True, exist_ok=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -4660,7 +4689,11 @@ def profile_call(torch, fn, table_name: str, split=None,
                ssd_kernels_seen=ssd_kernels_seen(torch, events),
                decode_kernels_seen=decode_kernels_seen(torch, events))
     if split is not None:
-        out["split"] = train_split(torch, prof, busy_ms, split)
+        out["split"], out["by_kernel"] = train_split(torch, prof, busy_ms,
+                                                     split)
+    if replay is not None:
+        out["split"] = replay_split(torch, prof, busy_ms,
+                                    replay["by_kernel"])
     if copies:
         out["copies_by_shape"] = sorted(
             ({"shapes": str(e.input_shapes)[:120], "calls": e.count,
@@ -4787,7 +4820,7 @@ def train_part(event, dtypes: dict) -> str:
     return "elementwise"
 
 
-def train_split(torch, prof, busy_ms: float, dims: dict) -> dict:
+def train_split(torch, prof, busy_ms: float, dims: dict) -> tuple:
     """A profiled train step's device ms by ``TRAIN_PARTS``: each ATen
     op's kernels by ``train_part``, the hand-written kernels by name
     (``NAMED_KERNEL_PARTS``); ``elementwise`` also by op family
@@ -4801,10 +4834,16 @@ def train_split(torch, prof, busy_ms: float, dims: dict) -> dict:
     families = dict.fromkeys(ELEMENTWISE_FAMILIES, 0.0)
     residual = {"adds": 0.0, "other_ops": 0.0}
     names = {p: {} for p in TRAIN_PARTS + ELEMENTWISE_FAMILIES}
+    by_kernel: dict = {}
+
+    def share(name, key, ms):
+        got = by_kernel.setdefault(name, {})
+        got[key] = got.get(key, 0.0) + ms
 
     def add(part, name, ms):
         parts[part] += ms
         names[part][name[:90]] = names[part].get(name[:90], 0.0) + ms
+        share(name, part, ms)
 
     def named(kernel):
         return next((p for k, p in NAMED_KERNEL_PARTS.items()
@@ -4825,6 +4864,7 @@ def train_split(torch, prof, busy_ms: float, dims: dict) -> dict:
                 fam = op_family(getattr(e, "input_shapes", None) or [],
                                 dims)
                 families[fam] += k.duration / 1e3
+                share(k.name, fam, k.duration / 1e3)
                 if fam == "norms_residual":
                     residual["adds" if e.name in RESIDUAL_OPS
                              else "other_ops"] += k.duration / 1e3
@@ -4836,6 +4876,42 @@ def train_split(torch, prof, busy_ms: float, dims: dict) -> dict:
     out["unattributed"] = max(0.0, busy_ms - sum(parts.values()))
     out["top"] = {p: sorted(names[p].items(), key=lambda kv: -kv[1])[:4]
                   for p in TRAIN_PARTS + ELEMENTWISE_FAMILIES}
+    return out, by_kernel
+
+
+def replay_split(torch, prof, busy_ms: float, by_kernel: dict) -> dict:
+    """A profiled graph replay's device ms by ``TRAIN_PARTS`` and
+    elementwise family, as ``train_split`` gives an eager step's: a
+    replay's kernels have no ATen op above them (the graph launches them),
+    so each kernel's time goes to the parts and families its name took in
+    an eager step of the same work (``by_kernel``, from ``train_split``),
+    in that step's proportions; ``unattributed``, the time of names the
+    eager step did not run."""
+    cpu = torch.autograd.DeviceType.CPU
+    parts = dict.fromkeys(TRAIN_PARTS, 0.0)
+    families = dict.fromkeys(ELEMENTWISE_FAMILIES, 0.0)
+    unknown: dict = {}
+    for e in prof.events():
+        if e.device_type == cpu:
+            continue
+        ms = (e.time_range.end - e.time_range.start) / 1e3
+        got = by_kernel.get(e.name)
+        in_parts = sum(got.get(p, 0.0) for p in TRAIN_PARTS) if got else 0
+        if not in_parts:
+            unknown[e.name[:90]] = unknown.get(e.name[:90], 0.0) + ms
+            continue
+        for p in TRAIN_PARTS:
+            parts[p] += ms * got.get(p, 0.0) / in_parts
+        in_families = sum(got.get(f, 0.0) for f in ELEMENTWISE_FAMILIES)
+        for f in ELEMENTWISE_FAMILIES:
+            if in_families:
+                families[f] += (ms * got.get("elementwise", 0.0) / in_parts
+                                * got.get(f, 0.0) / in_families)
+    out = dict(parts)
+    out["elementwise_families"] = families
+    out["unattributed"] = max(0.0, busy_ms - sum(parts.values()))
+    out["unknown_kernels"] = sorted(unknown.items(),
+                                    key=lambda kv: -kv[1])[:6]
     return out
 
 
@@ -4907,37 +4983,92 @@ MOE_PLAIN_OPS = ("aten::cumsum", "aten::scatter_add", "aten::gather",
                  "aten::topk", "aten::softmax", "aten::mean")
 
 
-TRAIN_FULL = dict(layers=16, batch=8, seq=512, steps=4, peak_lr=3e-4)
-TRAIN_PLAIN_STEPS = 3       # the same steps on the parent's path
-# the order of the full-width steps: TRAIN_FULL["steps"] on the kernels,
-# TRAIN_PLAIN_STEPS on the parent's path
-TRAIN_TURNS = ("kernels", "kernels", "parent", "parent", "kernels",
-               "kernels", "parent")
+TRAIN_FULL = dict(layers=16, batch=8, seq=512, peak_lr=3e-4)
+# the order of the full-width steps, in turns on one donated state: the
+# step through its CUDA graph (the main path; its first step is the eager
+# warm-up and captures), the same step eager (``graph=False``, the
+# parent's path), and eager on the gate's and the loss's plain ops
+# (``plain_gate_loss``, PR 31's parent, for its peak check)
+TRAIN_TURNS = ("graph", "graph", "eager", "eager", "plain", "plain",
+               "graph", "graph", "eager", "eager", "plain")
+# each column's steps left out of its median: the graph's first (the
+# warm-up and the capture), the eager column's first (its allocations,
+# after the graph's pool took the released cache)
+TRAIN_SKIP = {"graph": 1, "eager": 1, "plain": 0}
 TRAIN_ENGINE = dict(steps=40, shards=2, batch_per_shard=4, seq=128,
                     ckpt_every=20, resume_steps=4)
+# run_training(lm100m) without checkpoints, eager and through the graph
+TRAIN_ENGINE_TURNS = ("graph", "eager", "eager", "graph")
 TRAIN_PARITY = (dict(), dict(num_microbatches=2), dict(compress=True))
 TRAIN_PARITY_STEPS = 4
+# replayed against eager steps from equal states: the first step is the
+# graph's warm-up, the rest replays
+TRAIN_GRAPH_BITS_STEPS = 4
+TRAIN_PACE_STEPS = 5        # lm100m: host-clock steps each way, replays
 TRAIN_LM = ("lm20m", 200)   # examples/torch/train_lm.py's preset and steps
+
+
+def full_width_steps(which: str) -> int:
+    """Full-width steps of a ``TRAIN_TURNS`` column: its turns and one
+    profiled step."""
+    return TRAIN_TURNS.count(which) + 1
+
+
+def lm100m_steps() -> int:
+    """lm100m's train steps on the card in the train phase: the engine's
+    checkpointed run, the plain loop through the graph and eager, the
+    resumed run, the engine's turns, the bits check (eager and graph) and
+    the pacing steps (eager, graph and bare replays)."""
+    e = TRAIN_ENGINE
+    return (e["steps"] * (3 + len(TRAIN_ENGINE_TURNS)) + e["resume_steps"]
+            + 2 * TRAIN_GRAPH_BITS_STEPS + 3 * TRAIN_PACE_STEPS)
+
+
+def expected_train_graphs(phase: str) -> dict:
+    """The train step's CUDA graph captures and replays each part of a
+    phase must make (``TrainGraph.counts``): a graph step object captures
+    on its first step and replays every later one."""
+    e = TRAIN_ENGINE
+    if phase == "examples":
+        return {"train_lm": {"captures": 1, "replays": TRAIN_LM[1] - 1}}
+    if phase != "train":
+        return {}
+    runs = len([t for t in TRAIN_ENGINE_TURNS if t == "graph"])
+    return {
+        "parity": {"captures": len(TRAIN_PARITY),
+                   "replays": len(TRAIN_PARITY) * (TRAIN_PARITY_STEPS - 1)},
+        "bits": {"captures": 3,
+                 "replays": 3 * (TRAIN_GRAPH_BITS_STEPS - 1)
+                 + 2 * TRAIN_PACE_STEPS},
+        # the checkpointed run, the plain loop, the resumed run, the turns
+        "engine": {"captures": 3 + runs,
+                   "replays": (2 + runs) * (e["steps"] - 1)
+                   + e["resume_steps"] - 1},
+        "full_width": {"captures": 1,
+                       "replays": full_width_steps("graph") - 1},
+        "remat": {"captures": 2, "replays": 2}}
 
 
 def optimizer_steps(phase: str) -> list:
     """(config, train steps on the card) of a phase's runs: each step
-    launches both optimizer kernels once a param leaf."""
+    launches both optimizer kernels once a param leaf (a graph's warm-up
+    and its replays on the device; its capture none)."""
     import dataclasses
 
     from repro_torch.configs import get_config
     from repro_torch.launch.train import PRESETS
     if phase == "train":
-        e, f = TRAIN_ENGINE, TRAIN_FULL
         full = dataclasses.replace(get_config("codeqwen15_7b"),
-                                   num_layers=f["layers"])
-        return [(PRESETS["tiny"], len(TRAIN_PARITY) * TRAIN_PARITY_STEPS),
-                # the engine, the plain loop, the resumed run
-                (PRESETS["lm100m"], 2 * e["steps"] + e["resume_steps"]),
-                # timed, profiled, FLOP-counted; the parent column's
-                # timed and profiled (step 1's plain grads launch none)
-                (full, f["steps"] + 2 + TRAIN_PLAIN_STEPS + 1),
-                (dataclasses.replace(full, num_layers=2), 2)]  # remat on, off
+                                   num_layers=TRAIN_FULL["layers"])
+        return [(PRESETS["tiny"], len(TRAIN_PARITY) * TRAIN_PARITY_STEPS
+                 + 2 * TRAIN_GRAPH_BITS_STEPS),
+                (PRESETS["lm100m"], lm100m_steps()),
+                # the three columns' timed and profiled steps, and the
+                # FLOP-counted one (step 1's plain grads launch none)
+                (full, sum(full_width_steps(w) for w in TRAIN_SKIP) + 1),
+                # the bits check (eager and graph); remat on, off
+                (dataclasses.replace(full, num_layers=2),
+                 2 * TRAIN_GRAPH_BITS_STEPS + 4)]
     if phase == "examples":
         preset, steps = TRAIN_LM
         return [(PRESETS[preset], steps)]
@@ -4974,18 +5105,21 @@ def attention_steps(phase: str) -> list:
     from repro_torch.configs import get_config
     from repro_torch.launch.train import PRESETS
     if phase == "train":
-        e, f = TRAIN_ENGINE, TRAIN_FULL
         full = dataclasses.replace(get_config("codeqwen15_7b"),
-                                   num_layers=f["layers"])
+                                   num_layers=TRAIN_FULL["layers"])
         two = dataclasses.replace(full, num_layers=2)
         return [*((PRESETS["tiny"], TRAIN_PARITY_STEPS,
                    kw.get("num_microbatches", 1), 2) for kw in TRAIN_PARITY),
-                # run_training's steps do not remat
-                (PRESETS["lm100m"], 2 * e["steps"] + e["resume_steps"], 1, 1),
-                # timed and profiled (the FLOP-counted step and the plain
-                # column run the plain attention)
-                (full, f["steps"] + 1, 1, 2),
-                (two, 1, 1, 2), (two, 1, 1, 1)]      # remat on, off
+                (PRESETS["tiny"], 2 * TRAIN_GRAPH_BITS_STEPS, 2, 2),
+                # run_training's steps do not remat, nor the bits check's
+                (PRESETS["lm100m"], lm100m_steps(), 1, 1),
+                # the graph's and the eager columns' timed and profiled
+                # steps (the FLOP-counted step and step 1's grads run the
+                # plain attention, the plain column is ``parent_steps``)
+                (full, full_width_steps("graph")
+                 + full_width_steps("eager"), 1, 2),
+                (two, 2 * TRAIN_GRAPH_BITS_STEPS + 2, 1, 2),
+                (two, 2, 1, 1)]               # remat off
     if phase == "examples":
         preset, steps = TRAIN_LM
         return [(PRESETS[preset], steps, 1, 1)]
@@ -5022,10 +5156,10 @@ def expected_attention_launches(ta, phase: str,
 
 
 def parent_steps(phase: str) -> list:
-    """(config, steps) of the train step's parent column in ``phase``
-    (``train_full_width``: the plain norms and RoPE beside the other
-    kernels, ``TRAIN_PLAIN_STEPS`` timed and one profiled, remat; its
-    optimizer launches are among ``optimizer_steps``')."""
+    """(config, steps) of the train step's plain column in ``phase``
+    (``train_full_width``: the gate's and the loss's plain ops beside every
+    other kernel, its timed steps and one profiled, remat; its optimizer
+    launches are among ``optimizer_steps``')."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -5033,7 +5167,7 @@ def parent_steps(phase: str) -> list:
         return []
     return [(dataclasses.replace(get_config("codeqwen15_7b"),
                                  num_layers=TRAIN_FULL["layers"]),
-             TRAIN_PLAIN_STEPS + 1)]
+             full_width_steps("plain"))]
 
 
 def expected_train_launches(torch, mods, phase: str) -> dict:
@@ -5075,17 +5209,28 @@ def device_delta(mods, before: tuple) -> dict:
 
 
 def check_phase_launches(phase: str, launches: dict, by_route: dict,
-                         device: dict, want: dict) -> None:
+                         device: dict, want: dict, host: bool) -> None:
     """No serve kernel launched (flash, SSD, decode); each kernel of
     ``want`` (the optimizer's, the training attention's) exactly ``want``
-    by route, on the host and on the device."""
+    by route on the device and, with ``host`` (no train step was captured
+    in the phase: a capture launches on the host and not on the device, a
+    replay the other way round), on the host too."""
     others = {n: c for n, c in launches.items() if n not in want}
     if any(others.values()):
         fail(f"the {phase} phase launched kernels: {others}")
     got = {n: by_route[n] for n in want}
-    if got != want or {n: device[n] for n in want} != want:
+    if {n: device[n] for n in want} != want or (host and got != want):
         fail(f"the {phase} phase's train kernel launches: host {got}, "
              f"device {device}, expected {want}")
+
+
+def train_graph_counts() -> dict:
+    from repro_torch.train.steps import TrainGraph
+    return dict(TrainGraph.counts)
+
+
+def graph_delta(before: dict) -> dict:
+    return {k: n - before[k] for k, n in train_graph_counts().items()}
 
 
 def train_step_bound(cfg, params, batch: int, seq: int) -> dict:
@@ -5163,16 +5308,165 @@ def train_parity(torch):
     return worst
 
 
+@contextlib.contextmanager
+def host_copies(state):
+    """Another thread copying every leaf of ``state`` to the host, as the
+    engine's checkpoint app does (``CheckpointManager.save_async``: a
+    synchronous copy on that thread's stream), round after round while the
+    block runs (the first round started before it); yields the list of
+    rounds' (start, end) ``time.perf_counter`` pairs, whole once the block
+    has ended."""
+    from repro_torch.tree import leaves
+    stop, started, spans = threading.Event(), threading.Event(), []
+
+    def copy():
+        while not stop.is_set():
+            t0 = time.perf_counter()
+            started.set()
+            for t in leaves(state):
+                t.to("cpu", copy=True)
+            spans.append((t0, time.perf_counter()))
+    worker = threading.Thread(target=copy, daemon=True)
+    worker.start()
+    started.wait()
+    try:
+        yield spans
+    finally:
+        stop.set()
+        worker.join()
+
+
+def train_graph_bits(torch) -> dict:
+    """(b) Replayed steps equal eager steps to the bit: from equal states,
+    ``TRAIN_GRAPH_BITS_STEPS`` steps eager (``graph=False``) and through
+    the graph (``graph=True``: the first step the warm-up, which captures,
+    the rest replays), each on its own batch: params, m, v, the step, the
+    residual, the loss, the grad norm and the lr after every step.  On
+    lm100m (f32, not donated: the engine's step), tiny (2 microbatches,
+    int8 compression, donated) and codeqwen1.5-7b at full width cut to 2
+    layers (bf16, remat, donated, 8 x 512 tokens); lm100m's first graph
+    step (its warm-up and capture) runs beside another thread copying a
+    state to the host (``host_copies``, the checkpoint app's copies), at
+    least one round of which must overlap the capture.  Then lm100m's
+    pacing:
+    ``TRAIN_PACE_STEPS`` steps eager and through the graph on the host
+    clock (each ended by a synchronise), and the replay's device span
+    alone (``device_span_ms``)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic_batch
+    from repro_torch.launch.train import PRESETS
+    from repro_torch.train import make_train_step, train_state_init
+    from repro_torch.tree import leaves, leaves_with_path, tree_map
+    two = dataclasses.replace(get_config("codeqwen15_7b"), num_layers=2)
+    cases = (("lm100m", PRESETS["lm100m"], dict(remat=False), (8, 128)),
+             ("tiny", PRESETS["tiny"], dict(num_microbatches=2,
+                                            compress=True, donate=True),
+              (4, 32)),
+             ("codeqwen_2", two, dict(remat=True, donate=True), (8, 512)))
+    out = {}
+    for name, cfg, kw, (b, seq) in cases:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(11)
+        eager_state = train_state_init(cfg, gen, device="cuda",
+                                       compress=kw.get("compress", False))
+        graph_state = tree_map(torch.clone, eager_state)
+        steps = {g: make_train_step(cfg, peak_lr=1e-3, warmup_steps=1,
+                                    total_steps=10, graph=g, **kw)
+                 for g in (False, True)}
+        rows, differ = [], []
+        for i in range(TRAIN_GRAPH_BITS_STEPS):
+            batch = _batch_to(torch, synthetic_batch(
+                13, 0, i, b, seq, cfg.vocab_size), "cuda")
+            eager_state, em = steps[False](eager_state, batch)
+            if i == 0 and name == "lm100m":
+                # the engine's checkpoint app copies a state to the host in
+                # its own thread while the next step may be capturing: the
+                # rounds that overlapped the capture (the first step's end)
+                with host_copies(eager_state) as spans:
+                    graph_state, gm = steps[True](graph_state, batch)
+                    end = time.perf_counter()
+                begin = end - steps[True].graph.capture_ms / 1e3
+                beside = sum(t0 < end and t1 > begin for t0, t1 in spans)
+                if beside < 1:
+                    fail(f"{name}: no copy to the host ran beside the "
+                         f"capture ({spans}, capture {begin}-{end})")
+            else:
+                graph_state, gm = steps[True](graph_state, batch)
+            bad = [path for (path, x), y in zip(
+                leaves_with_path(eager_state), leaves(graph_state))
+                if not same_bits(torch, x, y)]
+            bad += [k for k in em if not same_bits(torch, em[k], gm[k])]
+            differ += [f"step {i}: {k}" for k in bad]
+            rows.append({"step": i, "replayed": i > 0,
+                         "loss": float(gm["loss"]),
+                         "grad_norm": float(gm["grad_norm"]),
+                         "differ": bad[:8]})
+        g = steps[True].graph
+        out[name] = dict(dtype=cfg.dtype, options=kw, batch=b, seq=seq,
+                         steps=rows, capture_ms=g.capture_ms,
+                         replays=g.replays, bitwise=not differ,
+                         leaves=len(leaves(graph_state)))
+        if name == "lm100m":
+            out[name]["host_copy_rounds_beside_capture"] = beside
+        if name == "lm100m":
+            batch = _batch_to(torch, synthetic_batch(
+                13, 0, 0, b, seq, cfg.vocab_size), "cuda")
+
+            def one(which):
+                nonlocal eager_state, graph_state
+                if which == "graph":
+                    graph_state, _ = steps[True](graph_state, batch)
+                else:
+                    eager_state, _ = steps[False](eager_state, batch)
+            pace = {}
+            for which in ("eager", "graph"):
+                times = []
+                for _ in range(TRAIN_PACE_STEPS):
+                    torch.cuda.synchronize()
+                    t0 = time.monotonic()
+                    one(which)
+                    torch.cuda.synchronize()
+                    times.append((time.monotonic() - t0) * 1e3)
+                pace[f"{which}_step_ms"] = sorted(times)[
+                    TRAIN_PACE_STEPS // 2]
+                pace[f"{which}_all"] = times
+            # a replayed step's device span: the batch and the state copied
+            # in, the replay, the state and the metrics copied out
+            spans = [device_span_ms(torch, lambda: one("graph"))
+                     for _ in range(TRAIN_PACE_STEPS)]
+            pace.update(graph_device_ms=sorted(spans)[TRAIN_PACE_STEPS // 2],
+                        graph_device_all=spans)
+            out[name]["pace"] = pace
+        for step in steps.values():
+            step.close()
+        del eager_state, graph_state, steps, g, em, gm
+        gc.collect()
+        torch.cuda.empty_cache()
+        if differ:
+            emit("train_graph_bits", case=name, **out[name])
+            fail(f"{name}: replayed steps differ from eager ones: "
+                 f"{differ[:8]}")
+    emit("train_graph_bits", cases=out)
+    return out
+
+
 def train_engine(torch):
-    """(b) ``run_training(lm100m)`` through the engine on the card, at the
-    driver's defaults, with checkpoints under ``chiprun_out/``: its losses
-    equal the same 40 steps run in a plain loop on the card (the same
-    init, batches and step, without the engine) within 1e-4 relative;
-    the last checkpoint restores bit for bit; a resumed run starts from
-    the saved step.  The plain loop's wall (the same host reads of the
-    loss each step) says what the engine adds.  Whether the loss falls is
-    reported, not required: at these defaults the reference's own run
-    does not lower it in 40 steps (``PERF.md``)."""
+    """(c) ``run_training(lm100m)`` through the engine on the card, at the
+    driver's defaults (its step through the train step's CUDA graph, not
+    donated), with checkpoints under ``chiprun_out/``: its losses equal
+    the same 40 steps run in a plain loop on the card (the same init,
+    batches and step, without the engine) within 1e-4 relative; the last
+    checkpoint restores bit for bit; a resumed run starts from the saved
+    step.  The plain loop runs through the graph and eagerly
+    (``graph=False``): their walls (the same host reads of the loss each
+    step) say what the engine adds and what the graph takes away.  Then
+    the engine without checkpoints, eager and through the graph in turns
+    (``TRAIN_ENGINE_TURNS``), each run's losses within 1e-4 of the plain
+    loop's.  Whether the loss falls is reported, not required: at these
+    defaults the reference's own run does not lower it in 40 steps
+    (``PERF.md``)."""
     import shutil
 
     import numpy as np
@@ -5186,10 +5480,10 @@ def train_engine(torch):
     shutil.rmtree(ckpt, ignore_errors=True)
     e = TRAIN_ENGINE
     kw = dict(shards=e["shards"], batch_per_shard=e["batch_per_shard"],
-              seq=e["seq"], ckpt_dir=str(ckpt), ckpt_every=e["ckpt_every"],
-              device="cuda")
+              seq=e["seq"], device="cuda")
+    saving = dict(ckpt_dir=str(ckpt), ckpt_every=e["ckpt_every"])
     torch.cuda.reset_peak_memory_stats()
-    res = run_training(cfg, steps=e["steps"], **kw)
+    res = run_training(cfg, steps=e["steps"], **kw, **saving)
     peak = torch.cuda.max_memory_allocated()
     saved = latest_step(str(ckpt))
     _, back = load_checkpoint(str(ckpt), res["final_state"])
@@ -5201,24 +5495,33 @@ def train_engine(torch):
 
     # the same run without the engine: run_training's init, batch recipe
     # and step, one state alive at a time
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(0)
-    state = train_state_init(cfg, gen, device="cuda")
-    step = make_train_step(cfg, peak_lr=1e-3,
-                           warmup_steps=max(e["steps"] // 10, 1),
-                           total_steps=e["steps"], remat=False)
-    direct = []
-    t0 = time.monotonic()
-    for it in range(e["steps"]):
-        parts = [synthetic_batch(17, s, it, e["batch_per_shard"], e["seq"],
-                                 cfg.vocab_size) for s in range(e["shards"])]
-        batch = {k: torch.from_numpy(np.concatenate([p[k] for p in parts])
-                                     ).to("cuda") for k in parts[0]}
-        state, m = step(state, batch)
-        direct.append(float(m["loss"]))
-    direct_s = time.monotonic() - t0
-    del state, m
-    rel = max(abs(a - b) / abs(b) for a, b in zip(res["losses"], direct))
+    direct, direct_s = {}, {}
+    for graph in (None, False):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        state = train_state_init(cfg, gen, device="cuda")
+        step = make_train_step(cfg, peak_lr=1e-3,
+                               warmup_steps=max(e["steps"] // 10, 1),
+                               total_steps=e["steps"], remat=False,
+                               graph=graph)
+        which = "eager" if graph is False else "graph"
+        direct[which] = []
+        t0 = time.monotonic()
+        for it in range(e["steps"]):
+            parts = [synthetic_batch(17, s, it, e["batch_per_shard"],
+                                     e["seq"], cfg.vocab_size)
+                     for s in range(e["shards"])]
+            batch = {k: torch.from_numpy(np.concatenate([p[k] for p in parts])
+                                         ).to("cuda") for k in parts[0]}
+            state, m = step(state, batch)
+            direct[which].append(float(m["loss"]))
+        direct_s[which] = time.monotonic() - t0
+        step.close()
+        del state, m, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    losses = direct["graph"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(res["losses"], losses))
     tokens = e["shards"] * e["batch_per_shard"] * e["seq"]
     emit("train_engine", config=cfg.name, layers=cfg.num_layers,
          d_model=cfg.d_model, dtype=cfg.dtype, steps=e["steps"],
@@ -5226,20 +5529,26 @@ def train_engine(torch):
          wall_s=res["wall_s"], tokens_per_s=res["tokens_per_s"],
          first_loss=res["first_loss"], last_loss=res["last_loss"],
          loss_falls=res["last_loss"] < res["first_loss"],
-         losses=res["losses"], direct_losses=direct, direct_s=direct_s,
-         direct_tokens_per_s=tokens * e["steps"] / direct_s,
+         losses=res["losses"], direct_losses=losses, direct_s=direct_s,
+         direct_tokens_per_s={w: tokens * e["steps"] / t
+                              for w, t in direct_s.items()},
+         direct_eager_equal=direct["eager"] == losses,
          max_rel_err_vs_direct=rel, drops=res["drops"],
          final_step=res["final_step"], checkpoint_step=saved,
          checkpoint_exact=exact, max_memory_allocated=peak)
     if not rel <= 1e-4:
         fail(f"lm100m through the engine: losses {res['losses']}, without "
-             f"it {direct}")
+             f"it {losses}")
+    if direct["eager"] != losses:
+        fail(f"lm100m's plain loop: eager losses {direct['eager']}, "
+             f"through the graph {losses}")
     if saved != e["steps"] or res["final_step"] != e["steps"] or not exact:
         fail(f"lm100m checkpoint: saved step {saved}, final step "
              f"{res['final_step']}, restored exactly: {exact}")
     gc.collect()
     torch.cuda.empty_cache()
-    again = run_training(cfg, steps=e["resume_steps"], resume=True, **kw)
+    again = run_training(cfg, steps=e["resume_steps"], resume=True, **kw,
+                         **saving)
     emit("train_resume", config=cfg.name, start_step=again["start_step"],
          final_step=again["final_step"], wall_s=again["wall_s"],
          losses=again["losses"])
@@ -5247,28 +5556,59 @@ def train_engine(torch):
             again["final_step"] != e["steps"] + e["resume_steps"]:
         fail(f"resume started at {again['start_step']}, ended at "
              f"{again['final_step']}")
+    del again
     shutil.rmtree(ckpt)       # 1.4 GB a step: too large to keep
+
+    # the engine without checkpoints, eager and through the graph in turns
+    turns = {"graph": [], "eager": []}
+    for which in TRAIN_ENGINE_TURNS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        run = run_training(cfg, steps=e["steps"], log_every=0, **kw,
+                           graph=False if which == "eager" else None)
+        worst = max(abs(a - b) / abs(b) for a, b in zip(run["losses"],
+                                                         losses))
+        turns[which].append({"wall_s": run["wall_s"],
+                             "tokens_per_s": run["tokens_per_s"],
+                             "max_rel_err_vs_direct": worst})
+        del run
+        if not worst <= 1e-4:
+            fail(f"lm100m through the engine, {which}: losses off the "
+                 f"plain loop's by {worst} relative")
+    emit("train_engine_turns", config=cfg.name, steps=e["steps"],
+         tokens_per_step=tokens, order=list(TRAIN_ENGINE_TURNS),
+         **{w: dict(runs=r, wall_s=sum(x["wall_s"] for x in r) / len(r),
+                    tokens_per_s=sum(x["tokens_per_s"] for x in r) / len(r))
+            for w, r in turns.items()},
+         direct_s=direct_s)
+    gc.collect()
+    torch.cuda.empty_cache()
     return res
 
 
 def train_full_width(torch):
-    """(c) codeqwen1.5-7b at full width, cut to 16 of 32 layers, one
+    """(d) codeqwen1.5-7b at full width, cut to 16 of 32 layers, one
     donated, rematerialised step on 8 x 512 tokens, repeated on one batch:
     the first loss equals ``forward_train``'s, step 1's loss and grad norm
     are the plain attention's (its grads of the same state and batch, under
-    ``plain_train_attention``), the loss falls on the kernels' steps, grad
-    norms are finite.  ``TRAIN_FULL["steps"]`` steps on the kernels and
-    ``TRAIN_PLAIN_STEPS`` on the parent's path (the gate's and the loss's
-    plain ops, ``plain_gate_loss``) in turns (``TRAIN_TURNS``), each
-    timed (the optimizer's and the global norm's device spans by CUDA
-    events, ``scoped_optimizer``) with its peak memory; the first kernels'
-    step is left out of their median.  Then one step of each profiled and
-    split by part and elementwise family (``train_split``), printed as the
-    ``train_profile`` line (idle: the timed step's ms less the profiled
-    busy time), and one kernels' step FLOP-counted on the plain attention
-    (``FlopCounterMode`` cannot see the kernels).  The kernels' peak of
-    requested bytes (each column's first step left out) must not pass the
-    parent's."""
+    ``plain_train_attention``), the loss falls on the graph's steps, grad
+    norms are finite.  Three columns in turns on one state
+    (``TRAIN_TURNS``): the step through its CUDA graph (the main path; its
+    first step the warm-up, which captures), the same step eager
+    (``graph=False``, the parent's path) and eager on the gate's and the
+    loss's plain ops (``plain_gate_loss``), each timed on the host clock
+    (the eager columns' optimizer and global norm device spans by CUDA
+    events, ``scoped_optimizer``: under a graph a Python patch applies only
+    at the capture) with its peaks of allocated, requested and reserved
+    bytes; each column's first ``TRAIN_SKIP`` steps are left out of its
+    median.  Then one step of each profiled: the eager ones split by part
+    and elementwise family (``train_split``), the replay by its kernels'
+    names in the eager step's proportions (``replay_split``: a replay's
+    kernels have no ATen op above them), printed as the ``train_profile``
+    line (idle: the column's step ms less its profiled busy time); and one
+    eager step FLOP-counted on the plain attention (``FlopCounterMode``
+    sees neither the kernels nor a replay).  The eager kernels' peak of
+    requested bytes must not pass the plain gate and loss's."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -5297,53 +5637,64 @@ def train_full_width(torch):
     gc.collect()
     torch.cuda.empty_cache()
     dims = train_dims(cfg, f["seq"])
-    step = make_train_step(cfg, peak_lr=f["peak_lr"], warmup_steps=1,
-                           total_steps=10, remat=True, donate=True)
+    steps = {g: make_train_step(cfg, peak_lr=f["peak_lr"], warmup_steps=1,
+                                total_steps=10, remat=True, donate=True,
+                                graph=g) for g in (True, False)}
+    step_of = {"graph": steps[True], "eager": steps[False],
+               "plain": steps[False]}
     holder = [state]
     del state
-    # the kernels' steps and the parent's path's (the gate and the loss as
-    # plain ops beside every other kernel) in turns
-    runs = {w: dict(times=[], spans=[], metrics=[], peaks=[], requested=[])
-            for w in ("kernels", "parent")}
+    runs = {w: dict(times=[], spans=[], metrics=[], peaks=[], requested=[],
+                    reserved=[]) for w in TRAIN_SKIP}
     for which in TRAIN_TURNS:
         run = runs[which]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        with (plain_gate_loss() if which == "parent"
+        with (plain_gate_loss() if which == "plain"
               else contextlib.nullcontext()):
             t0 = time.monotonic()
-            with scoped_optimizer(run["spans"]):
-                holder[0], m = step(holder[0], batch)
+            with (scoped_optimizer(run["spans"]) if which != "graph"
+                  else contextlib.nullcontext()):
+                holder[0], m = step_of[which](holder[0], batch)
             torch.cuda.synchronize()
         run["times"].append((time.monotonic() - t0) * 1e3)
         run["metrics"].append({k: float(v) for k, v in m.items()})
         run["peaks"].append(torch.cuda.max_memory_allocated())
         run["requested"].append(
             torch.cuda.memory_stats()["requested_bytes.all.peak"])
-    peak = max(runs["kernels"]["peaks"])
+        run["reserved"].append(torch.cuda.max_memory_reserved())
+    graph = steps[True].graph
+    peak = max(runs["graph"]["peaks"])
 
-    def one_step():
-        holder[0], _ = step(holder[0], batch)
+    def one_step(which):
+        def run():
+            holder[0], _ = step_of[which](holder[0], batch)
+        return run
 
-    def profiled(plain, table: str) -> dict:
-        """One step under ``plain`` (a context that selects plain
+    def profiled(which, plain, table: str) -> dict:
+        """One eager step under ``plain`` (a context that selects plain
         versions, or none) profiled and split by part."""
         with plain(), scoped_optimizer():
-            return profile_call(torch, one_step, table, split=dims)
-    prof = profiled(contextlib.nullcontext, "profile_train_step.txt")
-    prof_parent = profiled(plain_gate_loss, "profile_train_step_parent.txt")
+            return profile_call(torch, one_step(which), table, split=dims)
+    prof = profiled("eager", contextlib.nullcontext,
+                    "profile_train_step_eager.txt")
+    prof_plain = profiled("plain", plain_gate_loss,
+                          "profile_train_step_plain.txt")
+    prof_graph = profile_call(torch, one_step("graph"),
+                              "profile_train_step.txt", replay=prof)
     from torch.utils.flop_counter import FlopCounterMode
     with plain_train_attention(), \
             FlopCounterMode(display=False) as counted:     # one more step
-        one_step()
+        one_step("eager")()
 
-    def column(which: str, prof_: dict, skip: int) -> dict:
+    def column(which: str, prof_: dict) -> dict:
         run = runs[which]
-        kept = run["times"][skip:]
+        kept = run["times"][TRAIN_SKIP[which]:]
         ms = sorted(kept)[len(kept) // 2]
         return dict(step_ms=ms, step_ms_all=run["times"],
-                    span_ms=span_ms(run["spans"], len(run["times"]),
-                                    skip=skip),
+                    span_ms=(span_ms(run["spans"], len(run["times"]),
+                                     skip=TRAIN_SKIP[which])
+                             if run["spans"] else None),
                     profiled_wall_ms=prof_["wall_ms"],
                     device_busy_ms=prof_["device_busy_ms"],
                     idle_ms=max(0.0, ms - prof_["device_busy_ms"]),
@@ -5351,33 +5702,40 @@ def train_full_width(torch):
                     max_memory_allocated_steps=run["peaks"],
                     requested_peak_steps=run["requested"],
                     requested_peak=max(run["requested"][1:]),
+                    reserved_peak_steps=run["reserved"],
+                    reserved_peak=max(run["reserved"]),
                     **prof_["split"])
-    kernels = column("kernels", prof, 1)
-    parent = column("parent", prof_parent, 0)
-    step_ms = kernels["step_ms"]
+    cols = {"graph": column("graph", prof_graph),
+            "eager": column("eager", prof),
+            "plain": column("plain", prof_plain)}
+    cols["graph"].update(capture_ms=graph.capture_ms, replays=graph.replays)
+    step_ms = cols["graph"]["step_ms"]
     card = {"flops": counted.get_total_flops(), "batch": f["batch"],
             "seq": f["seq"], "layers": cfg.num_layers, "step_ms": step_ms,
             "bound_ms": bound["bound_ms"],
             "bound_flops_ms": bound["bound_flops_ms"]}
-    del holder
+    for step in steps.values():
+        step.close()
+    del holder, graph, steps, step_of
     gc.collect()
     torch.cuda.empty_cache()
-    metrics, times = runs["kernels"]["metrics"], runs["kernels"]["times"]
+    metrics, times = runs["graph"]["metrics"], runs["graph"]["times"]
     losses = [m["loss"] for m in metrics]
     norms = [m["grad_norm"] for m in metrics]
     free_gb = (torch.cuda.get_device_properties(0).total_memory - peak) / 1e9
     emit("train_profile", config=cfg.name, layers=cfg.num_layers,
-         turns=list(TRAIN_TURNS), kernels=kernels, parent=parent,
-         requested_peak_saved_bytes=parent["requested_peak"]
-         - kernels["requested_peak"])
+         turns=list(TRAIN_TURNS), skip=TRAIN_SKIP, **cols,
+         requested_peak_saved_bytes=cols["plain"]["requested_peak"]
+         - cols["eager"]["requested_peak"])
     emit("train_step", config=cfg.name, layers=cfg.num_layers,
          d_model=cfg.d_model, batch=f["batch"], seq=f["seq"],
-         remat=True, donate=True, step_ms=step_ms, step_ms_all=times,
+         remat=True, donate=True, graph=True, step_ms=step_ms,
+         step_ms_all=times, eager_step_ms=cols["eager"]["step_ms"],
          tokens_per_s=f["batch"] * f["seq"] / step_ms * 1e3,
          forward_train_loss=ref, plain_attention_step_1=plain_first,
          losses=losses, grad_norms=norms,
          lrs=[m["lr"] for m in metrics], max_memory_allocated=peak,
-         free_gb_at_peak=free_gb, **bound, profile=prof)
+         free_gb_at_peak=free_gb, **bound, profile=prof_graph)
     if abs(losses[0] - ref) > 1e-3 * abs(ref):
         fail(f"{cfg.name}: first step's loss {losses[0]}, forward_train "
              f"{ref}")
@@ -5396,21 +5754,22 @@ def train_full_width(torch):
     if free_gb < 8:
         fail(f"{cfg.name}: {free_gb:.1f} GB free at the step's peak")
     # the gate's kernels save only their inputs and the loss's the logits
-    # in their dtype: the step's peak of requested bytes (the allocator's
-    # unsplit-block slack, up to 1 MiB a block, left out) must not grow
-    # over the parent's (the plain gate and loss), each column's first step
+    # in their dtype: the eager step's peak of requested bytes (the
+    # allocator's unsplit-block slack, up to 1 MiB a block, left out) must
+    # not grow over the plain gate and loss's, each column's first step
     # (the run's first-call allocations) left out
-    if kernels["requested_peak"] > parent["requested_peak"]:
-        fail(f"{cfg.name}: requested peak {kernels['requested_peak']} "
-             f"bytes on the gate and loss kernels, "
-             f"{parent['requested_peak']} on their plain versions")
+    if cols["eager"]["requested_peak"] > cols["plain"]["requested_peak"]:
+        fail(f"{cfg.name}: requested peak {cols['eager']['requested_peak']}"
+             f" bytes on the gate and loss kernels, "
+             f"{cols['plain']['requested_peak']} on their plain versions")
     return cfg, batch, card
 
 
 def train_remat(torch, cfg, batch):
-    """(c) At a 2-layer cut of the same width, one functional step with and
-    without remat from one state: loss and grad norm within 1e-2 relative
-    (bf16; recomputation repeats the same ops, so they should be equal)."""
+    """(d) At a 2-layer cut of the same width, two functional steps with
+    and without remat from one state (the second a replay): loss and grad
+    norm within 1e-2 relative (bf16; recomputation repeats the same ops, so
+    they should be equal)."""
     import dataclasses
 
     from repro_torch.train import make_train_step, train_state_init
@@ -5421,30 +5780,38 @@ def train_remat(torch, cfg, batch):
     out = {}
     for remat in (True, False):
         step = make_train_step(cfg2, warmup_steps=1, remat=remat)
-        _, m = step(state, batch)
-        out[remat] = {k: float(m[k]) for k in ("loss", "grad_norm")}
-        del m, _
+        new, m1 = step(state, batch)
+        _, m2 = step(new, batch)
+        out[remat] = [{k: float(m[k]) for k in ("loss", "grad_norm")}
+                      for m in (m1, m2)]
+        step.close()
+        del m1, m2, new, _, step
     del state
     gc.collect()
     torch.cuda.empty_cache()
     emit("train_remat", config=cfg2.name, layers=2, remat=out[True],
          no_remat=out[False])
-    for k in ("loss", "grad_norm"):
-        if abs(out[True][k] - out[False][k]) > 1e-2 * abs(out[False][k]):
-            fail(f"remat changes the {k}: {out}")
+    for i in range(2):
+        for k in ("loss", "grad_norm"):
+            a, b = out[True][i][k], out[False][i][k]
+            if abs(a - b) > 1e-2 * abs(b):
+                fail(f"remat changes step {i}'s {k}: {out}")
 
 
 def phase_train(torch, mods) -> tuple:
-    """The train paths on the card, after the serve paths: no serve kernel
-    may launch (flash, the SSD scan and decode have no backward; Mamba2's
-    scan trains as torch ops, as the reference's does), the training
-    attention exactly once a forward (twice under remat) and once a
-    backward an attention call a microbatch, and the two optimizer kernels
-    exactly once a param leaf a step on the card
-    (``expected_train_launches``), counted on the host and on the device.
-    Returns each kernel's launches over the phase (host, in all and by
-    route), the train kernels' device counts and the full-width train
-    step's FLOPs and times."""
+    """The train paths on the card, after the serve paths, each step
+    through the train step's CUDA graph unless named eager: no serve
+    kernel may launch (flash, the SSD scan and decode have no backward;
+    Mamba2's scan trains as torch ops, as the reference's does), the
+    training attention exactly once a forward (twice under remat) and once
+    a backward an attention call a microbatch, and the two optimizer
+    kernels exactly once a param leaf a step on the card
+    (``expected_train_launches``), counted on the device (a graph's
+    warm-up and replays; its capture launches on the host only); each
+    part's graph captures and replays as ``expected_train_graphs`` says
+    (the ``train_graph`` line).  Returns each kernel's launches over the
+    phase (host, in all and by route), the train kernels' device counts
+    and the full-width train step's FLOPs and times."""
     from repro_torch.kernels import cross_entropy as ce
     from repro_torch.kernels import gated_mlp as gm
     from repro_torch.kernels import moe_dispatch as md
@@ -5457,19 +5824,34 @@ def phase_train(torch, mods) -> tuple:
     moe_idle = moe_window(md)
     gate_loss_check = gate_loss_window(gm, ce)
     refused = check_kernel_guard(torch, mods)
-    worst = train_parity(torch)
-    train_engine(torch)
+    graphs = {}
+
+    def counted(part, fn, *args):
+        at = train_graph_counts()
+        out = fn(*args)
+        graphs[part] = graph_delta(at)
+        return out
+    worst = counted("parity", train_parity, torch)
+    bits = counted("bits", train_graph_bits, torch)
+    counted("engine", train_engine, torch)
     gc.collect()
     torch.cuda.empty_cache()
-    cfg, batch, card = train_full_width(torch)
-    train_remat(torch, cfg, batch)
+    cfg, batch, card = counted("full_width", train_full_width, torch)
+    counted("remat", train_remat, torch, cfg, batch)
     launches, by_route = _read_counts(kernels)
     device = device_delta(mods, before)
+    emit("train_graph", where="train", graphs=graphs,
+         expected=expected_train_graphs("train"),
+         bitwise={k: v["bitwise"] for k, v in bits.items()})
+    if graphs != expected_train_graphs("train"):
+        fail(f"train step graphs {graphs}, expected "
+             f"{expected_train_graphs('train')}")
     emit("train_launches", launches=launches,
          train_launches_by_route={n: by_route[n] for n in want},
          train_device_launches=device, expected_train_launches=want,
          guard_refused=refused, parity_max_rel_err=worst)
-    check_phase_launches("train", launches, by_route, device, want)
+    check_phase_launches("train", launches, by_route, device, want,
+                         host=False)
     norm_rope_check("train", expected_norm_rope_launches(nr, "train"))
     moe_idle("train", MOE_IDLE)
     gate_loss_check("train", expected_gate_loss_launches(gm, ce, "train"))
@@ -5586,7 +5968,8 @@ def phase_dryrun(torch, mods, cards: dict) -> dict:
     emit("dryrun_launches", launches=launches,
          train_device_launches=device, seconds=time.monotonic() - t0)
     check_phase_launches("dryrun", launches, by_route, device,
-                         expected_train_launches(torch, mods, "dryrun"))
+                         expected_train_launches(torch, mods, "dryrun"),
+                         host=True)
     norm_rope_check("dryrun", expected_norm_rope_launches(nr, "dryrun"))
     moe_idle("dryrun", MOE_IDLE)
     gate_loss_check("dryrun", expected_gate_loss_launches(gm, ce, "dryrun"))
@@ -5612,11 +5995,12 @@ def phase_examples(torch, mods) -> dict:
     reference's) recovers the injected source in band 2, its own check;
     (b) ``train_lm.py`` at its defaults (lm20m, 200 steps through the
     engine on the card, which keeps every step's state), checkpoints under
-    ``chiprun_out/`` deleted after: the loss falls, its own check; (c) no
-    serve kernel launched, the training attention once a forward and once
-    a backward a layer a step, the optimizer kernels once a param leaf a
-    step.  Returns each kernel's launches over the phase and the train
-    kernels' device counts."""
+    ``chiprun_out/`` deleted after: the loss falls, its own check, and its
+    steps went through one captured graph (``expected_train_graphs``); (c)
+    no serve kernel launched, the training attention once a forward and
+    once a backward a layer a step, the optimizer kernels once a param
+    leaf a step, on the device.  Returns each kernel's launches over the
+    phase and the train kernels' device counts."""
     import shutil
 
     from repro_torch.kernels import cross_entropy as ce
@@ -5661,6 +6045,7 @@ def phase_examples(torch, mods) -> dict:
     argv = sys.argv
     sys.argv = ["train_lm.py", "--ckpt-dir", str(TRAIN_LM_CKPT)]
     torch.cuda.reset_peak_memory_stats()
+    at = train_graph_counts()
     try:
         train_lm.main()
     except AssertionError as err:
@@ -5668,6 +6053,12 @@ def phase_examples(torch, mods) -> dict:
     finally:
         sys.argv = argv
     res = results.pop()
+    graphs = {"train_lm": graph_delta(at)}
+    emit("train_graph", where="examples", graphs=graphs,
+         expected=expected_train_graphs("examples"))
+    if graphs != expected_train_graphs("examples"):
+        fail(f"examples/torch/train_lm.py: train step graphs {graphs}, "
+             f"expected {expected_train_graphs('examples')}")
     emit("example_train_lm", preset=TRAIN_LM[0], steps=len(res["losses"]),
          first_loss=res["first_loss"], last_loss=res["last_loss"],
          wall_s=res["wall_s"], tokens_per_s=res["tokens_per_s"],
@@ -5684,7 +6075,8 @@ def phase_examples(torch, mods) -> dict:
     if steps != TRAIN_LM[1]:
         fail(f"examples/torch/train_lm.py ran {steps} steps, expected "
              f"{TRAIN_LM[1]}")
-    check_phase_launches("examples", launches, by_route, device, want)
+    check_phase_launches("examples", launches, by_route, device, want,
+                         host=False)
     norm_rope_check("examples", expected_norm_rope_launches(nr, "examples"))
     moe_idle("examples", MOE_IDLE)
     gate_loss_check("examples", expected_gate_loss_launches(gm, ce,

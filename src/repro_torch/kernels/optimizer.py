@@ -22,8 +22,9 @@ into chunks of ``CHUNK_BYTES``, a block and a partial a chunk, the last
 block summing the partials in chunk order.  Its order of sums depends only
 on the leaves' sizes, dtypes and order (``sumsq_plan``), so it repeats
 itself to the bit; its ticket returns to 0 after each launch, so one
-zeroed ticket a stream serves every call and nothing is filled before a
-launch.
+zeroed ticket a stream serves every eager call and nothing is filled
+before a launch (a CUDA graph capture takes a ticket from the graph's
+pool, zeroed by a captured fill: ``_ticket``).
 
 The plain versions are ``repro_torch.optim.adamw``'s ``_update_slice`` over
 ``slices`` and ``global_norm``'s f32 sums; ``optim.adamw`` chooses by the
@@ -248,13 +249,23 @@ class _SumsqLeaf(ctypes.Structure):
                 ("first_chunk", ctypes.c_int), ("flags", ctypes.c_int)]
 
 
-# one zeroed ticket a (device, stream): each launch leaves it 0
+# one zeroed ticket a (device, stream) outside a capture: each launch
+# leaves it 0
 _TICKETS: dict = {}
 _TICKET_LOCK = threading.Lock()
 
 
-def _ticket(device: torch.device, stream: int) -> torch.Tensor:
-    key = (device.index, stream)
+def _ticket(device: torch.device, stream: int, capturing: bool
+            ) -> torch.Tensor:
+    """``sumsq``'s zeroed ticket on ``device`` for a launch on ``stream``.
+    Outside a capture, the one cached for (device, stream).  Inside a CUDA
+    graph capture, a new one: made there, it comes from the graph's pool
+    and is zeroed by a captured fill on every replay, whereas a cached
+    ticket first made inside a capture would outlive the pool that holds
+    it once the graph is released."""
+    if capturing:
+        return torch.zeros((), dtype=torch.int32, device=device)
+    key = (device.type, device.index, stream)
     with _TICKET_LOCK:
         if key not in _TICKETS:
             _TICKETS[key] = torch.zeros((), dtype=torch.int32, device=device)
@@ -284,7 +295,8 @@ def sumsq(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     lib = _lib()
     with torch.cuda.device(dev):
         stream = _stream(dev)
-        ticket = _ticket(dev, stream)
+        ticket = _ticket(dev, stream,
+                         torch.cuda.is_current_stream_capturing())
         partials = torch.empty(max(c for _, _, c in plan),
                                dtype=torch.float32, device=dev)
         for k, (first, count, _) in enumerate(plan):

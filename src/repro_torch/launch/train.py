@@ -13,10 +13,12 @@ astronomy pipelines:
 
 Loop-carried state uses the paper's "new Data Drops per iteration", so a
 run holds one TrainState per iteration (no donation inside the engine, as
-in the reference).  On CUDA the step's attention runs the training
-attention kernels (forward and backward) and its update the optimizer
-kernels, the counterparts of what XLA fuses in the reference's jitted step
-(which trains with ``use_kernel=False``, as the port does).
+in the reference).  On CUDA the step runs as one captured CUDA graph
+(``train.steps.TrainGraph``, the counterpart of the reference's jitted
+step), its attention on the training attention kernels (forward and
+backward) and its update on the optimizer kernels, the counterparts of
+what XLA fuses in the reference's jitted step (which trains with
+``use_kernel=False``, as the port does).
 
 CLI:
   PYTHONPATH=src python -m repro_torch.launch.train --device cuda
@@ -91,9 +93,12 @@ def run_training(cfg: ArchConfig, *, steps: int = 40, shards: int = 2,
                  ckpt_dir: Optional[str] = None, ckpt_every: int = 20,
                  resume: bool = False, peak_lr: float = 1e-3,
                  num_nodes: int = 2, log_every: int = 10,
-                 device: Any = "cuda") -> Dict[str, Any]:
+                 device: Any = "cuda", graph: Optional[bool] = None
+                 ) -> Dict[str, Any]:
     """Train ``cfg`` for ``steps`` supersteps through the engine on
-    ``device`` (CUDA unless asked for the CPU; raises without it).
+    ``device`` (CUDA unless asked for the CPU; raises without it), the
+    step through a CUDA graph on CUDA (``graph``: ``make_train_step``'s;
+    ``False`` runs it eagerly).
 
     The state starts from a seeded init (generator seed 0 on ``device``)
     or, with ``resume``, from the latest checkpoint in ``ckpt_dir``; batch
@@ -103,10 +108,12 @@ def run_training(cfg: ArchConfig, *, steps: int = 40, shards: int = 2,
     dev = resolve_device(device)
     # NO donation here: the state payload is a write-once Drop that the
     # checkpoint app may still be snapshotting when the next iteration's
-    # step runs (donation would change it under the reader's feet).
+    # step runs (donation would change it under the reader's feet).  The
+    # graph keeps its own state: each replay copies the input state in and
+    # returns fresh tensors.
     train_step = make_train_step(
         cfg, peak_lr=peak_lr, warmup_steps=max(steps // 10, 1),
-        total_steps=steps, remat=False)
+        total_steps=steps, remat=False, graph=graph)
     mgr = CheckpointManager(ckpt_dir) if ckpt_dir else None
     losses: list = []
 
@@ -188,6 +195,7 @@ def run_training(cfg: ArchConfig, *, steps: int = 40, shards: int = 2,
         if not rep.ok:
             raise RuntimeError(f"train graph failed: {rep.errors[:3]}")
         final_state, final_step = p.session.drops["state_final"].read()
+    train_step.close()
     if mgr:
         mgr.wait()
     tokens = steps * shards * batch_per_shard * seq

@@ -4,9 +4,9 @@
 Plain functions over the nested dict of tensors: ``adamw_update`` returns
 new tensors, as the JAX function does.  ``adamw_update_`` (trailing
 underscore) is the donating form, the port's counterpart of jitting the
-update with ``donate_argnums``: it writes the new params, m and v into the
-given tensors.  Both take the clip factor as ``scale`` for grads that come
-unclipped, so no f32 copy of the grads is made.
+update with ``donate_argnums``: it writes the new params, m, v and step
+into the given tensors.  Both take the clip factor as ``scale`` for grads
+that come unclipped, so no f32 copy of the grads is made.
 
 Each function chooses its path by the tensors' device
 (``kernels.optimizer.takes_kernel``).  CUDA tensors launch the hand-written
@@ -154,10 +154,13 @@ def adamw_update_(params: Any, grads: Any, state: AdamWState, *,
                   ) -> Tuple[Any, AdamWState]:
     """The donating form of ``adamw_update``: writes the new params, m and
     v into ``params``, ``state.m`` and ``state.v`` (on CUDA one launch a
-    leaf, else slice by slice) and returns them with the next step.
-    ``scale`` applies the clip factor, for grads that come unclipped
-    (``clip_by_global_norm`` would make an f32 copy of every grad)."""
-    step = state.step + 1
+    leaf, else slice by slice), advances ``state.step`` in place, and
+    returns them.  Every tensor of the state keeps its storage, so a CUDA
+    graph that captured the update reads the step it has reached on each
+    replay.  ``scale`` applies the clip factor, for grads that come
+    unclipped (``clip_by_global_norm`` would make an f32 copy of every
+    grad)."""
+    step = state.step.add_(1)
     c1, c2 = _bias_corrections(step, b1, b2)
     on_card = _on_card(params, grads, state)
     for p, g, m, v in zip(leaves(params), leaves(grads), leaves(state.m),
@@ -172,4 +175,4 @@ def adamw_update_(params: Any, grads: Any, state: AdamWState, *,
             ps.copy_(p2)
             ms.copy_(m2)
             vs.copy_(v2)
-    return params, AdamWState(step=step, m=state.m, v=state.v)
+    return params, state

@@ -11,8 +11,15 @@ builds the update in the reference's order:
 
 The clip factor is applied inside the AdamW update on both branches, so
 no f32 copy of the grads is made.  ``donate=True`` updates the state in
-place (the port's counterpart of jitting the step with ``donate_argnums``);
-it is what lets a 16-layer codeqwen1.5-7b step fit one 80 GB card.
+place, the step counter and the error-feedback residual included (the
+port's counterpart of jitting the step with ``donate_argnums``); it is
+what lets a 16-layer codeqwen1.5-7b step fit one 80 GB card.
+
+On CUDA the whole step is captured once as a CUDA graph and replayed
+(``TrainGraph``), the port's counterpart of the reference's
+``jax.jit(make_train_step(...))``: forward, rematerialised backward,
+microbatch accumulation, compression, the norm, the clip, the schedule,
+AdamW and the step counter, with no host work inside it.
 
 On CUDA the global norm and the update are the two hand-written kernels of
 ``kernels/optimizer.py`` (``sumsq`` once a grad, ``adamw_update`` once a
@@ -93,23 +100,18 @@ def _microbatch(v: torch.Tensor, i: int, n: int) -> torch.Tensor:
     return mb
 
 
-def make_train_step(cfg: ArchConfig, *, num_microbatches: int = 1,
-                    peak_lr: float = 3e-4, warmup_steps: int = 100,
-                    total_steps: int = 1000, max_grad_norm: float = 1.0,
-                    compress: bool = False, use_kernel: bool = False,
-                    remat: bool = True, donate: bool = False) -> Callable:
-    """Returns ``train_step(state, batch) -> (state, metrics)``; metrics
-    hold ``loss``, ``grad_norm``, ``lr`` and ``step`` as device scalars.
-
-    ``donate=True`` writes the new params and moments into ``state``'s
-    tensors (the caller must not use the old state again)."""
+def _train_fn(cfg: ArchConfig, *, num_microbatches: int, peak_lr: float,
+              warmup_steps: int, total_steps: int, max_grad_norm: float,
+              compress: bool, use_kernel: bool, remat: bool) -> Callable:
+    """The eager step, ``step(state, batch, donate) -> (state, metrics)``:
+    what ``make_train_step`` runs, or captures."""
 
     def loss_fn(params, mb):
         return M.forward_train(params, cfg, mb, use_kernel=use_kernel,
                                remat=remat)[0]
 
-    def train_step(state: TrainState, batch: Dict[str, torch.Tensor]
-                   ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+    def step(state: TrainState, batch: Dict[str, torch.Tensor],
+             donate: bool) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         params = state.params
         if num_microbatches > 1:
             n = num_microbatches
@@ -136,8 +138,14 @@ def make_train_step(cfg: ArchConfig, *, num_microbatches: int = 1,
             if residual is None:
                 raise ValueError("compress=True needs a state made with "
                                  "train_state_init(..., compress=True)")
-            qs, scales, residual = error_feedback_update(grads, residual)
+            qs, scales, new_residual = error_feedback_update(grads, residual)
             grads = decompress_gradients(qs, scales)
+            if donate:
+                for r, new in zip(leaves(residual), leaves(new_residual)):
+                    r.copy_(new)
+            else:
+                residual = new_residual
+            del new_residual
 
         lr = cosine_schedule(state.opt.step, peak_lr=peak_lr,
                              warmup_steps=warmup_steps,
@@ -146,11 +154,224 @@ def make_train_step(cfg: ArchConfig, *, num_microbatches: int = 1,
         update = adamw_update_ if donate else adamw_update
         new_params, new_opt = update(params, grads, state.opt, lr=lr,
                                      scale=clip_scale(gnorm, max_grad_norm))
+        # a copy: a donated step advances ``new_opt.step`` in place
         metrics = {"loss": loss, "grad_norm": gnorm, "lr": lr,
-                   "step": new_opt.step}
+                   "step": new_opt.step.clone()}
         return TrainState(new_params, new_opt, residual), metrics
 
-    return train_step
+    return step
+
+
+def make_train_step(cfg: ArchConfig, *, num_microbatches: int = 1,
+                    peak_lr: float = 3e-4, warmup_steps: int = 100,
+                    total_steps: int = 1000, max_grad_norm: float = 1.0,
+                    compress: bool = False, use_kernel: bool = False,
+                    remat: bool = True, donate: bool = False,
+                    graph: Optional[bool] = None) -> "TrainStep":
+    """Returns ``train_step(state, batch) -> (state, metrics)``; metrics
+    hold ``loss``, ``grad_norm``, ``lr`` and ``step`` as device scalars
+    (``step`` a copy of the state's).
+
+    ``donate=True`` writes the new params, moments, step and residual into
+    ``state``'s tensors (the caller must not use the old state again);
+    else the state is left as it was and the new one is new tensors.
+
+    ``graph=None`` runs the step through a CUDA graph (``TrainGraph``)
+    when the params are CUDA tensors, and eagerly on the CPU and on meta
+    tensors (the dry-run's DTensors among them); ``True`` always through
+    a graph, and raises for params elsewhere; ``False`` eagerly on any
+    device.  The first step on a (state, batch shapes) pair is an eager
+    step that also captures the graph; later steps replay it.  A donated
+    step's graph belongs to the state it was captured on: another state,
+    or other batch shapes, capture anew.  ``train_step.close()`` frees
+    the graph."""
+    fn = _train_fn(cfg, num_microbatches=num_microbatches, peak_lr=peak_lr,
+                   warmup_steps=warmup_steps, total_steps=total_steps,
+                   max_grad_norm=max_grad_norm, compress=compress,
+                   use_kernel=use_kernel, remat=remat)
+    return TrainStep(fn, graph, donate)
+
+
+# ---------------------------------------------------------------------------
+# CUDA graphs
+# ---------------------------------------------------------------------------
+
+# one capture at a time: concurrent captures from several threads (the
+# serve driver's decode apps) are a path PyTorch's caching allocator and
+# generators exercise little, and a capture holds the GIL for most of its
+# time anyway.  Other threads' eager work and replays go on meanwhile.
+_CAPTURE_LOCK = threading.Lock()
+_COUNTS_LOCK = threading.Lock()     # DecodeGraph.counts, TrainGraph.counts
+# the stream each device captures on, used only under _CAPTURE_LOCK: one
+# stream, not one a graph or a thread, because cuBLAS keeps a workspace
+# (32 MiB on Hopper) for each (thread's handle, stream) pair it meets and
+# never frees it
+_CAPTURE_STREAMS: Dict[int, torch.cuda.Stream] = {}
+
+
+def _capture_stream(dev: torch.device) -> "torch.cuda.Stream":
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    if index not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[index] = torch.cuda.Stream(index)
+    return _CAPTURE_STREAMS[index]
+
+
+def _capture(graph: "torch.cuda.CUDAGraph", dev: torch.device,
+             fn: Callable, *args: Any) -> Tuple[Any, float]:
+    """``fn(*args)`` captured into ``graph``: (what it returned, the
+    capture's ms).  One capture at a time, on the device's capture
+    stream, after the caching allocator's free blocks are released (as
+    ``torch.cuda.graph`` does: the graph's private pool takes new segments
+    from free memory, and a capture cannot release the cached blocks of
+    the others), in ``thread_local`` error mode: another thread's
+    synchronise or copy to the host neither fails nor invalidates it.
+    Work that ``fn`` hands to autograd's device thread lands in the same
+    capture and pool (autograd runs a backward op on its forward's
+    stream).  A failed capture raises."""
+    with _CAPTURE_LOCK:
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        stream = _capture_stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                out = fn(*args)
+            finally:
+                graph.capture_end()
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        return out, (time.perf_counter() - t0) * 1e3
+
+
+def _batch_key(batch: Dict[str, torch.Tensor]) -> tuple:
+    return tuple((k, tuple(v.shape), v.dtype) for k, v in
+                 sorted(batch.items()))
+
+
+def _state_key(state: TrainState) -> tuple:
+    return tuple((tuple(t.shape), t.dtype, t.device) for t in leaves(state))
+
+
+class TrainGraph:
+    """One train step captured as a CUDA graph and replayed every later
+    step: the port's counterpart of the reference's
+    ``jax.jit(make_train_step(...))``.  The graph holds the whole step
+    (forward, rematerialised backward, microbatch accumulation,
+    compression, the norm, the clip, the schedule, AdamW and the step
+    counter); the step reads its scalars on the device, so nothing in it
+    waits for the host.
+
+    Made by the first step on a (state, batch shapes) pair, which runs
+    eagerly on the caller's stream and is a real step (``first``): it
+    loads the kernels and makes every lazily made tensor the graph reads
+    (the kernels' tickets, sinusoid tables), so that they are allocated
+    before the capture and outlive the graph's private pool.  The capture
+    (``_capture``) reads the batch from static buffers, updates a state in
+    place (the donating step: AdamW, the step counter and the residual
+    written into their tensors) and writes the metrics into static
+    outputs.
+
+    ``donate=True``: the state updated is the caller's, so the graph
+    belongs to that state (``takes``).  ``donate=False`` (the engine's
+    write-once Drops): the graph owns a state of the same shapes; a
+    replay copies the caller's state into it, replays, and returns fresh
+    copies, so the caller's state is never written.  A failed capture or
+    replay raises: nothing falls back to the eager step.
+
+    ``counts`` tallies captures and replays process-wide."""
+
+    counts = {"captures": 0, "replays": 0}
+
+    def __init__(self, step: Callable, state: TrainState,
+                 batch: Dict[str, torch.Tensor], donate: bool):
+        dev = leaves(state.params)[0].device
+        self.donate, self.replays = donate, 0
+        self.batch = {k: torch.empty(v.shape, dtype=v.dtype,
+                                     device=dev).copy_(v)
+                      for k, v in batch.items()}
+        self.batch_key = _batch_key(batch)
+        self.first = step(state, self.batch, donate)
+        self.state = state if donate else tree_map(torch.empty_like, state)
+        self.leaves = leaves(self.state)
+        self.state_key = _state_key(self.state)
+        self.graph = torch.cuda.CUDAGraph()
+        (_, self.metrics), self.capture_ms = _capture(
+            self.graph, dev, step, self.state, self.batch, True)
+        with _COUNTS_LOCK:
+            TrainGraph.counts["captures"] += 1
+
+    def takes(self, state: TrainState, batch: Dict[str, torch.Tensor]
+              ) -> bool:
+        """Whether a replay computes this step: the batch's shapes and
+        dtypes are the capture's, and the state is the one captured
+        (donating) or one of its shapes (not donating)."""
+        if _batch_key(batch) != self.batch_key:
+            return False
+        if self.donate:
+            now = leaves(state)
+            return len(now) == len(self.leaves) and all(
+                a is b for a, b in zip(now, self.leaves))
+        return _state_key(state) == self.state_key
+
+    def replay(self, state: TrainState, batch: Dict[str, torch.Tensor]
+               ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        """The step on ``state`` and ``batch`` (see ``takes``); the metrics
+        are copies, since the next replay overwrites the static outputs."""
+        if not self.donate:
+            for dst, src in zip(self.leaves, leaves(state)):
+                dst.copy_(src)
+        for k, v in self.batch.items():
+            v.copy_(batch[k])
+        self.graph.replay()
+        with _COUNTS_LOCK:
+            TrainGraph.counts["replays"] += 1
+        self.replays += 1
+        metrics = {k: v.clone() for k, v in self.metrics.items()}
+        if self.donate:
+            return state, metrics
+        return tree_map(torch.clone, self.state), metrics
+
+    def release(self) -> None:
+        """Free the graph, its pool's tensors and, not donating, its own
+        state."""
+        del self.graph, self.metrics, self.state, self.leaves, self.batch
+
+
+class TrainStep:
+    """``train_step(state, batch) -> (state, metrics)`` (see
+    ``make_train_step``); ``graph`` the current ``TrainGraph`` or None."""
+
+    def __init__(self, fn: Callable, graph: Optional[bool], donate: bool):
+        self.fn, self.use_graph, self.donate = fn, graph, donate
+        self.graph: Optional[TrainGraph] = None
+
+    def on_graph(self, state: TrainState) -> bool:
+        """Whether a step on ``state`` goes through a CUDA graph."""
+        p = leaves(state.params)[0]
+        cuda = (p.device.type == "cuda"
+                and getattr(p, "placements", None) is None)
+        if self.use_graph and not cuda:
+            raise ValueError("make_train_step(graph=True) captures a CUDA "
+                             f"graph; the params are on {p.device}")
+        return cuda if self.use_graph is None else bool(self.use_graph)
+
+    def __call__(self, state: TrainState, batch: Dict[str, torch.Tensor]
+                 ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        if not self.on_graph(state):
+            return self.fn(state, batch, self.donate)
+        g = self.graph
+        if g is None or not g.takes(state, batch):
+            self.close()
+            g = self.graph = TrainGraph(self.fn, state, batch, self.donate)
+            first, g.first = g.first, None
+            return first
+        return g.replay(state, batch)
+
+    def close(self) -> None:
+        """Release the graph, if any (the next step captures anew)."""
+        if self.graph is not None:
+            self.graph.release()
+        self.graph = None
 
 
 # ---------------------------------------------------------------------------
@@ -195,26 +416,6 @@ def _set_position(buf: torch.Tensor, pos) -> None:
         buf.fill_(pos)
 
 
-# one capture at a time: concurrent captures from several threads (the
-# serve driver's decode apps) are a path PyTorch's caching allocator and
-# generators exercise little, and a capture holds the GIL for most of its
-# time anyway.  Other threads' eager work and replays go on meanwhile.
-_CAPTURE_LOCK = threading.Lock()
-_COUNTS_LOCK = threading.Lock()     # DecodeGraph.counts
-# the stream each device captures on, used only under _CAPTURE_LOCK: one
-# stream, not one a graph or a thread, because cuBLAS keeps a workspace
-# (32 MiB on Hopper) for each (thread's handle, stream) pair it meets and
-# never frees it
-_CAPTURE_STREAMS: Dict[int, torch.cuda.Stream] = {}
-
-
-def _capture_stream(dev: torch.device) -> "torch.cuda.Stream":
-    index = dev.index if dev.index is not None else torch.cuda.current_device()
-    if index not in _CAPTURE_STREAMS:
-        _CAPTURE_STREAMS[index] = torch.cuda.Stream(index)
-    return _CAPTURE_STREAMS[index]
-
-
 class DecodeGraph:
     """One cache's decode step, captured once as a CUDA graph and replayed
     every later step: the port's counterpart of the reference's
@@ -257,23 +458,9 @@ class DecodeGraph:
                                                 use_kernel)
         self.graph = torch.cuda.CUDAGraph()
         self.replays = 0
-        with _CAPTURE_LOCK:
-            t0 = time.perf_counter()
-            # the graph's private pool takes new segments from free memory,
-            # and a capture cannot release the cached blocks of the others
-            torch.cuda.empty_cache()
-            stream = _capture_stream(dev)
-            stream.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(stream):
-                self.graph.capture_begin(capture_error_mode="thread_local")
-                try:
-                    self.next, self.logits = _greedy(cfg, params, cache,
-                                                     self.tokens, self.pos,
-                                                     use_kernel)
-                finally:
-                    self.graph.capture_end()
-            torch.cuda.current_stream(dev).wait_stream(stream)
-            self.capture_ms = (time.perf_counter() - t0) * 1e3
+        (self.next, self.logits), self.capture_ms = _capture(
+            self.graph, dev, _greedy, cfg, params, cache, self.tokens,
+            self.pos, use_kernel)
         with _COUNTS_LOCK:
             DecodeGraph.counts["captures"] += 1
 

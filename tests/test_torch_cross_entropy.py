@@ -431,21 +431,26 @@ def _routes(routes, **by_route):
 
 
 # train: tiny (2 gated layers, f32) 4 steps each of 1, 2 and 1 microbatches
-# with remat; lm100m (12 layers, f32) 84 steps without remat;
-# codeqwen1.5-7b (bf16) at 16 layers 5 timed and profiled steps, the
+# and 8 of 2 (the bits check) with remat: 32 passes; lm100m (12 layers,
+# f32) 307 steps without remat; codeqwen1.5-7b (bf16) at 16 layers the
+# graph's and the eager columns' 10 timed and profiled steps, the
 # FLOP-counted one and step 1's plain-attention grads (remat), and
-# forward_train's loss (one forward, no backward); at 2 layers a step with
-# and one without remat; the parent column's 4 steps none (plain ops);
+# forward_train's loss (one forward, no backward); at 2 layers 10 steps
+# with and 2 without remat; the plain column's 4 steps none (plain ops);
 # examples: lm20m (6 layers) x 200 steps
 EXPECTED_GATE_LOSS = {
     "train": {
-        "gated_act_fwd": _routes(G.ROUTES, silu_f32=16 * 2 * 2 + 84 * 12,
-                                 silu_bf16=7 * 16 * 2 + 16 + 2 * 2 + 2),
-        "gated_act_bwd": _routes(G.ROUTES, silu_f32=16 * 2 + 84 * 12,
-                                 silu_bf16=7 * 16 + 2 + 2),
-        "cross_entropy_fwd": _routes(CE.ROUTES, f32=16 + 84, bf16=7 + 1 + 2),
-        "cross_entropy_sum": _routes(CE.ROUTES, f32=16 + 84, bf16=7 + 1 + 2),
-        "cross_entropy_bwd": _routes(CE.ROUTES, f32=16 + 84, bf16=7 + 2)},
+        "gated_act_fwd": _routes(
+            G.ROUTES, silu_f32=32 * 2 * 2 + 307 * 12,
+            silu_bf16=12 * 16 * 2 + 16 + 10 * 2 * 2 + 2 * 2),
+        "gated_act_bwd": _routes(G.ROUTES, silu_f32=32 * 2 + 307 * 12,
+                                 silu_bf16=12 * 16 + 10 * 2 + 2 * 2),
+        "cross_entropy_fwd": _routes(CE.ROUTES, f32=32 + 307,
+                                     bf16=12 + 1 + 12),
+        "cross_entropy_sum": _routes(CE.ROUTES, f32=32 + 307,
+                                     bf16=12 + 1 + 12),
+        "cross_entropy_bwd": _routes(CE.ROUTES, f32=32 + 307,
+                                     bf16=12 + 12)},
     "examples": {
         "gated_act_fwd": _routes(G.ROUTES, silu_f32=200 * 6),
         "gated_act_bwd": _routes(G.ROUTES, silu_f32=200 * 6),

@@ -557,25 +557,28 @@ def _routes(routes, **by_route):
 
 
 # train: tiny (2 layers, f32, 2 norms a layer + the final) 4 steps each of
-# 1, 2 and 1 microbatches with remat; lm100m (12 layers) 84 steps without
-# remat; codeqwen1.5-7b (bf16) at 16 layers 5 timed and profiled steps, the
-# FLOP-counted one and step 1's plain-attention grads, the parent column's
-# 4 timed and profiled steps on the gate's and the loss's plain ops (all
-# remat), and forward_train's loss (one forward, no backward); at 2 layers
-# a step with and one without remat; examples: lm20m (6 layers) x 200 steps
+# 1, 2 and 1 microbatches and 8 of 2 (the bits check) with remat: 32
+# passes; lm100m (12 layers) 307 steps without remat; codeqwen1.5-7b (bf16)
+# at 16 layers the graph's and the eager columns' 10 timed and profiled
+# steps, the FLOP-counted one and step 1's plain-attention grads, the plain
+# column's 4 timed and profiled steps on the gate's and the loss's plain
+# ops (all remat), and forward_train's loss (one forward, no backward); at
+# 2 layers 10 steps with and 2 without remat; examples: lm20m (6 layers) x
+# 200 steps
 EXPECTED_NORM_ROPE = {
     "train": {
         "rms_norm_fwd": _routes(K.NORM_ROUTES,
-                                f32_f32=16 * 9 + 84 * 25,
-                                bf16_bf16=11 * 65 + 33 + 9 + 5),
-        "rms_norm_bwd": _routes(K.NORM_ROUTES, f32_f32=16 * 5 + 84 * 25,
-                                bf16_bf16=11 * 33 + 5 + 5),
-        "rms_norm_dscale": _routes(K.NORM_ROUTES, f32_f32=16 * 5 + 84 * 25,
-                                   bf16_bf16=11 * 33 + 5 + 5),
-        "rope": _routes(K.ROPE_ROUTES, forward_f32=16 * 4 + 84 * 12,
-                        backward_f32=16 * 2 + 84 * 12,
-                        forward_bf16=11 * 32 + 16 + 4 + 2,
-                        backward_bf16=11 * 16 + 2 + 2)},
+                                f32_f32=32 * 9 + 307 * 25,
+                                bf16_bf16=16 * 65 + 33 + 10 * 9 + 2 * 5),
+        "rms_norm_bwd": _routes(K.NORM_ROUTES, f32_f32=32 * 5 + 307 * 25,
+                                bf16_bf16=16 * 33 + 10 * 5 + 2 * 5),
+        "rms_norm_dscale": _routes(K.NORM_ROUTES,
+                                   f32_f32=32 * 5 + 307 * 25,
+                                   bf16_bf16=16 * 33 + 10 * 5 + 2 * 5),
+        "rope": _routes(K.ROPE_ROUTES, forward_f32=32 * 4 + 307 * 12,
+                        backward_f32=32 * 2 + 307 * 12,
+                        forward_bf16=16 * 32 + 16 + 10 * 4 + 2 * 2,
+                        backward_bf16=16 * 16 + 10 * 2 + 2 * 2)},
     "examples": {
         "rms_norm_fwd": _routes(K.NORM_ROUTES, f32_f32=200 * 13),
         "rms_norm_bwd": _routes(K.NORM_ROUTES, f32_f32=200 * 13),

@@ -609,15 +609,18 @@ def _routes(adamw: dict, sumsq: dict) -> dict:
             "sumsq": {**dict.fromkeys(K.SUMSQ_ROUTES, 0), **sumsq}}
 
 
-# per phase: tiny (16 leaves) 3 option sets x 4 steps; lm100m (11) 40
-# engine + 40 plain-loop + 4 resumed steps; codeqwen1.5-7b (16) 4 timed +
-# 1 profiled + 1 FLOP-counted at 16 layers and the same step on the plain
-# attention 3 timed + 1 profiled, 2 remat steps at 2; lm20m (11) x
-# train_lm.py's 200 steps; the dry-run's meta DTensors none.  The update
-# launches once a leaf a step, the norm once a step.
+# per phase: tiny (16 leaves) 3 option sets x 4 steps and 4 eager + 4
+# graph steps of the bits check; lm100m (11) 40 checkpointed engine + 40
+# plain-loop graph + 40 plain-loop eager + 4 resumed + 4 x 40 engine turns
+# + 8 bits + 15 pacing steps (307); codeqwen1.5-7b (16) at 16 layers the
+# graph, eager and plain-gate columns' 4 + 4 + 3 timed and 3 profiled
+# steps and 1 FLOP-counted (15), at 2 layers 8 bits and 4 remat steps
+# (12); lm20m (11) x train_lm.py's 200 steps; the dry-run's meta DTensors
+# none.  The update launches once a leaf a step, the norm once a step (a
+# graph's warm-up and replays: the device's count).
 EXPECTED_OPTIMIZER_LAUNCHES = {
-    "train": _routes({"f32_f32": 12 * 16 + 84 * 11, "bf16_bf16": 12 * 16},
-                     {"f32": 12 + 84, "bf16": 12}),
+    "train": _routes({"f32_f32": 20 * 16 + 307 * 11, "bf16_bf16": 27 * 16},
+                     {"f32": 20 + 307, "bf16": 27}),
     "examples": _routes({"f32_f32": 200 * 11}, {"f32": 200}),
     "dryrun": _routes({}, {}),
 }
@@ -634,22 +637,36 @@ def test_chip_smoke_train_steps_are_the_phases_own():
     cs = _chip_smoke()
     assert [(cfg.name, cfg.num_layers, n) for cfg, n in
             cs.optimizer_steps("train")] == [
-        ("tiny", 2, 12), ("lm100m", 12, 84), ("codeqwen1.5-7b", 16, 10),
-        ("codeqwen1.5-7b", 2, 2)]
+        ("tiny", 2, 20), ("lm100m", 12, 307), ("codeqwen1.5-7b", 16, 15),
+        ("codeqwen1.5-7b", 2, 12)]
     assert [(cfg.name, n) for cfg, n in cs.optimizer_steps("examples")] \
         == [("lm20m", 200)]
     assert cs.optimizer_steps("dryrun") == []
 
 
 def test_chip_smoke_checks_launches_on_host_and_device():
+    """``check_phase_launches``: no serve kernel on the host, the train
+    kernels by route on the device, and on the host too where no train
+    step was captured (``host``); a captured step's host counts (its
+    warm-up and capture) are not held."""
     cs = _chip_smoke()
     want = EXPECTED_OPTIMIZER_LAUNCHES["examples"]
     launches = {"flash_attention_bhsd": 0, "adamw_update": 2200,
                 "sumsq": 200}
-    cs.check_phase_launches("examples", launches, want, want, want)
-    for bad in ({**launches, "flash_attention_bhsd": 1},):
-        with pytest.raises(SystemExit):
-            cs.check_phase_launches("examples", bad, want, want, want)
     short = _routes({"f32_f32": 2199}, {"f32": 200})
+    for host in (True, False):
+        cs.check_phase_launches("examples", launches, want, want, want,
+                                host=host)
+        for bad in ({**launches, "flash_attention_bhsd": 1},):
+            with pytest.raises(SystemExit):
+                cs.check_phase_launches("examples", bad, want, want, want,
+                                        host=host)
+        with pytest.raises(SystemExit):
+            cs.check_phase_launches("examples", launches, want, short, want,
+                                    host=host)
     with pytest.raises(SystemExit):
-        cs.check_phase_launches("examples", launches, want, short, want)
+        cs.check_phase_launches("examples", launches, short, want, want,
+                                host=True)
+    captured = _routes({"f32_f32": 2 * 11}, {"f32": 2})
+    cs.check_phase_launches("examples", launches, captured, want, want,
+                            host=False)

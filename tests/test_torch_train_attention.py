@@ -929,19 +929,22 @@ def _chip_smoke():
     return chip_smoke
 
 
-# train: tiny (2 layers, f32) 4 steps each of 1, 2 and 1 microbatches,
-# remat; lm100m (12 layers, f32) 84 steps without remat; codeqwen1.5-7b
-# (bf16, D 128) 5 steps at 16 layers with remat, 1 at 2 layers with and 1
-# without; examples: lm20m (6 layers) x 200 steps without remat
+# train: tiny (2 layers, f32) 4 steps each of 1, 2 and 1 microbatches and
+# 8 of 2 (the bits check), remat: 32 microbatch passes; lm100m (12 layers,
+# f32) 307 steps without remat; codeqwen1.5-7b (bf16, D 128) 10 steps at
+# 16 layers with remat (the graph's and the eager columns'), at 2 layers 10
+# with and 2 without; examples: lm20m (6 layers) x 200 steps without remat
 def _launches(**by_route):
     return {**dict.fromkeys(TA.ROUTES, 0), **by_route}
 
 
 EXPECTED_ATTENTION = {
     "train": {"train_attention_forward": _launches(
-        mma_3xtf32=2 * 16 * 2 + 12 * 84, wgmma_bf16=16 * 5 * 2 + 2 * 2 + 2),
+        mma_3xtf32=2 * 32 * 2 + 12 * 307,
+        wgmma_bf16=16 * 10 * 2 + 2 * 10 * 2 + 2 * 2),
         "train_attention_backward": _launches(
-            mma_3xtf32=2 * 16 + 12 * 84, wgmma_bf16=16 * 5 + 2 + 2)},
+            mma_3xtf32=2 * 32 + 12 * 307,
+            wgmma_bf16=16 * 10 + 2 * 10 + 2 * 2)},
     "examples": {"train_attention_forward": _launches(mma_3xtf32=6 * 200),
                  "train_attention_backward": _launches(mma_3xtf32=6 * 200)},
     "dryrun": {"train_attention_forward": _launches(),
