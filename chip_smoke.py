@@ -139,13 +139,22 @@ no result):
    synchronises, one step on the plain route held to the kernel route's
    logits by the path's rule; each step's ms, the capture's ms, device
    busy and idle, and the plain route's replayed step, ``prior_ms``);
+   its prefill through its CUDA graph (``prefill_graph``: a replay into a
+   slot's cache that another prompt and a microbatch's decode steps left
+   written equals the eager prefill into a new cache to the bit, next
+   token and every cache tensor; eager and replayed ms in turns, busy,
+   idle, capture ms, peaks);
    then 8 requests x 16 tokens with 512-token
    prompts (gemma2: 4 x 16 with 8192-token prompts, past its window)
    through the engine, with every kernel count set to 0 just before and
-   read just after, as are the decode graphs' captures and replays
-   (each decode app captures once and replays every later step,
-   ``check_graphs``): each prefill kernel of the path must have launched
-   exactly once per layer that runs it per microbatch, on the route its
+   read just after, as are the graphs' captures and replays (each cache
+   slot of the run captures its prefill graph and its decode graphs once
+   and every other prefill and decode step replays one,
+   ``check_graphs`` against ``serve_runs``; flash, the SSD scan and
+   decode held on the host, eager calls and captures, and on the device,
+   eager calls and replays, ``serve_window``): each prefill kernel of the
+   path must have launched exactly once per layer that runs it per
+   prefill, on the route its
    inputs' dtype and head dim select (the full-width models are bf16;
    whisper's encoder runs f32, from the serve's f32 frames), and the
    decode kernel once per attention call per eager step and capture on
@@ -169,8 +178,14 @@ no result):
    through a resident manager, and a stats dump; each must give the
    object substrate's tokens, the expected launches and the expected
    decode graphs (the sessions run captures in threads beside other
-   threads' eager work).  Each model is freed before the next.  No
-   training attention or optimizer kernel launches while serving.
+   threads' eager work).  Every path then serves 3 sessions one after
+   another (gemma2 2) on its slots and on the parent's route (every
+   prefill eager into a fresh cache, a decode graph a microbatch, driven
+   directly: ``parent_route``) in turns (``serve_steady``): the tokens
+   equal the serve run's, each app's ms, wall, tokens a second, graphs
+   and peaks printed.  Each model is freed before the next.  No training attention
+   or optimizer kernel launches while serving, and flash, the SSD scan
+   and decode none on the device in phases 5-7.
 5. train, after the serve paths, with every kernel count set to 0, each
    step through the train step's CUDA graph (``TrainGraph``: the first
    step on a state eager, then a capture, then replays) unless named
@@ -255,6 +270,7 @@ import gc
 import json
 import math
 import re
+import statistics
 import subprocess
 import sys
 import threading
@@ -1003,15 +1019,56 @@ def decode_attention_calls(cfg) -> int:
     return cfg.num_layers * (2 if cfg.family == "encdec" else 1)
 
 
-def expected_decode_launches(cfg, apps: int, decode_steps: int) -> dict:
-    """Decode-kernel launches of ``apps`` decode apps of ``decode_steps``
-    tokens (``decode_steps - 1`` steps each: the first eager, then one
-    capture, then replays): on the host, the wrapper's count (the eager
-    step and the capture); on the device (``kernel_launches``), every
-    executed step (the eager step and the replays)."""
-    calls = decode_attention_calls(cfg) * apps
+def decode_graphs_a_slot(cfg, decode_steps: int) -> int:
+    """Decode graphs a serve slot captures (``train.steps.DecodeStep``):
+    one, and one more for the first step where the prefill leaves the SSM
+    state in a dtype narrower than f32 (the bf16 ssm and hybrid paths: that
+    step reads it and writes the f32 state of the later steps); none past
+    the steps a microbatch runs."""
+    narrow = cfg.family in ("ssm", "hybrid") and cfg.dtype != "float32"
+    return min(max(decode_steps - 1, 0), 2 if narrow else 1)
+
+
+def serve_runs(cfg, apps: int, decode_steps: int,
+               slots: Optional[int] = None) -> dict:
+    """How a serve run of ``apps`` microbatches (all its sessions') runs its
+    steps: for the prefill and the decode step, the executions the kernel
+    wrappers see on the host (eager calls and captures) and those the
+    device runs (eager calls and replays), and each kind of graph's
+    captures and replays.
+
+    ``slots=None``: the parent's route (each prefill eager into a fresh
+    cache; each decode app its own graph: an eager first step, one
+    capture, replays).  Else the slots' route (``launch.serve.SlotPool``):
+    each of ``slots`` slots runs its first prefill eagerly and captures its
+    graph, later microbatches replay it; each slot captures its decode graphs
+    (``decode_graphs_a_slot``) after an eager step each, and every other
+    step of every microbatch is a replay."""
     steps = max(decode_steps - 1, 0)
-    return {"host": calls * min(steps, 1) * 2, "device": calls * steps}
+    if slots is None:
+        dcap, pcap, eager = apps * min(steps, 1), 0, apps
+    else:
+        dcap = slots * decode_graphs_a_slot(cfg, decode_steps)
+        pcap = eager = slots
+    return {"prefill": {"host": eager + pcap, "device": apps},
+            "decode": {"host": 2 * dcap, "device": apps * steps},
+            "graphs": {"prefill": {"captures": pcap,
+                                   "replays": apps - eager},
+                       "decode": {"captures": dcap,
+                                  "replays": apps * steps - dcap}}}
+
+
+def expected_decode_launches(cfg, apps: int, decode_steps: int,
+                             runs: Optional[dict] = None) -> dict:
+    """Decode-kernel launches of ``apps`` decode apps of ``decode_steps``
+    tokens (``decode_steps - 1`` steps each), run as ``runs``
+    (``serve_runs``; default the parent's route: the first step eager,
+    then one capture, then replays): on the host, the wrapper's count (the
+    eager steps and the captures); on the device (``kernel_launches``),
+    every executed step (the eager steps and the replays)."""
+    runs = runs or serve_runs(cfg, apps, decode_steps)
+    calls = decode_attention_calls(cfg)
+    return {w: calls * runs["decode"][w] for w in ("host", "device")}
 
 
 def decode_route(torch, cfg, da) -> str:
@@ -2475,20 +2532,21 @@ def norm_rope_calls(cfg, step: str) -> dict:
     return out
 
 
-def expected_norm_rope_serve(cfg, n_micro: int, decode_steps: int) -> dict:
+def expected_norm_rope_serve(cfg, n_micro: int, decode_steps: int,
+                             runs: Optional[dict] = None) -> dict:
     """The norm and RoPE launches of a serve run, in all a kernel, on the
-    host and on the device: each microbatch's prefill one forward; each
-    microbatch's decode app ``decode_steps - 1`` steps on the device (its
-    replays counted there), its eager first step and its capture on the
-    host (``expected_decode_launches``' rule); no backward."""
+    host and on the device: a forward a prefill, a decode pass a decode
+    step, as often as ``runs`` (``serve_runs``; default the parent's
+    route) runs them there (the host its eager calls and captures, the
+    device its eager calls and replays); no backward."""
+    runs = runs or serve_runs(cfg, n_micro, decode_steps)
     fwd, dec = norm_rope_calls(cfg, "forward"), norm_rope_calls(cfg, "decode")
-    steps = max(decode_steps - 1, 0)
     out = {}
     for name, per in (("rms_norm_fwd", lambda c: c["layer_norms"]
                        + c["outer_norms"]), ("rope", lambda c: c["ropes"])):
-        out[name] = {"host": n_micro * (per(fwd) + min(steps, 1) * 2
-                                        * per(dec)),
-                     "device": n_micro * (per(fwd) + steps * per(dec))}
+        out[name] = {w: runs["prefill"][w] * per(fwd)
+                     + runs["decode"][w] * per(dec)
+                     for w in ("host", "device")}
     for name in ("rms_norm_bwd", "rms_norm_dscale"):
         out[name] = {"host": 0, "device": 0}
     return out
@@ -2551,27 +2609,35 @@ NORM_ROPE_LAUNCHES: dict = {}    # phase or path -> host and device counts
 
 
 def route_turns(torch, cfg, params, batch, shape: dict, parent) -> dict:
-    """``cfg``'s prefill and replayed decode step at ``shape``'s
+    """``cfg``'s replayed prefill and replayed decode step at ``shape``'s
     microbatch (``batch``) on the kernels and under ``parent`` (a context
     manager that gives the parent's path), in turns (kernels, parent,
     parent, kernels): the medians of 3 prefills and of 8 replays a turn on
     the host clock, each ended by a synchronise; each turn captures its
-    own decode graph."""
+    own prefill and decode graphs (a Python patch reaches a graph only at
+    its capture), the prefill's on a cache of the turn's, the decode's
+    on the cache its first step returned."""
+    from repro_torch.models import model as M
     from repro_torch.train import make_decode_step, make_prefill_step
     s, steps = shape["prompt_len"], shape["decode_steps"]
-    prefill_step = make_prefill_step(cfg)
     turns = {w: {"prefill_ms": [], "decode_step_ms": []}
              for w in ("kernels", "parent")}
     for which in ("kernels", "parent", "parent", "kernels"):
         with (parent() if which == "parent" else contextlib.nullcontext()):
-            first, cache = prefill_step(params, batch, s + steps)
+            prefill_step = make_prefill_step(cfg)
+            cache = M.init_cache(cfg, batch["tokens"].shape[0], s + steps,
+                                 device="cuda")
+            first, _ = prefill_step(params, batch, cache=cache)
             tok, decode_one = first[:, None], make_decode_step(cfg)
             turns[which]["prefill_ms"].append(step_ms(
-                torch, lambda: prefill_step(params, batch, s + steps), 3)[0])
+                torch, lambda: prefill_step(params, batch, cache=cache),
+                3)[0])
+            _, cache = decode_one(params, cache, tok, s)
             turns[which]["decode_step_ms"].append(step_ms(
                 torch, lambda: decode_one(params, cache, tok, s), 8)[0])
             decode_one.close()
-        del first, cache, tok, decode_one
+            prefill_step.close()
+        del first, cache, tok, decode_one, prefill_step
     return dict(turns=turns, **{f"{w}_{k}": sum(v) / 2
                                 for w, t in turns.items()
                                 for k, v in t.items()})
@@ -2638,8 +2704,11 @@ def norm_rope_window(nr):
         if all("host" in w for w in want.values()):
             got = {k: {"host": sum(host[k].values()),
                        "device": sum(device[k].values())} for k in want}
-            bad = got != want or any(device[k][r] < host[k][r]
-                                     for k in host for r in host[k])
+            # the host counts eager calls and captures, the device eager
+            # calls and replays: both on the same routes
+            bad = got != want or any(
+                {r for r, n in host[k].items() if n}
+                != {r for r, n in device[k].items() if n} for k in host)
         else:
             # a captured train step launches on the host and not on the
             # device, its replays the other way round: the host is held
@@ -3153,17 +3222,17 @@ def moe_serve_routes(md, cfg) -> dict:
             "moe_combine": dt, "moe_slots": "int64"}
 
 
-def expected_moe_serve(cfg, n_micro: int, decode_steps: int) -> dict:
+def expected_moe_serve(cfg, n_micro: int, decode_steps: int,
+                       runs: Optional[dict] = None) -> dict:
     """Each MoE kernel's launches in a serve run, on the host and on the
     device: the route, the dispatch and the combine once a MoE layer a
-    microbatch's prefill, and a decode app's steps as
-    ``expected_norm_rope_serve`` counts them (the host its eager first
-    step and its capture, the device every executed step); the slot scan
-    of the router's idx none (the route took its place)."""
+    prefill and a decode step, counted as ``expected_norm_rope_serve``
+    counts them (``runs``); the slot scan of the router's idx none (the
+    route took its place)."""
+    runs = runs or serve_runs(cfg, n_micro, decode_steps)
     layers = cfg.num_layers if cfg.family == "moe" else 0
-    steps = max(decode_steps - 1, 0)
-    per = {"host": n_micro * layers * (1 + min(steps, 1) * 2),
-           "device": n_micro * layers * (1 + steps)}
+    per = {w: layers * (runs["prefill"][w] + runs["decode"][w])
+           for w in ("host", "device")}
     return {name: dict(per) if name != "moe_slots"
             else {"host": 0, "device": 0} for name in MOE_KERNELS}
 
@@ -3678,17 +3747,18 @@ def gate_calls(cfg, step: str = "forward") -> int:
     return cfg.num_layers
 
 
-def expected_gate_serve(cfg, n_micro: int, decode_steps: int) -> dict:
+def expected_gate_serve(cfg, n_micro: int, decode_steps: int,
+                        runs: Optional[dict] = None) -> dict:
     """The gate's and the loss's launches in a serve run, in all a kernel,
     on the host and on the device: the gate's forward as
-    ``expected_norm_rope_serve`` counts the norm's (each microbatch's
-    prefill one forward, its decode app's eager first step and capture on
-    the host, every executed step on the device); no backward, no loss."""
+    ``expected_norm_rope_serve`` counts the norm's (``runs``: a prefill
+    one forward, a decode step one decode pass); no backward, no loss."""
+    runs = runs or serve_runs(cfg, n_micro, decode_steps)
     fwd, dec = gate_calls(cfg, "forward"), gate_calls(cfg, "decode")
-    steps = max(decode_steps - 1, 0)
     out = {k: {"host": 0, "device": 0} for k in GL_KERNELS}
-    out["gated_act_fwd"] = {"host": n_micro * (fwd + min(steps, 1) * 2 * dec),
-                            "device": n_micro * (fwd + steps * dec)}
+    out["gated_act_fwd"] = {w: runs["prefill"][w] * fwd
+                            + runs["decode"][w] * dec
+                            for w in ("host", "device")}
     return out
 
 
@@ -3765,8 +3835,11 @@ def gate_loss_window(gm, ce):
         if all("host" in w for w in want.values()):
             got = {k: {"host": sum(host[k].values()),
                        "device": sum(device[k].values())} for k in want}
-            bad = got != want or any(device[k][r] < host[k][r]
-                                     for k in host for r in host[k])
+            # the host counts eager calls and captures, the device eager
+            # calls and replays: both on the same routes
+            bad = got != want or any(
+                {r for r, n in host[k].items() if n}
+                != {r for r, n in device[k].items() if n} for k in host)
         else:
             # a captured train step launches on the host and not on the
             # device, its replays the other way round: the host is held
@@ -3785,24 +3858,29 @@ PATHS = ("codeqwen15_7b", "mamba2_1_3b", "zamba2_2_7b",
 
 
 def expected_launches(torch, cfg, n_micro: int, fa, ss, da=None,
-                      decode_steps: int = 0) -> dict:
+                      decode_steps: int = 0, runs: Optional[dict] = None,
+                      where: str = "host") -> dict:
     """Kernel launches one serve run must make, by kernel and route: flash
     once per attention layer (or per call of the hybrid's shared block, or
-    per whisper encoder layer) per microbatch's prefill, SSD once per
-    Mamba2 layer per microbatch's prefill.  The route follows the inputs'
+    per whisper encoder layer) a prefill, SSD once per Mamba2 layer a
+    prefill, counted ``where`` (the host: the wrappers' eager calls and
+    captures; the device: eager calls and replays) as ``runs`` runs the
+    prefills (``serve_runs``; default the parent's route: each of the
+    ``n_micro`` prefills eager).  The route follows the inputs'
     dtype (the model's, except in whisper's encoder, where the serve's f32
     frames promote the activations to f32, as JAX does) and, for flash,
     the head dim, for the SSD scan its head dim P and state size N.  With
-    ``da``, the decode kernel's launches counted on the host (each
-    microbatch's decode app: its eager first step and its capture,
-    ``expected_decode_launches``), on the model dtype's route."""
+    ``da``, the decode kernel's launches (``expected_decode_launches``),
+    on the model dtype's route."""
+    runs = runs or serve_runs(cfg, n_micro, decode_steps)
+    n_micro = runs["prefill"][where]
     dt, hd = cfg.torch_dtype, cfg.resolved_head_dim
     want = {"flash_attention_bhsd": dict.fromkeys(fa.ROUTES, 0),
             "ssd_scan_bhsd": dict.fromkeys(ss.ROUTES, 0)}
     if da is not None:
         want["decode_attention"] = dict.fromkeys(da.ROUTES, 0)
         want["decode_attention"][decode_route(torch, cfg, da)] = \
-            expected_decode_launches(cfg, n_micro, decode_steps)["host"]
+            expected_decode_launches(cfg, 0, decode_steps, runs)[where]
     flash = want["flash_attention_bhsd"]
     if cfg.family in ("ssm", "hybrid"):
         want["ssd_scan_bhsd"][ss.route(dt, cfg.ssm_headdim,
@@ -3855,10 +3933,10 @@ def phase_serve(torch, arch, mods):
     same = bool((ref["responses"] == got["responses"]).all())
     emit("serve_reference", config=smoke.name, **small,
          local_window=smoke.local_window, tokens_equal=same,
-         decode_graphs=graphs)
+         slots=got["slots"], graphs=graphs)
     if not same:
         fail(f"{smoke.name} served on the card differs from the CPU")
-    check_graphs(smoke.name, graphs, small)
+    check_graphs(smoke.name, graphs, slot_runs(smoke, small, got))
 
     cfg = get_config(arch)
     shape = serve_shape(arch)
@@ -3880,78 +3958,344 @@ def phase_serve(torch, arch, mods):
     card = (prefill_on_card(torch, cfg, params, steps)
             if arch == DRYRUN_PREFILL else None)
 
-    n_micro = shape["num_requests"] // shape["microbatch"]
-    fa, ss = mods["flash_attention_bhsd"], mods["ssd_scan_bhsd"]
-    da = mods["decode_attention"]
-    want = expected_launches(torch, cfg, n_micro, fa, ss, da,
-                             shape["decode_steps"])
-    want_device = expected_decode_launches(cfg, n_micro,
-                                           shape["decode_steps"])["device"]
+    phase_prefill_graph(torch, cfg, params, shape)
     torch.cuda.reset_peak_memory_stats()
     _zero_counts(kernels)
     _zero_graph_counts()
-    flash_before = fa.kernel_launches(fa._lib())
-    ssd_before = ss.kernel_launches(ss._lib())
-    decode_before = da.kernel_launches(da._lib())
+    window = serve_window(torch, mods)
     norm_rope_check = norm_rope_window(nr)
     moe_check = moe_window(md, moe_serve_routes(md, cfg))
     gate_loss_check = gate_loss_window(gm, ce)
     res = run_serving(cfg, device="cuda", params=params, **shape)
-    launches, by_route = _read_counts(kernels)
+    runs = slot_runs(cfg, shape, res)
+    n_micro = shape["num_requests"] // shape["microbatch"]
     norm_rope_check(arch, expected_norm_rope_serve(
-        cfg, n_micro, shape["decode_steps"]))
-    gate_loss_check(arch, expected_gate_serve(cfg, n_micro,
-                                              shape["decode_steps"]))
-    moe_check(arch, expected_moe_serve(cfg, n_micro, shape["decode_steps"]))
+        cfg, n_micro, shape["decode_steps"], runs))
+    gate_loss_check(arch, expected_gate_serve(
+        cfg, n_micro, shape["decode_steps"], runs))
+    moe_check(arch, expected_moe_serve(cfg, n_micro, shape["decode_steps"],
+                                       runs))
     graphs = _graph_counts()
-    decode_device = decode_device_delta(da, decode_before,
-                                        decode_route(torch, cfg, da))
-    flash_launched = launch_delta(fa, fa._lib(), flash_before)
-    ssd_launched = launch_delta(ss, ss._lib(), ssd_before)
     resp = res["responses"]
+    row = window(cfg, runs, cfg.name)
     emit("serve", config=cfg.name, layers=cfg.num_layers, **shape,
          local_window=cfg.local_window, responses_shape=list(resp.shape),
          wall_s=res["wall_s"], gen_tokens_per_s=res["gen_tokens_per_s"],
          prefill_s=res["prefill_s"], decode_s=res["decode_s"],
+         app_ms=res["app_ms"], slots=res["slots"], graphs=graphs,
+         expected_graphs=runs["graphs"],
          max_memory_allocated=torch.cuda.max_memory_allocated(),
-         launches=launches, launches_by_route=by_route,
-         expected_launches_by_route=want,
-         flash_library_launches_by_route=flash_launched,
-         ssd_library_launches_by_kernel=ssd_launched,
-         decode_device_launches=decode_device,
-         expected_decode_device_launches=want_device,
-         decode_graphs=graphs)
+         max_memory_reserved=torch.cuda.max_memory_reserved(), **row)
     if tuple(resp.shape) != (shape["num_requests"], shape["decode_steps"]):
         fail(f"responses shape {resp.shape}")
-    check_graphs(cfg.name, graphs, shape)
+    check_graphs(cfg.name, graphs, runs)
     if resp.min() < 0 or resp.max() >= cfg.vocab_size:
         fail("token ids outside the vocabulary")
-    if by_route != want or launches != {n: sum(r.values())
-                                        for n, r in want.items()}:
-        fail(f"{cfg.name}: kernel launches by route {by_route} (in all "
-             f"{launches}), expected {want}")
-    faults = route_faults({r: n for r, n in
-                           by_route["flash_attention_bhsd"].items() if n},
-                          flash_launched, {})
-    if faults:
-        fail(f"{cfg.name}: the flash wrapper counted "
-             f"{by_route['flash_attention_bhsd']}; " + "; ".join(faults))
-    faults = route_faults(ss.route_kernels(by_route["ssd_scan_bhsd"]),
-                          ssd_launched, {})
-    if faults:
-        fail(f"{cfg.name}: the SSD wrapper counted "
-             f"{by_route['ssd_scan_bhsd']}; " + "; ".join(faults))
-    if decode_device != want_device:
-        fail(f"{cfg.name}: the device counted {decode_device} decode "
-             f"launches, expected {want_device}")
     modes = (phase_serve_modes(torch, cfg, params, resp, mods)
              if arch == MODES_PATH else None)
     del res
     gc.collect()                # the engine's drops hold the KV caches
     torch.cuda.empty_cache()
+    serve_steady(torch, arch, cfg, params, shape, resp)
     check_full_width_logits(torch, M, cfg, params, shape,
                             LOGITS_ROWS.get(arch, shape["microbatch"]))
-    return launches, by_route, card, modes, decode_device
+    return row, card, modes
+
+
+PREFILL_TURNS = ("eager", "graph", "graph", "eager")
+STEADY = dict(sessions=3, max_concurrent=1)
+# gemma2's 2 x 8192-token prefills take 1.4 s each: 2 sessions there
+STEADY_BY_PATH = {"gemma2_27b": dict(sessions=2, max_concurrent=1)}
+STEADY_TURNS = ("slots", "parent")
+
+
+def same_tree_bits(torch, a: dict, b: dict) -> dict:
+    """Whether two cache trees hold the same tensors to the bit: the names
+    of the leaves that differ (dtype, shape or any bit)."""
+    def flat(t, pre=""):
+        for k, v in sorted(t.items()):
+            if isinstance(v, dict):
+                yield from flat(v, f"{pre}{k}.")
+            else:
+                yield f"{pre}{k}", v
+    fa_, fb = dict(flat(a)), dict(flat(b))
+    bad = sorted(k for k in fa_.keys() | fb.keys()
+                 if k not in fa_ or k not in fb
+                 or fa_[k].dtype != fb[k].dtype
+                 or fa_[k].shape != fb[k].shape
+                 or not same_bits(torch, fa_[k], fb[k]))
+    return {"leaves": len(fa_), "differ": bad}
+
+
+def phase_prefill_graph(torch, cfg, params, shape: dict) -> dict:
+    """The path's prefill through its CUDA graph (``PrefillGraph``) on a
+    serve slot's cache, against the eager prefill into a fresh cache (the
+    parent's): the slot first serves another prompt (its eager prefill and
+    the capture) and a microbatch's ``decode_steps - 1`` decode steps,
+    which leave its KV rows past the prompt, its conv window and its f32
+    state written; then the replay of this prompt must give the eager
+    prefill's next token and every cache tensor to the bit (rows it does
+    not write zeroed).  Printed: the prefill's host ms eager (into the
+    slot's cache, ``graph=False``) and replayed, in turns
+    (``PREFILL_TURNS``, one call after a warm one a turn), each one's
+    device busy ms and idle share from one profiled call and the replay's
+    device span, the capture's ms, and the peaks of allocated, requested
+    and reserved bytes."""
+    import numpy as np
+
+    from repro_torch.launch.serve import prompt_batch
+    from repro_torch.models import model as M
+    from repro_torch.train import make_decode_step, make_prefill_step
+    mb, s, steps = (shape["microbatch"], shape["prompt_len"],
+                    shape["decode_steps"])
+    max_seq = s + steps
+
+    def batch_of(seed: int) -> dict:
+        return prompt_batch(cfg, torch.from_numpy(
+            np.random.default_rng(seed).integers(
+                0, cfg.vocab_size, size=(mb, s)).astype(np.int32)).cuda())
+
+    batch, other = batch_of(5), batch_of(6)
+    eager = make_prefill_step(cfg, graph=False)
+    out = dict(config=cfg.name, microbatch=mb, prompt_len=s, max_seq=max_seq)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cache = M.init_cache(cfg, mb, max_seq, device="cuda")
+    want_tok, want = eager(params, batch, max_seq)
+    step, decode = make_prefill_step(cfg, graph=True), make_decode_step(cfg)
+    tok, _ = step(params, other, cache=cache)
+    t, c = tok[:, None], cache
+    for i in range(steps - 1):
+        t, c = decode(params, c, t, s + i)
+    decode.close()
+    del t, c, decode
+    got_tok, _ = step(params, batch, cache=cache)
+    torch.cuda.synchronize()
+    bits = same_tree_bits(torch, cache, want)
+    out.update(next_token_equal=bool(torch.equal(got_tok, want_tok)),
+               cache_bits=bits, capture_ms=step.graph.capture_ms)
+    del want, want_tok
+    if not out["next_token_equal"] or bits["differ"]:
+        emit("prefill_graph", **out)
+        fail(f"{cfg.name}: the replayed prefill differs from the eager "
+             f"one: next token equal {out['next_token_equal']}, cache "
+             f"leaves {bits['differ']}")
+    columns = {"eager": lambda: eager(params, batch, cache=cache),
+               "graph": lambda: step(params, batch, cache=cache)}
+    times = {w: [] for w in columns}
+    for which in PREFILL_TURNS:
+        times[which].append(step_ms(torch, columns[which], 1)[0])
+    for which, fn in columns.items():
+        out[f"{which}_ms"] = sum(times[which]) / len(times[which])
+        out[f"{which}_ms_turns"] = times[which]
+        prof = profile_call(torch, fn,
+                            f"profile_{cfg.name}_prefill_{which}.txt")
+        out[f"{which}_profile"] = {k: prof[k] for k in (
+            "wall_ms", "device_busy_ms", "device_idle_share", "top")}
+    out["graph_device_span_ms"] = device_span_ms(torch, columns["graph"])
+    step.close()
+    out.update(max_memory_allocated=torch.cuda.max_memory_allocated(),
+               max_memory_reserved=torch.cuda.max_memory_reserved(),
+               requested_peak=torch.cuda.memory_stats().get(
+                   "requested_bytes.all.peak"))
+    emit("prefill_graph", **out)
+    del cache, columns
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+class ParentDecodeStep:
+    """The parent's decode step of one microbatch: its first step on the
+    cache eager (a bf16 SSM state promoted in the cache), then one capture,
+    then replays (``DecodeGraph`` on the cache), freed when it ends."""
+
+    def __init__(self, cfg):
+        self.cfg, self.graph = cfg, None
+
+    def __call__(self, params, cache, tokens, pos):
+        import torch
+
+        from repro_torch.train.steps import DecodeGraph
+        with torch.inference_mode():
+            if self.graph is None:
+                self.graph = DecodeGraph(self.cfg, params, cache, tokens,
+                                         pos, True)
+                return self.graph.first, cache
+            return self.graph.replay(tokens, pos), cache
+
+    def close(self) -> None:
+        if self.graph is not None:
+            self.graph.release()
+        self.graph = None
+
+
+def parent_route(torch, cfg, params, shape: dict, n: int) -> dict:
+    """The parent's route, driven directly, without the engine: ``n``
+    sessions of ``run_serving``'s prompts one after another, each
+    microbatch's prefill eager into a new cache and its decode steps
+    through a decode graph of its own (``ParentDecodeStep``), both freed
+    when its steps end; each app ended by a synchronise, as
+    ``run_serving`` times its apps.  One microbatch runs at a time, so
+    its apps overlap no other's.  Returns the wall, tokens a second, each
+    app's ms in order, the caches made and the last session's tokens."""
+    import numpy as np
+
+    from repro_torch.launch.serve import prompt_batch
+    from repro_torch.train import make_prefill_step
+    mb, s, steps = (shape["microbatch"], shape["prompt_len"],
+                    shape["decode_steps"])
+    reqs = shape["num_requests"]
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(reqs, s)).astype(np.int32)
+    prefill = make_prefill_step(cfg, graph=False)
+    out = {"app_ms": {"prefill": [], "decode": []}, "slots": 0}
+    t_start = time.monotonic()
+    for _ in range(n):
+        rows = []
+        for i in range(0, reqs, mb):
+            t0 = time.monotonic()
+            batch = prompt_batch(cfg, torch.from_numpy(
+                prompts[i:i + mb]).cuda())
+            tok, cache = prefill(params, batch, s + steps)
+            torch.cuda.synchronize()
+            t1 = time.monotonic()
+            decode, toks = ParentDecodeStep(cfg), [tok[:, None]]
+            try:
+                for j in range(steps - 1):
+                    t, cache = decode(params, cache, toks[-1], s + j)
+                    toks.append(t)
+                rows.append(torch.cat(toks, dim=1).cpu().numpy())
+            finally:
+                decode.close()
+            out["app_ms"]["prefill"].append((t1 - t0) * 1e3)
+            out["app_ms"]["decode"].append((time.monotonic() - t1) * 1e3)
+            out["slots"] += 1
+            del batch, cache, toks
+    out["wall_s"] = time.monotonic() - t_start
+    out["gen_tokens_per_s"] = n * reqs * steps / out["wall_s"]
+    out["responses"] = np.concatenate(rows)
+    return out
+
+
+def serve_steady(torch, arch: str, cfg, params, shape: dict,
+                 tokens) -> dict:
+    """The path served in steady state: ``STEADY``'s sessions (or
+    ``STEADY_BY_PATH``'s) one after another, through a resident manager on
+    the slots (the first session's microbatches capture the slots' graphs,
+    the later ones replay them) and on the parent's route
+    (``parent_route``), in turns (``STEADY_TURNS``).  Each run's tokens
+    must equal the serve run's (``tokens``), the slots' graphs the slots'
+    (``check_graphs``).  Printed a run: wall, tokens a second, each
+    prefill and decode app's ms in the order they ended, captures and
+    replays, the slots (the parent's: the caches it made), the peaks of
+    allocated, requested and reserved bytes."""
+    from repro_torch.launch.serve import run_serving
+    runs_by = {"slots": [], "parent": []}
+    steady = STEADY_BY_PATH.get(arch, STEADY)
+    n = steady["sessions"]
+    for which in STEADY_TURNS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_graph_counts()
+        if which == "parent":
+            res = parent_route(torch, cfg, params, shape, n)
+        else:
+            res = run_serving(cfg, device="cuda", params=params, **shape,
+                              **steady)
+        graphs = _graph_counts()
+        row = dict(route=which, wall_s=res["wall_s"],
+                   gen_tokens_per_s=res["gen_tokens_per_s"],
+                   app_ms=res["app_ms"], slots=res["slots"], graphs=graphs,
+                   tokens_equal=bool((res["responses"] == tokens).all()),
+                   max_memory_allocated=torch.cuda.max_memory_allocated(),
+                   max_memory_reserved=torch.cuda.max_memory_reserved(),
+                   requested_peak=torch.cuda.memory_stats().get(
+                       "requested_bytes.all.peak"))
+        runs_by[which].append(row)
+        if not row["tokens_equal"]:
+            emit("serve_steady", config=cfg.name, **shape, **steady,
+                 runs=runs_by)
+            fail(f"{cfg.name}: the {which} route's steady-state tokens "
+                 "differ from the serve run's")
+        if which == "slots":
+            check_graphs(f"{cfg.name} steady", graphs,
+                         slot_runs(cfg, shape, res, n))
+    n_micro = shape["num_requests"] // shape["microbatch"]
+
+    def later(rows, kind):
+        # the apps of the sessions after the first: steady state
+        return [ms for r in rows for ms in r["app_ms"][kind][n_micro:]]
+
+    summary = {w: {"wall_s": sum(r["wall_s"] for r in rows) / len(rows),
+                   "gen_tokens_per_s": sum(r["gen_tokens_per_s"]
+                                           for r in rows) / len(rows),
+                   "steady_prefill_ms": statistics.median(
+                       later(rows, "prefill")),
+                   "steady_decode_ms": statistics.median(
+                       later(rows, "decode"))}
+               for w, rows in runs_by.items()}
+    emit("serve_steady", config=cfg.name, **shape, **steady,
+         summary=summary, runs=runs_by)
+    return summary
+
+
+def serve_window(torch, mods):
+    """Counts the flash, SSD and decode kernels' launches from this call on:
+    on the host (the wrappers' counts, set to 0 here) and on the device
+    (each library's counters).  The returned ``check(cfg, runs, name)``
+    fails unless the wrappers counted by route what ``expected_launches``
+    counts on the host for ``cfg``'s ``runs`` (``serve_runs``: eager calls
+    and captures) and the libraries what it counts on the device (eager
+    calls and replays: flash by route, the SSD scan by device kernel,
+    decode on its route; ``route_faults``), and returns the counts read:
+    the launches by kernel and route on the device, which are the path's
+    executed calls (the SSD scan's by route from its kernels,
+    ``ssd_routes``), and the host's beside them."""
+    fa, ss = mods["flash_attention_bhsd"], mods["ssd_scan_bhsd"]
+    da = mods["decode_attention"]
+    kernels = {name: getattr(mod, name) for name, mod in mods.items()}
+    _zero_counts(kernels)
+    before = {n: m.kernel_launches(m._lib()) for n, m in mods.items()}
+
+    def check(cfg, runs: dict, name: str) -> dict:
+        launches, by_route = _read_counts(kernels)
+        after = {n: m.kernel_launches(m._lib()) for n, m in mods.items()}
+        device = {n: {r: c - before[n][r] for r, c in by.items()}
+                  for n, by in after.items()}
+        want = {w: expected_launches(torch, cfg, 0, fa, ss, da, 0, runs, w)
+                for w in ("host", "device")}
+        faults = []
+        if by_route != want["host"]:
+            faults.append(f"the wrappers counted {by_route}, expected "
+                          f"{want['host']}")
+        for n, expect in (("flash_attention_bhsd",
+                           want["device"]["flash_attention_bhsd"]),
+                          ("ssd_scan_bhsd", ss.route_kernels(
+                              want["device"]["ssd_scan_bhsd"])),
+                          ("decode_attention",
+                           want["device"]["decode_attention"])):
+            got = {r: c for r, c in device[n].items() if c}
+            faults += [f"{n}: {f}" for f in route_faults(
+                {r: c for r, c in expect.items() if c}, got, {})]
+        if faults:
+            fail(f"{name}: " + "; ".join(faults))
+        read = {**device,
+                "ssd_scan_bhsd": ssd_routes(ss, device["ssd_scan_bhsd"])}
+        return {"launches": {n: sum(by.values()) for n, by in read.items()},
+                "launches_by_route": read,
+                "host_launches": launches, "host_launches_by_route": by_route,
+                "device_launches": device}
+    return check
+
+
+def ssd_routes(ss, by_kernel: dict) -> dict:
+    """The SSD scan's calls by route from its device kernels' launches
+    (``ss.kernel_launches``): a call launches each of its route's kernels
+    once, so a route's calls are its first kernel's launches."""
+    return {r: by_kernel[ks[0]] for r, ks in ss.ROUTE_KERNELS.items()}
 
 
 MODES_PATH = "codeqwen15_7b"
@@ -3963,20 +4307,19 @@ def phase_serve_modes(torch, cfg, params, tokens, mods) -> dict:
     width, with the weights and the requests of its serve run: (1) the
     compiled substrate, (2) streaming token delivery (the chunk lane from
     ``gen`` to ``assemble``), (3) 3 sessions through a resident
-    ``EngineManager``, 2 at a time in threads that share the card, (4) one
-    session with ``stats_json``.  Each run's tokens must equal the object
-    substrate's (``tokens``); each kernel must launch once per layer per
-    microbatch per session on its route, counted from 0 just before the
-    run; the sessions run must hit the template cache twice; the stats
-    run must write its spans and wall beside the metrics snapshot.
-    Returns each mode's launches by kernel."""
+    ``EngineManager``, 2 at a time in threads that share the card (the
+    sessions' microbatches take the slots the earlier ones gave back), (4)
+    one session with ``stats_json``.  Each run's tokens must equal the
+    object substrate's (``tokens``); each kernel must launch as often as
+    the run's slots imply (``serve_window``), counted from 0 just before
+    the run, and each slot capture its graphs once (``check_graphs``); the
+    sessions run must hit the template cache twice; the stats run must
+    write its spans and wall beside the metrics snapshot.  Returns each
+    mode's launches by kernel (``serve_window``'s row)."""
     import numpy as np
 
     from repro_torch.launch.serve import run_serving
-    fa, ss = mods["flash_attention_bhsd"], mods["ssd_scan_bhsd"]
-    da = mods["decode_attention"]
     kernels = {name: getattr(mod, name) for name, mod in mods.items()}
-    n_micro = SERVE["num_requests"] // SERVE["microbatch"]
     SERVE_STATS.unlink(missing_ok=True)
     modes = (("compiled", dict(execution="compiled")),
              ("streaming", dict(streaming=True)),
@@ -3985,30 +4328,23 @@ def phase_serve_modes(torch, cfg, params, tokens, mods) -> dict:
     out = {}
     for mode, kw in modes:
         sessions = kw.get("sessions", 1)
-        want = expected_launches(torch, cfg, n_micro * sessions, fa, ss, da,
-                                 SERVE["decode_steps"])
-        want_device = expected_decode_launches(
-            cfg, n_micro * sessions, SERVE["decode_steps"])["device"]
         torch.cuda.reset_peak_memory_stats()
         _zero_counts(kernels)
         _zero_graph_counts()
-        decode_before = da.kernel_launches(da._lib())
+        window = serve_window(torch, mods)
         res = run_serving(cfg, device="cuda", params=params, **SERVE, **kw)
-        launches, by_route = _read_counts(kernels)
+        runs = slot_runs(cfg, SERVE, res, sessions)
         graphs = _graph_counts()
-        decode_device = decode_device_delta(
-            da, decode_before, decode_route(torch, cfg, da))
         same = bool(np.array_equal(res["responses"], tokens))
+        launches = window(cfg, runs, f"{cfg.name} {mode}")
         row = dict(mode=mode, config=cfg.name, options=kw, **SERVE,
                    wall_s=res["wall_s"],
                    gen_tokens_per_s=res["gen_tokens_per_s"],
                    prefill_s=res["prefill_s"], decode_s=res["decode_s"],
+                   app_ms=res["app_ms"], slots=res["slots"],
                    max_memory_allocated=torch.cuda.max_memory_allocated(),
-                   tokens_equal=same, launches=launches,
-                   launches_by_route=by_route,
-                   expected_launches_by_route=want, decode_graphs=graphs,
-                   decode_device_launches=decode_device,
-                   expected_decode_device_launches=want_device)
+                   tokens_equal=same, graphs=graphs,
+                   expected_graphs=runs["graphs"], **launches)
         if sessions > 1:
             row.update({k: res[k] for k in (
                 "sessions", "sessions_per_s", "p50_session_s",
@@ -4025,17 +4361,10 @@ def phase_serve_modes(torch, cfg, params, tokens, mods) -> dict:
         if not same:
             fail(f"{cfg.name} {mode}: tokens differ from the object "
                  f"substrate's")
-        if by_route != want or launches != {n: sum(r.values())
-                                            for n, r in want.items()}:
-            fail(f"{cfg.name} {mode}: kernel launches by route {by_route} "
-                 f"(in all {launches}), expected {want}")
-        if decode_device != want_device:
-            fail(f"{cfg.name} {mode}: the device counted {decode_device} "
-                 f"decode launches, expected {want_device}")
         if sessions > 1 and res["template_hits"] != sessions - 1:
             fail(f"{cfg.name} {mode}: {res['template_hits']} template hits")
-        check_graphs(f"{cfg.name} {mode}", graphs, SERVE, sessions)
-        out[mode] = (launches, decode_device)
+        check_graphs(f"{cfg.name} {mode}", graphs, runs)
+        out[mode] = launches
     return out
 
 
@@ -4050,7 +4379,7 @@ def prefill_on_card(torch, cfg, params, steps: dict) -> dict:
     from repro_torch.launch.serve import prompt_batch
     from repro_torch.train import make_prefill_step
     mb, s = SERVE["microbatch"], SERVE["prompt_len"]
-    plain = make_prefill_step(cfg, use_kernel=False)
+    plain = make_prefill_step(cfg, use_kernel=False, graph=False)
     batch = prompt_batch(cfg, torch.from_numpy(
         np.random.default_rng(3).integers(0, cfg.vocab_size,
                                           size=(mb, s))).cuda())
@@ -4268,8 +4597,11 @@ def device_span_ms(torch, fn) -> float:
 
 def phase_steps(torch, cfg, params, shape: dict, fa, ss, da):
     """The serve path's prefill and decode steps alone, without the engine
-    (decode through its CUDA graph, the default on CUDA: the warm call
-    captures it, the timed ones replay it):
+    (the prefill eager, ``graph=False``, so that its profile holds the
+    wrappers' counts; its graph is ``phase_prefill_graph``'s; decode
+    through its CUDA graph, the default on CUDA, on the cache its first
+    step returns, taken before the timing: the warm call captures it, the
+    timed ones replay it):
     warm, each call on the host clock ended by a device synchronise; then a
     torch.profiler trace of one call of each (summary printed, full tables
     written under ``chiprun_out/chip_smoke/``), in which the flash wrapper's
@@ -4284,12 +4616,16 @@ def phase_steps(torch, cfg, params, shape: dict, fa, ss, da):
     from repro_torch.train import make_decode_step, make_prefill_step
     mb, s, steps = (shape["microbatch"], shape["prompt_len"],
                     shape["decode_steps"])
-    prefill_step, decode_one = make_prefill_step(cfg), make_decode_step(cfg)
+    prefill_step = make_prefill_step(cfg, graph=False)
+    decode_one = make_decode_step(cfg)
     batch = prompt_batch(cfg, torch.from_numpy(
         np.random.default_rng(2).integers(0, cfg.vocab_size,
                                           size=(mb, s))).cuda())
     first, cache = prefill_step(params, batch, s + steps)
     tok = first[:, None]
+    # the steady step: a bf16 SSM cache's first step (a graph of its own)
+    # returns the cache with the later steps' f32 state
+    _, cache = decode_one(params, cache, tok, s)
 
     def prefill():
         prefill_step(params, batch, s + steps)
@@ -4437,15 +4773,17 @@ def phase_decode_graph(torch, cfg, params, shape: dict, kernels: dict, da
     """The path's decode step eager (``graph=False``) and through its CUDA
     graph (the default on CUDA), from one prefill's cache copied: one
     microbatch's ``decode_steps - 1`` steps each, as a decode app runs
-    them (the graph's first step eager, then the capture, then replays),
-    both through the decode kernel (the default on CUDA).
+    them (the graph's first step eager, then the capture, then replays;
+    a bf16 SSM cache's first step is a graph of its own, captured after
+    its eager step, ``decode_graphs_a_slot``), both through the decode
+    kernel (the default on CUDA).
 
     The graph's steps (its capture among them) run while another thread
     copies to the host and synchronises its stream (``beside_syncs``).
     Held: the greedy tokens equal at every step; the last step's logits
     equal to the bit, or else within 5% of the eager logits' range (the
     dense paths' kernel-vs-plain tolerance) with the largest difference
-    printed; one capture; the decode kernel's launches exact, on the host
+    printed; one capture a graph; the decode kernel's launches exact, on the host
     (each eager step and the capture) and on the device (each executed
     step, the replays included), no other kernel; one eager step under
     ``torch.cuda.set_sync_debug_mode("error")`` (a synchronise in it
@@ -4468,7 +4806,8 @@ def phase_decode_graph(torch, cfg, params, shape: dict, kernels: dict, da
     batch = prompt_batch(cfg, torch.from_numpy(
         np.random.default_rng(4).integers(0, cfg.vocab_size,
                                           size=(mb, s))).cuda())
-    first, cache = make_prefill_step(cfg)(params, batch, s + steps)
+    first, cache = make_prefill_step(cfg, graph=False)(params, batch,
+                                                        s + steps)
     del batch
     _zero_counts(kernels)
     captures = DecodeGraph.counts["captures"]
@@ -4490,8 +4829,9 @@ def phase_decode_graph(torch, cfg, params, shape: dict, kernels: dict, da
     captured = DecodeGraph.counts["captures"] - captures
     launches, _ = _read_counts(kernels)
     calls = decode_attention_calls(cfg)
+    graphs = decode_graphs_a_slot(cfg, steps)
     want = dict.fromkeys(launches, 0)
-    want["decode_attention"] = calls * (steps - 1 + 2)
+    want["decode_attention"] = calls * (steps - 1 + 2 * graphs)
     want_device = calls * 2 * (steps - 1)
     decode_device = decode_device_delta(da, decode_before,
                                         decode_route(torch, cfg, da))
@@ -4559,8 +4899,8 @@ def phase_decode_graph(torch, cfg, params, shape: dict, kernels: dict, da
     if not finite or (not bitwise and diff > 0.05 * scale):
         fail(f"{cfg.name}: the decode graph's last logits differ from the "
              f"eager step's by {diff} (range {scale})")
-    if captured != 1 or launches != want or decode_device != want_device \
-            or plain_launched:
+    if captured != graphs or launches != want \
+            or decode_device != want_device or plain_launched:
         fail(f"{cfg.name}: decode made {captured} captures and launched "
              f"{launches} (expected {want}), the device counted "
              f"{decode_device} decode launches (expected {want_device}), "
@@ -6129,6 +6469,21 @@ def check_kernel_guard(torch, mods) -> list:
     return refused
 
 
+def serve_kernels_idle(mods):
+    """A check to call after a train, dry-run or examples phase: flash, the
+    SSD scan and decode launched nothing on the device since this call
+    (the wrappers' host counts are ``check_phase_launches``')."""
+    before = {n: m.kernel_launches(m._lib()) for n, m in mods.items()}
+
+    def check(what: str) -> None:
+        moved = {n: {r: c - before[n][r] for r, c in
+                     m.kernel_launches(m._lib()).items() if c != before[n][r]}
+                 for n, m in mods.items()}
+        if any(moved.values()):
+            fail(f"{what}: serve kernels launched on the device: {moved}")
+    return check
+
+
 def train_kernels_idle(mods):
     """A check to call after a serve path: the training attention and the
     optimizer kernels launched nothing since this call, on the host and on
@@ -6150,24 +6505,33 @@ def train_kernels_idle(mods):
 
 
 def _graph_counts() -> dict:
-    from repro_torch.train.steps import DecodeGraph
-    return dict(DecodeGraph.counts)
+    from repro_torch.train.steps import DecodeGraph, PrefillGraph
+    return {"prefill": dict(PrefillGraph.counts),
+            "decode": dict(DecodeGraph.counts)}
 
 
 def _zero_graph_counts() -> None:
-    from repro_torch.train.steps import DecodeGraph
+    from repro_torch.train.steps import DecodeGraph, PrefillGraph
     DecodeGraph.counts.update(captures=0, replays=0)
+    PrefillGraph.counts.update(captures=0, replays=0)
 
 
-def check_graphs(name: str, graphs: dict, shape: dict,
-                 sessions: int = 1) -> None:
-    """A serve run went through decode graphs: each decode app (one a
-    microbatch a session) captured its graph on its first step and
-    replayed it for each later one."""
+def slot_runs(cfg, shape: dict, res: dict, sessions: int = 1) -> dict:
+    """``serve_runs`` of a serve run's result ``res`` at ``shape``: its
+    microbatches over ``sessions`` sessions, on the slots it made."""
     apps = shape["num_requests"] // shape["microbatch"] * sessions
-    want = {"captures": apps, "replays": apps * (shape["decode_steps"] - 2)}
-    if graphs != want:
-        fail(f"{name}: decode graphs {graphs}, expected {want}")
+    if not 1 <= res["slots"] <= apps:
+        fail(f"{cfg.name}: {res['slots']} cache slots for {apps} "
+             "microbatches")
+    return serve_runs(cfg, apps, shape["decode_steps"], res["slots"])
+
+
+def check_graphs(name: str, graphs: dict, runs: dict) -> None:
+    """A serve run went through its slots' graphs: each slot captured its
+    prefill graph and its decode graphs once, and every other prefill and
+    decode step replayed one (``serve_runs``)."""
+    if graphs != runs["graphs"]:
+        fail(f"{name}: graphs {graphs}, expected {runs['graphs']}")
 
 
 def _zero_counts(kernels: dict) -> None:
@@ -6284,41 +6648,46 @@ def main() -> int:
     all_mods = {**mods, "adamw_update": opt, "sumsq": opt,
                 "train_attention_forward": ta,
                 "train_attention_backward": ta}
-    by_path, routes, cards, decode_device = {}, {}, {}, {}
+    by_path, routes, host_by_path, cards = {}, {}, {}, {}
     for arch in PATHS:
         idle = train_kernels_idle(all_mods)
-        (by_path[arch], routes[arch], card, modes,
-         decode_device[arch]) = phase_serve(torch, arch, mods)
+        row, card, modes = phase_serve(torch, arch, mods)
         idle(arch)
         if card is not None:
             cards["prefill"] = card
-        for mode, (launches, device) in (modes or {}).items():
-            by_path[f"{arch}/{mode}"] = launches
-            decode_device[f"{arch}/{mode}"] = device
+        for path, r in ((arch, row), *((f"{arch}/{mode}", r) for mode, r
+                                       in (modes or {}).items())):
+            by_path[path] = r["launches"]
+            routes[path] = r["launches_by_route"]
+            host_by_path[path] = r["host_launches"]
         gc.collect()                    # free the model before the next
         torch.cuda.empty_cache()
+    serve_idle = serve_kernels_idle(mods)
     train, train_device, cards["train_step"] = phase_train(torch, all_mods)
     gc.collect()
     torch.cuda.empty_cache()
     dry, dry_device = phase_dryrun(torch, all_mods, cards)
     examples, examples_device = phase_examples(torch, all_mods)
+    serve_idle("the train, dry-run and examples phases")
+    # flash, the SSD scan and decode run in CUDA graph replays (the
+    # prefill's and the decode step's), which their wrappers do not see:
+    # their launches are the device's count of executed calls on each
+    # serve path (``serve_window``), the wrappers' (eager calls and
+    # captures) beside them; the train, dry-run and examples phases launch
+    # none
     for e in entries[:3]:
-        e["launches_by_path"] = {a: n[e["name"]] for a, n in by_path.items()}
+        n = e["name"]
+        e["launches_by_path"] = {a: c[n] for a, c in by_path.items()}
         e["launches"] = sum(e["launches_by_path"].values())
-        e["launches_by_path"]["train"] = train[e["name"]]
-        e["launches_by_path"]["dryrun"] = dry[e["name"]]
-        e["launches_by_path"]["examples"] = examples[e["name"]]
+        e["host_launches_by_path"] = {a: c[n]
+                                      for a, c in host_by_path.items()}
+        e["host_launches"] = sum(e["host_launches_by_path"].values())
+        e["launches_by_path"]["train"] = train[n]
+        e["launches_by_path"]["dryrun"] = dry[n]
+        e["launches_by_path"]["examples"] = examples[n]
         e["launches_by_route"] = {
-            r: sum(routes[a][e["name"]][r] for a in routes)
-            for r in routes[PATHS[0]][e["name"]]}
-    # the decode kernel runs in CUDA graph replays, which its wrapper does
-    # not see: its launches are the device's count of executed calls, the
-    # wrapper's (the eager steps and the captures) beside them
-    e = entries[2]
-    e["host_launches_by_path"] = dict(e["launches_by_path"])
-    e["host_launches"] = e["launches"]
-    e["launches_by_path"].update(decode_device)
-    e["launches"] = sum(decode_device.values())
+            r: sum(routes[a][n][r] for a in routes)
+            for r in routes[PATHS[0]][n]}
     # the optimizer and training attention kernels run on the train paths:
     # their launches are the device's count over the train phase (the main
     # path), by route

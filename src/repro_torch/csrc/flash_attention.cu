@@ -83,16 +83,17 @@
 // reached by cudaGetDriverEntryPoint (no libcuda link).
 // flash_attention_launches(kernel) is how many launches of that kernel
 // (0 flash_wgmma_kernel, 1 flash_mma_kernel, 2 flash_f32_kernel, 3
-// flash_3xtf32_kernel) this
-// library has made, counted where each kernel is launched, so a caller can
-// see which kernel the dispatch below chose.
+// flash_3xtf32_kernel) this library's kernels have counted on the device,
+// so a caller can see which kernel the dispatch below chose.  Each kernel
+// adds one to its device counter from one thread a launch, so a CUDA
+// graph's replays are counted too; flash_attention_launches copies it to
+// the host (a synchronous copy: call it outside a capture), ~0 on error.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include <atomic>
 
 #include "f32_split.cuh"
 #include "hopper.cuh"
@@ -123,14 +124,12 @@ constexpr float kNegInf = -1e30f;   // the TPU kernel's mask value
 
 // Launches by kernel, in the order of flash_attention_launches.
 enum Kernel { kWgmma, kMma, kF32, kX3, kKernels };
-std::atomic<unsigned long long> g_launches[kKernels];
+__device__ unsigned long long g_launches[kKernels];
 
-// The launch's error; a launch that was taken is counted under ``kernel``.
-cudaError_t counted(Kernel kernel) {
-  const cudaError_t err = cudaGetLastError();
-  if (err == cudaSuccess)
-    g_launches[kernel].fetch_add(1, std::memory_order_relaxed);
-  return err;
+// One launch of ``kernel``, counted by the grid's first thread.
+__device__ __forceinline__ void count_launch(Kernel kernel) {
+  if ((threadIdx.x | blockIdx.x | blockIdx.y | blockIdx.z) == 0)
+    atomicAdd(&g_launches[kernel], 1ull);
 }
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -164,6 +163,7 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ o, int Hq,
                  int group, int Sq, int Sk, int D, int causal, int window,
                  float cap, float scale) {
+  count_launch(kMma);
   constexpr int kThreads = BQ * 2 / MW;
   constexpr int WR = 16 * MW;      // query rows per warp
   constexpr int LD = DP + 8;       // shared row stride (elements)
@@ -398,7 +398,7 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), Hq, Hq / Hkv, Sq,
       Sk, D, causal, window, cap, scale);
-  return counted(kMma);
+  return cudaGetLastError();
 }
 
 // ------------------------------------------------------- wgmma_bf16 route
@@ -561,6 +561,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tot, int BH, int Hq,
                    int group, int Sq, int Sk, int causal, int window,
                    float cap, float scale, int n_items) {
+  count_launch(kWgmma);
   using L = WgSmem<D, BK, ST>;
   constexpr int NB = L::kBoxes;
   constexpr bool kTail = L::kTail != 0;
@@ -897,7 +898,7 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
   kernel<<<grid, kWgThreads, smem, stream>>>(
       mq, mk, mv, mo, mqt, mkt, mvt, mot, B * Hq, Hq, Hq / Hkv, Sq, Sk,
       causal, window, cap, scale, n_items);
-  return counted(kWgmma);
+  return cudaGetLastError();
 }
 
 cudaError_t dispatch_bf16(const void* q, const void* k, const void* v,
@@ -965,6 +966,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o, int Hq,
                  int group, int Sq, int Sk, int D, int causal, int window,
                  float cap, float scale) {
+  count_launch(kF32);
   constexpr int RI = BQ / 16;        // rows per thread
   constexpr int CJ = BK / 16;        // score columns per thread
   constexpr int TPR = kF32Threads / BQ;  // threads per row in the softmax
@@ -1126,7 +1128,7 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), Hq, Hq / Hkv, Sq,
       Sk, D, causal, window, cap, scale);
-  return counted(kF32);
+  return cudaGetLastError();
 }
 
 // ------------------------------------------------------ mma_3xtf32 route
@@ -1152,6 +1154,7 @@ flash_3xtf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, float* __restrict__ o,
                     int Hq, int group, int Sq, int Sk, int D, int causal,
                     int window, float cap, float scale) {
+  count_launch(kX3);
   constexpr int OB = DP / 8;
   constexpr int TK = x3::kKeys * x3::ld<DP>();
   extern __shared__ __align__(16) float x3_smem[];
@@ -1255,7 +1258,7 @@ cudaError_t launch_x3_cap(const void* q, const void* k, const void* v,
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), Hq, Hq / Hkv, Sq,
       Sk, D, causal, window, cap, scale);
-  return counted(kX3);
+  return cudaGetLastError();
 }
 
 template <int DP>
@@ -1317,5 +1320,10 @@ extern "C" int flash_attention_bhsd(const void* q, const void* k,
 }
 
 extern "C" unsigned long long flash_attention_launches(int kernel) {
-  return kernel >= 0 && kernel < kKernels ? g_launches[kernel].load() : 0;
+  if (kernel < 0 || kernel >= kKernels) return ~0ull;
+  unsigned long long n = 0;
+  if (cudaMemcpyFromSymbol(&n, g_launches, sizeof(n),
+                           kernel * sizeof(n)) != cudaSuccess)
+    return ~0ull;
+  return n;
 }

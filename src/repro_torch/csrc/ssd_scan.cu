@@ -77,16 +77,18 @@
 // C interface (loaded with ctypes): ssd_scan(...) returns the cudaError_t
 // of the launches, 0 on success.  ssd_scan_launches(kernel) is how many
 // launches of that kernel (0 ssd_cbt_kernel, 1 ssd_mma_kernel,
-// 2 ssd_wg_state_kernel, 3 ssd_wg_y_kernel, 4 ssd_f32_kernel) this library
-// has made, counted where each is launched, so a caller can see which
-// kernels the dispatch below chose.
+// 2 ssd_wg_state_kernel, 3 ssd_wg_y_kernel, 4 ssd_f32_kernel) this
+// library's kernels have counted on the device, so a caller can see which
+// kernels the dispatch below chose.  Each kernel adds one to its device
+// counter from one thread a launch, so a CUDA graph's replays are counted
+// too; ssd_scan_launches copies it to the host (a synchronous copy: call
+// it outside a capture), ~0 on error.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include <atomic>
 #include <mutex>
 #include <type_traits>
 
@@ -103,14 +105,12 @@ using tc::bf16;
 
 // Launches by kernel, in the order of ssd_scan_launches.
 enum Kernel { kCbt, kMma, kWgState, kWgY, kF32, kKernels };
-std::atomic<unsigned long long> g_launches[kKernels];
+__device__ unsigned long long g_launches[kKernels];
 
-// The launch's error; a launch that was taken is counted under `kernel`.
-cudaError_t counted(Kernel kernel) {
-  const cudaError_t err = cudaGetLastError();
-  if (err == cudaSuccess)
-    g_launches[kernel].fetch_add(1, std::memory_order_relaxed);
-  return err;
+// One launch of ``kernel``, counted by the grid's first thread.
+__device__ __forceinline__ void count_launch(Kernel kernel) {
+  if ((threadIdx.x | blockIdx.x | blockIdx.y | blockIdx.z) == 0)
+    atomicAdd(&g_launches[kernel], 1ull);
 }
 
 constexpr int kTile = 64;        // rows of a score tile, a key tile, an x tile
@@ -161,6 +161,7 @@ template <int NP>
 __global__ void __launch_bounds__(128)
 ssd_cbt_kernel(const bf16* __restrict__ bmat, const bf16* __restrict__ cmat,
                float4* __restrict__ cbt, int S, int N, int Q, int chunks) {
+  count_launch(kCbt);
   constexpr int LDN = NP + 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sC = reinterpret_cast<bf16*>(smem_raw);   // kTile x LDN
@@ -494,6 +495,9 @@ ssd_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
       }
     }
   }
+  // counted last: at N = 128 the kernel sits at its 128-register cap, and
+  // a count at the top spilled
+  count_launch(kMma);
 }
 
 template <int NP>
@@ -512,7 +516,7 @@ cudaError_t launch_mma(const void* x, const float* dt, const float* a,
   k1<<<dim3(B * G * chunks, pairs), 128, smem1, stream>>>(
       static_cast<const bf16*>(bmat), static_cast<const bf16*>(cmat),
       static_cast<float4*>(scratch), S, N, Q, chunks);
-  if ((err = counted(kCbt)) != cudaSuccess) return err;
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   const size_t smem2 =
       sizeof(bf16) * (2 * kTile * LDN + 3 * kTile * kLdP + 2 * NP * kLdP) +
@@ -525,7 +529,7 @@ cudaError_t launch_mma(const void* x, const float* dt, const float* a,
       static_cast<const bf16*>(x), dt, a, static_cast<const bf16*>(bmat),
       static_cast<const bf16*>(cmat), static_cast<const float4*>(scratch),
       static_cast<bf16*>(y), static_cast<bf16*>(st), H, G, S, P, N, Q);
-  return counted(kMma);
+  return cudaGetLastError();
 }
 
 // ----------------------------------------------------------- wgmma_bf16 route
@@ -630,6 +634,7 @@ ssd_wg_state_kernel(const __grid_constant__ CUtensorMap tx,
                     const __grid_constant__ CUtensorMap tst,
                     const float* __restrict__ dt, const float* __restrict__ a,
                     float* __restrict__ exps, int H, int G, int S, int Q) {
+  count_launch(kWgState);
   using L = StateSmem<NB>;
   constexpr int kConsumers = NB * 128;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -883,6 +888,7 @@ ssd_wg_y_kernel(const __grid_constant__ CUtensorMap tx,
                 const __grid_constant__ CUtensorMap trow,
                 const __grid_constant__ CUtensorMap tkey, int B, int H, int G,
                 int S, int Q, int n_items) {
+  count_launch(kWgY);
   using L = YSmem<NB, HB>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* base =
@@ -1310,7 +1316,7 @@ cudaError_t launch_wgmma(const void* x, const float* dt, const float* a,
     return cudaErrorInvalidValue;
   k1<<<B * H, NB * 128 + 64, smem1, stream>>>(mx, mb, ms, mst, dt, a, exps, H,
                                               G, S, Q);
-  if ((err = counted(kWgState)) != cudaSuccess) return err;
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   CUtensorMap mrow, mkey;
   if (!row_map_f32(&mrow, exps, B * H, chunks, Q) ||
@@ -1322,7 +1328,7 @@ cudaError_t launch_wgmma(const void* x, const float* dt, const float* a,
   const int grid = min(n_items, max(per_sm, 1) * sms);
   k2<<<grid, 160, smem2, stream>>>(mx, mb, mc, ms, my, mrow, mkey, B, H, G,
                                    S, Q, n_items);
-  return counted(kWgY);
+  return cudaGetLastError();
 }
 
 // Heads a y work item of the wgmma route: SSD_WG_HEADS (default 2), or
@@ -1403,6 +1409,7 @@ ssd_f32_kernel(const float* __restrict__ x, const float* __restrict__ dt,
                const float* __restrict__ cmat, float* __restrict__ y,
                float* __restrict__ st, int H, int G, int S, int P, int N,
                int Q) {
+  count_launch(kF32);
   extern __shared__ float smem[];
   const int ldn = N + 1;
   float* sC = smem;                       // kTile x ldn: C of the query tile
@@ -1600,7 +1607,7 @@ cudaError_t launch_f32(const void* x, const float* dt, const float* a,
       static_cast<const float*>(x), dt, a, static_cast<const float*>(bmat),
       static_cast<const float*>(cmat), static_cast<float*>(y),
       static_cast<float*>(st), H, G, S, P, N, Q);
-  return counted(kF32);
+  return cudaGetLastError();
 }
 
 cudaError_t dispatch_f32(const void* x, const float* dt, const float* a,
@@ -1657,5 +1664,10 @@ extern "C" long long ssd_scan_state_scratch_bytes(int B, int H, int S, int P,
 }
 
 extern "C" unsigned long long ssd_scan_launches(int kernel) {
-  return kernel >= 0 && kernel < kKernels ? g_launches[kernel].load() : 0;
+  if (kernel < 0 || kernel >= kKernels) return ~0ull;
+  unsigned long long n = 0;
+  if (cudaMemcpyFromSymbol(&n, g_launches, sizeof(n),
+                           kernel * sizeof(n)) != cudaSuccess)
+    return ~0ull;
+  return n;
 }

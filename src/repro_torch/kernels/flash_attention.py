@@ -110,11 +110,19 @@ def _lib(defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
 
 
 def kernel_launches(lib: ctypes.CDLL) -> dict:
-    """Launches by route that ``lib`` itself has made since it was loaded:
-    the library counts each kernel where it launches it (kernel i of
-    ``ROUTES``), so the route its dispatch chose can be held to ``route``."""
-    return {r: int(lib.flash_attention_launches(i))
-            for i, r in enumerate(ROUTES)}
+    """Launches by route that ``lib``'s kernels have counted on the device
+    since the library was loaded (kernel i of ``ROUTES``; a CUDA graph's
+    replays included), so the route its dispatch chose can be held to
+    ``route``.  A synchronous copy from the device: never call it during a
+    capture."""
+    out = {}
+    for i, r in enumerate(ROUTES):
+        n = int(lib.flash_attention_launches(i))
+        if n == 2 ** 64 - 1:
+            raise RuntimeError("flash_attention_launches: the copy from the "
+                               "device failed")
+        out[r] = n
+    return out
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -161,10 +161,18 @@ def _lib(defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
 
 
 def kernel_launches(lib: ctypes.CDLL) -> dict:
-    """Launches by device kernel that ``lib`` itself has made since it was
-    loaded: the library counts each kernel where it launches it, so the
-    kernels its dispatch chose can be held to ``route``."""
-    return {k: int(lib.ssd_scan_launches(i)) for i, k in enumerate(KERNELS)}
+    """Launches by device kernel that ``lib``'s kernels have counted on the
+    device since the library was loaded (a CUDA graph's replays included),
+    so the kernels its dispatch chose can be held to ``route``.  A
+    synchronous copy from the device: never call it during a capture."""
+    out = {}
+    for i, k in enumerate(KERNELS):
+        n = int(lib.ssd_scan_launches(i))
+        if n == 2 ** 64 - 1:
+            raise RuntimeError("ssd_scan_launches: the copy from the device "
+                               "failed")
+        out[k] = n
+    return out
 
 
 def _check(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,

@@ -15,13 +15,23 @@ It serves every family (dense, vlm, moe, ssm, hybrid, encdec).  On CUDA,
 prefill self-attention (the whisper encoder's too) runs the hand-written
 flash-attention kernel and the Mamba2 layers' prefill scan the
 hand-written SSD kernel; the decode's attention over the KV and cross
-caches the hand-written decode kernel; prefill cross-attention, the MoE
-dispatch and the projections are torch ops.  Each decode app captures its
-microbatch's decode step as a CUDA graph on its first step and replays
-it for the rest (``train.steps.DecodeGraph``; eager on the CPU), and
-frees the graph when it returns.  encdec prompts come with f32 zero frames
-of ``max(prompt_len // encoder_ratio, 1)`` rows, as the reference serve
-makes them.
+caches the hand-written decode kernel; prefill cross-attention and the
+projections are torch ops.  encdec prompts come with f32 zero frames of
+``max(prompt_len // encoder_ratio, 1)`` rows, as the reference serve makes
+them.
+
+The counterpart of the reference's ``jax.jit`` of both steps, which
+compiles once a shape and runs that executable for every microbatch and
+session of the call, is a pool of cache slots (``SlotPool``) a call: a
+slot holds a cache at ``max_seq``, its prefill graph
+(``train.steps.PrefillGraph``) and its decode graphs
+(``train.steps.DecodeGraph``; a bf16 SSM cache's first step has a graph of
+its own).  The prefill app takes a free slot of its batch's shapes, or
+makes one; each graph is captured on the slot's first microbatch and
+replayed for every later microbatch and session that takes the slot; the
+decode app gives the slot back.  The pool grows to the most caches alive
+at once, and ``run_serving`` frees it on the way out.  On the CPU the
+steps run eagerly through the same pool.
 
 CLI:
   PYTHONPATH=src python -m repro_torch.launch.serve --device cuda
@@ -34,7 +44,7 @@ import json
 import threading
 import time
 from pathlib import Path
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -46,6 +56,7 @@ from ..dsl import GraphBuilder
 from ..models import model as M
 from ..models.common import ArchConfig, resolve_device
 from ..train import make_decode_step, make_prefill_step
+from ..train.steps import DecodeStep, GraphPool, PrefillStep
 
 
 def _dump_stats(path: str, payload: Dict[str, Any]) -> None:
@@ -87,6 +98,72 @@ def prompt_batch(cfg: ArchConfig,
     return batch
 
 
+class CacheSlot:
+    """A cache and the serve steps captured on it (``PrefillStep``,
+    ``DecodeStep``: their graphs belong to this cache), taken by one
+    microbatch at a time from a ``SlotPool``."""
+
+    def __init__(self, key: tuple, cache: Dict[str, Any],
+                 prefill: PrefillStep, decode: DecodeStep):
+        self.key, self.cache = key, cache
+        self.prefill, self.decode = prefill, decode
+
+    def close(self) -> None:
+        """Free the graphs and the cache."""
+        self.prefill.close()
+        self.decode.close()
+        self.cache = None
+
+
+class SlotPool:
+    """The cache slots of one ``run_serving`` call, keyed by the prefill
+    batch's shapes and dtypes and ``max_seq``.  ``acquire`` takes a free
+    slot of a key or makes one (it never waits), ``release`` gives it
+    back; both are thread-safe.  ``made`` counts the slots made: the most
+    that were taken at once by key.  The slots' prefill graphs share one
+    memory pool (``graphs``, a ``train.steps.GraphPool``).  ``close`` frees
+    every slot, taken or not."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._free: Dict[tuple, list] = {}
+        self._slots: list = []
+        self.graphs = GraphPool()
+
+    @property
+    def made(self) -> int:
+        with self._lock:
+            return len(self._slots)
+
+    def acquire(self, key: tuple, make: Callable[[], CacheSlot]
+                ) -> CacheSlot:
+        with self._lock:
+            free = self._free.get(key)
+            slot = free.pop() if free else None
+        if slot is None:
+            slot = make()
+            with self._lock:
+                self._slots.append(slot)
+        return slot
+
+    def release(self, slot: CacheSlot) -> None:
+        with self._lock:
+            self._free.setdefault(slot.key, []).append(slot)
+
+    def close(self) -> None:
+        with self._lock:
+            slots, self._slots, self._free = self._slots, [], {}
+        for slot in slots:
+            slot.close()
+
+
+def slot_key(batch: Dict[str, torch.Tensor], max_seq: int) -> tuple:
+    """A prefill batch's slot key: its tensors' shapes, dtypes and device,
+    and the cache's length."""
+    return (tuple((k, tuple(v.shape), v.dtype, v.device)
+                  for k, v in sorted(batch.items())), max_seq)
+
+
 def run_serving(cfg: ArchConfig, *, num_requests: int = 8,
                 microbatch: int = 4, prompt_len: int = 32,
                 decode_steps: int = 16, num_nodes: int = 2,
@@ -104,7 +181,10 @@ def run_serving(cfg: ArchConfig, *, num_requests: int = 8,
     ``prefill_s``/``decode_s``: the host seconds of the prefill and decode
     apps, each ended by a device synchronise, summed over microbatches
     (apps of different microbatches may overlap, so the sum can exceed
-    ``wall_s``); ``decode_s`` includes the decode graphs' captures.
+    ``wall_s``); each includes its graphs' captures; ``app_ms``: each
+    prefill and decode app's ms, in the order they ended; ``slots``: the
+    cache slots the call made (``SlotPool``), each capturing its graphs
+    once.
 
     ``streaming=True`` switches token delivery to the chunk lane: each
     decode step writes one ``(microbatch, step, tokens)`` chunk onto the
@@ -124,14 +204,25 @@ def run_serving(cfg: ArchConfig, *, num_requests: int = 8,
     model = {"params": (params if params is not None
                         else M.init_params(cfg, device=dev))}
     del params
-    prefill_step = make_prefill_step(cfg)
+    pool = SlotPool()
+
+    def new_slot(batch: Dict[str, torch.Tensor]) -> CacheSlot:
+        return CacheSlot(slot_key(batch, max_seq),
+                         M.init_cache(cfg, batch["tokens"].shape[0], max_seq,
+                                      device=dev),
+                         make_prefill_step(cfg, pool=pool.graphs),
+                         make_decode_step(cfg))
+
     app_seconds = {"prefill": 0.0, "decode": 0.0}
+    app_ms: Dict[str, list] = {"prefill": [], "decode": []}
     seconds_lock = threading.Lock()
 
     def _timed(kind: str, t0: float) -> None:
         _sync(dev)
+        seconds = time.monotonic() - t0
         with seconds_lock:
-            app_seconds[kind] += time.monotonic() - t0
+            app_seconds[kind] += seconds
+            app_ms[kind].append(seconds * 1e3)
 
     rng = np.random.default_rng(0)
     prompts = rng.integers(0, cfg.vocab_size,
@@ -143,30 +234,36 @@ def run_serving(cfg: ArchConfig, *, num_requests: int = 8,
         (mb,) = app.meta["oid"]
         chunk = torch.from_numpy(
             prompts[mb * microbatch:(mb + 1) * microbatch]).to(dev)
-        # the cache is allocated at max_seq, so decode grows nothing (its
+        batch = prompt_batch(cfg, chunk)
+        # the slot's cache is at max_seq, so decode grows nothing (its
         # cross rows past the frames stay zero, as the reference's padding)
-        next_tok, cache = prefill_step(model["params"],
-                                       prompt_batch(cfg, chunk),
-                                       max_seq)
+        slot = pool.acquire(slot_key(batch, max_seq),
+                            lambda: new_slot(batch))
+        try:
+            next_tok, cache = slot.prefill(model["params"], batch,
+                                           cache=slot.cache)
+        except BaseException:
+            pool.release(slot)
+            raise
         _timed("prefill", t0)
         for o in outputs:
-            o.write({"next": next_tok[:, None], "cache": cache})
+            o.write({"next": next_tok[:, None], "cache": cache,
+                     "slot": slot})
 
     @register_app("serve/decode")
     def decode_app(inputs, outputs, app):
         t0 = time.monotonic()
         st = inputs[0].read()
-        tok, cache = st["next"], st["cache"]
+        tok, cache, slot = st["next"], st["cache"], st["slot"]
         toks = [tok]
-        decode_one = make_decode_step(cfg)
         try:
             for i in range(decode_steps - 1):
-                tok, cache = decode_one(model["params"], cache, tok,
-                                        prompt_len + i)
+                tok, cache = slot.decode(model["params"], cache, tok,
+                                         prompt_len + i)
                 toks.append(tok)
             gen = torch.cat(toks, dim=1).cpu().numpy()
         finally:
-            decode_one.close()
+            pool.release(slot)
         _timed("decode", t0)
         for o in outputs:
             o.write(gen)
@@ -179,19 +276,19 @@ def run_serving(cfg: ArchConfig, *, num_requests: int = 8,
         t0 = time.monotonic()
         (mb,) = app.meta["oid"]
         st = inputs[0].read()
-        tok, cache = st["next"], st["cache"]
-        for o in outputs:
-            o.write((mb, 0, tok.cpu().numpy()))
-        decode_one = make_decode_step(cfg)
+        tok, cache, slot = st["next"], st["cache"], st["slot"]
         try:
+            first = tok.cpu().numpy()
+            for o in outputs:
+                o.write((mb, 0, first))
             for i in range(decode_steps - 1):
-                tok, cache = decode_one(model["params"], cache, tok,
-                                        prompt_len + i)
+                tok, cache = slot.decode(model["params"], cache, tok,
+                                         prompt_len + i)
                 host = tok.cpu().numpy()
                 for o in outputs:
                     o.write((mb, i + 1, host))
         finally:
-            decode_one.close()
+            pool.release(slot)
         _timed("decode", t0)
 
     @register_app("serve/assemble")
@@ -240,7 +337,8 @@ def run_serving(cfg: ArchConfig, *, num_requests: int = 8,
                                    decode_steps=decode_steps,
                                    stats_json=stats_json)
             result.update(prefill_s=app_seconds["prefill"],
-                          decode_s=app_seconds["decode"])
+                          decode_s=app_seconds["decode"], app_ms=app_ms,
+                          slots=pool.made)
             return result
 
         telemetry = TelemetryConfig(metrics=True) if stats_json else None
@@ -273,6 +371,8 @@ def run_serving(cfg: ArchConfig, *, num_requests: int = 8,
             "gen_tokens_per_s": gen_tokens / wall,
             "prefill_s": app_seconds["prefill"],
             "decode_s": app_seconds["decode"],
+            "app_ms": app_ms,
+            "slots": pool.made,
             "drops": sum(rep.status_counts.values()),
         }
         print(f"[serve] {num_requests} requests x {decode_steps} tokens in "
@@ -280,6 +380,7 @@ def run_serving(cfg: ArchConfig, *, num_requests: int = 8,
               f"responses {out.shape}")
         return result
     finally:
+        pool.close()
         model.clear()
 
 

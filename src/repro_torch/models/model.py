@@ -484,7 +484,8 @@ def _decode_block(p: Dict[str, Any], h: torch.Tensor, kv: Dict[str, Any],
 
 def decode_step(params: Dict[str, Any], cfg: ArchConfig,
                 cache: Dict[str, Any], tokens: torch.Tensor,
-                pos: Position, *, use_kernel: bool = False
+                pos: Position, *, use_kernel: bool = False,
+                state_out: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One serve step: tokens (B,1) at position ``pos`` -> (logits, cache).
 
@@ -495,7 +496,10 @@ def decode_step(params: Dict[str, Any], cfg: ArchConfig,
     cache is updated in place and returned.  The SSM state is kept in
     f32 from the first step on, as in the reference (see
     ``ssm.mamba2_decode_step``): a cache whose state is still in the model's
-    dtype gets a new f32 state tensor.  encdec adds the sinusoid row
+    dtype gets a new f32 state tensor, or, given ``state_out`` (an f32
+    tensor of the state's shape: a serve slot's, so that a captured first
+    step writes at fixed addresses), writes the new state there and keeps
+    its own, which a later prefill fills again.  encdec adds the sinusoid row
     ``pos`` of the cache's length (as the reference slices it).
     ``use_kernel`` sends every attention over a cache (self and cross)
     to the decode kernel (``kernels.ops.decode_attention``); the default
@@ -520,7 +524,10 @@ def decode_step(params: Dict[str, Any], cfg: ArchConfig,
     ssm = cache["ssm"]
     states = ssm["state"]
     promoted = torch.promote_types(states.dtype, torch.float32)
-    if states.dtype != promoted:
+    keep = states.dtype != promoted and state_out is not None
+    if keep:
+        states = state_out
+    elif states.dtype != promoted:
         states = torch.empty_like(states, dtype=promoted)
     for i in range(cfg.num_layers):
         p = _layer(params["layers"], i)
@@ -533,7 +540,8 @@ def decode_step(params: Dict[str, Any], cfg: ArchConfig,
         if g >= 0:
             h = _decode_block(params["shared"], h, _layer(cache["kv"], g),
                               pos, cfg, 0, use_kernel=use_kernel)
-    ssm["state"] = states
+    if not keep:
+        ssm["state"] = states
     return logits_fn(params, cfg, h), cache
 
 

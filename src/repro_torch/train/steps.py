@@ -217,7 +217,8 @@ def _capture_stream(dev: torch.device) -> "torch.cuda.Stream":
 
 
 def _capture(graph: "torch.cuda.CUDAGraph", dev: torch.device,
-             fn: Callable, *args: Any) -> Tuple[Any, float]:
+             fn: Callable, *args: Any, pool: Optional[tuple] = None
+             ) -> Tuple[Any, float]:
     """``fn(*args)`` captured into ``graph``: (what it returned, the
     capture's ms).  One capture at a time, on the device's capture
     stream, after the caching allocator's free blocks are released (as
@@ -227,14 +228,15 @@ def _capture(graph: "torch.cuda.CUDAGraph", dev: torch.device,
     synchronise or copy to the host neither fails nor invalidates it.
     Work that ``fn`` hands to autograd's device thread lands in the same
     capture and pool (autograd runs a backward op on its forward's
-    stream).  A failed capture raises."""
+    stream).  ``pool``: a memory pool shared with other graphs
+    (``GraphPool``), else the graph's own.  A failed capture raises."""
     with _CAPTURE_LOCK:
         t0 = time.perf_counter()
         torch.cuda.empty_cache()
         stream = _capture_stream(dev)
         stream.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(stream):
-            graph.capture_begin(capture_error_mode="thread_local")
+            graph.capture_begin(pool=pool, capture_error_mode="thread_local")
             try:
                 out = fn(*args)
             finally:
@@ -379,31 +381,226 @@ class TrainStep:
 # ---------------------------------------------------------------------------
 
 
-def make_prefill_step(cfg: ArchConfig, *, use_kernel: Optional[bool] = None
-                      ) -> Callable:
-    """``prefill_step(params, batch, max_seq=None) -> (next_tok, cache)``.
+def _clear_unwritten(cfg: ArchConfig, cache: Dict[str, Any], s: int,
+                     t: int) -> None:
+    """Zero the rows of a cache that a prefill of ``s`` tokens (and ``t``
+    encoder frames) does not write: the KV rows past ``s``, the conv
+    window's rows before a prompt shorter than it, the cross rows past
+    ``t``.  A reused cache (a serve slot's) then holds after the prefill
+    the bits of a fresh zeroed one, whatever the last microbatch's decode
+    steps left in it; whisper's decode attends over the zero cross rows,
+    as the reference's padded cache makes it."""
+    if "kv" in cache:
+        for t_ in cache["kv"].values():
+            t_[:, :, s:].zero_()
+    if "ssm" in cache:
+        width = cfg.ssm_conv - 1
+        cache["ssm"]["conv"][:, :, :width - min(s, width)].zero_()
+    for name in ("cross_k", "cross_v"):
+        if name in cache:
+            cache[name][:, :, t:].zero_()
+
+
+def _prefill(cfg: ArchConfig, params, batch: Dict[str, torch.Tensor],
+             cache: Optional[Dict[str, Any]], use_kernel: bool,
+             max_seq: Optional[int] = None
+             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """One prefill: (next token (B,) int32, the cache).  A given ``cache``
+    is filled in place, its unwritten rows zeroed first; else a zeroed one
+    is made at ``max_seq``."""
+    if cache is not None:
+        frames = batch.get("frames")
+        _clear_unwritten(cfg, cache, batch["tokens"].shape[1],
+                         0 if frames is None else frames.shape[1])
+    logits, cache = M.prefill(params, cfg, batch, use_kernel=use_kernel,
+                              max_seq=max_seq, cache=cache)
+    next_tok = torch.argmax(logits[:, -1, :cfg.vocab_size], dim=-1)
+    return next_tok.to(torch.int32), cache
+
+
+class GraphPool:
+    """The memory pool of a ``PrefillStep``'s graphs: one a step, unless
+    several steps share one (a serve call's slots, a prefill graph each),
+    so that their transients take the most one of them needs, not the sum:
+    a prefill graph at gemma2-27b's 2 x 8192 tokens keeps several GB of
+    activations in its pool.  Graphs that share a pool
+    must not run at once, so each replay waits on the device for the one
+    before it (``before``, ``after``: an event recorded on the replaying
+    thread's stream), whichever thread and stream replay them.  The pool
+    is freed with the last graph in it."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.handle: Optional[tuple] = None
+        self.last: Optional["torch.cuda.Event"] = None
+
+    def pool(self) -> tuple:
+        """The pool's handle, made on first use."""
+        with self.lock:
+            if self.handle is None:
+                self.handle = torch.cuda.graph_pool_handle()
+            return self.handle
+
+    def before(self, dev: torch.device) -> None:
+        if self.last is not None:
+            torch.cuda.current_stream(dev).wait_event(self.last)
+
+    def after(self, dev: torch.device) -> None:
+        self.last = torch.cuda.Event()
+        self.last.record(torch.cuda.current_stream(dev))
+
+
+class PrefillGraph:
+    """One cache's prefill, captured once as a CUDA graph and replayed for
+    every later prompt of the same shapes: the port's counterpart of the
+    reference's ``jax.jit(make_prefill_step(cfg))``.
+
+    Made by the first prefill on a (params, cache, batch shapes), which
+    runs eagerly on the caller's stream and is a real prefill (``first``):
+    it loads the kernels and makes what they allocate lazily (the MoE
+    route's scratch, the SSD scan's library) before the capture.  The
+    capture (``_capture``) reads the batch from static inputs (``tokens``
+    and, for encdec, ``frames``), zeroes the cache's unwritten rows, fills
+    the cache in place at its addresses and writes the next token into a
+    static output.  Nothing in it waits for the host: the prefill's shapes
+    and windows are Python ints from the config and the prompt's shape.
+    The graph captures into ``pool`` (a ``GraphPool``) and its replays
+    take their turn there.  A failed capture or replay raises.
+
+    ``counts`` tallies captures and replays process-wide."""
+
+    counts = {"captures": 0, "replays": 0}
+
+    def __init__(self, cfg: ArchConfig, params, batch: Dict[str, torch.Tensor],
+                 cache: Dict[str, Any], use_kernel: bool, pool: GraphPool):
+        dev = batch["tokens"].device
+        self.params, self.cache, self.pool = params, cache, pool
+        self.batch = {k: v.clone() for k, v in batch.items()}
+        self.batch_key = _batch_key(batch)
+        self.first, _ = _prefill(cfg, params, self.batch, cache, use_kernel)
+        self.graph = torch.cuda.CUDAGraph()
+        (self.next, _), self.capture_ms = _capture(
+            self.graph, dev, _prefill, cfg, params, self.batch, cache,
+            use_kernel, pool=pool.pool())
+        with _COUNTS_LOCK:
+            PrefillGraph.counts["captures"] += 1
+
+    def takes(self, params, batch: Dict[str, torch.Tensor],
+              cache: Dict[str, Any]) -> bool:
+        """Whether a replay computes this prefill: the params and the cache
+        are the capture's, the batch of its shapes and dtypes."""
+        return (params is self.params and cache is self.cache
+                and _batch_key(batch) == self.batch_key)
+
+    def replay(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The next token (B,) int32 after ``batch``'s prompt, the cache
+        filled; a clone, since the next replay overwrites the output."""
+        for k, v in self.batch.items():
+            v.copy_(batch[k])
+        with self.pool.lock:
+            self.pool.before(self.next.device)
+            self.graph.replay()
+            out = self.next.clone()
+            self.pool.after(self.next.device)
+        with _COUNTS_LOCK:
+            PrefillGraph.counts["replays"] += 1
+        return out
+
+    def release(self) -> None:
+        """Free the graph and its pool's tensors."""
+        del self.graph, self.next, self.batch, self.params, self.cache
+        self.pool = None
+
+
+class PrefillStep:
+    """``prefill_step(params, batch, max_seq=None, cache=None) ->
+    (next_tok (B,) int32, cache)`` (see ``make_prefill_step``); ``graph``
+    the current ``PrefillGraph`` or None; ``pool`` the ``GraphPool`` its
+    graphs capture into."""
+
+    def __init__(self, cfg: ArchConfig, graph: Optional[bool],
+                 use_kernel: Optional[bool], pool: GraphPool):
+        self.cfg, self.use_graph, self.use_kernel = cfg, graph, use_kernel
+        self.pool = pool
+        self.graph: Optional[PrefillGraph] = None
+
+    def on_graph(self, tokens: torch.Tensor) -> bool:
+        """Whether a prefill of ``tokens`` into a cache goes through a CUDA
+        graph."""
+        cuda = tokens.device.type == "cuda"
+        if self.use_graph and not cuda:
+            raise ValueError("make_prefill_step(graph=True) captures a CUDA "
+                             f"graph; the tokens are on {tokens.device}")
+        return cuda if self.use_graph is None else bool(self.use_graph)
+
+    def __call__(self, params, batch: Dict[str, torch.Tensor],
+                 max_seq: Optional[int] = None,
+                 cache: Optional[Dict[str, Any]] = None):
+        tokens = batch["tokens"]
+        on_graph = self.on_graph(tokens)
+        if on_graph and cache is None:
+            if self.use_graph:
+                raise ValueError("make_prefill_step(graph=True) fills a "
+                                 "cache of the caller's; pass cache=")
+            on_graph = False
+        kernel = (tokens.device.type == "cuda" if self.use_kernel is None
+                  else self.use_kernel)
+        with torch.inference_mode():
+            if not on_graph:
+                return _prefill(self.cfg, params, batch, cache, kernel,
+                                max_seq)
+            g = self.graph
+            if g is None or not g.takes(params, batch, cache):
+                self.close()
+                g = self.graph = PrefillGraph(self.cfg, params, batch, cache,
+                                              kernel, self.pool)
+                first, g.first = g.first, None
+                return first, cache
+            return g.replay(batch), cache
+
+    def close(self) -> None:
+        """Release the graph, if any."""
+        if self.graph is not None:
+            self.graph.release()
+        self.graph = None
+
+
+def make_prefill_step(cfg: ArchConfig, *, use_kernel: Optional[bool] = None,
+                      graph: Optional[bool] = None,
+                      pool: Optional[GraphPool] = None) -> PrefillStep:
+    """``prefill_step(params, batch, max_seq=None, cache=None) ->
+    (next_tok (B,) int32, cache)``.
 
     ``batch`` holds ``tokens`` and, for encdec, ``frames``; it reaches
-    ``prefill`` unchanged.  ``use_kernel=None`` sends prefill attention and the SSD scan to the
+    ``prefill`` unchanged.  A given ``cache`` (``M.init_cache``'s tree, at
+    the decode's length) is filled in place, the rows the prompt does not
+    write zeroed, so a cache can serve one prompt after another; without
+    one, the step makes a zeroed cache at ``max_seq`` (default: the
+    prompt's length) each call, eagerly.
+
+    ``graph=None`` runs a prefill into a given cache through a CUDA graph
+    (``PrefillGraph``) when the tokens are on CUDA, and any other prefill
+    eagerly; ``True`` always through a graph, and raises for tokens on the
+    CPU or without a cache; ``False`` eagerly on either device.  A graph
+    belongs to one (params, cache, batch shapes): the first prefill on a
+    cache is eager and captures it, later prefills on that cache replay
+    it, a prefill on another cache captures anew.  ``pool``: the
+    ``GraphPool`` the graphs capture into, shared with other steps whose
+    graphs never run at once (a serve call's slots); by default one of the
+    step's own.  ``prefill_step.close()`` frees the graph.
+    ``use_kernel=None`` sends prefill attention and the SSD scan to the
     hand-written kernels when the tokens are on CUDA and to the plain
     torch ops otherwise."""
-    def prefill_step(params, batch: Dict[str, torch.Tensor],
-                     max_seq: Optional[int] = None):
-        kernel = (batch["tokens"].device.type == "cuda"
-                  if use_kernel is None else use_kernel)
-        with torch.inference_mode():
-            logits, cache = M.prefill(params, cfg, batch, use_kernel=kernel,
-                                      max_seq=max_seq)
-            next_tok = torch.argmax(logits[:, -1, :cfg.vocab_size], dim=-1)
-        return next_tok.to(torch.int32), cache
-    return prefill_step
+    return PrefillStep(cfg, graph, use_kernel,
+                       GraphPool() if pool is None else pool)
 
 
 def _greedy(cfg: ArchConfig, params, cache, tokens: torch.Tensor, pos,
-            use_kernel: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+            use_kernel: bool, state_out: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One decode step: (greedy next token (B, 1) int32, logits)."""
     logits, _ = M.decode_step(params, cfg, cache, tokens, pos,
-                              use_kernel=use_kernel)
+                              use_kernel=use_kernel, state_out=state_out)
     tok = torch.argmax(logits[:, -1, :cfg.vocab_size], dim=-1)
     return tok.to(torch.int32)[:, None], logits
 
@@ -438,7 +635,10 @@ class DecodeGraph:
     invalidates one.  A failed capture or replay raises.
 
     ``use_kernel`` sends the step's attention to the decode kernel, in the
-    eager first step and in the capture alike.
+    eager first step and in the capture alike.  ``state_out`` is
+    ``M.decode_step``'s: the f32 state a first step on a cache whose SSM
+    state is in a narrower dtype writes (``DecodeStep``'s first-step
+    graph).
 
     ``counts`` tallies captures and replays process-wide (the replays of a
     graph are added when it is released), so that a run can show it went
@@ -447,20 +647,22 @@ class DecodeGraph:
     counts = {"captures": 0, "replays": 0}
 
     def __init__(self, cfg: ArchConfig, params, cache: Dict[str, Any],
-                 tokens: torch.Tensor, pos, use_kernel: bool = True):
+                 tokens: torch.Tensor, pos, use_kernel: bool = True,
+                 state_out: Optional[torch.Tensor] = None):
         dev = tokens.device
-        self.params, self.cache = params, cache
+        # state_out is held so that the buffer the graph writes outlives it
+        self.params, self.cache, self.state_out = params, cache, state_out
         self.tokens = tokens.to(torch.int32, copy=True)
         self.pos = torch.empty((), dtype=torch.int64, device=dev)
         _set_position(self.pos, pos)
         self.first, self.first_logits = _greedy(cfg, params, cache,
                                                 self.tokens, self.pos,
-                                                use_kernel)
+                                                use_kernel, state_out)
         self.graph = torch.cuda.CUDAGraph()
         self.replays = 0
         (self.next, self.logits), self.capture_ms = _capture(
             self.graph, dev, _greedy, cfg, params, cache, self.tokens,
-            self.pos, use_kernel)
+            self.pos, use_kernel, state_out)
         with _COUNTS_LOCK:
             DecodeGraph.counts["captures"] += 1
 
@@ -479,49 +681,95 @@ class DecodeGraph:
         with _COUNTS_LOCK:
             DecodeGraph.counts["replays"] += self.replays
         self.replays = 0
-        del self.graph, self.next, self.logits
+        del self.graph, self.next, self.logits, self.state_out
+
+
+def _narrow_state(cache: Dict[str, Any]) -> bool:
+    """Whether ``cache`` holds an SSM state in a dtype narrower than f32: a
+    prefill's, which the first decode step reads and promotes."""
+    ssm = cache.get("ssm")
+    return ssm is not None and ssm["state"].dtype != torch.promote_types(
+        ssm["state"].dtype, torch.float32)
 
 
 class DecodeStep:
     """``decode_one(params, cache, tokens, pos) -> (next_tok (B,1), cache)``
     (see ``make_decode_step``).  ``logits`` holds the last step's logits
     (B, 1, V) (a graph's static output: the next replay overwrites it);
-    ``graph`` the current ``DecodeGraph`` or None."""
+    ``graph`` the current ``DecodeGraph`` or None, ``first_graph`` the
+    first step's on a cache with a narrow SSM state."""
 
     def __init__(self, cfg: ArchConfig, graph: Optional[bool],
                  use_kernel: Optional[bool] = None):
         self.cfg, self.use_graph, self.use_kernel = cfg, graph, use_kernel
         self.graph: Optional[DecodeGraph] = None
+        self.first_graph: Optional[DecodeGraph] = None
         self.logits: Optional[torch.Tensor] = None
+        self.views: Optional[Tuple[Dict[str, Any], Dict[str, Any]]] = None
 
-    def __call__(self, params, cache: Dict[str, Any], tokens: torch.Tensor,
-                 pos):
+    def _view(self, cache: Dict[str, Any]) -> Dict[str, Any]:
+        """``cache`` with an f32 SSM state of this step's own in place of
+        its narrow one (the same KV, conv and cross tensors), made once a
+        cache: what the steps after the first read and write."""
+        if self.views is None or self.views[0] is not cache:
+            ssm = cache["ssm"]
+            state = torch.empty_like(ssm["state"], dtype=torch.promote_types(
+                ssm["state"].dtype, torch.float32))
+            self.views = (cache, {**cache, "ssm": {**ssm, "state": state}})
+        return self.views[1]
+
+    def _graph(self, attr: str, params, cache: Dict[str, Any],
+               tokens: torch.Tensor, pos, kernel: bool,
+               state_out: Optional[torch.Tensor]) -> torch.Tensor:
+        """The step through the graph kept in ``attr``: a replay when it
+        was captured on (params, cache), else a new capture after an eager
+        step (whose token is returned)."""
+        g = getattr(self, attr)
+        if g is None or g.cache is not cache or g.params is not params:
+            if g is not None:
+                g.release()
+                setattr(self, attr, None)
+            g = DecodeGraph(self.cfg, params, cache, tokens, pos, kernel,
+                            state_out)
+            setattr(self, attr, g)
+            self.logits = g.first_logits
+            return g.first
+        tok = g.replay(tokens, pos)
+        self.logits = g.logits
+        return tok
+
+    def on_graph(self, tokens: torch.Tensor) -> bool:
+        """Whether a step on ``tokens`` goes through a CUDA graph."""
         cuda = tokens.device.type == "cuda"
         if self.use_graph and not cuda:
             raise ValueError("make_decode_step(graph=True) captures a CUDA "
                              f"graph; the tokens are on {tokens.device}")
-        kernel = cuda if self.use_kernel is None else self.use_kernel
+        return cuda if self.use_graph is None else bool(self.use_graph)
+
+    def __call__(self, params, cache: Dict[str, Any], tokens: torch.Tensor,
+                 pos):
+        on_graph = self.on_graph(tokens)
+        kernel = (tokens.device.type == "cuda" if self.use_kernel is None
+                  else self.use_kernel)
         with torch.inference_mode():
-            if not (cuda if self.use_graph is None else self.use_graph):
+            first = _narrow_state(cache)
+            out = self._view(cache) if first else cache
+            state_out = out["ssm"]["state"] if first else None
+            if not on_graph:
                 tok, self.logits = _greedy(self.cfg, params, cache, tokens,
-                                           pos, kernel)
-                return tok, cache
-            g = self.graph
-            if g is None or g.cache is not cache or g.params is not params:
-                self.close()
-                g = self.graph = DecodeGraph(self.cfg, params, cache,
-                                             tokens, pos, kernel)
-                self.logits = g.first_logits
-                return g.first, cache
-            tok = g.replay(tokens, pos)
-            self.logits = g.logits
-            return tok, cache
+                                           pos, kernel, state_out)
+            else:
+                tok = self._graph("first_graph" if first else "graph",
+                                  params, cache, tokens, pos, kernel,
+                                  state_out)
+            return tok, out
 
     def close(self) -> None:
-        """Release the graph, if any (a step made again captures anew)."""
-        if self.graph is not None:
-            self.graph.release()
-        self.graph = self.logits = None
+        """Release the graphs, if any (a step made again captures anew)."""
+        for g in (self.graph, self.first_graph):
+            if g is not None:
+                g.release()
+        self.graph = self.first_graph = self.logits = self.views = None
 
 
 def make_decode_step(cfg: ArchConfig, *, graph: Optional[bool] = None,
@@ -535,6 +783,17 @@ def make_decode_step(cfg: ArchConfig, *, graph: Optional[bool] = None,
     on either device.  A graph belongs to one (params, cache): the first
     step on a cache captures it, later steps on that cache replay it, a
     step on another cache captures anew.  ``decode_one.close()`` frees it.
+
+    A cache whose SSM state is in the model's dtype narrower than f32 (a
+    bf16 prefill's) is left as it is: the first step reads its state and
+    writes the f32 state of the steps after it (the reference's rounding)
+    into a tensor of the step's own, and returns the cache with that state
+    (``_view``), which the later steps take.  So a caller passes each
+    step the cache the last one returned: given the prefill's cache again,
+    the step is the first step once more (it reads the narrow state, which
+    it never writes).  On the graph route that first step is a graph of
+    its own, so a cache filled again by a prefill (a serve slot's) replays
+    both.
     ``use_kernel=None`` sends the attention over the caches to the decode
     kernel (``kernels.ops.decode_attention``) when the tokens are on CUDA
     and to its plain version (torch ops) otherwise, as

@@ -142,7 +142,7 @@ def test_serve_kernel_route_on_cpu_tokens_match(shared, monkeypatch):
     tree, want = shared
     real = steps.make_prefill_step
     monkeypatch.setattr(mod, "make_prefill_step",
-                        lambda cfg: real(cfg, use_kernel=True))
+                        lambda cfg, **kw: real(cfg, use_kernel=True, **kw))
     res = mod.run_serving(get_smoke_config(ARCH), device="cpu",
                           params=params_from_numpy(tree, "cpu"), **SHAPE)
     np.testing.assert_array_equal(res["responses"], want)
@@ -214,7 +214,7 @@ def test_ssm_serve_kernel_route_on_cpu_tokens_match(ssm_shared, monkeypatch):
     cfg, tree, want = ssm_shared
     real = steps.make_prefill_step
     monkeypatch.setattr(mod, "make_prefill_step",
-                        lambda c: real(c, use_kernel=True))
+                        lambda c, **kw: real(c, use_kernel=True, **kw))
     res = mod.run_serving(cfg, device="cpu",
                           params=params_from_numpy(tree, "cpu"), **SHAPE)
     np.testing.assert_array_equal(res["responses"], want)
@@ -239,7 +239,7 @@ def test_moe_encdec_serve_kernel_route_on_cpu_tokens_match(
     cfg, tree, want = moe_encdec_shared
     real = steps.make_prefill_step
     monkeypatch.setattr(mod, "make_prefill_step",
-                        lambda c: real(c, use_kernel=True))
+                        lambda c, **kw: real(c, use_kernel=True, **kw))
     res = mod.run_serving(cfg, device="cpu",
                           params=params_from_numpy(tree, "cpu"), **SHAPE)
     np.testing.assert_array_equal(res["responses"], want)
