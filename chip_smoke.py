@@ -7,13 +7,15 @@ Run from the repo root with no arguments:
 
 (``--kernels-only`` stops after phase 3 and prints its kernels line but
 no result line; ``--serve-parent`` times each serve path's prefill and
-replayed decode step on the gate's kernel and on its plain ops (granite's
-also on its MoE kernels and on the block's plain route), in turns, after
-the build, and prints no result line.)
+replayed decode step on the fused norm and RoPE kernels and on the
+parent's route, the adds, silu and product as ATen ops beside the norm
+and RoPE kernels, and on the gate's kernel against its plain ops
+(granite's also on its MoE kernels and on the block's plain route), in
+turns, after the build, and prints no result line.)
 
 Full profiler tables land in ``chiprun_out/chip_smoke/`` (gitignored).
-Phases, each printing one JSON line (any failure exits non-zero and prints
-no result):
+Phases, each printing one JSON line, its ``at_s`` the seconds since the
+script started (any failure exits non-zero and prints no result):
 
 1. device: the card's name and power limit; TF32 off for matmuls and cuDNN.
 2. build: compile every CUDA kernel from ``src/repro_torch/csrc`` with nvcc
@@ -95,7 +97,23 @@ no result):
    difference printed), the same bits over 3 calls, one device launch a
    kernel a call; each timed at codeqwen1.5-7b's train shape in turns
    with its plain version, beside its bound and ``F.rms_norm`` on the f32
-   upcast (RoPE: no library call).  The MoE dispatch's three kernels
+   upcast (RoPE: no library call).  The fused instances: the norm behind
+   its add prologue (h' = h + (a + bias) written beside the normed rows;
+   ``NR_ADD_CASES``: every (x, scale) dtype pair, with and without a bias,
+   f32 x with a bf16 bias, rows in passes, unaligned, odd widths), behind
+   its gate prologue (``y * silu(z)``, z a slice of the projection;
+   ``NR_GATE_CASES``: mamba2's and zamba2's shapes, every dtype pair, an
+   odd row stride, rows in passes, unaligned), and RoPE with the q and k
+   biases (``NR_ROPE_BIAS_CASES``), forward and backward: h' the plain
+   adds' bits, the rest within the norm's and RoPE's tolerances (the
+   backward's chains of bf16 roundings within as many roundings,
+   ``nr_within``), the bias grads within one rounding of the sums of the
+   kernel's grads, the same bits over 3 calls, one device launch a kernel
+   a call; each timed at its path shape (``NR_FUSED_SHAPE``) in turns with
+   the parent's route (the adds as ATen ops, then the norm or RoPE kernel)
+   and the plain version, beside its bound and the unfused library calls
+   (the adds, then ``F.rms_norm``; no single PyTorch call computes any of
+   them).  The MoE dispatch's three kernels
    (``kernels.moe_dispatch``: slot positions, dispatch, combine) at
    ``MOE_CASES`` (granite's prefill and decode shapes, grok's width, a
    forced capacity overflow, f32, 64 groups of 32 tokens, the smoke
@@ -162,11 +180,15 @@ no result):
    there), on the route ``route(dtype, group, D)`` names for the path's
    model, and the norm and RoPE kernels as often as the path's norms and
    self-attention calls imply (``expected_norm_rope_serve``, host and
-   device), the gate's forward once a gated MLP call a prefill and a
-   decode step and no loss kernel (``expected_gate_serve``, host and
-   device), and the MoE kernels once a MoE layer a prefill and a decode
-   step (``expected_moe_serve``, host and device; granite only); granite's
-   prefill profile must show none of the MoE's plain ops (``aten::cumsum``,
+   device, in all and by route: the add, gate and bias instances as
+   ``norm_rope_calls`` counts them), the gate's forward once a gated MLP
+   call a prefill and a decode step and no loss kernel
+   (``expected_gate_serve``, host and device), and the MoE kernels once a
+   MoE layer a prefill and a decode step (``expected_moe_serve``, host and
+   device; granite only); the prefill of each of ``FUSED_OPS_PATHS``
+   profiled again on the parent's route (``fused_ops_check``) must show
+   exactly ``fused_prefill_ops`` more ATen adds, products and silus;
+   granite's prefill profile must show none of the MoE's plain ops (``aten::cumsum``,
    ``scatter_add``, ``gather``), and its prefill, profiled and timed in
    turns with its replayed decode step, also on the MoE block's plain
    route (``moe_parent``); and full-width prefill
@@ -207,8 +229,10 @@ no result):
    step; then the engine eager and through the graph in turns
    (``TRAIN_ENGINE_TURNS``); (d) codeqwen1.5-7b at full width cut to 16
    layers, one donated, rematerialised bf16 step on 8 x 512 tokens, in
-   three columns in turns (``TRAIN_TURNS``): through its graph, eager (the
-   parent's path) and eager on the gate's and the loss's plain ops
+   four columns in turns (``TRAIN_TURNS``): through its graph, eager,
+   eager on the parent's route (``unfused_norm_rope``: the residual and
+   bias adds, and the SSM gate, as ATen ops beside the norm and RoPE
+   kernels) and eager on the gate's and the loss's plain ops
    (``plain_gate_loss``): time against ``train_step_bound``, device busy
    and idle, peaks of allocated, requested and reserved bytes, the
    capture's ms, the first loss equal to ``forward_train``'s, the loss
@@ -218,7 +242,8 @@ no result):
    optimizer, global norm, bf16 GEMMs, f32 GEMMs, the training attention
    kernels, other elementwise work by op family, idle; the replay by its
    kernels' names in the eager step's proportions, ``replay_split``); the
-   eager kernels' peak no higher than the plain gate and loss's; (e) each
+   eager kernels' peak no higher than the parent route's nor than the
+   plain gate and loss's; (e) each
    part's graph captures and replays as ``expected_train_graphs`` says
    (``train_graph``); no serve kernel launched in the whole phase (flash,
    the SSD scan and decode have no backward: training runs with
@@ -229,10 +254,9 @@ no result):
    self-attention call a forward (the layers' twice under remat) and a
    backward (``expected_norm_rope_launches``), the gate once a gated call
    a forward and a backward and the loss's kernels once a forward and a
-   backward (``expected_gate_loss_launches``; the plain column's steps
-   none), counted on the device (a capture launches on the host only, a
-   replay on the device only); no MoE kernel (the block trains on its
-   plain route).
+   backward (``expected_gate_loss_launches``), counted on the device (a
+   capture launches on the host only, a replay on the device only); no
+   MoE kernel (the block trains on its plain route).
 6. dryrun, with every kernel count set to 0: (a) the port's dry-run of
    mamba2-1.3b x decode_32k on the 256-rank fake mesh ends ok and agrees
    with the reference's committed record on params, chips, decisions and
@@ -299,8 +323,12 @@ H100_PEAK_FLOPS = {"torch.bfloat16": PEAK_FLOPS_BF16,
                    "torch.float32": PEAK_FLOPS_F32}
 
 
+STARTED = time.monotonic()      # each line's ``at_s``: where the time goes
+
+
 def emit(phase: str, **kw) -> None:
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    print(json.dumps({"phase": phase, **kw,
+                      "at_s": time.monotonic() - STARTED}), flush=True)
 
 
 def fail(msg: str) -> None:
@@ -321,19 +349,30 @@ def card_line() -> str:
         check=True, timeout=60).stdout.strip()
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+def cuda_ms(fn, iters: int = 20, warmup: int = 3,
+            budget_ms: float = 500.0) -> float:
     """Device ms per call of ``fn``: CUDA events around ``iters`` calls.
 
     The calls are queued behind a ~20 ms device sleep, so the device runs
     them back to back: without it, a kernel shorter than its wrapper's host
-    time (the D=64 flash shapes, ~25 us) is timed at the host's pace."""
+    time (the D=64 flash shapes, ~25 us) is timed at the host's pace.  A
+    call slower than ``budget_ms / iters`` after the warm-up (a plain
+    version at a path's shape, such as gemma2's 8192-token attention) is
+    timed over fewer calls: about ``budget_ms`` in all, at least 3."""
     import torch
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
-    torch.cuda._sleep(40_000_000)       # clock cycles: ~20 ms at 1.98 GHz
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    one = start.elapsed_time(end)
+    if one * iters > budget_ms:
+        iters = max(3, int(budget_ms / one))
+    torch.cuda._sleep(40_000_000)       # clock cycles: ~20 ms at 1.98 GHz
     start.record()
     for _ in range(iters):
         fn()
@@ -2436,6 +2475,477 @@ def nr_times(torch, nr, C, gen) -> dict:
     return out
 
 
+# The fused instances: the norm behind its add and gate prologues, RoPE
+# with the q and k biases
+NR_FUSED_REPLACES = {
+    "add_rms_norm_fwd": "src/repro/models/model.py:186-190 (h + a, the "
+                        "attention's output bias at src/repro/models/"
+                        "attention.py:131, then rms_norm; also :216-220, "
+                        ":264-273, :404-407: jnp inside jax.jit, fused by "
+                        "XLA; no Pallas kernel)",
+    "add_rms_norm_bwd": "src/repro/models/model.py:186-190 the adds' and "
+                        "rms_norm's vjp (jax.grad inside jax.jit, "
+                        "src/repro/launch/train.py:96; no Pallas kernel)",
+    "gated_rms_norm_fwd": "src/repro/models/ssm.py:150, :200 rms_norm(y * "
+                          "jax.nn.silu(z)) (jnp inside jax.jit; no Pallas "
+                          "kernel)",
+    "gated_rms_norm_bwd": "src/repro/models/ssm.py:150 its vjp (jax.grad "
+                          "inside jax.jit; no Pallas kernel)",
+    "rope_bias": "src/repro/models/attention.py:56-57 q + bq, k + bk, then "
+                 "src/repro/models/common.py:196 apply_rope, and their vjp "
+                 "(jnp inside jax.jit; no Pallas kernel)"}
+NR_FUSED_SHAPE = {
+    "add_rms_norm_fwd": "codeqwen1.5-7b train: h, a (8, 512, 4096) bf16, "
+                        "bias and scale bf16",
+    "add_rms_norm_bwd": "codeqwen1.5-7b train: h', dy, dres (8, 512, 4096) "
+                        "bf16, bias and scale bf16",
+    "gated_rms_norm_fwd": "mamba2-1.3b prefill: y (4, 512, 4096) bf16, z "
+                          "its slice of the (4, 512, 8512) projection",
+    "gated_rms_norm_bwd": "mamba2-1.3b prefill shape: y, z, dy (4, 512, "
+                          "4096) bf16, z a slice",
+    "rope_bias": "codeqwen1.5-7b train: q and k B8 S512 32/32 heads x 128 "
+                 "bf16, their biases bf16"}
+# name, shape, x dtype, scale dtype, bias dtype (None: no bias), x at an
+# unaligned address: every (x, scale) pair, with and without a bias (f32
+# x with a bf16 bias: whisper's f32 encoder), the paths' widths, rows in
+# passes (command-r-plus's 12,288), odd widths
+NR_ADD_CASES = (
+    ("codeqwen_train", (8, 512, 4096), "bf16", "bf16", "bf16", False),
+    ("codeqwen_decode", (4, 1, 4096), "bf16", "bf16", "bf16", False),
+    ("granite_1536", (4, 64, 1536), "bf16", "bf16", None, False),
+    ("whisper_enc_1280", (4, 64, 1280), "f32", "bf16", "bf16", False),
+    ("whisper_dec_1280", (4, 64, 1280), "bf16", "bf16", "bf16", False),
+    ("lm100m_f32", (8, 128, 768), "f32", "f32", None, False),
+    ("f32_bias_f32", (3, 7, 64), "f32", "f32", "f32", False),
+    ("bf16_f32_scale", (4, 64, 2048), "bf16", "f32", None, False),
+    ("zamba2_2560", (4, 64, 2560), "bf16", "bf16", None, False),
+    ("command_r_12288", (4, 128, 12288), "bf16", "bf16", None, False),
+    ("wide_12288_f32_bias", (3, 12288), "f32", "bf16", "bf16", False),
+    ("unaligned_4096_bf16", (6, 4096), "bf16", "bf16", "bf16", True),
+    ("odd_83_bf16", (5, 83), "bf16", "bf16", "bf16", False),
+    ("odd_12289_f32", (3, 12289), "f32", "f32", "f32", False),
+)
+# name, shape (y's), the projection's width (z its first columns), x
+# dtype, scale dtype, z at an unaligned address: mamba2's and zamba2's
+# prefill and decode shapes, every dtype pair, a row stride not a
+# multiple of 16 bytes, rows in passes
+NR_GATE_CASES = (
+    ("mamba2_prefill", (4, 512, 4096), 8512, "bf16", "bf16", False),
+    ("mamba2_decode", (4, 1, 4096), 8512, "bf16", "bf16", False),
+    ("zamba2_prefill", (4, 512, 5120), 10448, "bf16", "bf16", False),
+    ("zamba2_decode", (4, 1, 5120), 10448, "bf16", "bf16", False),
+    ("f32_f32", (2, 16, 4096), 8512, "f32", "f32", False),
+    ("f32_bf16", (2, 16, 256), 600, "f32", "bf16", False),
+    ("bf16_f32", (2, 16, 256), 600, "bf16", "f32", False),
+    ("odd_stride_bf16", (3, 5, 96), 101, "bf16", "bf16", False),
+    ("wide_12288_bf16", (2, 12288), 12288, "bf16", "bf16", False),
+    ("unaligned_4096_bf16", (6, 4096), 4096, "bf16", "bf16", True),
+)
+# RoPE with q and k biases: every case of NR_ROPE_CASES
+NR_ROPE_BIAS_CASES = NR_ROPE_CASES
+
+
+def nr_within(torch, got, want, roundings: int, extra=None) -> dict:
+    """``got`` against ``want``, both in the result's dtype from a chain of
+    ``roundings`` roundings to it: bf16 within roundings x 2^-8 (|want| +
+    |extra|) + 1e-5 max|want|, f32 within 1e-5 max(|want|, |extra|)
+    (``extra``: a summand of ``want`` whose rounding the sum may cancel:
+    the norm's dx beside the residual grad).  bf16 also reports the
+    largest distance in ulps (``max_ulp``) and the most roundings of
+    2^-8 (|want| + |extra|) that an element's error needs beyond the
+    1e-5 floor (``roundings_used``, against ``roundings``)."""
+    w = want.detach().float()
+    e = extra.detach().float().abs() if extra is not None else 0.0
+    err = (got.detach().float() - w).abs()
+    scale = max(float(w.abs().max()),
+                float(e.max()) if extra is not None else 0.0)
+    row = {"max_abs_err": float(err.max()),
+           "max_rel_err": float(err.max()) / scale if scale else 0.0}
+    if got.dtype == torch.bfloat16:
+        unit = TA_BF16_ULP * (w.abs() + e)
+        tol = roundings * unit + TA_REL_TOL * scale
+        need = (err - TA_REL_TOL * scale).clamp(min=0.0)
+        used = torch.where(need > 0, need / unit, torch.zeros_like(need))
+        row.update(max_ulp=ulp_diff(torch, got, want.to(got.dtype)),
+                   roundings_used=float(used.max()), roundings=roundings)
+    else:
+        tol = TA_REL_TOL * scale
+    row["ok"] = bool((err <= tol).all())
+    return row
+
+
+def nr_gate_faults(torch, nr, y, z, scale, dy, want) -> dict:
+    """Two planted faults of the gate's backward, emulated in plain ops,
+    each held to the gate case's tolerance (``nr_within``, 4 and 6
+    roundings): y's grad without its silu(z) factor (dg for dg silu(z)),
+    and z's without silu's z sigma(z) (1 - sigma(z)) term (dg y sigma(z)).
+    A check that lets either pass cannot see such a kernel."""
+    import torch.nn.functional as F
+    dg, _ = nr.rms_norm_bwd_plain(y * F.silu(z), scale, dy)
+    return {"dy_without_silu": nr_within(torch, dg, want[0], 4),
+            "dz_without_silu_slope": nr_within(
+                torch, (dg * y * torch.sigmoid(z)).to(z.dtype), want[1], 6)}
+
+
+def nr_draw(torch, shape, dt, unaligned, gen):
+    """randn of ``shape`` in ``dt`` (f32 or bf16 name), at an address one
+    element past a 16-byte boundary with ``unaligned``."""
+    numel = math.prod(shape)
+    base = torch.randn(numel + 1, generator=gen, device="cuda").to(
+        getattr(torch, NR_DTYPES[dt]))
+    return (base[1:] if unaligned else base[:numel]).view(shape)
+
+
+def nr_add_inputs(torch, case, gen):
+    name, shape, x_dt, s_dt, b_dt, unaligned = case
+    n = shape[-1]
+    h, a, dy, dres = (nr_draw(torch, shape, x_dt, unaligned, gen)
+                      for _ in range(4))
+    scale = nr_draw(torch, (n,), s_dt, False, gen) * 0.1
+    bias = None if b_dt is None else nr_draw(torch, (n,), b_dt, False,
+                                             gen) * 0.1
+    return h, a, scale, bias, dy, dres
+
+
+def nr_add_check(torch, nr, C, case, gen) -> dict:
+    """An add norm case: h' equal to the plain adds ``h + (a + bias)`` on
+    the card to the bit, also written over a (the serve steps' call), the
+    normed rows within the norm's tolerance of
+    the plain version on f32 upcasts (and, reported, whether they equal
+    the unfused norm kernel's on h'); the backward's dh within two
+    roundings of the plain one (``add_rms_norm_bwd_plain``: dres + the
+    rounded dx), dscale within the tolerance, the bias grad within one
+    rounding of the sum of the kernel's dh; the same bits over 3 calls;
+    one device launch of each kernel a call."""
+    name, shape, x_dt, s_dt, b_dt, unaligned = case
+    h, a, scale, bias, dy, dres = nr_add_inputs(torch, case, gen)
+    n = shape[-1]
+    if unaligned and h.data_ptr() % 16 == 0:
+        fail(f"add norm case {name}: h is aligned")
+    b_dtype = None if bias is None else bias.dtype
+    lib = nr._lib()
+    before = nr.kernel_launches(lib)
+    outs = [nr.add_rms_norm_fwd(h, a, scale, bias) for _ in range(3)]
+    grads = [nr.add_rms_norm_bwd(outs[0][0], scale, dy, dres, b_dtype)
+             for _ in range(3)]
+    torch.cuda.synchronize()
+    after = nr.kernel_launches(lib)
+    route = nr.norm_route(h.dtype, scale.dtype, "add")
+    launched = {k: after[k][route] - before[k][route]
+                for k in ("rms_norm_fwd", "rms_norm_bwd", "rms_norm_dscale")}
+    hp_want = h + (a if bias is None else a + bias)
+    hp, x = outs[0]
+    # the serve steps' call (after the counted ones): h' written over a
+    # copy of a
+    over = a.clone()
+    in_place = nr.add_rms_norm_fwd(h, over, scale, bias, h_out=over)
+    dx_ref, ds_ref = nr.rms_norm_bwd_plain(hp_want.float(), scale.float(),
+                                           dy.float())
+    dh, dscale, dbias = grads[0]
+    row = {"shape": list(shape), "x": x_dt, "scale": s_dt, "bias": b_dt,
+           "unaligned": unaligned, "route": route,
+           "h_same_bits": same_bits(torch, hp, hp_want),
+           "in_place_same_bits": same_bits(torch, over, hp_want)
+           and same_bits(torch, in_place[1], x),
+           "forward": ta_within(torch, x, C.rms_norm_plain(
+               hp_want.float(), scale.float())),
+           "forward_same_as_unfused": same_bits(
+               torch, x, nr.rms_norm_fwd(hp_want, scale)),
+           "dh": nr_within(torch, dh, dres + dx_ref.to(dres.dtype), 2,
+                           extra=dx_ref),
+           "dscale": ta_within(torch, dscale, ds_ref),
+           "dbias": None if bias is None else ta_within(
+               torch, dbias, dh.float().reshape(-1, n).sum(dim=0)),
+           "repeats": all(same_bits(torch, o[i], outs[0][i])
+                          for o in outs for i in (0, 1))
+           and all(same_bits(torch, g[i], grads[0][i])
+                   for g in grads for i in range(3 if bias is not None
+                                                 else 2)),
+           "device_launches": launched}
+    row["ok"] = (row["h_same_bits"] and row["in_place_same_bits"]
+                 and row["forward"]["ok"]
+                 and row["dh"]["ok"] and row["dscale"]["ok"]
+                 and (row["dbias"] is None or row["dbias"]["ok"])
+                 and row["repeats"]
+                 and launched == dict.fromkeys(launched, 3))
+    return row
+
+
+def nr_gate_inputs(torch, case, gen):
+    """y, z (the first n columns of a (..., width) projection), the scale
+    and dy of a gate case."""
+    name, shape, width, x_dt, s_dt, unaligned = case
+    n, lead = shape[-1], shape[:-1]
+    proj = nr_draw(torch, (*lead, width), x_dt, unaligned, gen)
+    y = nr_draw(torch, shape, x_dt, False, gen)
+    scale = nr_draw(torch, (n,), s_dt, False, gen) * 0.1
+    dy = nr_draw(torch, shape, x_dt, False, gen)
+    return y, proj[..., :n], scale, dy
+
+
+def nr_gate_check(torch, nr, C, case, gen) -> dict:
+    """A gated norm case (z a slice of the projection, read by its row
+    stride): the normed rows within the norm's tolerance of the plain
+    version on the f32 upcast of the plain ops' ``y * silu(z)`` on the
+    card (and, reported, whether they equal the unfused norm kernel's);
+    y's and z's grads against autograd's roundings
+    (``gated_rms_norm_bwd_plain`` on the card): the rounded dx of two
+    f32 sums of other orders may differ by one ulp (two roundings), and
+    each later rounding of both chains adds one, so y's within four and
+    z's within six, and both planted faults of ``nr_gate_faults`` outside
+    those limits; dscale within the tolerance; the same bits over 3
+    calls; one device launch of each kernel a call."""
+    import torch.nn.functional as F
+    name, shape, width, x_dt, s_dt, unaligned = case
+    y, z, scale, dy = nr_gate_inputs(torch, case, gen)
+    if unaligned and z.data_ptr() % 16 == 0:
+        fail(f"gate case {name}: z is aligned")
+    lib = nr._lib()
+    before = nr.kernel_launches(lib)
+    outs = [nr.gated_rms_norm_fwd(y, z, scale) for _ in range(3)]
+    grads = [nr.gated_rms_norm_bwd(y, z, scale, dy) for _ in range(3)]
+    torch.cuda.synchronize()
+    after = nr.kernel_launches(lib)
+    route = nr.norm_route(y.dtype, scale.dtype, "gate")
+    launched = {k: after[k][route] - before[k][route]
+                for k in ("rms_norm_fwd", "rms_norm_bwd", "rms_norm_dscale")}
+    g = y * F.silu(z)
+    want = nr.gated_rms_norm_bwd_plain(y, z, scale, dy)
+    _, ds_ref = nr.rms_norm_bwd_plain(g.float(), scale.float(), dy.float())
+    row = {"shape": list(shape), "width": width, "x": x_dt, "scale": s_dt,
+           "unaligned": unaligned, "route": route,
+           "forward": ta_within(torch, outs[0], C.rms_norm_plain(
+               g.float(), scale.float())),
+           "forward_same_as_unfused": same_bits(
+               torch, outs[0], nr.rms_norm_fwd(g, scale)),
+           "dy": nr_within(torch, grads[0][0], want[0], 4),
+           "dz": nr_within(torch, grads[0][1], want[1], 6),
+           "planted_faults": nr_gate_faults(torch, nr, y, z, scale, dy,
+                                            want),
+           "dscale": ta_within(torch, grads[0][2], ds_ref),
+           "repeats": all(same_bits(torch, o, outs[0]) for o in outs)
+           and all(same_bits(torch, gr[i], grads[0][i])
+                   for gr in grads for i in range(3)),
+           "device_launches": launched}
+    row["ok"] = (row["forward"]["ok"] and row["dy"]["ok"]
+                 and row["dz"]["ok"] and row["dscale"]["ok"]
+                 and not any(f["ok"]
+                             for f in row["planted_faults"].values())
+                 and row["repeats"]
+                 and launched == dict.fromkeys(launched, 3))
+    return row
+
+
+def nr_rope_bias_check(torch, nr, C, case, gen) -> dict:
+    """A RoPE case with q and k biases: the forward against the plain
+    rotation of the plain adds ``x + b`` on the card (the same bits, or
+    within 1 bf16 ulp; f32: ``ta_within``; and, reported, whether it
+    equals the unfused RoPE kernel's), the backward's rotated grads as
+    ``nr_rope_check`` holds them, each bias's grad within one rounding of
+    the sum of the kernel's rotated grads; the same bits over 3 calls;
+    one device launch of RoPE and of the dscale kernel a call."""
+    name, b, s, hq, hk, hd, dt, first = case
+    xs, dys, pos = nr_rope_inputs(torch, case, gen)
+    bs = [nr_draw(torch, tuple(x.shape[-2:]), dt, False, gen) * 0.1
+          for x in xs]
+    freqs = C.rope_freqs(hd, NR_THETA, torch.device("cuda"))
+    lib = nr._lib()
+    before = nr.kernel_launches(lib)
+    outs = [nr.rope(xs, pos, freqs, biases=bs) for _ in range(3)]
+    backs = [nr.rope(dys, pos, freqs, backward=True, biases=bs)
+             for _ in range(3)]
+    torch.cuda.synchronize()
+    after = nr.kernel_launches(lib)
+    launched = {f"{k}/{r}": after[k][r] - before[k][r]
+                for k in ("rope", "rms_norm_dscale") for r in after[k]
+                if after[k][r] != before[k][r]}
+    fwd, bwd = (nr.rope_route(xs[0].dtype, w, True) for w in (False, True))
+    row = {"B": b, "S": s, "heads": [hq, hk], "head_dim": hd, "dtype": dt,
+           "first_position": first, "device_launches": launched}
+    ok = launched == {f"rope/{fwd}": 3, f"rope/{bwd}": 3,
+                      f"rms_norm_dscale/{nr.dscale_route(bwd)}": 3}
+    added = [x + bb for x, bb in zip(xs, bs)]
+    row["forward_same_as_unfused"] = all(
+        same_bits(torch, g, w) for g, w in zip(outs[0],
+                                               nr.rope(added, pos, freqs)))
+    n = len(xs)
+    for part, got, want in (
+            ("forward", outs[0],
+             [C.apply_rope_plain(x, pos, NR_THETA) for x in added]),
+            ("backward", backs[0][:n],
+             [nr.rope_bwd_plain(d, pos, NR_THETA) for d in dys])):
+        ulps = max(ulp_diff(torch, g, w) for g, w in zip(got, want))
+        row[part] = {"same_bits": all(same_bits(torch, g, w)
+                                      for g, w in zip(got, want)),
+                     "max_ulp": ulps,
+                     "max_abs_err": max(float((g.float() - w.float()).abs()
+                                              .max())
+                                        for g, w in zip(got, want))}
+        if dt == "bf16":
+            ok = ok and ulps <= 1
+        else:
+            f32 = [C.apply_rope_plain(x.float(), pos, NR_THETA)
+                   for x in added] if part == "forward" else want
+            ok = ok and all(ta_within(torch, g, w)["ok"]
+                            for g, w in zip(got, f32))
+    row["bias_grads"] = [ta_within(torch, gb, go.float().reshape(
+        -1, *go.shape[-2:]).sum(dim=0))
+        for gb, go in zip(backs[0][n:], backs[0][:n])]
+    row["repeats"] = all(same_bits(torch, a, c) for o in (outs, backs)
+                         for other in o for a, c in zip(other, o[0]))
+    row["ok"] = (ok and row["repeats"]
+                 and all(r["ok"] for r in row["bias_grads"]))
+    return row
+
+
+def nr_fused_times(torch, nr, C, gen) -> dict:
+    """At the path shapes (``NR_FUSED_SHAPE``): each fused kernel (forward
+    and backward) in turns with the parent's route (the unfused calls: the
+    adds, or silu and the product, as ATen ops, then the norm or RoPE
+    kernel; their backward by autograd over the norm's or RoPE's function)
+    and the plain version (autograd's backward over the plain ops):
+    kernel, parent, plain, plain, parent, kernel; beside the bound (each
+    input read and each output written once) and, for the norms, the
+    unfused library calls (the adds, then ``F.rms_norm`` in the inputs'
+    dtype, weight 1 + scale).  No single PyTorch call computes any of
+    them (``library_ms`` null)."""
+    import torch.nn.functional as F
+    out = {}
+    # the add norm at codeqwen's train shape, with its bias
+    h, a, scale, bias, dy, dres = nr_add_inputs(torch, NR_ADD_CASES[0], gen)
+    n, rows = h.shape[-1], h.numel() // h.shape[-1]
+    hp = h + (a + bias)
+    w_lib = (1.0 + scale.float()).to(h.dtype)
+    leaves = [t.detach().requires_grad_() for t in (h, a, scale, bias)]
+    hl, al, sl, bl = leaves
+    hp_plain = hl + (al + bl)
+    plain_graph = (hp_plain, C.rms_norm_plain(hp_plain, sl))
+    hp_parent = hl + (al + bl)
+    parent_graph = (hp_parent, nr.RMSNorm.apply(hp_parent, sl, 1e-6))
+    cases = {
+        "add_rms_norm_fwd": (
+            lambda: nr.add_rms_norm_fwd(h, a, scale, bias),
+            lambda: nr.rms_norm_fwd(h + (a + bias), scale),
+            lambda: C.add_rms_norm_plain(h, a, scale, bias),
+            lambda: F.rms_norm(h + (a + bias), (n,), w_lib, 1e-6),
+            nr_bounds((h, a, scale, bias), (h, h), 6 * h.numel() + 2 * rows)),
+        "add_rms_norm_bwd": (
+            lambda: nr.add_rms_norm_bwd(hp, scale, dy, dres, bias.dtype),
+            lambda: torch.autograd.grad(parent_graph, leaves, (dres, dy),
+                                        retain_graph=True),
+            lambda: torch.autograd.grad(plain_graph, leaves, (dres, dy),
+                                        retain_graph=True),
+            None,
+            nr_bounds((hp, dy, dres, scale), (h, scale, bias),
+                      12 * h.numel()))}
+    # the gated norm at mamba2's prefill shape, z a slice
+    y, z, gscale, gdy = nr_gate_inputs(torch, NR_GATE_CASES[0], gen)
+    gw_lib = (1.0 + gscale.float()).to(y.dtype)
+    gleaves = [y.detach().requires_grad_(), z.detach().requires_grad_(),
+               gscale.detach().requires_grad_()]
+    yl, zl, gsl = gleaves
+    g_plain = C.gated_rms_norm_plain(yl, zl, gsl)
+    g_parent = nr.RMSNorm.apply(yl * F.silu(zl), gsl, 1e-6)
+    cases.update({
+        "gated_rms_norm_fwd": (
+            lambda: nr.gated_rms_norm_fwd(y, z, gscale),
+            lambda: nr.rms_norm_fwd(y * F.silu(z), gscale),
+            lambda: C.gated_rms_norm_plain(y, z, gscale),
+            lambda: F.rms_norm(y * F.silu(z), (y.shape[-1],), gw_lib, 1e-6),
+            nr_bounds((y, z, gscale), (y,), 12 * y.numel())),
+        "gated_rms_norm_bwd": (
+            lambda: nr.gated_rms_norm_bwd(y, z, gscale, gdy),
+            lambda: torch.autograd.grad(g_parent, gleaves, gdy,
+                                        retain_graph=True),
+            lambda: torch.autograd.grad(g_plain, gleaves, gdy,
+                                        retain_graph=True),
+            None,
+            nr_bounds((y, z, gdy, gscale), (y, y, gscale),
+                      30 * y.numel()))})
+    # RoPE with biases at codeqwen's train shape
+    xs, dys, pos = nr_rope_inputs(torch, NR_ROPE_CASES[0], gen)
+    bs = [nr_draw(torch, tuple(x.shape[-2:]), "bf16", False, gen) * 0.1
+          for x in xs]
+    freqs = C.rope_freqs(128, NR_THETA, torch.device("cuda"))
+    rleaves = [t.detach().requires_grad_() for t in (*xs, *bs)]
+    added = [rleaves[0] + rleaves[2], rleaves[1] + rleaves[3]]
+    r_plain = [C.apply_rope_plain(t, pos, NR_THETA) for t in added]
+    r_parent = nr.Rope.apply(pos, freqs, *added)
+    pairs = sum(t.numel() for t in xs) // 2
+    rope_flops = 8 * pairs + 40 * pos.numel() * 64
+    cases.update({
+        "rope_bias": (
+            lambda: nr.rope(xs, pos, freqs, biases=bs),
+            lambda: nr.rope([x + b for x, b in zip(xs, bs)], pos, freqs),
+            lambda: [C.apply_rope_plain(x + b, pos, NR_THETA)
+                     for x, b in zip(xs, bs)],
+            None, nr_bounds((*xs, *bs, pos, freqs), xs, rope_flops)),
+        "rope_bias_backward": (
+            lambda: nr.rope(dys, pos, freqs, backward=True, biases=bs),
+            lambda: torch.autograd.grad(r_parent, rleaves, dys,
+                                        retain_graph=True),
+            lambda: torch.autograd.grad(r_plain, rleaves, dys,
+                                        retain_graph=True),
+            None, nr_bounds((*dys, pos, freqs), (*dys, *bs), rope_flops))})
+    for name, (fast, parent, slow, unfused_lib, bound) in cases.items():
+        calls = {"kernel": fast, "parent": parent, "plain": slow}
+        ms = {w: [] for w in calls}
+        for which in ("kernel", "parent", "plain", "plain", "parent",
+                      "kernel"):
+            ms[which].append(cuda_ms(calls[which], iters=20, warmup=2))
+        row = dict(ms=sum(ms["kernel"]) / 2, parent_ms=sum(ms["parent"]) / 2,
+                   plain_ms=sum(ms["plain"]) / 2, turns=ms, library_ms=None,
+                   library="none: no single PyTorch call computes it",
+                   unfused_library_ms=(cuda_ms(unfused_lib, iters=20,
+                                               warmup=2)
+                                       if unfused_lib else None), **bound)
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        out[name] = row
+    return out
+
+
+def nr_fused_phase(torch, nr, C, gen) -> tuple:
+    """The fused instances' checks (``NR_ADD_CASES``, ``NR_GATE_CASES``,
+    ``NR_ROPE_BIAS_CASES``) and times (``nr_fused_times``): (the names of
+    the failed cases, the largest error by kernels-line entry, the
+    times)."""
+    failed = []
+    worst = dict.fromkeys(NR_FUSED_REPLACES, 0.0)
+    for case in NR_ADD_CASES:
+        row = nr_add_check(torch, nr, C, case, gen)
+        emit("kernel_check", kernel="add_norm", case=case[0], **row)
+        worst["add_rms_norm_fwd"] = max(worst["add_rms_norm_fwd"],
+                                        row["forward"]["max_abs_err"])
+        worst["add_rms_norm_bwd"] = max(
+            worst["add_rms_norm_bwd"], row["dh"]["max_abs_err"],
+            row["dscale"]["max_abs_err"],
+            row["dbias"]["max_abs_err"] if row["dbias"] else 0.0)
+        if not row["ok"]:
+            failed.append(f"add norm {case[0]}")
+    for case in NR_GATE_CASES:
+        row = nr_gate_check(torch, nr, C, case, gen)
+        emit("kernel_check", kernel="gated_norm", case=case[0], **row)
+        worst["gated_rms_norm_fwd"] = max(worst["gated_rms_norm_fwd"],
+                                          row["forward"]["max_abs_err"])
+        worst["gated_rms_norm_bwd"] = max(
+            worst["gated_rms_norm_bwd"], row["dy"]["max_abs_err"],
+            row["dz"]["max_abs_err"], row["dscale"]["max_abs_err"])
+        if not row["ok"]:
+            failed.append(f"gated norm {case[0]}")
+    for case in NR_ROPE_BIAS_CASES:
+        row = nr_rope_bias_check(torch, nr, C, case, gen)
+        emit("kernel_check", kernel="rope_bias", case=case[0], **row)
+        worst["rope_bias"] = max(
+            worst["rope_bias"], row["forward"]["max_abs_err"],
+            row["backward"]["max_abs_err"],
+            *(r["max_abs_err"] for r in row["bias_grads"]))
+        if not row["ok"]:
+            failed.append(f"rope with biases {case[0]}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return failed, worst, nr_fused_times(torch, nr, C, gen)
+
+
 def phase_norm_rope_kernel(torch, nr) -> list:
     """The norm and RoPE kernels against their plain versions on the card
     (``NR_NORM_CASES``, ``NR_ROPE_CASES``: the paths' widths and heads,
@@ -2470,22 +2980,26 @@ def phase_norm_rope_kernel(torch, nr) -> list:
             rope_ulps[part] = max(rope_ulps[part], row[part]["max_ulp"])
         if not row["ok"]:
             failed.append(f"rope {case[0]}")
+    fused_failed, fused_worst, fused_times = nr_fused_phase(torch, nr, C,
+                                                            gen)
+    failed += fused_failed
     gc.collect()
     torch.cuda.empty_cache()
     times = nr_times(torch, nr, C, gen)
     emit("norm_rope_times", shape=NR_SHAPE, times=times,
          rope_same_bits=rope_bits, rope_max_ulp=rope_ulps,
          seconds=time.monotonic() - t0)
+    emit("norm_rope_fused_times", shape=NR_FUSED_SHAPE, times=fused_times)
     if failed:
         fail(f"norm / rope kernels differ from the plain versions: {failed}")
     entries = []
     for name in ("rms_norm_fwd", "rms_norm_bwd", "rope"):
         t = times[name]
         entry = {
-            "name": name, "route": "cuda",
+            "name": name, "route": "cuda", "counter": name,
             "kernel_route": "forward_bf16" if name == "rope" else "bf16_bf16",
-            "kernel_routes": list(nr.ROPE_ROUTES if name == "rope"
-                                  else nr.NORM_ROUTES),
+            "kernel_routes": list(nr.ROPE_ROUTES[:4] if name == "rope"
+                                  else nr.NORM_ROUTES[:4]),
             "source": NR_SOURCE + {
                 "rms_norm_fwd": " (rms_norm_fwd_kernel)",
                 "rms_norm_bwd": " (rms_norm_bwd_kernel, "
@@ -2502,6 +3016,53 @@ def phase_norm_rope_kernel(torch, nr) -> list:
                          backward_bound_ms=b["bound_ms"],
                          same_bits=rope_bits, max_ulp=rope_ulps)
         entries.append(entry)
+    # the fused instances: their kernel's counter on their own routes
+    for name, (counter, prologue, kernel_name) in {
+            "add_rms_norm_fwd": ("rms_norm_fwd", "add",
+                                 "rms_norm_fwd_kernel, prologue kAdd"),
+            "add_rms_norm_bwd": ("rms_norm_bwd", "add",
+                                 "rms_norm_bwd_kernel and rms_norm_dscale_"
+                                 "kernel, prologue kAdd"),
+            "gated_rms_norm": ("rms_norm_fwd", "gate",
+                               "rms_norm_fwd_kernel, prologue kGate; its "
+                               "backward rms_norm_bwd_kernel and rms_norm_"
+                               "dscale_kernel, prologue kGate"),
+            "rope_bias": ("rope", "bias",
+                          "rope_kernel with biases, forward and backward, "
+                          "and rms_norm_dscale_kernel for the biases' "
+                          "grads")}.items():
+        key = name if name in fused_times else name + "_fwd"
+        t = fused_times[key]
+        routes = [r for r in (nr.ROPE_ROUTES if counter == "rope"
+                              else nr.NORM_ROUTES)
+                  if r.startswith(prologue + "_")]
+        entry = {
+            "name": name, "route": "cuda", "counter": counter,
+            "kernel_route": f"{prologue}_bf16_bf16" if counter != "rope"
+            else "bias_forward_bf16", "kernel_routes": routes,
+            "source": f"{NR_SOURCE} ({kernel_name})",
+            "replaces": NR_FUSED_REPLACES[key],
+            "shape": NR_FUSED_SHAPE[key], "max_abs_err": fused_worst[key],
+            "ms": t["ms"], "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
+            "parent_ms": t["parent_ms"],
+            "unfused_library_ms": t["unfused_library_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None, "library": t["library"]}
+        # a backward without a train path of its family on the card (the
+        # gated norm's: no SSM trains there) is timed and checked beside its
+        # forward, its launches counted under ``backward_launches``
+        b = {"rope_bias": "rope_bias_backward",
+             "gated_rms_norm": "gated_rms_norm_bwd"}.get(name)
+        if b:
+            b = fused_times[b]
+            entry.update(backward_ms=b["ms"], backward_plain_ms=b["plain_ms"],
+                         backward_parent_ms=b["parent_ms"],
+                         backward_bound_ms=b["bound_ms"])
+        if name == "gated_rms_norm":
+            entry.update(
+                backward_max_abs_err=fused_worst["gated_rms_norm_bwd"],
+                backward_routes=[f"gate_{r}" for r in nr.NORM_ROUTES[:4]])
+        entries.append(entry)
     return entries
 
 
@@ -2513,32 +3074,108 @@ def norm_rope_calls(cfg, step: str) -> dict:
     decoder, chameleon's q and k norms a q / k projection, the Mamba2
     layer's norm and its gated norm; ``outer_norms``: the final norm (and
     the encoder's); ``ropes``: one a self-attention call (q and k in one
-    launch; none in whisper)."""
+    launch; none in whisper).  Of these, ``add_norms`` take the residual
+    add (and the output bias) as their prologue (a block's norms after its
+    first: ``models.model._block``), ``gate_norms`` the SSM's gate, and
+    ``bias_ropes`` the q and k biases (``use_bias`` without qk-norm); the
+    ``enc_*`` counts are the whisper encoder's share, whose x is the f32
+    frames' dtype (``enc_layer_norms`` its layers' norms without a
+    prologue, ``enc_add_norms`` with, ``enc_outer_norms`` its final
+    norm)."""
     from repro_torch.models import model as M
     qk = 2 if cfg.qk_norm else 0
+    rope_bias = cfg.use_bias and not cfg.qk_norm
     out = {"layer_norms": (2 + qk) * cfg.num_layers, "outer_norms": 1,
-           "ropes": cfg.num_layers}
+           "ropes": cfg.num_layers, "add_norms": cfg.num_layers,
+           "gate_norms": 0, "bias_ropes": cfg.num_layers * rope_bias,
+           "enc_layer_norms": 0, "enc_add_norms": 0, "enc_outer_norms": 0}
     if cfg.family in ("ssm", "hybrid"):
         calls = M._shared_groups(cfg) if cfg.family == "hybrid" else 0
         out.update(layer_norms=2 * cfg.num_layers + (2 + qk) * calls,
-                   ropes=calls)
+                   ropes=calls, add_norms=calls, gate_norms=cfg.num_layers,
+                   bias_ropes=calls * rope_bias)
     elif cfg.family == "encdec":
         # the forward's cross-attention projects q and k (their qk norms);
         # the decode step's reads the cached encoder K / V
         dec = (3 + 2 * qk if step == "forward" else 3 + qk) * cfg.num_layers
         enc = (2 + qk) * cfg.num_encoder_layers if step == "forward" else 0
-        out.update(layer_norms=dec + enc, ropes=0,
-                   outer_norms=2 if step == "forward" else 1)
+        enc_add = cfg.num_encoder_layers if step == "forward" else 0
+        out.update(layer_norms=dec + enc, ropes=0, bias_ropes=0,
+                   outer_norms=2 if step == "forward" else 1,
+                   add_norms=2 * cfg.num_layers + enc_add,
+                   enc_layer_norms=enc - enc_add, enc_add_norms=enc_add,
+                   enc_outer_norms=1 if step == "forward" else 0)
     return out
 
 
+def norm_rope_pass(nr, cfg, step: str, passes: int, forwards: int = 1,
+                   backward: bool = False, fused: bool = True) -> dict:
+    """The norm and RoPE kernels' launches by kernel and route
+    (``nr.KERNEL_ROUTES``) of ``passes`` passes of ``cfg``
+    (``norm_rope_calls``' ``step``), each with ``forwards`` forwards of
+    the layers (2 under remat) and, with ``backward``, one backward: the
+    norm's forward once a norm a forward (the outer norms once a pass),
+    its backward and dscale once a norm a backward, RoPE once a
+    self-attention call a forward and once a backward (the dscale kernel
+    once more a backward with biases, for their grads); x in the model's
+    dtype but for whisper's f32 encoder, the scale in the model's.
+    ``fused`` False: the parent's route (``unfused_norm_rope``), every
+    norm and rotation without a prologue (the unfused gated norm a plain
+    one)."""
+    import torch
+    dt, f32 = cfg.torch_dtype, torch.float32
+    c = norm_rope_calls(cfg, step)
+    add = c["add_norms"] if fused else 0
+    gate = c["gate_norms"] if fused else 0
+    enc_add = c["enc_add_norms"] if fused else 0
+    enc_plain = c["enc_layer_norms"] + c["enc_add_norms"] - enc_add
+    want = {k: dict.fromkeys(nr.KERNEL_ROUTES[k], 0) for k in nr.KERNELS}
+    # the hybrid's Mamba layers sit in two checkpoints under remat (their
+    # own and their group's, ``models.model.backbone``): their norm and
+    # gated norm run one forward more
+    nested = cfg.num_layers if cfg.family == "hybrid" and forwards > 1 \
+        else 0
+    # (prologue, x dtype, layer norms, outer norms, norms of the nested
+    # layers)
+    for pro, x, layer, outer, more in (
+            ("", dt, c["layer_norms"] - add - gate - enc_plain,
+             c["outer_norms"] - c["enc_outer_norms"],
+             nested * (1 if fused else 2)),
+            ("", f32, enc_plain, c["enc_outer_norms"], 0),
+            ("add", dt, add - enc_add, 0, 0), ("add", f32, enc_add, 0, 0),
+            ("gate", dt, gate, 0, nested if fused else 0)):
+        r = nr.norm_route(x, dt, pro)
+        want["rms_norm_fwd"][r] += passes * (layer * forwards + outer + more)
+        if backward:
+            for k in ("rms_norm_bwd", "rms_norm_dscale"):
+                want[k][r] += passes * (layer + outer)
+    biased = c["bias_ropes"] if fused else 0
+    for bias, n in ((False, c["ropes"] - biased), (True, biased)):
+        want["rope"][nr.rope_route(dt, False, bias)] += passes * n * forwards
+        if backward:
+            back = nr.rope_route(dt, True, bias)
+            want["rope"][back] += passes * n
+            if bias:
+                want["rms_norm_dscale"][nr.dscale_route(back)] += passes * n
+    return want
+
+
+def _add_launches(want: dict, more: dict) -> None:
+    for k, by in more.items():
+        for r, n in by.items():
+            want[k][r] += n
+
+
 def expected_norm_rope_serve(cfg, n_micro: int, decode_steps: int,
-                             runs: Optional[dict] = None) -> dict:
+                             runs: Optional[dict] = None,
+                             nr=None) -> dict:
     """The norm and RoPE launches of a serve run, in all a kernel, on the
     host and on the device: a forward a prefill, a decode pass a decode
     step, as often as ``runs`` (``serve_runs``; default the parent's
     route) runs them there (the host its eager calls and captures, the
-    device its eager calls and replays); no backward."""
+    device its eager calls and replays); no backward.  With ``nr`` (the
+    wrapper module), by route too (``routes``: host and device, from
+    ``norm_rope_pass``)."""
     runs = runs or serve_runs(cfg, n_micro, decode_steps)
     fwd, dec = norm_rope_calls(cfg, "forward"), norm_rope_calls(cfg, "decode")
     out = {}
@@ -2549,7 +3186,25 @@ def expected_norm_rope_serve(cfg, n_micro: int, decode_steps: int,
                      for w in ("host", "device")}
     for name in ("rms_norm_bwd", "rms_norm_dscale"):
         out[name] = {"host": 0, "device": 0}
+    if nr is not None:
+        for w in ("host", "device"):
+            by = norm_rope_pass(nr, cfg, "forward", runs["prefill"][w])
+            _add_launches(by, norm_rope_pass(nr, cfg, "decode",
+                                             runs["decode"][w]))
+            for k in out:
+                out[k].setdefault("routes", {})[w] = by[k]
     return out
+
+
+def fused_prefill_ops(cfg) -> dict:
+    """The ATen ops a prefill of ``cfg`` runs fewer on the fused kernels
+    than on the parent's route (``unfused_norm_rope``): each add norm's
+    residual add and output bias add, each biased rotation's q and k bias
+    adds, each gated norm's silu and product."""
+    c = norm_rope_calls(cfg, "forward")
+    return {"aten::add": c["add_norms"] * (1 + cfg.use_bias)
+            + 2 * c["bias_ropes"],
+            "aten::mul": c["gate_norms"], "aten::silu": c["gate_norms"]}
 
 
 def kernel_steps(phase: str) -> list:
@@ -2558,9 +3213,10 @@ def kernel_steps(phase: str) -> list:
     ``attention_steps`` (remat's recompute runs the layers' forwards
     again), and in the train phase two more full-width steps (the
     FLOP-counted one and step 1's grads on the plain attention) and
-    ``forward_train``'s loss (no grad: one forward).  The parent column's
-    steps (``parent_steps``) are not among them: they run the gate's and
-    the loss's plain ops."""
+    ``forward_train``'s loss (no grad: one forward).  The side columns'
+    steps (``side_steps``) are not among them: the parent's run the
+    unfused norms and rotations (``unfused_norm_rope``), the plain
+    column's the gate's and the loss's plain ops (``plain_gate_loss``)."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -2573,35 +3229,25 @@ def kernel_steps(phase: str) -> list:
     return out
 
 
-def norm_rope_steps(phase: str) -> list:
-    """``kernel_steps`` and the parent column's (remat), whose norms and
-    RoPE run on their kernels too."""
+def gate_loss_steps(phase: str) -> list:
+    """``kernel_steps`` and the parent column's (remat), which run the
+    gate's and the loss's kernels too (the plain column's run none)."""
     return kernel_steps(phase) + [(cfg, n, 1, 2, True)
-                                  for cfg, n in parent_steps(phase)]
+                                  for cfg, n in side_steps(phase, "parent")]
 
 
 def expected_norm_rope_launches(nr, phase: str) -> dict:
     """The norm and RoPE kernels' launches a train, examples or dry-run
-    phase must make, by kernel and route (``norm_rope_steps``, each
-    model's dtype for x and the scale): the norm's forward once a norm a
-    forward (the layers' twice under remat), its backward and dscale once
-    a norm a backward, RoPE once a self-attention call a forward and once
-    a backward."""
-    want = {"rms_norm_fwd": dict.fromkeys(nr.NORM_ROUTES, 0),
-            "rms_norm_bwd": dict.fromkeys(nr.NORM_ROUTES, 0),
-            "rms_norm_dscale": dict.fromkeys(nr.NORM_ROUTES, 0),
-            "rope": dict.fromkeys(nr.ROPE_ROUTES, 0)}
-    for cfg, steps, micro, forwards, backward in norm_rope_steps(phase):
-        dt = cfg.torch_dtype
-        c = norm_rope_calls(cfg, "forward")
-        n, r = micro * steps, nr.norm_route(dt, dt)
-        want["rms_norm_fwd"][r] += n * (c["layer_norms"] * forwards
-                                        + c["outer_norms"])
-        want["rope"][nr.rope_route(dt)] += n * c["ropes"] * forwards
-        if backward:
-            for k in ("rms_norm_bwd", "rms_norm_dscale"):
-                want[k][r] += n * (c["layer_norms"] + c["outer_norms"])
-            want["rope"][nr.rope_route(dt, True)] += n * c["ropes"]
+    phase must make, by kernel and route (``norm_rope_pass``): every step
+    of ``kernel_steps`` and the plain column's (``side_steps``, remat) on
+    the fused routes, the parent column's on the unfused ones."""
+    want = {k: dict.fromkeys(nr.KERNEL_ROUTES[k], 0) for k in nr.KERNELS}
+    steps = [(*s, True) for s in kernel_steps(phase)] + [
+        (cfg, n, 1, 2, True, w == "plain") for w in TRAIN_SIDE
+        for cfg, n in side_steps(phase, w)]
+    for cfg, steps, micro, forwards, backward, fused in steps:
+        _add_launches(want, norm_rope_pass(nr, cfg, "forward", micro * steps,
+                                           forwards, backward, fused))
     return want
 
 
@@ -2645,9 +3291,11 @@ def route_turns(torch, cfg, params, batch, shape: dict, parent) -> dict:
 
 def phase_serve_parent(torch) -> None:
     """``--serve-parent``: each serve path's prefill and replayed decode
-    step at full width and depth (``phase_steps``' batch), on the gate's
-    kernel and on its plain ops (``plain_gate_loss``, the parent's path),
-    in turns (``route_turns``); the moe path's also on its MoE kernels
+    step at full width and depth (``phase_steps``' batch), on the fused
+    norm and RoPE kernels and on the parent's route (``unfused_norm_rope``:
+    the adds, silu and product as ATen ops), in turns (``route_turns``),
+    and on the gate's kernel against its plain ops (``plain_gate_loss``);
+    the moe path's also on its MoE kernels
     against the slot-scan route (``slot_scan_moe``) and the block's plain
     route (``plain_moe``)."""
     import numpy as np
@@ -2662,6 +3310,9 @@ def phase_serve_parent(torch) -> None:
             np.random.default_rng(2).integers(0, cfg.vocab_size,
                                               size=(mb, s))).cuda())
         emit("serve_parent", config=cfg.name, microbatch=mb, prompt_len=s,
+             **route_turns(torch, cfg, params, batch, shape,
+                           unfused_norm_rope))
+        emit("gate_parent", config=cfg.name, microbatch=mb, prompt_len=s,
              **route_turns(torch, cfg, params, batch, shape,
                            plain_gate_loss))
         if cfg.family == "moe":     # and on the slot-scan and plain routes
@@ -2678,13 +3329,14 @@ def phase_serve_parent(torch) -> None:
 
 def norm_rope_window(nr):
     """Counts the norm and RoPE kernels' launches from this call on: the
-    host's (the wrappers' counts, set to 0 here) and the device's.  The
-    returned ``check(what, want)`` fails unless each kernel's launches in
-    all equal ``want`` (``expected_norm_rope_serve``'s host and device
-    totals), or, with ``want`` by route (``expected_norm_rope_launches``),
-    the device equals it by route, and the host too where no train step
-    was captured in the window; it keeps the counts in
-    ``NORM_ROPE_LAUNCHES[what]``."""
+    host's (the wrappers' counts, set to 0 here: ``nr.host_launches``)
+    and the device's.  The returned ``check(what, want)`` fails unless
+    each kernel's launches in all equal ``want``
+    (``expected_norm_rope_serve``'s host and device totals, and by route
+    where it gives ``routes``), or, with ``want`` by route
+    (``expected_norm_rope_launches``), the device equals it by route, and
+    the host too where no train step was captured in the window; it keeps
+    the counts in ``NORM_ROPE_LAUNCHES[what]``."""
     fns = {"rms_norm_fwd": nr.rms_norm_fwd, "rms_norm_bwd": nr.rms_norm_bwd,
            "rope": nr.rope}
     _zero_counts(fns)
@@ -2696,8 +3348,7 @@ def norm_rope_window(nr):
         after = nr.kernel_launches(lib)
         device = {k: {r: n - before[k][r] for r, n in by.items()}
                   for k, by in after.items()}
-        host = {k: dict(fn.launches_by_route) for k, fn in fns.items()}
-        host["rms_norm_dscale"] = dict(host["rms_norm_bwd"])
+        host = nr.host_launches()
         NORM_ROPE_LAUNCHES[what] = {"host": host, "device": device}
         emit("norm_rope_launches", what=what, host=host, device=device,
              expected=want)
@@ -2706,9 +3357,14 @@ def norm_rope_window(nr):
                        "device": sum(device[k].values())} for k in want}
             # the host counts eager calls and captures, the device eager
             # calls and replays: both on the same routes
-            bad = got != want or any(
+            bad = got != {k: {w: v[w] for w in ("host", "device")}
+                          for k, v in want.items()} or any(
                 {r for r, n in host[k].items() if n}
                 != {r for r, n in device[k].items() if n} for k in host)
+            bad = bad or any(
+                host[k] != v["routes"]["host"]
+                or device[k] != v["routes"]["device"]
+                for k, v in want.items() if "routes" in v)
         else:
             # a captured train step launches on the host and not on the
             # device, its replays the other way round: the host is held
@@ -3355,8 +4011,24 @@ GL_GRAD_REL, GL_GRAD_FLOOR = 1e-6, 1e-7
 
 
 @contextlib.contextmanager
+def unfused_norm_rope():
+    """The parent's route on the card: the fused entry points
+    (``models.common``'s ``add_rms_norm``, ``gated_rms_norm`` and
+    ``apply_rope_qk`` with biases) are shown no kernel device, so they run
+    the bias and residual adds, silu and the product as ATen ops, then the
+    norm and RoPE kernels, as they did before the fusion."""
+    from repro_torch.kernels import norm_rope as NR
+    real = NR.takes_fused
+    NR.takes_fused = lambda tensors: False
+    try:
+        yield
+    finally:
+        NR.takes_fused = real
+
+
+@contextlib.contextmanager
 def plain_gate_loss():
-    """The gate's and the loss's plain ops on the card (the parent's path):
+    """The gate's and the loss's plain ops on the card (their parent's path):
     ``models.common``'s ``gated_act`` and ``capped_cross_entropy`` are shown
     no kernel device, so they run ``act(a) * b`` and ``cross_entropy(
     softcap(logits.float()))`` as they did before the kernels."""
@@ -3787,11 +4459,11 @@ def gate_loss_step(gm, ce, cfg, passes: int, forwards: int,
 
 def expected_gate_loss_launches(gm, ce, phase: str) -> dict:
     """The gate's and the loss's launches a train, examples or dry-run
-    phase must make, by kernel and route (``kernel_steps``: every step
-    but the parent column's, which runs the plain ops)."""
+    phase must make, by kernel and route (``gate_loss_steps``: every step,
+    the parent column's among them)."""
     want = {k: dict.fromkeys(gm.ROUTES if k.startswith("gated")
                              else ce.ROUTES, 0) for k in GL_KERNELS}
-    for cfg, steps, micro, forwards, backward in kernel_steps(phase):
+    for cfg, steps, micro, forwards, backward in gate_loss_steps(phase):
         for k, by in gate_loss_step(gm, ce, cfg, steps * micro, forwards,
                                     backward).items():
             for r, n in by.items():
@@ -3855,6 +4527,12 @@ def gate_loss_window(gm, ce):
 PATHS = ("codeqwen15_7b", "mamba2_1_3b", "zamba2_2_7b",
          "granite_moe_3b_a800m", "whisper_large_v3", "gemma2_27b",
          "nemotron_4_15b", "chameleon_34b")
+# the paths whose prefill is profiled again on the parent's route
+# (``fused_ops_check``): every prologue and block kind once (codeqwen's
+# biases, granite's experts, mamba2's gate, zamba2's shared block beside
+# its gate); the other dense paths repeat codeqwen's blocks
+FUSED_OPS_PATHS = ("codeqwen15_7b", "mamba2_1_3b", "zamba2_2_7b",
+                   "granite_moe_3b_a800m")
 
 
 def expected_launches(torch, cfg, n_micro: int, fa, ss, da=None,
@@ -3951,7 +4629,8 @@ def phase_serve(torch, arch, mods):
 
     steps = phase_steps(torch, cfg, params, shape,
                         mods["flash_attention_bhsd"], mods["ssd_scan_bhsd"],
-                        mods["decode_attention"])
+                        mods["decode_attention"],
+                        fused_ops=arch in FUSED_OPS_PATHS)
     kernels = {name: getattr(mod, name) for name, mod in mods.items()}
     phase_decode_graph(torch, cfg, params, shape, kernels,
                        mods["decode_attention"])
@@ -3970,7 +4649,7 @@ def phase_serve(torch, arch, mods):
     runs = slot_runs(cfg, shape, res)
     n_micro = shape["num_requests"] // shape["microbatch"]
     norm_rope_check(arch, expected_norm_rope_serve(
-        cfg, n_micro, shape["decode_steps"], runs))
+        cfg, n_micro, shape["decode_steps"], runs, nr))
     gate_loss_check(arch, expected_gate_serve(
         cfg, n_micro, shape["decode_steps"], runs))
     moe_check(arch, expected_moe_serve(cfg, n_micro, shape["decode_steps"],
@@ -4595,7 +5274,8 @@ def device_span_ms(torch, fn) -> float:
     return start.elapsed_time(end)
 
 
-def phase_steps(torch, cfg, params, shape: dict, fa, ss, da):
+def phase_steps(torch, cfg, params, shape: dict, fa, ss, da, *,
+                fused_ops: bool = False):
     """The serve path's prefill and decode steps alone, without the engine
     (the prefill eager, ``graph=False``, so that its profile holds the
     wrappers' counts; its graph is ``phase_prefill_graph``'s; decode
@@ -4610,7 +5290,8 @@ def phase_steps(torch, cfg, params, shape: dict, fa, ss, da):
     the profile's kernels (``route_faults``); the profiled decode step (a
     replay) must launch the decode kernel once per attention call, as
     counted on the device (``da.kernel_launches``), and a profile may show
-    no more."""
+    no more.  ``fused_ops``: the prefill profiled again on the parent's
+    route (``fused_ops_check``)."""
     import numpy as np
     from repro_torch.launch.serve import prompt_batch
     from repro_torch.train import make_decode_step, make_prefill_step
@@ -4648,8 +5329,8 @@ def phase_steps(torch, cfg, params, shape: dict, fa, ss, da):
         moe_prefill = cfg.family == "moe" and name == "prefill"
         prof = profile_call(torch, fn, f"profile_{cfg.name}_{name}.txt",
                             copies=moe_prefill)
-        if moe_prefill:
-            moe_prof = prof
+        if name == "prefill":
+            prefill_prof = prof
         launched = launch_delta(fa, lib, before)
         ssd_launched = launch_delta(ss, ssd_lib, ssd_before)
         decode_launched = decode_device_delta(
@@ -4682,10 +5363,42 @@ def phase_steps(torch, cfg, params, shape: dict, fa, ss, da):
             fail(f"{cfg.name} {name}: the flash wrapper counted {counted}, "
                  f"the SSD wrapper {ssd_counted}; " + "; ".join(faults))
     decode_one.close()
+    if fused_ops:
+        out["fused_ops"] = fused_ops_check(torch, cfg, prefill, prefill_prof)
     if cfg.family == "moe":
         out["moe_parent"] = moe_parent(torch, cfg, params, batch, shape,
-                                       prefill, moe_prof)
+                                       prefill, prefill_prof)
     return out
+
+
+def fused_ops_check(torch, cfg, prefill, kernel_prof: dict) -> dict:
+    """The prefill profiled on the parent's route (``unfused_norm_rope``,
+    table ``profile_<config>_prefill_parent.txt``): the fused kernels'
+    prefill (``kernel_prof``) must run exactly ``fused_prefill_ops`` fewer
+    ATen adds, products and silus (every other add stays: the block-end
+    adds, v's bias)."""
+    with unfused_norm_rope():
+        parent = profile_call(torch, prefill,
+                              f"profile_{cfg.name}_prefill_parent.txt")
+    calls = {w: {op: p["ops"].get(op, {}).get("calls", 0)
+                 for op in FUSED_OPS}
+             for w, p in (("kernels", kernel_prof), ("parent", parent))}
+    fewer = {op: calls["parent"][op] - calls["kernels"][op]
+             for op in FUSED_OPS}
+    row = {"calls": calls, "fewer": fewer,
+           "expected": fused_prefill_ops(cfg),
+           "device_busy_ms": {"kernels": kernel_prof["device_busy_ms"],
+                              "parent": parent["device_busy_ms"]},
+           "device_ms": {w: {op: p["ops"].get(op, {}).get("device_ms", 0.0)
+                             for op in FUSED_OPS}
+                         for w, p in (("kernels", kernel_prof),
+                                      ("parent", parent))}}
+    emit("fused_ops", config=cfg.name, **row)
+    if fewer != row["expected"]:
+        fail(f"{cfg.name} prefill: ATen ops {calls}, expected "
+             f"{row['expected']} fewer on the fused kernels than on the "
+             "parent's route")
+    return row
 
 
 def moe_parent(torch, cfg, params, batch, shape: dict, prefill,
@@ -5065,9 +5778,13 @@ TRAIN_SCOPE = "train_step/"
 # loss and the head (vocab), the MLP's gate (d_ff), RoPE and the
 # attention's upcasts ((B, S, heads, head_dim), RoPE's halves (B, S, heads,
 # head_dim / 2) too), the norms and residual adds (d_model rows), and casts
-# and copies (the rest)
+# and copies (the rest, also split by op); an add (``RESIDUAL_OPS``) with a
+# projection's bias among its inputs (a (d_model,) or (heads, head_dim)
+# row) is a bias add (the forward's; the bias grads' sums stay with their
+# input's family)
 ELEMENTWISE_FAMILIES = ("attention_core", "loss_head", "mlp_gate",
-                        "rope_upcasts", "norms_residual", "casts_copies")
+                        "bias_adds", "rope_upcasts", "norms_residual",
+                        "casts_copies")
 # the d_model family's adds: the residual adds and the grads' accumulation;
 # its other ops are the plain norms' (upcast, square, mean, rsqrt,
 # products, cast, and their backward)
@@ -5109,11 +5826,15 @@ def train_dims(cfg, seq: int) -> dict:
                 d_ff=cfg.d_ff, vocab=cfg.vocab_size)
 
 
-def op_family(shapes, dims: dict) -> str:
-    """The family (``ELEMENTWISE_FAMILIES``) of an op with input
-    ``shapes`` at a model's ``dims``."""
+def op_family(shapes, dims: dict, op: str = "") -> str:
+    """The family (``ELEMENTWISE_FAMILIES``) of an op (named ``op``) with
+    input ``shapes`` at a model's ``dims``."""
     shapes = [tuple(x) for x in shapes if x]
     s = dims["seq"]
+    biases = {(dims["d_model"],), *((h, dims["head_dim"])
+                                    for h in dims["heads"])}
+    if op in RESIDUAL_OPS and any(x in biases for x in shapes):
+        return "bias_adds"
     rules = (("attention_core", lambda x: len(x) >= 2 and x[-2:] == (s, s)),
              ("loss_head", lambda x: x[-1] == dims["vocab"]),
              ("mlp_gate", lambda x: x[-1] == dims["d_ff"]),
@@ -5164,15 +5885,19 @@ def train_split(torch, prof, busy_ms: float, dims: dict) -> tuple:
     """A profiled train step's device ms by ``TRAIN_PARTS``: each ATen
     op's kernels by ``train_part``, the hand-written kernels by name
     (``NAMED_KERNEL_PARTS``); ``elementwise`` also by op family
-    (``op_family`` of the op's input shapes, recorded); ``unattributed``,
-    busy time none of them claims; each part's and family's top four
-    kernels; ``norms_residual`` split into its ``adds`` (``RESIDUAL_OPS``)
-    and its ``other_ops``."""
+    (``op_family`` of the op's name and input shapes, recorded);
+    ``unattributed``, busy time none of them claims; each part's and
+    family's top four kernels; ``norms_residual`` split into its ``adds``
+    (``RESIDUAL_OPS``) and its ``other_ops``; ``casts_copies`` by ATen op
+    (``casts_copies_by_op``; ``by_kernel`` keeps each kernel's share of an
+    op as ``casts_copies:<op>``, which ``replay_split`` carries to a
+    replay)."""
     cpu = torch.autograd.DeviceType.CPU
     dtypes = gemm_dtypes(prof)
     parts = dict.fromkeys(TRAIN_PARTS, 0.0)
     families = dict.fromkeys(ELEMENTWISE_FAMILIES, 0.0)
     residual = {"adds": 0.0, "other_ops": 0.0}
+    casts: dict = {}
     names = {p: {} for p in TRAIN_PARTS + ELEMENTWISE_FAMILIES}
     by_kernel: dict = {}
 
@@ -5202,17 +5927,23 @@ def train_split(torch, prof, busy_ms: float, dims: dict) -> tuple:
             add(part, k.name, k.duration / 1e3)
             if part == "elementwise":
                 fam = op_family(getattr(e, "input_shapes", None) or [],
-                                dims)
+                                dims, e.name)
                 families[fam] += k.duration / 1e3
                 share(k.name, fam, k.duration / 1e3)
                 if fam == "norms_residual":
                     residual["adds" if e.name in RESIDUAL_OPS
                              else "other_ops"] += k.duration / 1e3
+                if fam == "casts_copies":
+                    casts[e.name] = casts.get(e.name, 0.0) + k.duration / 1e3
+                    share(k.name, f"casts_copies:{e.name}",
+                          k.duration / 1e3)
                 names[fam][f"{e.name} {k.name}"[:90]] = names[fam].get(
                     f"{e.name} {k.name}"[:90], 0.0) + k.duration / 1e3
     out = dict(parts)
     out["elementwise_families"] = families
     out["norms_residual_split"] = residual
+    out["casts_copies_by_op"] = dict(sorted(casts.items(),
+                                            key=lambda kv: -kv[1]))
     out["unattributed"] = max(0.0, busy_ms - sum(parts.values()))
     out["top"] = {p: sorted(names[p].items(), key=lambda kv: -kv[1])[:4]
                   for p in TRAIN_PARTS + ELEMENTWISE_FAMILIES}
@@ -5225,11 +5956,12 @@ def replay_split(torch, prof, busy_ms: float, by_kernel: dict) -> dict:
     replay's kernels have no ATen op above them (the graph launches them),
     so each kernel's time goes to the parts and families its name took in
     an eager step of the same work (``by_kernel``, from ``train_split``),
-    in that step's proportions; ``unattributed``, the time of names the
-    eager step did not run."""
+    in that step's proportions (``casts_copies`` by op too);
+    ``unattributed``, the time of names the eager step did not run."""
     cpu = torch.autograd.DeviceType.CPU
     parts = dict.fromkeys(TRAIN_PARTS, 0.0)
     families = dict.fromkeys(ELEMENTWISE_FAMILIES, 0.0)
+    casts: dict = {}
     unknown: dict = {}
     for e in prof.events():
         if e.device_type == cpu:
@@ -5247,8 +5979,17 @@ def replay_split(torch, prof, busy_ms: float, by_kernel: dict) -> dict:
             if in_families:
                 families[f] += (ms * got.get("elementwise", 0.0) / in_parts
                                 * got.get(f, 0.0) / in_families)
+        ops = {k.split(":", 1)[1]: v for k, v in got.items()
+               if k.startswith("casts_copies:")}
+        if ops and in_families:
+            cc = (ms * got.get("elementwise", 0.0) / in_parts
+                  * got.get("casts_copies", 0.0) / in_families)
+            for op, v in ops.items():
+                casts[op] = casts.get(op, 0.0) + cc * v / sum(ops.values())
     out = dict(parts)
     out["elementwise_families"] = families
+    out["casts_copies_by_op"] = dict(sorted(casts.items(),
+                                            key=lambda kv: -kv[1]))
     out["unattributed"] = max(0.0, busy_ms - sum(parts.values()))
     out["unknown_kernels"] = sorted(unknown.items(),
                                     key=lambda kv: -kv[1])[:6]
@@ -5312,10 +6053,14 @@ def scoped_optimizer(spans=None):
 # cumsum and the four copies into the SSD kernel's layout (the
 # ``ssd_scan_layout`` range of ``kernels/ops.py``), by their device time
 # under the op
+# the ATen ops that the fused norm and RoPE kernels take over (the
+# residual and bias adds, the SSM gate's silu and product:
+# ``fused_prefill_ops``)
+FUSED_OPS = ("aten::add", "aten::mul", "aten::silu")
 WATCHED_OPS = ("aten::cumsum", "aten::scatter_add", "aten::gather",
                "aten::index_put_", "aten::index", "aten::topk",
                "aten::softmax", "aten::mean", "aten::copy_",
-               "ssd_scan_layout")
+               "ssd_scan_layout") + FUSED_OPS
 # the MoE block's plain ops and the slot-scan route's router glue, which
 # a prefill
 # through its kernels runs none of
@@ -5327,14 +6072,19 @@ TRAIN_FULL = dict(layers=16, batch=8, seq=512, peak_lr=3e-4)
 # the order of the full-width steps, in turns on one donated state: the
 # step through its CUDA graph (the main path; its first step is the eager
 # warm-up and captures), the same step eager (``graph=False``, the
-# parent's path), and eager on the gate's and the loss's plain ops
+# parent's path), eager on the parent's route (``unfused_norm_rope``: the
+# adds that the norm and RoPE kernels now take as ATen ops, for its time
+# and its peak check), and eager on the gate's and the loss's plain ops
 # (``plain_gate_loss``, PR 31's parent, for its peak check)
-TRAIN_TURNS = ("graph", "graph", "eager", "eager", "plain", "plain",
-               "graph", "graph", "eager", "eager", "plain")
+TRAIN_TURNS = ("graph", "graph", "eager", "eager", "parent", "parent",
+               "plain", "plain", "graph", "graph", "eager", "eager",
+               "parent", "plain")
 # each column's steps left out of its median: the graph's first (the
 # warm-up and the capture), the eager column's first (its allocations,
 # after the graph's pool took the released cache)
-TRAIN_SKIP = {"graph": 1, "eager": 1, "plain": 0}
+TRAIN_SKIP = {"graph": 1, "eager": 1, "parent": 0, "plain": 0}
+# each side column's context on the card
+TRAIN_SIDE = {"parent": unfused_norm_rope, "plain": plain_gate_loss}
 TRAIN_ENGINE = dict(steps=40, shards=2, batch_per_shard=4, seq=128,
                     ckpt_every=20, resume_steps=4)
 # run_training(lm100m) without checkpoints, eager and through the graph
@@ -5403,7 +6153,7 @@ def optimizer_steps(phase: str) -> list:
         return [(PRESETS["tiny"], len(TRAIN_PARITY) * TRAIN_PARITY_STEPS
                  + 2 * TRAIN_GRAPH_BITS_STEPS),
                 (PRESETS["lm100m"], lm100m_steps()),
-                # the three columns' timed and profiled steps, and the
+                # the four columns' timed and profiled steps, and the
                 # FLOP-counted one (step 1's plain grads launch none)
                 (full, sum(full_width_steps(w) for w in TRAIN_SKIP) + 1),
                 # the bits check (eager and graph); remat on, off
@@ -5455,7 +6205,7 @@ def attention_steps(phase: str) -> list:
                 (PRESETS["lm100m"], lm100m_steps(), 1, 1),
                 # the graph's and the eager columns' timed and profiled
                 # steps (the FLOP-counted step and step 1's grads run the
-                # plain attention, the plain column is ``parent_steps``)
+                # plain attention, the side columns are ``side_steps``)
                 (full, full_width_steps("graph")
                  + full_width_steps("eager"), 1, 2),
                 (two, 2 * TRAIN_GRAPH_BITS_STEPS + 2, 1, 2),
@@ -5495,11 +6245,13 @@ def expected_attention_launches(ta, phase: str,
     return want
 
 
-def parent_steps(phase: str) -> list:
-    """(config, steps) of the train step's plain column in ``phase``
-    (``train_full_width``: the gate's and the loss's plain ops beside every
-    other kernel, its timed steps and one profiled, remat; its optimizer
-    launches are among ``optimizer_steps``')."""
+def side_steps(phase: str, which: str) -> list:
+    """(config, steps) of the train step's side column ``which`` in
+    ``phase`` (``train_full_width``, ``TRAIN_SIDE``: ``parent``, the
+    unfused norms and rotations of ``unfused_norm_rope``; ``plain``, the
+    gate's and the loss's plain ops of ``plain_gate_loss``; each beside
+    every other kernel, its timed steps and one profiled, remat; its
+    optimizer launches are among ``optimizer_steps``')."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -5507,19 +6259,20 @@ def parent_steps(phase: str) -> list:
         return []
     return [(dataclasses.replace(get_config("codeqwen15_7b"),
                                  num_layers=TRAIN_FULL["layers"]),
-             full_width_steps("plain"))]
+             full_width_steps(which))]
 
 
 def expected_train_launches(torch, mods, phase: str) -> dict:
     """The optimizer's and the training attention's expected launches: the
     phase's steps, and the training attention's in the train step's
-    parent column (``parent_steps``)."""
+    side columns (``side_steps``)."""
     ta = mods["train_attention_forward"]
     want = {**expected_optimizer_launches(torch, mods["adamw_update"],
                                           phase),
             **expected_attention_launches(ta, phase)}
     more = expected_attention_launches(
-        ta, phase, steps=[(c, n, 1, 2) for c, n in parent_steps(phase)])
+        ta, phase, steps=[(c, n, 1, 2) for w in TRAIN_SIDE
+                          for c, n in side_steps(phase, w)])
     for k, by in more.items():
         want[k] = {r: n + by[r] for r, n in want[k].items()}
     return want
@@ -5932,11 +6685,12 @@ def train_full_width(torch):
     the first loss equals ``forward_train``'s, step 1's loss and grad norm
     are the plain attention's (its grads of the same state and batch, under
     ``plain_train_attention``), the loss falls on the graph's steps, grad
-    norms are finite.  Three columns in turns on one state
+    norms are finite.  Four columns in turns on one state
     (``TRAIN_TURNS``): the step through its CUDA graph (the main path; its
     first step the warm-up, which captures), the same step eager
-    (``graph=False``, the parent's path) and eager on the gate's and the
-    loss's plain ops (``plain_gate_loss``), each timed on the host clock
+    (``graph=False``), eager on the parent's route (``unfused_norm_rope``)
+    and eager on the gate's and the loss's plain ops (``plain_gate_loss``),
+    each timed on the host clock
     (the eager columns' optimizer and global norm device spans by CUDA
     events, ``scoped_optimizer``: under a graph a Python patch applies only
     at the capture) with its peaks of allocated, requested and reserved
@@ -5948,7 +6702,8 @@ def train_full_width(torch):
     line (idle: the column's step ms less its profiled busy time); and one
     eager step FLOP-counted on the plain attention (``FlopCounterMode``
     sees neither the kernels nor a replay).  The eager kernels' peak of
-    requested bytes must not pass the plain gate and loss's."""
+    requested bytes must not pass the parent route's, nor the plain gate
+    and loss's."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -5981,7 +6736,7 @@ def train_full_width(torch):
                                 total_steps=10, remat=True, donate=True,
                                 graph=g) for g in (True, False)}
     step_of = {"graph": steps[True], "eager": steps[False],
-               "plain": steps[False]}
+               "parent": steps[False], "plain": steps[False]}
     holder = [state]
     del state
     runs = {w: dict(times=[], spans=[], metrics=[], peaks=[], requested=[],
@@ -5990,8 +6745,7 @@ def train_full_width(torch):
         run = runs[which]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        with (plain_gate_loss() if which == "plain"
-              else contextlib.nullcontext()):
+        with TRAIN_SIDE.get(which, contextlib.nullcontext)():
             t0 = time.monotonic()
             with (scoped_optimizer(run["spans"]) if which != "graph"
                   else contextlib.nullcontext()):
@@ -6018,8 +6772,8 @@ def train_full_width(torch):
             return profile_call(torch, one_step(which), table, split=dims)
     prof = profiled("eager", contextlib.nullcontext,
                     "profile_train_step_eager.txt")
-    prof_plain = profiled("plain", plain_gate_loss,
-                          "profile_train_step_plain.txt")
+    prof_side = {w: profiled(w, side, f"profile_train_step_{w}.txt")
+                 for w, side in TRAIN_SIDE.items()}
     prof_graph = profile_call(torch, one_step("graph"),
                               "profile_train_step.txt", replay=prof)
     from torch.utils.flop_counter import FlopCounterMode
@@ -6047,7 +6801,7 @@ def train_full_width(torch):
                     **prof_["split"])
     cols = {"graph": column("graph", prof_graph),
             "eager": column("eager", prof),
-            "plain": column("plain", prof_plain)}
+            **{w: column(w, p) for w, p in prof_side.items()}}
     cols["graph"].update(capture_ms=graph.capture_ms, replays=graph.replays)
     step_ms = cols["graph"]["step_ms"]
     card = {"flops": counted.get_total_flops(), "batch": f["batch"],
@@ -6065,8 +6819,9 @@ def train_full_width(torch):
     free_gb = (torch.cuda.get_device_properties(0).total_memory - peak) / 1e9
     emit("train_profile", config=cfg.name, layers=cfg.num_layers,
          turns=list(TRAIN_TURNS), skip=TRAIN_SKIP, **cols,
-         requested_peak_saved_bytes=cols["plain"]["requested_peak"]
-         - cols["eager"]["requested_peak"])
+         requested_peak_saved_bytes={
+             w: cols[w]["requested_peak"] - cols["eager"]["requested_peak"]
+             for w in TRAIN_SIDE})
     emit("train_step", config=cfg.name, layers=cfg.num_layers,
          d_model=cfg.d_model, batch=f["batch"], seq=f["seq"],
          remat=True, donate=True, graph=True, step_ms=step_ms,
@@ -6093,15 +6848,18 @@ def train_full_width(torch):
         fail(f"{cfg.name}: grad norms {norms}")
     if free_gb < 8:
         fail(f"{cfg.name}: {free_gb:.1f} GB free at the step's peak")
-    # the gate's kernels save only their inputs and the loss's the logits
-    # in their dtype: the eager step's peak of requested bytes (the
+    # the fused norms save h' (which the unfused norm saved as its input)
+    # and RoPE's biases no activation, the gate and loss kernels no more
+    # than their plain ops: the eager step's peak of requested bytes (the
     # allocator's unsplit-block slack, up to 1 MiB a block, left out) must
-    # not grow over the plain gate and loss's, each column's first step
-    # (the run's first-call allocations) left out
-    if cols["eager"]["requested_peak"] > cols["plain"]["requested_peak"]:
-        fail(f"{cfg.name}: requested peak {cols['eager']['requested_peak']}"
-             f" bytes on the gate and loss kernels, "
-             f"{cols['plain']['requested_peak']} on their plain versions")
+    # not grow over the parent route's nor the plain gate and loss's, each
+    # column's first step (the run's first-call allocations) left out
+    for w, what in (("parent", "the parent's route"),
+                    ("plain", "the plain gate and loss")):
+        if cols["eager"]["requested_peak"] > cols[w]["requested_peak"]:
+            fail(f"{cfg.name}: requested peak "
+                 f"{cols['eager']['requested_peak']} bytes on the kernels, "
+                 f"{cols[w]['requested_peak']} on {what}")
     return cfg, batch, card
 
 
@@ -6723,20 +7481,25 @@ def main() -> int:
     # launches are the device's counts over each serve run and the train,
     # dry-run and examples phases (the wrappers' beside them)
     for e in nr_entries:
-        n = e["name"]
+        n, rs = e["counter"], e["kernel_routes"]
         counts = NORM_ROPE_LAUNCHES.items()
-        e["launches_by_path"] = {w: sum(c["device"][n].values())
+        e["launches_by_path"] = {w: sum(c["device"][n][r] for r in rs)
                                  for w, c in counts}
-        e["host_launches_by_path"] = {w: sum(c["host"][n].values())
+        e["host_launches_by_path"] = {w: sum(c["host"][n][r] for r in rs)
                                       for w, c in counts}
         e["launches_by_route"] = {
-            r: sum(c["device"][n][r] for _, c in counts)
-            for r in e["kernel_routes"]}
+            r: sum(c["device"][n][r] for _, c in counts) for r in rs}
         e["launches"] = sum(e["launches_by_path"].values())
-        if n == "rms_norm_bwd":
+        if "backward_routes" in e:
+            e["backward_launches"] = sum(
+                c["device"]["rms_norm_bwd"][r] for _, c in counts
+                for r in e["backward_routes"])
+        if n == "rms_norm_bwd" or e["name"] == "rope_bias":
+            ds = [nr.dscale_route(r) for r in rs
+                  if n != "rope" or r.startswith("bias_backward")]
             e["dscale_launches"] = sum(
-                sum(c["device"]["rms_norm_dscale"].values())
-                for _, c in counts)
+                c["device"]["rms_norm_dscale"][r] for _, c in counts
+                for r in ds)
     # the MoE kernels run on granite's serve path: their launches are the
     # device's counts over each serve run (the prefills and every executed
     # decode step, replays included) and the train, dry-run and examples

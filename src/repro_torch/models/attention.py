@@ -66,28 +66,39 @@ def _project_qkv(p: Params, x: torch.Tensor, cfg: ArchConfig,
                  use_rope: bool = True
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """q of x (B,S,d), k and v of ``kv_src`` (B,T,d; default x), with bias,
-    qk-norm and (self-attention only) rope at ``positions``."""
+    qk-norm and (self-attention only) rope at ``positions``.  Where RoPE
+    directly follows the q and k biases (no qk-norm between them),
+    ``apply_rope_qk`` adds them (inside the RoPE kernel on CUDA); v's bias
+    is always a plain add."""
     kv_src = x if kv_src is None else kv_src
     q = einsum("bsd,dhk->bshk", x, p["wq"])
     k = einsum("btd,dhk->bthk", kv_src, p["wk"])
     v = einsum("btd,dhk->bthk", kv_src, p["wv"])
+    biases = None
     if cfg.use_bias:
-        q = q + p["bq"]
-        k = k + p["bk"]
+        if use_rope and not cfg.qk_norm:
+            biases = (p["bq"], p["bk"])
+        else:
+            q = q + p["bq"]
+            k = k + p["bk"]
         v = v + p["bv"]
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"])
         k = rms_norm(k, p["k_norm"])
     if use_rope:
-        q, k = apply_rope_qk(q, k, positions, cfg.rope_theta)
+        q, k = apply_rope_qk(q, k, positions, cfg.rope_theta, biases=biases)
     return q, k, v
 
 
-def _out_proj(p: Params, out: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    y = einsum("bshk,hkd->bsd", out, p["wo"])
-    if cfg.use_bias:
-        y = y + p["bo"]
-    return y
+def out_bias(p: Params, cfg: ArchConfig) -> Optional[torch.Tensor]:
+    """The output projection's bias (``bo``), or None."""
+    return p["bo"] if cfg.use_bias else None
+
+
+def _out_proj(p: Params, out: torch.Tensor) -> torch.Tensor:
+    """The output projection without its bias: ``out_bias`` is left to the
+    caller (``models.common.add_rms_norm`` adds it with the residual)."""
+    return einsum("bshk,hkd->bsd", out, p["wo"])
 
 
 def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -142,7 +153,8 @@ def attention(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
     encoder row, uses no rope and never the kernel (as in the
     reference).  ``arange_positions``: the caller states that
     ``positions`` are ``arange`` (each row's index), which lets a masked
-    call that autograd records run the training kernels (``_attend``)."""
+    call that autograd records run the training kernels (``_attend``).
+    The output projection's bias is left to the caller (``out_bias``)."""
     cross = kv_src is not None
     q, k, v = _project_qkv(p, x, cfg, positions, kv_src=kv_src,
                            use_rope=use_rope and not cross)
@@ -151,7 +163,7 @@ def attention(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
     else:
         out = _attend(q, k, v, cfg, positions, window, use_kernel,
                       causal=causal, arange_positions=arange_positions)
-    return _out_proj(p, out.to(x.dtype), cfg)
+    return _out_proj(p, out.to(x.dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -202,7 +214,8 @@ def decode_attention(p: Params, x: torch.Tensor, cache: Params, pos,
     ``dynamic_update_slice``); the returned cache is the same tensors.
     The attention over the cache is ``kernels.ops.decode_attention`` with
     ``use_kernel`` (the CUDA kernel on CUDA tensors), else its plain
-    version, the torch ops of the reference's formula."""
+    version, the torch ops of the reference's formula.  The output
+    projection's bias is left to the caller (``out_bias``)."""
     b = x.shape[0]
     at = position(pos, x.device)
     positions = at.view(1, 1).expand(b, 1)
@@ -216,7 +229,7 @@ def decode_attention(p: Params, x: torch.Tensor, cache: Params, pos,
         attend = decode_attention_plain
     out = attend(q, cache["k"], cache["v"], at, window=window,
                  logit_cap=cfg.attn_softcap)
-    return _out_proj(p, out.to(x.dtype), cfg), cache
+    return _out_proj(p, out.to(x.dtype)), cache
 
 
 def decode_cross_attention(p: Params, x: torch.Tensor, k: torch.Tensor,
@@ -225,7 +238,8 @@ def decode_cross_attention(p: Params, x: torch.Tensor, k: torch.Tensor,
     """Cross-attention of x (B,1,d) against cached encoder K/V (B,T,nkv,hd),
     with no mask and no softcap: every cache row is attended, the zero
     rows past the encoder output too, as in the reference (ROADMAP queue
-    3); through ``kernels.ops.decode_attention`` with ``use_kernel``."""
+    3); through ``kernels.ops.decode_attention`` with ``use_kernel``.
+    The output projection's bias is left to the caller (``out_bias``)."""
     q = einsum("bsd,dhk->bshk", x, p["wq"])
     if cfg.use_bias:
         q = q + p["bq"]
@@ -234,4 +248,4 @@ def decode_cross_attention(p: Params, x: torch.Tensor, k: torch.Tensor,
         out = kops.decode_attention(q, k, v, None, all_rows=True)
     else:
         out = decode_attention_plain(q, k, v, all_rows=True)
-    return _out_proj(p, out.to(x.dtype), cfg)
+    return _out_proj(p, out.to(x.dtype))

@@ -217,6 +217,57 @@ def rms_norm_plain(x: torch.Tensor, scale: torch.Tensor,
     return out.to(dt)
 
 
+def add_rms_norm(h: torch.Tensor, a: torch.Tensor, scale: torch.Tensor,
+                 bias: Optional[torch.Tensor] = None, eps: float = 1e-6
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(h', rms_norm(h', scale)) with h' = h + (a + bias): a block's
+    residual add (the output projection's bias first) and the norm that
+    reads it.  CUDA tensors go through one kernel, forward and backward
+    (``kernels.norm_rope.AddRMSNorm``: h' is the plain adds' bits); where
+    autograd does not record, h' is written over ``a`` (the block's branch
+    output, which nothing reads after), so that no more rows are alive at
+    once than beside the unfused adds.  The others run the adds, then
+    ``rms_norm`` (``add_rms_norm_plain`` on the CPU)."""
+    ts = (h, a, scale) if bias is None else (h, a, scale, bias)
+    if _norm_rope.takes_fused(ts):
+        if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+            return _norm_rope.AddRMSNorm.apply(h, a, scale, bias, eps)
+        return _norm_rope.add_rms_norm_fwd(
+            h, a, scale, bias, eps, h_out=a if a.is_contiguous() else None)
+    if bias is not None:
+        a = a + bias
+    h = h + a
+    return h, rms_norm(h, scale, eps)
+
+
+def add_rms_norm_plain(h: torch.Tensor, a: torch.Tensor, scale: torch.Tensor,
+                       bias: Optional[torch.Tensor] = None,
+                       eps: float = 1e-6
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    if bias is not None:
+        a = a + bias
+    h = h + a
+    return h, rms_norm_plain(h, scale, eps)
+
+
+def gated_rms_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
+                   eps: float = 1e-6) -> torch.Tensor:
+    """``rms_norm(y * silu(z), scale)``, the SSM's gated norm.  CUDA
+    tensors go through one kernel, forward and backward
+    (``kernels.norm_rope.GatedRMSNorm``: silu(z) and the product rounded
+    as the plain ops round them); the others run ``F.silu``, the product,
+    then ``rms_norm`` (``gated_rms_norm_plain`` on the CPU)."""
+    if _norm_rope.takes_fused((y, z, scale)):
+        return _norm_rope.GatedRMSNorm.apply(y, z, scale, eps)
+    return rms_norm(y * F.silu(z), scale, eps)
+
+
+def gated_rms_norm_plain(y: torch.Tensor, z: torch.Tensor,
+                         scale: torch.Tensor,
+                         eps: float = 1e-6) -> torch.Tensor:
+    return rms_norm_plain(y * F.silu(z), scale, eps)
+
+
 def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     # jax.nn.gelu defaults to approximate=True, the tanh form
     return F.gelu(x, approximate="tanh")
@@ -272,9 +323,22 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 def apply_rope_qk(q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor,
-                  theta: float) -> Tuple[torch.Tensor, torch.Tensor]:
+                  theta: float, biases: Optional[Tuple[torch.Tensor,
+                                                       torch.Tensor]] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``apply_rope`` of q and of k at the same positions: one kernel
-    launch for both on CUDA tensors (their head counts may differ)."""
+    launch for both on CUDA tensors (their head counts may differ).
+    ``biases`` (bq, bk), the projections' biases, are added first: on CUDA
+    inside the kernel, forward and backward (``kernels.norm_rope.RopeBias``,
+    round(q + bq) as the plain add rounds it); elsewhere as the adds
+    ``q + bq``, ``k + bk``."""
+    if biases is not None:
+        if _norm_rope.takes_fused((q, k, positions, *biases)):
+            return _norm_rope.RopeBias.apply(
+                positions, rope_freqs(q.shape[-1], theta, q.device),
+                *biases, q, k)
+        q = q + biases[0]
+        k = k + biases[1]
     if _norm_rope.takes_kernel((q, k, positions)):
         return _norm_rope.Rope.apply(
             positions, rope_freqs(q.shape[-1], theta, q.device), q, k)

@@ -30,10 +30,10 @@ from torch.utils.checkpoint import checkpoint
 
 from .attention import (_attend, _out_proj, _project_qkv, attention,
                         decode_attention, decode_cross_attention,
-                        init_attention, init_kv_cache, position)
-from .common import (ArchConfig, activation_fn, capped_cross_entropy,
-                     dense_init, einsum, gated_act, resolve_device, rms_norm,
-                     sinusoidal_positions, softcap)
+                        init_attention, init_kv_cache, out_bias, position)
+from .common import (ArchConfig, activation_fn, add_rms_norm,
+                     capped_cross_entropy, dense_init, einsum, gated_act,
+                     resolve_device, rms_norm, sinusoidal_positions, softcap)
 from .moe import init_moe, moe_block
 from .ssm import (init_mamba2, init_ssm_cache, mamba2_decode_step,
                   mamba2_forward, mamba2_prime)
@@ -315,16 +315,22 @@ def _block(p: Dict[str, Any], h: torch.Tensor, cfg: ArchConfig,
            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One block over the full sequence (a decoder layer, the hybrid's
     shared block, a whisper encoder layer): self-attention, cross-attention
-    to ``enc_out`` when given, then the MLP or the experts.  Returns
-    (h, moe aux loss or None)."""
-    h = h + attention(p["attn"], rms_norm(h, p["attn_norm"]), cfg,
-                      positions=positions, window=window, causal=causal,
-                      use_rope=use_rope, use_kernel=use_kernel,
-                      arange_positions=arange_positions)
+    to ``enc_out`` when given, then the MLP or the experts.  Each add
+    inside the block (an attention's output bias and the residual add) goes
+    with the norm that reads it (``add_rms_norm``); the block's last add
+    stays a plain add.  Returns (h, moe aux loss or None)."""
+    a = attention(p["attn"], rms_norm(h, p["attn_norm"]), cfg,
+                  positions=positions, window=window, causal=causal,
+                  use_rope=use_rope, use_kernel=use_kernel,
+                  arange_positions=arange_positions)
+    bias = out_bias(p["attn"], cfg)
     if enc_out is not None:
-        h = h + attention(p["cross"], rms_norm(h, p["cross_norm"]), cfg,
-                          positions=positions, kv_src=enc_out)
-    m, aux = _ffn(p, rms_norm(h, p["mlp_norm"]), cfg)
+        h, x = add_rms_norm(h, a, p["cross_norm"], bias)
+        a = attention(p["cross"], x, cfg, positions=positions,
+                      kv_src=enc_out)
+        bias = out_bias(p["cross"], cfg)
+    h, x = add_rms_norm(h, a, p["mlp_norm"], bias)
+    m, aux = _ffn(p, x, cfg)
     return h + m, aux
 
 
@@ -466,19 +472,20 @@ def _decode_block(p: Dict[str, Any], h: torch.Tensor, kv: Dict[str, Any],
     for encdec), cross-attention against ``cross`` = the cached encoder
     (K, V) for encdec, then the MLP or (moe, one dispatch group) the
     experts.  ``use_kernel`` sends both attentions to the decode kernel
-    and the experts' dispatch to the MoE kernels."""
+    and the experts' dispatch to the MoE kernels.  The adds inside the
+    block go with their norms (``add_rms_norm``), as in ``_block``."""
     a, _ = decode_attention(p["attn"], rms_norm(h, p["attn_norm"]), kv, pos,
                             cfg, window=window,
                             use_rope=cfg.family != "encdec",
                             use_kernel=use_kernel)
-    h = h + a
+    bias = out_bias(p["attn"], cfg)
     if cross is not None:
-        h = h + decode_cross_attention(p["cross"],
-                                       rms_norm(h, p["cross_norm"]),
-                                       cross[0], cross[1], cfg,
-                                       use_kernel=use_kernel)
-    m, _ = _ffn(p, rms_norm(h, p["mlp_norm"]), cfg, num_groups=1,
-                use_kernel=use_kernel)
+        h, x = add_rms_norm(h, a, p["cross_norm"], bias)
+        a = decode_cross_attention(p["cross"], x, cross[0], cross[1], cfg,
+                                   use_kernel=use_kernel)
+        bias = out_bias(p["cross"], cfg)
+    h, x = add_rms_norm(h, a, p["mlp_norm"], bias)
+    m, _ = _ffn(p, x, cfg, num_groups=1, use_kernel=use_kernel)
     return h + m
 
 
@@ -599,18 +606,22 @@ def _prime_block(p: Dict[str, Any], h: torch.Tensor, cfg: ArchConfig,
     cache["kv"]["v"][j, :, :S] = v
     out = _attend(q, k, v, cfg, positions, window, use_kernel,
                   arange_positions=arange_positions)
-    h = h + _out_proj(p["attn"], out.to(h.dtype), cfg)
+    a = _out_proj(p["attn"], out.to(h.dtype))
+    bias = out_bias(p["attn"], cfg)
     if enc_out is not None:
         T = enc_out.shape[1]
-        q, k, v = _project_qkv(p["cross"], rms_norm(h, p["cross_norm"]),
-                               cfg, None, kv_src=enc_out, use_rope=False)
+        h, x = add_rms_norm(h, a, p["cross_norm"], bias)
+        q, k, v = _project_qkv(p["cross"], x, cfg, None, kv_src=enc_out,
+                               use_rope=False)
         # the cache holds the model's dtype; the prefill attends over the
         # unrounded K/V, as the reference does
         cache["cross_k"][j, :, :T] = k
         cache["cross_v"][j, :, :T] = v
         out = _attend(q, k, v, cfg, None, 0, False, causal=False)
-        h = h + _out_proj(p["cross"], out.to(h.dtype), cfg)
-    m, _ = _ffn(p, rms_norm(h, p["mlp_norm"]), cfg, use_kernel=use_kernel)
+        a = _out_proj(p["cross"], out.to(h.dtype))
+        bias = out_bias(p["cross"], cfg)
+    h, x = add_rms_norm(h, a, p["mlp_norm"], bias)
+    m, _ = _ffn(p, x, cfg, use_kernel=use_kernel)
     return h + m
 
 

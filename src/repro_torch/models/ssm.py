@@ -15,7 +15,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from .common import ArchConfig, dense_init, rms_norm
+from .common import ArchConfig, dense_init, gated_rms_norm
 
 Params = Dict[str, torch.Tensor]
 
@@ -175,7 +175,7 @@ def mamba2_prime(p: Params, x: torch.Tensor, cfg: ArchConfig,
                            c_.reshape(B, S, g, n), min(cfg.ssm_chunk, S),
                            use_kernel=use_kernel)
     y = (y + xh * p["D"][None, None, :, None]).to(x.dtype)
-    y = rms_norm(y.reshape(B, S, di) * F.silu(z), p["norm"])
+    y = gated_rms_norm(y.reshape(B, S, di), z, p["norm"])
     return torch.einsum("bsk,kd->bsd", y, p["out_proj"]), conv_in, state
 
 
@@ -235,7 +235,7 @@ def mamba2_decode_step(p: Params, x: torch.Tensor, cache: Params,
     y = torch.einsum("bhk,bhkp->bhp", ch.float(), state.float())
     y = y + xh.float() * p["D"][None, :, None]
     y = y.reshape(B, 1, di).to(x.dtype)
-    y = rms_norm(y * F.silu(z), p["norm"])
+    y = gated_rms_norm(y, z, p["norm"])
     out = torch.einsum("bsk,kd->bsd", y, p["out_proj"])
     return out, {"conv": new_conv, "state": state}
 

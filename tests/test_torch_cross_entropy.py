@@ -434,23 +434,23 @@ def _routes(routes, **by_route):
 # and 8 of 2 (the bits check) with remat: 32 passes; lm100m (12 layers,
 # f32) 307 steps without remat; codeqwen1.5-7b (bf16) at 16 layers the
 # graph's and the eager columns' 10 timed and profiled steps, the
-# FLOP-counted one and step 1's plain-attention grads (remat), and
-# forward_train's loss (one forward, no backward); at 2 layers 10 steps
-# with and 2 without remat; the plain column's 4 steps none (plain ops);
-# examples: lm20m (6 layers) x 200 steps
+# FLOP-counted one, step 1's plain-attention grads and the parent column's
+# 4 steps (remat), and forward_train's loss (one forward, no backward); at
+# 2 layers 10 steps with and 2 without remat; the plain column's 4 steps
+# none (plain ops); examples: lm20m (6 layers) x 200 steps
 EXPECTED_GATE_LOSS = {
     "train": {
         "gated_act_fwd": _routes(
             G.ROUTES, silu_f32=32 * 2 * 2 + 307 * 12,
-            silu_bf16=12 * 16 * 2 + 16 + 10 * 2 * 2 + 2 * 2),
+            silu_bf16=16 * 16 * 2 + 16 + 10 * 2 * 2 + 2 * 2),
         "gated_act_bwd": _routes(G.ROUTES, silu_f32=32 * 2 + 307 * 12,
-                                 silu_bf16=12 * 16 + 10 * 2 + 2 * 2),
+                                 silu_bf16=16 * 16 + 10 * 2 + 2 * 2),
         "cross_entropy_fwd": _routes(CE.ROUTES, f32=32 + 307,
-                                     bf16=12 + 1 + 12),
+                                     bf16=16 + 1 + 12),
         "cross_entropy_sum": _routes(CE.ROUTES, f32=32 + 307,
-                                     bf16=12 + 1 + 12),
+                                     bf16=16 + 1 + 12),
         "cross_entropy_bwd": _routes(CE.ROUTES, f32=32 + 307,
-                                     bf16=12 + 12)},
+                                     bf16=16 + 12)},
     "examples": {
         "gated_act_fwd": _routes(G.ROUTES, silu_f32=200 * 6),
         "gated_act_bwd": _routes(G.ROUTES, silu_f32=200 * 6),
@@ -525,7 +525,7 @@ def test_chip_smoke_profile_names_every_gate_and_loss_kernel():
 
 
 def test_parent_path_shows_no_kernel_device():
-    """``chip_smoke.plain_gate_loss`` (the train step's parent column and
+    """``chip_smoke.plain_gate_loss`` (the train step's plain column and
     ``--serve-parent``) sends the model's gate and loss to the plain ops,
     and puts the choice back after."""
     cs = _chip_smoke()

@@ -118,10 +118,11 @@ def test_decode_attention_matches_jax(case, pos, use_kernel):
         window=window or None)
     cache = {"k": torch.from_numpy(k.copy()), "v": torch.from_numpy(v.copy())}
     at = torch.tensor(pos) if as_tensor else pos
-    y, out = TA.decode_attention(params_from_numpy(tree, "cpu"),
-                                 torch.from_numpy(x), cache, at, cfg,
+    tp = params_from_numpy(tree, "cpu")
+    y, out = TA.decode_attention(tp, torch.from_numpy(x), cache, at, cfg,
                                  window=window, use_kernel=use_kernel)
     assert out is cache
+    y = y + TA.out_bias(tp, cfg)  # the caller's (the block's norm) add
     np.testing.assert_allclose(y.numpy(), np.asarray(jy), **TOL)
     for n in ("k", "v"):
         np.testing.assert_allclose(cache[n].numpy(), np.asarray(jcache[n]),
@@ -141,10 +142,11 @@ def test_decode_cross_attention_matches_jax(nq, nkv, use_kernel):
     jy = JA.decode_cross_attention(jax.tree.map(jnp.asarray, tree),
                                    jnp.asarray(x), jnp.asarray(k),
                                    jnp.asarray(v), jcfg)
-    y = TA.decode_cross_attention(params_from_numpy(tree, "cpu"),
-                                  torch.from_numpy(x), torch.from_numpy(k),
-                                  torch.from_numpy(v), cfg,
-                                  use_kernel=use_kernel)
+    tp = params_from_numpy(tree, "cpu")
+    y = TA.decode_cross_attention(tp, torch.from_numpy(x),
+                                  torch.from_numpy(k), torch.from_numpy(v),
+                                  cfg, use_kernel=use_kernel)
+    y = y + TA.out_bias(tp, cfg)  # the caller's (the block's norm) add
     np.testing.assert_allclose(y.numpy(), np.asarray(jy), **TOL)
 
 
@@ -168,7 +170,8 @@ def _parent_softcap(x, cap):
 
 def _parent_decode_attention(p, x, cache, pos, cfg, *, window=0,
                              use_rope=True, use_kernel=False):
-    """The model's decode attention before the kernel, op for op."""
+    """The model's decode attention before the kernel, op for op (the
+    output projection's bias left to the caller)."""
     b = x.shape[0]
     at = TA.position(pos, x.device)
     positions = at.view(1, 1).expand(b, 1)
@@ -184,7 +187,7 @@ def _parent_decode_attention(p, x, cache, pos, cfg, *, window=0,
         mask = mask & (at - kpos < window)
     scores = scores.masked_fill(~mask, -1e30)
     out = _parent_out(torch.softmax(scores, dim=-1), cache["v"]).to(x.dtype)
-    return TA._out_proj(p, out, cfg), cache
+    return TA._out_proj(p, out), cache
 
 
 def _parent_decode_cross_attention(p, x, k, v, cfg, *, use_kernel=False):
@@ -192,7 +195,7 @@ def _parent_decode_cross_attention(p, x, k, v, cfg, *, use_kernel=False):
     if cfg.use_bias:
         q = q + p["bq"]
     probs = torch.softmax(_parent_scores(q, k), dim=-1)
-    return TA._out_proj(p, _parent_out(probs, v).to(x.dtype), cfg)
+    return TA._out_proj(p, _parent_out(probs, v).to(x.dtype))
 
 
 def _clone(tree):

@@ -560,35 +560,52 @@ def _routes(routes, **by_route):
 # 1, 2 and 1 microbatches and 8 of 2 (the bits check) with remat: 32
 # passes; lm100m (12 layers) 307 steps without remat; codeqwen1.5-7b (bf16)
 # at 16 layers the graph's and the eager columns' 10 timed and profiled
-# steps, the FLOP-counted one and step 1's plain-attention grads, the plain
-# column's 4 timed and profiled steps on the gate's and the loss's plain
-# ops (all remat), and forward_train's loss (one forward, no backward); at
-# 2 layers 10 steps with and 2 without remat; examples: lm20m (6 layers) x
-# 200 steps
+# steps, the plain gate and loss column's 4, the FLOP-counted one and step
+# 1's plain-attention grads (16 fused passes), the parent column's 4 timed
+# and profiled steps on the unfused norms and rotations (all remat), and
+# forward_train's loss (one forward,
+# no backward); at 2 layers 10 steps with and 2 without remat; examples:
+# lm20m (6 layers) x 200 steps.  A fused pass's mlp norms take the add
+# prologue (one a layer), tiny's and codeqwen's rotations their q and k
+# biases (the dscale kernel sums their grads); the parent's run none of
+# them
 EXPECTED_NORM_ROPE = {
     "train": {
-        "rms_norm_fwd": _routes(K.NORM_ROUTES,
-                                f32_f32=32 * 9 + 307 * 25,
-                                bf16_bf16=16 * 65 + 33 + 10 * 9 + 2 * 5),
-        "rms_norm_bwd": _routes(K.NORM_ROUTES, f32_f32=32 * 5 + 307 * 25,
-                                bf16_bf16=16 * 33 + 10 * 5 + 2 * 5),
-        "rms_norm_dscale": _routes(K.NORM_ROUTES,
-                                   f32_f32=32 * 5 + 307 * 25,
-                                   bf16_bf16=16 * 33 + 10 * 5 + 2 * 5),
-        "rope": _routes(K.ROPE_ROUTES, forward_f32=32 * 4 + 307 * 12,
-                        backward_f32=32 * 2 + 307 * 12,
-                        forward_bf16=16 * 32 + 16 + 10 * 4 + 2 * 2,
-                        backward_bf16=16 * 16 + 10 * 2 + 2 * 2)},
+        "rms_norm_fwd": _routes(
+            K.NORM_ROUTES, f32_f32=32 * 5 + 307 * 13,
+            add_f32_f32=32 * 4 + 307 * 12,
+            bf16_bf16=16 * 33 + 4 * 65 + 17 + 10 * 5 + 2 * 3,
+            add_bf16_bf16=16 * 32 + 16 + 10 * 4 + 2 * 2),
+        "rms_norm_bwd": _routes(
+            K.NORM_ROUTES, f32_f32=32 * 3 + 307 * 13,
+            add_f32_f32=32 * 2 + 307 * 12,
+            bf16_bf16=16 * 17 + 4 * 33 + 12 * 3,
+            add_bf16_bf16=16 * 16 + 12 * 2),
+        "rms_norm_dscale": _routes(
+            K.DSCALE_ROUTES, f32_f32=32 * 3 + 307 * 13,
+            add_f32_f32=32 * 2 + 307 * 12,
+            bf16_bf16=16 * 17 + 4 * 33 + 12 * 3,
+            add_bf16_bf16=16 * 16 + 12 * 2, rope_bias_f32=32 * 2,
+            rope_bias_bf16=16 * 16 + 10 * 2 + 2 * 2),
+        "rope": _routes(K.ROPE_ROUTES, forward_f32=307 * 12,
+                        backward_f32=307 * 12, bias_forward_f32=32 * 4,
+                        bias_backward_f32=32 * 2,
+                        forward_bf16=4 * 32, backward_bf16=4 * 16,
+                        bias_forward_bf16=16 * 32 + 16 + 10 * 4 + 2 * 2,
+                        bias_backward_bf16=16 * 16 + 10 * 2 + 2 * 2)},
     "examples": {
-        "rms_norm_fwd": _routes(K.NORM_ROUTES, f32_f32=200 * 13),
-        "rms_norm_bwd": _routes(K.NORM_ROUTES, f32_f32=200 * 13),
-        "rms_norm_dscale": _routes(K.NORM_ROUTES, f32_f32=200 * 13),
+        "rms_norm_fwd": _routes(K.NORM_ROUTES, f32_f32=200 * 7,
+                                add_f32_f32=200 * 6),
+        "rms_norm_bwd": _routes(K.NORM_ROUTES, f32_f32=200 * 7,
+                                add_f32_f32=200 * 6),
+        "rms_norm_dscale": _routes(K.DSCALE_ROUTES, f32_f32=200 * 7,
+                                   add_f32_f32=200 * 6),
         "rope": _routes(K.ROPE_ROUTES, forward_f32=200 * 6,
                         backward_f32=200 * 6)},
     "dryrun": {
         "rms_norm_fwd": _routes(K.NORM_ROUTES),
         "rms_norm_bwd": _routes(K.NORM_ROUTES),
-        "rms_norm_dscale": _routes(K.NORM_ROUTES),
+        "rms_norm_dscale": _routes(K.DSCALE_ROUTES),
         "rope": _routes(K.ROPE_ROUTES)},
 }
 
@@ -605,8 +622,7 @@ def test_chip_smoke_window_checks_host_and_device(monkeypatch):
     a serve run (replays count on the device only), by route for the
     others; it fails on a miscount."""
     cs = _chip_smoke()
-    zero = {k: dict.fromkeys(K.ROPE_ROUTES if k == "rope" else
-                             K.NORM_ROUTES, 0) for k in K.KERNELS}
+    zero = {k: dict.fromkeys(K.KERNEL_ROUTES[k], 0) for k in K.KERNELS}
     device = {k: dict(v) for k, v in zero.items()}
     monkeypatch.setattr(K, "_lib", lambda: None)
     monkeypatch.setattr(K, "kernel_launches",

@@ -613,14 +613,15 @@ def _routes(adamw: dict, sumsq: dict) -> dict:
 # graph steps of the bits check; lm100m (11) 40 checkpointed engine + 40
 # plain-loop graph + 40 plain-loop eager + 4 resumed + 4 x 40 engine turns
 # + 8 bits + 15 pacing steps (307); codeqwen1.5-7b (16) at 16 layers the
-# graph, eager and plain-gate columns' 4 + 4 + 3 timed and 3 profiled
-# steps and 1 FLOP-counted (15), at 2 layers 8 bits and 4 remat steps
+# graph, eager, parent-route and plain-gate columns' 4 + 4 + 3 + 3 timed
+# and 4 profiled steps and 1 FLOP-counted (19), at 2 layers 8 bits and 4
+# remat steps
 # (12); lm20m (11) x train_lm.py's 200 steps; the dry-run's meta DTensors
 # none.  The update launches once a leaf a step, the norm once a step (a
 # graph's warm-up and replays: the device's count).
 EXPECTED_OPTIMIZER_LAUNCHES = {
-    "train": _routes({"f32_f32": 20 * 16 + 307 * 11, "bf16_bf16": 27 * 16},
-                     {"f32": 20 + 307, "bf16": 27}),
+    "train": _routes({"f32_f32": 20 * 16 + 307 * 11, "bf16_bf16": 31 * 16},
+                     {"f32": 20 + 307, "bf16": 31}),
     "examples": _routes({"f32_f32": 200 * 11}, {"f32": 200}),
     "dryrun": _routes({}, {}),
 }
@@ -637,7 +638,7 @@ def test_chip_smoke_train_steps_are_the_phases_own():
     cs = _chip_smoke()
     assert [(cfg.name, cfg.num_layers, n) for cfg, n in
             cs.optimizer_steps("train")] == [
-        ("tiny", 2, 20), ("lm100m", 12, 307), ("codeqwen1.5-7b", 16, 15),
+        ("tiny", 2, 20), ("lm100m", 12, 307), ("codeqwen1.5-7b", 16, 19),
         ("codeqwen1.5-7b", 2, 12)]
     assert [(cfg.name, n) for cfg, n in cs.optimizer_steps("examples")] \
         == [("lm20m", 200)]

@@ -767,16 +767,18 @@ def test_positions_choose_the_route_and_match_jax(name, window,
                         window=window)
     tp = {n: torch.from_numpy(w).requires_grad_(True)
           for n, w in params.items()}
+    # the output projection's bias is the caller's add (the block's norm)
     got = MA.attention(tp, torch.from_numpy(x), cfg,
                        positions=torch.from_numpy(pos), window=window,
-                       arange_positions=name == "arange")
+                       arange_positions=name == "arange") + tp["bo"]
     kernel = name == "arange"
     assert calls["forward"] == int(kernel)
     within(got, np.asarray(want), ulp=0.0)
     # an unstated arange takes the plain route too, and gives its bits
     if kernel:
         plain = MA.attention(tp, torch.from_numpy(x), cfg,
-                             positions=torch.from_numpy(pos), window=window)
+                             positions=torch.from_numpy(pos),
+                             window=window) + tp["bo"]
         assert calls["forward"] == 1
         within(plain, np.asarray(want), ulp=0.0)
 
