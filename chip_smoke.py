@@ -95,7 +95,10 @@ script started (any failure exits non-zero and prints no result):
    attention's tolerance of the plain versions on f32 upcasts, RoPE the
    plain rotation's bits or within 1 bf16 ulp (its largest ulp
    difference printed), the same bits over 3 calls, one device launch a
-   kernel a call; each timed at codeqwen1.5-7b's train shape in turns
+   kernel a call (the norm backward's rows on the route its width, dtype
+   and alignment take: ``staged_*``, or the register route's; the
+   wrapper's plan, ``nr.bwd_plan``, equal to the library's on the card,
+   ``nr.card_plan``); each timed at codeqwen1.5-7b's train shape in turns
    with its plain version, beside its bound and ``F.rms_norm`` on the f32
    upcast (RoPE: no library call).  The fused instances: the norm behind
    its add prologue (h' = h + (a + bias) written beside the normed rows;
@@ -2286,15 +2289,14 @@ def nr_norm_check(torch, nr, C, case, gen) -> dict:
     torch.cuda.synchronize()
     after = nr.kernel_launches(lib)
     route = nr.norm_route(x.dtype, scale.dtype)
-    launched = {k: after[k][route] - before[k][route]
-                for k in ("rms_norm_fwd", "rms_norm_bwd", "rms_norm_dscale")}
+    bwd = nr.backward_route("", x, scale, (dy,))
+    launched = nr_launched(before, after, route, bwd)
     want_y = C.rms_norm_plain(x.float(), scale.float())
     want_dx, want_ds = nr.rms_norm_bwd_plain(x.float(), scale.float(),
                                              dy.float())
     row = {"shape": list(shape), "x": x_dt, "scale": s_dt,
-           "unaligned": unaligned, "route": route,
-           "plan": nr.plan(x.numel() // shape[-1], shape[-1],
-                           not unaligned and shape[-1] % nr.VEC == 0),
+           "unaligned": unaligned, "route": route, "backward_route": bwd,
+           **nr_plans(nr, lib, "", x, scale, (dy,)),
            "forward": ta_within(torch, ys[0], want_y),
            "dx": ta_within(torch, grads[0][0], want_dx),
            "dscale": ta_within(torch, grads[0][1], want_ds),
@@ -2304,8 +2306,34 @@ def nr_norm_check(torch, nr, C, case, gen) -> dict:
            "device_launches": launched}
     row["ok"] = (row["forward"]["ok"] and row["dx"]["ok"]
                  and row["dscale"]["ok"] and row["repeats"]
+                 and row["plan_agrees"]
                  and launched == dict.fromkeys(launched, 3))
     return row
+
+
+def nr_launched(before: dict, after: dict, route: str, bwd: str) -> dict:
+    """The device launches between two counts of a norm case's calls: the
+    forward's and the dscale kernel's on the instance ``route``, the
+    backward's rows on their route ``bwd``."""
+    return {k: after[k][r] - before[k][r] for k, r in (
+        ("rms_norm_fwd", route), ("rms_norm_bwd", bwd),
+        ("rms_norm_dscale", route))}
+
+
+def nr_plans(nr, lib, prologue, x, scale, tensors, stride_bytes=16) -> dict:
+    """A norm case's backward plan as the wrapper works it out
+    (``nr.bwd_plan``: the route by the width, the dtype and the alignment,
+    the chunks of rows, the ring's stages) and as the library does on this
+    card (``nr.card_plan``: also the rows' kernel's registers, spills and
+    resident blocks an SM); ``plan_agrees`` if both choose the same
+    route, threads a row, stages and ring."""
+    n = x.shape[-1]
+    vec = nr.vec_rows(n, (x, scale, *tensors), stride_bytes)
+    mine = nr.bwd_plan(x.numel() // n, n, vec, x.dtype, prologue)
+    card = nr.card_plan(lib, prologue, x.dtype, scale.dtype, n, vec)
+    keys = ("route", "threads_per_row", "stages", "ring_bytes")
+    return {"plan": mine, "card_plan": card,
+            "plan_agrees": all(mine[k] == card[k] for k in keys)}
 
 
 def nr_rope_inputs(torch, case, gen):
@@ -2449,6 +2477,8 @@ def nr_times(torch, nr, C, gen) -> dict:
                                       "upcasts outside the timed call)")
     out["rms_norm_bwd"]["library"] = ("autograd of torch.nn.functional."
                                       "rms_norm on the f32 upcast")
+    out["rms_norm_bwd"]["backward_route"] = nr.backward_route(
+        "", x, scale, (dy,))
     for k in ("rope", "rope_backward"):
         out[k]["library"] = "none: no PyTorch call computes RoPE"
     # the host's time a call through the model's entry points at a decode
@@ -2528,7 +2558,10 @@ NR_ADD_CASES = (
 # name, shape (y's), the projection's width (z its first columns), x
 # dtype, scale dtype, z at an unaligned address: mamba2's and zamba2's
 # prefill and decode shapes, every dtype pair, a row stride not a
-# multiple of 16 bytes, rows in passes
+# multiple of 16 bytes, rows in passes, and z drawn 40 times wider
+# (``NR_GATE_Z_SCALE``: exp(-z) past f32's range, where the staged route's
+# silu divides as the compiler's IEEE division does rather than by its
+# fast path)
 NR_GATE_CASES = (
     ("mamba2_prefill", (4, 512, 4096), 8512, "bf16", "bf16", False),
     ("mamba2_decode", (4, 1, 4096), 8512, "bf16", "bf16", False),
@@ -2540,7 +2573,9 @@ NR_GATE_CASES = (
     ("odd_stride_bf16", (3, 5, 96), 101, "bf16", "bf16", False),
     ("wide_12288_bf16", (2, 12288), 12288, "bf16", "bf16", False),
     ("unaligned_4096_bf16", (6, 4096), 4096, "bf16", "bf16", True),
+    ("z_x40_bf16", (4, 64, 4096), 8512, "bf16", "bf16", False),
 )
+NR_GATE_Z_SCALE = {"z_x40_bf16": 40.0}
 # RoPE with q and k biases: every case of NR_ROPE_CASES
 NR_ROPE_BIAS_CASES = NR_ROPE_CASES
 
@@ -2631,8 +2666,8 @@ def nr_add_check(torch, nr, C, case, gen) -> dict:
     torch.cuda.synchronize()
     after = nr.kernel_launches(lib)
     route = nr.norm_route(h.dtype, scale.dtype, "add")
-    launched = {k: after[k][route] - before[k][route]
-                for k in ("rms_norm_fwd", "rms_norm_bwd", "rms_norm_dscale")}
+    bwd = nr.backward_route("add", outs[0][0], scale, (dy, dres))
+    launched = nr_launched(before, after, route, bwd)
     hp_want = h + (a if bias is None else a + bias)
     hp, x = outs[0]
     # the serve steps' call (after the counted ones): h' written over a
@@ -2643,7 +2678,8 @@ def nr_add_check(torch, nr, C, case, gen) -> dict:
                                            dy.float())
     dh, dscale, dbias = grads[0]
     row = {"shape": list(shape), "x": x_dt, "scale": s_dt, "bias": b_dt,
-           "unaligned": unaligned, "route": route,
+           "unaligned": unaligned, "route": route, "backward_route": bwd,
+           **nr_plans(nr, lib, "add", hp, scale, (dy, dres)),
            "h_same_bits": same_bits(torch, hp, hp_want),
            "in_place_same_bits": same_bits(torch, over, hp_want)
            and same_bits(torch, in_place[1], x),
@@ -2666,7 +2702,7 @@ def nr_add_check(torch, nr, C, case, gen) -> dict:
                  and row["forward"]["ok"]
                  and row["dh"]["ok"] and row["dscale"]["ok"]
                  and (row["dbias"] is None or row["dbias"]["ok"])
-                 and row["repeats"]
+                 and row["repeats"] and row["plan_agrees"]
                  and launched == dict.fromkeys(launched, 3))
     return row
 
@@ -2677,6 +2713,8 @@ def nr_gate_inputs(torch, case, gen):
     name, shape, width, x_dt, s_dt, unaligned = case
     n, lead = shape[-1], shape[:-1]
     proj = nr_draw(torch, (*lead, width), x_dt, unaligned, gen)
+    if name in NR_GATE_Z_SCALE:
+        proj = proj * NR_GATE_Z_SCALE[name]
     y = nr_draw(torch, shape, x_dt, False, gen)
     scale = nr_draw(torch, (n,), s_dt, False, gen) * 0.1
     dy = nr_draw(torch, shape, x_dt, False, gen)
@@ -2707,13 +2745,16 @@ def nr_gate_check(torch, nr, C, case, gen) -> dict:
     torch.cuda.synchronize()
     after = nr.kernel_launches(lib)
     route = nr.norm_route(y.dtype, scale.dtype, "gate")
-    launched = {k: after[k][route] - before[k][route]
-                for k in ("rms_norm_fwd", "rms_norm_bwd", "rms_norm_dscale")}
+    z2, z_stride = nr._rows_of(z, shape[-1])
+    stride_bytes = z_stride * z2.element_size()
+    bwd = nr.backward_route("gate", y, scale, (z2, dy), stride_bytes)
+    launched = nr_launched(before, after, route, bwd)
     g = y * F.silu(z)
     want = nr.gated_rms_norm_bwd_plain(y, z, scale, dy)
     _, ds_ref = nr.rms_norm_bwd_plain(g.float(), scale.float(), dy.float())
     row = {"shape": list(shape), "width": width, "x": x_dt, "scale": s_dt,
-           "unaligned": unaligned, "route": route,
+           "unaligned": unaligned, "route": route, "backward_route": bwd,
+           **nr_plans(nr, lib, "gate", y, scale, (z2, dy), stride_bytes),
            "forward": ta_within(torch, outs[0], C.rms_norm_plain(
                g.float(), scale.float())),
            "forward_same_as_unfused": same_bits(
@@ -2731,7 +2772,7 @@ def nr_gate_check(torch, nr, C, case, gen) -> dict:
                  and row["dz"]["ok"] and row["dscale"]["ok"]
                  and not any(f["ok"]
                              for f in row["planted_faults"].values())
-                 and row["repeats"]
+                 and row["repeats"] and row["plan_agrees"]
                  and launched == dict.fromkeys(launched, 3))
     return row
 
@@ -2901,6 +2942,11 @@ def nr_fused_times(torch, nr, C, gen) -> dict:
                                        if unfused_lib else None), **bound)
         row["share_of_bound"] = row["bound_ms"] / row["ms"]
         out[name] = row
+    out["add_rms_norm_bwd"]["backward_route"] = nr.backward_route(
+        "add", hp, scale, (dy, dres))
+    z2, z_stride = nr._rows_of(z, y.shape[-1])
+    out["gated_rms_norm_bwd"]["backward_route"] = nr.backward_route(
+        "gate", y, scale, (z2, gdy), z_stride * z2.element_size())
     return out
 
 
@@ -2997,12 +3043,17 @@ def phase_norm_rope_kernel(torch, nr) -> list:
         t = times[name]
         entry = {
             "name": name, "route": "cuda", "counter": name,
-            "kernel_route": "forward_bf16" if name == "rope" else "bf16_bf16",
-            "kernel_routes": list(nr.ROPE_ROUTES[:4] if name == "rope"
-                                  else nr.NORM_ROUTES[:4]),
+            "kernel_route": {"rope": "forward_bf16",
+                             "rms_norm_bwd": "staged_bf16_bf16"}.get(
+                                 name, "bf16_bf16"),
+            "kernel_routes": list(
+                nr.ROPE_ROUTES[:4] if name == "rope" else
+                nr.STAGED_ROUTES[:4] + nr.NORM_ROUTES[:4]
+                if name == "rms_norm_bwd" else nr.NORM_ROUTES[:4]),
             "source": NR_SOURCE + {
                 "rms_norm_fwd": " (rms_norm_fwd_kernel)",
-                "rms_norm_bwd": " (rms_norm_bwd_kernel, "
+                "rms_norm_bwd": " (rms_norm_bwd_staged_kernel, the "
+                                "register route's rms_norm_bwd_kernel, "
                                 "rms_norm_dscale_kernel)",
                 "rope": " (rope_kernel, forward and backward)"}[name],
             "replaces": NR_REPLACES[name], "shape": NR_SHAPE[name],
@@ -3021,25 +3072,27 @@ def phase_norm_rope_kernel(torch, nr) -> list:
             "add_rms_norm_fwd": ("rms_norm_fwd", "add",
                                  "rms_norm_fwd_kernel, prologue kAdd"),
             "add_rms_norm_bwd": ("rms_norm_bwd", "add",
-                                 "rms_norm_bwd_kernel and rms_norm_dscale_"
-                                 "kernel, prologue kAdd"),
+                                 "rms_norm_bwd_staged_kernel (the register "
+                                 "route's rms_norm_bwd_kernel) and "
+                                 "rms_norm_dscale_kernel, prologue kAdd"),
             "gated_rms_norm": ("rms_norm_fwd", "gate",
                                "rms_norm_fwd_kernel, prologue kGate; its "
-                               "backward rms_norm_bwd_kernel and rms_norm_"
-                               "dscale_kernel, prologue kGate"),
+                               "backward rms_norm_bwd_staged_kernel (the "
+                               "register route's rms_norm_bwd_kernel) and "
+                               "rms_norm_dscale_kernel, prologue kGate"),
             "rope_bias": ("rope", "bias",
                           "rope_kernel with biases, forward and backward, "
                           "and rms_norm_dscale_kernel for the biases' "
                           "grads")}.items():
         key = name if name in fused_times else name + "_fwd"
         t = fused_times[key]
-        routes = [r for r in (nr.ROPE_ROUTES if counter == "rope"
-                              else nr.NORM_ROUTES)
-                  if r.startswith(prologue + "_")]
+        routes = [r for r in nr.KERNEL_ROUTES[counter]
+                  if r.startswith((prologue + "_", f"staged_{prologue}_"))]
         entry = {
             "name": name, "route": "cuda", "counter": counter,
-            "kernel_route": f"{prologue}_bf16_bf16" if counter != "rope"
-            else "bias_forward_bf16", "kernel_routes": routes,
+            "kernel_route": {"rope": "bias_forward_bf16",
+                             "rms_norm_bwd": f"staged_{prologue}_bf16_bf16"}
+            .get(counter, f"{prologue}_bf16_bf16"), "kernel_routes": routes,
             "source": f"{NR_SOURCE} ({kernel_name})",
             "replaces": NR_FUSED_REPLACES[key],
             "shape": NR_FUSED_SHAPE[key], "max_abs_err": fused_worst[key],
@@ -3061,7 +3114,8 @@ def phase_norm_rope_kernel(torch, nr) -> list:
         if name == "gated_rms_norm":
             entry.update(
                 backward_max_abs_err=fused_worst["gated_rms_norm_bwd"],
-                backward_routes=[f"gate_{r}" for r in nr.NORM_ROUTES[:4]])
+                backward_routes=[r for r in nr.BWD_ROUTES
+                                 if r.startswith(("gate_", "staged_gate_"))])
         entries.append(entry)
     return entries
 
@@ -3081,31 +3135,48 @@ def norm_rope_calls(cfg, step: str) -> dict:
     ``enc_*`` counts are the whisper encoder's share, whose x is the f32
     frames' dtype (``enc_layer_norms`` its layers' norms without a
     prologue, ``enc_add_norms`` with, ``enc_outer_norms`` its final
-    norm)."""
+    norm); ``qk_norms`` and ``enc_qk_norms`` are the q and k norms among
+    the layer norms (over the head dim; the rest over d_model, the gated
+    norms over the SSM's inner width)."""
     from repro_torch.models import model as M
     qk = 2 if cfg.qk_norm else 0
     rope_bias = cfg.use_bias and not cfg.qk_norm
     out = {"layer_norms": (2 + qk) * cfg.num_layers, "outer_norms": 1,
            "ropes": cfg.num_layers, "add_norms": cfg.num_layers,
            "gate_norms": 0, "bias_ropes": cfg.num_layers * rope_bias,
-           "enc_layer_norms": 0, "enc_add_norms": 0, "enc_outer_norms": 0}
+           "qk_norms": qk * cfg.num_layers, "enc_layer_norms": 0,
+           "enc_add_norms": 0, "enc_outer_norms": 0, "enc_qk_norms": 0}
     if cfg.family in ("ssm", "hybrid"):
         calls = M._shared_groups(cfg) if cfg.family == "hybrid" else 0
         out.update(layer_norms=2 * cfg.num_layers + (2 + qk) * calls,
                    ropes=calls, add_norms=calls, gate_norms=cfg.num_layers,
-                   bias_ropes=calls * rope_bias)
+                   bias_ropes=calls * rope_bias, qk_norms=qk * calls)
     elif cfg.family == "encdec":
         # the forward's cross-attention projects q and k (their qk norms);
         # the decode step's reads the cached encoder K / V
-        dec = (3 + 2 * qk if step == "forward" else 3 + qk) * cfg.num_layers
-        enc = (2 + qk) * cfg.num_encoder_layers if step == "forward" else 0
+        dec_qk = (2 * qk if step == "forward" else qk) * cfg.num_layers
+        dec = 3 * cfg.num_layers + dec_qk
+        enc_qk = qk * cfg.num_encoder_layers if step == "forward" else 0
+        enc = 2 * cfg.num_encoder_layers + enc_qk if step == "forward" \
+            else 0
         enc_add = cfg.num_encoder_layers if step == "forward" else 0
         out.update(layer_norms=dec + enc, ropes=0, bias_ropes=0,
                    outer_norms=2 if step == "forward" else 1,
-                   add_norms=2 * cfg.num_layers + enc_add,
+                   add_norms=2 * cfg.num_layers + enc_add, qk_norms=dec_qk,
                    enc_layer_norms=enc - enc_add, enc_add_norms=enc_add,
-                   enc_outer_norms=1 if step == "forward" else 0)
+                   enc_outer_norms=1 if step == "forward" else 0,
+                   enc_qk_norms=enc_qk)
     return out
+
+
+def norm_bwd_route(nr, x_dtype, scale_dtype, prologue: str, n: int,
+                   stride_bytes: int = 16) -> str:
+    """The route of a model's norm backward at width ``n`` (its rows
+    aligned, as the model's activations are; ``stride_bytes``: the gated
+    norm's z, a slice of the input projection, by its row stride)."""
+    vec = n % nr.VEC == 0 and stride_bytes % 16 == 0
+    staged = nr.bwd_plan(1, n, vec, x_dtype, prologue)["route"] == "staged"
+    return nr.bwd_route(x_dtype, scale_dtype, prologue, staged)
 
 
 def norm_rope_pass(nr, cfg, step: str, passes: int, forwards: int = 1,
@@ -3118,37 +3189,50 @@ def norm_rope_pass(nr, cfg, step: str, passes: int, forwards: int = 1,
     its backward and dscale once a norm a backward, RoPE once a
     self-attention call a forward and once a backward (the dscale kernel
     once more a backward with biases, for their grads); x in the model's
-    dtype but for whisper's f32 encoder, the scale in the model's.
+    dtype but for whisper's f32 encoder, the scale in the model's; the
+    backward on the route its width takes (``norm_bwd_route``).
     ``fused`` False: the parent's route (``unfused_norm_rope``), every
     norm and rotation without a prologue (the unfused gated norm a plain
     one)."""
     import torch
     dt, f32 = cfg.torch_dtype, torch.float32
     c = norm_rope_calls(cfg, step)
-    add = c["add_norms"] if fused else 0
-    gate = c["gate_norms"] if fused else 0
-    enc_add = c["enc_add_norms"] if fused else 0
-    enc_plain = c["enc_layer_norms"] + c["enc_add_norms"] - enc_add
+    add, gate = ("add", "gate") if fused else ("", "")
     want = {k: dict.fromkeys(nr.KERNEL_ROUTES[k], 0) for k in nr.KERNELS}
     # the hybrid's Mamba layers sit in two checkpoints under remat (their
     # own and their group's, ``models.model.backbone``): their norm and
     # gated norm run one forward more
     nested = cfg.num_layers if cfg.family == "hybrid" and forwards > 1 \
         else 0
-    # (prologue, x dtype, layer norms, outer norms, norms of the nested
-    # layers)
-    for pro, x, layer, outer, more in (
-            ("", dt, c["layer_norms"] - add - gate - enc_plain,
-             c["outer_norms"] - c["enc_outer_norms"],
-             nested * (1 if fused else 2)),
-            ("", f32, enc_plain, c["enc_outer_norms"], 0),
-            ("add", dt, add - enc_add, 0, 0), ("add", f32, enc_add, 0, 0),
-            ("gate", dt, gate, 0, nested if fused else 0)):
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    # the gated norm's width and z's row stride (the input projection's)
+    gw, zw = 0, 0
+    if cfg.family in ("ssm", "hybrid"):
+        gw = cfg.ssm_inner
+        zw = 2 * gw + 2 * cfg.ssm_groups * cfg.ssm_state + cfg.ssm_heads
+    # (prologue, x dtype, width, z's row stride, layer norms, outer norms,
+    # norms of the nested layers)
+    for pro, x, n, stride, layer, outer, more in (
+            ("", dt, d, 0, c["layer_norms"] - c["add_norms"]
+             - c["gate_norms"] - c["enc_layer_norms"] - c["qk_norms"],
+             c["outer_norms"] - c["enc_outer_norms"], nested),
+            ("", dt, hd, 0, c["qk_norms"], 0, 0),
+            ("", f32, d, 0, c["enc_layer_norms"] - c["enc_qk_norms"],
+             c["enc_outer_norms"], 0),
+            ("", f32, hd, 0, c["enc_qk_norms"], 0, 0),
+            (add, dt, d, 0, c["add_norms"] - c["enc_add_norms"], 0, 0),
+            (add, f32, d, 0, c["enc_add_norms"], 0, 0),
+            (gate, dt, gw, zw, c["gate_norms"], 0, nested)):
+        if not layer + outer + more:
+            continue
         r = nr.norm_route(x, dt, pro)
         want["rms_norm_fwd"][r] += passes * (layer * forwards + outer + more)
         if backward:
-            for k in ("rms_norm_bwd", "rms_norm_dscale"):
-                want[k][r] += passes * (layer + outer)
+            want["rms_norm_dscale"][r] += passes * (layer + outer)
+            b = norm_bwd_route(nr, x, dt, pro, n, stride
+                               * torch.finfo(x).bits // 8 if pro == "gate"
+                               else 16)
+            want["rms_norm_bwd"][b] += passes * (layer + outer)
     biased = c["bias_ropes"] if fused else 0
     for bias, n in ((False, c["ropes"] - biased), (True, biased)):
         want["rope"][nr.rope_route(dt, False, bias)] += passes * n * forwards
@@ -5810,6 +5894,7 @@ NAMED_KERNEL_PARTS = {"adamw_update_kernel": "optimizer",
                       "delta_kernel": "attention_kernels",
                       "rms_norm_fwd_kernel": "norm_rope_kernels",
                       "rms_norm_bwd_kernel": "norm_rope_kernels",
+                      "rms_norm_bwd_staged_kernel": "norm_rope_kernels",
                       "rms_norm_dscale_kernel": "norm_rope_kernels",
                       "rope_kernel": "norm_rope_kernels",
                       "gated_act_fwd_kernel": "gate_kernels",

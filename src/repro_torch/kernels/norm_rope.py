@@ -18,7 +18,14 @@ operations with each product and sum IEEE-rounded; dscale as per-chunk f32
 partials summed in a fixed order by a second kernel (no float atomics, so
 losses and grads repeat to the bit); cos and sin by ``cosf`` / ``sinf``
 once a (row, pair) for every head; q and k rotated by one launch, the
-backward the same kernel by -angle.
+backward the same kernel by -angle.  The norm's backward has two routes
+(``bwd_plan``, by the width, the dtype and the alignment only): the staged
+route copies each input row once into a ring of row stages in shared
+memory, several rows in flight on each SM, and reads both of its passes
+from there; rows the ring does not take run on the register route, which
+reads them twice.  Both give the same bits; each counts its launches on
+routes of its own (``BWD_ROUTES``: ``staged_*`` and the register route's
+``NORM_ROUTES``).
 
 The elementwise work that XLA fuses into a norm or a rotation under
 ``jax.jit`` runs inside these kernels too, as compile-time prologues of the
@@ -79,9 +86,16 @@ DSCALE_ROUTES = NORM_ROUTES + ("rope_bias_f32", "rope_bias_bf16")
 ROPE_ROUTES = ("forward_f32", "forward_bf16", "backward_f32",
                "backward_bf16", "bias_forward_f32", "bias_forward_bf16",
                "bias_backward_f32", "bias_backward_bf16")
+# the backward's routes: the register route's instances, then the staged
+# route's (C counter 12 + the instance)
+STAGED_ROUTES = tuple(f"staged_{r}" for r in NORM_ROUTES)
+BWD_ROUTES = NORM_ROUTES + STAGED_ROUTES
 KERNELS = ("rms_norm_fwd", "rms_norm_bwd", "rms_norm_dscale", "rope")
-KERNEL_ROUTES = {"rms_norm_fwd": NORM_ROUTES, "rms_norm_bwd": NORM_ROUTES,
+KERNEL_ROUTES = {"rms_norm_fwd": NORM_ROUTES, "rms_norm_bwd": BWD_ROUTES,
                  "rms_norm_dscale": DSCALE_ROUTES, "rope": ROPE_ROUTES}
+# a library whose backward runs the register route at every width (the old
+# route, timed in turns with the staged one: ``tune.py --norm-bwd``)
+FORCE_REGS_DEFINES = ("NORM_BWD_FORCE_REGS",)
 # the kernels' launch shape, as norm_rope.cu works it out (the CPU tests
 # emulate the order of dscale's sums from these): threads a block, elements
 # a 16-byte group, groups a thread keeps a pass (aligned), elements a
@@ -94,6 +108,12 @@ SCALAR_ITEMS = 32
 BWD_BLOCKS = 264
 DSCALE_SPLIT = 8
 PAIRS = 8
+# the backward's staged route: a block's ring of row stages (bytes), its
+# most stages, and the rows it stages an input row by prologue
+RING_BYTES = 112 * 1024
+MAX_STAGES = 4
+STAGED_INPUTS = {"": 2, "add": 3, "gate": 3}
+_BYTES = {torch.float32: 4, torch.bfloat16: 2}
 
 
 def norm_route(x_dtype: torch.dtype, scale_dtype: torch.dtype,
@@ -118,11 +138,22 @@ def rope_route(dtype: torch.dtype, backward: bool = False,
     return f"bias_{route}" if bias else route
 
 
+def bwd_route(x_dtype: torch.dtype, scale_dtype: torch.dtype,
+              prologue: str = "", staged: bool = False) -> str:
+    """The route of a norm backward's rows: ``norm_route``'s instance on
+    the register route, ``staged_`` and that on the staged one."""
+    route = norm_route(x_dtype, scale_dtype, prologue)
+    return f"staged_{route}" if staged else route
+
+
 def dscale_route(route: str) -> str:
     """The dscale kernel's instance that sums the bias grads of RoPE's
-    ``route`` (a ``bias_backward_*``), or a norm backward's ``route``."""
+    ``route`` (a ``bias_backward_*``), or a norm backward's ``route`` (on
+    either of its routes)."""
     if route.startswith("bias_backward_"):
         return "rope_bias_" + route[len("bias_backward_"):]
+    if route.startswith("staged_"):
+        route = route[len("staged_"):]
     if route not in NORM_ROUTES:
         raise ValueError(f"no dscale launch on route {route!r}")
     return route
@@ -144,6 +175,52 @@ def plan(rows: int, n: int, vec: bool) -> dict:
     return {"threads_per_row": t, "passes": -(-groups // (most * t)),
             "slots": THREADS // t, "rows_per_chunk": per,
             "chunks": -(-rows // per)}
+
+
+def bwd_plan(rows: int, n: int, vec: bool, x_dtype: torch.dtype,
+             prologue: str = "", force_regs: bool = False) -> dict:
+    """``plan`` and the backward's route, as ``norm_rope.cu``'s
+    ``bwd_plan`` chooses it: "staged" where the rows may be copied in
+    16-byte pieces (``vec``), a row takes one pass and a block's ring of
+    ``RING_BYTES`` holds two stages or more (a stage: the block's
+    ``slots`` rows of each of the prologue's ``STAGED_INPUTS``), with
+    ``stages`` of them (at most ``MAX_STAGES``), beside the add and gated
+    norms' weights in f32 (``ring_bytes``: the whole).  Else "regs"
+    (the register route; every width with ``force_regs``, the
+    ``FORCE_REGS_DEFINES`` build).  Both routes take the same chunks of
+    rows and row slots, so the partial rows' order is ``plan``'s."""
+    if prologue not in STAGED_INPUTS:
+        raise ValueError(f"rms_norm: prologue {prologue!r} ({PROLOGUES})")
+    p = plan(rows, n, vec)
+    stage = p["slots"] * n * _BYTES[x_dtype] * STAGED_INPUTS[prologue]
+    w_bytes = 4 * n if prologue else 0
+    fit = (RING_BYTES - w_bytes) // stage
+    staged = vec and p["passes"] == 1 and fit >= 2 and not force_regs
+    stages = min(fit, MAX_STAGES) if staged else 0
+    return {**p, "route": "staged" if staged else "regs", "stages": stages,
+            "ring_bytes": stages * stage + w_bytes if staged else 0}
+
+
+def vec_rows(n: int, tensors: Sequence[torch.Tensor],
+             stride_bytes: int = 16) -> bool:
+    """The kernels' rule for 16-byte groups: n % 8 == 0, every tensor's
+    address 16-byte aligned and the row stride (``stride_bytes``, of a
+    strided input) a multiple of 16 bytes."""
+    return n % VEC == 0 and stride_bytes % 16 == 0 and all(
+        t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def backward_route(prologue: str, x: torch.Tensor, scale: torch.Tensor,
+                   tensors: Sequence[torch.Tensor] = (),
+                   stride_bytes: int = 16, force_regs: bool = False) -> str:
+    """The route (``BWD_ROUTES``) of the norm backward of ``x`` (rows of
+    its last dim) behind ``prologue``, whose launch also reads or writes
+    ``tensors`` (the addresses the kernel checks, as its C entry point
+    lists them), a strided input's row stride ``stride_bytes``."""
+    n = x.shape[-1]
+    vec = vec_rows(n, (x, scale, *tensors), stride_bytes)
+    p = bwd_plan(x.numel() // n, n, vec, x.dtype, prologue, force_regs)
+    return bwd_route(x.dtype, scale.dtype, prologue, p["route"] == "staged")
 
 
 def rope_bias_blocks(rows: int, head_dim: int, vec: bool) -> int:
@@ -290,13 +367,14 @@ def rope_bias_bwd_plain(dys: Sequence[torch.Tensor], positions: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-_LIB = None      # the loaded library: a norm is a few microseconds of work
+_LIBS: dict = {}   # the loaded libraries by defines: a norm is a few
+                   # microseconds of work
 
 
-def _lib() -> ctypes.CDLL:
-    global _LIB
-    if _LIB is None:
-        lib = _build.load("norm_rope")
+def _lib(defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
+    lib = _LIBS.get(defines)
+    if lib is None:
+        lib = _build.load("norm_rope", defines)
         p, i, f, ll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                        ctypes.c_longlong)
         lib.rms_norm_fwd.argtypes = [p, p, p, ll, i, i, i, f, p]
@@ -322,10 +400,30 @@ def _lib() -> ctypes.CDLL:
         lib.rope_bias.argtypes = [p, p, p, i, p, p, p, i, ll, i, i, p, ll,
                                   ll, p, i, i, p, p, ll, p]
         lib.rope_bias.restype = i
+        lib.rms_norm_bwd_plan.argtypes = [i, i, i, i, i, p]
+        lib.rms_norm_bwd_plan.restype = i
         lib.norm_rope_launches.argtypes = [i, i]
         lib.norm_rope_launches.restype = ctypes.c_ulonglong
-        _LIB = lib
-    return _LIB
+        _LIBS[defines] = lib
+    return lib
+
+
+def card_plan(lib: ctypes.CDLL, prologue: str, x_dtype: torch.dtype,
+              scale_dtype: torch.dtype, n: int, vec: bool) -> dict:
+    """The backward's plan at width ``n`` as ``lib`` (on the current card)
+    works it out: its route ("staged" or "regs"), threads a row, stages,
+    dynamic shared bytes, and its rows' kernel's resident blocks an SM,
+    registers a thread and spilled bytes a thread."""
+    out = (ctypes.c_int * 7)()
+    err = lib.rms_norm_bwd_plan(PROLOGUES.index(prologue), _BF16[x_dtype],
+                                _BF16[scale_dtype], n, int(vec), out)
+    if err != 0:
+        raise RuntimeError(f"rms_norm_bwd_plan: CUDA error {err}")
+    keys = ("route", "threads_per_row", "stages", "ring_bytes",
+            "blocks_per_sm", "registers", "local_bytes")
+    got = dict(zip(keys, list(out)))
+    got["route"] = "staged" if got["route"] else "regs"
+    return got
 
 
 def kernel_launches(lib: ctypes.CDLL) -> dict:
@@ -357,10 +455,12 @@ def _check_cuda(name: str, tensors: Sequence[torch.Tensor]) -> None:
 def host_launches() -> dict:
     """The launches counted on the host since the counts were last set to
     0, by kernel and route (``KERNEL_ROUTES``): a backward's dscale launch
-    is its norm's, or, on ``rope_bias_*``, RoPE's backward with biases."""
+    is its norm's (on the instance of either of its routes), or, on
+    ``rope_bias_*``, RoPE's backward with biases."""
     fwd, bwd, rp = (dict(f.launches_by_route)
                     for f in (rms_norm_fwd, rms_norm_bwd, rope))
-    dscale = {r: bwd.get(r, 0) for r in NORM_ROUTES}
+    dscale = {r: bwd.get(r, 0) + bwd.get(f"staged_{r}", 0)
+              for r in NORM_ROUTES}
     for r in ("f32", "bf16"):
         dscale[f"rope_bias_{r}"] = rp.get(f"bias_backward_{r}", 0)
     return {"rms_norm_fwd": fwd, "rms_norm_bwd": bwd,
@@ -406,14 +506,21 @@ def rms_norm_fwd(x: torch.Tensor, scale: torch.Tensor,
     return out
 
 
+def _forced(defines: Tuple[str, ...]) -> bool:
+    return FORCE_REGS_DEFINES[0] in defines
+
+
 def rms_norm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
-                 eps: float = 1e-6) -> Tuple[torch.Tensor, torch.Tensor]:
+                 eps: float = 1e-6, defines: Tuple[str, ...] = ()
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dx, dscale) of ``rms_norm_fwd(x, scale, eps)`` given dy (x's shape
     and dtype), as ``rms_norm_bwd_plain`` computes them, in two launches:
-    dx and a partial dscale row a chunk of rows, then dscale summed over
-    the chunks in a fixed order (``plan``)."""
+    dx and a partial dscale row a chunk of rows (on the route
+    ``backward_route`` gives), then dscale summed over the chunks in a
+    fixed order (``plan``).  ``defines``: the library's build
+    (``FORCE_REGS_DEFINES``: the register route at every width)."""
     _check_cuda("rms_norm_bwd", (x, scale, dy))
-    route, rows, n = _norm_args("rms_norm_bwd", x, scale)
+    _, rows, n = _norm_args("rms_norm_bwd", x, scale)
     if dy.shape != x.shape or dy.dtype != x.dtype:
         raise ValueError(f"rms_norm_bwd: dy {tuple(dy.shape)} {dy.dtype}, "
                          f"x {tuple(x.shape)} {x.dtype}")
@@ -422,9 +529,11 @@ def rms_norm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
     if rows == 0:
         return dx, torch.zeros_like(scale)
     dscale = torch.empty_like(scale)
+    route = backward_route("", x, scale, (dx, dy),
+                           force_regs=_forced(defines))
     chunks = plan(rows, n, False)["chunks"]
     partials = torch.empty(chunks * n, dtype=torch.float32, device=x.device)
-    err = _launch(x.device, _lib().rms_norm_bwd, dx.data_ptr(),
+    err = _launch(x.device, _lib(defines).rms_norm_bwd, dx.data_ptr(),
                   dscale.data_ptr(), partials.data_ptr(), partials.numel(),
                   x.data_ptr(), dy.data_ptr(), scale.data_ptr(), rows, n,
                   _BF16[x.dtype], _BF16[scale.dtype], eps)
@@ -490,14 +599,14 @@ def add_rms_norm_fwd(h: torch.Tensor, a: torch.Tensor, scale: torch.Tensor,
 def add_rms_norm_bwd(hp: torch.Tensor, scale: torch.Tensor,
                      dy: torch.Tensor, dres: torch.Tensor,
                      bias_dtype: Optional[torch.dtype] = None,
-                     eps: float = 1e-6):
+                     eps: float = 1e-6, defines: Tuple[str, ...] = ()):
     """(dh, dscale, dbias or None) of ``add_rms_norm_fwd`` from its h'
     (``hp``) given y's grad dy and h''s dres (both hp's shape and dtype),
     as ``add_rms_norm_bwd_plain`` computes them, in two launches (the rows
-    and the partials; the dscale kernel's fixed order for dscale and
-    dbias)."""
+    and the partials on ``backward_route``'s route; the dscale kernel's
+    fixed order for dscale and dbias); ``defines`` as ``rms_norm_bwd``'s."""
     _check_cuda("add_rms_norm_bwd", (hp, scale, dy, dres))
-    route, rows, n = _norm_args("add_rms_norm_bwd", hp, scale, "add")
+    _, rows, n = _norm_args("add_rms_norm_bwd", hp, scale, "add")
     for name, t in (("dy", dy), ("dres", dres)):
         if t.shape != hp.shape or t.dtype != hp.dtype:
             raise ValueError(f"add_rms_norm_bwd: {name} {tuple(t.shape)} "
@@ -513,10 +622,12 @@ def add_rms_norm_bwd(hp: torch.Tensor, scale: torch.Tensor,
         return dh, torch.zeros_like(scale), (
             None if dbias is None else dbias.zero_())
     dscale = torch.empty_like(scale)
+    route = backward_route("add", hp, scale, (dh, dy, dres),
+                           force_regs=_forced(defines))
     parts = 1 if dbias is None else 2
     partials = torch.empty(plan(rows, n, False)["chunks"] * n * parts,
                            dtype=torch.float32, device=hp.device)
-    err = _launch(hp.device, _lib().add_rms_norm_bwd, dh.data_ptr(),
+    err = _launch(hp.device, _lib(defines).add_rms_norm_bwd, dh.data_ptr(),
                   dscale.data_ptr(),
                   None if dbias is None else dbias.data_ptr(),
                   partials.data_ptr(), partials.numel(), hp.data_ptr(),
@@ -568,12 +679,13 @@ def gated_rms_norm_fwd(y: torch.Tensor, z: torch.Tensor,
 
 def gated_rms_norm_bwd(y: torch.Tensor, z: torch.Tensor,
                        scale: torch.Tensor, dy: torch.Tensor,
-                       eps: float = 1e-6):
+                       eps: float = 1e-6, defines: Tuple[str, ...] = ()):
     """(y's grad, z's grad, dscale) of ``gated_rms_norm_fwd`` given its
     grad dy (y's shape and dtype), as ``gated_rms_norm_bwd_plain`` computes
-    them, in two launches; z's grad contiguous."""
+    them, in two launches (on ``backward_route``'s route); z's grad
+    contiguous; ``defines`` as ``rms_norm_bwd``'s."""
     _check_cuda("gated_rms_norm_bwd", (y, z, scale, dy))
-    route, rows, n = _norm_args("gated_rms_norm_bwd", y, scale, "gate")
+    _, rows, n = _norm_args("gated_rms_norm_bwd", y, scale, "gate")
     for name, t in (("z", z), ("dy", dy)):
         if t.shape != y.shape or t.dtype != y.dtype:
             raise ValueError(f"gated_rms_norm_bwd: {name} {tuple(t.shape)} "
@@ -585,9 +697,13 @@ def gated_rms_norm_bwd(y: torch.Tensor, z: torch.Tensor,
         return dy_out, dz, torch.zeros_like(scale)
     z2, z_stride = _rows_of(z, n)
     dscale = torch.empty_like(scale)
+    route = backward_route("gate", y, scale, (dy_out, dz, z2, dy),
+                           z_stride * z2.element_size(),
+                           force_regs=_forced(defines))
     partials = torch.empty(plan(rows, n, False)["chunks"] * n,
                            dtype=torch.float32, device=y.device)
-    err = _launch(y.device, _lib().gated_rms_norm_bwd, dy_out.data_ptr(),
+    err = _launch(y.device, _lib(defines).gated_rms_norm_bwd,
+                  dy_out.data_ptr(),
                   dz.data_ptr(), dscale.data_ptr(), partials.data_ptr(),
                   partials.numel(), y.data_ptr(), z2.data_ptr(), z_stride,
                   dy.data_ptr(), scale.data_ptr(), rows, n, _BF16[y.dtype],
@@ -795,6 +911,6 @@ class Rope(torch.autograd.Function):
 rms_norm_fwd.launches = 0
 rms_norm_fwd.launches_by_route = dict.fromkeys(NORM_ROUTES, 0)
 rms_norm_bwd.launches = 0
-rms_norm_bwd.launches_by_route = dict.fromkeys(NORM_ROUTES, 0)
+rms_norm_bwd.launches_by_route = dict.fromkeys(BWD_ROUTES, 0)
 rope.launches = 0
 rope.launches_by_route = dict.fromkeys(ROPE_ROUTES, 0)

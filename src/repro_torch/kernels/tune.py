@@ -3,7 +3,7 @@
 Run on a CUDA card from the repo root:
 
     PYTHONPATH=src python -m repro_torch.kernels.tune \
-        [--after-gemm | --ssd | --decode]
+        [--after-gemm | --ssd | --decode | --norm-bwd]
 
 Flash attention, ``wgmma_bf16`` route (D = 64, 80 and 128): one build of
 ``csrc/flash_attention.cu`` per (FLASH_WG_BK, FLASH_WG_ST,
@@ -37,6 +37,21 @@ plain version, at each serve path's decode shape at its last row (bf16)
 and at command-r-plus-104b's 12 query heads a kv head (``splits_ms``
 lines by route and tile, beside the count the wrapper's rule picks from
 that build's occupancy, ``rule``, and the best count, ``best``).
+``--norm-bwd`` builds ``csrc/norm_rope.cu`` twice, as it is and with
+``-DNORM_BWD_FORCE_REGS`` (the register route at every width: the old
+route), and times the norm's backward on both, in turns (new, old, old,
+new), at the path shapes of ``NORM_BWD_SHAPES`` (codeqwen1.5-7b's plain
+and add norms, mamba2-1.3b's and zamba2-2.7b's gated norms, z a slice of
+the input projection, lm100m's f32 norm; and mamba2's gate with z drawn 40
+times wider, or holding signed zeros, where the staged route's silu leaves
+its fast division),
+beside the bound (each input
+read and each output written once at the card's memory rate); each
+instance's route, stages, registers a thread, spills and resident blocks
+an SM (``norm_rope.card_plan``), and the largest distance in ulps of every
+output of the new route from the old route's (``max_ulp``; dscale's and
+dbias's bits compared too).  Each new output is first checked against the
+plain version (``TOL``).
 ``--after-gemm`` instead times the default build of flash at gemma2-27b's
 8192-token shapes (one sequence and its serve's two) back to back and
 right after bf16 GEMMs of its MLP's size, as its prefill runs it, with
@@ -54,7 +69,9 @@ import torch.nn.functional as F
 from . import _build
 from . import decode_attention as da
 from . import flash_attention as fa
+from . import norm_rope as nr
 from . import ssd_scan as ss
+from ..launch.mesh import HBM_BW
 
 # (BK, stages, ping-pong, persistent) of the wgmma_bf16 route; persistent
 # None: the kernel's rule (by work items an SM)
@@ -103,6 +120,28 @@ DECODE_DEFAULT_TILE = (64, 2, 4)
 DECODE_TILES = (None, (64, 3, 4), (32, 4, 4), (128, 2, 4), (64, 2, 2),
                 (64, 2, 8))
 TOL = 2e-2
+# the norm backward's shapes: prologue, rows' shape, x dtype, scale dtype,
+# the gated norm's projection width (z its first columns; 0 otherwise),
+# bias (the add norm's, of the scale's dtype); and the gate with z drawn 40
+# times wider (its silu past the fast division's range: the bits there)
+NORM_BWD_SHAPES = {
+    "codeqwen_norm": ("", (8, 512, 4096), "bfloat16", "bfloat16", 0, False),
+    "codeqwen_add": ("add", (8, 512, 4096), "bfloat16", "bfloat16", 0,
+                     True),
+    "mamba2_gate": ("gate", (4, 512, 4096), "bfloat16", "bfloat16", 8512,
+                    False),
+    "zamba2_gate": ("gate", (4, 512, 5120), "bfloat16", "bfloat16", 10448,
+                    False),
+    "lm100m_norm_f32": ("", (8, 128, 768), "float32", "float32", 0, False),
+    "mamba2_gate_z_x40": ("gate", (4, 512, 4096), "bfloat16", "bfloat16",
+                          8512, False),
+    "mamba2_gate_z_zeros": ("gate", (4, 512, 4096), "bfloat16", "bfloat16",
+                            8512, False),
+}
+NORM_BWD_Z_SCALE = {"mamba2_gate_z_x40": 40.0}
+# a gate whose z holds signed zeros (every 7th element -0, every 13th +0):
+# silu(-0) is -0, which the fast division would give as +0
+NORM_BWD_Z_ZEROS = {"mamba2_gate_z_zeros"}
 
 
 def _ms(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -307,6 +346,101 @@ def _decode_sweep(randn) -> None:
         del args, want
 
 
+def _ulps(got: torch.Tensor, want: torch.Tensor) -> int:
+    """The largest distance in ulps between two tensors of one float
+    dtype (their bits as ordered integers)."""
+    ints = {2: torch.int16, 4: torch.int32}[got.element_size()]
+
+    def ordered(t):
+        b = t.contiguous().view(ints).long()
+        top = 1 << (8 * got.element_size() - 1)
+        return torch.where(b < 0, -(b + top), b)
+    return int((ordered(got) - ordered(want)).abs().max())
+
+
+def _norm_bwd_case(randn, prologue, shape, x_dt, s_dt, width, bias,
+                   z_scale=1.0, z_zeros=False):
+    """A norm backward case's call on a library's build (``run(defines)``,
+    returning its outputs), the plain version's outputs and the bound's
+    bytes (each input read and each output written once)."""
+    xd, sd = getattr(torch, x_dt), getattr(torch, s_dt)
+    n = shape[-1]
+    x, dy = randn(*shape).to(xd), randn(*shape).to(xd)
+    scale = randn(n, scale=0.1).to(sd)
+    if prologue == "add":
+        dres = randn(*shape).to(xd)
+        b_dt = sd if bias else None
+
+        def run(defines):
+            return [t for t in nr.add_rms_norm_bwd(
+                x, scale, dy, dres, b_dt, defines=defines) if t is not None]
+        plain = nr.add_rms_norm_bwd_plain(x, scale, dy, dres, b_dt)
+        ins, outs = (x, dy, dres, scale), (x, scale) + ((scale,) if bias
+                                                          else ())
+    elif prologue == "gate":
+        z = randn(*shape[:-1], width, scale=z_scale).to(xd)[..., :n]
+        if z_zeros:
+            z[..., ::7] = -0.0
+            z[..., ::13] = 0.0
+
+        def run(defines):
+            return list(nr.gated_rms_norm_bwd(x, z, scale, dy,
+                                              defines=defines))
+        plain = nr.gated_rms_norm_bwd_plain(x, z, scale, dy)
+        ins, outs = (x, x, dy, scale), (x, x, scale)
+    else:
+        def run(defines):
+            return list(nr.rms_norm_bwd(x, scale, dy, defines=defines))
+        plain = nr.rms_norm_bwd_plain(x, scale, dy)
+        ins, outs = (x, dy, scale), (x, scale)
+    nbytes = sum(t.numel() * t.element_size() for t in (*ins, *outs))
+    return run, [t for t in plain if t is not None], nbytes
+
+
+def _norm_bwd_sweep(randn) -> None:
+    """The norm backward on its new route and on the old (the
+    ``FORCE_REGS_DEFINES`` build) at ``NORM_BWD_SHAPES``: checked, then
+    timed in turns (new, old, old, new)."""
+    old = nr.FORCE_REGS_DEFINES
+    _build.build([], variants=[("norm_rope", ()), ("norm_rope", old)])
+    for name, (pro, shape, x_dt, s_dt, width, bias) in \
+            NORM_BWD_SHAPES.items():
+        run, plain, nbytes = _norm_bwd_case(
+            randn, pro, shape, x_dt, s_dt, width, bias,
+            NORM_BWD_Z_SCALE.get(name, 1.0), name in NORM_BWD_Z_ZEROS)
+        new_out, old_out = run(()), run(old)
+        _check(f"norm_bwd {name}", new_out, plain)
+        ms = {"new": [], "old": []}
+        for which in ("new", "old", "old", "new"):
+            defs = () if which == "new" else old
+            ms[which].append(_ms(lambda: run(defs)))
+        bound_ms = nbytes / HBM_BW * 1e3
+        n = shape[-1]
+        plans = {w: nr.card_plan(nr._lib(d), pro, getattr(torch, x_dt),
+                                 getattr(torch, s_dt), n,
+                                 n % nr.VEC == 0 and not width % 8)
+                 for w, d in (("new", ()), ("old", old))}
+        mean = {w: sum(v) / 2 for w, v in ms.items()}
+        print(json.dumps({
+            "source": "norm_rope", "experiment": "norm_bwd", "shape": name,
+            "prologue": pro, "rows": list(shape), "x": x_dt, "scale": s_dt,
+            "z_width": width, "bias": bias,
+            "route": plans["new"]["route"], "ms": ms,
+            "new_ms": mean["new"], "old_ms": mean["old"],
+            "bound_ms": bound_ms, "bound_bytes": nbytes,
+            "new_share_of_bound": bound_ms / mean["new"],
+            "old_share_of_bound": bound_ms / mean["old"],
+            "plans": plans,
+            "max_ulp": [_ulps(a, b) for a, b in zip(new_out, old_out)],
+            "same_bits": [bool(torch.equal(a.view(torch.uint8),
+                                           b.view(torch.uint8)))
+                          for a, b in zip(new_out, old_out)],
+            "ptxas": {w: [k for k in _build.ptxas_summary("norm_rope", d)
+                          if "rms_norm_bwd" in k["kernel"]]
+                      for w, d in (("new", ()), ("old", old))}}),
+              flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--after-gemm", action="store_true",
@@ -317,6 +451,9 @@ def main() -> int:
     ap.add_argument("--decode", action="store_true",
                     help="only build and time decode attention's split "
                          "counts")
+    ap.add_argument("--norm-bwd", action="store_true",
+                    help="only build and time the norm backward's staged "
+                         "route and its register route in turns")
     args = ap.parse_args()
     after_gemm, ssd_only = args.after_gemm, args.ssd
     if not torch.cuda.is_available():
@@ -333,6 +470,9 @@ def main() -> int:
 
     if args.decode:
         _decode_sweep(randn)
+        return 0
+    if args.norm_bwd:
+        _norm_bwd_sweep(randn)
         return 0
     if after_gemm:
         flash_after_gemm({

@@ -549,22 +549,28 @@ def fused_emulated(monkeypatch):
         count("rms_norm_fwd", K.norm_route(y.dtype, scale.dtype, "gate"))
         return TC.gated_rms_norm_plain(y, z, scale, eps)
 
+    # the backward's rows on the route the launch function would take
+    # (``K.backward_route``: by the width, the dtype and the alignment of
+    # the contiguous rows it launches on, z by its row stride)
     def bwd(x, scale, dy, eps=1e-6):
-        r = K.norm_route(x.dtype, scale.dtype)
-        count("rms_norm_bwd", r)
-        count("rms_norm_dscale", r)
+        count("rms_norm_bwd", K.backward_route(
+            "", x.contiguous(), scale, (dy.contiguous(),)))
+        count("rms_norm_dscale", K.norm_route(x.dtype, scale.dtype))
         return K.rms_norm_bwd_plain(x, scale, dy, eps)
 
     def add_bwd(hp, scale, dy, dres, bias_dtype=None, eps=1e-6):
-        r = K.norm_route(hp.dtype, scale.dtype, "add")
-        count("rms_norm_bwd", r)
-        count("rms_norm_dscale", r)
+        count("rms_norm_bwd", K.backward_route(
+            "add", hp.contiguous(), scale, (dy.contiguous(),
+                                            dres.contiguous())))
+        count("rms_norm_dscale", K.norm_route(hp.dtype, scale.dtype, "add"))
         return K.add_rms_norm_bwd_plain(hp, scale, dy, dres, bias_dtype, eps)
 
     def gate_bwd(y, z, scale, dy, eps=1e-6):
-        r = K.norm_route(y.dtype, scale.dtype, "gate")
-        count("rms_norm_bwd", r)
-        count("rms_norm_dscale", r)
+        z2, stride = K._rows_of(z, y.shape[-1])
+        count("rms_norm_bwd", K.backward_route(
+            "gate", y.contiguous(), scale, (z2, dy.contiguous()),
+            stride * z2.element_size()))
+        count("rms_norm_dscale", K.norm_route(y.dtype, scale.dtype, "gate"))
         return K.gated_rms_norm_bwd_plain(y, z, scale, dy, eps)
 
     def rope(xs, positions, freqs, *, backward=False, biases=None):

@@ -98,6 +98,15 @@ def upcast(t: torch.Tensor) -> jnp.ndarray:
     return jnp.asarray(t.float().numpy())
 
 
+def _chip_smoke():
+    sys.path.insert(0, str(ROOT))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(ROOT))
+    return chip_smoke
+
+
 # ---------------------------------------------------------------------------
 # (a) the plain versions against jax.vjp
 # ---------------------------------------------------------------------------
@@ -273,6 +282,125 @@ def test_plan():
     assert K.plan(3, 8192, True)["passes"] == 1
 
 
+# the backward's route at chip_smoke.py's cases: the staged route where
+# the rows may be copied in 16-byte pieces, a row takes one pass and the
+# ring holds two stages or more; these take the register route (unaligned,
+# n % 8 != 0, a z row stride not a multiple of 16 bytes, rows in passes,
+# f32 rows whose stage of every slot's staged inputs passes half the ring)
+REGISTER_ROUTE_CASES = {
+    ("norm", "mamba2_gated_f32"), ("norm", "command_r_12288"),
+    ("norm", "command_r_decode_12288_f32"), ("norm", "odd_17_f32"),
+    ("norm", "odd_83_bf16"), ("norm", "unaligned_4096_bf16"),
+    ("norm", "unaligned_8192_f32"), ("norm", "unaligned_12288_bf16"),
+    ("norm", "odd_12289_f32"),
+    ("add", "whisper_enc_1280"), ("add", "lm100m_f32"),
+    ("add", "command_r_12288"), ("add", "wide_12288_f32_bias"),
+    ("add", "unaligned_4096_bf16"), ("add", "odd_83_bf16"),
+    ("add", "odd_12289_f32"),
+    ("gate", "f32_f32"), ("gate", "odd_stride_bf16"),
+    ("gate", "wide_12288_bf16"), ("gate", "unaligned_4096_bf16")}
+
+
+def _bwd_cases():
+    """(kind, chip_smoke case) of every norm, add norm and gated norm case
+    of ``chip_smoke.py``."""
+    cs = _chip_smoke()
+    return ([("norm", c) for c in cs.NR_NORM_CASES]
+            + [("add", c) for c in cs.NR_ADD_CASES]
+            + [("gate", c) for c in cs.NR_GATE_CASES])
+
+
+def _case_plan(kind, case):
+    """The backward plan of a chip_smoke case, as ``backward_route`` sees
+    its tensors (an unaligned case's rows one element past a 16-byte
+    boundary; the gated norm's z by the projection's row stride)."""
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16}
+    if kind == "gate":
+        _, shape, width, x_dt, _, unaligned = case
+        stride = width * (4 if x_dt == "f32" else 2)
+    else:
+        _, shape, x_dt, _, *rest = case
+        unaligned, stride = rest[-1], 16
+    n = shape[-1]
+    rows = int(np.prod(shape[:-1]))
+    vec = n % K.VEC == 0 and stride % 16 == 0 and not unaligned
+    pro = {"norm": "", "add": "add", "gate": "gate"}[kind]
+    return K.bwd_plan(rows, n, vec, dt[x_dt], pro), rows, n
+
+
+@pytest.mark.parametrize("kind,case", _bwd_cases(),
+                         ids=lambda v: v if isinstance(v, str) else v[0])
+def test_bwd_plan_takes_every_row_once_on_the_stated_route(kind, case):
+    """The backward's row assignment at each case of chip_smoke.py, as
+    both routes run it: chunks of ``rows_per_chunk`` contiguous rows in
+    order, a block each; its slots take rows first + slot, first + slot +
+    slots, ... in ``ceil(chunk / slots)`` iterations, every row once.  The
+    staged route holds 2 to ``MAX_STAGES`` stages in ``RING_BYTES`` (two
+    blocks an SM fit its 228 KB), and its ring takes the slots' partial
+    rows at the end; the route is the one the shape and alignment state
+    (``REGISTER_ROUTE_CASES``)."""
+    p, rows, n = _case_plan(kind, case)
+    per, chunks, slots = p["rows_per_chunk"], p["chunks"], p["slots"]
+    assert chunks <= K.BWD_BLOCKS and (chunks - 1) * per < rows <= \
+        chunks * per
+    taken = []
+    for block in range(chunks):
+        first, end = block * per, min((block + 1) * per, rows)
+        iters = -(-(end - first) // slots)
+        for it in range(iters):
+            for slot in range(slots):
+                row = first + it * slots + slot
+                if row < end:
+                    taken.append((block, row))
+    assert [r for _, r in taken] == sorted(r for _, r in taken)
+    assert sorted(r for _, r in taken) == list(range(rows))
+    for block in range(chunks):
+        mine = [r for b, r in taken if b == block]
+        assert mine == list(range(block * per, block * per + len(mine)))
+    staged = (kind, case[0]) not in REGISTER_ROUTE_CASES
+    assert p["route"] == ("staged" if staged else "regs")
+    if staged:
+        inputs = K.STAGED_INPUTS[{"norm": "", "add": "add",
+                                  "gate": "gate"}[kind]]
+        stage = slots * n * (4 if case[2 if kind != "gate" else 3] == "f32"
+                             else 2) * inputs
+        assert 2 <= p["stages"] <= K.MAX_STAGES
+        # the add and gated norms' weights in f32 past the stages
+        w_bytes = 4 * n if kind != "norm" else 0
+        assert p["ring_bytes"] == p["stages"] * stage + w_bytes <= \
+            K.RING_BYTES
+        # two blocks' rings, their mbarriers' 128 bytes, 1 KB reserved
+        assert 2 * (K.RING_BYTES + 128 + 1024) <= 228 * 1024
+        parts = 2 if kind == "add" and case[4] is not None else 1
+        assert slots == 1 or 4 * n * parts <= p["ring_bytes"]
+        assert p["passes"] == 1 and n % K.VEC == 0
+    else:
+        assert (p["stages"], p["ring_bytes"]) == (0, 0)
+
+
+def test_backward_route_reads_the_alignment():
+    """``backward_route`` on tensors: aligned rows of a width the ring
+    takes on the staged route, the same rows one element off a 16-byte
+    boundary, a z row stride not a multiple of 16 bytes, and the
+    ``FORCE_REGS_DEFINES`` build on the register route."""
+    base = torch.zeros(2 * 4096 + 8, dtype=torch.bfloat16)
+    x, scale = base[:2 * 4096].view(2, 4096), torch.zeros(4096)
+    assert x.data_ptr() % 16 == 0
+    assert K.backward_route("", x, scale) == "staged_bf16_f32"
+    assert K.backward_route("", x, scale, force_regs=True) == "bf16_f32"
+    off = base[1:1 + 2 * 4096].view(2, 4096)
+    assert K.backward_route("", off, scale) == "bf16_f32"
+    assert K.backward_route("add", x, scale, (off,)) == "add_bf16_f32"
+    assert K.backward_route("gate", x, scale, (), 8512 * 2) == \
+        "staged_gate_bf16_f32"
+    assert K.backward_route("gate", x, scale, (), 101 * 2) == "gate_bf16_f32"
+    # a width of several passes, an odd width
+    wide = torch.zeros(1, 12288, dtype=torch.bfloat16)
+    assert K.backward_route("", wide, torch.zeros(12288)) == "bf16_f32"
+    odd = torch.zeros(3, 83)
+    assert K.backward_route("", odd, torch.zeros(83)) == "f32_f32"
+
+
 # ---------------------------------------------------------------------------
 # (c) the dispatch
 # ---------------------------------------------------------------------------
@@ -340,6 +468,30 @@ def test_routes():
         K.norm_route(torch.float16, torch.float32)
     assert K.NORM_ROUTES.index("bf16_f32") == 2      # (x bf16) * 2 + (s)
     assert K.ROPE_ROUTES.index("backward_bf16") == 3  # backward * 2 + bf16
+    # the backward's staged route: C counter 12 + its register route's
+    assert K.KERNEL_ROUTES["rms_norm_bwd"] == K.BWD_ROUTES
+    assert K.BWD_ROUTES[:12] == K.NORM_ROUTES
+    assert K.BWD_ROUTES.index("staged_add_bf16_f32") == 12 + 4 + 2
+    assert K.bwd_route(torch.bfloat16, torch.bfloat16, "gate", True) == \
+        "staged_gate_bf16_bf16"
+    assert K.bwd_route(torch.float32, torch.float32) == "f32_f32"
+    assert K.dscale_route("staged_gate_f32_bf16") == "gate_f32_bf16"
+    with pytest.raises(ValueError):
+        K.dscale_route("staged_rope")
+
+
+def test_host_launches_count_both_backward_routes_dscale(monkeypatch):
+    """A backward's dscale launch is counted on its instance, whichever
+    route its rows took."""
+    monkeypatch.setattr(K.rms_norm_bwd, "launches_by_route",
+                        dict.fromkeys(K.BWD_ROUTES, 0))
+    K.rms_norm_bwd.launches_by_route["staged_add_bf16_bf16"] = 3
+    K.rms_norm_bwd.launches_by_route["add_bf16_bf16"] = 2
+    K.rms_norm_bwd.launches_by_route["staged_f32_f32"] = 1
+    got = K.host_launches()
+    assert got["rms_norm_dscale"]["add_bf16_bf16"] == 5
+    assert got["rms_norm_dscale"]["f32_f32"] == 1
+    assert got["rms_norm_bwd"]["staged_add_bf16_bf16"] == 3
 
 
 # ---------------------------------------------------------------------------
@@ -470,15 +622,6 @@ def test_functions_give_the_plain_autograd(emulated):
                         "rope_backward": 1}
 
 
-def _chip_smoke():
-    sys.path.insert(0, str(ROOT))
-    try:
-        import chip_smoke
-    finally:
-        sys.path.remove(str(ROOT))
-    return chip_smoke
-
-
 @pytest.mark.parametrize("kw", [dict(), dict(num_microbatches=2),
                                 dict(remat=False)])
 def test_train_step_launches_are_chip_smokes(kw, emulated):
@@ -546,9 +689,20 @@ def test_launch_constants_are_the_sources():
             const("kDscaleSplit")) == (K.THREADS, K.VEC, K.ITEMS,
                                        K.SCALAR_ITEMS, K.BWD_BLOCKS,
                                        K.DSCALE_SPLIT)
+    # the staged route's ring, its stages, its staged inputs and counters
+    assert "constexpr int kRingBytes = 112 * 1024;" in src
+    assert K.RING_BYTES == 112 * 1024
+    assert const("kMaxStages") == K.MAX_STAGES
+    assert const("kStagedRoutes") == len(K.NORM_ROUTES)
+    assert const("kCounters") >= len(K.BWD_ROUTES)
+    assert "return kPro == kNone ? 2 : 3;" in src
+    assert (K.STAGED_INPUTS[""], K.STAGED_INPUTS["add"],
+            K.STAGED_INPUTS["gate"]) == (2, 3, 3)
+    assert "#ifdef NORM_BWD_FORCE_REGS" in src
+    assert K.FORCE_REGS_DEFINES == ("NORM_BWD_FORCE_REGS",)
     # the C entry points' names are the wrapper's
     for name in ("rms_norm_fwd", "rms_norm_bwd", "rope",
-                 "norm_rope_launches"):
+                 "norm_rope_launches", "rms_norm_bwd_plan"):
         assert re.search(rf'extern "C" \w+(?: \w+)* {name}\(', src), name
 
 
@@ -568,7 +722,9 @@ def _routes(routes, **by_route):
 # lm20m (6 layers) x 200 steps.  A fused pass's mlp norms take the add
 # prologue (one a layer), tiny's and codeqwen's rotations their q and k
 # biases (the dscale kernel sums their grads); the parent's run none of
-# them
+# them.  The backward's rows run on the staged route but lm100m's add
+# norms' (f32 at 768: a stage of 8 rows x 3 inputs, 72 KB, does not fit
+# the ring twice), which keep the register route
 EXPECTED_NORM_ROPE = {
     "train": {
         "rms_norm_fwd": _routes(
@@ -577,10 +733,10 @@ EXPECTED_NORM_ROPE = {
             bf16_bf16=16 * 33 + 4 * 65 + 17 + 10 * 5 + 2 * 3,
             add_bf16_bf16=16 * 32 + 16 + 10 * 4 + 2 * 2),
         "rms_norm_bwd": _routes(
-            K.NORM_ROUTES, f32_f32=32 * 3 + 307 * 13,
-            add_f32_f32=32 * 2 + 307 * 12,
-            bf16_bf16=16 * 17 + 4 * 33 + 12 * 3,
-            add_bf16_bf16=16 * 16 + 12 * 2),
+            K.BWD_ROUTES, staged_f32_f32=32 * 3 + 307 * 13,
+            staged_add_f32_f32=32 * 2, add_f32_f32=307 * 12,
+            staged_bf16_bf16=16 * 17 + 4 * 33 + 12 * 3,
+            staged_add_bf16_bf16=16 * 16 + 12 * 2),
         "rms_norm_dscale": _routes(
             K.DSCALE_ROUTES, f32_f32=32 * 3 + 307 * 13,
             add_f32_f32=32 * 2 + 307 * 12,
@@ -596,15 +752,15 @@ EXPECTED_NORM_ROPE = {
     "examples": {
         "rms_norm_fwd": _routes(K.NORM_ROUTES, f32_f32=200 * 7,
                                 add_f32_f32=200 * 6),
-        "rms_norm_bwd": _routes(K.NORM_ROUTES, f32_f32=200 * 7,
-                                add_f32_f32=200 * 6),
+        "rms_norm_bwd": _routes(K.BWD_ROUTES, staged_f32_f32=200 * 7,
+                                staged_add_f32_f32=200 * 6),
         "rms_norm_dscale": _routes(K.DSCALE_ROUTES, f32_f32=200 * 7,
                                    add_f32_f32=200 * 6),
         "rope": _routes(K.ROPE_ROUTES, forward_f32=200 * 6,
                         backward_f32=200 * 6)},
     "dryrun": {
         "rms_norm_fwd": _routes(K.NORM_ROUTES),
-        "rms_norm_bwd": _routes(K.NORM_ROUTES),
+        "rms_norm_bwd": _routes(K.BWD_ROUTES),
         "rms_norm_dscale": _routes(K.DSCALE_ROUTES),
         "rope": _routes(K.ROPE_ROUTES)},
 }
@@ -660,7 +816,8 @@ def test_chip_smoke_profile_names_every_norm_rope_kernel():
     src = (_build.CSRC / "norm_rope.cu").read_text()
     names = set(re.findall(r"\b(\w+_kernel)\(", src))
     assert names == {"rms_norm_fwd_kernel", "rms_norm_bwd_kernel",
-                     "rms_norm_dscale_kernel", "rope_kernel"}
+                     "rms_norm_bwd_staged_kernel", "rms_norm_dscale_kernel",
+                     "rope_kernel"}
     for name in names:
         parts = [p for k, p in cs.NAMED_KERNEL_PARTS.items() if k in name]
         assert parts == ["norm_rope_kernels"], name
