@@ -1383,37 +1383,73 @@ OPT_REPLACES = {
 OPT_SHAPE = "codeqwen1.5-7b 16 layers"
 
 
+# the train kernels by part, each of which ``plain_kernels`` can send to
+# its plain version on the card
+PLAIN_PARTS = ("attention", "norms", "fused", "add_norm", "gated_norm",
+               "gate", "loss", "optimizer")
+
+
 @contextlib.contextmanager
-def plain_optimizer():
-    """The optimizer's plain versions on the card, for the checks and the
-    parent's columns only: ``optim.adamw`` is shown no kernel device (its
-    ``K.takes_kernel`` answers False), so it runs as it did before its
-    kernels."""
+def plain_kernels(parts):
+    """The plain versions of the train kernels of ``parts`` on the card,
+    every other part on its kernels: ``attention`` the training
+    attention's (``kernels.train_attention.takes_kernel`` answers False);
+    ``norms`` the RMSNorm's and RoPE's (``kernels.norm_rope.takes_kernel``
+    answers False); ``fused`` the fused entry points' unfused ops
+    (``takes_fused`` answers False: the adds, silu and the product, RoPE's
+    bias adds, then the route of ``norms``); ``add_norm`` and
+    ``gated_norm`` the block's add norm and the SSM's gated norm alone
+    (their callers take ``add_rms_norm_plain`` / ``gated_rms_norm_plain``);
+    ``gate`` and ``loss`` the gate's and the loss's (``kernels.gated_mlp``
+    and ``kernels.cross_entropy`` answer False); ``optimizer`` the update's
+    and the global norm's (``optim.adamw`` is shown no kernel device)."""
     import types
 
+    from repro_torch.kernels import cross_entropy as CE
+    from repro_torch.kernels import gated_mlp as GM
+    from repro_torch.kernels import norm_rope as NR
+    from repro_torch.kernels import train_attention as TA
+    from repro_torch.models import common as C
+    from repro_torch.models import model as MM
+    from repro_torch.models import ssm as SM
     from repro_torch.optim import adamw as A
-    real = A.K
-    A.K = types.SimpleNamespace(takes_kernel=lambda tensors: False)
+
+    def no(*args, **kwargs):
+        return False
+    patches = {"attention": [(TA, "takes_kernel", no)],
+               "norms": [(NR, "takes_kernel", no)],
+               "fused": [(NR, "takes_fused", no)],
+               "add_norm": [(MM, "add_rms_norm", C.add_rms_norm_plain)],
+               "gated_norm": [(SM, "gated_rms_norm",
+                               C.gated_rms_norm_plain)],
+               "gate": [(GM, "takes_kernel", no)],
+               "loss": [(CE, "takes_kernel", no)],
+               "optimizer": [(A, "K", types.SimpleNamespace(
+                   takes_kernel=no))]}
+    todo = [p for part in parts for p in patches[part]]
+    real = [(mod, name, getattr(mod, name)) for mod, name, _ in todo]
+    for mod, name, fn in todo:
+        setattr(mod, name, fn)
     try:
         yield
     finally:
-        A.K = real
+        for mod, name, fn in reversed(real):
+            setattr(mod, name, fn)
 
 
-@contextlib.contextmanager
+def plain_optimizer():
+    """The optimizer's plain versions on the card, for the checks and the
+    parent's columns only: ``optim.adamw`` is shown no kernel device, so
+    it runs as it did before its kernels."""
+    return plain_kernels(("optimizer",))
+
+
 def plain_train_attention():
     """The training attention's plain ops on the card, for step 1's plain
     grads and the FLOP-counted steps (``FlopCounterMode`` cannot see a
-    ctypes launch): ``models.attention._attend`` is shown no kernel device
-    (``kernels.train_attention.takes_kernel`` answers False), so it runs
-    as it did before the kernels."""
-    from repro_torch.kernels import train_attention as TA
-    real = TA.takes_kernel
-    TA.takes_kernel = lambda tensors: False
-    try:
-        yield
-    finally:
-        TA.takes_kernel = real
+    ctypes launch): ``models.attention._attend`` is shown no kernel
+    device, so it runs as it did before the kernels."""
+    return plain_kernels(("attention",))
 
 
 def same_bits(torch, a, b) -> bool:
@@ -1798,8 +1834,11 @@ TA_CASES = (
     ("q_head_major_d64_bf16", 2, 136, 136, 4, 4, 64, "bf16", "bf16", False,
      0, 0.0),
     ("path", 8, 512, 512, 32, 32, 128, "bf16", "bf16", True, 0, 0.0),
+    # zamba2-2.7b's shared block in its train step (D 80: mma_bf16)
+    ("zamba2_train", 8, 512, 512, 32, 32, 80, "bf16", "bf16", True, 0, 0.0),
 )
-TA_TIMED = ("path", "lm100m_f32")
+TA_TIMED = ("path", "lm100m_f32", "zamba2_train")
+TA_ZAMBA2_SHAPE = "zamba2-2.7b train: B8 32/32 heads S512 D80 causal bf16"
 # Tolerance against the plain version computed in f32 from the same
 # values (autograd on the plain ops, f32 leaves): a bf16 result is one
 # rounding of an f32 value, so within 2^-8 |b| (half an ulp) plus
@@ -2095,8 +2134,8 @@ def phase_train_attention_kernel(torch, ta) -> list:
     backward and both at the ``TA_TIMED`` shapes against the bound, the old
     route, the plain route and SDPA.  Returns the kernels line's two
     entries at the path shape, lm100m's f32 times beside them, and the
-    ``mma_3xtf32`` route's two at lm100m's shape (launches filled in by the
-    train phase)."""
+    ``mma_3xtf32`` route's two at lm100m's shape and the ``mma_bf16``
+    route's two at zamba2's (launches filled in by the train phase)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(5)
     t0 = time.monotonic()
@@ -2187,6 +2226,28 @@ def phase_train_attention_kernel(torch, ta) -> list:
             "fwd_bwd_prior_ms": lm["times"]["fwd_bwd"]["prior_ms"],
             "fwd_bwd_library_ms": lm["times"]["fwd_bwd"]["library_ms"],
             "fwd_bwd_bound_ms": lm["bounds"]["fwd_bwd"]["bound_ms"]})
+        # D = 80 runs only in zamba2's shared block: its own lines, their
+        # launches on that route
+        zb = timed["zamba2_train"]
+        zt, zr = zb["times"][part], zb["bounds"][part]
+        z_route = ta.route(torch.bfloat16, torch.bfloat16, 80)
+        x3.append({
+            "name": f"{name}/{z_route}", "route": "cuda",
+            "kernel_route": z_route,
+            "source": f"{TA_SOURCE} ({part}: "
+                      + ("fwd_mma_kernel" if part == "forward" else
+                         "delta_kernel, dq_mma_kernel, dkdv_mma_kernel")
+                      + "; tensor_core.cuh)",
+            "replaces": TA_REPLACES, "shape": TA_ZAMBA2_SHAPE,
+            "max_abs_err": worst[z_route][part], "ms": zt["ms"],
+            "plain_ms": zt["plain_ms"], "bound_ms": zr["bound_ms"],
+            "bound_by": zr["bound_by"], "library_ms": zt["library_ms"],
+            "library": f"F.scaled_dot_product_attention {part} (bf16 P; "
+                       f"timed only)",
+            "library_f32_ms": zt["library_f32_ms"],
+            "fwd_bwd_ms": zb["times"]["fwd_bwd"]["ms"],
+            "fwd_bwd_library_ms": zb["times"]["fwd_bwd"]["library_ms"],
+            "fwd_bwd_bound_ms": zb["bounds"]["fwd_bwd"]["bound_ms"]})
     return entries, x3
 
 
@@ -3180,7 +3241,8 @@ def norm_bwd_route(nr, x_dtype, scale_dtype, prologue: str, n: int,
 
 
 def norm_rope_pass(nr, cfg, step: str, passes: int, forwards: int = 1,
-                   backward: bool = False, fused: bool = True) -> dict:
+                   backward: bool = False, fused: bool = True,
+                   frames_dtype=None) -> dict:
     """The norm and RoPE kernels' launches by kernel and route
     (``nr.KERNEL_ROUTES``) of ``passes`` passes of ``cfg``
     (``norm_rope_calls``' ``step``), each with ``forwards`` forwards of
@@ -3193,9 +3255,11 @@ def norm_rope_pass(nr, cfg, step: str, passes: int, forwards: int = 1,
     backward on the route its width takes (``norm_bwd_route``).
     ``fused`` False: the parent's route (``unfused_norm_rope``), every
     norm and rotation without a prologue (the unfused gated norm a plain
-    one)."""
+    one).  ``frames_dtype``: whisper's frames' dtype, and so its
+    encoder's x dtype, where it is not f32 (a train input's: the
+    config's dtype)."""
     import torch
-    dt, f32 = cfg.torch_dtype, torch.float32
+    dt, enc = cfg.torch_dtype, frames_dtype or torch.float32
     c = norm_rope_calls(cfg, step)
     add, gate = ("add", "gate") if fused else ("", "")
     want = {k: dict.fromkeys(nr.KERNEL_ROUTES[k], 0) for k in nr.KERNELS}
@@ -3217,11 +3281,11 @@ def norm_rope_pass(nr, cfg, step: str, passes: int, forwards: int = 1,
              - c["gate_norms"] - c["enc_layer_norms"] - c["qk_norms"],
              c["outer_norms"] - c["enc_outer_norms"], nested),
             ("", dt, hd, 0, c["qk_norms"], 0, 0),
-            ("", f32, d, 0, c["enc_layer_norms"] - c["enc_qk_norms"],
+            ("", enc, d, 0, c["enc_layer_norms"] - c["enc_qk_norms"],
              c["enc_outer_norms"], 0),
-            ("", f32, hd, 0, c["enc_qk_norms"], 0, 0),
+            ("", enc, hd, 0, c["enc_qk_norms"], 0, 0),
             (add, dt, d, 0, c["add_norms"] - c["enc_add_norms"], 0, 0),
-            (add, f32, d, 0, c["enc_add_norms"], 0, 0),
+            (add, enc, d, 0, c["enc_add_norms"], 0, 0),
             (gate, dt, gw, zw, c["gate_norms"], 0, nested)):
         if not layer + outer + more:
             continue
@@ -3297,7 +3361,9 @@ def kernel_steps(phase: str) -> list:
     ``attention_steps`` (remat's recompute runs the layers' forwards
     again), and in the train phase two more full-width steps (the
     FLOP-counted one and step 1's grads on the plain attention) and
-    ``forward_train``'s loss (no grad: one forward).  The side columns'
+    ``forward_train``'s loss (no grad: one forward), and each family's
+    FLOP-counted step and ``forward_train``'s loss (its step 1 on the
+    plain route launches none).  The side columns'
     steps (``side_steps``) are not among them: the parent's run the
     unfused norms and rotations (``unfused_norm_rope``), the plain
     column's the gate's and the loss's plain ops (``plain_gate_loss``)."""
@@ -3310,6 +3376,10 @@ def kernel_steps(phase: str) -> list:
         full = dataclasses.replace(get_config("codeqwen15_7b"),
                                    num_layers=TRAIN_FULL["layers"])
         out += [(full, 2, 1, 2, True), (full, 1, 1, 1, False)]
+        # each family's FLOP-counted step and forward_train's loss
+        out += [s for _, main, _ in family_configs()
+                for s in ((main, family_steps()["flops"], 1, 2, True),
+                          (main, 1, 1, 1, False))]
     return out
 
 
@@ -3331,7 +3401,8 @@ def expected_norm_rope_launches(nr, phase: str) -> dict:
         for cfg, n in side_steps(phase, w)]
     for cfg, steps, micro, forwards, backward, fused in steps:
         _add_launches(want, norm_rope_pass(nr, cfg, "forward", micro * steps,
-                                           forwards, backward, fused))
+                                           forwards, backward, fused,
+                                           frames_dtype=cfg.torch_dtype))
     return want
 
 
@@ -4094,37 +4165,21 @@ GL_LOSS_TOL = 2e-6      # the loss and lse: within 2e-6 relative
 GL_GRAD_REL, GL_GRAD_FLOOR = 1e-6, 1e-7
 
 
-@contextlib.contextmanager
 def unfused_norm_rope():
     """The parent's route on the card: the fused entry points
     (``models.common``'s ``add_rms_norm``, ``gated_rms_norm`` and
     ``apply_rope_qk`` with biases) are shown no kernel device, so they run
     the bias and residual adds, silu and the product as ATen ops, then the
     norm and RoPE kernels, as they did before the fusion."""
-    from repro_torch.kernels import norm_rope as NR
-    real = NR.takes_fused
-    NR.takes_fused = lambda tensors: False
-    try:
-        yield
-    finally:
-        NR.takes_fused = real
+    return plain_kernels(("fused",))
 
 
-@contextlib.contextmanager
 def plain_gate_loss():
     """The gate's and the loss's plain ops on the card (their parent's path):
     ``models.common``'s ``gated_act`` and ``capped_cross_entropy`` are shown
     no kernel device, so they run ``act(a) * b`` and ``cross_entropy(
     softcap(logits.float()))`` as they did before the kernels."""
-    from repro_torch.kernels import cross_entropy as CE
-    from repro_torch.kernels import gated_mlp as GM
-    real = GM.takes_kernel, CE.takes_kernel
-    GM.takes_kernel = lambda tensors, what="gated_act": False
-    CE.takes_kernel = lambda tensors: False
-    try:
-        yield
-    finally:
-        GM.takes_kernel, CE.takes_kernel = real
+    return plain_kernels(("gate", "loss"))
 
 
 def gl_gate_inputs(torch, case, gen):
@@ -5841,21 +5896,70 @@ def profile_call(torch, fn, table_name: str, split=None,
     return out
 
 
+def profile_kernels(torch, fn, table_name: str, by_kernel: dict,
+                    ranges: bool = False) -> dict:
+    """One call of ``fn`` under torch.profiler, ended by a device
+    synchronise, read from the profiler's raw events without its op tree
+    (``prof.events()`` builds that in Python, ~7 s a 100,000 events: a
+    full-depth eager step of mamba2 or zamba2 records several times that):
+    its wall ms, device busy ms and idle share (1 - busy / wall,
+    unclamped: kernels that overlap could make it negative), the ten
+    device kernels with the most time (all of them by name to
+    ``table_name``), the busy time split by part in ``by_kernel``'s
+    proportions (an eager profile's ``train_split``: ``split_by_name``),
+    and with ``ranges`` each ``TRAIN_SCOPE`` range's device ms read from
+    the events themselves (``range_parts``: ``fn`` under
+    ``scoped_plain_ops``)."""
+    from torch.profiler import ProfilerActivity, profile
+    PROFILE_DIR.mkdir(parents=True, exist_ok=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.profiler.kineto_results.events()
+    kernels = [(e.name(), e.duration_ns() / 1e6) for e in events
+               if e.device_type() == cuda and not e.is_user_annotation()]
+    busy_ms = sum(ms for _, ms in kernels)
+    by_name: dict = {}
+    for name, ms in kernels:
+        ms_n = by_name.setdefault(name, [0.0, 0])
+        ms_n[0] += ms
+        ms_n[1] += 1
+    top = sorted(((ms, n, name) for name, (ms, n) in by_name.items()),
+                 reverse=True)
+    (PROFILE_DIR / table_name).write_text("".join(
+        f"{ms:12.3f} ms {n:7d} {name}\n" for ms, n, name in top))
+    out = dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
+               device_idle_share=1 - busy_ms / wall_ms,
+               top=[{"op": k[:100], "device_ms": d, "calls": c}
+                    for d, c, k in top[:10]],
+               split=split_by_name(kernels, busy_ms, by_kernel))
+    if ranges:
+        out["range_ms"] = range_parts(torch, events)
+    return out
+
+
 # A train step's device time by part (``train_split``): the optimizer's
 # and the global norm's ops (under ``scoped_optimizer``'s ranges), the
-# GEMMs by their inputs' dtype (bf16: the projections and the head; f32:
+# plain SSD scan's and the plain MoE glue's ops and their backward
+# (``scoped_plain_ops``' ranges, ``PLAIN_OPS_PARTS``), the GEMMs by their inputs' dtype (bf16: the projections and the head; f32:
 # the plain training attention's einsums, which upcast q, k and v), the
 # training attention kernels, the norm and RoPE kernels, the gate's and the
 # loss's kernels, the rest
 # (elementwise, reductions, copies; remat's recompute included) split by op
 # family (``ELEMENTWISE_FAMILIES``, from the op's input shapes; the d_model
 # family also by op, ``RESIDUAL_OPS``), device time no op claims, and idle
-TRAIN_PARTS = ("optimizer", "global_norm", "gemm_bf16", "gemm_f32",
-               "attention_kernels", "norm_rope_kernels", "gate_kernels",
-               "loss_kernels", "elementwise")
+TRAIN_PARTS = ("optimizer", "global_norm", "ssd_plain", "moe_plain",
+               "gemm_bf16", "gemm_f32", "attention_kernels",
+               "norm_rope_kernels", "gate_kernels", "loss_kernels",
+               "elementwise")
 GEMM_OPS = ("aten::mm", "aten::bmm", "aten::addmm", "aten::baddbmm",
             "aten::addbmm", "aten::_addmm_activation")
 TRAIN_SCOPE = "train_step/"
+BACKWARD_NODE = "autograd::engine::evaluate_function: "
 # An elementwise op's family by the shapes of its inputs, the first rule
 # that one input meets (``op_family``): the attention core's S x S scores
 # (the plain route's scale, cap, mask, softmax and their backward), the
@@ -5946,15 +6050,135 @@ def gemm_dtypes(prof) -> dict:
              f"({type(err).__name__}: {err})")
 
 
-def train_part(event, dtypes: dict) -> str:
+def _forward_op(event) -> bool:
+    """An op that autograd recorded in a forward (its node's sequence
+    number, no forward thread: a backward's ops have one)."""
+    return event.sequence_nr >= 0 and not event.fwd_thread
+
+
+def scoped_nodes(prof) -> dict:
+    """The autograd nodes made inside a ``TRAIN_SCOPE`` range (the forward
+    ops of ``scoped_optimizer`` and ``scoped_plain_ops``): (forward
+    thread, sequence number) -> part.  The backward runs each node on
+    autograd's thread outside the range, under an
+    ``autograd::engine::evaluate_function`` event with the node's forward
+    thread and sequence number (``train_part``).  An op that makes no node
+    records the number the thread's next node will take, so a number's
+    node is made by the last op to record it (a composite op's children
+    share its number and its range); numbers no backward ran are left
+    out."""
+    events = prof.events()
+    ran = {(e.fwd_thread, e.sequence_nr) for e in events
+           if e.name.startswith(BACKWARD_NODE)}
+    last = {}
+    for e in events:
+        key = (e.thread, e.sequence_nr)
+        if _forward_op(e) and key in ran and (
+                key not in last
+                or e.time_range.start >= last[key].time_range.start):
+            last[key] = e
+    out = {}
+    for key, e in last.items():
+        scope = e.cpu_parent
+        while scope is not None and not scope.name.startswith(TRAIN_SCOPE):
+            scope = scope.cpu_parent
+        if scope is not None:
+            out[key] = scope.name[len(TRAIN_SCOPE):]
+    return out
+
+
+def range_parts(torch, events) -> dict:
+    """The device ms of each ``TRAIN_SCOPE`` range's ops and their
+    backward, from a profile's raw events (``kineto_results.events()``),
+    without the op tree that ``prof.events()`` builds (linked as
+    ``torch.autograd.profiler`` links them): ``train_part``'s
+    rule (the innermost range around an op, or the range around the
+    forward op whose backward node runs it: ``scoped_nodes``' link, no
+    forward op between the node and the op) on each thread's events nested
+    by their times, each device kernel given to the op that launched it
+    (its linked correlation id).  The hand-written kernels
+    (``NAMED_KERNEL_PARTS``) are left out, as ``train_split`` leaves
+    them."""
+    cuda = torch.autograd.DeviceType.CUDA
+    cpu, kernels = [], []
+    for e in events:
+        if e.device_type() == cuda:
+            if not e.is_user_annotation() and not any(
+                    k in e.name() for k in NAMED_KERNEL_PARTS):
+                kernels.append((e.linked_correlation_id(),
+                                e.duration_ns() / 1e6))
+        elif (e.linked_correlation_id() == 0 and not e.is_async()
+              and e.start_thread_id() == e.end_thread_id()):
+            # the ops and ranges (a runtime call links to its op instead)
+            cpu.append(e)
+    ran = {(e.fwd_thread_id(), e.sequence_nr()) for e in cpu
+           if e.name().startswith(BACKWARD_NODE)}
+    by_thread: dict = {}
+    for e in cpu:
+        by_thread.setdefault(e.start_thread_id(), []).append(e)
+    # each op's innermost range (with its depth), innermost scoped
+    # backward node (with its depth) and deepest forward op
+    frames = {}
+    for thread, evs in by_thread.items():
+        evs.sort(key=lambda e: (e.start_ns(), -e.end_ns()))
+        stack = []
+        for e in evs:
+            while stack and stack[-1][0] <= e.start_ns():
+                stack.pop()
+            ann, bwd, fwd = stack[-1][1] if stack else (None, None, -1)
+            depth = len(stack)
+            name = e.name()
+            if e.is_user_annotation() and name.startswith(TRAIN_SCOPE):
+                ann = (name[len(TRAIN_SCOPE):], depth)
+            if e.sequence_nr() >= 0 and not e.fwd_thread_id():
+                fwd = depth
+            if name.startswith(BACKWARD_NODE):
+                bwd = ((e.fwd_thread_id(), e.sequence_nr()), depth)
+            frames[e.correlation_id()] = (thread, e, ann, bwd, fwd)
+            stack.append((e.end_ns(), (ann, bwd, fwd)))
+    # the node a (thread, number) is made by: the last forward op to record
+    # it, inside its range or none
+    nodes, last = {}, {}
+    for thread, e, ann, _, fwd in frames.values():
+        key = (thread, e.sequence_nr())
+        if fwd >= 0 and not e.fwd_thread_id() and key in ran and (
+                key not in last or e.start_ns() >= last[key]):
+            last[key] = e.start_ns()
+            nodes[key] = ann[0] if ann else None
+    out: dict = {}
+    for corr, ms in kernels:
+        frame = frames.get(corr)
+        if frame is None:
+            continue
+        _, _, ann, bwd, fwd = frame
+        part = None
+        if bwd and fwd < bwd[1] and nodes.get(bwd[0]) and (
+                not ann or ann[1] < bwd[1]):
+            part = nodes[bwd[0]]
+        elif ann:
+            part = ann[0]
+        if part:
+            out[part] = out.get(part, 0.0) + ms
+    return out
+
+
+def train_part(event, dtypes: dict, nodes: Optional[dict] = None) -> str:
     """The part of a train step an op's device kernels belong to: the
-    ``scoped_optimizer`` range around it, else a GEMM by its inputs'
+    ``scoped_optimizer`` or ``scoped_plain_ops`` range around it, or
+    around the forward op whose backward node runs it (``nodes``, from
+    ``scoped_nodes``; an op remat's recompute runs under a backward node
+    is a forward op and takes its own range), else a GEMM by its inputs'
     dtype (``gemm_dtypes``; the phase fails where none was recorded),
     else ``elementwise``."""
-    scope = event
+    scope, forward = event, False
     while scope is not None:
         if scope.name.startswith(TRAIN_SCOPE):
             return scope.name[len(TRAIN_SCOPE):]
+        forward = forward or _forward_op(scope)
+        if nodes and not forward and scope.name.startswith(BACKWARD_NODE):
+            part = nodes.get((scope.fwd_thread, scope.sequence_nr))
+            if part:
+                return part
         scope = scope.cpu_parent
     if event.name in GEMM_OPS:
         seen = dtypes.get(event.id)
@@ -5968,7 +6192,8 @@ def train_part(event, dtypes: dict) -> str:
 
 def train_split(torch, prof, busy_ms: float, dims: dict) -> tuple:
     """A profiled train step's device ms by ``TRAIN_PARTS``: each ATen
-    op's kernels by ``train_part``, the hand-written kernels by name
+    op's kernels by ``train_part`` (the scoped ranges' backward nodes
+    linked by ``scoped_nodes``), the hand-written kernels by name
     (``NAMED_KERNEL_PARTS``); ``elementwise`` also by op family
     (``op_family`` of the op's name and input shapes, recorded);
     ``unattributed``, busy time none of them claims; each part's and
@@ -5979,6 +6204,7 @@ def train_split(torch, prof, busy_ms: float, dims: dict) -> tuple:
     replay)."""
     cpu = torch.autograd.DeviceType.CPU
     dtypes = gemm_dtypes(prof)
+    nodes = scoped_nodes(prof)
     parts = dict.fromkeys(TRAIN_PARTS, 0.0)
     families = dict.fromkeys(ELEMENTWISE_FAMILIES, 0.0)
     residual = {"adds": 0.0, "other_ops": 0.0}
@@ -6008,7 +6234,7 @@ def train_split(torch, prof, busy_ms: float, dims: dict) -> tuple:
         for k in e.kernels:
             if named(k.name):
                 continue
-            part = train_part(e, dtypes)
+            part = train_part(e, dtypes, nodes)
             add(part, k.name, k.duration / 1e3)
             if part == "elementwise":
                 fam = op_family(getattr(e, "input_shapes", None) or [],
@@ -6044,18 +6270,22 @@ def replay_split(torch, prof, busy_ms: float, by_kernel: dict) -> dict:
     in that step's proportions (``casts_copies`` by op too);
     ``unattributed``, the time of names the eager step did not run."""
     cpu = torch.autograd.DeviceType.CPU
+    return split_by_name([(e.name, (e.time_range.end - e.time_range.start)
+                           / 1e3) for e in prof.events()
+                          if e.device_type != cpu], busy_ms, by_kernel)
+
+
+def split_by_name(kernels: list, busy_ms: float, by_kernel: dict) -> dict:
+    """``replay_split`` of device kernels given as (name, ms) pairs."""
     parts = dict.fromkeys(TRAIN_PARTS, 0.0)
     families = dict.fromkeys(ELEMENTWISE_FAMILIES, 0.0)
     casts: dict = {}
     unknown: dict = {}
-    for e in prof.events():
-        if e.device_type == cpu:
-            continue
-        ms = (e.time_range.end - e.time_range.start) / 1e3
-        got = by_kernel.get(e.name)
+    for name, ms in kernels:
+        got = by_kernel.get(name)
         in_parts = sum(got.get(p, 0.0) for p in TRAIN_PARTS) if got else 0
         if not in_parts:
-            unknown[e.name[:90]] = unknown.get(e.name[:90], 0.0) + ms
+            unknown[name[:90]] = unknown.get(name[:90], 0.0) + ms
             continue
         for p in TRAIN_PARTS:
             parts[p] += ms * got.get(p, 0.0) / in_parts
@@ -6132,6 +6362,42 @@ def scoped_optimizer(spans=None):
             setattr(S, n, fn)
 
 
+# the plain ops a train step runs where the serve steps run kernels, by
+# part: Mamba2's chunked SSD scan; the MoE block's routing (softmax, top-k,
+# the gates, the aux loss), slot positions and dispatch, and its combine
+PLAIN_OPS_PARTS = (("ssd_plain", "repro_torch.models.ssm", "ssd_chunked"),
+                   ("moe_plain", "repro_torch.kernels.moe_dispatch",
+                    "route_plain"),
+                   ("moe_plain", "repro_torch.models.moe", "dispatch_ops"),
+                   ("moe_plain", "repro_torch.kernels.moe_dispatch",
+                    "moe_combine_plain"))
+
+
+@contextlib.contextmanager
+def scoped_plain_ops():
+    """Each of ``PLAIN_OPS_PARTS``' functions under a profiler range
+    ``train_step/<part>`` (its forward ops; their backward nodes are
+    linked to it by ``scoped_nodes``), for ``train_split``."""
+    import importlib
+
+    from torch.profiler import record_function
+    real = [(importlib.import_module(m), n) for _, m, n in PLAIN_OPS_PARTS]
+    fns = [getattr(mod, n) for mod, n in real]
+
+    def scoped(fn, part):
+        def run(*args, **kwargs):
+            with record_function(TRAIN_SCOPE + part):
+                return fn(*args, **kwargs)
+        return run
+    for (part, _, _), (mod, n), fn in zip(PLAIN_OPS_PARTS, real, fns):
+        setattr(mod, n, scoped(fn, part))
+    try:
+        yield
+    finally:
+        for (mod, n), fn in zip(real, fns):
+            setattr(mod, n, fn)
+
+
 # the MoE dispatch (slot cumsum, scatter_add write, gather read), the MoE
 # router's glue (softmax, topk, the aux loss's means), every copy (the
 # experts' einsums copy a group-major buffer into e-major), the SSD scan's
@@ -6181,6 +6447,74 @@ TRAIN_PARITY_STEPS = 4
 TRAIN_GRAPH_BITS_STEPS = 4
 TRAIN_PACE_STEPS = 5        # lm100m: host-clock steps each way, replays
 TRAIN_LM = ("lm20m", 200)   # examples/torch/train_lm.py's preset and steps
+# the other five families' train paths at full width, on 8 x 512 tokens
+# (whisper's frames (8, 64, d_model) in the config's dtype, the reference's
+# train input, src/repro/configs/__init__.py:84-87): (config, layers; 0 all
+# of them: chameleon-34b cut to 4 of 48, 3.84 B params, under codeqwen's
+# 16-layer 4.47 B)
+TRAIN_FAMILIES = (("mamba2_1_3b", 0), ("zamba2_2_7b", 0),
+                  ("granite_moe_3b_a800m", 0), ("whisper_large_v3", 0),
+                  ("chameleon_34b", 4))
+FAMILY_TRAIN = dict(batch=8, seq=512, peak_lr=3e-4)
+# a family's steps in turns on one donated state: through its CUDA graph
+# (the first the warm-up, which captures; the rest replays) and eager;
+# each column's median over the steps past its first (3 each)
+FAMILY_TURNS = ("graph", "eager") * 4
+FAMILY_SKIP = {"graph": 1, "eager": 1}
+# step 1 against the plain route (``plain_route``: every train kernel's
+# plain version), one rule for every family (``train_family``'s checks),
+# relative limits: (1) the path's step-1 loss within ``loss`` of the plain
+# route's in the config's dtype (codeqwen's limit, ``train_full_width``),
+# and its grad norm within ``f32`` of the same step's on the kernels
+# outside the path (``step1_on_routes``); (2) at the path's depth in f32
+# (the same rounded params upcast, every activation unrounded): the
+# kernels' loss, grad norm and grads (over every leaf) within ``f32`` of the
+# f32 plain route's; (3) at the path's depth in the config's dtype: the
+# kernels' grads no farther from the f32 plain route's than ``err_ratio``
+# x the plain route's; (4) at the bits check's depth (full width) in the
+# config's dtype: the kernels' loss and grad norm within ``loss`` and
+# ``grad_norm`` of the plain route's (codeqwen's limits).  The grad norm in
+# the config's dtype is not held at the path's depth: at 48 and 54 SSM
+# layers, on an H100, every bf16 route's grads are 0.82-1.15 of their
+# length away from the f32 grads, and any one kernel part moved to its
+# plain version moves zamba2's grad norm by up to 8% (``--step1-routes``)
+FAMILY_LIMITS = dict(loss=1e-3, grad_norm=1e-2, f32=1e-3, err_ratio=1.1)
+
+
+def family_configs() -> list:
+    """(arch, the train path's config, the bits check's config) of each
+    of ``TRAIN_FAMILIES``: full width; the bits check's depth two states
+    fit at (2 layers, whisper's encoder too; zamba2 one group of
+    ``shared_attn_period`` Mamba2 layers and its shared block)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    out = []
+    for arch, layers in TRAIN_FAMILIES:
+        cfg = get_config(arch)
+        if layers:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        two = {"num_layers": cfg.shared_attn_period
+               if cfg.family == "hybrid" else 2}
+        if cfg.family == "encdec":
+            two["num_encoder_layers"] = 2
+        out.append((arch, cfg, dataclasses.replace(cfg, **two)))
+    return out
+
+
+def family_steps() -> dict:
+    """A family's steps on the kernels by kind: ``main`` its path's steps
+    through the train kernels (the turns, one profiled eager step and one
+    profiled replay; a graph's warm-up and replays launch on the device,
+    its capture on the host only), ``flops`` the FLOP-counted eager step
+    (the plain attention, the other kernels), ``bits`` the bits check's
+    (eager and through the graph, and one profiled eager step), ``step1``
+    step 1's grads on the kernels (no update: ``step1_on_routes``) at each
+    of the path's depth in f32 and in the config's dtype and the bits
+    check's depth in the config's dtype; step 1's plain grads run no
+    kernel."""
+    return {"main": len(FAMILY_TURNS) + 2, "flops": 1,
+            "bits": 2 * TRAIN_GRAPH_BITS_STEPS + 1, "step1": 1}
 
 
 def full_width_steps(which: str) -> int:
@@ -6221,7 +6555,13 @@ def expected_train_graphs(phase: str) -> dict:
                    + e["resume_steps"] - 1},
         "full_width": {"captures": 1,
                        "replays": full_width_steps("graph") - 1},
-        "remat": {"captures": 2, "replays": 2}}
+        "remat": {"captures": 2, "replays": 2},
+        # each family's path (its graph turns and a profiled replay) and
+        # its bits check
+        "families": {"captures": 2 * len(TRAIN_FAMILIES),
+                     "replays": len(TRAIN_FAMILIES)
+                     * (FAMILY_TURNS.count("graph")
+                        + TRAIN_GRAPH_BITS_STEPS - 1)}}
 
 
 def optimizer_steps(phase: str) -> list:
@@ -6243,7 +6583,11 @@ def optimizer_steps(phase: str) -> list:
                 (full, sum(full_width_steps(w) for w in TRAIN_SKIP) + 1),
                 # the bits check (eager and graph); remat on, off
                 (dataclasses.replace(full, num_layers=2),
-                 2 * TRAIN_GRAPH_BITS_STEPS + 4)]
+                 2 * TRAIN_GRAPH_BITS_STEPS + 4),
+                *((cfg, n) for _, main, bits in family_configs()
+                  for cfg, n in ((main, family_steps()["main"]
+                                  + family_steps()["flops"]),
+                                 (bits, family_steps()["bits"])))]
     if phase == "examples":
         preset, steps = TRAIN_LM
         return [(PRESETS[preset], steps)]
@@ -6256,17 +6600,21 @@ def expected_optimizer_launches(torch, opt, phase: str) -> dict:
     ``adamw_update`` once a param leaf and ``sumsq`` once over every grad
     (``sumsq_plan``: one launch up to ``SUMSQ_LEAVES`` leaves), on the
     route of the params' and grads' dtypes (one microbatch, or f32 params:
-    the grads have the params' dtype)."""
+    the grads have the params' dtype): each leaf's own (the SSM's
+    ``A_log``, ``D`` and ``dt_bias`` and the MoE router stay f32 in a bf16
+    model), a ``sumsq`` launch ``mixed`` where its leaves' dtypes
+    differ."""
     from repro_torch.models import model as M
     want = {"adamw_update": dict.fromkeys(opt.ADAMW_ROUTES, 0),
             "sumsq": dict.fromkeys(opt.SUMSQ_ROUTES, 0)}
     for cfg, steps in optimizer_steps(phase):
-        sizes = [t.numel() for t in _leaves(M.init_params(
+        leaves = [(t.numel(), t.dtype) for t in _leaves(M.init_params(
             cfg, torch.Generator(), device="meta"))]
-        dt = cfg.torch_dtype
-        want["adamw_update"][opt.adamw_route(dt, dt)] += len(sizes) * steps
-        want["sumsq"][opt.sumsq_route([dt])] += steps * len(
-            opt.sumsq_plan([(n, dt) for n in sizes]))
+        for _, dt in leaves:
+            want["adamw_update"][opt.adamw_route(dt, dt)] += steps
+        for first, n, _ in opt.sumsq_plan(leaves):
+            want["sumsq"][opt.sumsq_route(
+                dt for _, dt in leaves[first:first + n])] += steps
     return want
 
 
@@ -6291,10 +6639,19 @@ def attention_steps(phase: str) -> list:
                 # the graph's and the eager columns' timed and profiled
                 # steps (the FLOP-counted step and step 1's grads run the
                 # plain attention, the side columns are ``side_steps``)
+                # and each family's (``family_steps``)
                 (full, full_width_steps("graph")
                  + full_width_steps("eager"), 1, 2),
                 (two, 2 * TRAIN_GRAPH_BITS_STEPS + 2, 1, 2),
-                (two, 2, 1, 1)]               # remat off
+                (two, 2, 1, 1),               # remat off
+                # each family's (its FLOP-counted step runs the plain
+                # attention), and its step 1's grads on the kernels
+                *((cfg, n + family_steps()["step1"], 1, 2)
+                  for _, main, bits in family_configs()
+                  for cfg, n in ((main, family_steps()["main"]),
+                                 (bits, family_steps()["bits"]),
+                                 (dataclasses.replace(main, dtype="float32"),
+                                  0)))]
     if phase == "examples":
         preset, steps = TRAIN_LM
         return [(PRESETS[preset], steps, 1, 1)]
@@ -6322,6 +6679,8 @@ def expected_attention_launches(ta, phase: str,
             ("train_attention_forward", "train_attention_backward")}
     for cfg, steps, micro, forwards in (attention_steps(phase)
                                         if steps is None else steps):
+        if not attention_calls(cfg):          # the SSM family
+            continue
         dt = cfg.torch_dtype
         r = ta.route(dt, dt, cfg.resolved_head_dim)
         n = attention_calls(cfg) * steps * micro
@@ -6412,37 +6771,81 @@ def graph_delta(before: dict) -> dict:
 
 
 def train_step_bound(cfg, params, batch: int, seq: int) -> dict:
-    """The least time of one dense train step on the card, from the work it
-    must do on ``batch`` sequences of ``seq`` tokens.
+    """The least time of one train step on the card, from the work it must
+    do on ``batch`` sequences of ``seq`` tokens.
 
-    Operations: 6 x the parameters a token passes through (every layer
-    parameter and the head, not the embedding gather) x the tokens, plus
-    the causal attention pairs (QK^T and PV, forward and backward: 12 x
-    heads x head_dim per visible pair per layer), at the peak of the
-    params' dtype (989 TFLOP/s bf16).  Remat's recomputed forward is not
-    counted: the bound is the work the step needs.  Bytes: the optimizer
-    reads and writes every parameter once: the param read and written and
-    the grad read in the params' dtype, m and v read and written in f32
-    (22 B a param in bf16), at 3.35 TB/s.  The two times are added: the
-    update waits for the last grad."""
+    Operations: 6 x the parameters a token passes through x the tokens
+    (every layer parameter and the head, not the embedding gather; a MoE
+    layer's experts at top_k / num_experts of theirs, its router's f32
+    product; the hybrid's shared block once a call; whisper's encoder
+    layers and its cross attention's K and V projections over the
+    encoder's ``seq // encoder_ratio`` tokens), plus the attention's
+    visible pairs (QK^T and PV, forward and backward: 12 x heads x
+    head_dim a pair a call; whisper's encoder every pair, its cross
+    attention S x T), plus Mamba2's chunked SSD products (each chunk's
+    C B^T over the causal pairs in a chunk, once a group of B and C: the
+    scan repeats a group's product for each of its heads, which the
+    function does not need; a head's scores times x over those pairs, the
+    chunk states and the states read back a token; forward and backward:
+    3 x the forward's), each at the peak of its dtype's (989 TFLOP/s bf16,
+    67 f32: the router, and the SSD scan but for C B^T, are f32 in the
+    reference).  Remat's recomputed forward is not counted: the bound is
+    the work the step needs.  Bytes: the optimizer reads and writes every
+    parameter once: the param read and written and the grad read in the
+    params' dtype, m and v read and written in f32 (22 B a param in
+    bf16), at 3.35 TB/s.  The two times are added: the update waits for
+    the last grad."""
     def numel(tree):
         return sum(t.numel() for t in _leaves(tree))
-    if cfg.family != "dense":
-        raise ValueError("train_step_bound counts the dense family only")
+    from repro_torch.models import model as M
+    f32, dt = "torch.float32", str(cfg.torch_dtype)
+    flops = {dt: 0.0, f32: 0.0}
+    tokens = batch * seq
     es = params["embed"].element_size()
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-    through = numel(params["layers"]) + head.numel()
-    pairs = visible_pairs(seq, seq, True, 0)
-    flops = (6 * through * batch * seq
-             + cfg.num_layers * 12 * batch * cfg.num_heads
-             * cfg.resolved_head_dim * pairs)
+    layers = params["layers"]
+    through = numel(layers) + head.numel()
+    heads, hd = cfg.num_heads, cfg.resolved_head_dim
+
+    def attention(calls, sq, sk, causal, window=0):
+        flops[dt] += (calls * 12 * batch * heads * hd
+                      * visible_pairs(sq, sk, causal, window))
+    if cfg.family in ("dense", "vlm", "moe"):
+        for w in set(M.layer_windows(cfg)):
+            attention(M.layer_windows(cfg).count(w), seq, seq, True, w)
+    if cfg.family == "moe":
+        moe = layers["moe"]
+        experts = numel(moe) - moe["router"].numel()
+        through -= numel(moe) - experts * cfg.top_k // cfg.num_experts
+        flops[f32] += 6 * moe["router"].numel() * tokens
+    if cfg.family in ("ssm", "hybrid"):
+        h, p, n = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state
+        q = min(cfg.ssm_chunk, seq)
+        pairs = seq // q * visible_pairs(q, q, True, 0)
+        mix = 3 * cfg.num_layers * batch
+        flops[dt] += mix * cfg.ssm_groups * 2 * n * pairs     # C B^T
+        flops[f32] += mix * h * (2 * p * pairs + 4 * n * p * seq)
+    if cfg.family == "hybrid":
+        calls = M._shared_groups(cfg)
+        through += calls * numel(params["shared"])
+        attention(calls, seq, seq, True)
+    if cfg.family == "encdec":
+        enc = max(seq // cfg.encoder_ratio, 1)
+        kv = numel({k: v for k, v in layers["cross"].items()
+                    if k in ("wk", "wv", "bk", "bv")})
+        through -= kv
+        flops[dt] += 6 * (numel(params["enc_layers"]) + kv) * batch * enc
+        attention(cfg.num_encoder_layers, enc, enc, False)
+        attention(cfg.num_layers, seq, seq, True)
+        attention(cfg.num_layers, seq, enc, False)
+    flops[dt] += 6 * through * tokens
     opt_bytes = numel(params) * (3 * es + 16)
-    flops_ms = flops / H100_PEAK_FLOPS[str(cfg.torch_dtype)] * 1e3
+    flops_ms = sum(n / H100_PEAK_FLOPS[k] * 1e3 for k, n in flops.items())
     bytes_ms = opt_bytes / H100_BYTES_PER_S * 1e3
     return {"bound_ms": flops_ms + bytes_ms, "bound_flops_ms": flops_ms,
-            "bound_optimizer_ms": bytes_ms, "flops": flops,
-            "optimizer_bytes": opt_bytes, "params": numel(params),
-            "params_through": through}
+            "bound_optimizer_ms": bytes_ms, "flops": sum(flops.values()),
+            "flops_by_dtype": flops, "optimizer_bytes": opt_bytes,
+            "params": numel(params), "params_through": through}
 
 
 def _batch_to(torch, batch, device):
@@ -6514,6 +6917,20 @@ def host_copies(state):
         worker.join()
 
 
+def bits_row(torch, i: int, eager_state, graph_state, em: dict,
+             gm: dict) -> dict:
+    """Step ``i`` of a bits check: the graph step's loss and grad norm and
+    what differs from the eager step's (``differ``: the state's leaves by
+    path, then the metrics, each to the bit)."""
+    from repro_torch.tree import leaves, leaves_with_path
+    bad = [path for (path, x), y in zip(leaves_with_path(eager_state),
+                                        leaves(graph_state))
+           if not same_bits(torch, x, y)]
+    bad += [k for k in em if not same_bits(torch, em[k], gm[k])]
+    return {"step": i, "replayed": i > 0, "loss": float(gm["loss"]),
+            "grad_norm": float(gm["grad_norm"]), "differ": bad}
+
+
 def train_graph_bits(torch) -> dict:
     """(b) Replayed steps equal eager steps to the bit: from equal states,
     ``TRAIN_GRAPH_BITS_STEPS`` steps eager (``graph=False``) and through
@@ -6536,7 +6953,7 @@ def train_graph_bits(torch) -> dict:
     from repro_torch.data import synthetic_batch
     from repro_torch.launch.train import PRESETS
     from repro_torch.train import make_train_step, train_state_init
-    from repro_torch.tree import leaves, leaves_with_path, tree_map
+    from repro_torch.tree import leaves, tree_map
     two = dataclasses.replace(get_config("codeqwen15_7b"), num_layers=2)
     cases = (("lm100m", PRESETS["lm100m"], dict(remat=False), (8, 128)),
              ("tiny", PRESETS["tiny"], dict(num_microbatches=2,
@@ -6572,15 +6989,8 @@ def train_graph_bits(torch) -> dict:
                          f"capture ({spans}, capture {begin}-{end})")
             else:
                 graph_state, gm = steps[True](graph_state, batch)
-            bad = [path for (path, x), y in zip(
-                leaves_with_path(eager_state), leaves(graph_state))
-                if not same_bits(torch, x, y)]
-            bad += [k for k in em if not same_bits(torch, em[k], gm[k])]
-            differ += [f"step {i}: {k}" for k in bad]
-            rows.append({"step": i, "replayed": i > 0,
-                         "loss": float(gm["loss"]),
-                         "grad_norm": float(gm["grad_norm"]),
-                         "differ": bad[:8]})
+            rows.append(bits_row(torch, i, eager_state, graph_state, em, gm))
+            differ += [f"step {i}: {k}" for k in rows[-1]["differ"]]
         g = steps[True].graph
         out[name] = dict(dtype=cfg.dtype, options=kw, batch=b, seq=seq,
                          steps=rows, capture_ms=g.capture_ms,
@@ -6981,9 +7391,449 @@ def train_remat(torch, cfg, batch):
                 fail(f"remat changes step {i}'s {k}: {out}")
 
 
+def plain_route():
+    """Every train kernel's plain version on the card, for a family's step
+    1 against the plain route (``plain_kernels`` of every part)."""
+    return plain_kernels(PLAIN_PARTS)
+
+
+def step1_grads(torch, cfg, params, batch, parts=()) -> tuple:
+    """Step 1's loss (a float) and grads of ``params`` on ``batch``
+    (``forward_train``, rematerialised, as a train step takes them), the
+    kernels of ``parts`` on their plain versions (``plain_kernels``)."""
+    from repro_torch.models import model as M
+    from repro_torch.train.steps import _grads
+    with plain_kernels(parts):
+        loss, grads = _grads(lambda p_, mb: M.forward_train(
+            p_, cfg, mb, remat=True)[0], params, batch)
+    return float(loss), grads
+
+
+def grad_norm(grads) -> float:
+    """The global norm of ``grads`` by the optimizer's plain version."""
+    from repro_torch.optim import adamw as A
+    with plain_optimizer():
+        return float(A.global_norm(grads))
+
+
+def family_state(torch, cfg) -> tuple:
+    """A family's step-1 params and batch on the card: params drawn in f32
+    from seed 0 and rounded to ``cfg``'s dtypes (each leaf's own: the
+    SSM's and the router's f32 leaves stay f32), and ``family_batch``'s
+    batch of seed 7."""
+    import dataclasses
+
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_map
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = tree_map(lambda t, r: t.to(r.dtype),
+                      M.init_params(dataclasses.replace(cfg, dtype="float32"),
+                                    gen, device="cuda"),
+                      M.init_params(cfg, torch.Generator(), device="meta"))
+    return params, family_batch(torch, cfg, 7)
+
+
+# step 1's routes: (name, the parts on their plain versions, in f32)
+STEP1_ROUTES = (("plain_f32", PLAIN_PARTS, True), ("kernels_f32", (), True),
+                ("plain", PLAIN_PARTS, False), ("kernels", (), False))
+
+
+def grad_errors(grads, ref) -> dict:
+    """Each leaf's squared error against ``ref``'s grads and ``ref``'s
+    squared norm (a stacked leaf's error by layer too)."""
+    from repro_torch.tree import leaves_with_path
+    out = {}
+    for (path, g), (_, r) in zip(leaves_with_path(grads),
+                                 leaves_with_path(ref)):
+        d = (g.float() - r.float()).flatten(1 if g.dim() > 1 else 0)
+        r = r.float().flatten(1 if g.dim() > 1 else 0)
+        out[path] = dict(
+            sq=float(d.square().sum()), ref_sq=float(r.square().sum()),
+            by_row=(d.norm(dim=1) / r.norm(dim=1).clamp_min(1e-30)
+                    ).tolist() if g.dim() > 2 else None)
+    return out
+
+
+def step1_on_routes(torch, cfg, routes=STEP1_ROUTES) -> tuple:
+    """Step 1 of ``cfg``'s family (``family_state``) on each of ``routes``
+    ((name, plain parts, f32), ``STEP1_ROUTES``' form): its loss, grad
+    norm, and its grads' error against the f32 plain route's and against
+    the plain route's in the config's dtype, where those ran first
+    (``err_<route>``: |g - g_ref| / |g_ref| over every leaf), with the
+    three leaves of most squared error against the f32 plain route
+    ((leaf, its error, its share)); and the loss and the grad norm
+    relative to those routes'.  Returns (rows by route, each error by
+    leaf)."""
+    import dataclasses
+
+    from repro_torch.tree import tree_map
+    params, batch = family_state(torch, cfg)
+    # the f32 routes read the same values upcast
+    last_f32 = max((i for i, r in enumerate(routes) if r[2]), default=-1)
+    if last_f32 >= 0:
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        params32 = tree_map(lambda t: t.float(), params)
+        batch32 = {k: v.float() if v.is_floating_point() else v
+                   for k, v in batch.items()}
+    refs, rows, detail = {}, {}, {}
+    for i, (name, parts, f32) in enumerate(routes):
+        loss, grads = (step1_grads(torch, cfg32, params32, batch32, parts)
+                       if f32 else step1_grads(torch, cfg, params, batch,
+                                               parts))
+        row = dict(loss=loss, grad_norm=grad_norm(grads))
+        for ref in ("plain_f32", "plain"):
+            if ref in refs:
+                errs = grad_errors(grads, refs[ref])
+                total = sum(e["sq"] for e in errs.values())
+                row[f"err_{ref}"] = math.sqrt(
+                    total / sum(e["ref_sq"] for e in errs.values()))
+                if ref == "plain_f32":
+                    row["top_err_plain_f32"] = [
+                        [k, math.sqrt(e["sq"] / max(e["ref_sq"], 1e-30)),
+                         e["sq"] / max(total, 1e-30)] for k, e in sorted(
+                            errs.items(), key=lambda kv: -kv[1]["sq"])[:3]]
+                detail[f"{name}_vs_{ref}"] = errs
+        if name in ("plain_f32", "plain"):
+            refs[name] = grads
+        rows[name] = row
+        del grads
+        if i == last_f32:
+            del params32, batch32
+            gc.collect()
+            torch.cuda.empty_cache()
+    for row in rows.values():
+        for k in ("loss", "grad_norm"):
+            for ref in ("plain_f32", "plain"):
+                if ref in rows:
+                    row[f"{k}_vs_{ref}"] = ((row[k] - rows[ref][k])
+                                            / rows[ref][k])
+    del refs, params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows, detail
+
+
+# the route search's parts, each sent alone to its plain version
+# (``kernels_but_<part>``) or alone kept on its kernels (``plain_but_<part>``,
+# the fused entry points' part with it where the part is one of them)
+SEARCH_PARTS = ("attention", "norms", "add_norm", "gated_norm", "gate",
+                "loss")
+
+
+def step1_routes(torch) -> dict:
+    """``--step1-routes``: each family's step 1 (``step1_on_routes``) at
+    full width, at ``TRAIN_FAMILIES``' depth on ``STEP1_ROUTES`` and with
+    each of ``SEARCH_PARTS`` alone moved to its plain version or alone
+    kept on its kernels, and at the bits check's depth on
+    ``STEP1_ROUTES``; every leaf's errors (each stacked leaf's by layer)
+    to ``step1_routes.json``.  Returns the ``step1_routes`` lines."""
+    PROFILE_DIR.mkdir(parents=True, exist_ok=True)
+    out, detail = {}, {}
+    for _, cfg, bits_cfg in family_configs():
+        routes = list(STEP1_ROUTES)
+        for part in SEARCH_PARTS:
+            both = {part, "fused"} if part.endswith("_norm") else {part}
+            routes += [(f"kernels_but_{part}", (part,), False),
+                       (f"plain_but_{part}", tuple(
+                           p for p in PLAIN_PARTS if p not in both), False)]
+        for c, rs in ((cfg, routes), (bits_cfg, STEP1_ROUTES)):
+            t0 = time.monotonic()
+            rows, detail[f"{c.name}_{c.num_layers}"] = step1_on_routes(
+                torch, c, rs)
+            out[f"{c.name}_{c.num_layers}"] = row = dict(
+                config=c.name, layers=c.num_layers, routes=rows,
+                seconds=time.monotonic() - t0)
+            emit("step1_routes", **row)
+    (PROFILE_DIR / "step1_routes.json").write_text(json.dumps(detail))
+    return out
+
+
+def family_batch(torch, cfg, seed: int, step: int = 0) -> dict:
+    """A train batch of ``FAMILY_TRAIN``'s shape on the card (``seed``,
+    ``step``: ``synthetic_batch``'s); encdec's ``frames`` (B, seq //
+    encoder_ratio, d_model) drawn from a normal of the same seeds, in the
+    config's dtype (the reference's train input)."""
+    from repro_torch.data import synthetic_batch
+    f = FAMILY_TRAIN
+    batch = _batch_to(torch, synthetic_batch(
+        seed, 0, step, f["batch"], f["seq"], cfg.vocab_size), "cuda")
+    if cfg.family == "encdec":
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(seed * 1000 + step)
+        batch["frames"] = torch.randn(
+            (f["batch"], max(f["seq"] // cfg.encoder_ratio, 1), cfg.d_model),
+            generator=gen, device="cuda").to(cfg.torch_dtype)
+    return batch
+
+
+def family_bits(torch, cfg) -> tuple:
+    """A family's replays against its eager steps to the bit, as
+    ``train_graph_bits`` holds codeqwen's: from equal states at ``cfg``'s
+    depth, ``TRAIN_GRAPH_BITS_STEPS`` donated, rematerialised steps eager
+    and through the graph (the first the warm-up, which captures), each
+    on its own batch: params, m, v, the step, the loss, the grad norm and
+    the lr after every step.  Then one more eager step profiled and split
+    by part (``train_split``, the plain SSD and MoE ops parts of their
+    own: ``scoped_plain_ops``), whose kernels' shares by name split the
+    full-depth steps' profiles (``profile_kernels``).  Returns (the bits
+    check's row, that profile)."""
+    from repro_torch.train import make_train_step, train_state_init
+    from repro_torch.tree import leaves, tree_map
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    eager_state = train_state_init(cfg, gen, device="cuda")
+    graph_state = tree_map(torch.clone, eager_state)
+    steps = {g: make_train_step(cfg, peak_lr=1e-3, warmup_steps=1,
+                                total_steps=10, remat=True, donate=True,
+                                graph=g) for g in (False, True)}
+    rows, differ = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(TRAIN_GRAPH_BITS_STEPS):
+        batch = family_batch(torch, cfg, 13, i)
+        eager_state, em = steps[False](eager_state, batch)
+        graph_state, gm = steps[True](graph_state, batch)
+        rows.append(bits_row(torch, i, eager_state, graph_state, em, gm))
+        differ += [f"step {i}: {k}" for k in rows[-1]["differ"]]
+    out = dict(layers=cfg.num_layers, steps=rows,
+               capture_ms=steps[True].graph.capture_ms,
+               replays=steps[True].graph.replays, bitwise=not differ,
+               leaves=len(leaves(graph_state)),
+               max_memory_allocated=torch.cuda.max_memory_allocated(),
+               reserved_peak=torch.cuda.max_memory_reserved())
+    if cfg.family == "encdec":
+        out["encoder_layers"] = cfg.num_encoder_layers
+    steps[True].close()
+    del graph_state, gm
+    if differ:
+        emit("train_family_bits", config=cfg.name, **out)
+        fail(f"{cfg.name}: replayed steps differ from eager ones: "
+             f"{differ[:8]}")
+
+    def one():
+        nonlocal eager_state
+        eager_state, _ = steps[False](eager_state, batch)
+    with scoped_optimizer(), scoped_plain_ops():
+        prof = profile_call(torch, one, f"profile_train_{cfg.name}_"
+                            f"{cfg.num_layers}_layers_eager.txt",
+                            split=train_dims(cfg, FAMILY_TRAIN["seq"]))
+    del eager_state, steps, em
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, prof
+
+
+# the parts that run once a step, not once a layer
+STEP_PARTS = ("optimizer", "global_norm")
+
+
+def layer_shares(by_kernel: dict) -> dict:
+    """``train_split``'s shares of a shallow step's kernels, for a deeper
+    step of the same layers: ``STEP_PARTS`` keep only their own kernels
+    (``NAMED_KERNEL_PARTS``), their other ops' (the step counter, a
+    grad's contiguous copy) moving to the elementwise casts and copies.
+    Those ops run once a step under kernel names the layers' ops share,
+    so a shallow step's proportions would give them a share of every
+    layer's."""
+    out = {}
+    for name, got in by_kernel.items():
+        got = dict(got)
+        if not any(k in name for k in NAMED_KERNEL_PARTS):
+            moved = sum(got.pop(p, 0.0) for p in STEP_PARTS)
+            if moved:
+                for k in ("elementwise", "casts_copies"):
+                    got[k] = got.get(k, 0.0) + moved
+        out[name] = got
+    return out
+
+
+def train_family(torch, cfg, bits_cfg) -> dict:
+    """(e) One family's train path at full width (``TRAIN_FAMILIES``),
+    donated, rematerialised steps on one ``FAMILY_TRAIN`` batch through
+    the port's entry point (``make_train_step``), after its bits check at
+    ``bits_cfg``'s depth (``family_bits``): the first loss equals
+    ``forward_train``'s; step 1 is held against the plain route
+    (``plain_route``, ``step1_on_routes``: the grads of the same state, an
+    f32 init rounded to the config's dtypes, and batch) by
+    ``FAMILY_LIMITS``' rule, in f32 and in the config's dtype at the
+    path's depth and in the config's dtype at ``bits_cfg``'s; steps
+    through the graph and eager in turns (``FAMILY_TURNS``; each column's
+    first ``FAMILY_SKIP`` steps left out of its median), each on the host
+    clock with its peaks of allocated, requested and reserved bytes; the
+    loss falls on the graph's steps and every grad norm is finite.  Then
+    one eager step (under ``scoped_plain_ops``' ranges, their device ms
+    read from the events: ``range_ms``) and one replay profiled
+    (``profile_kernels``: busy, and idle from each profiled step's own
+    wall), each split by part in the proportions of the bits check's
+    profiled eager step (the same layers, fewer of them: ``train_split``,
+    the plain SSD and MoE ops parts of their own; ``layer_shares``), and
+    one eager step FLOP-counted on the plain attention.  Returns its
+    ``train_family`` line."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import make_train_step
+    from repro_torch.train.steps import TrainState
+    t0 = time.monotonic()
+    bits, bits_prof = family_bits(torch, bits_cfg)
+    by_kernel = layer_shares(bits_prof.pop("by_kernel"))
+    f = FAMILY_TRAIN
+    # step 1 on the kernels and on the plain route (``step1_on_routes``):
+    # in f32 and in the config's dtype at the path's depth, in the
+    # config's dtype at the bits check's
+    step1, _ = step1_on_routes(torch, cfg)
+    shallow, _ = step1_on_routes(torch, bits_cfg, STEP1_ROUTES[2:])
+    params, batch = family_state(torch, cfg)
+    state = TrainState(params, adamw_init(params), None)
+    del params
+    bound = train_step_bound(cfg, state.params, f["batch"], f["seq"])
+    with torch.inference_mode():
+        ref = float(M.forward_train(state.params, cfg, batch)[0])
+    steps = {g: make_train_step(cfg, peak_lr=f["peak_lr"], warmup_steps=1,
+                                total_steps=10, remat=True, donate=True,
+                                graph=g) for g in (True, False)}
+    holder = [state]
+    del state
+    runs = {w: dict(times=[], metrics=[], peaks=[], requested=[],
+                    reserved=[]) for w in FAMILY_SKIP}
+    for which in FAMILY_TURNS:
+        run = runs[which]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.monotonic()
+        holder[0], m = steps[which == "graph"](holder[0], batch)
+        torch.cuda.synchronize()
+        run["times"].append((time.monotonic() - t1) * 1e3)
+        run["metrics"].append({k: float(v) for k, v in m.items()})
+        run["peaks"].append(torch.cuda.max_memory_allocated())
+        run["requested"].append(
+            torch.cuda.memory_stats()["requested_bytes.all.peak"])
+        run["reserved"].append(torch.cuda.max_memory_reserved())
+    del m
+    graph = steps[True].graph
+
+    def one_step(which):
+        def run():
+            holder[0], _ = steps[which == "graph"](holder[0], batch)
+        return run
+    t_prof = time.monotonic()
+    with scoped_plain_ops():
+        profs = {"eager": profile_kernels(
+            torch, one_step("eager"), f"profile_train_{cfg.name}_eager.txt",
+            by_kernel, ranges=True)}
+    profs["graph"] = profile_kernels(torch, one_step("graph"),
+                                     f"profile_train_{cfg.name}.txt",
+                                     by_kernel)
+    t_prof = time.monotonic() - t_prof
+    with plain_train_attention(), \
+            FlopCounterMode(display=False) as counted:
+        one_step("eager")()
+
+    def column(which: str) -> dict:
+        run, prof = runs[which], profs[which]
+        kept = run["times"][FAMILY_SKIP[which]:]
+        ms = sorted(kept)[len(kept) // 2]
+        return dict(step_ms=ms, step_ms_all=run["times"],
+                    profiled_wall_ms=prof["wall_ms"],
+                    device_busy_ms=prof["device_busy_ms"],
+                    idle_ms=prof["wall_ms"] - prof["device_busy_ms"],
+                    idle_share=prof["device_idle_share"],
+                    max_memory_allocated=max(run["peaks"]),
+                    requested_peak=max(run["requested"]),
+                    reserved_peak=max(run["reserved"]),
+                    max_memory_allocated_steps=run["peaks"],
+                    requested_peak_steps=run["requested"],
+                    reserved_peak_steps=run["reserved"],
+                    top=prof["top"], **prof["split"])
+    cols = {w: column(w) for w in ("graph", "eager")}
+    # the split's plain-ops parts against their ranges' own device ms
+    cols["eager"]["range_ms"] = profs["eager"]["range_ms"]
+    cols["graph"].update(capture_ms=graph.capture_ms, replays=graph.replays)
+    for step in steps.values():
+        step.close()
+    del holder, graph, steps
+    gc.collect()
+    torch.cuda.empty_cache()
+    metrics = runs["graph"]["metrics"]
+    losses = [m["loss"] for m in metrics]
+    norms = [m["grad_norm"] for m in metrics]
+    step_ms = cols["graph"]["step_ms"]
+    lim = FAMILY_LIMITS
+    plain, k32 = step1["plain"], step1["kernels_f32"]
+    # the path's step 1 (the graph's warm-up) against the plain route
+    first = {"loss": losses[0], "grad_norm": norms[0],
+             "loss_vs_plain": (losses[0] - plain["loss"]) / plain["loss"],
+             "grad_norm_vs_plain": ((norms[0] - plain["grad_norm"])
+                                    / plain["grad_norm"])}
+    first["grad_norm_vs_kernels"] = ((norms[0] - step1["kernels"]
+                                      ["grad_norm"])
+                                     / step1["kernels"]["grad_norm"])
+    checks = {
+        "loss": abs(first["loss_vs_plain"]) <= lim["loss"],
+        "grad_norm": abs(first["grad_norm_vs_kernels"]) <= lim["f32"],
+        "f32_loss": abs(k32["loss_vs_plain_f32"]) <= lim["f32"],
+        "f32_grad_norm": abs(k32["grad_norm_vs_plain_f32"]) <= lim["f32"],
+        "f32_grads": k32["err_plain_f32"] <= lim["f32"],
+        "grads_vs_f32": (step1["kernels"]["err_plain_f32"]
+                         <= lim["err_ratio"] * plain["err_plain_f32"]),
+        "shallow_loss": (abs(shallow["kernels"]["loss_vs_plain"])
+                         <= lim["loss"]),
+        "shallow_grad_norm": (abs(shallow["kernels"]["grad_norm_vs_plain"])
+                              <= lim["grad_norm"])}
+    row = dict(config=cfg.name, family=cfg.family, layers=cfg.num_layers,
+               d_model=cfg.d_model, batch=f["batch"], seq=f["seq"],
+               remat=True, donate=True, turns=list(FAMILY_TURNS),
+               skip=FAMILY_SKIP, step_ms=step_ms,
+               eager_step_ms=cols["eager"]["step_ms"],
+               tokens_per_s=f["batch"] * f["seq"] / step_ms * 1e3,
+               forward_train_loss=ref, step_1=first, step_1_routes=step1,
+               step_1_shallow=dict(layers=bits_cfg.num_layers, **shallow),
+               limits=lim, checks=checks, losses=losses,
+               grad_norms=norms, eager_losses=[
+                   m["loss"] for m in runs["eager"]["metrics"]],
+               lrs=[m["lr"] for m in metrics],
+               counted_flops=counted.get_total_flops(),
+               **bound, graph=cols["graph"], eager=cols["eager"],
+               split_from=dict(layers=bits_cfg.num_layers, **bits_prof),
+               profile_s=t_prof, bits=bits, seconds=time.monotonic() - t0)
+    if cfg.family == "encdec":
+        row.update(encoder_layers=cfg.num_encoder_layers,
+                   frames=list(batch["frames"].shape),
+                   frames_dtype=str(batch["frames"].dtype))
+    emit("train_family", **row)
+    if abs(losses[0] - ref) > 1e-3 * abs(ref):
+        fail(f"{cfg.name}: first step's loss {losses[0]}, forward_train "
+             f"{ref}")
+    if not all(checks.values()):
+        fail(f"{cfg.name}: step 1 against the plain route: "
+             f"{[k for k, v in checks.items() if not v]} out of "
+             f"FAMILY_LIMITS {lim}")
+    if not losses[-1] < losses[0]:
+        fail(f"{cfg.name}: loss on the repeated batch {losses}")
+    if not all(math.isfinite(n) for n in norms + [
+            m["grad_norm"] for m in runs["eager"]["metrics"]]):
+        fail(f"{cfg.name}: grad norms {norms}")
+    return row
+
+
+def train_families(torch) -> dict:
+    """(e) Each of ``TRAIN_FAMILIES``' train paths (``train_family``), one
+    state alive at a time."""
+    out = {}
+    for _, cfg, bits_cfg in family_configs():
+        out[cfg.name] = train_family(torch, cfg, bits_cfg)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_train(torch, mods) -> tuple:
     """The train paths on the card, after the serve paths, each step
-    through the train step's CUDA graph unless named eager: no serve
+    through the train step's CUDA graph unless named eager: tiny, lm100m,
+    codeqwen1.5-7b at 16 layers, and the other five families' paths
+    (``train_families``: mamba2, zamba2, granite-moe, whisper, chameleon
+    at full width, chameleon cut in depth); no serve
     kernel may launch (flash, the SSD scan and decode have no backward;
     Mamba2's scan trains as torch ops, as the reference's does), the
     training attention exactly once a forward (twice under remat) and once
@@ -7021,11 +7871,16 @@ def phase_train(torch, mods) -> tuple:
     torch.cuda.empty_cache()
     cfg, batch, card = counted("full_width", train_full_width, torch)
     counted("remat", train_remat, torch, cfg, batch)
+    del batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    families = counted("families", train_families, torch)
     launches, by_route = _read_counts(kernels)
     device = device_delta(mods, before)
     emit("train_graph", where="train", graphs=graphs,
          expected=expected_train_graphs("train"),
-         bitwise={k: v["bitwise"] for k, v in bits.items()})
+         bitwise={**{k: v["bitwise"] for k, v in bits.items()},
+                  **{k: v["bits"]["bitwise"] for k, v in families.items()}})
     if graphs != expected_train_graphs("train"):
         fail(f"train step graphs {graphs}, expected "
              f"{expected_train_graphs('train')}")
@@ -7460,6 +8315,11 @@ def main() -> int:
                                   for b, nd in builds.items()})
     if faults:
         fail(f"ptxas: {faults}")
+    if "--step1-routes" in sys.argv[1:]:
+        step1_routes(torch)
+        emit("done", seconds=time.monotonic() - t_start)
+        print(card_line(), flush=True)
+        return 0
     if "--serve-parent" in sys.argv[1:]:
         phase_serve_parent(torch)
         emit("done", seconds=time.monotonic() - t_start)

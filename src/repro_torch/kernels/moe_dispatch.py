@@ -114,20 +114,30 @@ def e_major(t: torch.Tensor) -> torch.Tensor:
     return t.transpose(0, 1).contiguous().transpose(0, 1)
 
 
-def moe_route_plain(logits: torch.Tensor, k: int, cap: int
-                    ) -> Tuple[torch.Tensor, ...]:
-    """``moe_route`` as torch ops, the plain route's own (``models.moe``):
-    (idx (g, sg, k) int64, gates (g, sg, k) f32, pos (g, n) int32, keep
-    (g, n) bool, src (g, e, cap) int32 laid out e-major, aux f32 scalar)
-    of the router's logits (g, sg, e) f32, n = sg * k."""
+def route_plain(logits: torch.Tensor, k: int
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain route's routing of the router's f32 logits (g, sg, e):
+    (gates (g, sg, k) renormalised, idx (g, sg, k), the load-balancing aux
+    loss E * mean(frac_i * prob_i)), as torch ops that autograd and the
+    dry-run's DTensors take (``models.moe``)."""
     e = logits.shape[-1]
     probs = torch.softmax(logits, dim=-1)
     gates, idx = top_k(probs, k)
     gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
     me = probs.mean(dim=(0, 1))
     ce = F.one_hot(idx[..., 0], e).float().mean(dim=(0, 1))
-    aux = e * torch.sum(me * ce)
-    pos, keep, src = moe_slots_plain(idx, e, cap)
+    return gates, idx, e * torch.sum(me * ce)
+
+
+def moe_route_plain(logits: torch.Tensor, k: int, cap: int
+                    ) -> Tuple[torch.Tensor, ...]:
+    """``moe_route`` as torch ops, the plain route's own (``route_plain``
+    and ``moe_slots_plain``): (idx (g, sg, k) int64, gates (g, sg, k) f32,
+    pos (g, n) int32, keep (g, n) bool, src (g, e, cap) int32 laid out
+    e-major, aux f32 scalar) of the router's logits (g, sg, e) f32, n = sg
+    * k."""
+    gates, idx, aux = route_plain(logits, k)
+    pos, keep, src = moe_slots_plain(idx, logits.shape[-1], cap)
     return idx, gates, pos, keep, e_major(src), aux
 
 

@@ -19,7 +19,6 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from .common import (ArchConfig, activation_fn, dense_init, einsum,
                      gated_act)
@@ -109,16 +108,7 @@ def moe_block(p: Params, x: torch.Tensor, cfg: ArchConfig,
         idx, gates, pos, keep, src, aux = MD.moe_route(logits, k, cap)
         buf = MD.moe_dispatch(xg, src)
     else:
-        probs = torch.softmax(logits, dim=-1)
-        # lax.top_k's order: the lower expert first among equal
-        # probabilities (torch.topk leaves ties unordered)
-        gates, idx = MD.top_k(probs, k)                   # (g, sg, k)
-        gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
-
-        # load-balancing aux loss (Switch/GShard): E * mean(frac_i * prob_i)
-        me = probs.mean(dim=(0, 1))                       # (e,)
-        ce = F.one_hot(idx[..., 0], e).float().mean(dim=(0, 1))
-        aux = e * torch.sum(me * ce)
+        gates, idx, aux = MD.route_plain(logits, k)
         buf, pos, keep = dispatch_ops(xg, idx, e, cap)
     # the ep profile turns tokens to their experts here
     buf = sctx.constrain(buf, "moe_buffer")

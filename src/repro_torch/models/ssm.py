@@ -120,11 +120,16 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     cum = _CumSum.apply(dtc * a, 2)                        # (B,nc,Q,H)
 
     # ---- intra-chunk (the "attention-like" quadratic term) -------------
-    # L[i,j] = exp(cum_i - cum_j) for i >= j; selected, since i < j overflows
+    # L[i,j] = exp(cum_i - cum_j) for i >= j, else 0: the reference's
+    # where(mask, exp(d), 0), masked before the exp (exp(-inf) = 0), the
+    # same values.  Selecting after it, as the reference does, gives an
+    # i < j entry that overflows to inf (cum falls by ~dt a row: past 88
+    # within a 256-row chunk at mamba2's width) a NaN grad, 0 x inf, and
+    # so NaN grads everywhere; here its grad is 0
     tri = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
-    L = torch.where(tri[None, None, :, :, None],
-                    torch.exp(cum[:, :, :, None, :] - cum[:, :, None, :, :]),
-                    0.0)                                   # (B,nc,Q,Q,H)
+    L = torch.exp(torch.where(tri[None, None, :, :, None],
+                              cum[:, :, :, None, :] - cum[:, :, None, :, :],
+                              float("-inf")))              # (B,nc,Q,Q,H)
     scores = torch.einsum("bnihk,bnjhk->bnijh", cc, bc)    # x's dtype
     att = scores.to(f32) * L * dtc[:, :, None, :, :]       # weight by dt_j
     y_intra = torch.einsum("bnijh,bnjhp->bnihp", att, xc.to(f32))

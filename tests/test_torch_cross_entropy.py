@@ -437,20 +437,31 @@ def _routes(routes, **by_route):
 # FLOP-counted one, step 1's plain-attention grads and the parent column's
 # 4 steps (remat), and forward_train's loss (one forward, no backward); at
 # 2 layers 10 steps with and 2 without remat; the plain column's 4 steps
-# none (plain ops); examples: lm20m (6 layers) x 200 steps
+# none (plain ops); the other five families (bf16, remat) FULL passes at
+# full width (8 timed and 2 profiled steps, the FLOP-counted one, step
+# 1's grads), forward_train's loss and BITS steps at 2 layers (4 eager, 4
+# through the graph, 1 profiled, step 1's grads), the gate a layer in granite's experts (32) and
+# chameleon (4; mamba2 has no MLP, zamba2's and whisper's are gelu), and
+# each family's step 1 on the kernels in f32 (a pass on the f32 routes);
+# examples: lm20m (6 layers) x 200 steps
+FULL, BITS = 12, 10
+FAMILY_GATES = (FULL * 32 * 2 + 32 + BITS * 2 * 2) \
+    + (FULL * 4 * 2 + 4 + BITS * 2 * 2)
+FAMILY_GATES_BWD = (FULL * 32 + BITS * 2) + (FULL * 4 + BITS * 2)
 EXPECTED_GATE_LOSS = {
     "train": {
         "gated_act_fwd": _routes(
-            G.ROUTES, silu_f32=32 * 2 * 2 + 307 * 12,
-            silu_bf16=16 * 16 * 2 + 16 + 10 * 2 * 2 + 2 * 2),
-        "gated_act_bwd": _routes(G.ROUTES, silu_f32=32 * 2 + 307 * 12,
-                                 silu_bf16=16 * 16 + 10 * 2 + 2 * 2),
-        "cross_entropy_fwd": _routes(CE.ROUTES, f32=32 + 307,
-                                     bf16=16 + 1 + 12),
-        "cross_entropy_sum": _routes(CE.ROUTES, f32=32 + 307,
-                                     bf16=16 + 1 + 12),
-        "cross_entropy_bwd": _routes(CE.ROUTES, f32=32 + 307,
-                                     bf16=16 + 12)},
+            G.ROUTES, silu_f32=32 * 2 * 2 + 307 * 12 + (32 + 4) * 2,
+            silu_bf16=16 * 16 * 2 + 16 + 10 * 2 * 2 + 2 * 2 + FAMILY_GATES),
+        "gated_act_bwd": _routes(
+            G.ROUTES, silu_f32=32 * 2 + 307 * 12 + 32 + 4,
+            silu_bf16=16 * 16 + 10 * 2 + 2 * 2 + FAMILY_GATES_BWD),
+        "cross_entropy_fwd": _routes(CE.ROUTES, f32=32 + 307 + 5,
+                                     bf16=16 + 1 + 12 + 5 * (FULL + 1 + BITS)),
+        "cross_entropy_sum": _routes(CE.ROUTES, f32=32 + 307 + 5,
+                                     bf16=16 + 1 + 12 + 5 * (FULL + 1 + BITS)),
+        "cross_entropy_bwd": _routes(CE.ROUTES, f32=32 + 307 + 5,
+                                     bf16=16 + 12 + 5 * (FULL + BITS))},
     "examples": {
         "gated_act_fwd": _routes(G.ROUTES, silu_f32=200 * 6),
         "gated_act_bwd": _routes(G.ROUTES, silu_f32=200 * 6),

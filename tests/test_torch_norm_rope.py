@@ -724,29 +724,94 @@ def _routes(routes, **by_route):
 # biases (the dscale kernel sums their grads); the parent's run none of
 # them.  The backward's rows run on the staged route but lm100m's add
 # norms' (f32 at 768: a stage of 8 rows x 3 inputs, 72 KB, does not fit
-# the ring twice), which keep the register route
+# the ring twice), which keep the register route.
+FULL, BITS = 12, 10
+# The other families (bf16, remat): FULL passes at full width (the 8
+# timed and 2 profiled steps, the FLOP-counted one and step 1's grads),
+# forward_train's loss (one forward) and BITS passes at the bits check's
+# depth (4 eager, 4 through the graph, one profiled and step 1's
+# grads).  Norms a pass: mamba2 a
+# plain and a gated norm a layer (48; 2) and the final norm; zamba2 the
+# same (54; 6), its Mamba layers' 3 forwards (nested checkpoints), and the
+# shared block's attn and add mlp norm and rotation a call (9; 1);
+# granite an attn and an add norm and a rotation a layer (32; 2); whisper
+# (bf16 frames) the decoder's attn, add cross and add mlp norms and the
+# encoder's attn and add mlp norms a layer (32; 2), the final and the
+# encoder's norms; chameleon the attn, q and k norms, the add mlp norm
+# and a rotation a layer (4; 2), its 8,192-wide add norms' backward on the
+# register route (two stages do not fit beside the weights)
+FAMILY_FWD = {
+    "bf16_bf16": (FULL * 97 + 49 + BITS * 5)                     # mamba2
+    + (FULL * (54 * 3 + 9 * 2 + 1) + 64 + BITS * 21)             # zamba2
+    + (FULL * 65 + 33 + BITS * 5)                                # granite
+    + (FULL * 130 + 66 + BITS * 10)                              # whisper
+    + (FULL * 25 + 13 + BITS * 13),                              # chameleon
+    "add_bf16_bf16": (FULL * 18 + 9 + BITS * 2) + (FULL * 64 + 32 + BITS * 4)
+    + (FULL * 192 + 96 + BITS * 12) + (FULL * 8 + 4 + BITS * 4),
+    "gate_bf16_bf16": (FULL * 96 + 48 + BITS * 4)
+    + (FULL * 162 + 54 + BITS * 18)}
+FAMILY_BWD = {
+    "bf16_bf16": (FULL * 49 + BITS * 3) + (FULL * 64 + BITS * 8)
+    + (FULL * 33 + BITS * 3) + (FULL * 66 + BITS * 6) + (FULL * 13 + BITS * 7),
+    "add_bf16_bf16": (FULL * 9 + BITS) + (FULL * 32 + BITS * 2)
+    + (FULL * 96 + BITS * 6),
+    "add_bf16_bf16 registers": FULL * 4 + BITS * 2,              # chameleon
+    "gate_bf16_bf16": (FULL * 48 + BITS * 2) + (FULL * 54 + BITS * 6)}
+# and each family's step 1 on the kernels in f32 (one pass, remat): the
+# same norms on the f32 routes, the backward of mamba2's 2,048-wide and
+# chameleon's 8,192-wide f32 rows, the gated rows and the add norms' on the
+# register route (two f32 stages do not fit beside the weights)
+FAMILY_F32_FWD = {"f32_f32": 97 + 181 + 65 + 130 + 25,
+                  "add_f32_f32": 18 + 64 + 192 + 8, "gate_f32_f32": 96 + 162}
+FAMILY_F32_BWD = {"f32_f32": 49 + 5, "staged_f32_f32": 64 + 33 + 66 + 8,
+                  "add_f32_f32": 9 + 32 + 96 + 4, "gate_f32_f32": 48 + 54}
+FAMILY_ROPE = {
+    "forward_bf16": (FULL * 18 + 9 + BITS * 2) + (FULL * 64 + 32 + BITS * 4)
+    + (FULL * 8 + 4 + BITS * 4),
+    "backward_bf16": (FULL * 9 + BITS) + (FULL * 32 + BITS * 2)
+    + (FULL * 4 + BITS * 2)}
 EXPECTED_NORM_ROPE = {
     "train": {
         "rms_norm_fwd": _routes(
-            K.NORM_ROUTES, f32_f32=32 * 5 + 307 * 13,
-            add_f32_f32=32 * 4 + 307 * 12,
-            bf16_bf16=16 * 33 + 4 * 65 + 17 + 10 * 5 + 2 * 3,
-            add_bf16_bf16=16 * 32 + 16 + 10 * 4 + 2 * 2),
+            K.NORM_ROUTES, f32_f32=32 * 5 + 307 * 13
+            + FAMILY_F32_FWD["f32_f32"],
+            add_f32_f32=32 * 4 + 307 * 12 + FAMILY_F32_FWD["add_f32_f32"],
+            gate_f32_f32=FAMILY_F32_FWD["gate_f32_f32"],
+            bf16_bf16=16 * 33 + 4 * 65 + 17 + 10 * 5 + 2 * 3
+            + FAMILY_FWD["bf16_bf16"],
+            add_bf16_bf16=16 * 32 + 16 + 10 * 4 + 2 * 2
+            + FAMILY_FWD["add_bf16_bf16"],
+            gate_bf16_bf16=FAMILY_FWD["gate_bf16_bf16"]),
         "rms_norm_bwd": _routes(
-            K.BWD_ROUTES, staged_f32_f32=32 * 3 + 307 * 13,
-            staged_add_f32_f32=32 * 2, add_f32_f32=307 * 12,
-            staged_bf16_bf16=16 * 17 + 4 * 33 + 12 * 3,
-            staged_add_bf16_bf16=16 * 16 + 12 * 2),
+            K.BWD_ROUTES, staged_f32_f32=32 * 3 + 307 * 13
+            + FAMILY_F32_BWD["staged_f32_f32"],
+            staged_add_f32_f32=32 * 2,
+            add_f32_f32=307 * 12 + FAMILY_F32_BWD["add_f32_f32"],
+            f32_f32=FAMILY_F32_BWD["f32_f32"],
+            gate_f32_f32=FAMILY_F32_BWD["gate_f32_f32"],
+            staged_bf16_bf16=16 * 17 + 4 * 33 + 12 * 3
+            + FAMILY_BWD["bf16_bf16"],
+            staged_add_bf16_bf16=16 * 16 + 12 * 2
+            + FAMILY_BWD["add_bf16_bf16"],
+            add_bf16_bf16=FAMILY_BWD["add_bf16_bf16 registers"],
+            staged_gate_bf16_bf16=FAMILY_BWD["gate_bf16_bf16"]),
         "rms_norm_dscale": _routes(
-            K.DSCALE_ROUTES, f32_f32=32 * 3 + 307 * 13,
-            add_f32_f32=32 * 2 + 307 * 12,
-            bf16_bf16=16 * 17 + 4 * 33 + 12 * 3,
-            add_bf16_bf16=16 * 16 + 12 * 2, rope_bias_f32=32 * 2,
+            K.DSCALE_ROUTES, f32_f32=32 * 3 + 307 * 13
+            + FAMILY_F32_BWD["f32_f32"] + FAMILY_F32_BWD["staged_f32_f32"],
+            add_f32_f32=32 * 2 + 307 * 12 + FAMILY_F32_BWD["add_f32_f32"],
+            gate_f32_f32=FAMILY_F32_BWD["gate_f32_f32"],
+            bf16_bf16=16 * 17 + 4 * 33 + 12 * 3 + FAMILY_BWD["bf16_bf16"],
+            add_bf16_bf16=16 * 16 + 12 * 2 + FAMILY_BWD["add_bf16_bf16"]
+            + FAMILY_BWD["add_bf16_bf16 registers"],
+            gate_bf16_bf16=FAMILY_BWD["gate_bf16_bf16"],
+            rope_bias_f32=32 * 2,
             rope_bias_bf16=16 * 16 + 10 * 2 + 2 * 2),
-        "rope": _routes(K.ROPE_ROUTES, forward_f32=307 * 12,
-                        backward_f32=307 * 12, bias_forward_f32=32 * 4,
+        "rope": _routes(K.ROPE_ROUTES, forward_f32=307 * 12 + 18 + 64 + 8,
+                        backward_f32=307 * 12 + 9 + 32 + 4,
+                        bias_forward_f32=32 * 4,
                         bias_backward_f32=32 * 2,
-                        forward_bf16=4 * 32, backward_bf16=4 * 16,
+                        forward_bf16=4 * 32 + FAMILY_ROPE["forward_bf16"],
+                        backward_bf16=4 * 16 + FAMILY_ROPE["backward_bf16"],
                         bias_forward_bf16=16 * 32 + 16 + 10 * 4 + 2 * 2,
                         bias_backward_bf16=16 * 16 + 10 * 2 + 2 * 2)},
     "examples": {

@@ -616,12 +616,25 @@ def _routes(adamw: dict, sumsq: dict) -> dict:
 # graph, eager, parent-route and plain-gate columns' 4 + 4 + 3 + 3 timed
 # and 4 profiled steps and 1 FLOP-counted (19), at 2 layers 8 bits and 4
 # remat steps
-# (12); lm20m (11) x train_lm.py's 200 steps; the dry-run's meta DTensors
-# none.  The update launches once a leaf a step, the norm once a step (a
-# graph's warm-up and replays: the device's count).
+# (12); the five other families' paths (mamba2 11 leaves, zamba2 19,
+# granite 13, whisper 36, chameleon 14), each 8 turns, 2 profiled steps and
+# 1 FLOP-counted at full width and 9 bits steps at 2 layers (zamba2 6: 4
+# eager, 4 through the graph, 1 profiled): 20 steps a family (step 1's
+# grads update nothing), each leaf on
+# its own dtype's route (mamba2's and zamba2's A_log, D and dt_bias and
+# granite's router are f32), a sumsq launch over their mixed dtypes
+# `mixed`; lm20m (11) x train_lm.py's 200 steps; the dry-run's meta
+# DTensors none.  The update launches once a leaf a step, the norm once a
+# step (a graph's warm-up and replays: the device's count).
+FAMILY_STEPS = 11 + 9
+FAMILY_LEAVES, FAMILY_F32_LEAVES = 11 + 19 + 13 + 36 + 14, 3 + 3 + 1
 EXPECTED_OPTIMIZER_LAUNCHES = {
-    "train": _routes({"f32_f32": 20 * 16 + 307 * 11, "bf16_bf16": 31 * 16},
-                     {"f32": 20 + 307, "bf16": 31}),
+    "train": _routes({"f32_f32": 20 * 16 + 307 * 11
+                      + FAMILY_STEPS * FAMILY_F32_LEAVES,
+                      "bf16_bf16": 31 * 16 + FAMILY_STEPS
+                      * (FAMILY_LEAVES - FAMILY_F32_LEAVES)},
+                     {"f32": 20 + 307, "bf16": 31 + 2 * FAMILY_STEPS,
+                      "mixed": 3 * FAMILY_STEPS}),
     "examples": _routes({"f32_f32": 200 * 11}, {"f32": 200}),
     "dryrun": _routes({}, {}),
 }
@@ -639,7 +652,11 @@ def test_chip_smoke_train_steps_are_the_phases_own():
     assert [(cfg.name, cfg.num_layers, n) for cfg, n in
             cs.optimizer_steps("train")] == [
         ("tiny", 2, 20), ("lm100m", 12, 307), ("codeqwen1.5-7b", 16, 19),
-        ("codeqwen1.5-7b", 2, 12)]
+        ("codeqwen1.5-7b", 2, 12), ("mamba2-1.3b", 48, 11),
+        ("mamba2-1.3b", 2, 9), ("zamba2-2.7b", 54, 11), ("zamba2-2.7b", 6, 9),
+        ("granite-moe-3b-a800m", 32, 11), ("granite-moe-3b-a800m", 2, 9),
+        ("whisper-large-v3", 32, 11), ("whisper-large-v3", 2, 9),
+        ("chameleon-34b", 4, 11), ("chameleon-34b", 2, 9)]
     assert [(cfg.name, n) for cfg, n in cs.optimizer_steps("examples")] \
         == [("lm20m", 200)]
     assert cs.optimizer_steps("dryrun") == []

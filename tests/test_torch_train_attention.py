@@ -935,18 +935,29 @@ def _chip_smoke():
 # 8 of 2 (the bits check), remat: 32 microbatch passes; lm100m (12 layers,
 # f32) 307 steps without remat; codeqwen1.5-7b (bf16, D 128) 10 steps at
 # 16 layers with remat (the graph's and the eager columns'), at 2 layers 10
-# with and 2 without; examples: lm20m (6 layers) x 200 steps without remat
+# with and 2 without; the other families with remat, 11 steps at full
+# width (8 turns, 2 profiled, step 1's grads) and 10 at the bits check's
+# depth (4 eager, 4 through the graph, 1 profiled, step 1's grads):
+# zamba2's shared
+# block (D 80, mma_bf16) 9 calls and 1, granite (D 64) 32 and 2, whisper
+# (D 64, bf16 frames: the encoder, the decoder's self and cross calls) 96
+# and 6, chameleon (D 128) 4 and 2, mamba2 none, and once more each in f32
+# (step 1 on the kernels in f32: mma_3xtf32); examples: lm20m (6 layers) x
+# 200 steps without remat
 def _launches(**by_route):
     return {**dict.fromkeys(TA.ROUTES, 0), **by_route}
 
 
+FAMILY_WGMMA = 11 * (32 + 96 + 4) + 10 * (2 + 6 + 2)
 EXPECTED_ATTENTION = {
     "train": {"train_attention_forward": _launches(
-        mma_3xtf32=2 * 32 * 2 + 12 * 307,
-        wgmma_bf16=16 * 10 * 2 + 2 * 10 * 2 + 2 * 2),
+        mma_3xtf32=2 * 32 * 2 + 12 * 307 + (9 + 32 + 96 + 4) * 2,
+        mma_bf16=(11 * 9 + 10 * 1) * 2,
+        wgmma_bf16=16 * 10 * 2 + 2 * 10 * 2 + 2 * 2 + FAMILY_WGMMA * 2),
         "train_attention_backward": _launches(
-            mma_3xtf32=2 * 32 + 12 * 307,
-            wgmma_bf16=16 * 10 + 2 * 10 + 2 * 2)},
+            mma_3xtf32=2 * 32 + 12 * 307 + 9 + 32 + 96 + 4,
+            mma_bf16=11 * 9 + 10 * 1,
+            wgmma_bf16=16 * 10 + 2 * 10 + 2 * 2 + FAMILY_WGMMA)},
     "examples": {"train_attention_forward": _launches(mma_3xtf32=6 * 200),
                  "train_attention_backward": _launches(mma_3xtf32=6 * 200)},
     "dryrun": {"train_attention_forward": _launches(),
